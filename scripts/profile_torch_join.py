@@ -1,0 +1,88 @@
+#!/usr/bin/env python3
+"""Where the time of the port's full-size device join goes, on one GPU.
+
+    PYTHONPATH=src python3 scripts/profile_torch_join.py [--seed N] [--out DIR]
+
+Builds the two full-size cells of ``chip_smoke.py`` (ZIPF, tau = 0.8 and
+UNIFORM, tau = 0.5; 100,000 sets, b = 128, block = 4096,
+``compaction="device"``), runs each join once to warm it and once more
+timed, then once under ``torch.profiler``, and prints per cell: both wall
+times, the device's busy time (the sum of the times of the kernels that
+ran on it, each counted once) and idle share during the profiled join, and
+the device time by kernel.  The Chrome traces go to ``--out`` (default
+``profile_traces/``).  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--out", default="profile_traces")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_torch_join: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import engine, join
+    from repro_torch.data.collections import uniform_collection, with_duplicates, zipf_collection
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip(), flush=True)
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    zipf = with_duplicates(zipf_collection(n_sets=100_000, seed=args.seed), n_clusters=1000,
+                           cluster_size=3, jaccard=0.9, seed=args.seed)
+    cells = [("ZIPF", zipf, 0.8), ("UNIFORM", uniform_collection(n_sets=100_000, seed=args.seed), 0.5)]
+    for name, col, tau in cells:
+        prep = engine.prepare(col, "cuda")
+        kw = dict(sim="jaccard", tau=tau, b=128, block=4096, compaction="device",
+                  return_stats=True)
+        join.blocked_bitmap_join_prepared(prep, **kw)  # warm: words, tables, kernels
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        join.blocked_bitmap_join_prepared(prep, **kw)
+        torch.cuda.synchronize()
+        wall_plain = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, stats = join.blocked_bitmap_join_prepared(prep, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        prof.export_chrome_trace(str(out / f"{name.lower()}_trace.json"))
+        # Device-side events only: each aten op is also listed on the host
+        # side with the time of the kernels it launched.
+        by_kernel = {ev.key: (ev.self_device_time_total, ev.count)
+                     for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA}
+        busy_us = sum(us for us, _ in by_kernel.values())
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
+        print(json.dumps({
+            "cell": name, "tau": tau, "n_sets": prep.num_sets,
+            "wall_s": wall_plain, "wall_s_profiled": wall, "device_busy_s": busy_us / 1e6,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "stats": stats.to_dict(),
+            "kernels": len(by_kernel),
+            "device_us_by_kernel": [{"kernel": k[:100], "us": us, "calls": n}
+                                    for k, (us, n) in top],
+        }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

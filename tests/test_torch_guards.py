@@ -1,0 +1,79 @@
+"""The port stands alone and never hides the device.
+
+* It imports neither JAX nor the JAX package, at import time or while it
+  joins (checked in a fresh interpreter, and in the sources).
+* Entry points run on the card unless the caller asks for the CPU: without a
+  card and without ``device=``, they raise.
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import engine, join
+from repro_torch.core.collection import from_lists
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_CHILD = r"""
+import sys
+import numpy as np
+import repro_torch, repro_torch.core
+from repro_torch.core import bitmap, bounds, engine, expected, join, verify
+from repro_torch.data import collections
+from repro_torch.kernels import _build, bitmap_filter, compaction, ops, ref
+col = collections.with_duplicates(collections.uniform_collection(60, seed=1),
+                                  n_clusters=5, seed=2)
+for mode in ("host", "device"):
+    got = join.blocked_bitmap_join(col, "jaccard", 0.6, b=64, block=32,
+                                   compaction=mode, device="cpu")
+    assert np.array_equal(got, join.naive_join(col, "jaccard", 0.6, device="cpu"))
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print("BAD", bad)
+"""
+
+
+def test_port_never_imports_jax_or_the_reference():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _CHILD], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_sources_name_no_jax_or_reference_import():
+    pattern = re.compile(r"^\s*(import jax|from jax|import repro\b|from repro[ .])", re.M)
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert offenders == []
+
+
+def _no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_prepare_without_device_needs_a_card(monkeypatch):
+    _no_card(monkeypatch)
+    col = from_lists([[1, 2, 3], [2, 3, 4]])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.prepare(col)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        join.blocked_bitmap_join(col, "jaccard", 0.5)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        join.naive_join(col, "jaccard", 0.5)
+    assert engine.prepare(col, device="cpu").device == torch.device("cpu")
+
+
+def test_cpu_join_runs_without_a_card(monkeypatch):
+    _no_card(monkeypatch)
+    col = from_lists([[1, 2, 3], [1, 2, 3, 4], [7, 8]])
+    got = join.blocked_bitmap_join(col, "jaccard", 0.7, b=32, device="cpu")
+    assert np.array_equal(got, np.array([[0, 1]]))
