@@ -8,31 +8,50 @@ Phases (any failure raises, so the script exits non-zero):
 1. Device and build: the card's name and power limit, torch and CUDA
    versions, and the time to build every CUDA kernel (one ``nvcc`` per
    source, all started together).
-2. Kernel parity: each kernel against its plain PyTorch version on the card,
-   at the main path's shape (a 4096 x 4096 block pair of real data, W = 4)
-   and over a sweep (odd sizes, W in {1, 128}, self-join, cosine keys, the
-   cutoff, empty rows).  Results must be exactly equal; each kernel is then
-   timed with CUDA events (median after warm-up) beside its plain version.
-3. Slice parity: the blocked join on the card (``compaction="device"``)
-   against the port's CPU path on a 10,000-set ZIPF collection with planted
-   duplicates; ``naive_join`` on the card against the card's blocked join on
-   a 3,000-set subset.  Pairs and ``JoinStats`` must be identical.
-4. Full size, the main path: self-joins of the paper's ZIPF (100,000 sets,
-   Poisson(50) sizes, 101,584 tokens, 1,000 planted clusters of 3 at Jaccard
-   0.9; tau = 0.8) and UNIFORM (100,000 sets, Poisson(10) sizes, 220 tokens;
-   tau = 0.5) collections, b = 128, block = 4096, ``compaction="device"``.
-   Each kernel's launch counter is zeroed before and read after these two
-   joins.  Both joins must agree with ``compaction="host"``.
+2. Kernel parity: each of the six kernels against its plain PyTorch version
+   on the card, over a sweep (odd sizes, W in {1, 4, 8, 12, 128}, self-join,
+   cosine keys, the cutoff hit and not, empty rows, invalid entries) and at
+   the main paths' shapes: a 4096 x 4096 block pair of real data (W = 4) for
+   the dense kernels, the first probe chunk of the SKEWED tau = 0.8 indexed
+   join for the postings kernels.  Results must be exactly equal; each
+   kernel is then timed with CUDA events (median after warm-up) beside its
+   plain version.
+3. Slice parity, on the card against the port's CPU path: the blocked join
+   (``compaction="device"``) on a 10,000-set ZIPF collection with planted
+   duplicates, ``naive_join`` against the blocked join on 3,000 of its sets,
+   and the indexed join on a 10,000-set SKEWED collection with planted
+   duplicates under ``impl="auto"``, ``impl="swar"`` and a forced small
+   capacity (the dense fallback).  Pairs and ``JoinStats`` must be identical.
+4. Full size, the blocked path: ZIPF (100,000 sets, Poisson(50) sizes,
+   101,584 tokens, 1,000 planted clusters of 3 at Jaccard 0.9; tau = 0.8,
+   an explicit blocked plan) and UNIFORM (100,000 sets, Poisson(10) sizes,
+   220 tokens; tau = 0.5) through ``JoinEngine``, whose auto plan must be
+   blocked; b = 128, block = 4096, device compaction.  Both must agree with
+   host compaction.
+5. Full size, the indexed path: SKEWED (``skewed_collection`` of 100,000
+   sets + 1,000 planted clusters of 3 at Jaccard 0.9) through
+   ``JoinEngine`` at tau = 0.8 and 0.6, whose auto plans must be indexed:
+   a cold and a warm self-join, then four probe batches of 4,096 rows cut
+   from the corpus (a third of them perturbed).  Pairs must equal the
+   blocked join's, self-join and R x S, and the postings index is built
+   once per engine.
 
-The last three lines of standard output are the card's name and power
-limit, the ``{"kernels": [...]}`` record and the ``{"ok": true, ...}``
-result.  Exits non-zero without a result when no CUDA device is available.
-Data is made from ``--seed``; nothing is downloaded.
+Each path's kernel launch counters are zeroed just before it and read just
+after; every kernel the path runs must have launched.  The two kernels no
+full-size path runs are driven through their entry points in phase 3
+(``pair_verdict`` by the indexed join under ``impl="swar"``,
+``hamming_matrix`` by ``ops.hamming_matrix``), each read the same way; the
+``path`` key of each kernel names the run its ``launches`` come from.  The last three lines
+of standard output are the card's name and power limit, the
+``{"kernels": [...]}`` record and the ``{"ok": true, ...}`` result.  Exits
+non-zero without a result when no CUDA device is available.  Data is made
+from ``--seed``; nothing is downloaded.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -51,8 +70,10 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 VERDICT_OPS = 10   # per pair: 2 positivity + 2 cutoff tests, sum, sub, shift, 2 min, compare
 WINDOW_OPS = 4     # per pair: two window compares and their conjunction, the triangle
+ENTRY_OPS = 16     # per entry: 5 compares, 4 for the positional bound, key, compare, triangle, 4 ands
 
 MAIN = dict(sim="jaccard", b=128, block=4096)
+SKEWED_TAUS = (0.8, 0.6)
 
 
 def log(msg: str) -> None:
@@ -86,6 +107,24 @@ def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_row(name, source, replaces, *, err, ms, plain_ms, bound, path) -> dict:
+    """One entry of the ``{"kernels": [...]}`` line; ``path`` names the run
+    whose launches it reports (``launches`` is filled in at the end)."""
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+            "path": path}
+
+
+def max_err(got: torch.Tensor, want: torch.Tensor) -> int:
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"shape/dtype {got.dtype}{list(got.shape)} != "
+                             f"{want.dtype}{list(want.shape)}")
+    if got.numel() == 0:
+        return 0
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
 def phase_build() -> float:
@@ -124,8 +163,9 @@ def set_operands(rng, nr, ns, b, dev, *, universe=150, max_len=60):
     return wr, ws, lr, ls
 
 
-def phase_kernels(seed: int, main_prep) -> list[dict]:
-    """Exact parity of each kernel with its plain version, then timing."""
+def phase_dense_kernels(seed: int, main_prep) -> list[dict]:
+    """candidate_matrix, count_candidates and hamming_matrix: exact parity
+    with their plain versions, then timing at the blocked path's shape."""
     from repro_torch.core import bounds, expected, verify
     from repro_torch.kernels import bitmap_filter, compaction, ref
     from repro_torch.core.constants import COSINE
@@ -142,21 +182,22 @@ def phase_kernels(seed: int, main_prep) -> list[dict]:
             wr, ws, lr, ls, table, key_prod=kp, self_join=self_join, cutoff=cutoff)
         want = ref.candidate_matrix_ref(wr, ws, lr, ls, sim=sim, tau=tau,
                                         self_join=self_join, cutoff=cutoff, table=table)
-        err_c = int((got.to(torch.int32) - want.to(torch.int32)).abs().max()) if got.numel() else 0
+        err_c = max_err(got, want)
         cw, cc = compaction.count_candidates_cuda(
             wr, ws, lr, ls, lo, hi, table, key_prod=kp, self_join=self_join,
             cutoff=cutoff, tile_r=tile, tile_s=tile)
         rw, rc = ref.count_candidates_ref(wr, ws, lr, ls, lo, hi, sim=sim, tau=tau,
                                           self_join=self_join, cutoff=cutoff,
                                           tile_r=tile, tile_s=tile, table=table)
-        err_n = max(int((cw - rw).abs().max()), int((cc - rc).abs().max())) if cw.numel() else 0
+        err_n = max(max_err(cw, rw), max_err(cc, rc))
+        err_h = max_err(bitmap_filter.hamming_matrix_cuda(wr, ws),
+                        ref.hamming_matrix_ref(wr, ws))
         torch.cuda.synchronize()
-        if err_c or err_n or not (torch.equal(got, want) and torch.equal(cw, rw)
-                                  and torch.equal(cc, rc)):
+        if err_c or err_n or err_h:
             raise AssertionError(f"kernel != plain version: {sim} {tau} "
                                  f"{list(wr.shape)}x{list(ws.shape)} self_join={self_join} "
-                                 f"cutoff={cutoff} errs={err_c},{err_n}")
-        return err_c, err_n, int(want.sum()), int(rc.sum())
+                                 f"cutoff={cutoff} errs={err_c},{err_n},{err_h}")
+        return err_c, err_n, err_h, int(want.sum()), int(rc.sum())
 
     # The sweep of the CPU tests: odd sizes, W in {1, 4, 128}, self-join,
     # every key kind, the cutoff hit and not, empty rows, tiles that do not
@@ -172,9 +213,9 @@ def phase_kernels(seed: int, main_prep) -> list[dict]:
             ws, ls = wr, lr
         errs = check(sim, tau, wr, ws, lr, ls, self_join=sj, cutoff=cutoff, tile=tile)
         log(f"parity sweep {nr}x{ns} W={w} {sim} tau={tau} self_join={sj} "
-            f"cutoff={cutoff} tile={tile}: exact, {errs[2]} candidates")
+            f"cutoff={cutoff} tile={tile}: exact, {errs[3]} candidates")
 
-    # The main path's shape: the first two 4096-row blocks of real data.
+    # The blocked path's shape: the first two 4096-row blocks of real data.
     tau = 0.8
     words = main_prep.bitmap_words(MAIN["b"], "xor")
     _, lengths = main_prep.device_arrays()
@@ -185,8 +226,8 @@ def phase_kernels(seed: int, main_prep) -> list[dict]:
     errs = check("jaccard", tau, wr, ws, lr, ls, self_join=False, cutoff=cutoff)
     diag = check("jaccard", tau, wr, wr, lr, lr, self_join=True, cutoff=cutoff)
     log(f"parity main shape {blk}x{blk} W={wr.shape[1]}: exact; off-diagonal block "
-        f"{errs[2]} candidates ({errs[3]} in the window), diagonal block {diag[2]} "
-        f"({diag[3]})")
+        f"{errs[3]} candidates ({errs[4]} in the window), diagonal block {diag[3]} "
+        f"({diag[4]})")
 
     table = verify.prune_table_dev("jaccard", tau, main_prep.max_len, main_prep.max_len, dev)
     lo, hi = (torch.from_numpy(a).to(dev) for a in
@@ -195,29 +236,167 @@ def phase_kernels(seed: int, main_prep) -> list[dict]:
     ms_c = cuda_ms(lambda: bitmap_filter.candidate_matrix_cuda(wr, ws, lr, ls, table, **kw), 50)
     ms_n = cuda_ms(lambda: compaction.count_candidates_cuda(
         wr, ws, lr, ls, lo, hi, table, tile_r=256, tile_s=256, **kw), 50)
+    ms_h = cuda_ms(lambda: bitmap_filter.hamming_matrix_cuda(wr, ws), 50)
     rkw = dict(sim="jaccard", tau=tau, self_join=False, cutoff=cutoff, table=table)
     plain_c = cuda_ms(lambda: ref.candidate_matrix_ref(wr, ws, lr, ls, **rkw), 10)
     plain_n = cuda_ms(lambda: ref.count_candidates_ref(wr, ws, lr, ls, lo, hi, **rkw), 10)
+    plain_h = cuda_ms(lambda: ref.hamming_matrix_ref(wr, ws), 10)
 
     pairs, w = blk * blk, wr.shape[1]
-    in_bytes = 2 * blk * w * 4 + 2 * blk * 4 + table.numel() * 4
+    words_bytes = 2 * blk * w * 4
+    in_bytes = words_bytes + 2 * blk * 4 + table.numel() * 4
     b_c = bound_ms(in_bytes + pairs, pairs * (3 * w + VERDICT_OPS))
     b_n = bound_ms(in_bytes + 2 * blk * 4 + 2 * (blk // 256) ** 2 * 4,
                    pairs * (3 * w + VERDICT_OPS + WINDOW_OPS))
+    b_h = bound_ms(words_bytes + 4 * pairs, pairs * 3 * w)
     log(f"timing at {blk}x{blk} W={w}: candidate_matrix {ms_c:.4f} ms (plain {plain_c:.3f} ms, "
         f"bound {b_c[0]:.4f} ms by {b_c[1]}); count_candidates {ms_n:.4f} ms "
-        f"(plain {plain_n:.3f} ms, bound {b_n[0]:.4f} ms by {b_n[1]})")
+        f"(plain {plain_n:.3f} ms, bound {b_n[0]:.4f} ms by {b_n[1]}); hamming_matrix "
+        f"{ms_h:.4f} ms (plain {plain_h:.3f} ms, bound {b_h[0]:.4f} ms by {b_h[1]})")
+    src = "src/repro_torch/kernels/csrc/"
     return [
-        {"name": "candidate_matrix", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/bitmap_filter.cu",
-         "replaces": "src/repro/kernels/bitmap_filter.py:151", "launches": 0,
-         "max_abs_err": errs[0], "ms": ms_c, "plain_ms": plain_c,
-         "bound_ms": b_c[0], "bound_by": b_c[1], "library_ms": None},
-        {"name": "count_candidates", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/compaction.cu",
-         "replaces": "src/repro/kernels/compaction.py:52", "launches": 0,
-         "max_abs_err": errs[1], "ms": ms_n, "plain_ms": plain_n,
-         "bound_ms": b_n[0], "bound_by": b_n[1], "library_ms": None},
+        kernel_row("candidate_matrix", src + "bitmap_filter.cu",
+                   "src/repro/kernels/bitmap_filter.py:151", err=errs[0], ms=ms_c,
+                   plain_ms=plain_c, bound=b_c, path="full size, blocked: ZIPF tau=0.8 + UNIFORM tau=0.5"),
+        kernel_row("count_candidates", src + "compaction.cu",
+                   "src/repro/kernels/compaction.py:52", err=errs[1], ms=ms_n,
+                   plain_ms=plain_n, bound=b_n, path="full size, blocked: ZIPF tau=0.8 + UNIFORM tau=0.5"),
+        kernel_row("hamming_matrix", src + "bitmap_filter.cu",
+                   "src/repro/kernels/bitmap_filter.py:77", err=errs[2], ms=ms_h,
+                   plain_ms=plain_h, bound=b_h,
+                   path="off the main paths: ops.hamming_matrix over 10,200 ZIPF sets"),
+    ]
+
+
+@contextlib.contextmanager
+def capture_calls(module, name: str, into: list):
+    """Record the arguments of every call of ``module.name`` while inside.
+    The wrapper carries its own launch counter (the wrapped function counts
+    on whatever its module name points at), so captured calls leave the
+    real counter untouched."""
+    orig = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        into.append((args, kw))
+        return orig(*args, **kw)
+
+    wrapper.launches = 0
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def phase_postings_kernels(seed: int, skewed_prep) -> list[dict]:
+    """entry_filter, pair_verdict_tiled and pair_verdict: exact parity with
+    their plain versions over a sweep and at the indexed path's shape (the
+    operands of the first probe chunk of SKEWED tau = 0.8), then timing."""
+    from repro_torch.core import bounds
+    from repro_torch.core.constants import COSINE
+    from repro_torch.index import candidates
+    from repro_torch.kernels import postings, ref
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 1)
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+
+    def check_entries(ents, valid, table, sim, tau, self_join):
+        got = postings.entry_filter_cuda(*ents, valid, table, key_prod=sim == COSINE,
+                                         self_join=self_join)
+        want = ref.entry_filter_ref(*ents, valid, sim=sim, tau=tau, self_join=self_join,
+                                    table=table)
+        err = max_err(got, want)
+        if err:
+            raise AssertionError(f"entry_filter != plain: G={len(valid)} {sim} {self_join}")
+        return err, int(want.sum())
+
+    def check_pairs(wr, ws, lr, ls, table, sim, tau, cutoff):
+        want = ref.pair_verdict_ref(wr, ws, lr, ls, sim=sim, tau=tau, cutoff=cutoff,
+                                    table=table)
+        kw = dict(key_prod=sim == COSINE, cutoff=cutoff)
+        e_t = max_err(postings.pair_verdict_tiled_cuda(wr, ws, lr, ls, table, **kw), want)
+        e_w = max_err(postings.pair_verdict_cuda(wr, ws, lr, ls, table, **kw), want)
+        if e_t or e_w:
+            raise AssertionError(f"pair verdict != plain: {list(wr.shape)} {sim} {cutoff}")
+        return e_t, e_w, int(want.sum())
+
+    # The sweep of tests/test_postings_kernel.py, widened to the staged and
+    # the lane-group forms of the tiled kernel (W <= 8 and W > 8).
+    for g in (5, 100, 1024, 2500, 3000):
+        cols = [rng.integers(1, 30, g), rng.integers(0, 10, g), rng.integers(1, 30, g),
+                rng.integers(0, 10, g), rng.integers(0, 15, g), rng.integers(8, 40, g),
+                rng.integers(0, 60, g), rng.integers(0, 60, g)]
+        cols[0][::5] = 0
+        cols[2][1::5] = 0
+        ents = [as_t(c.astype(np.int32)) for c in cols]
+        valid = as_t(rng.random(g) > 0.2)
+        kept = []
+        for sim, tau in (("jaccard", 0.8), ("cosine", 0.6), ("overlap", 3.0)):
+            table = as_t(bounds.prune_table(sim, tau, 30, 30))
+            for sj in (False, True):
+                kept.append(check_entries(ents, valid, table, sim, tau, sj)[1])
+        for w in (1, 4, 8, 12, 128):
+            wr = rng.integers(0, 2**32, (g, w), dtype=np.uint32)
+            ws = rng.integers(0, 2**32, (g, w), dtype=np.uint32)
+            ws[::3] = wr[::3]
+            lr = rng.integers(0, 40, g).astype(np.int32)
+            lr[::7] = 0
+            ls = rng.integers(0, 40, g).astype(np.int32)
+            t = [as_t(wr.view(np.int32)), as_t(ws.view(np.int32)), as_t(lr), as_t(ls)]
+            for sim, tau in (("jaccard", 0.7), ("cosine", 0.6), ("dice", 0.75)):
+                table = ref.prune_table_for(sim, tau, t[2], t[3])
+                for cutoff in (1 << 30, 12):
+                    check_pairs(*t, table, sim, tau, cutoff)
+        log(f"parity sweep G={g}: entry_filter exact ({kept} kept), pair_verdict_tiled and "
+            f"pair_verdict exact at W in (1, 4, 8, 12, 128)")
+
+    # The indexed path's shape: capture the kernel operands of the first
+    # chunk of the SKEWED tau = 0.8 self-join.
+    args, statics = candidates.chunk_step_spec(
+        skewed_prep, sim=MAIN["sim"], tau=SKEWED_TAUS[0], b=MAIN["b"],
+        probe_block=MAIN["block"])
+    ent_calls, pair_calls = [], []
+    with capture_calls(postings, "entry_filter_cuda", ent_calls), \
+            capture_calls(postings, "pair_verdict_tiled_cuda", pair_calls):
+        candidates._indexed_chunk_step(*args, **statics)
+    (ent_args, ent_kw), = ent_calls
+    (pair_args, pair_kw), = pair_calls
+    ents, valid, table = list(ent_args[:8]), ent_args[8], ent_args[9]
+    sim, tau, cutoff = MAIN["sim"], SKEWED_TAUS[0], pair_kw["cutoff"]
+    err_e, kept = check_entries(ents, valid, table, sim, tau, ent_kw["self_join"])
+    wr, ws, lr, ls, _ = pair_args
+    err_t, err_w, passed = check_pairs(wr, ws, lr, ls, table, sim, tau, cutoff)
+    g_e, g_p, w = valid.shape[0], wr.shape[0], wr.shape[1]
+    log(f"parity main shape (first SKEWED tau={tau} chunk, cap {statics['cap']}): "
+        f"entry_filter G={g_e} exact, {kept} kept of {int(valid.sum())} valid; "
+        f"pair verdicts G={g_p} W={w} exact, {passed} pass")
+
+    ekw = dict(key_prod=False, self_join=ent_kw["self_join"])
+    pkw = dict(key_prod=False, cutoff=cutoff)
+    ms_e = cuda_ms(lambda: postings.entry_filter_cuda(*ents, valid, table, **ekw), 50)
+    ms_t = cuda_ms(lambda: postings.pair_verdict_tiled_cuda(wr, ws, lr, ls, table, **pkw), 50)
+    ms_w = cuda_ms(lambda: postings.pair_verdict_cuda(wr, ws, lr, ls, table, **pkw), 50)
+    plain_e = cuda_ms(lambda: ref.entry_filter_ref(*ents, valid, sim=sim, tau=tau,
+                                                   self_join=ekw["self_join"], table=table), 10)
+    plain_p = cuda_ms(lambda: ref.pair_verdict_ref(wr, ws, lr, ls, sim=sim, tau=tau,
+                                                   cutoff=cutoff, table=table), 10)
+    tab_bytes = table.numel() * 4
+    b_e = bound_ms(g_e * (8 * 4 + 1 + 1) + tab_bytes, g_e * ENTRY_OPS)
+    b_p = bound_ms(g_p * (2 * w * 4 + 2 * 4 + 1) + tab_bytes, g_p * (3 * w + VERDICT_OPS))
+    log(f"timing at the first chunk: entry_filter {ms_e:.4f} ms (plain {plain_e:.3f} ms, "
+        f"bound {b_e[0]:.4f} ms by {b_e[1]}); pair_verdict_tiled {ms_t:.4f} ms, "
+        f"pair_verdict {ms_w:.4f} ms (plain {plain_p:.3f} ms, bound {b_p[0]:.4f} ms "
+        f"by {b_p[1]})")
+    src = "src/repro_torch/kernels/csrc/postings.cu"
+    return [
+        kernel_row("entry_filter", src, "src/repro/kernels/postings.py:89", err=err_e,
+                   ms=ms_e, plain_ms=plain_e, bound=b_e, path="full size, indexed: SKEWED tau=0.8 + 0.6, self-joins and probes"),
+        kernel_row("pair_verdict_tiled", src, "src/repro/kernels/postings.py:220",
+                   err=err_t, ms=ms_t, plain_ms=plain_p, bound=b_p, path="full size, indexed: SKEWED tau=0.8 + 0.6, self-joins and probes"),
+        kernel_row("pair_verdict", src, "src/repro/kernels/postings.py:169", err=err_w,
+                   ms=ms_w, plain_ms=plain_p, bound=b_p,
+                   path="off the main paths: indexed join, impl='swar', 10,200 SKEWED sets"),
     ]
 
 
@@ -233,37 +412,95 @@ def _join(prep, tau, compaction):
     return pairs, stats, time.perf_counter() - t0
 
 
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
 def _same(a, b, what):
     (pa, sa), (pb, sb) = a, b
     if not np.array_equal(pa, pb) or sa.to_dict() != sb.to_dict():
         raise AssertionError(f"{what}: {len(pa)} vs {len(pb)} pairs\n{sa}\n{sb}")
 
 
-def phase_slice(col) -> None:
-    from repro_torch.core import join
+def phase_slice(zipf_col, skewed_col) -> dict:
+    """Card against CPU on 10,000-set collections.  Also drives the two
+    kernels that no full-size path runs, each through its entry point with
+    its counter zeroed just before and read just after: ``pair_verdict``
+    (the indexed join under ``impl="swar"``) and ``hamming_matrix``
+    (``ops.hamming_matrix`` over the ZIPF collection's words).  Returns
+    their launches."""
+    from repro_torch.core import engine, join
     from repro_torch.core.collection import Collection
+    from repro_torch.index import indexed_bitmap_join
+    from repro_torch.kernels import bitmap_filter, ops, postings, ref
 
     tau = 0.8
     kw = dict(sim=MAIN["sim"], tau=tau, b=MAIN["b"], block=MAIN["block"],
               compaction="device", return_stats=True)
     t0 = time.perf_counter()
-    gpu = join.blocked_bitmap_join(col, **kw, device="cuda")
+    gpu = join.blocked_bitmap_join(zipf_col, **kw, device="cuda")
     t1 = time.perf_counter()
-    cpu = join.blocked_bitmap_join(col, **kw, device="cpu")
+    cpu = join.blocked_bitmap_join(zipf_col, **kw, device="cpu")
     t2 = time.perf_counter()
     _same(gpu, cpu, "card vs CPU blocked join")
-    log(f"slice parity {col.num_sets} sets: card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s, "
-        f"{len(gpu[0])} pairs, identical; stats {json.dumps(gpu[1].to_dict())}")
+    log(f"slice parity, blocked, {zipf_col.num_sets} ZIPF sets: card {t1 - t0:.2f} s, "
+        f"CPU {t2 - t1:.2f} s, {len(gpu[0])} pairs, identical; stats "
+        f"{json.dumps(gpu[1].to_dict())}")
 
-    sub = Collection(tokens=col.tokens[:3000], lengths=col.lengths[:3000])
+    sub = Collection(tokens=zipf_col.tokens[:3000], lengths=zipf_col.lengths[:3000])
     oracle = join.naive_join(sub, MAIN["sim"], tau, device="cuda")
     got = join.blocked_bitmap_join(sub, **kw, device="cuda")[0]
     if not np.array_equal(oracle, got):
         raise AssertionError(f"naive_join {len(oracle)} pairs vs blocked {len(got)}")
     log(f"naive_join parity {sub.num_sets} sets: {len(oracle)} pairs, identical")
 
+    words = engine.prepare(zipf_col, "cuda").bitmap_words(MAIN["b"], "xor")
+    bitmap_filter.hamming_matrix_cuda.launches = 0
+    ham = ops.hamming_matrix(words, words)
+    launches = {"hamming_matrix": bitmap_filter.hamming_matrix_cuda.launches}
+    err = max_err(ham, ref.hamming_matrix_ref(words, words))
+    if err or launches["hamming_matrix"] != 1:
+        raise AssertionError(f"hamming_matrix over {words.shape[0]} sets: error {err}, "
+                             f"launches {launches}")
+    log(f"hamming_matrix path: ops.hamming_matrix over {words.shape[0]} ZIPF sets "
+        f"(W={words.shape[1]}): exact, mean distance {ham.double().mean():.3f}")
+    del ham
 
-def phase_full(seed: int) -> dict:
+    ikw = dict(sim=MAIN["sim"], tau=tau, b=MAIN["b"], probe_block=MAIN["block"],
+               return_stats=True)
+    cpu = indexed_bitmap_join(skewed_col, device="cpu", **ikw)
+    blocked = join.blocked_bitmap_join(skewed_col, **kw, device="cuda")[0]
+    if not np.array_equal(cpu[0], blocked):
+        raise AssertionError(f"indexed {len(cpu[0])} pairs vs blocked {len(blocked)}")
+    for impl, capacity in (("auto", None), ("swar", None), ("auto", 4096)):
+        postings.pair_verdict_cuda.launches = 0
+        t0 = time.perf_counter()
+        gpu = indexed_bitmap_join(skewed_col, device="cuda", impl=impl, capacity=capacity,
+                                  **ikw)
+        t1 = time.perf_counter()
+        if impl == "swar":
+            launches["pair_verdict"] = postings.pair_verdict_cuda.launches
+            if launches["pair_verdict"] <= 0:
+                raise AssertionError("the impl='swar' indexed join never launched pair_verdict")
+        want = cpu
+        if capacity is not None:
+            want = indexed_bitmap_join(skewed_col, device="cpu", capacity=capacity, **ikw)
+            if want[1].overflow_blocks == 0:
+                raise AssertionError(f"capacity {capacity} did not reach the dense fallback")
+        _same(gpu, want, f"card vs CPU indexed join, impl={impl} capacity={capacity}")
+        log(f"slice parity, indexed, {skewed_col.num_sets} SKEWED sets, impl={impl} "
+            f"capacity={capacity}: card {t1 - t0:.2f} s, {len(gpu[0])} pairs (= blocked), "
+            f"identical; stats {json.dumps(gpu[1].to_dict())}")
+    return launches
+
+
+def phase_full_blocked(seed: int) -> dict:
+    """The blocked path: ZIPF tau = 0.8 (explicit blocked plan) and UNIFORM
+    tau = 0.5 (JoinEngine, auto plan)."""
     from repro_torch.core import engine
     from repro_torch.data.collections import uniform_collection, with_duplicates, zipf_collection
     from repro_torch.kernels import bitmap_filter, compaction
@@ -272,22 +509,28 @@ def phase_full(seed: int) -> dict:
     zipf = with_duplicates(zipf_collection(n_sets=100_000, seed=seed), n_clusters=1000,
                            cluster_size=3, jaccard=0.9, seed=seed)
     uniform = uniform_collection(n_sets=100_000, seed=seed)
-    cells = [("ZIPF", engine.prepare(zipf, "cuda"), 0.8),
-             ("UNIFORM", engine.prepare(uniform, "cuda"), 0.5)]
-    log(f"full size: generated and prepared {zipf.num_sets} + {uniform.num_sets} sets "
-        f"in {time.perf_counter() - t0:.1f} s (set-up, not timed)")
+    uni_engine = engine.JoinEngine(uniform, MAIN["sim"], 0.5, device="cuda")
+    if uni_engine.plan.driver != "blocked" or uni_engine.plan.compaction != "device":
+        raise AssertionError(f"UNIFORM tau=0.5 planned {uni_engine.plan.describe()}")
+    zipf_prep = engine.prepare(zipf, "cuda")
+    log(f"full size, blocked path: generated and prepared {zipf.num_sets} + "
+        f"{uniform.num_sets} sets in {time.perf_counter() - t0:.1f} s (set-up, not timed); "
+        f"UNIFORM auto plan: {uni_engine.plan.driver}, b={uni_engine.plan.b}, "
+        f"block={uni_engine.plan.block}")
 
-    # The main path: counters zeroed just before, read just after.
+    # The path: counters zeroed just before, read just after.
     bitmap_filter.candidate_matrix_cuda.launches = 0
     compaction.count_candidates_cuda.launches = 0
-    runs = {name: _join(prep, tau, "device") for name, prep, tau in cells}
+    runs = {"ZIPF": _join(zipf_prep, 0.8, "device")}
+    (pairs, stats), secs = _timed(lambda: uni_engine.self_join(return_stats=True))
+    runs["UNIFORM"] = (pairs, stats, secs)
     launches = {"candidate_matrix": bitmap_filter.candidate_matrix_cuda.launches,
                 "count_candidates": compaction.count_candidates_cuda.launches}
-    log(f"main path launches: {json.dumps(launches)}")
+    log(f"blocked path launches: {json.dumps(launches)}")
     if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+        raise AssertionError(f"a kernel of the blocked path never launched: {launches}")
 
-    for name, prep, tau in cells:
+    for name, prep, tau in (("ZIPF", zipf_prep, 0.8), ("UNIFORM", uni_engine.prepared, 0.5)):
         pairs, stats, cold = runs[name]
         _, _, warm = _join(prep, tau, "device")
         hp, hs, host_s = _join(prep, tau, "host")
@@ -301,6 +544,99 @@ def phase_full(seed: int) -> dict:
     return launches
 
 
+def probe_batches(col, seed: int, n_batches: int = 4, rows: int = 4096):
+    """Batches of rows cut from ``col`` (its token ids), a third perturbed:
+    one token dropped, or replaced by another id of the corpus."""
+    from repro_torch.core.collection import from_lists
+
+    rng = np.random.default_rng(seed + 7)
+    universe = int(col.tokens[col.lengths > 0].max()) + 1
+    batches = []
+    for _ in range(n_batches):
+        sets = []
+        for i in rng.choice(col.num_sets, size=rows, replace=False):
+            row = col.row(int(i)).tolist()
+            kind = rng.integers(3)
+            if kind == 1 and len(row) > 1:
+                row.pop(int(rng.integers(len(row))))
+            elif kind == 2:
+                row[int(rng.integers(len(row)))] = int(rng.integers(universe))
+            sets.append(row)
+        batches.append(from_lists(sets))
+    return batches
+
+
+def phase_full_indexed(seed: int, skewed, batches) -> dict:
+    """The indexed path: SKEWED tau = 0.8 and 0.6 through JoinEngine with
+    auto plans — cold and warm self-joins, then the probe batches."""
+    from repro_torch.core import engine, join
+    from repro_torch.kernels import bitmap_filter, compaction, postings
+
+    engines = {tau: engine.JoinEngine(skewed, MAIN["sim"], tau, device="cuda")
+               for tau in SKEWED_TAUS}
+    for tau, eng in engines.items():
+        if eng.plan.driver != "indexed" or eng.plan.compaction != "device":
+            raise AssertionError(f"SKEWED tau={tau} planned {eng.plan.describe()}")
+    log(f"full size, indexed path: SKEWED {skewed.num_sets} sets, max_len "
+        f"{skewed.max_len}; auto plans {[e.plan.driver for e in engines.values()]}, "
+        f"b={MAIN['b']}, probe block {engines[0.8].plan.block}")
+
+    counters = (postings.entry_filter_cuda, postings.pair_verdict_tiled_cuda,
+                postings.pair_verdict_cuda, bitmap_filter.hamming_matrix_cuda,
+                bitmap_filter.candidate_matrix_cuda, compaction.count_candidates_cuda)
+    # The path: counters zeroed just before, read just after.
+    for f in counters:
+        f.launches = 0
+    results = {}
+    for tau, eng in engines.items():
+        cold_out, cold = _timed(lambda: eng.self_join(return_stats=True))
+        warm_out, warm = _timed(lambda: eng.self_join(return_stats=True))
+        probes = [_timed(lambda: eng.probe(b)) for b in batches]
+        results[tau] = (cold_out, warm_out, cold, warm, probes)
+    launches = {"entry_filter": postings.entry_filter_cuda.launches,
+                "pair_verdict_tiled": postings.pair_verdict_tiled_cuda.launches}
+    log(f"indexed path launches: {json.dumps(launches)}; not on it: pair_verdict "
+        f"{postings.pair_verdict_cuda.launches}, hamming_matrix "
+        f"{bitmap_filter.hamming_matrix_cuda.launches}, candidate_matrix (dense "
+        f"fallback) {bitmap_filter.candidate_matrix_cuda.launches}, count_candidates "
+        f"{compaction.count_candidates_cuda.launches}")
+    if min(launches["entry_filter"], launches["pair_verdict_tiled"]) <= 0:
+        raise AssertionError(f"a kernel of the indexed path never launched: {launches}")
+
+    for tau, eng in engines.items():
+        (pairs, stats), warm_out, cold, warm, probes = results[tau]
+        _same((pairs, stats), warm_out, f"SKEWED tau={tau} cold vs warm")
+        (bp, bstats), blocked_s = _timed(lambda: join.blocked_bitmap_join_prepared(
+            eng.prepared, sim=MAIN["sim"], tau=tau, b=MAIN["b"], block=MAIN["block"],
+            compaction="device", return_stats=True))
+        if not np.array_equal(pairs, bp):
+            raise AssertionError(f"SKEWED tau={tau}: indexed {len(pairs)} pairs, "
+                                 f"blocked {len(bp)}")
+        if stats.verified_true < 2000:
+            raise AssertionError(f"SKEWED tau={tau} found {stats.verified_true} < 2000 "
+                                 f"planted pairs")
+        log(f"SKEWED tau={tau} self-join: indexed cold {cold:.3f} s (incl. postings and "
+            f"bitmap build), warm {warm:.3f} s; blocked {blocked_s:.3f} s, same "
+            f"{len(pairs)} pairs; postings_expanded {stats.postings_expanded}, "
+            f"candidates_generated {stats.candidates_generated} (blocked window pairs "
+            f"{bstats.total_pairs}); stats {json.dumps(stats.to_dict())}")
+        for k, (((pp, ps), secs), batch) in enumerate(zip(probes, batches)):
+            want = join.blocked_bitmap_join(eng.prepared, batch, MAIN["sim"], tau,
+                                            b=MAIN["b"], block=MAIN["block"],
+                                            compaction="device")
+            if not np.array_equal(pp, want):
+                raise AssertionError(f"SKEWED tau={tau} probe {k}: {len(pp)} pairs, "
+                                     f"blocked R x S {len(want)}")
+            log(f"SKEWED tau={tau} probe {k} ({batch.num_sets} rows): {secs:.3f} s, "
+                f"{len(pp)} pairs (= blocked R x S), postings_expanded "
+                f"{ps.postings_expanded}, candidates_generated {ps.candidates_generated}")
+        if eng.prepared.builds["postings"] != 1:
+            raise AssertionError(f"postings built {eng.prepared.builds['postings']} times")
+        log(f"SKEWED tau={tau} engine: builds {json.dumps(eng.prepared.build_counts())}, "
+            f"summary {json.dumps(eng.stats_summary())}")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -310,15 +646,25 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core import engine
-    from repro_torch.data.collections import with_duplicates, zipf_collection
+    from repro_torch.data.collections import skewed_collection, with_duplicates, zipf_collection
 
     log(smi_line())
     phase_build()
-    col = with_duplicates(zipf_collection(n_sets=10_000, seed=args.seed), n_clusters=100,
-                          cluster_size=3, jaccard=0.9, seed=args.seed)
-    kernels = phase_kernels(args.seed, engine.prepare(col, "cuda"))
-    phase_slice(col)
-    launches = phase_full(args.seed)
+    t0 = time.perf_counter()
+    zipf_10k = with_duplicates(zipf_collection(n_sets=10_000, seed=args.seed), n_clusters=100,
+                               cluster_size=3, jaccard=0.9, seed=args.seed)
+    skewed_10k = with_duplicates(skewed_collection(n_sets=10_000, seed=args.seed),
+                                 n_clusters=100, cluster_size=3, jaccard=0.9, seed=args.seed)
+    skewed = with_duplicates(skewed_collection(n_sets=100_000, seed=args.seed),
+                             n_clusters=1000, cluster_size=3, jaccard=0.9, seed=args.seed)
+    batches = probe_batches(skewed, args.seed)
+    log(f"generated ZIPF 10k, SKEWED 10k, SKEWED {skewed.num_sets} and "
+        f"{len(batches)} probe batches in {time.perf_counter() - t0:.1f} s (set-up)")
+    kernels = phase_dense_kernels(args.seed, engine.prepare(zipf_10k, "cuda"))
+    kernels += phase_postings_kernels(args.seed, engine.prepare(skewed, "cuda"))
+    launches = phase_slice(zipf_10k, skewed_10k)
+    launches.update(phase_full_blocked(args.seed))
+    launches.update(phase_full_indexed(args.seed, skewed, batches))
     for k in kernels:
         k["launches"] = launches[k["name"]]
     log(smi_line())

@@ -236,6 +236,14 @@ def prefix_length(sim: str, tau: float, n):
     return np.minimum(np.maximum(p, 0), n_arr).astype(np.int64)
 
 
+def prefix_length_ell(sim: str, tau: float, n, ell: int):
+    """ℓ-prefix schema (Section 2.3.5): the 1-prefix length plus ``ell - 1``,
+    capped at the set size (the postings index's per-set prefix)."""
+    n = np.asarray(n)
+    base = prefix_length(sim, tau, n)
+    return np.minimum(base + (ell - 1), n).astype(np.int64)
+
+
 # ---------------------------------------------------------------------------
 # Positional bound (Section 2.3.3)
 # ---------------------------------------------------------------------------

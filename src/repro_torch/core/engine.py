@@ -1,24 +1,34 @@
-"""Build-once join artifacts: :class:`PreparedCollection`.
+"""The prepared-collection engine: build-once join artifacts + batched probes.
 
-The port of the ``PreparedCollection`` part of ``repro.core.engine``: a
-length-sorted view of a :class:`~repro_torch.core.collection.Collection`
-with the inverse permutation, the sorted token/length tensors on one device,
-packed bitmap words cached per ``(b, method, mix)`` and integer length
-windows cached per ``(sim, tau)``.  ``builds`` counts each build so reuse
-is assertable.
+The port of ``repro.core.engine``:
+
+* :class:`PreparedCollection` — a length-sorted view of a
+  :class:`~repro_torch.core.collection.Collection` with the inverse
+  permutation, the sorted token/length tensors on one device, packed bitmap
+  words cached per ``(b, method, mix)``, integer length windows cached per
+  ``(sim, tau)`` and the CSR postings index cached per ``(sim, tau, ell)``.
+  ``builds`` counts each build so reuse is assertable.
+* :class:`JoinEngine` — prepare R once, stream batches of S through
+  :meth:`JoinEngine.probe`, each returning pairs plus a per-batch
+  :class:`~repro_torch.core.join.JoinStats`, under an explicit
+  :class:`~repro_torch.core.plan.JoinPlan`.  It executes the ``naive``,
+  ``blocked`` and ``indexed`` drivers, with the reference's recorded
+  fallbacks for the mesh drivers.
 
 Entry points run on the card: ``prepare(col)`` without a ``device`` resolves
 to ``cuda`` and raises when no card is present; tests pass ``device="cpu"``.
 
 :func:`prepared_from_numpy` carries state across from the JAX package: it
-takes a collection's numpy ``tokens``/``lengths`` and packed ``uint32`` words
-built there, and returns a prepared collection whose word cache already
-holds them.
+takes a collection's numpy ``tokens``/``lengths``, packed ``uint32`` words
+and postings indexes built there, and returns a prepared collection whose
+caches already hold them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+import collections
+import dataclasses
+from typing import Deque, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +36,8 @@ import torch
 from repro_torch.core import bitmap as bm
 from repro_torch.core import bounds
 from repro_torch.core.collection import Collection
-from repro_torch.core.constants import BITMAP_COMBINED
+from repro_torch.core.constants import BITMAP_COMBINED, JACCARD
+from repro_torch.core.plan import CPU_DRIVERS, JoinPlan, JoinPlanner, backend_of
 
 
 def resolve_device(device=None) -> torch.device:
@@ -45,8 +56,9 @@ class PreparedCollection:
 
     Construction performs the only eager step — the stable length sort.
     Everything else (device tensors, packed words per ``(b, method, mix)``,
-    integer length windows per ``(sim, tau)``) is built on first use and
-    cached; ``builds`` counts each build.
+    integer length windows per ``(sim, tau)``, postings indexes per
+    ``(sim, tau, ell)``) is built on first use and cached; ``builds``
+    counts each build.
     """
 
     def __init__(self, source: Collection, device=None):
@@ -63,10 +75,12 @@ class PreparedCollection:
         # prepare() would silently serve stale sorts and bitmaps.
         for arr in (source.tokens, source.lengths, self.tokens, self.lengths):
             arr.flags.writeable = False
-        self.builds: Dict[str, int] = {"sort": 1, "bitmap": 0, "window": 0}
+        self.builds: Dict[str, int] = {"sort": 1, "bitmap": 0, "window": 0,
+                                       "postings": 0}
         self._device_arrays: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._words: Dict[Tuple[int, str, bool], torch.Tensor] = {}
         self._windows: Dict[Tuple[str, float], Tuple] = {}
+        self._postings: Dict[Tuple[str, float, int], object] = {}
 
     # -- Collection duck-typing (over the length-sorted view) ---------------
 
@@ -120,8 +134,21 @@ class PreparedCollection:
             self.builds["window"] += 1
         return self._windows[key]
 
+    def postings(self, sim: str, tau: float, ell: int = 1):
+        """The CSR ℓ-prefix postings index over the sorted view (the
+        ``"indexed"`` driver's build artifact,
+        :class:`repro_torch.index.postings.PostingsIndex`), built at most
+        once per ``(sim, tau, ell)``."""
+        key = (sim, float(tau), int(ell))
+        if key not in self._postings:
+            # Imported here: repro_torch.index layers over this module.
+            from repro_torch.index.postings import build_postings
+            self._postings[key] = build_postings(self, sim, tau, ell=ell)
+            self.builds["postings"] += 1
+        return self._postings[key]
+
     def build_counts(self) -> Dict[str, int]:
-        """A copy of the build counters (sort/bitmap/window)."""
+        """A copy of the build counters (sort/bitmap/window/postings)."""
         return dict(self.builds)
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
@@ -151,6 +178,7 @@ def prepared_from_numpy(
     lengths: np.ndarray,
     *,
     words: Optional[Mapping[Tuple[int, str, bool], np.ndarray]] = None,
+    postings: Iterable = (),
     device,
 ) -> PreparedCollection:
     """A :class:`PreparedCollection` over numpy arrays built elsewhere.
@@ -160,7 +188,11 @@ def prepared_from_numpy(
     ``uint32[N, b//32]`` words over the *length-sorted* view (the stable
     sort here is the one ``repro.core.engine.PreparedCollection`` applies);
     they enter the word cache as is, so ``builds["bitmap"]`` stays 0 until
-    another key is asked for.
+    another key is asked for.  ``postings`` are postings indexes over the
+    same sorted view (any objects with the fields of
+    :class:`repro_torch.index.postings.PostingsIndex`),
+    carried into the cache under their ``(sim, tau, ell)``, so
+    ``builds["postings"]`` stays 0 for them.
     """
     prep = PreparedCollection(
         Collection(tokens=np.ascontiguousarray(tokens, dtype=np.int32),
@@ -174,4 +206,187 @@ def prepared_from_numpy(
                 f"[{prep.num_sets}, {int(b) // 32}], got {w.dtype}{list(w.shape)}")
         bits = torch.from_numpy(np.ascontiguousarray(w).view(np.int32).copy())
         prep._words[(int(b), method, bool(mix))] = bits.to(prep.device)
+    from repro_torch.index.postings import PostingsIndex
+
+    for post in postings:
+        post = PostingsIndex.carry(post)
+        if post.prefix_len.shape != (prep.num_sets,) or post.max_len != prep.max_len:
+            raise ValueError("a carried postings index must cover this collection's "
+                             f"{prep.num_sets} rows of width {prep.max_len}")
+        prep._postings[(post.sim, float(post.tau), int(post.ell))] = post
     return prep
+
+
+# ---------------------------------------------------------------------------
+# JoinEngine: prepare R once, stream probe batches against it
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ProbeResult:
+    pairs: np.ndarray       # int64[K, 2] (corpus_index, batch_index)
+    stats: "object"         # JoinStats for this batch
+
+
+class JoinEngine:
+    """The serving shape: one prepared corpus, many probe batches.
+
+    ``JoinEngine(corpus, sim, tau)`` prepares R once on ``device`` (the card
+    when ``None``) and resolves a :class:`~repro_torch.core.plan.JoinPlan`
+    for that device's backend (``cuda`` plans as ``"gpu"``).  Each
+    :meth:`probe` joins one batch of S, prepared on the same device, against
+    the corpus and returns ``(pairs, JoinStats)`` with pairs as
+    ``(corpus_index, batch_index)`` in original indices; the corpus-side
+    artifacts (words, windows, postings) are built once and reused.
+
+    The ``ring`` and ``sharded-indexed`` drivers need a device mesh, which
+    the port does not have yet: a ring plan runs ``blocked`` and a
+    sharded-indexed plan runs ``indexed``, each recorded in ``fallbacks``
+    as the reference does without a mesh.  CPU-algorithm plans and corpus
+    stores raise ``NotImplementedError`` (ROADMAP Queue 1 items 10 and 8).
+    """
+
+    #: Default bound on the per-probe ``JoinStats`` history.
+    HISTORY_LIMIT = 1024
+
+    def __init__(self, corpus: Collection | PreparedCollection,
+                 sim: str = JACCARD, tau: float = 0.8, *,
+                 plan: Optional[JoinPlan] = None,
+                 planner: Optional[JoinPlanner] = None,
+                 expected_batch: Optional[int] = None,
+                 history_limit: Optional[int] = None,
+                 device=None):
+        if type(corpus).__name__ == "CorpusStore":
+            raise NotImplementedError(
+                "a CorpusStore corpus needs the port of repro.store "
+                "(ROADMAP Queue 1 item 8)")
+        if device is None and isinstance(corpus, PreparedCollection):
+            device = corpus.device
+        self.device = resolve_device(device)
+        self._prepared = prepare(corpus, self.device)
+        self._planner = planner or JoinPlanner()
+        self.sim = sim
+        self.tau = float(tau)
+        self._auto_planned = plan is None
+        if plan is None:
+            plan = self._planner.plan(
+                sim, tau, n_r=self._prepared.num_sets, n_s=expected_batch,
+                backend=backend_of(self.device),
+                n_devices=None if self.device.type == "cuda" else 1)
+        self.plan = plan
+        self.probes = 0
+        if history_limit is None:
+            history_limit = self.HISTORY_LIMIT
+        # Bounded: keeps the newest `history_limit` JoinStats; the rollup in
+        # stats_summary() accumulates over every probe regardless.
+        self.history: Deque[object] = collections.deque(maxlen=history_limit)
+        self.fallbacks: list = []
+        self._totals: Dict[str, int] = collections.defaultdict(int)
+
+    @property
+    def prepared(self) -> PreparedCollection:
+        """The corpus-side artifact the engine was built on."""
+        return self._prepared
+
+    # -- public API ----------------------------------------------------------
+
+    def probe(self, batch: Collection | PreparedCollection, *,
+              return_stats: bool = True):
+        """Join one batch of S against the prepared corpus.
+
+        Returns ``(pairs, stats)`` (or just pairs with
+        ``return_stats=False``); pairs are ``(corpus_index, batch_index)``
+        int64 in the original index spaces of both collections.  Pass an
+        already-prepared batch (on the engine's device) to reuse its caches
+        across repeated probes.
+        """
+        pairs, stats = self._execute(batch)
+        self.record_probe(stats)
+        return (pairs, stats) if return_stats else pairs
+
+    def record_probe(self, stats) -> None:
+        """Account one probe's ``JoinStats``: bump the probe counter, append
+        to the bounded history and fold the counters into the rollup."""
+        self.probes += 1
+        self.history.append(stats)
+        for field in ("total_pairs", "blocks_total", "blocks_skipped",
+                      "candidates", "verified_true", "overflow_blocks",
+                      "candidates_generated", "postings_expanded"):
+            self._totals[field] += getattr(stats, field, 0)
+
+    def stats_summary(self) -> Dict[str, object]:
+        """Lifetime rollup over every probe (not just the bounded history):
+        summed funnel counters plus the derived ratios."""
+        t = dict(self._totals)
+        total = t.get("total_pairs", 0)
+        cand = t.get("candidates", 0)
+        return {
+            "probes": self.probes,
+            "history_len": len(self.history),
+            "history_limit": self.history.maxlen,
+            "fallbacks": len(self.fallbacks),
+            **t,
+            "filter_ratio": (1.0 - cand / total) if total else 0.0,
+            "precision": (t.get("verified_true", 0) / cand) if cand else 1.0,
+        }
+
+    def self_join(self, *, return_stats: bool = False):
+        """The corpus joined against itself under this engine's plan."""
+        pairs, stats = self._execute(None)
+        return (pairs, stats) if return_stats else pairs
+
+    # -- execution -----------------------------------------------------------
+
+    def _execute(self, batch):
+        # Imported here: the drivers import this module.
+        from repro_torch.core import join as join_mod
+
+        plan = self.plan
+        driver = plan.driver
+        if driver == "ring":
+            self.fallbacks.append("ring plan without a mesh -> blocked")
+            driver = "blocked"
+        if driver == "sharded-indexed":
+            self.fallbacks.append(
+                "sharded-indexed plan without a mesh -> indexed")
+            driver = "indexed"
+        if driver in CPU_DRIVERS:
+            raise NotImplementedError(
+                f"driver {driver!r} needs the port of the CPU algorithms "
+                f"(ROADMAP Queue 1 item 10)")
+        if driver == "naive" and self._auto_planned and batch is not None:
+            # Planned from the corpus size alone; a large batch would make
+            # the dense oracle quadratic.
+            cells = self.prepared.num_sets * batch.num_sets
+            if cells > self._planner.naive_cells:
+                self.fallbacks.append(
+                    f"naive plan but this batch gives {cells} cells -> blocked")
+                driver = "blocked"
+
+        if driver == "naive":
+            pairs = join_mod.naive_join(self.prepared, batch, self.sim, self.tau,
+                                        device=self.device)
+            n = len(pairs)
+            stats = join_mod.JoinStats(total_pairs=n, candidates=n,
+                                       verified_true=n, candidates_generated=n)
+            return pairs, stats
+
+        if driver == "blocked":
+            return join_mod.blocked_bitmap_join(
+                self.prepared, batch, self.sim, self.tau,
+                b=plan.b, method=plan.method, mix=plan.mix, block=plan.block,
+                impl=plan.impl, use_cutoff=plan.use_cutoff,
+                compaction=plan.compaction, capacity=plan.capacity,
+                return_stats=True)
+
+        if driver == "indexed":
+            from repro_torch.index.candidates import indexed_join_prepared
+
+            prep_s = None if batch is None else prepare(batch, self.device)
+            return indexed_join_prepared(
+                self.prepared, prep_s, sim=self.sim, tau=self.tau,
+                b=plan.b, method=plan.method, mix=plan.mix, ell=plan.ell,
+                probe_block=plan.block, impl=plan.impl,
+                use_cutoff=plan.use_cutoff, capacity=plan.capacity,
+                return_stats=True)
+
+        raise ValueError(f"unknown driver {driver!r}")  # pragma: no cover

@@ -1,9 +1,13 @@
-"""The fused bitmap-filter verdict kernel (CUDA C++, ``csrc/bitmap_filter.cu``).
+"""The dense bitmap-filter kernels (CUDA C++, ``csrc/bitmap_filter.cu``).
 
-Replaces ``repro.kernels.bitmap_filter.candidate_matrix_pallas``.  Its plain
-version is :func:`repro_torch.kernels.ref.candidate_matrix_ref`; callers go
-through :func:`repro_torch.kernels.ops.candidate_matrix`, which picks the
-plain version for CPU tensors and this kernel for CUDA tensors.
+* :func:`candidate_matrix_cuda` replaces
+  ``repro.kernels.bitmap_filter.candidate_matrix_pallas``; its plain version
+  is :func:`repro_torch.kernels.ref.candidate_matrix_ref`.
+* :func:`hamming_matrix_cuda` replaces ``hamming_matrix_pallas``; its plain
+  version is :func:`repro_torch.kernels.ref.hamming_matrix_ref`.
+
+Callers go through :mod:`repro_torch.kernels.ops`, which picks the plain
+version for CPU tensors and these kernels for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -22,6 +26,13 @@ def _lib():
     lib = _build.library("bitmap_filter")
     fn = lib.candidate_matrix_launch
     fn.argtypes = [_C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _C, _C]
+    fn.restype = _I
+    return fn
+
+
+def _hamming_lib():
+    fn = _build.library("bitmap_filter").hamming_matrix_launch
+    fn.argtypes = [_C, _C, _I, _I, _I, _C, _C]
     fn.restype = _I
     return fn
 
@@ -74,3 +85,26 @@ def candidate_matrix_cuda(words_r: torch.Tensor, words_s: torch.Tensor,
 
 
 candidate_matrix_cuda.launches = 0
+
+
+def hamming_matrix_cuda(words_r: torch.Tensor, words_s: torch.Tensor) -> torch.Tensor:
+    """int32[NR, NS] all-pairs Hamming distances of int32[NR, W] and
+    int32[NS, W] word rows (uint32 bit patterns)."""
+    nr, ns = words_r.shape[0], words_s.shape[0]
+    check_operands(words_r, words_s)
+    if nr > 65535 * 64:
+        raise ValueError(f"NR={nr} exceeds the kernel's grid")
+    out = torch.empty((nr, ns), dtype=torch.int32, device=words_r.device)
+    if nr == 0 or ns == 0:
+        return out
+    with torch.cuda.device(words_r.device):
+        rc = _hamming_lib()(words_r.data_ptr(), words_s.data_ptr(), nr, ns,
+                            words_r.shape[1], out.data_ptr(),
+                            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"hamming_matrix kernel launch failed: CUDA error {rc}")
+    hamming_matrix_cuda.launches += 1
+    return out
+
+
+hamming_matrix_cuda.launches = 0

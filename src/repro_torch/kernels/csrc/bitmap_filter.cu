@@ -1,6 +1,7 @@
-// candidate_matrix: the fused bitmap-filter verdict of every (r, s) pair.
+// candidate_matrix: the fused bitmap-filter verdict of every (r, s) pair,
+// and hamming_matrix: the raw all-pairs Hamming distance (end of file).
 //
-// Replaces the TPU kernel src/repro/kernels/bitmap_filter.py
+// candidate_matrix replaces the TPU kernel src/repro/kernels/bitmap_filter.py
 // candidate_matrix_pallas (body _make_candidate_kernel, _tile_verdict).
 // out[i][j] = (Eq. 2 bound >= prune_table[key] OR lr > cutoff OR ls > cutoff)
 //             AND lr > 0 AND ls > 0 [AND i < j for a self-join]
@@ -55,6 +56,35 @@ candidate_matrix_kernel(const uint32_t* __restrict__ wr,
   }
 }
 
+// hamming_matrix replaces src/repro/kernels/bitmap_filter.py
+// hamming_matrix_pallas (_hamming_kernel, _tile_hamming): out[i][j] =
+// sum_k popcount(wr[i][k] ^ ws[j][k]) as int32.  Same tiling and staging
+// as candidate_matrix; the accumulator is written out instead of a verdict.
+// What bounds it: the popcounts at small W, as for candidate_matrix, but
+// the output is 4 bytes a pair (67 MB for 4096 x 4096), so at W = 4 the
+// int32 stores come close to the memory bound as well.
+__global__ void __launch_bounds__(kThreads)
+hamming_matrix_kernel(const uint32_t* __restrict__ wr,
+                      const uint32_t* __restrict__ ws,
+                      int nr, int ns, int w, int* __restrict__ out) {
+  __shared__ Staging sm;
+  const int row0 = blockIdx.y * kSub;
+  const int col0 = blockIdx.x * kSub;
+  int acc[kPer][kPer];
+  subtile_hamming(wr, ws, nullptr, nullptr, nullptr, nullptr, w, row0, nr,
+                  col0, ns, sm, acc);
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int row = row0 + threadIdx.y + 16 * i;
+    if (row >= nr) continue;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int col = col0 + threadIdx.x + 16 * j;
+      if (col < ns) out[(size_t)row * ns + col] = acc[i][j];
+    }
+  }
+}
+
 }  // namespace bitmap_join
 
 // Launches on `stream`; allocates nothing and does not synchronise.
@@ -73,5 +103,18 @@ extern "C" int candidate_matrix_launch(const void* wr, const void* ws,
       static_cast<const int*>(len_r), static_cast<const int*>(len_s),
       static_cast<const int*>(table), nr, ns, w, key_prod, self_join, cutoff,
       static_cast<uint8_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out is int32[nr][ns].  Launches on `stream`; returns cudaGetLastError().
+extern "C" int hamming_matrix_launch(const void* wr, const void* ws, int nr,
+                                     int ns, int w, void* out, void* stream) {
+  using namespace bitmap_join;
+  if (nr <= 0 || ns <= 0) return 0;
+  const dim3 grid((ns + kSub - 1) / kSub, (nr + kSub - 1) / kSub);
+  const dim3 block(16, 16);
+  hamming_matrix_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(wr), static_cast<const uint32_t*>(ws), nr,
+      ns, w, static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }

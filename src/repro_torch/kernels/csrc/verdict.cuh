@@ -1,6 +1,6 @@
-// Shared tile machinery of the two bitmap-filter kernels (bitmap_filter.cu
-// and compaction.cu): a 64x64 sub-tile of pairs, its Hamming distances
-// and the fused Eq. 2 verdict.
+// Shared tile machinery of the bitmap-filter kernels (bitmap_filter.cu,
+// compaction.cu): a 64x64 sub-tile of pairs, its Hamming distances and the
+// fused Eq. 2 verdict, which the pairwise kernels (postings.cu) share too.
 //
 // Layout: 256 threads as 16x16; thread (ty, tx) owns the 4x4 pairs
 // (row0 + ty + 16*i, col0 + tx + 16*j).  Word rows of R and S are staged in
@@ -30,7 +30,8 @@ struct Staging {
 
 // Hamming distances of the sub-tile at (row0, col0) into acc.  Rows at or
 // past row_end and columns at or past col_end read as empty (zero words,
-// length 0), so they never pass a verdict or a window.  lo/hi may be null.
+// length 0), so they never pass a verdict or a window.  lo/hi may be null;
+// len_r/len_s may be null too (hamming_matrix), and then read as 0.
 __device__ __forceinline__ void subtile_hamming(
     const uint32_t* __restrict__ wr, const uint32_t* __restrict__ ws,
     const int* __restrict__ len_r, const int* __restrict__ len_s,
@@ -42,14 +43,14 @@ __device__ __forceinline__ void subtile_hamming(
   if (tid < kSub) {
     const int g = row0 + tid;
     const bool in = g < row_end;
-    sm.lr[tid] = in ? len_r[g] : 0;
+    sm.lr[tid] = in && len_r != nullptr ? len_r[g] : 0;
     if (lo != nullptr) {
       sm.lo[tid] = in ? lo[g] : 0;
       sm.hi[tid] = in ? hi[g] : 0;
     }
   } else if (tid < 2 * kSub) {
     const int g = col0 + tid - kSub;
-    sm.ls[tid - kSub] = g < col_end ? len_s[g] : 0;
+    sm.ls[tid - kSub] = g < col_end && len_s != nullptr ? len_s[g] : 0;
   }
 #pragma unroll
   for (int i = 0; i < kPer; ++i)

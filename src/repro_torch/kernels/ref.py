@@ -15,7 +15,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import verify
-from repro_torch.core.bitmap import hamming_packed
+from repro_torch.core.bitmap import hamming_packed, popcount32
+from repro_torch.core.bounds import positional_upper_bound_int
 from repro_torch.core.constants import COSINE
 
 
@@ -33,14 +34,18 @@ def prune_table_for(sim: str, tau: float, len_r: torch.Tensor,
                                   len_r.device)
 
 
+def _table_key(lr: torch.Tensor, ls: torch.Tensor, sim: str) -> torch.Tensor:
+    """The prune table's index: ``lr*ls`` for cosine, ``lr+ls`` otherwise."""
+    return lr.to(torch.int64) * ls if sim == COSINE else lr.to(torch.int64) + ls
+
+
 def verdict_from_hamming(ham: torch.Tensor, lr: torch.Tensor, ls: torch.Tensor,
                          table: torch.Tensor, *, sim: str, cutoff: int) -> torch.Tensor:
     """Eq. 2 bound against the prune table, the Alg. 7 cutoff and the
     positivity test, broadcast over ``lr``/``ls`` (int32)."""
     ub = torch.minimum((lr + ls - ham).div(2, rounding_mode="floor"),
                        torch.minimum(lr, ls))
-    key = (lr.to(torch.int64) * ls if sim == COSINE else lr.to(torch.int64) + ls)
-    passed = ub >= table[key]
+    passed = ub >= table[_table_key(lr, ls, sim)]
     cand = passed | (lr > cutoff) | (ls > cutoff)
     return cand & (lr > 0) & (ls > 0)
 
@@ -114,3 +119,57 @@ def count_candidates_ref(
         return p.reshape(gr, tile_r, gs, tile_s).sum(dim=(1, 3), dtype=torch.int32)
 
     return tile_sums(win), tile_sums(cand)
+
+
+def entry_filter_ref(
+    len_r: torch.Tensor,
+    pos_r: torch.Tensor,
+    len_s: torch.Tensor,
+    pos_s: torch.Tensor,
+    lo: torch.Tensor,
+    hi: torch.Tensor,
+    idx_r: torch.Tensor,
+    idx_s: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    sim: str,
+    tau: float,
+    self_join: bool,
+    table: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Postings-entry admission mask -> bool[G]: valid, both sets non-empty,
+    ``lo <= |r| <= hi``, the Section 2.3.3 positional bound at this prefix
+    position reaching the prune table's threshold, and (self-join) the
+    strict ``idx_r < idx_s`` triangle in sorted ids."""
+    if table is None:
+        table = prune_table_for(sim, tau, len_r, len_s)
+    lr = len_r.to(torch.int32)
+    ls = len_s.to(torch.int32)
+    ub = positional_upper_bound_int(lr, ls, pos_r, pos_s)
+    ok = (valid & (lr > 0) & (ls > 0)
+          & (lr >= lo.to(torch.int32)) & (lr <= hi.to(torch.int32))
+          & (ub >= table[_table_key(lr, ls, sim)]))
+    if self_join:
+        ok &= idx_r < idx_s
+    return ok
+
+
+def pair_verdict_ref(
+    words_r: torch.Tensor,
+    words_s: torch.Tensor,
+    len_r: torch.Tensor,
+    len_s: torch.Tensor,
+    *,
+    sim: str,
+    tau: float,
+    cutoff: int = 1 << 30,
+    table: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Pairwise bitmap-filter verdict over gathered candidate rows ->
+    bool[G]: ``candidate_matrix_ref``'s test on ``words_r[g]`` against
+    ``words_s[g]`` (the diagonal of the dense verdict)."""
+    if table is None:
+        table = prune_table_for(sim, tau, len_r, len_s)
+    ham = popcount32(words_r ^ words_s).sum(-1, dtype=torch.int32)
+    return verdict_from_hamming(ham, len_r.to(torch.int32), len_s.to(torch.int32),
+                                table, sim=sim, cutoff=cutoff)

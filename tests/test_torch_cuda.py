@@ -15,10 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import bitmap, bounds, join
+from repro_torch.core import bitmap, bounds, engine, join
 from repro_torch.core.constants import COSINE, PAD_TOKEN
 from repro_torch.data.collections import skewed_collection, with_duplicates
-from repro_torch.kernels import bitmap_filter, compaction, ops, ref
+from repro_torch.index import indexed_bitmap_join
+from repro_torch.kernels import bitmap_filter, compaction, ops, postings, ref
 
 pytestmark = pytest.mark.cuda
 
@@ -116,3 +117,103 @@ def test_card_join_matches_cpu_join(dev, compaction_mode, capacity):
     assert np.array_equal(gpu[0], cpu[0])
     assert gpu[1].to_dict() == cpu[1].to_dict()
     assert np.array_equal(gpu[0], join.naive_join(col, "jaccard", 0.7, device=dev))
+
+
+def _entries(g, seed, dev):
+    """Random entry-filter operands (lengths below 30, so a prune table for
+    30 x 30 covers every key); every fifth set empty, a fifth invalid."""
+    rng = np.random.default_rng(seed)
+    cols = [rng.integers(1, 30, g), rng.integers(0, 10, g), rng.integers(1, 30, g),
+            rng.integers(0, 10, g), rng.integers(0, 15, g), rng.integers(8, 40, g),
+            rng.integers(0, 60, g), rng.integers(0, 60, g)]
+    cols[0][::5] = 0
+    cols[2][1::5] = 0
+    ts = [torch.from_numpy(c.astype(np.int32)).to(dev) for c in cols]
+    return ts, torch.from_numpy(rng.random(g) > 0.2).to(dev)
+
+
+@pytest.mark.parametrize("g", [5, 100, 1024, 2500, 3000])
+@pytest.mark.parametrize("sim,tau", [("jaccard", 0.8), ("cosine", 0.6), ("overlap", 3.0)])
+def test_entry_filter_kernel_matches_plain_version(dev, g, sim, tau):
+    ents, valid = _entries(g, g, dev)
+    table = bounds.prune_table(sim, tau, 30, 30)
+    table = torch.from_numpy(table).to(dev)
+    kept = 0
+    for self_join in (False, True):
+        got = postings.entry_filter_cuda(*ents, valid, table, key_prod=sim == COSINE,
+                                         self_join=self_join)
+        want = ref.entry_filter_ref(*ents, valid, sim=sim, tau=tau, self_join=self_join,
+                                    table=table)
+        assert torch.equal(got, want), self_join
+        kept += int(want.sum())
+    assert kept < 2 * g and (kept > 0 or g < 1024)
+
+
+def _gathered(g, w, seed, dev):
+    rng = np.random.default_rng(seed)
+    wr = rng.integers(0, 2**32, (g, w), dtype=np.uint32)
+    ws = rng.integers(0, 2**32, (g, w), dtype=np.uint32)
+    ws[::3] = wr[::3]  # identical rows pass
+    lr = rng.integers(0, 40, g).astype(np.int32)
+    ls = rng.integers(0, 40, g).astype(np.int32)
+    lr[::7] = 0
+    as_t = lambda a: torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(dev)  # noqa: E731
+    return [as_t(a) for a in (wr, ws, lr, ls)]
+
+
+@pytest.mark.parametrize("g", [5, 100, 1024, 2500, 3000])
+@pytest.mark.parametrize("w", [1, 4, 8, 12, 20, 128])
+def test_pair_verdict_kernels_match_plain_version(dev, g, w):
+    wr, ws, lr, ls = _gathered(g, w, g * w, dev)
+    for sim, tau in (("jaccard", 0.7), ("cosine", 0.6), ("dice", 0.75)):
+        table = ref.prune_table_for(sim, tau, lr, ls)
+        for cutoff in (1 << 30, 12):
+            want = ref.pair_verdict_ref(wr, ws, lr, ls, sim=sim, tau=tau, cutoff=cutoff,
+                                        table=table)
+            kw = dict(key_prod=sim == COSINE, cutoff=cutoff)
+            assert torch.equal(postings.pair_verdict_cuda(wr, ws, lr, ls, table, **kw), want)
+            assert torch.equal(postings.pair_verdict_tiled_cuda(wr, ws, lr, ls, table, **kw),
+                               want)
+
+
+@pytest.mark.parametrize("nr,ns,w", [(33, 70, 1), (64, 64, 4), (300, 200, 128), (1000, 999, 4)])
+def test_hamming_matrix_kernel_matches_plain_version(dev, nr, ns, w):
+    wr, ws, _, _ = _operands(nr, ns, w, nr + w, dev)
+    got = bitmap_filter.hamming_matrix_cuda(wr, ws)
+    assert got.dtype == torch.int32 and torch.equal(got, ref.hamming_matrix_ref(wr, ws))
+    assert torch.equal(ops.hamming_matrix(wr, ws), got)
+
+
+def test_postings_launch_counters_and_dispatch(dev):
+    wr, ws, lr, ls = _gathered(300, 4, 5, dev)
+    ents, valid = _entries(300, 5, dev)
+    counters = (postings.entry_filter_cuda, postings.pair_verdict_cuda,
+                postings.pair_verdict_tiled_cuda, bitmap_filter.hamming_matrix_cuda)
+    before = [f.launches for f in counters]
+    ops.entry_filter(*ents, valid, "jaccard", 0.8)
+    ops.pair_verdict(wr, ws, lr, ls, "jaccard", 0.8, impl="swar")
+    ops.pair_verdict(wr, ws, lr, ls, "jaccard", 0.8)          # auto: swar_tiled
+    ops.hamming_matrix(wr, ws)
+    assert [f.launches for f in counters] == [b + 1 for b in before]
+    with pytest.raises(ValueError):
+        ops.pair_verdict(wr, ws, lr, ls, "jaccard", 0.8, impl="ref")
+    with pytest.raises(ValueError):
+        postings.pair_verdict_cuda(wr, ws[:10], lr, ls, lr, key_prod=False, cutoff=1)
+    with pytest.raises(ValueError):
+        postings.entry_filter_cuda(*ents[:7], ents[7].long(), valid, lr,
+                                   key_prod=False, self_join=False)
+
+
+@pytest.mark.parametrize("impl,capacity", [("auto", None), ("swar", None), ("auto", 64)])
+def test_card_indexed_join_matches_cpu_join(dev, impl, capacity):
+    col = with_duplicates(skewed_collection(n_sets=600, seed=4), n_clusters=30, seed=5)
+    kw = dict(b=128, probe_block=128, impl=impl, capacity=capacity, return_stats=True)
+    gpu = indexed_bitmap_join(col, "jaccard", 0.7, device=dev, **kw)
+    cpu = indexed_bitmap_join(col, "jaccard", 0.7, device="cpu",
+                              **dict(kw, impl="auto"))
+    assert np.array_equal(gpu[0], cpu[0])
+    assert gpu[1].to_dict() == cpu[1].to_dict()
+    assert np.array_equal(gpu[0], join.naive_join(col, "jaccard", 0.7, device=dev))
+    assert (gpu[1].overflow_blocks > 0) == (capacity is not None)
+    eng = engine.JoinEngine(col, "jaccard", 0.7, device=dev)
+    assert eng.plan.compaction == "device"

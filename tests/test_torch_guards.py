@@ -25,15 +25,21 @@ _CHILD = r"""
 import sys
 import numpy as np
 import repro_torch, repro_torch.core
-from repro_torch.core import bitmap, bounds, engine, expected, join, verify
+from repro_torch.core import bitmap, bounds, engine, expected, join, plan, verify
 from repro_torch.data import collections
+from repro_torch.index import candidates, postings
 from repro_torch.kernels import _build, bitmap_filter, compaction, ops, ref
+from repro_torch.kernels import postings as postings_kernels
 col = collections.with_duplicates(collections.uniform_collection(60, seed=1),
                                   n_clusters=5, seed=2)
 for mode in ("host", "device"):
     got = join.blocked_bitmap_join(col, "jaccard", 0.6, b=64, block=32,
                                    compaction=mode, device="cpu")
     assert np.array_equal(got, join.naive_join(col, "jaccard", 0.6, device="cpu"))
+eng = engine.JoinEngine(col, "jaccard", 0.6, device="cpu",
+                        planner=plan.JoinPlanner(naive_cells=0, indexed_cells=0))
+assert eng.plan.driver == "indexed"
+assert np.array_equal(eng.self_join(), join.naive_join(col, "jaccard", 0.6, device="cpu"))
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 print("BAD", bad)
