@@ -8,7 +8,7 @@ Phases (any failure raises, so the script exits non-zero):
 1. Device and build: the card's name and power limit, torch and CUDA
    versions, and the time to build every CUDA kernel (one ``nvcc`` per
    source, all started together).
-2. Kernel parity: each of the six kernels against its plain PyTorch version
+2. Kernel parity: each of the six packed-word kernels against its plain PyTorch version
    on the card, over a sweep (odd sizes, W in {1, 4, 8, 12, 128}, self-join,
    cosine keys, the cutoff hit and not, empty rows, invalid entries) and at
    the main paths' shapes: a 4096 x 4096 block pair of real data (W = 4) for
@@ -36,8 +36,34 @@ Phases (any failure raises, so the script exits non-zero):
    blocked join's, self-join and R x S, and the postings index is built
    once per engine.
 
+6. Bit-plane kernel parity: ``bitplane_hamming`` and
+   ``pair_verdict_bitplane`` against their plain versions and against the
+   SWAR kernels on the same operands (W in {1, 4, 16, 32, 128}, odd sizes,
+   all-pass / all-prune / empty rows, cosine keys, both sides of the
+   cutoff), exactly.
+7. Full size, the corpus store on the blocked path at b = 1024: ZIPF as in
+   phase 4 in a ``CorpusStore`` with a pinned blocked plan (b = 1024,
+   block = 4096), a self-join, two appends of 1,000 sets, a self-join,
+   ``compact()`` and a self-join.  At every state the pairs equal a
+   from-scratch rebuild under the same plan (and its funnel counters) and
+   the b = 128 blocked join; the base is prepared once across the appends.
+8. Full size, serving at b = 1024: SKEWED as in phase 5 in a
+   ``CorpusStore`` planned by ``JoinPlanner(b=1024)`` (indexed), a
+   ``JoinSession(max_batch=512)`` warmed with ``warm_buckets``, then 2,048
+   single-set requests (a quarter exact corpus rows) flushed every 512, a
+   2,000-set ``append`` after the first 1,024, ``compact()`` after the last
+   and 256 more.  Sampled tickets (64 a flush) must equal a solo
+   ``JoinEngine.probe`` in pairs and ``JoinStats``; the union of all tickets
+   must equal one blocked R x S join at b = 128; no entrypoint is built after
+   warm-up, across the append.  Then both bit-plane kernels are timed at
+   these paths' shapes (a 4096 x 4096 block pair of the store's words, the
+   first coalesced batch's candidates) beside their plain versions, their
+   bounds and a PyTorch yardstick.
+
 Each path's kernel launch counters are zeroed just before it and read just
-after; every kernel the path runs must have launched.  The two kernels no
+after (launches of the comparison runs inside the serving phase are taken
+out); every kernel the path runs must have launched, and at b = 1024 the
+packed-word ``candidate_matrix`` and ``pair_verdict_tiled`` must not.  The two kernels no
 full-size path runs are driven through their entry points in phase 3
 (``pair_verdict`` by the indexed join under ``impl="swar"``,
 ``hamming_matrix`` by ``ops.hamming_matrix``), each read the same way; the
@@ -51,6 +77,7 @@ from ``--seed``; nothing is downloaded.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import statistics
@@ -68,12 +95,16 @@ import torch
 # card could take for the work: the larger of bytes/bandwidth and ops/rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+PEAK_INT8_TENSOR_OPS_PER_S = 1.979e15   # dense int8 tensor-core rate
 VERDICT_OPS = 10   # per pair: 2 positivity + 2 cutoff tests, sum, sub, shift, 2 min, compare
 WINDOW_OPS = 4     # per pair: two window compares and their conjunction, the triangle
 ENTRY_OPS = 16     # per entry: 5 compares, 4 for the positional bound, key, compare, triangle, 4 ands
 
 MAIN = dict(sim="jaccard", b=128, block=4096)
 SKEWED_TAUS = (0.8, 0.6)
+WIDE_B = 1024      # the wide-bitmap paths (phases 7-8)
+SERVE = dict(requests=2048, flush_every=512, append_after=1024, after_compact=256,
+             delta_rows=2000, sample_per_flush=64)
 
 
 def log(msg: str) -> None:
@@ -103,18 +134,19 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
+def bound_ms(nbytes: int, ops: int, ops_rate: float = PEAK_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = ops / PEAK_OPS_PER_S
+    t_ops = ops / ops_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_row(name, source, replaces, *, err, ms, plain_ms, bound, path) -> dict:
+def kernel_row(name, source, replaces, *, err, ms, plain_ms, bound, path,
+               library_ms=None) -> dict:
     """One entry of the ``{"kernels": [...]}`` line; ``path`` names the run
     whose launches it reports (``launches`` is filled in at the end)."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms,
             "path": path}
 
 
@@ -166,6 +198,7 @@ def set_operands(rng, nr, ns, b, dev, *, universe=150, max_len=60):
 def phase_dense_kernels(seed: int, main_prep) -> list[dict]:
     """candidate_matrix, count_candidates and hamming_matrix: exact parity
     with their plain versions, then timing at the blocked path's shape."""
+    from repro_torch.core import bitmap as bm
     from repro_torch.core import bounds, expected, verify
     from repro_torch.kernels import bitmap_filter, compaction, ref
     from repro_torch.core.constants import COSINE
@@ -237,6 +270,14 @@ def phase_dense_kernels(seed: int, main_prep) -> list[dict]:
     ms_n = cuda_ms(lambda: compaction.count_candidates_cuda(
         wr, ws, lr, ls, lo, hi, table, tile_r=256, tile_s=256, **kw), 50)
     ms_h = cuda_ms(lambda: bitmap_filter.hamming_matrix_cuda(wr, ws), 50)
+    # Yardstick: one PyTorch call computing the same Hamming matrix from the
+    # unpacked bits (float planes; p = 0 counts the differing coordinates).
+    fr, fs = (bm.unpack_bits(w).float() for w in (wr, ws))
+    lib_h = cuda_ms(lambda: torch.cdist(fr, fs, p=0), 50)
+    if not torch.equal(torch.cdist(fr, fs, p=0).to(torch.int32),
+                       bitmap_filter.hamming_matrix_cuda(wr, ws)):
+        raise AssertionError("torch.cdist(p=0) disagrees with hamming_matrix")
+    del fr, fs
     rkw = dict(sim="jaccard", tau=tau, self_join=False, cutoff=cutoff, table=table)
     plain_c = cuda_ms(lambda: ref.candidate_matrix_ref(wr, ws, lr, ls, **rkw), 10)
     plain_n = cuda_ms(lambda: ref.count_candidates_ref(wr, ws, lr, ls, lo, hi, **rkw), 10)
@@ -252,7 +293,8 @@ def phase_dense_kernels(seed: int, main_prep) -> list[dict]:
     log(f"timing at {blk}x{blk} W={w}: candidate_matrix {ms_c:.4f} ms (plain {plain_c:.3f} ms, "
         f"bound {b_c[0]:.4f} ms by {b_c[1]}); count_candidates {ms_n:.4f} ms "
         f"(plain {plain_n:.3f} ms, bound {b_n[0]:.4f} ms by {b_n[1]}); hamming_matrix "
-        f"{ms_h:.4f} ms (plain {plain_h:.3f} ms, bound {b_h[0]:.4f} ms by {b_h[1]})")
+        f"{ms_h:.4f} ms (plain {plain_h:.3f} ms, bound {b_h[0]:.4f} ms by {b_h[1]}, "
+        f"torch.cdist(p=0) {lib_h:.4f} ms)")
     src = "src/repro_torch/kernels/csrc/"
     return [
         kernel_row("candidate_matrix", src + "bitmap_filter.cu",
@@ -263,7 +305,7 @@ def phase_dense_kernels(seed: int, main_prep) -> list[dict]:
                    plain_ms=plain_n, bound=b_n, path="full size, blocked: ZIPF tau=0.8 + UNIFORM tau=0.5"),
         kernel_row("hamming_matrix", src + "bitmap_filter.cu",
                    "src/repro/kernels/bitmap_filter.py:77", err=errs[2], ms=ms_h,
-                   plain_ms=plain_h, bound=b_h,
+                   plain_ms=plain_h, bound=b_h, library_ms=lib_h,
                    path="off the main paths: ops.hamming_matrix over 10,200 ZIPF sets"),
     ]
 
@@ -498,22 +540,20 @@ def phase_slice(zipf_col, skewed_col) -> dict:
     return launches
 
 
-def phase_full_blocked(seed: int) -> dict:
+def phase_full_blocked(seed: int, zipf) -> dict:
     """The blocked path: ZIPF tau = 0.8 (explicit blocked plan) and UNIFORM
     tau = 0.5 (JoinEngine, auto plan)."""
     from repro_torch.core import engine
-    from repro_torch.data.collections import uniform_collection, with_duplicates, zipf_collection
+    from repro_torch.data.collections import uniform_collection
     from repro_torch.kernels import bitmap_filter, compaction
 
     t0 = time.perf_counter()
-    zipf = with_duplicates(zipf_collection(n_sets=100_000, seed=seed), n_clusters=1000,
-                           cluster_size=3, jaccard=0.9, seed=seed)
     uniform = uniform_collection(n_sets=100_000, seed=seed)
     uni_engine = engine.JoinEngine(uniform, MAIN["sim"], 0.5, device="cuda")
     if uni_engine.plan.driver != "blocked" or uni_engine.plan.compaction != "device":
         raise AssertionError(f"UNIFORM tau=0.5 planned {uni_engine.plan.describe()}")
     zipf_prep = engine.prepare(zipf, "cuda")
-    log(f"full size, blocked path: generated and prepared {zipf.num_sets} + "
+    log(f"full size, blocked path: prepared {zipf.num_sets} + generated and prepared "
         f"{uniform.num_sets} sets in {time.perf_counter() - t0:.1f} s (set-up, not timed); "
         f"UNIFORM auto plan: {uni_engine.plan.driver}, b={uni_engine.plan.b}, "
         f"block={uni_engine.plan.block}")
@@ -544,6 +584,17 @@ def phase_full_blocked(seed: int) -> dict:
     return launches
 
 
+def _perturbed(row: list, rng, universe: int) -> list:
+    """``row`` as is, or with one token dropped, or one replaced by another
+    id of the corpus (a third each)."""
+    kind = rng.integers(3)
+    if kind == 1 and len(row) > 1:
+        row.pop(int(rng.integers(len(row))))
+    elif kind == 2:
+        row[int(rng.integers(len(row)))] = int(rng.integers(universe))
+    return row
+
+
 def probe_batches(col, seed: int, n_batches: int = 4, rows: int = 4096):
     """Batches of rows cut from ``col`` (its token ids), a third perturbed:
     one token dropped, or replaced by another id of the corpus."""
@@ -553,17 +604,24 @@ def probe_batches(col, seed: int, n_batches: int = 4, rows: int = 4096):
     universe = int(col.tokens[col.lengths > 0].max()) + 1
     batches = []
     for _ in range(n_batches):
-        sets = []
-        for i in rng.choice(col.num_sets, size=rows, replace=False):
-            row = col.row(int(i)).tolist()
-            kind = rng.integers(3)
-            if kind == 1 and len(row) > 1:
-                row.pop(int(rng.integers(len(row))))
-            elif kind == 2:
-                row[int(rng.integers(len(row)))] = int(rng.integers(universe))
-            sets.append(row)
+        sets = [_perturbed(col.row(int(i)).tolist(), rng, universe)
+                for i in rng.choice(col.num_sets, size=rows, replace=False)]
         batches.append(from_lists(sets))
     return batches
+
+
+def mixed_delta(col, fresh, seed: int):
+    """An append for ``col``: the sets of ``fresh``, every third replaced by
+    a perturbed row of ``col`` (so the delta has pairs with the corpus)."""
+    from repro_torch.core.collection import from_lists
+
+    rng = np.random.default_rng(seed)
+    universe = int(col.tokens[col.lengths > 0].max()) + 1
+    sets = fresh.as_lists()
+    for k in range(0, len(sets), 3):
+        sets[k] = _perturbed(col.row(int(rng.integers(col.num_sets))).tolist(), rng,
+                             universe)
+    return from_lists(sets)
 
 
 def phase_full_indexed(seed: int, skewed, batches) -> dict:
@@ -637,6 +695,385 @@ def phase_full_indexed(seed: int, skewed, batches) -> dict:
     return launches
 
 
+def phase_bitplane_parity(seed: int) -> None:
+    """bitplane_hamming and pair_verdict_bitplane against their plain
+    versions and against the SWAR kernels (hamming_matrix,
+    pair_verdict_tiled) on the same operands: W in {1, 4, 16, 32, 128}, odd
+    sizes, all-pass / all-prune / empty rows, cosine keys, both sides of the
+    cutoff.  Exact."""
+    from repro_torch.core import bounds
+    from repro_torch.core.constants import COSINE
+    from repro_torch.kernels import bitmap_filter, bitplane, ops, postings, ref
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 2)
+
+    def words(n, w):
+        return torch.from_numpy(rng.integers(0, 2**32, (n, w), dtype=np.uint32)
+                                .view(np.int32)).to(dev)
+
+    def lengths(n, kind):
+        lens = rng.integers(0, 40, n).astype(np.int32)
+        if kind == "all_pass":
+            lens[:] = 20
+        elif kind == "all_prune":
+            lens[:] = 2
+        elif kind == "empty_rows":
+            lens[::3] = 0
+        return torch.from_numpy(lens).to(dev)
+
+    for (nr, ns, w) in [(33, 70, 1), (96, 64, 4), (257, 65, 16), (300, 200, 32),
+                        (1000, 999, 32), (129, 67, 128)]:
+        for kind in ("random", "all_pass", "all_prune", "empty_rows"):
+            wr, ws = words(nr, w), words(ns, w)
+            if kind == "all_pass":
+                wr.zero_(), ws.zero_()
+            elif kind != "all_prune":
+                m = min(nr, ns)
+                ws[:m:4] = wr[:m:4]  # identical rows pass
+            lr, ls = lengths(nr, kind), lengths(ns, kind)
+            (pr, pc_r), (ps, pc_s) = ops._planes(wr), ops._planes(ws)
+            ham = bitplane.bitplane_hamming_cuda(pr, ps, pc_r, pc_s)
+            err = max(max_err(ham, ref.bitplane_hamming_ref(pr, ps, pc_r, pc_s)),
+                      max_err(ham, bitmap_filter.hamming_matrix_cuda(wr, ws)))
+            g = min(nr, ns)
+            for sim, tau, cutoff in (("jaccard", 0.6, 1 << 30), ("cosine", 0.75, 12),
+                                     ("dice", 0.5, 1 << 30), ("overlap", 3.0, 12)):
+                table = ref.prune_table_for(sim, tau, lr, ls)
+                kw = dict(key_prod=sim == COSINE, cutoff=cutoff)
+                got = postings.pair_verdict_bitplane_cuda(
+                    pr[:g], ps[:g], pc_r[:g], pc_s[:g], lr[:g], ls[:g], table, **kw)
+                want = bounds.verdict_from_hamming(
+                    ref.bitplane_pair_hamming_ref(pr[:g], ps[:g], pc_r[:g], pc_s[:g]),
+                    lr[:g], ls[:g], table, sim=sim, cutoff=cutoff)
+                tiled = postings.pair_verdict_tiled_cuda(
+                    wr[:g].contiguous(), ws[:g].contiguous(), lr[:g], ls[:g], table, **kw)
+                dense = [ops.candidate_matrix(wr, ws, lr, ls, sim, tau, sj, cutoff,
+                                              impl=impl, table=table)
+                         for impl in ("mxu", "swar") for sj in (False, True)]
+                err = max(err, max_err(got, want), max_err(got, tiled),
+                          max_err(dense[0], dense[2]), max_err(dense[1], dense[3]))
+            torch.cuda.synchronize()
+            if err:
+                raise AssertionError(f"bit-plane kernels != plain / SWAR: {nr}x{ns} W={w} "
+                                     f"{kind}: error {err}")
+        log(f"bit-plane parity {nr}x{ns} W={w} (b={32 * w}): bitplane_hamming and "
+            f"pair_verdict_bitplane exact against their plain versions and the SWAR "
+            f"kernels, random / all-pass / all-prune / empty rows, 4 sims")
+
+
+class LaunchCounts:
+    """Launch counters of a set of kernel wrappers, read together."""
+
+    def __init__(self, **wrappers):
+        self.wrappers = wrappers
+
+    def zero(self) -> None:
+        for f in self.wrappers.values():
+            f.launches = 0
+
+    def read(self) -> dict:
+        return {name: f.launches for name, f in self.wrappers.items()}
+
+
+def _funnel(stats) -> dict:
+    from repro_torch.store import FUNNEL_SUM_FIELDS
+
+    return {f: getattr(stats, f) for f in FUNNEL_SUM_FIELDS}
+
+
+def phase_store(seed: int, zipf) -> tuple[dict, torch.Tensor]:
+    """The corpus store on the blocked path at b = 1024: returns the path's
+    launches and the first two 4096-row blocks of its words (the timing
+    operands of bitplane_hamming)."""
+    from repro_torch.core import engine, join
+    from repro_torch.core.plan import JoinPlan
+    from repro_torch.data.collections import zipf_collection
+    from repro_torch.kernels import bitmap_filter, bitplane, compaction
+    from repro_torch.store import CompactionPolicy, CorpusStore
+
+    tau = 0.8
+    plan = JoinPlan(driver="blocked", sim=MAIN["sim"], tau=tau, b=WIDE_B,
+                    block=MAIN["block"], compaction="device")
+    deltas = [mixed_delta(zipf, zipf_collection(n_sets=1000, seed=seed + 20 + k),
+                          seed + 30 + k) for k in range(2)]
+    store = CorpusStore(zipf, MAIN["sim"], tau, plan=plan,
+                        policy=CompactionPolicy.never(), device="cuda")
+    counts = LaunchCounts(bitplane_hamming=bitplane.bitplane_hamming_cuda,
+                          candidate_matrix=bitmap_filter.candidate_matrix_cuda,
+                          count_candidates=compaction.count_candidates_cuda)
+    log(f"full size, store on the blocked path: ZIPF {zipf.num_sets} sets + 2 appends of "
+        f"{[d.num_sets for d in deltas]} sets, plan {plan.driver} b={plan.b} "
+        f"block={plan.block} compaction={plan.compaction}")
+
+    # The path: counters zeroed just before, read just after.
+    counts.zero()
+    runs = {}
+    runs["base"], cold = _timed(lambda: store.self_join(return_stats=True))
+    _, warm = _timed(lambda: store.self_join(return_stats=True))
+    base_builds = store.builds()
+    append_s = [_timed(lambda d=d: store.append(d, compact=False))[1] for d in deltas]
+    if store.builds() != base_builds or base_builds["sort"] != 1:
+        raise AssertionError(f"append rebuilt the base: {base_builds} -> {store.builds()}")
+    runs["appended"], appended_s = _timed(lambda: store.self_join(return_stats=True))
+    _, compact_s = _timed(store.compact)
+    runs["compacted"], compacted_s = _timed(lambda: store.self_join(return_stats=True))
+    launches = counts.read()
+    log(f"store path launches: {json.dumps(launches)}")
+    if launches["bitplane_hamming"] <= 0 or launches["candidate_matrix"] != 0:
+        raise AssertionError(f"at b={WIDE_B} the blocked store must run bitplane_hamming "
+                             f"and not candidate_matrix: {launches}")
+
+    # The comparisons: a from-scratch rebuild under the same plan, and the
+    # b = 128 blocked join, at each state.
+    full = store.collection()
+    for name, col in (("base", zipf), ("appended", full), ("compacted", full)):
+        pairs, stats = runs[name]
+        prep = engine.prepare(col, "cuda")
+        rp, rs = engine.JoinEngine(prep, MAIN["sim"], tau, plan=plan).self_join(
+            return_stats=True)
+        if not np.array_equal(pairs, rp) or _funnel(stats) != _funnel(rs):
+            raise AssertionError(f"store {name}: {len(pairs)} pairs {_funnel(stats)} vs "
+                                 f"rebuild {len(rp)} {_funnel(rs)}")
+        narrow = lambda: join.blocked_bitmap_join_prepared(  # noqa: E731
+            prep, sim=MAIN["sim"], tau=tau, b=MAIN["b"], block=MAIN["block"],
+            compaction="device")
+        np128, _ = _timed(narrow)
+        np128, warm128 = _timed(narrow)
+        if not np.array_equal(pairs, np128):
+            raise AssertionError(f"store {name}: {len(pairs)} pairs at b={WIDE_B}, "
+                                 f"{len(np128)} at b={MAIN['b']}")
+        log(f"store {name} ({col.num_sets} sets): {len(pairs)} pairs = rebuild = b=128 "
+            f"blocked join; funnel {json.dumps(_funnel(stats))}; rebuild at b=128 warm "
+            f"{warm128:.3f} s")
+    log(f"store timings at b={WIDE_B}: self-join cold {cold:.3f} s, warm {warm:.3f} s; "
+        f"appends {', '.join(f'{t:.3f}' for t in append_s)} s; self-join with 2 deltas "
+        f"{appended_s:.3f} s; compaction {compact_s:.3f} s; self-join after it "
+        f"{compacted_s:.3f} s; builds {json.dumps(store.stats().lifetime_builds)}")
+    words = store.base.prepared.bitmap_words(WIDE_B, plan.method, tau=tau)
+    return launches, words[:2 * MAIN["block"]]
+
+
+def serve_requests(col, seed: int, n: int):
+    """``n`` single-set requests of one padded width: a quarter exact rows
+    of ``col``, the rest sets of a fresh SKEWED draw."""
+    from repro_torch.core.collection import Collection
+    from repro_torch.core.constants import PAD_TOKEN
+    from repro_torch.data.collections import skewed_collection
+
+    rng = np.random.default_rng(seed + 50)
+    fresh = skewed_collection(n_sets=n, seed=seed + 51)
+    width = max(col.max_len, fresh.max_len)
+    out = []
+    for i in range(n):
+        src, j = (col, int(rng.integers(col.num_sets))) if i % 4 == 0 else (fresh, i)
+        tokens = np.full((1, width), PAD_TOKEN, dtype=np.int32)
+        tokens[0, :src.tokens.shape[1]] = src.tokens[j]
+        out.append(Collection(tokens=tokens, lengths=src.lengths[j:j + 1].copy()))
+    return out
+
+
+def phase_serve(seed: int, skewed) -> tuple[dict, tuple]:
+    """Serving at b = 1024 over a store: returns the path's launches and the
+    operands of the first coalesced batch's pairwise verdict."""
+    from repro_torch.core import engine, join
+    from repro_torch.core.collection import Collection
+    from repro_torch.core.plan import JoinPlanner
+    from repro_torch.data.collections import skewed_collection
+    from repro_torch.kernels import bitmap_filter, bitplane, ops, postings
+    from repro_torch.serve import JoinSession
+    from repro_torch.store import CompactionPolicy, CorpusStore
+
+    tau = SKEWED_TAUS[0]
+    t0 = time.perf_counter()
+    store = CorpusStore(skewed, MAIN["sim"], tau, planner=JoinPlanner(b=WIDE_B),
+                        policy=CompactionPolicy.never(), device="cuda")
+    if store.plan.driver != "indexed" or store.plan.b != WIDE_B:
+        raise AssertionError(f"serving store planned {store.plan.describe()}")
+    sess = JoinSession(store, max_batch=SERVE["flush_every"])
+    n_req = SERVE["requests"] + SERVE["after_compact"]
+    requests = serve_requests(skewed, seed, n_req)
+    delta = mixed_delta(skewed, skewed_collection(n_sets=SERVE["delta_rows"], seed=seed + 40),
+                        seed + 41)
+    fe = SERVE["flush_every"]
+    # Warm-up: the bucket ladder calibrated on the traffic's own groups.
+    built = sum(sess.warm_buckets(requests[k:k + fe])
+                for k in range(0, SERVE["requests"], fe))
+    # The operands of the first coalesced batch's verdict (a throwaway flush).
+    calls = []
+    with capture_calls(ops, "pair_verdict", calls):
+        for r in requests[:fe]:
+            sess.submit(r)
+        sess.flush()
+    warm_s = time.perf_counter() - t0
+    builds_warm = sess.entrypoints.stats()["traces"]
+    log(f"full size, serving: SKEWED {skewed.num_sets} sets, plan {store.plan.driver} "
+        f"b={store.plan.b} block={store.plan.block}; max_batch {sess.coalescer.max_batch}; "
+        f"set-up and warm-up {warm_s:.1f} s ({built} entrypoints built)")
+
+    counts = LaunchCounts(pair_verdict_bitplane=postings.pair_verdict_bitplane_cuda,
+                          entry_filter=postings.entry_filter_cuda,
+                          pair_verdict_tiled=postings.pair_verdict_tiled_cuda,
+                          candidate_matrix=bitmap_filter.candidate_matrix_cuda,
+                          bitplane_hamming=bitplane.bitplane_hamming_cuda)
+    solo = engine.JoinEngine(store)
+    rng = np.random.default_rng(seed + 60)
+    tickets, checked, spans = [], 0, []
+    oracle_launches = dict.fromkeys(counts.wrappers, 0)
+
+    def check(batch):
+        """Sampled tickets of this flush against solo probes of the store's
+        current state; their launches are taken out of the path's."""
+        nonlocal checked
+        before = counts.read()
+        for i in rng.choice(len(batch), size=min(SERVE["sample_per_flush"], len(batch)),
+                            replace=False):
+            t = batch[int(i)]
+            pairs, stats = t.result()
+            want, want_stats = solo.probe(t.request)
+            if not np.array_equal(pairs, want) or stats != want_stats:
+                raise AssertionError(f"ticket {t.seq} ({t.route}) != solo probe:\n"
+                                     f"{stats}\n{want_stats}")
+            checked += 1
+        for k, v in counts.read().items():
+            oracle_launches[k] += v - before[k]
+
+    def serve(batch_requests, label):
+        t1 = time.perf_counter()
+        batch = [sess.submit(r) for r in batch_requests]
+        sess.flush()
+        spans.append((label, len(batch), time.perf_counter() - t1))
+        tickets.extend(batch)
+        check(batch)
+
+    # The path: counters zeroed just before, read just after.
+    counts.zero()
+    for k in range(0, SERVE["requests"], fe):
+        serve(requests[k:k + fe], "base" if k < SERVE["append_after"] else "base+delta")
+        if k + fe == SERVE["append_after"]:
+            _, append_s = _timed(lambda: sess.append(delta, compact=False))
+    builds_traffic = sess.entrypoints.stats()["traces"] - builds_warm
+    _, compact_s = _timed(sess.compact)
+    serve(requests[SERVE["requests"]:], "compacted")
+    launches = {k: v - oracle_launches[k] for k, v in counts.read().items()}
+    log(f"serving path launches: {json.dumps(launches)} (solo-probe checks took out: "
+        f"{json.dumps(oracle_launches)})")
+    if (launches["pair_verdict_bitplane"] <= 0 or launches["pair_verdict_tiled"] != 0
+            or launches["candidate_matrix"] != 0):
+        raise AssertionError(f"at b={WIDE_B} serving must run pair_verdict_bitplane and "
+                             f"neither packed-word verdict: {launches}")
+    if builds_traffic:
+        raise AssertionError(f"{builds_traffic} entrypoints built after warm-up")
+
+    # The union of all tickets against one blocked R x S join at b = 128 (a
+    # request served before the append sees the base only).
+    all_req = Collection(tokens=np.concatenate([r.tokens for r in requests]),
+                         lengths=np.concatenate([r.lengths for r in requests]))
+    want = join.blocked_bitmap_join(store.collection(), all_req, MAIN["sim"], tau,
+                                    b=MAIN["b"], block=MAIN["block"], compaction="device",
+                                    device="cuda")
+    base_rows = skewed.num_sets
+    want = want[(want[:, 1] >= SERVE["append_after"]) | (want[:, 0] < base_rows)]
+    got = np.concatenate([np.stack([t.pairs[:, 0], np.full(len(t.pairs), i)], axis=1)
+                          for i, t in enumerate(tickets) if len(t.pairs)])
+    got = got[np.lexsort((got[:, 1], got[:, 0]))]
+    if not np.array_equal(got, want):
+        raise AssertionError(f"union of tickets {len(got)} pairs vs blocked R x S "
+                             f"{len(want)}")
+    lat = np.array([t.latency_s for t in tickets]) * 1e3
+    routes = collections.Counter(t.route for t in tickets)
+    summary = sess.stats_summary()
+    log(f"serving: {len(tickets)} requests, routes {dict(routes)}, {checked} sampled "
+        f"tickets = solo probes (pairs and JoinStats), union of tickets = blocked R x S "
+        f"at b={MAIN['b']} ({len(got)} pairs); entrypoint builds after warm-up "
+        f"{builds_traffic} (across the append), after compaction "
+        f"{sess.entrypoints.stats()['traces'] - builds_warm - builds_traffic}")
+    for label in ("base", "base+delta", "compacted"):
+        n = sum(k for lb, k, _ in spans if lb == label)
+        secs = sum(t for lb, _, t in spans if lb == label)
+        log(f"serving {label}: {n} requests in {secs:.3f} s = {n / secs:.1f} requests/s")
+    log(f"serving: ticket latency p50 {np.percentile(lat, 50):.2f} ms, p99 "
+        f"{np.percentile(lat, 99):.2f} ms; coalesced batches {summary['coalesced_batches']}; "
+        f"append {append_s:.3f} s, compaction {compact_s:.3f} s; pad overhead "
+        f"{summary['pad_overhead']:.4f}; transfer {json.dumps(summary['transfer'])}")
+    (args, kw), = calls[:1]
+    return launches, (args, kw)
+
+
+def phase_bitplane_timing(store_words, serve_call) -> list[dict]:
+    """Both bit-plane kernels timed at their paths' shapes beside their
+    plain versions, bounds and a PyTorch yardstick."""
+    from repro_torch.core import bounds
+    from repro_torch.core.constants import COSINE
+    from repro_torch.kernels import bitmap_filter, bitplane, ops, postings, ref
+
+    blk = MAIN["block"]
+    wr, ws = store_words[:blk], store_words[blk:2 * blk]
+    (pr, pc_r), (ps, pc_s) = ops._planes(wr), ops._planes(ws)
+    got = bitplane.bitplane_hamming_cuda(pr, ps, pc_r, pc_s)
+    err_h = max(max_err(got, ref.bitplane_hamming_ref(pr, ps, pc_r, pc_s)),
+                max_err(got, bitmap_filter.hamming_matrix_cuda(wr, ws)))
+    fr, fs = pr.float(), ps.float()
+    err_h = max(err_h, max_err(torch.cdist(fr, fs, p=0).to(torch.int32), got))
+    if err_h:
+        raise AssertionError(f"bitplane_hamming at {blk}x{blk}: error {err_h}")
+    ms_h = cuda_ms(lambda: bitplane.bitplane_hamming_cuda(pr, ps, pc_r, pc_s), 50)
+    plain_h = cuda_ms(lambda: ref.bitplane_hamming_ref(pr, ps, pc_r, pc_s), 10)
+    lib_h = cuda_ms(lambda: torch.cdist(fr, fs, p=0), 50)
+    mm_h = cuda_ms(lambda: torch._int_mm(pr, ps.T), 50)
+    swar_h = cuda_ms(lambda: bitmap_filter.hamming_matrix_cuda(wr, ws), 50)
+    del fr, fs
+    b = pr.shape[1]
+    b_h = bound_ms((2 * blk) * (b + 4) + 4 * blk * blk, 2 * blk * blk * b,
+                   PEAK_INT8_TENSOR_OPS_PER_S)
+    log(f"timing at {blk}x{blk} b={b} (the store's words): bitplane_hamming {ms_h:.4f} ms "
+        f"(plain {plain_h:.3f} ms, bound {b_h[0]:.4f} ms by {b_h[1]}, torch.cdist(p=0) "
+        f"{lib_h:.4f} ms, torch._int_mm product alone {mm_h:.4f} ms, SWAR hamming_matrix "
+        f"{swar_h:.4f} ms), exact")
+
+    (words_r, words_s, len_r, len_s), kw = serve_call
+    sim, cutoff, table = kw["sim"], kw["cutoff"], kw["table"]
+    len_r, len_s = len_r.to(torch.int32).contiguous(), len_s.to(torch.int32).contiguous()
+    (qr, qc_r), (qs, qc_s) = ops._planes(words_r), ops._planes(words_s)
+    vkw = dict(key_prod=sim == COSINE, cutoff=cutoff)
+    got_v = postings.pair_verdict_bitplane_cuda(qr, qs, qc_r, qc_s, len_r, len_s, table, **vkw)
+    plain_v_fn = lambda: bounds.verdict_from_hamming(  # noqa: E731
+        ref.bitplane_pair_hamming_ref(qr, qs, qc_r, qc_s), len_r, len_s, table, sim=sim,
+        cutoff=cutoff)
+    tiled = lambda: postings.pair_verdict_tiled_cuda(  # noqa: E731
+        words_r.contiguous(), words_s.contiguous(), len_r, len_s, table, **vkw)
+    err_v = max(max_err(got_v, plain_v_fn()), max_err(got_v, tiled()))
+    if err_v:
+        raise AssertionError(f"pair_verdict_bitplane at the first batch: error {err_v}")
+    ms_v = cuda_ms(lambda: postings.pair_verdict_bitplane_cuda(
+        qr, qs, qc_r, qc_s, len_r, len_s, table, **vkw), 50)
+    plain_v = cuda_ms(plain_v_fn, 10)
+    ms_t = cuda_ms(tiled, 50)
+    ms_unpack = cuda_ms(lambda: (ops._planes(words_r), ops._planes(words_s)), 10)
+    g = qr.shape[0]
+    tab_bytes = table.numel() * 4
+    b_v = bound_ms(g * (2 * b + 4 * 4 + 1) + tab_bytes, g * (2 * b + VERDICT_OPS))
+    b_t = bound_ms(g * (2 * (b // 32) * 4 + 2 * 4 + 1) + tab_bytes,
+                   g * (3 * (b // 32) + VERDICT_OPS))
+    log(f"timing at the first coalesced batch (G={g} candidates, b={b}): "
+        f"pair_verdict_bitplane {ms_v:.4f} ms (plain {plain_v:.3f} ms, bound {b_v[0]:.4f} ms "
+        f"by {b_v[1]}; {2 * b + 17} bytes a candidate) against the packed-word "
+        f"pair_verdict_tiled {ms_t:.4f} ms (bound {b_t[0]:.4f} ms; {8 * (b // 32) + 9} bytes "
+        f"a candidate); unpacking both sides into planes {ms_unpack:.4f} ms; "
+        f"{int(got_v.sum())} pass, exact")
+    src = "src/repro_torch/kernels/csrc/"
+    return [
+        kernel_row("bitplane_hamming", src + "bitplane.cu",
+                   "src/repro/kernels/bitplane.py:41", err=err_h, ms=ms_h, plain_ms=plain_h,
+                   bound=b_h, library_ms=lib_h,
+                   path=f"full size, store on the blocked path at b={WIDE_B}: ZIPF tau=0.8")
+        | {"library_product_ms": mm_h},
+        kernel_row("pair_verdict_bitplane", src + "postings.cu",
+                   "src/repro/kernels/postings.py:271", err=err_v, ms=ms_v, plain_ms=plain_v,
+                   bound=b_v, path=f"full size, serving at b={WIDE_B}: SKEWED tau=0.8"),
+    ]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -655,16 +1092,24 @@ def main(argv=None) -> int:
                                cluster_size=3, jaccard=0.9, seed=args.seed)
     skewed_10k = with_duplicates(skewed_collection(n_sets=10_000, seed=args.seed),
                                  n_clusters=100, cluster_size=3, jaccard=0.9, seed=args.seed)
+    zipf = with_duplicates(zipf_collection(n_sets=100_000, seed=args.seed), n_clusters=1000,
+                           cluster_size=3, jaccard=0.9, seed=args.seed)
     skewed = with_duplicates(skewed_collection(n_sets=100_000, seed=args.seed),
                              n_clusters=1000, cluster_size=3, jaccard=0.9, seed=args.seed)
     batches = probe_batches(skewed, args.seed)
-    log(f"generated ZIPF 10k, SKEWED 10k, SKEWED {skewed.num_sets} and "
-        f"{len(batches)} probe batches in {time.perf_counter() - t0:.1f} s (set-up)")
+    log(f"generated ZIPF 10k, SKEWED 10k, ZIPF {zipf.num_sets}, SKEWED {skewed.num_sets} "
+        f"and {len(batches)} probe batches in {time.perf_counter() - t0:.1f} s (set-up)")
     kernels = phase_dense_kernels(args.seed, engine.prepare(zipf_10k, "cuda"))
     kernels += phase_postings_kernels(args.seed, engine.prepare(skewed, "cuda"))
+    phase_bitplane_parity(args.seed)
     launches = phase_slice(zipf_10k, skewed_10k)
-    launches.update(phase_full_blocked(args.seed))
+    launches.update(phase_full_blocked(args.seed, zipf))
     launches.update(phase_full_indexed(args.seed, skewed, batches))
+    store_launches, store_words = phase_store(args.seed, zipf)
+    serve_launches, serve_call = phase_serve(args.seed, skewed)
+    launches["bitplane_hamming"] = store_launches["bitplane_hamming"]
+    launches["pair_verdict_bitplane"] = serve_launches["pair_verdict_bitplane"]
+    kernels += phase_bitplane_timing(store_words, serve_call)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     log(smi_line())

@@ -7,7 +7,12 @@ Builds the full-size cells of ``chip_smoke.py`` — the blocked path's ZIPF
 (tau = 0.8) and UNIFORM (tau = 0.5), and the indexed path's SKEWED
 (``skewed_collection`` of 100,000 sets + 1,000 planted clusters of 3 at
 Jaccard 0.9; tau = 0.8 and 0.6); b = 128, block = 4096, device
-compaction — runs each self-join once to warm it and once more timed, then
+compaction — and the wide-bitmap cells at b = 1024: ZIPF-1024 (the ZIPF
+self-join through a ``CorpusStore`` with a pinned blocked plan) and
+SERVE-1024 / SERVE-1024-DELTA (one flush of 512 single-set requests, shaped
+as in ``chip_smoke.py``, through a ``JoinSession`` over the SKEWED store
+planned by ``JoinPlanner(b=1024)``, without and with a 2,000-set delta).
+It runs each once to warm it and once more timed, then
 once under ``torch.profiler``, and prints per cell: both wall times, the
 device's busy time (the sum of the times of the kernels that ran on it,
 each counted once) and idle share during the profiled join, the device
@@ -35,19 +40,25 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", default="profile_traces")
-    cells = ["ZIPF", "UNIFORM", "SKEWED-0.8", "SKEWED-0.6"]
+    cells = ["ZIPF", "UNIFORM", "SKEWED-0.8", "SKEWED-0.6", "ZIPF-1024", "SERVE-1024",
+             "SERVE-1024-DELTA"]
     parser.add_argument("--cells", nargs="+", default=cells, choices=cells)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_join: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from chip_smoke import mixed_delta, serve_requests
     from repro_torch.core import engine, join
+    from repro_torch.core.plan import JoinPlan, JoinPlanner
     from repro_torch.data.collections import (skewed_collection, uniform_collection,
                                               with_duplicates, zipf_collection)
+    from repro_torch.serve import JoinSession
+    from repro_torch.store import CorpusStore, sum_stats
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -66,10 +77,35 @@ def main(argv=None) -> int:
         "SKEWED-0.8": (skewed, 0.8),
         "SKEWED-0.6": (skewed, 0.6),
     }
+    makers["ZIPF-1024"] = (makers["ZIPF"][0], 0.8)
+    makers["SERVE-1024"] = makers["SERVE-1024-DELTA"] = (skewed, 0.8)
     for name in args.cells:
         make, tau = makers[name]
         col = make()
-        if name.startswith("SKEWED"):
+        if name == "ZIPF-1024":
+            store = CorpusStore(col, "jaccard", tau, device="cuda", plan=JoinPlan(
+                driver="blocked", sim="jaccard", tau=tau, b=1024, block=4096,
+                compaction="device"))
+            prep, driver = store.base.prepared, "blocked"
+
+            def run():
+                return store.self_join(return_stats=True)
+        elif name.startswith("SERVE"):
+            store = CorpusStore(col, "jaccard", tau, planner=JoinPlanner(b=1024),
+                                device="cuda")
+            sess = JoinSession(store, max_batch=512)
+            requests = serve_requests(col, args.seed, 512)
+            sess.warm_buckets(requests)
+            if name.endswith("DELTA"):
+                sess.append(mixed_delta(col, skewed_collection(n_sets=2000, seed=args.seed + 40),
+                                        args.seed + 41), compact=False)
+            prep, driver = store.base.prepared, f"session over {store.plan.driver}"
+
+            def run():
+                tickets = [sess.submit(r) for r in requests]
+                sess.flush()
+                return None, sum_stats([t.stats for t in tickets])
+        elif name.startswith("SKEWED"):
             eng = engine.JoinEngine(col, "jaccard", tau, device="cuda")
             if eng.plan.driver != "indexed":
                 raise AssertionError(f"SKEWED planned {eng.plan.describe()}")
@@ -103,7 +139,7 @@ def main(argv=None) -> int:
         busy_us = sum(us for us, _ in by_kernel.values())
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
         own = {k.split("(")[0]: (us, n) for k, (us, n) in by_kernel.items()
-               if k.startswith("bitmap_join::")}
+               if k.startswith(("bitmap_join::", "bitplane::"))}
         print(json.dumps({
             "cell": name, "driver": driver, "tau": tau, "n_sets": prep.num_sets,
             "wall_s": wall_plain, "wall_s_profiled": wall, "device_busy_s": busy_us / 1e6,

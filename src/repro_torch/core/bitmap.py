@@ -124,6 +124,17 @@ def unpack_bits(words: torch.Tensor, b: int | None = None) -> torch.Tensor:
     return bits if b is None else bits[:, :b]
 
 
+def unpack_planes(words: torch.Tensor) -> torch.Tensor:
+    """int32[N, W] bit patterns -> int8[N, 32*W] {0, 1} bit planes: the
+    bit-plane kernels' operand, equal to ``unpack_bits(words).to(int8)``.
+    Works a byte at a time (bit ``i`` is bit ``i % 8`` of little-endian byte
+    ``i // 8``), so no intermediate is wider than the planes themselves."""
+    n, w = words.shape
+    shifts = torch.arange(8, dtype=torch.uint8, device=words.device)
+    octets = words.contiguous().view(torch.uint8)
+    return ((octets[:, :, None] >> shifts) & 1).view(torch.int8).reshape(n, 32 * w)
+
+
 def popcount32(v: torch.Tensor) -> torch.Tensor:
     """SWAR population count of int32 bit patterns -> int32, computed in
     int64 so that no step can overflow."""

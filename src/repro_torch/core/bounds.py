@@ -144,6 +144,19 @@ def min_overlap_gather(sim: str, table: torch.Tensor, len_r: torch.Tensor,
     return table[idx]
 
 
+def verdict_from_hamming(ham: torch.Tensor, lr: torch.Tensor, ls: torch.Tensor,
+                         table: torch.Tensor, *, sim: str, cutoff: int) -> torch.Tensor:
+    """The bitmap filter's verdict from a Hamming distance, broadcast over
+    int32 ``ham``/``lr``/``ls``: the Eq. 2 bound ``min((lr + ls - ham) // 2,
+    min(lr, ls))`` against the :func:`prune_table` threshold, OR either
+    length past the Alg. 7 cutoff; AND both lengths positive."""
+    ub = torch.minimum((lr + ls - ham).div(2, rounding_mode="floor"),
+                       torch.minimum(lr, ls))
+    passed = ub >= min_overlap_gather(sim, table, lr, ls)
+    cand = passed | (lr > cutoff) | (ls > cutoff)
+    return cand & (lr > 0) & (ls > 0)
+
+
 def required_overlap(sim: str, tau: float, lr, ls) -> torch.Tensor:
     """float32 torch twin of :func:`equivalent_overlap` (the reference's
     device threshold; the port's verdicts use :func:`prune_table`)."""

@@ -13,7 +13,8 @@ The port of ``repro.core.engine``:
   :class:`~repro_torch.core.join.JoinStats`, under an explicit
   :class:`~repro_torch.core.plan.JoinPlan`.  It executes the ``naive``,
   ``blocked`` and ``indexed`` drivers, with the reference's recorded
-  fallbacks for the mesh drivers.
+  fallbacks for the mesh drivers, over a prepared corpus or an appendable
+  :class:`~repro_torch.store.CorpusStore`.
 
 Entry points run on the card: ``prepare(col)`` without a ``device`` resolves
 to ``cuda`` and raises when no card is present; tests pass ``device="cpu"``.
@@ -21,14 +22,15 @@ to ``cuda`` and raises when no card is present; tests pass ``device="cpu"``.
 :func:`prepared_from_numpy` carries state across from the JAX package: it
 takes a collection's numpy ``tokens``/``lengths``, packed ``uint32`` words
 and postings indexes built there, and returns a prepared collection whose
-caches already hold them.
+caches already hold them; :func:`store_from_numpy` does the same for a
+whole corpus store, segment by segment.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Deque, Dict, Iterable, Mapping, Optional, Tuple
+from typing import Deque, Dict, Iterable, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -217,9 +219,50 @@ def prepared_from_numpy(
     return prep
 
 
+def store_from_numpy(segments: Sequence[Mapping], sim: str, tau: float, *,
+                     plan: JoinPlan, policy=None, device):
+    """A :class:`~repro_torch.store.CorpusStore` over segments built
+    elsewhere (such as the JAX package's store), with their caches filled.
+
+    ``segments`` lists the base first, then each delta, as mappings with the
+    keys of :func:`prepared_from_numpy` (``tokens``, ``lengths`` and
+    optionally ``words`` and ``postings``) plus ``offset``, the segment's
+    first store-global id.  The segments are carried as they are: the
+    deltas enter the store as live deltas (not counted as ``appends``), and
+    no cached artifact they bring is rebuilt.
+    """
+    from repro_torch.store.store import CorpusStore, Segment
+
+    segments = list(segments)
+    if not segments:
+        raise ValueError("a store needs at least its base segment")
+    preps, offset = [], 0
+    for seg in segments:
+        if int(seg["offset"]) != offset:
+            raise ValueError(f"segment offsets must be contiguous from 0: expected "
+                             f"{offset}, got {seg['offset']}")
+        preps.append(prepared_from_numpy(
+            seg["tokens"], seg["lengths"], words=seg.get("words"),
+            postings=seg.get("postings", ()), device=device))
+        offset += preps[-1].num_sets
+    store = CorpusStore(preps[0], sim, tau, plan=plan, policy=policy, device=device)
+    for prep, seg in zip(preps[1:], segments[1:]):
+        store.deltas.append(Segment(prep, int(seg["offset"]), "delta"))
+    return store
+
+
 # ---------------------------------------------------------------------------
 # JoinEngine: prepare R once, stream probe batches against it
 # ---------------------------------------------------------------------------
+
+def _as_store(corpus):
+    """``corpus`` if it is a :class:`repro_torch.store.CorpusStore`, else
+    None.  Imported lazily: :mod:`repro_torch.store` layers over this module."""
+    if type(corpus).__name__ != "CorpusStore":
+        return None
+    from repro_torch.store.store import CorpusStore
+    return corpus if isinstance(corpus, CorpusStore) else None
+
 
 @dataclasses.dataclass
 class ProbeResult:
@@ -241,8 +284,14 @@ class JoinEngine:
     The ``ring`` and ``sharded-indexed`` drivers need a device mesh, which
     the port does not have yet: a ring plan runs ``blocked`` and a
     sharded-indexed plan runs ``indexed``, each recorded in ``fallbacks``
-    as the reference does without a mesh.  CPU-algorithm plans and corpus
-    stores raise ``NotImplementedError`` (ROADMAP Queue 1 items 10 and 8).
+    as the reference does without a mesh.  CPU-algorithm plans raise
+    ``NotImplementedError`` (ROADMAP Queue 1 item 10).
+
+    The corpus may also be a :class:`repro_torch.store.CorpusStore`: the
+    engine then adopts the store's plan, sim, τ and device, and every probe
+    and self-join runs the store's segment-union join (base ∪ deltas);
+    :attr:`prepared` reads through to the store's live base segment across
+    compactions.
     """
 
     #: Default bound on the per-probe ``JoinStats`` history.
@@ -255,24 +304,41 @@ class JoinEngine:
                  expected_batch: Optional[int] = None,
                  history_limit: Optional[int] = None,
                  device=None):
-        if type(corpus).__name__ == "CorpusStore":
-            raise NotImplementedError(
-                "a CorpusStore corpus needs the port of repro.store "
-                "(ROADMAP Queue 1 item 8)")
-        if device is None and isinstance(corpus, PreparedCollection):
-            device = corpus.device
-        self.device = resolve_device(device)
-        self._prepared = prepare(corpus, self.device)
+        self.store = _as_store(corpus)
         self._planner = planner or JoinPlanner()
-        self.sim = sim
-        self.tau = float(tau)
-        self._auto_planned = plan is None
-        if plan is None:
-            plan = self._planner.plan(
-                sim, tau, n_r=self._prepared.num_sets, n_s=expected_batch,
-                backend=backend_of(self.device),
-                n_devices=None if self.device.type == "cuda" else 1)
-        self.plan = plan
+        if self.store is not None:
+            store = self.store
+            if (sim, float(tau)) not in ((store.sim, store.tau), (JACCARD, 0.8)):
+                raise ValueError(
+                    f"engine asked for (sim={sim}, tau={tau}) but the store "
+                    f"is (sim={store.sim}, tau={store.tau})")
+            if plan is not None and plan != store.plan:
+                raise ValueError(
+                    "engine plan conflicts with the store's plan; the store "
+                    "pins one plan for every segment join")
+            if device is not None and torch.device(device) != store.device:
+                raise ValueError(f"the store lives on {store.device}, not on "
+                                 f"{torch.device(device)}")
+            self.device = store.device
+            self._prepared = store.base.prepared
+            self.sim = store.sim
+            self.tau = store.tau
+            self.plan = store.plan
+            self._auto_planned = False
+        else:
+            if device is None and isinstance(corpus, PreparedCollection):
+                device = corpus.device
+            self.device = resolve_device(device)
+            self._prepared = prepare(corpus, self.device)
+            self.sim = sim
+            self.tau = float(tau)
+            self._auto_planned = plan is None
+            if plan is None:
+                plan = self._planner.plan(
+                    sim, tau, n_r=self._prepared.num_sets, n_s=expected_batch,
+                    backend=backend_of(self.device),
+                    n_devices=None if self.device.type == "cuda" else 1)
+            self.plan = plan
         self.probes = 0
         if history_limit is None:
             history_limit = self.HISTORY_LIMIT
@@ -284,8 +350,29 @@ class JoinEngine:
 
     @property
     def prepared(self) -> PreparedCollection:
-        """The corpus-side artifact the engine was built on."""
+        """The corpus-side artifact: the store's live base segment in store
+        mode (compaction swaps it), else the prepared corpus the engine was
+        built on."""
+        if self.store is not None:
+            return self.store.base.prepared
         return self._prepared
+
+    def attach_store(self, store) -> None:
+        """Upgrade a frozen-corpus engine in place to serve ``store``, whose
+        base must be this engine's prepared corpus under the same plan.
+        History, fallbacks and the lifetime rollup carry over: this is how a
+        resident session absorbs its first ``append()``."""
+        if store.base.prepared is not self._prepared:
+            raise ValueError(
+                "store's base segment is not this engine's prepared corpus")
+        if (store.sim, store.tau) != (self.sim, self.tau):
+            raise ValueError(
+                f"store is (sim={store.sim}, tau={store.tau}) but the engine "
+                f"serves (sim={self.sim}, tau={self.tau})")
+        if store.plan != self.plan:
+            raise ValueError("store plan differs from the engine's plan")
+        self.store = store
+        self._auto_planned = False
 
     # -- public API ----------------------------------------------------------
 
@@ -339,6 +426,13 @@ class JoinEngine:
     def _execute(self, batch):
         # Imported here: the drivers import this module.
         from repro_torch.core import join as join_mod
+
+        if self.store is not None:
+            # Segment-union join: the store runs base ∪ per-delta joins
+            # through its own per-segment engines and sums the counters.
+            if batch is None:
+                return self.store.self_join(return_stats=True)
+            return self.store.probe(batch, return_stats=True)
 
         plan = self.plan
         driver = plan.driver

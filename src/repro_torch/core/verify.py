@@ -40,7 +40,8 @@ class _DeviceTableCache:
     """Bounded LRU of device-resident int32 threshold tables, keyed by
     ``(kind, sim, tau, lmax_r, lmax_s, device)`` and safe under concurrent
     callers (a table is built outside the lock; a concurrent miss on the
-    same key costs one duplicate upload at worst)."""
+    same key costs one duplicate upload at worst).  Hits and misses are
+    counted per kind; the serving session reports the min-overlap ones."""
 
     _BUILDERS = {"min_overlap": bounds.min_overlap_table,
                  "prune": bounds.prune_table}
@@ -49,6 +50,8 @@ class _DeviceTableCache:
         self.maxsize = maxsize
         self._lock = threading.Lock()
         self._data: "collections.OrderedDict" = collections.OrderedDict()
+        self.hits: collections.Counter = collections.Counter()
+        self.misses: collections.Counter = collections.Counter()
 
     def get(self, kind: str, sim: str, tau: float, lmax_r: int, lmax_s: int,
             device) -> torch.Tensor:
@@ -56,8 +59,10 @@ class _DeviceTableCache:
         key = (kind, sim, float(tau), int(lmax_r), int(lmax_s), str(device))
         with self._lock:
             if key in self._data:
+                self.hits[kind] += 1
                 self._data.move_to_end(key)
                 return self._data[key]
+            self.misses[kind] += 1
         host = self._BUILDERS[kind](sim, float(tau), int(lmax_r), int(lmax_s))
         table = torch.from_numpy(host).to(device)
         with self._lock:
@@ -66,6 +71,18 @@ class _DeviceTableCache:
                 while len(self._data) > self.maxsize:
                     self._data.popitem(last=False)
             return self._data[key]
+
+    def stats(self, kind: str) -> dict:
+        with self._lock:
+            return {"hits": self.hits[kind], "misses": self.misses[kind],
+                    "entries": sum(k[0] == kind for k in self._data),
+                    "maxsize": self.maxsize}
+
+    def clear(self) -> None:
+        with self._lock:
+            self._data.clear()
+            self.hits.clear()
+            self.misses.clear()
 
 
 _TABLE_CACHE = _DeviceTableCache(maxsize=64)
@@ -76,6 +93,12 @@ def min_overlap_table_dev(sim: str, tau: float, lmax_r: int, lmax_s: int,
     """``bounds.min_overlap_table`` on ``device``, cached (bounded LRU), so
     repeated verification calls do not re-upload the same table."""
     return _TABLE_CACHE.get("min_overlap", sim, tau, lmax_r, lmax_s, device)
+
+
+def min_overlap_cache_stats() -> dict:
+    """Hit, miss and entry counters of the min-overlap tables in the device
+    table cache (reported by ``repro_torch.serve.JoinSession.stats_summary``)."""
+    return _TABLE_CACHE.stats("min_overlap")
 
 
 def prune_table_dev(sim: str, tau: float, lmax_r: int, lmax_s: int,

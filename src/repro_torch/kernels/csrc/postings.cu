@@ -8,6 +8,10 @@
 //   pair_verdict_tiled  replaces pair_verdict_tiled_pallas (candidate-major:
 //                       XOR + popcount of a whole (tile, W) block, reduced
 //                       along W)
+//   pair_verdict_bitplane
+//                       replaces pair_verdict_bitplane_pallas (a per-candidate
+//                       inner product of {0, 1} int8 bit planes, then the
+//                       same verdict)
 //
 // Booleans are one byte each (torch.bool), read and written as uint8.  No
 // float is evaluated on the card: every threshold is the host-built int32
@@ -17,8 +21,10 @@
 // What bounds them on an H100: memory.  entry_filter reads eight int32s and
 // a byte and writes a byte per entry (34 bytes) for about 15 integer
 // operations; the pairwise verdicts read 8W + 8 bytes and write one per
-// candidate for 3W + 10 operations.  Both are far below the card's
-// operations-per-byte balance, so the design aim is coalesced, single-pass
+// candidate for 3W + 10 operations; the bit-plane verdict reads 2b + 16
+// bytes (planes, popcounts, lengths) and writes one per candidate, 2,065 at
+// b = 1024 against 265 for the packed words at W = 32, for about b/2 + 10
+// operations.  All are far below the card's operations-per-byte balance, so the design aim is coalesced, single-pass
 // traffic: one thread per entry with consecutive threads on consecutive
 // elements; for the candidate words, loads that are contiguous across a
 // warp whatever W is.
@@ -132,6 +138,48 @@ pair_verdict_lanes_kernel(const uint32_t* __restrict__ wr,
     out[i] = verdict(ham, len_r[i], len_s[i], table, key_prod, cutoff) ? 1 : 0;
 }
 
+// Bit planes, a group of `lanes` (2 to 16) consecutive lanes per candidate:
+// lane j reads 16-byte vectors j, j + lanes, ... of both plane rows (so a
+// group's loads are contiguous), takes the inner product with __dp4a on
+// each 4-byte pack, and a butterfly shuffle inside the group leaves the sum
+// in every lane.  A per-candidate dot has no reuse across candidates, so
+// tensor cores do not apply: this is a streaming, memory-bound kernel.
+// Rows are b bytes, b % 32 == 0, 16-byte aligned.
+__global__ void __launch_bounds__(kThreads1D)
+pair_verdict_bitplane_kernel(const int8_t* __restrict__ pr,
+                             const int8_t* __restrict__ ps,
+                             const int* __restrict__ pc_r,
+                             const int* __restrict__ pc_s,
+                             const int* __restrict__ len_r,
+                             const int* __restrict__ len_s,
+                             const int* __restrict__ table, int g, int b,
+                             int lanes, int key_prod, int cutoff,
+                             uint8_t* __restrict__ out) {
+  const long long t = (long long)blockIdx.x * kThreads1D + threadIdx.x;
+  const long long i = t / lanes;
+  const int lane = threadIdx.x & (lanes - 1);
+  int dot = 0;
+  if (i < g) {
+    const int4* a = reinterpret_cast<const int4*>(pr + (size_t)i * b);
+    const int4* q = reinterpret_cast<const int4*>(ps + (size_t)i * b);
+    for (int v = lane; v < (b >> 4); v += lanes) {
+      const int4 x = __ldg(a + v);
+      const int4 y = __ldg(q + v);
+      dot = __dp4a(x.x, y.x, dot);
+      dot = __dp4a(x.y, y.y, dot);
+      dot = __dp4a(x.z, y.z, dot);
+      dot = __dp4a(x.w, y.w, dot);
+    }
+  }
+  // Every lane of the warp takes part (no early return before the shuffle).
+  for (int off = lanes >> 1; off > 0; off >>= 1)
+    dot += __shfl_xor_sync(0xffffffffu, dot, off);
+  if (i < g && lane == 0) {
+    const int ham = pc_r[i] + pc_s[i] - 2 * dot;
+    out[i] = verdict(ham, len_r[i], len_s[i], table, key_prod, cutoff) ? 1 : 0;
+  }
+}
+
 }  // namespace bitmap_join
 
 // Each launches on `stream`, allocates nothing and does not synchronise, and
@@ -197,5 +245,27 @@ extern "C" int pair_verdict_tiled_launch(const void* wr, const void* ws,
     pair_verdict_lanes_kernel<<<blocks, kThreads1D, 0, s>>>(
         r, q, lr, ls, tab, g, w, lanes, key_prod, cutoff, o);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pr/ps are int8[g][b] bit planes, b % 32 == 0, 16-byte aligned.
+extern "C" int pair_verdict_bitplane_launch(const void* pr, const void* ps,
+                                            const void* pc_r, const void* pc_s,
+                                            const void* len_r, const void* len_s,
+                                            const void* table, int g, int b,
+                                            int key_prod, int cutoff, void* out,
+                                            void* stream) {
+  using namespace bitmap_join;
+  if (g <= 0) return 0;
+  int lanes = 16;  // the largest power of two <= min(16, b / 16)
+  while (lanes > 1 && lanes > (b >> 4)) lanes >>= 1;
+  const long long threads = (long long)g * lanes;
+  const unsigned blocks = (unsigned)((threads + kThreads1D - 1) / kThreads1D);
+  pair_verdict_bitplane_kernel<<<blocks, kThreads1D, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(pr), static_cast<const int8_t*>(ps),
+      static_cast<const int*>(pc_r), static_cast<const int*>(pc_s),
+      static_cast<const int*>(len_r), static_cast<const int*>(len_s),
+      static_cast<const int*>(table), g, b, lanes, key_prod, cutoff,
+      static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

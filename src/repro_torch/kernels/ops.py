@@ -8,57 +8,69 @@ lengths when omitted).
 
 ``impl`` selects by the tensors' device and never falls back:
 
-* ``"auto"`` — the CUDA kernel for CUDA tensors (``"swar"``; for
-  ``pair_verdict`` the candidate-major ``"swar_tiled"``), the plain version
-  (``"ref"``) for CPU tensors, at every b;
-* ``"swar"`` — the CUDA kernel; raises on CPU tensors;
+* ``"auto"`` — on CUDA tensors what the reference picks on its accelerator:
+  the bit-plane kernels (``"mxu"``) for b >= 512, else the SWAR kernel
+  (``"swar"``; for ``pair_verdict`` the candidate-major ``"swar_tiled"``);
+  on CPU tensors the plain version (``"ref"``);
+* ``"swar"`` — the packed-word CUDA kernel; raises on CPU tensors;
 * ``"swar_tiled"`` — ``pair_verdict``'s candidate-major CUDA kernel
   (``entry_filter`` maps it to ``"swar"``, as the reference does);
-* ``"ref"`` — the plain version; raises on CUDA tensors (compare against the
-  plain version on the card by calling :mod:`repro_torch.kernels.ref`);
-* ``"mxu"``/``"ref_mxu"`` — the reference's int8 bit-plane formulation,
-  not ported yet (ROADMAP Queue 2); raises ``NotImplementedError``
-  (``entry_filter``, which has no words, maps them to ``"swar"``/``"ref"``
-  as the reference does).
+* ``"mxu"`` — the int8 bit-plane CUDA kernels (``bitplane_hamming``, on the
+  tensor cores, and ``pair_verdict_bitplane``); the words are unpacked into
+  {0, 1} int8 planes and row popcounts here, outside the kernel, as the
+  reference does.  Raises on CPU tensors.  ``count_candidates`` has no
+  bit-plane kernel in the reference either: ``mxu`` launches the SWAR count
+  kernel, which gives the same counts; ``entry_filter`` has no words and
+  maps it to ``"swar"``;
+* ``"ref"`` / ``"ref_mxu"`` — the plain versions (packed-word and
+  bit-plane); raise on CUDA tensors (compare against the plain version on
+  the card by calling :mod:`repro_torch.kernels.ref`).
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import bitmap as bm
+from repro_torch.core import bounds
 from repro_torch.core.constants import COSINE
-from repro_torch.kernels import bitmap_filter, compaction, postings, ref
+from repro_torch.kernels import bitmap_filter, bitplane, compaction, postings, ref
 
 _TILE = 256
 _TILE_1D = 1024
+# Candidates unpacked into bit planes at once by pair_verdict(impl="mxu"):
+# 1 GiB of planes a side at b = 1024.
+_MXU_SLICE = 1 << 20
 
 
-def resolve_impl(impl: str, device: torch.device, *, kernels=("swar",),
-                 auto: str = "swar") -> str:
-    """The CUDA kernel's name (one of ``kernels``; ``auto`` on CUDA tensors)
-    or ``"ref"`` (the plain version, ``auto`` on CPU tensors)."""
-    on_cuda = device.type == "cuda"
-    if impl in ("mxu", "ref_mxu"):
-        raise NotImplementedError(
-            f"impl={impl!r}: the bit-plane kernels (bitplane_hamming_pallas, "
-            f"pair_verdict_bitplane_pallas) are not ported yet; see ROADMAP.md "
-            f"Queue 2")
+def resolve_impl(impl: str, device: torch.device, b: int, *,
+                 kernels=("swar",), auto: str = "swar") -> str:
+    """The implementation for tensors on ``device`` with ``b``-bit rows: a
+    CUDA kernel's name (one of ``kernels`` or ``"mxu"``; ``auto`` on CUDA
+    picks ``"mxu"`` at b >= 512, else ``auto``) or a plain version's
+    (``"ref"``, which ``auto`` picks on the CPU, or ``"ref_mxu"``)."""
+    on_cuda = torch.device(device).type == "cuda"
     if impl == "auto":
-        return auto if on_cuda else "ref"
-    if impl in kernels and not on_cuda:
-        raise ValueError(f"impl={impl!r} launches a CUDA kernel; CPU tensors take "
-                         f"impl='ref'")
-    if impl == "ref" and on_cuda:
-        raise ValueError("impl='ref' is the CPU path; CUDA tensors launch the kernel")
-    if impl not in (*kernels, "ref"):
+        if not on_cuda:
+            return "ref"
+        return "mxu" if b >= 512 else auto
+    if impl not in (*kernels, "mxu", "ref", "ref_mxu"):
         raise ValueError(f"unknown impl {impl!r}")
+    if impl in ("ref", "ref_mxu"):
+        if on_cuda:
+            raise ValueError(f"impl={impl!r} is the CPU path; CUDA tensors launch "
+                             f"the kernel")
+    elif not on_cuda:
+        raise ValueError(f"impl={impl!r} launches a CUDA kernel; CPU tensors take "
+                         f"impl='ref' or 'ref_mxu'")
     return impl
 
 
-def _resolve_pairwise_impl(impl: str, device: torch.device) -> str:
+def _resolve_pairwise_impl(impl: str, device: torch.device, b: int) -> str:
     """Pairwise (1-D candidate stream) dispatch: ``auto`` is the
-    candidate-major ``"swar_tiled"`` kernel on CUDA tensors at every b."""
-    return resolve_impl(impl, device, kernels=("swar", "swar_tiled"),
+    candidate-major ``"swar_tiled"`` kernel on CUDA tensors below b = 512
+    and the bit-plane ``"mxu"`` kernel from there on."""
+    return resolve_impl(impl, device, b, kernels=("swar", "swar_tiled"),
                         auto="swar_tiled")
 
 
@@ -67,7 +79,13 @@ def _resolve_entry_impl(impl: str, device: torch.device) -> str:
     the mxu impls map to their elementwise equivalents and ``swar_tiled`` to
     ``swar``, as the reference maps them."""
     impl = {"mxu": "swar", "ref_mxu": "ref", "swar_tiled": "swar"}.get(impl, impl)
-    return resolve_impl(impl, device)
+    return resolve_impl(impl, device, 32)
+
+
+def _planes(words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(int8[N, b] {0, 1} bit planes, int32[N] row popcounts) of packed
+    int32[N, b/32] words: the bit-plane operands."""
+    return bm.unpack_planes(words), bm.popcount_rows(words)
 
 
 def _check_interpret(interpret) -> None:
@@ -87,9 +105,15 @@ def hamming_matrix(
     ``tile`` is accepted for parity with the reference.
     """
     _check_interpret(interpret)
-    if resolve_impl(impl, words_r.device) == "ref":
+    impl = resolve_impl(impl, words_r.device, 32 * words_r.shape[1])
+    if impl == "ref":
         return ref.hamming_matrix_ref(words_r, words_s)
-    return bitmap_filter.hamming_matrix_cuda(words_r, words_s)
+    if impl == "swar":
+        return bitmap_filter.hamming_matrix_cuda(words_r, words_s)
+    (pr, pc_r), (ps, pc_s) = _planes(words_r), _planes(words_s)
+    if impl == "ref_mxu":
+        return ref.bitplane_hamming_ref(pr, ps, pc_r, pc_s)
+    return bitplane.bitplane_hamming_cuda(pr, ps, pc_r, pc_s)
 
 
 def candidate_matrix(
@@ -113,9 +137,21 @@ def candidate_matrix(
     depend on tiling.
     """
     _check_interpret(interpret)
-    impl = resolve_impl(impl, words_r.device)
+    impl = resolve_impl(impl, words_r.device, 32 * words_r.shape[1])
     if table is None:
         table = ref.prune_table_for(sim, tau, len_r, len_s)
+    if impl in ("mxu", "ref_mxu"):
+        # The Hamming matrix from the bit planes, then the elementwise
+        # verdict outside the kernel, as the reference does.
+        ham = hamming_matrix(words_r, words_s, impl=impl)
+        cand = bounds.verdict_from_hamming(
+            ham, len_r.to(torch.int32)[:, None], len_s.to(torch.int32)[None, :],
+            table, sim=sim, cutoff=cutoff)
+        if self_join:
+            dev = words_r.device
+            cand &= (torch.arange(words_r.shape[0], device=dev)[:, None]
+                     < torch.arange(words_s.shape[0], device=dev)[None, :])
+        return cand
     if impl == "ref":
         return ref.candidate_matrix_ref(
             words_r, words_s, len_r, len_s, sim=sim, tau=tau,
@@ -149,13 +185,16 @@ def count_candidates(
 
     Counts exactly what :func:`candidate_matrix` intersected with the
     integer length window (``lo_s``/``hi_s`` per R row) would mark true,
-    without materialising the dense mask.
+    without materialising the dense mask.  The reference has no bit-plane
+    count kernel (its ``mxu``/``ref_mxu`` run its plain version): here
+    ``ref_mxu`` is the plain version and ``mxu`` launches the SWAR count
+    kernel, which gives the same counts.
     """
     _check_interpret(interpret)
-    impl = resolve_impl(impl, words_r.device)
+    impl = resolve_impl(impl, words_r.device, 32 * words_r.shape[1])
     if table is None:
         table = ref.prune_table_for(sim, tau, len_r, len_s)
-    if impl == "ref":
+    if impl in ("ref", "ref_mxu"):
         return ref.count_candidates_ref(
             words_r, words_s, len_r, len_s, lo_s, hi_s, sim=sim, tau=tau,
             self_join=self_join, cutoff=cutoff, window=window,
@@ -222,17 +261,33 @@ def pair_verdict(
     """Pairwise fused bitmap-filter verdict -> bool[G] over gathered
     candidate rows (``words_r[g]`` vs ``words_s[g]``): the test of
     :func:`candidate_matrix` on a candidate list instead of the dense grid.
-    ``swar`` is the word-loop kernel, ``swar_tiled`` (``auto``) the
-    candidate-major one; both equal ``ref`` exactly."""
+    ``swar`` is the word-loop kernel, ``swar_tiled`` (``auto`` below b =
+    512) the candidate-major one, ``mxu`` (``auto`` from b = 512) the
+    bit-plane one, which unpacks and launches at most ``2^20`` candidates
+    at a time; all equal ``ref`` exactly."""
     _check_interpret(interpret)
-    impl = _resolve_pairwise_impl(impl, words_r.device)
+    impl = _resolve_pairwise_impl(impl, words_r.device, 32 * words_r.shape[1])
     if table is None:
         table = ref.prune_table_for(sim, tau, len_r, len_s)
     if impl == "ref":
         return ref.pair_verdict_ref(words_r, words_s, len_r, len_s, sim=sim,
                                     tau=tau, cutoff=cutoff, table=table)
+    len_r, len_s = len_r.to(torch.int32).contiguous(), len_s.to(torch.int32).contiguous()
+    if impl == "ref_mxu":
+        (pr, pc_r), (ps, pc_s) = _planes(words_r), _planes(words_s)
+        ham = ref.bitplane_pair_hamming_ref(pr, ps, pc_r, pc_s)
+        return bounds.verdict_from_hamming(ham, len_r, len_s, table, sim=sim,
+                                           cutoff=cutoff)
+    if impl == "mxu":
+        out = torch.empty(words_r.shape[0], dtype=torch.bool, device=words_r.device)
+        for a in range(0, words_r.shape[0], _MXU_SLICE):
+            z = min(a + _MXU_SLICE, words_r.shape[0])
+            (pr, pc_r), (ps, pc_s) = _planes(words_r[a:z]), _planes(words_s[a:z])
+            out[a:z] = postings.pair_verdict_bitplane_cuda(
+                pr, ps, pc_r, pc_s, len_r[a:z], len_s[a:z], table,
+                key_prod=sim == COSINE, cutoff=cutoff)
+        return out
     kernel = (postings.pair_verdict_tiled_cuda if impl == "swar_tiled"
               else postings.pair_verdict_cuda)
-    return kernel(words_r.contiguous(), words_s.contiguous(),
-                  len_r.to(torch.int32).contiguous(), len_s.to(torch.int32).contiguous(),
+    return kernel(words_r.contiguous(), words_s.contiguous(), len_r, len_s,
                   table, key_prod=sim == COSINE, cutoff=cutoff)

@@ -8,10 +8,15 @@
 * :func:`pair_verdict_tiled_cuda` replaces ``pair_verdict_tiled_pallas``
   (candidate-major: a block's words staged through shared memory, or a
   group of lanes per candidate for wide rows; ``impl="swar_tiled"``, what
-  ``auto`` picks on the card).
+  ``auto`` picks on the card below b = 512).
+* :func:`pair_verdict_bitplane_cuda` replaces
+  ``pair_verdict_bitplane_pallas`` (a per-candidate inner product of int8
+  bit planes; ``impl="mxu"``, what ``auto`` picks at b >= 512).
 
-Their plain versions are :func:`repro_torch.kernels.ref.entry_filter_ref`
-and :func:`repro_torch.kernels.ref.pair_verdict_ref`; callers go through
+Their plain versions are :func:`repro_torch.kernels.ref.entry_filter_ref`,
+:func:`repro_torch.kernels.ref.pair_verdict_ref` and
+:func:`repro_torch.kernels.ref.bitplane_pair_hamming_ref` (plus
+:func:`repro_torch.core.bounds.verdict_from_hamming`); callers go through
 :mod:`repro_torch.kernels.ops`.  Every threshold is the int32 prune
 ``table`` (``bounds.prune_table``), which must cover every key of the
 lengths given (``lr+ls``, or ``lr*ls`` when ``key_prod``).
@@ -25,6 +30,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.bitmap_filter import check_operands
+from repro_torch.kernels.bitplane import check_planes
 
 _C = ctypes.c_void_p
 _I = ctypes.c_int
@@ -134,3 +140,33 @@ def pair_verdict_tiled_cuda(words_r: torch.Tensor, words_s: torch.Tensor,
 
 
 pair_verdict_tiled_cuda.launches = 0
+
+
+def pair_verdict_bitplane_cuda(planes_r: torch.Tensor, planes_s: torch.Tensor,
+                               pc_r: torch.Tensor, pc_s: torch.Tensor,
+                               len_r: torch.Tensor, len_s: torch.Tensor,
+                               table: torch.Tensor, *, key_prod: bool,
+                               cutoff: int) -> torch.Tensor:
+    """bool[G] verdicts of G candidate pairs given as int8[G, b] bit planes
+    on each side, their int32[G] popcounts and int32[G] lengths."""
+    g = planes_r.shape[0] if planes_r.dim() == 2 else -1
+    if planes_s.dim() != 2 or planes_s.shape[0] != g:
+        raise ValueError(f"gathered planes must be [G, b] on both sides, got "
+                         f"{list(planes_r.shape)} and {list(planes_s.shape)}")
+    if g > _MAX_G:
+        raise ValueError(f"G={g} exceeds 2^31 - 1 candidates")
+    check_planes(planes_r, planes_s, (pc_r, g), (pc_s, g), (len_r, g), (len_s, g),
+                 (table, table.shape[0]))
+    out = torch.empty(g, dtype=torch.bool, device=planes_r.device)
+    if g == 0:
+        return out
+    fn = _fn("pair_verdict_bitplane_launch", [_C] * 7 + [_I, _I, _I, _I, _C, _C])
+    _launch(fn, "pair_verdict_bitplane", planes_r.device, planes_r.data_ptr(),
+            planes_s.data_ptr(), pc_r.data_ptr(), pc_s.data_ptr(), len_r.data_ptr(),
+            len_s.data_ptr(), table.data_ptr(), g, planes_r.shape[1], int(key_prod),
+            int(cutoff), out.data_ptr())
+    pair_verdict_bitplane_cuda.launches += 1
+    return out
+
+
+pair_verdict_bitplane_cuda.launches = 0

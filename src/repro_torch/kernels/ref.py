@@ -14,15 +14,36 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import verify
+from repro_torch.core import bounds, verify
 from repro_torch.core.bitmap import hamming_packed, popcount32
 from repro_torch.core.bounds import positional_upper_bound_int
-from repro_torch.core.constants import COSINE
 
 
 # All-pairs Hamming distance, int32[NR, W] x int32[NS, W] -> int32[NR, NS]
 # (one word at a time, so the (NR, NS, W) cross product is never built).
 hamming_matrix_ref = hamming_packed
+
+
+def bitplane_hamming_ref(planes_r: torch.Tensor, planes_s: torch.Tensor,
+                         pc_r: torch.Tensor, pc_s: torch.Tensor) -> torch.Tensor:
+    """All-pairs Hamming distance from {0, 1} int8 bit planes: int8[NR, b] x
+    int8[NS, b] plus int32 row popcounts -> int32[NR, NS] =
+    ``pc_r[:, None] + pc_s[None, :] - 2 * planes_r @ planes_s.T``.
+
+    The inner products go through a float64 matrix product, which is exact
+    here (every partial sum is an integer of at most b < 2^53) and runs on
+    the CPU and the card alike (CUDA has no integer matmul)."""
+    dot = (planes_r.to(torch.float64) @ planes_s.to(torch.float64).T).to(torch.int32)
+    return pc_r.to(torch.int32)[:, None] + pc_s.to(torch.int32)[None, :] - 2 * dot
+
+
+def bitplane_pair_hamming_ref(planes_r: torch.Tensor, planes_s: torch.Tensor,
+                              pc_r: torch.Tensor, pc_s: torch.Tensor) -> torch.Tensor:
+    """Pairwise bit-plane Hamming: int8[G, b] x 2 -> int32[G], the identity
+    ``popcount(x ^ y) = pc(x) + pc(y) - 2 <bits(x), bits(y)>`` per candidate,
+    in int32."""
+    dot = (planes_r.to(torch.int32) * planes_s.to(torch.int32)).sum(-1, dtype=torch.int32)
+    return pc_r.to(torch.int32) + pc_s.to(torch.int32) - 2 * dot
 
 
 def prune_table_for(sim: str, tau: float, len_r: torch.Tensor,
@@ -32,22 +53,6 @@ def prune_table_for(sim: str, tau: float, len_r: torch.Tensor,
     lmax_s = int(len_s.max()) if len_s.numel() else 0
     return verify.prune_table_dev(sim, tau, max(lmax_r, 0), max(lmax_s, 0),
                                   len_r.device)
-
-
-def _table_key(lr: torch.Tensor, ls: torch.Tensor, sim: str) -> torch.Tensor:
-    """The prune table's index: ``lr*ls`` for cosine, ``lr+ls`` otherwise."""
-    return lr.to(torch.int64) * ls if sim == COSINE else lr.to(torch.int64) + ls
-
-
-def verdict_from_hamming(ham: torch.Tensor, lr: torch.Tensor, ls: torch.Tensor,
-                         table: torch.Tensor, *, sim: str, cutoff: int) -> torch.Tensor:
-    """Eq. 2 bound against the prune table, the Alg. 7 cutoff and the
-    positivity test, broadcast over ``lr``/``ls`` (int32)."""
-    ub = torch.minimum((lr + ls - ham).div(2, rounding_mode="floor"),
-                       torch.minimum(lr, ls))
-    passed = ub >= table[_table_key(lr, ls, sim)]
-    cand = passed | (lr > cutoff) | (ls > cutoff)
-    return cand & (lr > 0) & (ls > 0)
 
 
 def candidate_matrix_ref(
@@ -68,7 +73,7 @@ def candidate_matrix_ref(
     ham = hamming_matrix_ref(words_r, words_s)
     lr = len_r.to(torch.int32)[:, None]
     ls = len_s.to(torch.int32)[None, :]
-    cand = verdict_from_hamming(ham, lr, ls, table, sim=sim, cutoff=cutoff)
+    cand = bounds.verdict_from_hamming(ham, lr, ls, table, sim=sim, cutoff=cutoff)
     if self_join:
         cand &= _upper_triangle(words_r.shape[0], words_s.shape[0], words_r.device)
     return cand
@@ -148,7 +153,7 @@ def entry_filter_ref(
     ub = positional_upper_bound_int(lr, ls, pos_r, pos_s)
     ok = (valid & (lr > 0) & (ls > 0)
           & (lr >= lo.to(torch.int32)) & (lr <= hi.to(torch.int32))
-          & (ub >= table[_table_key(lr, ls, sim)]))
+          & (ub >= bounds.min_overlap_gather(sim, table, lr, ls)))
     if self_join:
         ok &= idx_r < idx_s
     return ok
@@ -171,5 +176,5 @@ def pair_verdict_ref(
     if table is None:
         table = prune_table_for(sim, tau, len_r, len_s)
     ham = popcount32(words_r ^ words_s).sum(-1, dtype=torch.int32)
-    return verdict_from_hamming(ham, len_r.to(torch.int32), len_s.to(torch.int32),
-                                table, sim=sim, cutoff=cutoff)
+    return bounds.verdict_from_hamming(ham, len_r.to(torch.int32), len_s.to(torch.int32),
+                                       table, sim=sim, cutoff=cutoff)

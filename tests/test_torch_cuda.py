@@ -16,10 +16,14 @@ import pytest
 import torch
 
 from repro_torch.core import bitmap, bounds, engine, join
+from repro_torch.core.collection import Collection
 from repro_torch.core.constants import COSINE, PAD_TOKEN
+from repro_torch.core.plan import JoinPlan
 from repro_torch.data.collections import skewed_collection, with_duplicates
 from repro_torch.index import indexed_bitmap_join
-from repro_torch.kernels import bitmap_filter, compaction, ops, postings, ref
+from repro_torch.kernels import bitmap_filter, bitplane, compaction, ops, postings, ref
+from repro_torch.serve import JoinSession
+from repro_torch.store import CorpusStore
 
 pytestmark = pytest.mark.cuda
 
@@ -217,3 +221,188 @@ def test_card_indexed_join_matches_cpu_join(dev, impl, capacity):
     assert (gpu[1].overflow_blocks > 0) == (capacity is not None)
     eng = engine.JoinEngine(col, "jaccard", 0.7, device=dev)
     assert eng.plan.compaction == "device"
+
+
+# -- the bit-plane kernels (bitplane_hamming, pair_verdict_bitplane) ----------
+
+def _random_words(n, w, seed, dev):
+    """Uniformly random words (half the bits set) and lengths below 40,
+    every fifth row empty."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 2**32, (n, w), dtype=np.uint32).view(np.int32)
+    lens = rng.integers(0, 40, n).astype(np.int32)
+    lens[::5] = 0
+    return torch.from_numpy(words).to(dev), torch.from_numpy(lens).to(dev)
+
+
+BITPLANE_SHAPES = [(33, 70, 1), (64, 64, 4), (96, 64, 16), (257, 65, 32), (300, 200, 128),
+                   (1000, 999, 32)]
+
+
+@pytest.mark.parametrize("nr,ns,w", BITPLANE_SHAPES)
+@pytest.mark.parametrize("kind", ["sets", "random"])
+def test_bitplane_hamming_kernel_matches_plain_version(dev, nr, ns, w, kind):
+    if kind == "sets":
+        wr, ws, lr, ls = _operands(nr, ns, w, nr + ns + w, dev)
+    else:
+        (wr, lr), (ws, ls) = _random_words(nr, w, nr, dev), _random_words(ns, w, ns + 1, dev)
+    (pr, pc_r), (ps, pc_s) = ops._planes(wr), ops._planes(ws)
+    got = bitplane.bitplane_hamming_cuda(pr, ps, pc_r, pc_s)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, ref.bitplane_hamming_ref(pr, ps, pc_r, pc_s))
+    assert torch.equal(got, bitmap_filter.hamming_matrix_cuda(wr, ws))  # the SWAR kernel
+    assert torch.equal(ops.hamming_matrix(wr, ws, impl="mxu"), got)
+    for sim, tau, self_join, cutoff in (("jaccard", 0.6, False, 1 << 30),
+                                        ("cosine", 0.5, True, 1 << 30),
+                                        ("dice", 0.3, False, 20)):
+        table = ref.prune_table_for(sim, tau, lr, ls)
+        args = (wr, ws, lr, ls, sim, tau, self_join, cutoff)
+        assert torch.equal(ops.candidate_matrix(*args, impl="mxu", table=table),
+                           ops.candidate_matrix(*args, impl="swar", table=table))
+
+
+@pytest.mark.parametrize("lengths", ["all_pass", "all_prune", "empty_rows"])
+def test_bitplane_candidate_matrix_edge_rows(dev, lengths):
+    wr, lr = _random_words(130, 32, 1, dev)
+    ws, ls = _random_words(70, 32, 2, dev)
+    if lengths == "all_pass":     # identical zero bitmaps, equal sizes: ub == |r|
+        wr, ws = torch.zeros_like(wr), torch.zeros_like(ws)
+        lr, ls = torch.full_like(lr, 20), torch.full_like(ls, 20)
+    elif lengths == "all_prune":  # random words, tiny sets: ub < 0
+        lr, ls = torch.full_like(lr, 2), torch.full_like(ls, 2)
+    else:
+        lr[::3] = 0
+        ls[1::4] = 0
+    got = ops.candidate_matrix(wr, ws, lr, ls, "jaccard", 0.8, False, impl="mxu")
+    assert torch.equal(got, ops.candidate_matrix(wr, ws, lr, ls, "jaccard", 0.8, False,
+                                                 impl="swar"))
+    n = int(got.sum())
+    assert {"all_pass": n == got.numel(), "all_prune": n == 0}.get(lengths, True)
+
+
+@pytest.mark.parametrize("g", [5, 100, 1024, 2500, 3000])
+@pytest.mark.parametrize("w", [1, 4, 16, 32, 128])
+def test_pair_verdict_bitplane_kernel_matches_plain_version(dev, g, w):
+    wr, ws, lr, ls = _gathered(g, w, g * w + 1, dev)
+    (pr, pc_r), (ps, pc_s) = ops._planes(wr), ops._planes(ws)
+    ham = ref.bitplane_pair_hamming_ref(pr, ps, pc_r, pc_s)
+    for sim, tau in (("jaccard", 0.7), ("cosine", 0.6), ("dice", 0.75)):
+        table = ref.prune_table_for(sim, tau, lr, ls)
+        for cutoff in (1 << 30, 12):
+            want = bounds.verdict_from_hamming(ham, lr, ls, table, sim=sim, cutoff=cutoff)
+            kw = dict(key_prod=sim == COSINE, cutoff=cutoff)
+            got = postings.pair_verdict_bitplane_cuda(pr, ps, pc_r, pc_s, lr, ls, table, **kw)
+            assert torch.equal(got, want), (sim, cutoff)
+            assert torch.equal(got, postings.pair_verdict_tiled_cuda(wr, ws, lr, ls, table,
+                                                                     **kw))
+
+
+def test_pair_verdict_mxu_slices(dev, monkeypatch):
+    wr, ws, lr, ls = _gathered(2500, 32, 7, dev)
+    want = ops.pair_verdict(wr, ws, lr, ls, "jaccard", 0.6, impl="swar_tiled")
+    monkeypatch.setattr(ops, "_MXU_SLICE", 1024)
+    before = postings.pair_verdict_bitplane_cuda.launches
+    assert torch.equal(ops.pair_verdict(wr, ws, lr, ls, "jaccard", 0.6, impl="mxu"), want)
+    assert postings.pair_verdict_bitplane_cuda.launches == before + 3
+
+
+def test_bitplane_wrappers_reject_bad_operands(dev):
+    wr, ws, lr, ls = _gathered(64, 4, 3, dev)
+    (pr, pc_r), (ps, pc_s) = ops._planes(wr), ops._planes(ws)
+    table = ref.prune_table_for("jaccard", 0.8, lr, ls)
+    kw = dict(key_prod=False, cutoff=1 << 30)
+    with pytest.raises(ValueError):
+        bitplane.bitplane_hamming_cuda(pr.cpu(), ps, pc_r, pc_s)
+    with pytest.raises(ValueError):
+        bitplane.bitplane_hamming_cuda(pr.to(torch.int32), ps, pc_r, pc_s)
+    with pytest.raises(ValueError):
+        bitplane.bitplane_hamming_cuda(pr[:, :48].contiguous(), ps[:, :48].contiguous(),
+                                       pc_r, pc_s)
+    with pytest.raises(ValueError):
+        bitplane.bitplane_hamming_cuda(pr, ps, pc_r.long(), pc_s)
+    misaligned = torch.zeros(pr.numel() + 1, dtype=torch.int8, device=dev)[1:].view(pr.shape)
+    with pytest.raises(ValueError):
+        bitplane.bitplane_hamming_cuda(misaligned, ps, pc_r, pc_s)
+    with pytest.raises(ValueError):
+        postings.pair_verdict_bitplane_cuda(pr, ps[:10], pc_r, pc_s, lr, ls, table, **kw)
+    with pytest.raises(ValueError):
+        postings.pair_verdict_bitplane_cuda(pr, ps, pc_r, pc_s, lr[:10], ls, table, **kw)
+    with pytest.raises(ValueError):
+        ops.pair_verdict(wr, ws, lr, ls, "jaccard", 0.8, impl="ref_mxu")
+
+
+def test_bitplane_launch_counters_and_auto_dispatch(dev):
+    """``auto`` on CUDA tensors is the reference's accelerator rule: the
+    bit-plane kernels from b = 512, the SWAR kernels below."""
+    wr, ws, lr, ls = _operands(70, 50, 32, 1, dev)       # b = 1024
+    gr, gs, glr, gls = _gathered(300, 16, 5, dev)         # b = 512
+    ents, valid = _entries(300, 5, dev)
+    counters = (bitplane.bitplane_hamming_cuda, postings.pair_verdict_bitplane_cuda,
+                bitmap_filter.candidate_matrix_cuda, bitmap_filter.hamming_matrix_cuda,
+                postings.pair_verdict_tiled_cuda, compaction.count_candidates_cuda,
+                postings.entry_filter_cuda)
+    before = [f.launches for f in counters]
+    ops.hamming_matrix(wr, ws)
+    ops.candidate_matrix(wr, ws, lr, ls, "jaccard", 0.8, False)
+    ops.pair_verdict(gr, gs, glr, gls, "jaccard", 0.8)
+    ops.count_candidates(wr, ws, lr, ls, lr, lr, "jaccard", 0.8)   # mxu: the count kernel
+    ops.entry_filter(*ents, valid, "jaccard", 0.8, impl="mxu")     # mxu: swar
+    assert [f.launches - b for f, b in zip(counters, before)] == [2, 1, 0, 0, 0, 1, 1]
+    ops.pair_verdict(gr[:, :8], gs[:, :8], glr, gls, "jaccard", 0.8)  # b = 256: swar_tiled
+    assert postings.pair_verdict_tiled_cuda.launches == before[4] + 1
+
+
+@pytest.mark.parametrize("driver", ["blocked", "indexed"])
+def test_card_join_at_b1024_matches_cpu_join(dev, driver):
+    col = with_duplicates(skewed_collection(n_sets=600, seed=4), n_clusters=30, seed=5)
+    if driver == "blocked":
+        run = lambda d: join.blocked_bitmap_join(col, "jaccard", 0.7, b=1024, block=128,  # noqa: E731
+                                                 compaction="device", return_stats=True,
+                                                 device=d)
+        counter = bitplane.bitplane_hamming_cuda
+    else:
+        run = lambda d: indexed_bitmap_join(col, "jaccard", 0.7, b=1024, probe_block=128,  # noqa: E731
+                                            return_stats=True, device=d)
+        counter = postings.pair_verdict_bitplane_cuda
+    before = counter.launches
+    gpu = run(dev)
+    assert counter.launches > before
+    cpu = run("cpu")
+    assert np.array_equal(gpu[0], cpu[0]) and gpu[1].to_dict() == cpu[1].to_dict()
+    assert np.array_equal(gpu[0], join.naive_join(col, "jaccard", 0.7, device=dev))
+
+
+def test_card_session_at_b1024_matches_cpu_session(dev):
+    """A store-backed session at b = 1024 serves the same tickets on the
+    card as on the CPU, through appends and a compaction, and its probe
+    step runs the bit-plane pairwise verdict."""
+    col = with_duplicates(skewed_collection(n_sets=800, seed=6), n_clusters=40, seed=7)
+    rows = lambda idx: Collection(tokens=col.tokens[idx], lengths=col.lengths[idx])  # noqa: E731
+    rng = np.random.default_rng(8)
+    requests = [rows(rng.integers(0, col.num_sets, rng.integers(1, 4))) for _ in range(60)]
+    base, delta = rows(np.arange(600)), rows(np.arange(600, col.num_sets))
+    plan = JoinPlan(driver="indexed", sim="jaccard", tau=0.7, b=1024, block=4096)
+
+    def serve(d):
+        sess = JoinSession(CorpusStore(base, "jaccard", 0.7, plan=plan, device=d),
+                           max_batch=32, max_wait=0.0)
+        tickets = [sess.submit(r) for r in requests[:30]]
+        sess.flush()
+        sess.append(delta, compact=False)
+        tickets += [sess.submit(r) for r in requests[30:45]]
+        sess.flush()
+        sess.compact()
+        tickets += [sess.submit(r) for r in requests[45:]]
+        sess.flush()
+        return [t.result() for t in tickets], [t.route for t in tickets]
+
+    before = (postings.pair_verdict_bitplane_cuda.launches,
+              postings.pair_verdict_tiled_cuda.launches)
+    gpu, routes = serve(dev)
+    assert postings.pair_verdict_bitplane_cuda.launches > before[0]
+    assert postings.pair_verdict_tiled_cuda.launches == before[1]
+    assert "coalesced" in routes
+    cpu, cpu_routes = serve("cpu")
+    assert routes == cpu_routes
+    for (gp, gs), (cp, cs) in zip(gpu, cpu):
+        assert np.array_equal(gp, cp) and gs == cs

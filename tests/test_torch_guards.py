@@ -29,7 +29,9 @@ from repro_torch.core import bitmap, bounds, engine, expected, join, plan, verif
 from repro_torch.data import collections
 from repro_torch.index import candidates, postings
 from repro_torch.kernels import _build, bitmap_filter, compaction, ops, ref
-from repro_torch.kernels import postings as postings_kernels
+from repro_torch.kernels import bitplane, postings as postings_kernels
+from repro_torch.serve import JoinSession
+from repro_torch.store import CorpusStore
 col = collections.with_duplicates(collections.uniform_collection(60, seed=1),
                                   n_clusters=5, seed=2)
 for mode in ("host", "device"):
@@ -40,6 +42,10 @@ eng = engine.JoinEngine(col, "jaccard", 0.6, device="cpu",
                         planner=plan.JoinPlanner(naive_cells=0, indexed_cells=0))
 assert eng.plan.driver == "indexed"
 assert np.array_equal(eng.self_join(), join.naive_join(col, "jaccard", 0.6, device="cpu"))
+store = CorpusStore(col, "jaccard", 0.6, device="cpu")
+sess = JoinSession(store, max_wait=0.0)
+sess.append(col, compact=False)
+assert len(sess.probe(col)[0]) >= col.num_sets
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 print("BAD", bad)

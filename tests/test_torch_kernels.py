@@ -148,9 +148,17 @@ def test_cpu_tensors_never_launch_the_kernel():
 
 @pytest.mark.parametrize("impl", ["mxu", "ref_mxu"])
 def test_bitplane_impls_are_not_ported_yet(impl):
+    """The bit-plane impls are ported: on CPU tensors ``mxu`` (a CUDA
+    kernel) raises and ``ref_mxu`` (its plain version) equals ``ref``."""
     wr, ws, lr, ls = (_t(a) for a in _operands((8, 8, 4, "random"), seed=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.candidate_matrix(wr, ws, lr, ls, "jaccard", 0.8, False, impl=impl)
+    if impl == "mxu":
+        with pytest.raises(ValueError, match="CUDA kernel"):
+            tops.candidate_matrix(wr, ws, lr, ls, "jaccard", 0.8, False, impl=impl)
+        return
+    for sj in (False, True):
+        assert torch.equal(
+            tops.candidate_matrix(wr, ws, lr, ls, "jaccard", 0.8, sj, impl=impl),
+            tops.candidate_matrix(wr, ws, lr, ls, "jaccard", 0.8, sj, impl="ref"))
 
 
 def test_unknown_impl_and_interpret_raise():

@@ -211,11 +211,14 @@ def test_engine_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         engine.self_join()
 
-    class CorpusStore:  # stands in for repro.store's appendable corpus
-        num_sets = 3
+    # A corpus store is ported now: the engine adopts its plan and device.
+    from repro_torch.store import CorpusStore
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tengine.JoinEngine(CorpusStore(), device="cpu")
+    store = CorpusStore(ct, "jaccard", 0.5, device="cpu")
+    adopted = tengine.JoinEngine(store)
+    assert adopted.store is store and adopted.plan == store.plan
+    assert adopted.device.type == "cpu" and adopted.prepared is store.base.prepared
+    assert np.array_equal(adopted.self_join(), store.self_join())
 
 
 def test_engine_without_a_device_needs_a_card(monkeypatch):

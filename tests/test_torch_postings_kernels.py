@@ -145,11 +145,14 @@ def test_dispatch_on_cpu_tensors():
             tops.entry_filter(*ent, "dice", 0.6, impl=impl)
     with pytest.raises(ValueError, match="CUDA kernel"):
         tops.hamming_matrix(wr, ws, impl="swar")
-    for impl in ("mxu", "ref_mxu"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
-            tops.pair_verdict(wr, ws, lr, ls, "dice", 0.6, impl=impl)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
-            tops.hamming_matrix(wr, ws, impl=impl)
+    # The bit-plane impls: mxu is a CUDA kernel, ref_mxu equals ref.
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        tops.pair_verdict(wr, ws, lr, ls, "dice", 0.6, impl="mxu")
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        tops.hamming_matrix(wr, ws, impl="mxu")
+    assert torch.equal(tops.pair_verdict(wr, ws, lr, ls, "dice", 0.6, impl="ref_mxu"), want_v)
+    assert torch.equal(tops.hamming_matrix(wr, ws, impl="ref_mxu"),
+                       tref.hamming_matrix_ref(wr, ws))
     with pytest.raises(ValueError, match="unknown impl"):
         tops.hamming_matrix(wr, ws, impl="swar_tiled")
     with pytest.raises(ValueError, match="interpret"):
