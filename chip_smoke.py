@@ -59,6 +59,22 @@ Phases (any failure raises, so the script exits non-zero):
    these paths' shapes (a 4096 x 4096 block pair of the store's words, the
    first coalesced batch's candidates) beside their plain versions, their
    bounds and a PyTorch yardstick.
+9. Flash-attention parity: ``flash_attention`` against its plain version on
+   the same card tensors (TF32 off, both flags printed), causal and not,
+   Sq != Sk, lengths 1 to 1,000, GQA groups 1, 3, 4 and 8, head dims 16,
+   32, 64 and 128, float32 (rtol = atol = 2e-5) and bf16 (1e-2).
+10. Full size, LM serving: qwen3-8b at its published widths and depth (36
+   layers, d_model 4,096, 32/8 heads of 128, d_ff 12,288, vocab 151,936;
+   f32 parameters drawn on the card from ``--seed``, bf16 compute), 4
+   requests of 4,096 seeded prompt tokens, ``greedy_generate`` of 32
+   tokens (prefill and decode timed, tokens/s, peak memory).  The prefill
+   must launch ``flash_attention`` once a layer; the prefill's and each
+   decode step's logits must be within 5% relative RMS of
+   ``Model.forward`` over the same tokens (teacher-forced), and the same
+   check must fail when the cache is read one position off; the kernel
+   must equal its plain version at layer 0's captured q, k, v, where it is
+   then timed beside its plain version, its bound and
+   ``scaled_dot_product_attention``.
 
 Each path's kernel launch counters are zeroed just before it and read just
 after (launches of the comparison runs inside the serving phase are taken
@@ -79,6 +95,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -96,6 +113,7 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 PEAK_INT8_TENSOR_OPS_PER_S = 1.979e15   # dense int8 tensor-core rate
+PEAK_BF16_TENSOR_OPS_PER_S = 989e12     # dense bf16 tensor-core rate
 VERDICT_OPS = 10   # per pair: 2 positivity + 2 cutoff tests, sum, sub, shift, 2 min, compare
 WINDOW_OPS = 4     # per pair: two window compares and their conjunction, the triangle
 ENTRY_OPS = 16     # per entry: 5 compares, 4 for the positional bound, key, compare, triangle, 4 ands
@@ -105,6 +123,22 @@ SKEWED_TAUS = (0.8, 0.6)
 WIDE_B = 1024      # the wide-bitmap paths (phases 7-8)
 SERVE = dict(requests=2048, flush_every=512, append_after=1024, after_compact=256,
              delta_rows=2000, sample_per_flush=64)
+# The LM serving phase: qwen3-8b at its published widths and depth, 4
+# requests of 4,096 prompt tokens, 32 greedy tokens.
+LM = dict(arch="qwen3-8b", batch=4, prompt=4096, gen=32)
+# Flash attention, kernel against its plain version on the same card
+# tensors.  float32: ROADMAP's value for this function.  bf16: both round p
+# to bf16 before PV, each against its own running maximum (the kernel's
+# 64-key tiles are not the plain version's chunks), and both round the
+# output to bf16, so outputs of order 1 may differ by a couple of bf16
+# ulps (2^-8 each).
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+# Teacher-forced logits against Model.forward, as the relative RMS error of
+# each step's (B, V) logits: every bf16 matmul rounds its output (2^-9
+# relative), and decode (M = B rows, attention in PyTorch) rounds in other
+# places than the forward pass (M = B * S rows, the flash kernel), over 36
+# layers.  The same check must fail when the cache is read one position off.
+LOGITS_REL_TOL = 0.05
 
 
 def log(msg: str) -> None:
@@ -157,6 +191,16 @@ def max_err(got: torch.Tensor, want: torch.Tensor) -> int:
     if got.numel() == 0:
         return 0
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def max_err_float(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest absolute difference of two float tensors of one shape and type."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"shape/dtype {got.dtype}{list(got.shape)} != "
+                             f"{want.dtype}{list(want.shape)}")
+    if got.numel() == 0:
+        return 0.0
+    return float((got.double() - want.double()).abs().max())
 
 
 def phase_build() -> float:
@@ -1074,6 +1118,186 @@ def phase_bitplane_timing(store_words, serve_call) -> list[dict]:
     ]
 
 
+def flash_close(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """The largest absolute error of the kernel's output against its plain
+    version's; raises unless |got - want| <= tol * (1 + |want|) everywhere,
+    tol by type (``FLASH_TOL``)."""
+    err = max_err_float(got, want)
+    tol = FLASH_TOL[want.dtype]
+    diff = (got.double() - want.double()).abs()
+    over = int((diff > tol * (1 + want.double().abs())).sum())
+    if over or not torch.isfinite(got).all():
+        raise AssertionError(f"flash_attention != plain version: {what}: {over} elements "
+                             f"beyond rtol = atol = {tol}, max |err| {err:.3g}")
+    return err
+
+
+def phase_flash_parity(seed: int) -> None:
+    """flash_attention_cuda against flash_attention_ref on the same card
+    tensors: causal and not, Sq != Sk, odd lengths, GQA groups 1, 3, 4 and
+    8, every supported head dim, float32 and bf16."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"flash parity: torch.backends.cuda.matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32}, torch.backends.cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32}")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    cases = [  # sq, sk, causal, group (H / KV), KV
+        (1, 1, True, 1, 2), (63, 63, True, 3, 2), (100, 100, True, 4, 2),
+        (1000, 1000, True, 8, 1), (64, 200, True, 4, 2), (200, 64, True, 3, 1),
+        (100, 37, False, 8, 2), (1, 1000, False, 1, 3)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in fa.HEAD_DIMS:
+            worst = 0.0
+            for sq, sk, causal, g, kv in cases:
+                q, k, v = (torch.randn((2, n, heads, d), generator=gen, device="cuda").to(dtype)
+                           for n, heads in ((sq, g * kv), (sk, kv), (sk, kv)))
+                got = fa.flash_attention_cuda(q, k, v, causal=causal)
+                want = ref.flash_attention_ref(q, k, v, causal=causal, triangle=True)
+                what = f"{dtype} D={d} Sq={sq} Sk={sk} causal={causal} H={g * kv} KV={kv}"
+                worst = max(worst, flash_close(got, want, what))
+            torch.cuda.synchronize()
+            log(f"flash parity {str(dtype).split('.')[-1]} D={d}: {len(cases)} shapes (Sq, Sk "
+                f"in 1..1000, groups 1/3/4/8, causal and not) within rtol = atol = "
+                f"{FLASH_TOL[dtype]}, max |err| {worst:.3g}")
+
+
+def rel_rms(got: torch.Tensor, want: torch.Tensor) -> float:
+    """||got - want|| / ||want|| in float32."""
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
+def phase_lm(seed: int) -> tuple[dict, tuple, float]:
+    """The LM serving path at full width: qwen3-8b on seeded weights,
+    ``greedy_generate`` of LM["gen"] tokens after LM["batch"] prompts of
+    LM["prompt"] tokens, checked teacher-forced against ``Model.forward``,
+    with the off-by-one negative control.  Returns the path's launches,
+    layer 0's (q, k, v) as the prefill handed them to the kernel, and the
+    kernel's error against its plain version there."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models import DecodeEngine, Model
+    from repro_torch.models.generate import greedy_generate
+
+    cfg = configs.get(LM["arch"])
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    log(f"full size, LM serving: {cfg.name}, {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, qk_norm {cfg.qk_norm}; {model.num_params():,} {cfg.param_dtype} "
+        f"parameters ({torch.cuda.memory_allocated() / 1e9:.2f} GB) drawn on the card from "
+        f"seed {seed} in {time.perf_counter() - t0:.2f} s (set-up); compute {cfg.dtype}")
+    engine = DecodeEngine(model)
+    b, p, n = LM["batch"], LM["prompt"], LM["gen"]
+    rng = np.random.default_rng(seed + 70)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, p)).astype(np.int32)).to(dev)
+    max_len = p + n
+
+    # The path: the counter zeroed just before, read just after.
+    fa.flash_attention_cuda.launches = 0
+    out = greedy_generate(engine, prompt, n, max_len=max_len)
+    launches = {"flash_attention": fa.flash_attention_cuda.launches}
+    peak = torch.cuda.max_memory_allocated()
+    if launches["flash_attention"] != cfg.num_layers:
+        raise AssertionError(f"flash_attention launched {launches['flash_attention']} times "
+                             f"in a prefill of {cfg.num_layers} layers")
+    log(f"LM serving: {b} requests x {p} prompt tokens, max_len {max_len}: prefill "
+        f"{out.prefill_s:.3f} s ({b * p / out.prefill_s:.1f} tokens/s); {n - 1} decode steps "
+        f"{out.decode_s:.3f} s ({1e3 * out.decode_s / (n - 1):.2f} ms a step, "
+        f"{b * (n - 1) / out.decode_s:.1f} tokens/s); flash_attention launches "
+        f"{launches['flash_attention']}; peak memory {peak / 1e9:.2f} GB "
+        f"(torch.cuda.max_memory_allocated); first request's tokens "
+        f"{out.tokens[0, :8].tolist()}...")
+
+    with torch.inference_mode():
+        # Teacher-forced: the forward pass over the prompt and every token
+        # that decode was fed.
+        full = torch.cat([prompt, out.tokens[:, :-1]], dim=1)
+        fa.flash_attention_cuda.launches = 0
+        t0 = time.perf_counter()
+        want, _ = model({"tokens": full})
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        if fa.flash_attention_cuda.launches != cfg.num_layers:
+            raise AssertionError(f"Model.forward launched flash_attention "
+                                 f"{fa.flash_attention_cuda.launches} times")
+        errs = [rel_rms(lg, want[:, p - 1 + t]) for t, lg in enumerate(out.logits)]
+        agree = int((want[:, p - 1:].argmax(-1) == out.tokens).sum())
+        if not all(np.isfinite(errs)) or max(errs) > LOGITS_REL_TOL:
+            raise AssertionError(f"teacher-forced logits beyond {LOGITS_REL_TOL}: {errs}")
+        rms = float(want[:, p - 1:].float().pow(2).mean().sqrt())
+        log(f"LM serving: Model.forward over {full.shape[1]} tokens {fwd_s:.3f} s; logits "
+            f"{list(want.shape)} {want.dtype}, RMS {rms:.4f} at the compared positions; "
+            f"relative RMS error of the prefill's and each decode step's logits against it: "
+            f"max {max(errs):.5f}, mean {float(np.mean(errs)):.5f} (tolerance "
+            f"{LOGITS_REL_TOL}); greedy picks = forward argmax at {agree} of {out.tokens.numel()}")
+
+        # Layer 0's q, k, v as a prefill hands them to the kernel; the
+        # negative control decodes from the same prefill's cache.
+        calls = []
+        with capture_calls(fa, "flash_attention_cuda", calls):
+            _, cache = engine.prefill(model, {"tokens": prompt}, max_len=max_len,
+                                      last_only=True)
+        (qkv, kw), = calls[:1]
+        del calls
+        got = fa.flash_attention_cuda(*qkv, **kw)
+        err = flash_close(got, ref.flash_attention_ref(*qkv, **kw), "layer 0 of the prefill")
+        log(f"flash_attention at layer 0's q {list(qkv[0].shape)}, k/v {list(qkv[1].shape)} "
+            f"{qkv[0].dtype}: within rtol = atol = {FLASH_TOL[qkv[0].dtype]} of the plain "
+            f"version, max |err| {err:.4g}")
+
+        cache["cur"] -= 1   # the cache read one position off
+        bad = []
+        for t in range(n - 1):
+            lg, cache = engine.decode_step(model, cache, {"tokens": out.tokens[:, t:t + 1]})
+            bad.append(rel_rms(lg[:, -1], want[:, p + t]))
+        if max(bad) <= LOGITS_REL_TOL:
+            raise AssertionError(f"the off-by-one cache passed the logits check: {bad}")
+        log(f"LM serving negative control: decoding with the cache read one position off "
+            f"(cur - 1) fails the same check, as it must: relative RMS error max "
+            f"{max(bad):.5f}, min {min(bad):.5f}, {sum(e > LOGITS_REL_TOL for e in bad)} of "
+            f"{len(bad)} steps beyond {LOGITS_REL_TOL}")
+    return launches, qkv, err
+
+
+def phase_flash_timing(qkv: tuple, err: float) -> dict:
+    """flash_attention timed at layer 0's operands of the LM prefill beside
+    its plain version, its bound and scaled_dot_product_attention."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    q, k, v = qkv
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True), 50)
+    plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 5)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                         enable_gqa=True), 50)
+    pairs = sum(min(i + 1, sk) for i in range(sq))     # (q, k) pairs left by the mask
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bound = bound_ms(nbytes, 4 * b * h * d * pairs, PEAK_BF16_TENSOR_OPS_PER_S)
+    log(f"timing at B={b} S={sq} H={h} KV={k.shape[2]} D={d} {q.dtype} causal (layer 0 of "
+        f"the prefill): flash_attention {ms:.4f} ms (plain {plain:.3f} ms, bound "
+        f"{bound[0]:.4f} ms by {bound[1]}, {4 * b * h * d * pairs / 1e9:.1f} GFLOP and "
+        f"{nbytes / 1e6:.1f} MB; scaled_dot_product_attention {lib:.4f} ms)")
+    return kernel_row("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+                      "src/repro/kernels/flash_attention.py:93", err=err, ms=ms,
+                      plain_ms=plain, bound=bound, library_ms=lib,
+                      path=f"full size, LM serving: {LM['arch']} prefill of "
+                           f"{LM['batch']} x {LM['prompt']:,} tokens")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1110,6 +1334,14 @@ def main(argv=None) -> int:
     launches["bitplane_hamming"] = store_launches["bitplane_hamming"]
     launches["pair_verdict_bitplane"] = serve_launches["pair_verdict_bitplane"]
     kernels += phase_bitplane_timing(store_words, serve_call)
+    # The LM phases need the card's memory: release the join phases' tensors.
+    del store_words, serve_call
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_flash_parity(args.seed)
+    lm_launches, qkv, flash_err = phase_lm(args.seed)
+    launches.update(lm_launches)
+    kernels.append(phase_flash_timing(qkv, flash_err))
     for k in kernels:
         k["launches"] = launches[k["name"]]
     log(smi_line())

@@ -1,0 +1,19 @@
+"""qwen3-8b [dense] — qk_norm, GQA [hf:Qwen/Qwen3-8B; hf].
+
+36L d_model=4096 32H (GQA kv=8) d_ff=12288 vocab=151936; qk-norm on.
+"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-8b",
+    family="dense",
+    num_layers=36,
+    d_model=4096,
+    d_ff=12288,
+    vocab_size=151936,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    qk_norm=True,
+    rope_theta=1e6,
+).validate()

@@ -25,6 +25,10 @@ lengths when omitted).
 * ``"ref"`` / ``"ref_mxu"`` — the plain versions (packed-word and
   bit-plane); raise on CUDA tensors (compare against the plain version on
   the card by calling :mod:`repro_torch.kernels.ref`).
+
+:func:`flash_attention`, the LM scaffold's entry, has its own two impls:
+``"cuda"`` (the kernel; ``auto`` on CUDA tensors) and ``"ref"`` (the plain
+version; ``auto`` on CPU tensors), each raising on the other device.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from repro_torch.core import bitmap as bm
 from repro_torch.core import bounds
 from repro_torch.core.constants import COSINE
 from repro_torch.kernels import bitmap_filter, bitplane, compaction, postings, ref
+from repro_torch.kernels import flash_attention as flash_kernel
 
 _TILE = 256
 _TILE_1D = 1024
@@ -291,3 +296,39 @@ def pair_verdict(
               else postings.pair_verdict_cuda)
     return kernel(words_r.contiguous(), words_s.contiguous(), len_r, len_s,
                   table, key_prod=sim == COSINE, cutoff=cutoff)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    impl: str = "auto",
+    q_chunk: int = 512,
+    kv_chunk: int = 512,
+    triangle: bool = False,
+) -> torch.Tensor:
+    """GQA attention forward -> (B, Sq, H, D) in q's type, for q (B, Sq, H,
+    D) and k, v (B, Sk, KV, D).
+
+    ``impl="auto"`` launches the CUDA kernel on CUDA tensors and runs the
+    plain version on CPU tensors; ``"cuda"`` raises on CPU tensors and
+    ``"ref"`` on CUDA tensors.  ``q_chunk``, ``kv_chunk`` and ``triangle``
+    shape only the plain version's blocks (the kernel has its own tiles);
+    the result does not depend on them beyond float rounding.
+    """
+    on_cuda = q.device.type == "cuda"
+    if impl == "auto":
+        impl = "cuda" if on_cuda else "ref"
+    if impl == "cuda":
+        if not on_cuda:
+            raise ValueError("impl='cuda' launches the CUDA kernel; CPU tensors take "
+                             "impl='ref'")
+        return flash_kernel.flash_attention_cuda(q, k, v, causal=causal)
+    if impl == "ref":
+        if on_cuda:
+            raise ValueError("impl='ref' is the CPU path; CUDA tensors launch the kernel")
+        return ref.flash_attention_ref(q, k, v, causal=causal, q_chunk=q_chunk,
+                                       kv_chunk=kv_chunk, triangle=triangle)
+    raise ValueError(f"unknown impl {impl!r}")

@@ -2,8 +2,10 @@
 
 Twins of ``repro.kernels.ref``: the CPU path runs them, the tests hold them
 against the JAX package, and ``chip_smoke.py`` holds each CUDA kernel
-against them on the card.  Nothing on the CUDA join path calls them.  All
-outputs are integers or bools, so every comparison is exact.
+against them on the card.  Nothing on the CUDA join path calls them.  The
+join kernels' outputs are integers or bools, so those comparisons are
+exact; :func:`flash_attention_ref` is floating point and is compared with a
+tolerance.
 
 The verdict's float32 prune test is replaced by the integer
 :func:`repro_torch.core.bounds.prune_table` (``table``); when a caller
@@ -178,3 +180,78 @@ def pair_verdict_ref(
     ham = popcount32(words_r ^ words_s).sum(-1, dtype=torch.int32)
     return bounds.verdict_from_hamming(ham, len_r.to(torch.int32), len_s.to(torch.int32),
                                        table, sim=sim, cutoff=cutoff)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention forward (the LM scaffold's prefill attention)
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def flash_chunks(sq: int, sk: int, q_chunk: int = 512, kv_chunk: int = 512) -> tuple[int, int]:
+    """The chunk rule of ``repro.models.layers.flash_attention``: at most
+    ``q_chunk`` query rows (and at least 16 chunks once S >= 1024), at most
+    ``kv_chunk`` keys, each halved until it divides its length."""
+    q_chunk = min(q_chunk, sq, max(sq // 16, 64))
+    kv_chunk = min(kv_chunk, sk)
+    while sq % q_chunk:
+        q_chunk //= 2
+    while sk % kv_chunk:
+        kv_chunk //= 2
+    return q_chunk, kv_chunk
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, q_chunk: int = 512, kv_chunk: int = 512,
+                        triangle: bool = False) -> torch.Tensor:
+    """GQA attention forward, blockwise with an online softmax: the plain
+    version of ``flash_attention_cuda``.
+
+    q: (B, Sq, H, D); k, v: (B, Sk, KV, D) with H % KV == 0; query head h
+    reads KV head h // (H / KV).  Scores are ``(q . k) * D^-0.5``, masked to
+    -1e30 above the diagonal when ``causal`` (positions from 0 on both
+    sides).  The twin of ``repro.models.layers._flash_fwd`` with the TPU
+    kernel's cast points: q and k go to float32 before the product, p goes
+    to v's type before PV, sums are float32, and the output takes q's type.
+    In float32 this is the reference's jnp path; in bf16 it rounds where the
+    kernel rounds.  ``triangle`` skips the blocks above the diagonal, which
+    contribute exactly nothing.
+    """
+    b, sq, h, d = q.shape
+    _, sk, kv, _ = k.shape
+    if h % kv or k.shape != v.shape:
+        raise ValueError(f"GQA needs H % KV == 0 and k, v alike: q {list(q.shape)}, "
+                         f"k {list(k.shape)}, v {list(v.shape)}")
+    g = h // kv
+    q_chunk, kv_chunk = flash_chunks(sq, sk, q_chunk, kv_chunk)
+    scale = d ** -0.5
+    qf = q.float().reshape(b, sq, kv, g, d)
+    kf = k.float()
+    out = torch.empty((b, sq, kv, g, d), dtype=q.dtype, device=q.device)
+    for q0 in range(0, sq, q_chunk):
+        q_blk = qf[:, q0:q0 + q_chunk]
+        q_pos = torch.arange(q0, q0 + q_chunk, device=q.device)
+        o = torch.zeros((b, kv, g, q_chunk, d), dtype=torch.float32, device=q.device)
+        m = torch.full((b, kv, g, q_chunk), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, kv, g, q_chunk), dtype=torch.float32, device=q.device)
+        for k0 in range(0, sk, kv_chunk):
+            if triangle and causal and k0 > q0 + q_chunk - 1:
+                break
+            s = torch.einsum("bqkgd,bckd->bkgqc", q_blk, kf[:, k0:k0 + kv_chunk]) * scale
+            if causal:
+                k_pos = torch.arange(k0, k0 + kv_chunk, device=q.device)
+                s = torch.where(q_pos[:, None] >= k_pos[None, :], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            # p rounds to v's type; the product of two such values is exact
+            # in float32, so a float32 product accumulates as the kernel does.
+            pv = torch.einsum("bkgqc,bckd->bkgqd", p.to(v.dtype).float(),
+                              v[:, k0:k0 + kv_chunk].float())
+            o = o * alpha[..., None] + pv
+            m = m_new
+        o = (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+        out[:, q0:q0 + q_chunk] = o.permute(0, 3, 1, 2, 4)
+    return out.reshape(b, sq, h, d)

@@ -1,0 +1,163 @@
+"""Shared neural layers: RMSNorm, RoPE, GQA attention (prefill + decode
+paths), SwiGLU MLP.  The port of ``repro.models.layers``, forward only.
+
+Attention has two forms:
+
+* :func:`flash_attention` — blockwise online-softmax attention, used by the
+  forward pass and prefill.  On CUDA tensors it launches the hand-written
+  kernel (``kernels/csrc/flash_attention.cu``); on CPU tensors it runs the
+  plain version (``kernels.ref.flash_attention_ref``), the blockwise twin
+  of the reference's ``_flash_fwd``.  The backward is the training slice's
+  (ROADMAP Queue 1 item 13): an input that requires grad raises.
+* :func:`decode_attention` — one-token attention against the KV cache,
+  plain PyTorch as it is jnp in the reference.
+
+The reference's sharding hooks (``constrain``, ``attn_partition``) are
+no-ops without a mesh and are left out; multi-GPU is ROADMAP Queue 1 item 11.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG_INF
+
+
+# ---------------------------------------------------------------------------
+# Norms / MLP
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    g = x @ w_gate.to(x.dtype)
+    u = x @ w_up.to(x.dtype)
+    return (F.silu(g) * u) @ w_down.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exponents)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)                           # (D/2,)
+    angles = positions[..., :, None, None].to(torch.float32) * freqs       # (..., S, 1, D/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_chunk: int = 512,
+    kv_chunk: int = 512,
+    triangle_schedule: bool = False,
+) -> torch.Tensor:
+    """Blockwise attention, forward only.
+
+    q: (B, Sq, H, D); k, v: (B, Sk, KV, D); GQA via H % KV == 0.  The (S, S)
+    score matrix is never materialised.  ``q_chunk``, ``kv_chunk`` and
+    ``triangle_schedule`` keep the reference's signature and shape only the
+    plain version's blocks (the CUDA kernel tiles by 64 and always skips the
+    blocks above the diagonal).
+    """
+    if q.requires_grad or k.requires_grad or v.requires_grad:
+        raise NotImplementedError(
+            "flash_attention is forward only in the port: its backward comes with "
+            "the training slice (ROADMAP Queue 1 item 13)")
+    return ops.flash_attention(q, k, v, causal=causal, q_chunk=q_chunk,
+                               kv_chunk=kv_chunk, triangle=triangle_schedule)
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    cur_len: torch.Tensor,
+) -> torch.Tensor:
+    """One-token attention. q: (B, 1, H, D); caches: (B, S, KV, D); the
+    first ``cur_len[b]`` positions of row b are attended."""
+    b, _, h, d = q.shape
+    _, s, kv, _ = k_cache.shape
+    g = h // kv
+    scale = d ** -0.5
+    qh = q.reshape(b, kv, g, d)
+    scores = torch.einsum("bkgd,bskd->bkgs", qh, k_cache).float() * scale
+    mask = torch.arange(s, device=q.device)[None, :] < cur_len[:, None]   # (B, S)
+    scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgs,bskd->bkgd", (p / l).to(v_cache.dtype), v_cache)
+    return out.reshape(b, 1, h, d)
+
+
+def attention_block(
+    x: torch.Tensor,
+    params: dict,
+    *,
+    num_heads: int,
+    num_kv_heads: int,
+    head_dim: int,
+    rope_theta: float,
+    qk_norm: bool,
+    norm_eps: float,
+    positions: Optional[torch.Tensor] = None,
+    kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    q_chunk: int = 512,
+    kv_chunk: int = 512,
+    triangle_schedule: bool = False,
+) -> torch.Tensor:
+    """Self-attention (or cross-attention when ``kv_override`` is given).
+
+    params: wq (D, H*hd), wk (D, KV*hd), wv (D, KV*hd), wo (H*hd, D)
+            [+ q_norm (hd,), k_norm (hd,) when qk_norm].
+    """
+    b, s, _ = x.shape
+    h, kvh, hd = num_heads, num_kv_heads, head_dim
+    q = (x @ params["wq"].to(x.dtype)).reshape(b, s, h, hd)
+    if kv_override is None:
+        k = (x @ params["wk"].to(x.dtype)).reshape(b, s, kvh, hd)
+        v = (x @ params["wv"].to(x.dtype)).reshape(b, s, kvh, hd)
+        causal = True
+    else:
+        k, v = kv_override
+        causal = False
+    if qk_norm:
+        q = rms_norm(q, params["q_norm"], norm_eps)
+        k = rms_norm(k, params["k_norm"], norm_eps)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    if kv_override is None:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    out = flash_attention(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                          triangle_schedule=triangle_schedule)
+    return out.reshape(b, s, h * hd) @ params["wo"].to(x.dtype)

@@ -8,7 +8,11 @@ machine that has only PyTorch:
 
 (``--noconftest``: the suite's conftest imports the JAX package.)
 
-All outputs are integers or bools: the comparisons are exact.
+The join kernels' outputs are integers or bools: those comparisons are
+exact.  The flash-attention kernel is held against its plain version on
+the same card tensors at rtol = atol = 2e-5 in float32 and 1e-2 in bf16
+(both round p to bf16 against their own running maxima, and round the
+output to bf16).
 """
 
 import numpy as np
@@ -21,7 +25,11 @@ from repro_torch.core.constants import COSINE, PAD_TOKEN
 from repro_torch.core.plan import JoinPlan
 from repro_torch.data.collections import skewed_collection, with_duplicates
 from repro_torch.index import indexed_bitmap_join
+from repro_torch import configs
 from repro_torch.kernels import bitmap_filter, bitplane, compaction, ops, postings, ref
+from repro_torch.kernels import flash_attention as flash_kernel
+from repro_torch.models import DecodeEngine, Model
+from repro_torch.models.generate import greedy_generate
 from repro_torch.serve import JoinSession
 from repro_torch.store import CorpusStore
 
@@ -406,3 +414,82 @@ def test_card_session_at_b1024_matches_cpu_session(dev):
     assert routes == cpu_routes
     for (gp, gs), (cp, cs) in zip(gpu, cpu):
         assert np.array_equal(gp, cp) and gs == cs
+
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.fixture
+def exact_f32(dev):
+    """float32 products in full float32 (no TF32) for the flash comparisons."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield dev
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("sq,sk,causal,group,kv", [
+    (1, 1, True, 1, 2), (63, 63, True, 3, 2), (100, 100, True, 4, 2), (64, 200, True, 8, 1),
+    (200, 64, True, 3, 1), (100, 37, False, 8, 2), (1, 300, False, 1, 3)])
+def test_flash_attention_kernel_matches_plain_version(exact_f32, dtype, d, sq, sk, causal,
+                                                      group, kv):
+    gen = torch.Generator(device=exact_f32).manual_seed(sq + sk + d)
+    q, k, v = (torch.randn((2, n, heads, d), generator=gen, device=exact_f32).to(dtype)
+               for n, heads in ((sq, group * kv), (sk, kv), (sk, kv)))
+    got = flash_kernel.flash_attention_cuda(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+def test_flash_attention_wrapper_rejects_bad_operands(dev):
+    q = torch.randn((1, 8, 4, 16), device=dev)
+    k = torch.randn((1, 8, 2, 16), device=dev)
+    with pytest.raises(ValueError):
+        flash_kernel.flash_attention_cuda(q.cpu(), k, k)
+    with pytest.raises(ValueError):
+        flash_kernel.flash_attention_cuda(q, torch.randn((1, 8, 3, 16), device=dev), k)
+    with pytest.raises(ValueError):
+        flash_kernel.flash_attention_cuda(q[..., :8].contiguous(), k[..., :8].contiguous(),
+                                          k[..., :8].contiguous())
+    with pytest.raises(ValueError):
+        flash_kernel.flash_attention_cuda(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError):
+        flash_kernel.flash_attention_cuda(q.transpose(1, 2), k, k)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, k, impl="ref")
+
+
+def test_flash_attention_launch_counter_and_dispatch(dev):
+    q = torch.randn((1, 8, 4, 16), device=dev)
+    k = torch.randn((1, 8, 2, 16), device=dev)
+    before = flash_kernel.flash_attention_cuda.launches
+    ops.flash_attention(q, k, k)
+    ops.flash_attention(q, k, k, impl="cuda")
+    assert flash_kernel.flash_attention_cuda.launches == before + 2
+
+
+@pytest.mark.parametrize("name", configs.ARCHS)
+def test_card_serving_matches_cpu_serving(exact_f32, name):
+    """The reduced configs (float32) on the card against the same weights
+    on the CPU: prefill runs the kernel once a layer, and the logits of
+    forward, prefill and greedy decode agree at 1e-4."""
+    cfg = configs.get_reduced(name)
+    cpu = Model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    card = Model(cfg, device=exact_f32)
+    card.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 24)).astype(np.int32))
+    before = flash_kernel.flash_attention_cuda.launches
+    got = greedy_generate(DecodeEngine(card), tokens.to(exact_f32), 6)
+    assert flash_kernel.flash_attention_cuda.launches == before + cfg.num_layers
+    want = greedy_generate(DecodeEngine(cpu), tokens, 6)
+    assert torch.equal(got.tokens.cpu(), want.tokens)
+    for g, w in zip(got.logits, want.logits):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+    with torch.inference_mode():
+        torch.testing.assert_close(card({"tokens": tokens.to(exact_f32)})[0].cpu(),
+                                   cpu({"tokens": tokens})[0], rtol=1e-4, atol=1e-4)

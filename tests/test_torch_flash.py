@@ -1,0 +1,168 @@
+"""The port's attention and layer functions against the JAX package's, on
+the CPU.
+
+The port's ``layers.flash_attention`` runs its plain version here
+(``kernels.ref.flash_attention_ref``; the CUDA kernel is held against it on
+the card in ``tests/test_torch_cuda.py``).  In float32 it must equal
+``repro.models.layers.flash_attention`` at rtol = atol = 2e-5 on the shapes
+of the reference's own flash tests; the other layers at 1e-5 (the same
+float32 arithmetic, summed in another order).
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.models import layers as JL
+from repro_torch.kernels import ops, ref
+from repro_torch.models import layers as TL
+
+F32_TOL = dict(rtol=2e-5, atol=2e-5)
+LAYER_TOL = dict(rtol=1e-5, atol=1e-5)
+
+# b, sq, sk, h, kv, d, causal, q_chunk, kv_chunk: the five cases of
+# tests/test_flash_attention.py and the three of tests/test_kernels.py.
+SHAPES = [
+    (2, 16, 16, 4, 2, 8, True, 4, 4),
+    (1, 32, 32, 6, 3, 16, True, 8, 16),
+    (2, 16, 24, 4, 4, 8, False, 4, 8),
+    (1, 64, 64, 2, 1, 8, True, 16, 16),
+    (1, 24, 40, 8, 2, 4, False, 8, 8),
+    (2, 64, 64, 4, 2, 16, True, 16, 16),
+    (1, 128, 128, 6, 3, 32, True, 16, 16),
+    (2, 32, 64, 4, 4, 16, False, 16, 16),
+]
+
+
+def _qkv(rng, b, sq, sk, h, kv, d):
+    return (rng.normal(size=(b, sq, h, d)).astype(np.float32),
+            rng.normal(size=(b, sk, kv, d)).astype(np.float32),
+            rng.normal(size=(b, sk, kv, d)).astype(np.float32))
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,qc,kc", SHAPES)
+def test_flash_attention_matches_reference(b, sq, sk, h, kv, d, causal, qc, kc):
+    q, k, v = _qkv(np.random.default_rng(b + sq + h), b, sq, sk, h, kv, d)
+    want = JL.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal=causal, q_chunk=qc, kv_chunk=kc)
+    got = TL.flash_attention(*_t(q, k, v), causal=causal, q_chunk=qc, kv_chunk=kc)
+    assert got.dtype == torch.float32 and got.shape == (b, sq, h, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+
+
+@pytest.mark.parametrize("sq,sk,causal", [(33, 33, True), (100, 100, True), (24, 40, False),
+                                          (1, 7, False)])
+def test_flash_attention_at_the_reference_chunk_rule(sq, sk, causal):
+    """Lengths that are not powers of two go through the halving chunk rule
+    (``flash_chunks``) on both sides; the triangle schedule changes nothing."""
+    q, k, v = _qkv(np.random.default_rng(sq), 2, sq, sk, 4, 2, 16)
+    want = np.asarray(JL.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                         causal=causal))
+    for triangle in (False, True):
+        got = TL.flash_attention(*_t(q, k, v), causal=causal, triangle_schedule=triangle)
+        np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+
+
+def test_flash_chunks_follow_the_reference_rule():
+    assert ref.flash_chunks(4096, 4096) == (256, 512)
+    assert ref.flash_chunks(24, 40) == (24, 40)
+    assert ref.flash_chunks(100, 100) == (4, 100)
+    assert ref.flash_chunks(33, 7, 4, 4) == (1, 1)
+
+
+def test_flash_attention_bf16_rounds_where_the_kernel_rounds():
+    """In bf16 the plain version widens q and k, rounds p to bf16 and sums in
+    float32: it stays within two bf16 ulps (2^-7) of float32 attention over
+    the same bf16 values."""
+    q, k, v = _t(*_qkv(np.random.default_rng(5), 2, 64, 64, 8, 2, 32))
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    got = ref.flash_attention_ref(q, k, v, causal=True, q_chunk=16, kv_chunk=16)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want.numpy(), rtol=1e-2, atol=1e-2)
+
+
+def test_flash_attention_is_forward_only():
+    q, k, v = _t(*_qkv(np.random.default_rng(0), 1, 8, 8, 2, 1, 8))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+        TL.flash_attention(q.requires_grad_(), k, v)
+
+
+def test_flash_attention_dispatch_never_falls_back():
+    q, k, v = _t(*_qkv(np.random.default_rng(0), 1, 8, 8, 2, 1, 8))
+    with pytest.raises(ValueError, match="impl='cuda'"):
+        ops.flash_attention(q, k, v, impl="cuda")
+    with pytest.raises(ValueError, match="unknown impl"):
+        ops.flash_attention(q, k, v, impl="mxu")
+    assert torch.equal(ops.flash_attention(q, k, v, impl="ref"),
+                       ops.flash_attention(q, k, v))
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 64), (3, 4, 2, 16)])
+def test_rms_norm_matches_reference(shape):
+    rng = np.random.default_rng(len(shape))
+    x = rng.normal(size=shape).astype(np.float32)
+    scale = rng.normal(size=shape[-1:]).astype(np.float32)
+    want = JL.rms_norm(jnp.asarray(x), jnp.asarray(scale), 1e-6)
+    got = TL.rms_norm(*_t(x, scale), 1e-6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LAYER_TOL)
+
+
+@pytest.mark.parametrize("theta,positions", [(1e4, "arange"), (1e6, "arange"),
+                                             (1e6, "per_row")])
+def test_apply_rope_matches_reference(theta, positions):
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(2, 12, 4, 16)).astype(np.float32)
+    pos = (np.arange(12)[None, :] if positions == "arange"
+           else rng.integers(0, 64, (2, 12))).astype(np.int32)
+    np.testing.assert_allclose(TL.rope_frequencies(16, theta).numpy(),
+                               np.asarray(JL.rope_frequencies(16, theta)), rtol=1e-7)
+    want = JL.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta)
+    got = TL.apply_rope(*_t(x, pos), theta)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LAYER_TOL)
+
+
+def test_swiglu_matches_reference():
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(2, 6, 32)).astype(np.float32)
+    w = [(rng.normal(size=s) * 0.2).astype(np.float32) for s in ((32, 48), (32, 48), (48, 32))]
+    want = JL.swiglu(jnp.asarray(x), *map(jnp.asarray, w))
+    got = TL.swiglu(*_t(x, *w))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LAYER_TOL)
+
+
+@pytest.mark.parametrize("kv", [1, 2, 4])
+def test_decode_attention_matches_reference(kv):
+    rng = np.random.default_rng(kv)
+    q = rng.normal(size=(3, 1, 4, 16)).astype(np.float32)
+    kc = rng.normal(size=(3, 20, kv, 16)).astype(np.float32)
+    vc = rng.normal(size=(3, 20, kv, 16)).astype(np.float32)
+    cur = np.array([1, 13, 20], np.int32)
+    want = JL.decode_attention(*map(jnp.asarray, (q, kc, vc, cur)))
+    got = TL.decode_attention(*_t(q, kc, vc, cur))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LAYER_TOL)
+
+
+@pytest.mark.parametrize("qk_norm", [False, True])
+def test_attention_block_matches_reference(qk_norm):
+    rng = np.random.default_rng(11)
+    d, h, kv, hd = 32, 4, 2, 8
+    x = rng.normal(size=(2, 16, d)).astype(np.float32)
+    params = {"wq": rng.normal(size=(d, h * hd)), "wk": rng.normal(size=(d, kv * hd)),
+              "wv": rng.normal(size=(d, kv * hd)), "wo": rng.normal(size=(h * hd, d))}
+    params = {n: (a / np.sqrt(a.shape[0])).astype(np.float32) for n, a in params.items()}
+    if qk_norm:
+        params["q_norm"] = rng.normal(size=(hd,)).astype(np.float32)
+        params["k_norm"] = rng.normal(size=(hd,)).astype(np.float32)
+    kw = dict(num_heads=h, num_kv_heads=kv, head_dim=hd, rope_theta=1e6, qk_norm=qk_norm,
+              norm_eps=1e-6, q_chunk=8, kv_chunk=8)
+    want = JL.attention_block(jnp.asarray(x), jax.tree.map(jnp.asarray, params), **kw)
+    got = TL.attention_block(torch.from_numpy(x),
+                             {n: torch.from_numpy(a) for n, a in params.items()}, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)

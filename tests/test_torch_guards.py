@@ -24,6 +24,7 @@ ROOT = Path(__file__).resolve().parents[1]
 _CHILD = r"""
 import sys
 import numpy as np
+import torch
 import repro_torch, repro_torch.core
 from repro_torch.core import bitmap, bounds, engine, expected, join, plan, verify
 from repro_torch.data import collections
@@ -32,6 +33,13 @@ from repro_torch.kernels import _build, bitmap_filter, compaction, ops, ref
 from repro_torch.kernels import bitplane, postings as postings_kernels
 from repro_torch.serve import JoinSession
 from repro_torch.store import CorpusStore
+from repro_torch import configs
+from repro_torch.configs import shapes
+from repro_torch.kernels import flash_attention
+from repro_torch.models import DecodeEngine, Model, convert, generate
+model = Model(configs.get_reduced("qwen3-8b"), device="cpu")
+out = generate.greedy_generate(DecodeEngine(model), torch.arange(12).reshape(2, 6), 3)
+assert out.tokens.shape == (2, 3)
 col = collections.with_duplicates(collections.uniform_collection(60, seed=1),
                                   n_clusters=5, seed=2)
 for mode in ("host", "device"):
