@@ -7,7 +7,8 @@ Phases (any failure raises, so the script exits non-zero):
 
 1. Device and build: the card's name and power limit, torch and CUDA
    versions, and the time to build every CUDA kernel (one ``nvcc`` per
-   source, all started together).
+   source, all started together), with each source's own build time and
+   ptxas' registers, spills and warnings.
 2. Kernel parity: each of the six packed-word kernels against its plain PyTorch version
    on the card, over a sweep (odd sizes, W in {1, 4, 8, 12, 128}, self-join,
    cosine keys, the cutoff hit and not, empty rows, invalid entries) and at
@@ -58,36 +59,53 @@ Phases (any failure raises, so the script exits non-zero):
    warm-up, across the append.  Then both bit-plane kernels are timed at
    these paths' shapes (a 4096 x 4096 block pair of the store's words, the
    first coalesced batch's candidates) beside their plain versions, their
-   bounds and a PyTorch yardstick.
+   bounds and a PyTorch yardstick (``bitplane_hamming`` also beside the
+   ``torch._int_mm`` product alone, in turns, with its TOP/s and share of
+   its bound).
 9. Flash-attention parity: ``flash_attention`` against its plain version on
    the same card tensors (TF32 off, both flags printed), causal and not,
-   Sq != Sk, lengths 1 to 1,000, GQA groups 1, 3, 4 and 8, head dims 16,
-   32, 64 and 128, float32 (rtol = atol = 2e-5) and bf16 (1e-2).
+   Sq != Sk, lengths 1 to 1,000 and the wgmma instance's 128-row tile edges
+   (127, 128, 129, 255, 257), GQA groups 1, 3, 4 and 8, head dims 16, 32,
+   64 and 128, float32 (rtol = atol = 2e-5) and bf16 (1e-2), and one batch
+   of a qwen3-8b layer (S = 4,096, 32/8 heads of 128).
 10. Full size, LM serving: qwen3-8b at its published widths and depth (36
    layers, d_model 4,096, 32/8 heads of 128, d_ff 12,288, vocab 151,936;
    f32 parameters drawn on the card from ``--seed``, bf16 compute), 4
    requests of 4,096 seeded prompt tokens, ``greedy_generate`` of 32
    tokens (prefill and decode timed, tokens/s, peak memory).  The prefill
-   must launch ``flash_attention`` once a layer; the prefill's and each
-   decode step's logits must be within 5% relative RMS of
-   ``Model.forward`` over the same tokens (teacher-forced), and the same
-   check must fail when the cache is read one position off; the kernel
-   must equal its plain version at layer 0's captured q, k, v, where it is
-   then timed beside its plain version, its bound and
-   ``scaled_dot_product_attention``.
+   must launch ``flash_attention`` once a layer, each time its wgmma
+   instance; the prefill's and each decode step's logits must be within 5%
+   relative RMS of ``Model.forward`` over the same tokens (teacher-forced),
+   and the same check must fail when the cache is read one position off;
+   the kernel must equal its plain version at layer 0's captured q, k, v,
+   where it is then timed beside its plain version, its bound (with its
+   TFLOP/s and share of it) and ``scaled_dot_product_attention``.
+11. The flash kernel's mma.sync instance (bf16 at head dims 16 and 32, which
+   no full-width config has): the reduced qwen3-8b config in bf16 (head_dim
+   16) serves 2 prompts of 200 tokens and 8 greedy tokens, once a layer
+   through that instance, teacher-forced against ``Model.forward``; the
+   kernel equals its plain version at layer 0's operands and at qwen3-8b's
+   layer shape with head_dim 32, where it is timed.
+
+Kernel times are device times: CUDA events around 50 (20 for attention)
+back-to-back launches, a spin kernel queued first so that the host's
+launch work stays out of them, the median of 3 such runs (this script
+once timed each call alone, host launch work included; the two
+tensor-core kernels print that time too).
 
 Each path's kernel launch counters are zeroed just before it and read just
 after (launches of the comparison runs inside the serving phase are taken
 out); every kernel the path runs must have launched, and at b = 1024 the
-packed-word ``candidate_matrix`` and ``pair_verdict_tiled`` must not.  The two kernels no
-full-size path runs are driven through their entry points in phase 3
-(``pair_verdict`` by the indexed join under ``impl="swar"``,
-``hamming_matrix`` by ``ops.hamming_matrix``), each read the same way; the
-``path`` key of each kernel names the run its ``launches`` come from.  The last three lines
-of standard output are the card's name and power limit, the
-``{"kernels": [...]}`` record and the ``{"ok": true, ...}`` result.  Exits
-non-zero without a result when no CUDA device is available.  Data is made
-from ``--seed``; nothing is downloaded.
+packed-word ``candidate_matrix`` and ``pair_verdict_tiled`` must not.  The
+two kernels no full-size path runs are driven through their entry points
+in phase 3 (``pair_verdict`` by the indexed join under ``impl="swar"``,
+``hamming_matrix`` by ``ops.hamming_matrix``), and the flash kernel's
+mma.sync instance by phase 11's reduced model, each read the same way; the
+``path`` key of each kernel names the run its ``launches`` come from.  The
+last three lines of standard output are the card's name and power limit,
+the ``{"kernels": [...]}`` record and the ``{"ok": true, ...}`` result.
+Exits non-zero without a result when no CUDA device is available.  Data is
+made from ``--seed``; nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -114,6 +132,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 PEAK_INT8_TENSOR_OPS_PER_S = 1.979e15   # dense int8 tensor-core rate
 PEAK_BF16_TENSOR_OPS_PER_S = 989e12     # dense bf16 tensor-core rate
+# Cycles of torch.cuda._sleep a second, above the H100's 1.98 GHz boost
+# clock, so the spin outlasts the host's queueing at any clock.
+SPIN_CYCLES_PER_S = 3e9
 VERDICT_OPS = 10   # per pair: 2 positivity + 2 cutoff tests, sum, sub, shift, 2 min, compare
 WINDOW_OPS = 4     # per pair: two window compares and their conjunction, the triangle
 ENTRY_OPS = 16     # per entry: 5 compares, 4 for the positional bound, key, compare, triangle, 4 ands
@@ -152,8 +173,37 @@ def smi_line() -> str:
     return out.stdout.strip()
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn()`` on the card, each call timed alone."""
+def cuda_ms(fn, iters: int, warmup: int = 2, reps: int = 3) -> float:
+    """Device milliseconds of one ``fn()``: CUDA events around ``iters``
+    back-to-back calls, over the count; the median of ``reps`` such runs.
+    A spin kernel queued first holds the card until the host has queued
+    every call, so host launch overhead stays out of the time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(int(enqueue_s * SPIN_CYCLES_PER_S) + 10_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def call_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Median milliseconds of ``fn()`` timed alone between two events: the
+    device time plus whatever host work before its launch leaves the card
+    idle (how this script timed kernels before it measured device time)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -211,10 +261,11 @@ def phase_build() -> float:
     t0 = time.perf_counter()
     libs = _build.build()
     seconds = time.perf_counter() - t0
-    log(f"built {sorted(libs)} in {seconds:.2f} s")
+    log(f"built {sorted(libs)} in {seconds:.2f} s, one nvcc per source in parallel: " +
+        ", ".join(f"{n} {s:.2f} s" for n, s in sorted(_build.BUILD_SECONDS.items())))
     for name in libs:
         for line in (_build.build_dir() / f"lib{name}.log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "warning", "Compiling entry")):
                 log(f"  {name}: {line.strip()}")
     return seconds
 
@@ -317,7 +368,7 @@ def phase_dense_kernels(seed: int, main_prep) -> list[dict]:
     # Yardstick: one PyTorch call computing the same Hamming matrix from the
     # unpacked bits (float planes; p = 0 counts the differing coordinates).
     fr, fs = (bm.unpack_bits(w).float() for w in (wr, ws))
-    lib_h = cuda_ms(lambda: torch.cdist(fr, fs, p=0), 50)
+    lib_h = cuda_ms(lambda: torch.cdist(fr, fs, p=0), 10)
     if not torch.equal(torch.cdist(fr, fs, p=0).to(torch.int32),
                        bitmap_filter.hamming_matrix_cuda(wr, ws)):
         raise AssertionError("torch.cdist(p=0) disagrees with hamming_matrix")
@@ -367,6 +418,8 @@ def capture_calls(module, name: str, into: list):
         return orig(*args, **kw)
 
     wrapper.launches = 0
+    if hasattr(orig, "instance_launches"):
+        wrapper.instance_launches = dict.fromkeys(orig.instance_launches, 0)
     setattr(module, name, wrapper)
     try:
         yield
@@ -1061,19 +1114,30 @@ def phase_bitplane_timing(store_words, serve_call) -> list[dict]:
     err_h = max(err_h, max_err(torch.cdist(fr, fs, p=0).to(torch.int32), got))
     if err_h:
         raise AssertionError(f"bitplane_hamming at {blk}x{blk}: error {err_h}")
-    ms_h = cuda_ms(lambda: bitplane.bitplane_hamming_cuda(pr, ps, pc_r, pc_s), 50)
+    hamming = lambda: bitplane.bitplane_hamming_cuda(pr, ps, pc_r, pc_s)  # noqa: E731
+    product = lambda: torch._int_mm(pr, ps.T)  # noqa: E731
+    ms_h, mm_h = cuda_ms(hamming, 50), cuda_ms(product, 50)
     plain_h = cuda_ms(lambda: ref.bitplane_hamming_ref(pr, ps, pc_r, pc_s), 10)
-    lib_h = cuda_ms(lambda: torch.cdist(fr, fs, p=0), 50)
-    mm_h = cuda_ms(lambda: torch._int_mm(pr, ps.T), 50)
+    lib_h = cuda_ms(lambda: torch.cdist(fr, fs, p=0), 10)
     swar_h = cuda_ms(lambda: bitmap_filter.hamming_matrix_cuda(wr, ws), 50)
+    # Kernel and product again, in turns, and each call timed alone (host
+    # launch work included, as this script once timed every kernel).
+    ms_h2, mm_h2 = cuda_ms(hamming, 50), cuda_ms(product, 50)
+    call_h, call_mm = call_ms(hamming, 50), call_ms(product, 50)
     del fr, fs
     b = pr.shape[1]
-    b_h = bound_ms((2 * blk) * (b + 4) + 4 * blk * blk, 2 * blk * blk * b,
-                   PEAK_INT8_TENSOR_OPS_PER_S)
-    log(f"timing at {blk}x{blk} b={b} (the store's words): bitplane_hamming {ms_h:.4f} ms "
-        f"(plain {plain_h:.3f} ms, bound {b_h[0]:.4f} ms by {b_h[1]}, torch.cdist(p=0) "
-        f"{lib_h:.4f} ms, torch._int_mm product alone {mm_h:.4f} ms, SWAR hamming_matrix "
-        f"{swar_h:.4f} ms), exact")
+    nbytes, ops_h = (2 * blk) * (b + 4) + 4 * blk * blk, 2 * blk * blk * b
+    b_h = bound_ms(nbytes, ops_h, PEAK_INT8_TENSOR_OPS_PER_S)
+    log(f"timing at {blk}x{blk} b={b} (the store's words), device time of back-to-back "
+        f"launches: bitplane_hamming {ms_h:.4f} / {ms_h2:.4f} ms ({ops_h / ms_h / 1e9:.1f} "
+        f"TOP/s int8, {nbytes / ms_h / 1e6:.1f} GB/s of its {nbytes / 1e6:.1f} MB, "
+        f"{b_h[0] / ms_h:.1%} of its bound {b_h[0]:.4f} ms by {b_h[1]}); torch._int_mm "
+        f"product alone {mm_h:.4f} / {mm_h2:.4f} ms; plain {plain_h:.3f} ms; "
+        f"torch.cdist(p=0) {lib_h:.4f} ms; SWAR hamming_matrix {swar_h:.4f} ms; each call "
+        f"timed alone: bitplane_hamming {call_h:.4f} ms, torch._int_mm {call_mm:.4f} ms; exact")
+    if min(ms_h, ms_h2) > max(mm_h, mm_h2):
+        log(f"note: bitplane_hamming ({ms_h:.4f} / {ms_h2:.4f} ms) is slower than the "
+            f"torch._int_mm product alone ({mm_h:.4f} / {mm_h2:.4f} ms) in this run")
 
     (words_r, words_s, len_r, len_s), kw = serve_call
     sim, cutoff, table = kw["sim"], kw["cutoff"], kw["table"]
@@ -1111,7 +1175,7 @@ def phase_bitplane_timing(store_words, serve_call) -> list[dict]:
                    "src/repro/kernels/bitplane.py:41", err=err_h, ms=ms_h, plain_ms=plain_h,
                    bound=b_h, library_ms=lib_h,
                    path=f"full size, store on the blocked path at b={WIDE_B}: ZIPF tau=0.8")
-        | {"library_product_ms": mm_h},
+        | {"library_product_ms": mm_h, "call_ms": call_h},
         kernel_row("pair_verdict_bitplane", src + "postings.cu",
                    "src/repro/kernels/postings.py:271", err=err_v, ms=ms_v, plain_ms=plain_v,
                    bound=b_v, path=f"full size, serving at b={WIDE_B}: SKEWED tau=0.8"),
@@ -1148,7 +1212,13 @@ def phase_flash_parity(seed: int) -> None:
     cases = [  # sq, sk, causal, group (H / KV), KV
         (1, 1, True, 1, 2), (63, 63, True, 3, 2), (100, 100, True, 4, 2),
         (1000, 1000, True, 8, 1), (64, 200, True, 4, 2), (200, 64, True, 3, 1),
-        (100, 37, False, 8, 2), (1, 1000, False, 1, 3)]
+        (100, 37, False, 8, 2), (1, 1000, False, 1, 3),
+        # the wgmma instance's 128-row q and 128-key K/V tile edges, Sq != Sk
+        # both ways, groups 1, 3, 4 and 8, causal and not
+        (127, 127, True, 1, 2), (128, 128, False, 3, 1), (129, 129, True, 4, 2),
+        (255, 257, True, 8, 1), (257, 255, False, 1, 2), (128, 257, True, 3, 1),
+        (257, 128, True, 4, 1), (129, 255, False, 8, 1), (255, 129, True, 3, 2),
+        (257, 257, False, 4, 1)]
     for dtype in (torch.float32, torch.bfloat16):
         for d in fa.HEAD_DIMS:
             worst = 0.0
@@ -1160,9 +1230,18 @@ def phase_flash_parity(seed: int) -> None:
                 what = f"{dtype} D={d} Sq={sq} Sk={sk} causal={causal} H={g * kv} KV={kv}"
                 worst = max(worst, flash_close(got, want, what))
             torch.cuda.synchronize()
-            log(f"flash parity {str(dtype).split('.')[-1]} D={d}: {len(cases)} shapes (Sq, Sk "
-                f"in 1..1000, groups 1/3/4/8, causal and not) within rtol = atol = "
+            log(f"flash parity {str(dtype).split('.')[-1]} D={d} ({fa.instance(dtype, d)} "
+                f"instance): {len(cases)} shapes (Sq, Sk in 1..1000 and on the 128-row tile "
+                f"edges, groups 1/3/4/8, causal and not) within rtol = atol = "
                 f"{FLASH_TOL[dtype]}, max |err| {worst:.3g}")
+    # One batch of a qwen3-8b layer at full length.
+    q, k, v = (torch.randn((1, 4096, heads, 128), generator=gen, device="cuda")
+               .to(torch.bfloat16) for heads in (32, 8, 8))
+    err = flash_close(fa.flash_attention_cuda(q, k, v, causal=True),
+                      ref.flash_attention_ref(q, k, v, causal=True, triangle=True),
+                      "B=1 S=4096 H=32 KV=8 D=128 causal")
+    log(f"flash parity bf16 B=1 S=4096 H=32 KV=8 D=128 causal: within rtol = atol = "
+        f"{FLASH_TOL[torch.bfloat16]}, max |err| {err:.3g}")
 
 
 def rel_rms(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1201,14 +1280,17 @@ def phase_lm(seed: int) -> tuple[dict, tuple, float]:
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, p)).astype(np.int32)).to(dev)
     max_len = p + n
 
-    # The path: the counter zeroed just before, read just after.
-    fa.flash_attention_cuda.launches = 0
+    # The path: the counters zeroed just before, read just after.
+    fa.reset_launches()
     out = greedy_generate(engine, prompt, n, max_len=max_len)
-    launches = {"flash_attention": fa.flash_attention_cuda.launches}
+    launches = {"flash_attention": fa.flash_attention_cuda.instance_launches["wgmma"]}
     peak = torch.cuda.max_memory_allocated()
-    if launches["flash_attention"] != cfg.num_layers:
-        raise AssertionError(f"flash_attention launched {launches['flash_attention']} times "
-                             f"in a prefill of {cfg.num_layers} layers")
+    if launches["flash_attention"] != cfg.num_layers or (
+            fa.flash_attention_cuda.launches != cfg.num_layers):
+        raise AssertionError(f"flash_attention launched {fa.flash_attention_cuda.launches} "
+                             f"times ({fa.flash_attention_cuda.instance_launches}) in a "
+                             f"prefill of {cfg.num_layers} layers; every launch must be the "
+                             f"wgmma instance")
     log(f"LM serving: {b} requests x {p} prompt tokens, max_len {max_len}: prefill "
         f"{out.prefill_s:.3f} s ({b * p / out.prefill_s:.1f} tokens/s); {n - 1} decode steps "
         f"{out.decode_s:.3f} s ({1e3 * out.decode_s / (n - 1):.2f} ms a step, "
@@ -1268,6 +1350,17 @@ def phase_lm(seed: int) -> tuple[dict, tuple, float]:
     return launches, qkv, err
 
 
+def flash_bound(q: torch.Tensor, k: torch.Tensor, causal: bool = True):
+    """FLOPs (4 D a (q, k) pair the mask leaves), bytes (q, o, k, v once) and
+    the bound at the bf16 tensor rate."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    flops = 4 * b * h * d * pairs
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return flops, nbytes, bound_ms(nbytes, flops, PEAK_BF16_TENSOR_OPS_PER_S)
+
+
 def phase_flash_timing(qkv: tuple, err: float) -> dict:
     """flash_attention timed at layer 0's operands of the LM prefill beside
     its plain version, its bound and scaled_dot_product_attention."""
@@ -1278,24 +1371,106 @@ def phase_flash_timing(qkv: tuple, err: float) -> dict:
 
     q, k, v = qkv
     b, sq, h, d = q.shape
-    sk = k.shape[1]
-    ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True), 50)
-    plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 5)
+    kernel = lambda: fa.flash_attention_cuda(q, k, v, causal=True)  # noqa: E731
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                         enable_gqa=True), 50)
-    pairs = sum(min(i + 1, sk) for i in range(sq))     # (q, k) pairs left by the mask
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    bound = bound_ms(nbytes, 4 * b * h * d * pairs, PEAK_BF16_TENSOR_OPS_PER_S)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,  # noqa: E731
+                                                  enable_gqa=True)
+    ms, lib = cuda_ms(kernel, 20), cuda_ms(sdpa, 20)
+    plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 3)
+    ms2, lib2 = cuda_ms(kernel, 20), cuda_ms(sdpa, 20)
+    call = call_ms(kernel, 20)
+    flops, nbytes, bound = flash_bound(q, k)
     log(f"timing at B={b} S={sq} H={h} KV={k.shape[2]} D={d} {q.dtype} causal (layer 0 of "
-        f"the prefill): flash_attention {ms:.4f} ms (plain {plain:.3f} ms, bound "
-        f"{bound[0]:.4f} ms by {bound[1]}, {4 * b * h * d * pairs / 1e9:.1f} GFLOP and "
-        f"{nbytes / 1e6:.1f} MB; scaled_dot_product_attention {lib:.4f} ms)")
+        f"the prefill), device time of back-to-back launches: flash_attention (wgmma) "
+        f"{ms:.4f} / {ms2:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {bound[0] / ms:.1%} of its "
+        f"bound {bound[0]:.4f} ms by {bound[1]}: {flops / 1e9:.1f} GFLOP and "
+        f"{nbytes / 1e6:.1f} MB); scaled_dot_product_attention {lib:.4f} / {lib2:.4f} ms "
+        f"({flops / lib / 1e9:.1f} TFLOP/s); plain {plain:.3f} ms; the kernel timed alone "
+        f"{call:.4f} ms")
     return kernel_row("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
                       "src/repro/kernels/flash_attention.py:93", err=err, ms=ms,
                       plain_ms=plain, bound=bound, library_ms=lib,
                       path=f"full size, LM serving: {LM['arch']} prefill of "
-                           f"{LM['batch']} x {LM['prompt']:,} tokens")
+                           f"{LM['batch']} x {LM['prompt']:,} tokens (wgmma instance)")
+
+
+def phase_flash_mma_sync(seed: int) -> tuple[dict, dict]:
+    """The mma.sync instance (bf16 at head dims 16 and 32, which no
+    full-width config has) through the serving path: the reduced qwen3-8b
+    config in bf16 (head_dim 16), ``greedy_generate`` of 8 tokens after 2
+    prompts of 200, teacher-forced against ``Model.forward``.  Then the
+    kernel against its plain version at layer 0's captured operands, and
+    timed at qwen3-8b's layer shape with head_dim 32.  Returns the path's
+    launches and the kernel's row."""
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models import DecodeEngine, Model
+    from repro_torch.models.generate import greedy_generate
+
+    cfg = configs.get_reduced(LM["arch"], dtype="bfloat16")
+    dev = torch.device("cuda")
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    engine = DecodeEngine(model)
+    rng = np.random.default_rng(seed + 71)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 200)).astype(np.int32)).to(dev)
+    n = 8
+    fa.reset_launches()
+    out = greedy_generate(engine, prompt, n, max_len=200 + n)
+    launches = {"flash_attention_mma_sync": fa.flash_attention_cuda.instance_launches["mma_sync"]}
+    if launches["flash_attention_mma_sync"] != cfg.num_layers or (
+            fa.flash_attention_cuda.launches != cfg.num_layers):
+        raise AssertionError(f"the reduced bf16 prefill launched flash_attention "
+                             f"{fa.flash_attention_cuda.instance_launches}; expected "
+                             f"{cfg.num_layers} mma_sync launches")
+    with torch.inference_mode():
+        full = torch.cat([prompt, out.tokens[:, :-1]], dim=1)
+        want, _ = model({"tokens": full})
+        errs = [rel_rms(lg, want[:, 199 + t]) for t, lg in enumerate(out.logits)]
+        if not all(np.isfinite(errs)) or max(errs) > LOGITS_REL_TOL:
+            raise AssertionError(f"reduced bf16 teacher-forced logits beyond "
+                                 f"{LOGITS_REL_TOL}: {errs}")
+        calls = []
+        with capture_calls(fa, "flash_attention_cuda", calls):
+            engine.prefill(model, {"tokens": prompt}, max_len=200 + n, last_only=True)
+        (qkv, kw), = calls[:1]
+        err = flash_close(fa.flash_attention_cuda(*qkv, **kw),
+                          ref.flash_attention_ref(*qkv, **kw), "reduced bf16 layer 0")
+    log(f"reduced {cfg.name} in bf16 ({cfg.num_layers} layers, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads of {cfg.head_dim}): 2 x 200 prompt tokens, {n} greedy "
+        f"tokens; mma_sync launches {launches['flash_attention_mma_sync']}; teacher-forced "
+        f"logits max relative RMS error {max(errs):.5f}; kernel at layer 0's q "
+        f"{list(qkv[0].shape)} within {FLASH_TOL[torch.bfloat16]} of its plain version, "
+        f"max |err| {err:.4g}")
+    del model, engine, out, want
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 72)
+    q, k, v = (torch.randn((LM["batch"], LM["prompt"], heads, 32), generator=gen, device=dev)
+               .to(torch.bfloat16) for heads in (32, 8, 8))
+    err = max(err, flash_close(fa.flash_attention_cuda(q, k, v, causal=True),
+                               ref.flash_attention_ref(q, k, v, causal=True, triangle=True),
+                               "mma_sync at B=4 S=4096 H=32 KV=8 D=32"))
+    kernel = lambda: fa.flash_attention_cuda(q, k, v, causal=True)  # noqa: E731
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ms = cuda_ms(kernel, 10)
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                         enable_gqa=True), 10)
+    plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 3)
+    flops, nbytes, bound = flash_bound(q, k)
+    log(f"timing at B={LM['batch']} S={LM['prompt']} H=32 KV=8 D=32 bf16 causal: "
+        f"flash_attention (mma_sync) {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{bound[0] / ms:.1%} of its bound {bound[0]:.4f} ms by {bound[1]}); "
+        f"scaled_dot_product_attention {lib:.4f} ms; plain {plain:.3f} ms")
+    row = kernel_row("flash_attention_mma_sync",
+                     "src/repro_torch/kernels/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:93", err=err, ms=ms, plain_ms=plain,
+                     bound=bound, library_ms=lib,
+                     path=f"reduced {LM['arch']} in bf16 (head_dim {cfg.head_dim}): prefill "
+                          f"of 2 x 200 tokens; timed at B={LM['batch']} S={LM['prompt']} "
+                          f"H=32 KV=8 D=32")
+    return launches, row
 
 
 def main(argv=None) -> int:
@@ -1342,6 +1517,12 @@ def main(argv=None) -> int:
     lm_launches, qkv, flash_err = phase_lm(args.seed)
     launches.update(lm_launches)
     kernels.append(phase_flash_timing(qkv, flash_err))
+    del qkv
+    gc.collect()
+    torch.cuda.empty_cache()
+    mma_launches, mma_row = phase_flash_mma_sync(args.seed)
+    launches.update(mma_launches)
+    kernels.append(mma_row)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     log(smi_line())

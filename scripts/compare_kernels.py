@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""Time this tree's bit-plane and flash-attention kernels against another
+tree's, in one process on one GPU.
+
+    PYTHONPATH=src python3 scripts/compare_kernels.py --baseline DIR [--seed N]
+
+``DIR`` is another checkout of the repository, for example the parent
+commit unpacked from ``git archive``.  Both trees' ``csrc/bitplane.cu`` and
+``csrc/flash_attention.cu`` are compiled with this tree's ``nvcc`` flags
+(each with its own headers) into ``kernels/.build/compare/`` and called
+through their plain C entry points on the same inputs:
+
+* ``bitplane_hamming`` at 4096 x 4096 and 4096 x 4097 (NS % 4 != 0),
+  b = 1024, random {0, 1} planes: both trees must equal the plain version
+  exactly;
+* ``flash_attention``, bf16, causal, at qwen3-8b's layer shape (B = 4,
+  S = 4,096, H = 32, KV = 8, D = 128): both trees within 1e-2 of the plain
+  version.
+
+Each is timed as device time of back-to-back launches
+(``chip_smoke.cuda_ms``) in turns, baseline, this tree, this tree,
+baseline, beside the PyTorch yardsticks (``torch._int_mm``'s product alone,
+``scaled_dot_product_attention``).  Prints the card's name and power
+limit, one line per shape, and a JSON summary last.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+_C, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    "bitplane": ("bitplane_hamming_launch", [_C, _C, _C, _C, _I, _I, _I, _C, _C]),
+    "flash_attention": ("flash_attention_launch",
+                        [_C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _C]),
+}
+
+
+def build(trees: dict, out: Path) -> dict:
+    """``{(tag, source): C function}`` for every tree and source, compiled in
+    parallel; raises with the compiler's output on a failure."""
+    import subprocess
+
+    from repro_torch.kernels import _build
+
+    out.mkdir(parents=True, exist_ok=True)
+
+    def one(key):
+        tag, name = key
+        lib = out / f"lib{tag}_{name}.so"
+        src = trees[tag] / "src/repro_torch/kernels/csrc" / f"{name}.cu"
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
+        fn_name, argtypes = SIGNATURES[name]
+        fn = getattr(ctypes.CDLL(str(lib)), fn_name)
+        fn.argtypes, fn.restype = argtypes, _I
+        return key, fn
+
+    keys = [(tag, name) for tag in trees for name in SIGNATURES]
+    with ThreadPoolExecutor(max_workers=len(keys)) as pool:
+        return dict(pool.map(one, keys))
+
+
+def checked(rc: int, what: str) -> None:
+    if rc:
+        raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--baseline", required=True, type=Path)
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("compare_kernels: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    import torch.nn.functional as F
+
+    from chip_smoke import FLASH_TOL, cuda_ms, max_err, max_err_float, smi_line
+    from repro_torch.kernels import _build, ref
+
+    print(smi_line(), flush=True)
+    trees = {"baseline": args.baseline.resolve(), "this": ROOT}
+    fns = build(trees, _build.BUILD_ROOT / "compare")
+    dev = torch.device("cuda")
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    summary = {"device": torch.cuda.get_device_name(0), "baseline": str(args.baseline)}
+
+    b = 1024
+    for nr, ns in ((4096, 4096), (4096, 4097)):
+        pr = torch.randint(0, 2, (nr, b), generator=gen, device=dev, dtype=torch.int8)
+        ps = torch.randint(0, 2, (ns, b), generator=gen, device=dev, dtype=torch.int8)
+        pc_r, pc_s = pr.sum(1, dtype=torch.int32), ps.sum(1, dtype=torch.int32)
+        want = ref.bitplane_hamming_ref(pr, ps, pc_r, pc_s)
+        outs, runs = {}, {}
+        for tag in trees:
+            out = torch.empty((nr, ns), dtype=torch.int32, device=dev)
+            fn = fns[(tag, "bitplane")]
+            runs[tag] = lambda fn=fn, out=out: checked(fn(
+                pr.data_ptr(), ps.data_ptr(), pc_r.data_ptr(), pc_s.data_ptr(), nr, ns, b,
+                out.data_ptr(), stream()), "bitplane_hamming")
+            runs[tag]()
+            outs[tag] = out
+        errs = {tag: max_err(out, want) for tag, out in outs.items()}
+        if any(errs.values()):
+            raise AssertionError(f"bitplane_hamming {nr}x{ns}: errors {errs}")
+        times = {tag: [] for tag in trees}
+        for tag in ("baseline", "this", "this", "baseline"):
+            times[tag].append(cuda_ms(runs[tag], 50))
+        mm = cuda_ms(lambda: torch._int_mm(pr, ps.T), 50) if ns % 8 == 0 else None
+        print(f"bitplane_hamming {nr}x{ns} b={b}, device ms in turns: baseline "
+              f"{times['baseline']}, this tree {times['this']}; torch._int_mm product alone "
+              f"{mm}; both exact", flush=True)
+        summary[f"bitplane_hamming_{nr}x{ns}"] = {"ms": times, "int_mm_ms": mm}
+
+    q = torch.randn((4, 4096, 32, 128), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((4, 4096, 8, 128), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    want = ref.flash_attention_ref(q, k, v, causal=True, triangle=True)
+    runs, errs = {}, {}
+    for tag in trees:
+        out = torch.empty_like(q)
+        fn = fns[(tag, "flash_attention")]
+        runs[tag] = lambda fn=fn, out=out: checked(fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 4, 4096, 4096, 32, 8, 128,
+            1, 1, 128 ** -0.5, stream()), "flash_attention")
+        runs[tag]()
+        errs[tag] = max_err_float(out, want)
+    if not all(np.isfinite(list(errs.values()))) or max(errs.values()) > FLASH_TOL[q.dtype]:
+        raise AssertionError(f"flash_attention against its plain version: {errs}")
+    times = {tag: [] for tag in trees}
+    for tag in ("baseline", "this", "this", "baseline"):
+        times[tag].append(cuda_ms(runs[tag], 20))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                          enable_gqa=True), 20)
+    print(f"flash_attention B=4 S=4096 H=32 KV=8 D=128 bf16 causal, device ms in turns: "
+          f"baseline {times['baseline']}, this tree {times['this']}; "
+          f"scaled_dot_product_attention {sdpa}; max |err| against the plain version {errs}",
+          flush=True)
+    summary["flash_attention"] = {"ms": times, "sdpa_ms": sdpa, "max_abs_err": errs}
+    print(smi_line())
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

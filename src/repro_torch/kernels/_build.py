@@ -16,6 +16,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
@@ -26,6 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+# Wall seconds of each source's nvcc in this process's builds.
+BUILD_SECONDS: dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -50,28 +54,32 @@ def library_path(name: str) -> Path:
     return build_dir() / f"lib{name}.so"
 
 
+def _compile(name: str, out: Path) -> tuple[Path, subprocess.CompletedProcess, float]:
+    tmp = out / f"lib{name}.so.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return tmp, proc, time.perf_counter() - t0
+
+
 def build(names=SOURCES) -> dict[str, Path]:
     """Compile every named source that is not built yet, all at once.
 
     Returns ``{name: library path}``.  Each library's compiler output
     (``-Xptxas -v``: registers, shared memory, spills) is kept beside it
-    as ``lib<name>.log``.
+    as ``lib<name>.log``, and each build's seconds in ``BUILD_SECONDS``.
     """
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
     todo = [n for n in names if not library_path(n).exists()]
-    procs = []
-    for name in todo:
-        tmp = out / f"lib{name}.so.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
-    for name, tmp, proc in procs:
-        log, _ = proc.communicate()
-        (out / f"lib{name}.log").write_text(log)
+    with ThreadPoolExecutor(max_workers=max(1, len(todo))) as pool:
+        results = list(pool.map(lambda n: _compile(n, out), todo))
+    for name, (tmp, proc, seconds) in zip(todo, results):
+        BUILD_SECONDS[name] = seconds
+        (out / f"lib{name}.log").write_text(proc.stdout)
         if proc.returncode != 0:
-            failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
+            failed.append(f"{name}.cu (exit {proc.returncode}):\n{proc.stdout}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, library_path(name))  # atomic: concurrent builders agree

@@ -57,8 +57,6 @@ def bitplane_hamming_cuda(planes_r: torch.Tensor, planes_s: torch.Tensor,
     of int8[NR, b] and int8[NS, b] bit planes with int32 row popcounts."""
     nr, ns = planes_r.shape[0], planes_s.shape[0]
     check_planes(planes_r, planes_s, (pc_r, nr), (pc_s, ns))
-    if nr > 65535 * 64:
-        raise ValueError(f"NR={nr} exceeds the kernel's grid")
     out = torch.empty((nr, ns), dtype=torch.int32, device=planes_r.device)
     if nr == 0 or ns == 0:
         return out

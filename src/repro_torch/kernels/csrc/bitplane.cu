@@ -6,129 +6,230 @@
 // ps[NS][b] (one byte per bit) and int32 row popcounts,
 //   out[i][j] = pc_r[i] + pc_s[j] - 2 * sum_k pr[i][k] * ps[j][k]
 // exactly, as int32.  The TPU kernel exists to put this product on the
-// matrix unit; here it goes to the tensor cores through the warp-level
-// mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32.
+// matrix unit; here it goes to Hopper's tensor cores through
+// wgmma.mma_async.m64n256k32.s32.s8.s8.
 //
 // What bounds it on an H100 (published peaks, 700 W): 2*NR*NS*b operations
 // at the dense int8 tensor rate of 1,979 T/s against (NR + NS)*b bytes of
 // planes read plus 4*NR*NS bytes of int32 output written at 3.35 TB/s.  At
 // a 4096 x 4096 block pair and b = 1024 that is 17.4 us of operations and
 // 22.5 us of memory, 20.0 us of it the output: the int32 Hamming matrix, not
-// the product, bounds it.
+// the product, bounds it.  So the design first cuts operand re-reads and
+// store traffic, and lets the product hide under them.
 //
-// Design (simple and right first): a block of 4 warps owns a 64 x 64 output
-// tile; each warp a 32 x 32 quarter, as 2 x 4 m16n8 tiles held in 32
-// int32 registers.  The block stages 64 rows x kChunk bytes of each side in
-// shared memory with 16-byte loads (rows past the edge read as zero), then
-// walks the chunk in k-steps of 32 bytes.  Both operands are K-contiguous
-// rows: pr is A in row layout and ps is B in column layout, so no transpose
-// is needed.  Rows are padded by 16 bytes, so the 8 rows x 4 words a warp
-// reads for one fragment fall in 32 different banks.  The epilogue adds the
-// popcounts and masks the ragged edge.  ldmatrix, cp.async double
-// buffering, wgmma and a fused verdict epilogue are left to later work.
+// Design: a persistent grid (one block of 384 threads an SM) walks the
+// 128 x 256 output tiles (L2 -> SM traffic of (1/256 + 1/128) * b bytes an
+// output element, 12 bytes at b = 1024, against 32 for 64 x 64 tiles).
+// Warpgroup 0 is the producer (setmaxnreg down to 40): one thread keeps a
+// ring of 4 K-stages of 128 bytes in flight by TMA with 128-byte swizzle,
+// 16 KB of pr rows and 32 KB of ps rows a stage, each guarded by full and
+// empty mbarriers, and runs on into the next tile while the consumers store
+// the last one.  TMA's zero fill covers the ragged NR and NS edges and b
+// below a stage's 128 bytes: zero planes add nothing.  Warpgroups 1 and 2
+// (setmaxnreg up to 232) each own 64 x 256 of a tile in 128 int32
+// accumulators and run 4 k-steps of wgmma m64n256k32 a stage, A (pr) and B
+// (ps) both K-major in shared memory, the only layout s8 wgmma takes and the
+// one the planes' rows already have; one stage's group stays in flight
+// while the next is issued.  Epilogue, per consumer: the tile's popcounts
+// into shared memory once, then 8 chunks of 32 columns, each written to a
+// 64 x 32 staging tile (rows padded by 8 words: conflict-free), read back
+// row-contiguously, pc_r[row] + pc_s[col] - 2 acc, and written with 16-byte
+// streaming stores masked at NR and NS (where NS % 4 breaks their alignment,
+// 4-byte stores, a warp's 32 on one row's contiguous 128 bytes).
+//
+// What it leaves on the table: TMA multicast of the shared operand across a
+// cluster, the 1-bit and.popc form on packed words (no unpacking), and a
+// fused verdict epilogue.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace bitplane {
 
-constexpr int kTile = 64;               // output tile side
-constexpr int kThreads = 128;           // 4 warps, 2 x 2 over the tile
-constexpr int kChunk = 128;             // K bytes staged per pass
-constexpr int kPitch = kChunk + 16;     // shared row pitch, bytes
+constexpr int kBM = 128;                 // output rows per tile: two consumers of 64
+constexpr int kBN = 256;                 // output columns per tile
+constexpr int kBK = 128;                 // plane bytes per stage: the 128-byte swizzle span
+constexpr int kStages = 4;
+constexpr int kThreads = 384;            // producer warpgroup + two consumer warpgroups
+constexpr int kChunk = 32;               // output columns per epilogue chunk
+constexpr int kPitch = kChunk + 8;       // int32 per row of a staging tile
+constexpr int kABytes = kBM * kBK;       // a stage of pr rows
+constexpr int kBBytes = kBN * kBK;       // a stage of ps rows
+constexpr int kRing = kStages * (kABytes + kBBytes);
+constexpr int kStaging = kRing;          // int32[2][64][kPitch]
+constexpr int kPcR = kStaging + 2 * 64 * kPitch * 4;   // int32[2][64]
+constexpr int kPcS = kPcR + 2 * 64 * 4;  // int32[2][kBN]
+constexpr int kBar = kPcS + 2 * kBN * 4;
+constexpr int kSmemBytes = kBar + 2 * kStages * 8 + 1024;   // + alignment slack
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
+#define ACC_I8(d, i)                                                                     \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), "+r"(d[i + 5]), \
+      "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// D (64 x 256, s32) (+)= A (64 x 32) B^T, A and B s8, K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n256k32_s8(int (&d)[128], uint64_t desc_a,
+                                                    uint64_t desc_b, int accumulate) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      " %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73,"
+      " %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85,"
+      " %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97,"
+      " %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+      " %108, %109, %110, %111, %112, %113, %114, %115, %116, %117,"
+      " %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      : ACC_I8(d, 0), ACC_I8(d, 8), ACC_I8(d, 16), ACC_I8(d, 24),
+        ACC_I8(d, 32), ACC_I8(d, 40), ACC_I8(d, 48), ACC_I8(d, 56),
+        ACC_I8(d, 64), ACC_I8(d, 72), ACC_I8(d, 80), ACC_I8(d, 88),
+        ACC_I8(d, 96), ACC_I8(d, 104), ACC_I8(d, 112), ACC_I8(d, 120)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
-__global__ void __launch_bounds__(kThreads)
-bitplane_hamming_kernel(const int8_t* __restrict__ pr,
-                        const int8_t* __restrict__ ps,
-                        const int* __restrict__ pc_r,
+#undef ACC_I8
+
+__global__ void __launch_bounds__(kThreads, 1)
+bitplane_hamming_kernel(const __grid_constant__ CUtensorMap tm_r,
+                        const __grid_constant__ CUtensorMap tm_s, const int* __restrict__ pc_r,
                         const int* __restrict__ pc_s, int nr, int ns, int b,
                         int* __restrict__ out) {
-  __shared__ __align__(16) uint8_t sa[kTile * kPitch];
-  __shared__ __align__(16) uint8_t sb[kTile * kPitch];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;          // groupID
-  const int t = lane & 3;           // threadID_in_group
-  const int wm = (warp >> 1) * 32;  // the warp's quarter of the tile
-  const int wn = (warp & 1) * 32;
-  const int row0 = blockIdx.y * kTile;
-  const int col0 = blockIdx.x * kTile;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* ring_a = smem;
+  uint8_t* ring_b = smem + kStages * kABytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBar);
+  uint64_t* empty = full + kStages;
 
-  int acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[mi][ni][c] = 0;
+  const int tiles_n = (ns + kBN - 1) / kBN;
+  const int tiles = ((nr + kBM - 1) / kBM) * tiles_n;
+  const int nk = (b + kBK - 1) / kBK;
 
-  for (int k0 = 0; k0 < b; k0 += kChunk) {
-    const int kc = min(kChunk, b - k0);  // a multiple of 32
-    const int vecs = kc >> 4;            // 16-byte vectors per row
-    __syncthreads();                     // the previous chunk is consumed
-    for (int idx = tid; idx < kTile * vecs; idx += kThreads) {
-      const int row = idx / vecs;
-      const int v = idx - row * vecs;
-      const int gr = row0 + row;
-      const int gc = col0 + row;
-      const int4 zero = make_int4(0, 0, 0, 0);
-      *reinterpret_cast<int4*>(sa + row * kPitch + v * 16) =
-          gr < nr ? __ldg(reinterpret_cast<const int4*>(pr + (size_t)gr * b + k0) + v)
-                  : zero;
-      *reinterpret_cast<int4*>(sb + row * kPitch + v * 16) =
-          gc < ns ? __ldg(reinterpret_cast<const int4*>(ps + (size_t)gc * b + k0) + v)
-                  : zero;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(full + s, 1);
+      hopper::mbar_init(empty + s, 8);   // one arrival per consumer warp
     }
-    __syncthreads();
-    for (int kk = 0; kk < kc; kk += 32) {
-      // A fragment (16 x 32, row): a0 = (g, 4t..4t+3), a1 = (g+8, same),
-      // a2 = (g, 16+4t..), a3 = (g+8, 16+4t..).  B fragment (32 x 8, col):
-      // b0 = k 4t..4t+3 of column g, b1 = k 16+4t.. of column g.
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const uint8_t* base = sa + (wm + mi * 16 + g) * kPitch + kk + 4 * t;
-        a[mi][0] = *reinterpret_cast<const uint32_t*>(base);
-        a[mi][1] = *reinterpret_cast<const uint32_t*>(base + 8 * kPitch);
-        a[mi][2] = *reinterpret_cast<const uint32_t*>(base + 16);
-        a[mi][3] = *reinterpret_cast<const uint32_t*>(base + 8 * kPitch + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const uint8_t* base = sb + (wn + ni * 8 + g) * kPitch + kk + 4 * t;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(base);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(base + 16);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_s8(acc[mi][ni], a[mi], b0, b1);
-      }
-    }
+    hopper::fence_barrier_init();
   }
+  __syncthreads();
 
-  // Accumulator (16 x 8): c0, c1 at row g, columns 2t and 2t+1; c2, c3 at
-  // row g+8.
+  const int warpgroup = threadIdx.x / 128;
+  if (warpgroup == 0) {
+    // Producer: the ring's stage counter runs on across tiles.
+    hopper::reg_dealloc<40>();
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int row0 = (tile / tiles_n) * kBM;
+        const int col0 = (tile % tiles_n) * kBN;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % kStages;
+          hopper::mbar_wait(empty + s, ((it / kStages) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(full + s, kABytes + kBBytes);
+          hopper::tma_load_2d(ring_a + s * kABytes, &tm_r, full + s, kt * kBK, row0);
+          hopper::tma_load_2d(ring_b + s * kBBytes, &tm_s, full + s, kt * kBK, col0);
+        }
+      }
+    }
+  } else {
+    // Consumer c owns tile rows 64 c .. 64 c + 63; warp w of it rows
+    // 16 w .. 16 w + 15, lane (g, t) the accumulator rows g and g + 8 and
+    // columns 2 t, 2 t + 1 of each of the 32 8-column groups.
+    hopper::reg_alloc<232>();
+    const int c = warpgroup - 1;
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    int* stage = reinterpret_cast<int*>(smem + kStaging) + c * 64 * kPitch;
+    int* pcr_s = reinterpret_cast<int*>(smem + kPcR) + c * 64;
+    int* pcs_s = reinterpret_cast<int*>(smem + kPcS) + c * kBN;
+    const bool vec = (ns & 3) == 0;
+
+    int acc[128];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
+    for (int i = 0; i < 128; ++i) acc[i] = 0;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int row0 = (tile / tiles_n) * kBM;
+      const int col0 = (tile % tiles_n) * kBN;
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % kStages;
+        hopper::mbar_wait(full + s, (it / kStages) & 1);
+        const uint32_t a_base = hopper::smem_addr(ring_a + s * kABytes) + c * 64 * kBK;
+        const uint32_t b_base = hopper::smem_addr(ring_b + s * kBBytes);
+        hopper::wgmma_fence();
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = row0 + wm + mi * 16 + g + 8 * half;
-      if (row >= nr) continue;
-      const int pcr = pc_r[row];
+        for (int kk = 0; kk < kBK / 32; ++kk)
+          wgmma_m64n256k32_s8(acc, hopper::sw128_desc(a_base + 32 * kk),
+                              hopper::sw128_desc(b_base + 32 * kk), kt > 0 || kk > 0);
+        hopper::wgmma_commit();
+        // The previous stage's group is done: release its stage.
+        hopper::wgmma_wait<1>();
+        hopper::fence_regs(acc);
+        if (kt > 0 && lane == 0) hopper::mbar_arrive(empty + (it - 1) % kStages);
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      if (lane == 0) hopper::mbar_arrive(empty + (it - 1) % kStages);
+
+      // Epilogue.  The previous tile's reads of the staging tile and the
+      // popcounts are done before they are overwritten.
+      hopper::named_sync(1 + c, 128);
+      pcs_s[tid] = col0 + tid < ns ? pc_s[col0 + tid] : 0;
+      pcs_s[tid + 128] = col0 + tid + 128 < ns ? pc_s[col0 + tid + 128] : 0;
+      if (tid < 64) pcr_s[tid] = row0 + 64 * c + tid < nr ? pc_r[row0 + 64 * c + tid] : 0;
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
+      for (int q = 0; q < kBN / kChunk; ++q) {
+        if (q > 0) hopper::named_sync(1 + c, 128);
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = col0 + wn + ni * 8 + 2 * t + e;
-          if (col < ns)
-            out[(size_t)row * ns + col] = pcr + pc_s[col] - 2 * acc[mi][ni][2 * half + e];
+        for (int jj = 0; jj < kChunk / 8; ++jj)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int j = q * (kChunk / 8) + jj;
+            const int r = 16 * warp + g + 8 * hr;
+            *reinterpret_cast<int2*>(stage + r * kPitch + 8 * jj + 2 * t) =
+                make_int2(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]);
+          }
+        hopper::named_sync(1 + c, 128);
+        if (vec) {
+          // 16-byte stores: 8 threads a row's 128 bytes.
+#pragma unroll
+          for (int idx = tid; idx < 64 * (kChunk / 4); idx += 128) {
+            const int r = idx / (kChunk / 4);
+            const int v4 = idx - r * (kChunk / 4);   // 4-column group of the chunk
+            const int row = row0 + 64 * c + r;
+            const int cc = q * kChunk + 4 * v4;      // tile column
+            if (row >= nr || col0 + cc >= ns) continue;
+            const int4 dot = *reinterpret_cast<const int4*>(stage + r * kPitch + 4 * v4);
+            const int4 pcs = *reinterpret_cast<const int4*>(pcs_s + cc);
+            const int pcr = pcr_s[r];
+            __stcs(reinterpret_cast<int4*>(out + (size_t)row * ns + col0 + cc),
+                   make_int4(pcr + pcs.x - 2 * dot.x, pcr + pcs.y - 2 * dot.y,
+                             pcr + pcs.z - 2 * dot.z, pcr + pcs.w - 2 * dot.w));
+          }
+        } else {
+          // NS % 4 breaks 16-byte alignment: a warp writes a row's 32
+          // columns as one contiguous run of 4-byte stores.
+#pragma unroll 4
+          for (int idx = tid; idx < 64 * kChunk; idx += 128) {
+            const int r = idx / kChunk;
+            const int cc = q * kChunk + (idx - r * kChunk);
+            const int row = row0 + 64 * c + r;
+            if (row >= nr || col0 + cc >= ns) continue;
+            __stcs(out + (size_t)row * ns + col0 + cc,
+                   pcr_s[r] + pcs_s[cc] - 2 * stage[r * kPitch + cc - q * kChunk]);
+          }
         }
       }
     }
@@ -139,17 +240,39 @@ bitplane_hamming_kernel(const int8_t* __restrict__ pr,
 
 // out is int32[nr][ns]; pr/ps must be 16-byte aligned with b % 32 == 0.
 // Launches on `stream`, allocates nothing and does not synchronise; returns
-// cudaGetLastError() after the launch (0 on success).
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for a tensor map the driver refuses.
 extern "C" int bitplane_hamming_launch(const void* pr, const void* ps,
                                        const void* pc_r, const void* pc_s,
                                        int nr, int ns, int b, void* out,
                                        void* stream) {
   using namespace bitplane;
   if (nr <= 0 || ns <= 0) return 0;
-  const dim3 grid((ns + kTile - 1) / kTile, (nr + kTile - 1) / kTile);
-  bitplane_hamming_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(pr), static_cast<const int8_t*>(ps),
-      static_cast<const int*>(pc_r), static_cast<const int*>(pc_s), nr, ns, b,
+  // The planes as 2-D byte tensors (b, N): boxes of 128 bytes x 128 pr rows
+  // or 256 ps rows.
+  CUtensorMap tm_r, tm_s;
+  const cuuint64_t stride[1] = {(cuuint64_t)b};
+  const cuuint64_t dims_r[2] = {(cuuint64_t)b, (cuuint64_t)nr};
+  const cuuint64_t dims_s[2] = {(cuuint64_t)b, (cuuint64_t)ns};
+  const cuuint32_t box_r[2] = {kBK, kBM};
+  const cuuint32_t box_s[2] = {kBK, kBN};
+  int rc = hopper::encode_sw128(&tm_r, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, pr, dims_r, stride,
+                                box_r);
+  if (rc == 0)
+    rc = hopper::encode_sw128(&tm_s, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, ps, dims_s, stride,
+                              box_s);
+  if (rc != 0) return rc;
+  const cudaError_t err = cudaFuncSetAttribute(
+      bitplane_hamming_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    return static_cast<int>(cudaGetLastError());
+  const long long tiles = (long long)((nr + kBM - 1) / kBM) * ((ns + kBN - 1) / kBN);
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  bitplane_hamming_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      tm_r, tm_s, static_cast<const int*>(pc_r), static_cast<const int*>(pc_s), nr, ns, b,
       static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }

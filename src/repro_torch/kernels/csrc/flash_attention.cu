@@ -17,35 +17,61 @@
 // at the dense bf16 tensor rate of 989 TFLOP/s; q, o, k and v are 335.5 MB,
 // 0.100 ms at 3.35 TB/s.  Operations bound it, at 0.556 ms a layer.
 //
-// Design (simple and right first).  One block of 128 threads per (batch,
-// query head, 64-row q tile); the q tiles are issued last-first, so the
-// long causal rows start early.  The block stages its q tile once and then
-// walks 64-row K/V tiles of its KV head through shared memory, keeping each
-// row's running max m and sum l in float32 and the output accumulator in
-// registers.  When causal the walk stops after the diagonal tile (the TPU
-// kernel's lower-triangle schedule), and the kernel masks the diagonal tile
-// and the ragged Sq / Sk edges itself, so no length has to divide anything.
-// Two instances of that schedule:
+// Three instances, chosen statically by dtype and head_dim in
+// flash_attention_launch (never as a fallback after a failed launch):
 //
-// * bf16 (the model's compute type): both products on the tensor cores with
-//   the warp-level mma.sync.m16n8k16 bf16 -> f32.  Each warp owns 16 query
-//   rows; its q fragments stay in registers, S comes back in the
-//   accumulator layout, and P is re-packed from those registers into the A
-//   fragments of PV (a row's scores lie in the 4 lanes of a quad, so its
-//   max and sum are two shuffles).  K fragments are 32-bit shared loads; V
-//   fragments come transposed by ldmatrix.trans.  Shared rows are padded by
-//   16 bytes, so the 8 rows a fragment load touches fall in 8 bank groups.
+// * bf16, head_dim 64 and 128 (every config the repo serves): wgmma with a
+//   TMA-fed, warp-specialised K/V ring, since only wgmma reaches Hopper's
+//   tensor rate.  A block of 384 threads takes 128 q rows of one (batch,
+//   head); q tiles are issued longest-first (the long causal rows start
+//   early).  Warpgroup 0 is the producer (setmaxnreg down to 40): one thread
+//   loads the q tile once by TMA and streams 128-key K and V tiles of the
+//   block's KV head into a ring of 3 stages (4 at D = 64), 128-byte
+//   swizzled, each stage with full and empty mbarriers; TMA's zero fill past
+//   Sq and Sk replaces row masking on the loads.  Warpgroups 1 and 2 are
+//   consumers (setmaxnreg up to 232) of 64 q rows each:
+//     S = Q K^T   wgmma.m64n128k16.f32.bf16.bf16, A (q) and B (K) both from
+//                 shared memory, K-major; D / 16 k-steps;
+//     softmax     in the accumulator registers: D^-0.5 * log2(e) folded
+//                 into one FMA before ex2.approx, row max over the 4 lanes
+//                 of a quad by two shuffles (row sums stay per thread until
+//                 the end); only the diagonal tile and the tile holding Sk's
+//                 ragged edge take any compare;
+//     O += P V    wgmma.m64n{D}k16 with A = P as bf16 from registers (the S
+//                 accumulator layout is the A fragment layout) and B = V
+//                 from shared memory, MN-major through the transpose-B bit,
+//                 so no transpose pass.
+//   Inside a consumer, tile n's softmax runs while tile n - 1's P V is in
+//   flight: S of tile n and P V of tile n - 1 are issued together, the
+//   consumer waits for S alone, exponentiates, then waits for P V before it
+//   rescales O.  The epilogue divides by max(l, 1e-30), rounds to bf16 and
+//   stores through the consumer's own rows of the q tile as 16-byte
+//   row-contiguous stores masked at Sq.  Tensor maps (4-D over D, heads, S,
+//   B; boxes of 64 bf16 = the 128-byte swizzle span, so D = 128 is two
+//   boxes) are encoded on the host each call through the runtime's driver
+//   entry point.
+// * bf16, head_dim 16 and 32 (no config uses them; only the tests): the
+//   warp-level mma.sync.m16n8k16 instance.  One block of 128 threads per
+//   64-row q tile walks 64-key K/V tiles staged synchronously; each warp
+//   owns 16 query rows, P is re-packed from the S accumulators into the A
+//   fragments of PV, V fragments come transposed by ldmatrix.trans.
 // * float32 (the reduced configs): float32 FMAs on the CUDA cores, 4 rows
 //   x 8 keys of the score tile and 4 rows x D/8 output columns a thread, P
 //   through shared memory; ROADMAP's 2e-5 tolerance rules out bf16 or TF32
 //   products there.
+// When causal, every instance stops after the diagonal tile (the TPU
+// kernel's lower-triangle schedule) and masks the ragged Sq / Sk edges
+// itself, so no length has to divide anything.
 //
-// What this leaves on the table: wgmma (the only way to the full tensor
-// rate), asynchronous copies (cp.async or TMA) overlapping the next tile's
-// load with this tile's math, and exp2 with the scale folded in.
+// What the wgmma instance leaves on the table: a persistent grid (a block's
+// start-up and epilogue are not overlapped with another block's loads), and
+// the masked half of the diagonal tile's products.  Ordering the two
+// consumers' product issue by named barriers (ping-pong) measured no gain.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace flash {
 
@@ -53,13 +79,13 @@ constexpr int kRows = 64;        // q rows per block; keys per K/V tile
 constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;
 
-// Keys a q tile starting at q0 visits: up to its last row when causal.
-__device__ __forceinline__ int kv_end(int q0, int sq, int sk, int causal) {
-  return causal ? min(sk, min(q0 + kRows, sq)) : sk;
+// Keys a q tile of `rows` rows from q0 visits: up to its last row when causal.
+__device__ __forceinline__ int kv_end(int q0, int rows, int sq, int sk, int causal) {
+  return causal ? min(sk, min(q0 + rows, sq)) : sk;
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync on the tensor cores
+// bf16, head dims 16 and 32: mma.sync on the tensor cores
 // ---------------------------------------------------------------------------
 
 template <int D>
@@ -161,7 +187,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   float l[2] = {0.f, 0.f};
   const int row0 = q0 + wr + g;              // row of c0, c1; row0 + 8 holds c2, c3
 
-  const int end = kv_end(q0, sq, sk, causal);
+  const int end = kv_end(q0, kRows, sq, sk, causal);
   for (int k0 = 0; k0 < end; k0 += kRows) {
     const int valid = min(kRows, sk - k0);
     __syncthreads();                         // the previous tile's K and V are consumed
@@ -254,6 +280,399 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 }
 
 // ---------------------------------------------------------------------------
+// bf16, head dims 64 and 128: wgmma fed by a warp-specialised TMA ring
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int kBlockM = 128;           // q rows per block: two consumer warpgroups of 64
+constexpr int kBlockN = 128;           // keys per K/V tile
+constexpr int kThreads = 384;          // producer warpgroup + two consumer warpgroups
+constexpr int kBoxBytes = 128 * 128;   // one TMA box: 128 rows of 64 bf16 (128 bytes)
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+
+// Shared memory, from a 1,024-byte aligned base: the q tile (which the
+// epilogue reuses to stage the output), the K and V rings (each tile 128
+// rows x D bf16, as D / 64 boxes of 128 rows), then the mbarriers.
+template <int D>
+struct Smem {
+  static constexpr int kStages = D == 64 ? 4 : 3;
+  static constexpr int kTile = 128 * D * 2;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kTile;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBar = kV + kStages * kTile;
+  static constexpr int kBytes = kBar + (1 + 3 * kStages) * 8 + 1024;   // + alignment slack
+};
+
+#define ACC_F8(d, i)                                                                     \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// S (64 x 128, f32) = A (64 x 16) B^T with A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      " %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ACC_F8(d, 0), ACC_F8(d, 8), ACC_F8(d, 16), ACC_F8(d, 24),
+        ACC_F8(d, 32), ACC_F8(d, 40), ACC_F8(d, 48), ACC_F8(d, 56)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// O (64 x 128, f32) += P (64 x 16, bf16 registers) V (16 x 128), V MN-major.
+__device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64], const uint32_t (&a)[4],
+                                                       uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      " %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : ACC_F8(d, 0), ACC_F8(d, 8), ACC_F8(d, 16), ACC_F8(d, 24),
+        ACC_F8(d, 32), ACC_F8(d, 40), ACC_F8(d, 48), ACC_F8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// O (64 x 64, f32) += P V, as above with D = 64.
+__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint32_t (&a)[4],
+                                                      uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC_F8(d, 0), ACC_F8(d, 8), ACC_F8(d, 16), ACC_F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+#undef ACC_F8
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The consumer's per-thread view of one 64 x 128 S tile and of its rows:
+// lane (g, t) of warp w holds rows 16 w + g (halves 0) and 16 w + g + 8
+// (halves 1), columns 8 j + 2 t + {0, 1} of each 8-column group j.
+struct RowState {
+  float m[2];   // running maxima (raw scores)
+  float l[2];   // this thread's part of the running sums
+};
+
+// S = q K^T (64 x 128): k-step kk reads bytes 32 (kk % 4) of box kk / 4's rows.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sacc)[64], uint32_t q_base, uint32_t k_base) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+    wgmma_m64n128k16_ss(sacc, hopper::sw128_desc(q_base + off),
+                        hopper::sw128_desc(k_base + off), kk > 0);
+  }
+}
+
+// O += P V: k-step kk reads keys 16 kk .. 16 kk + 15 (16 rows of 128 bytes);
+// the D / 64 column blocks of V lie one box apart (LBO).
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&oacc)[D / 2], const uint32_t (&pa)[8][4],
+                                         uint32_t v_base) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint64_t desc = hopper::sw128_desc(v_base + kk * 16 * 128, kBoxBytes);
+    if constexpr (D == 128)
+      wgmma_m64n128k16_rs_tb(oacc, pa[kk], desc, 1);
+    else
+      wgmma_m64n64k16_rs_tb(oacc, pa[kk], desc, 1);
+  }
+}
+
+// Masks S when asked (the diagonal tile and the one holding Sk's edge),
+// then the online softmax in the log2 domain: p = 2^(s * scale_log2 -
+// m * scale_log2), in place.  Returns each row's rescale factor.
+__device__ __forceinline__ void softmax_tile(float (&sacc)[64], RowState& st, float (&alpha)[2],
+                                             bool mask, int k0, int row_lo, int t, int sk,
+                                             int causal, float scale_log2) {
+  if (mask) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + 8 * j + 2 * t + (e & 1);
+        const int row = row_lo + 8 * (e >> 1);
+        if (col >= sk || (causal && col > row)) sacc[4 * j + e] = kNegInf;
+      }
+  }
+  float mx[2] = {st.m[0], st.m[1]};
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sacc[4 * j + e]);
+  float neg_ms[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+    mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+    alpha[hr] = ex2((st.m[hr] - mx[hr]) * scale_log2);
+    neg_ms[hr] = -mx[hr] * scale_log2;
+    st.m[hr] = mx[hr];
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float& x = sacc[4 * j + e];
+      x = ex2(fmaf(x, scale_log2, neg_ms[e >> 1]));
+      rs[e >> 1] += x;
+    }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) st.l[hr] = st.l[hr] * alpha[hr] + rs[hr];
+}
+
+// P as the A fragments of 8 k-steps of 16 keys: the accumulators of 8-key
+// groups 2 kk and 2 kk + 1, rounded to bf16.
+__device__ __forceinline__ void pack_p(const float (&sacc)[64], uint32_t (&pa)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    pa[kk][0] = pack_bf16(sacc[8 * kk], sacc[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void rescale(float (&oacc)[D / 2], const float (&alpha)[2]) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    oacc[4 * j] *= alpha[0];
+    oacc[4 * j + 1] *= alpha[0];
+    oacc[4 * j + 2] *= alpha[1];
+    oacc[4 * j + 3] *= alpha[1];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                       int sq, int sk, int heads, int kv_heads, float scale_log2, int causal) {
+  using S = Smem<D>;
+  constexpr int kSt = S::kStages;
+  constexpr int kBoxes = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::kBar);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kSt;
+  uint64_t* empty = v_full + kSt;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (heads / kv_heads);
+  const int end = kv_end(q0, kBlockM, sq, sk, causal);
+  const int n_tiles = (end + kBlockN - 1) / kBlockN;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kSt; ++s) {
+      hopper::mbar_init(k_full + s, 1);
+      hopper::mbar_init(v_full + s, 1);
+      hopper::mbar_init(empty + s, 8);   // one arrival per consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int warpgroup = threadIdx.x / 128;
+  if (warpgroup == 0) {
+    // Producer.
+    hopper::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_arrive_expect_tx(q_full, S::kTile);
+#pragma unroll
+      for (int box = 0; box < kBoxes; ++box)
+        hopper::tma_load_4d(smem + S::kQ + box * kBoxBytes, &tm_q, q_full, 64 * box, h, q0, b);
+      for (int n = 0; n < n_tiles; ++n) {
+        const int s = n % kSt;
+        hopper::mbar_wait(empty + s, ((n / kSt) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(k_full + s, S::kTile);
+#pragma unroll
+        for (int box = 0; box < kBoxes; ++box)
+          hopper::tma_load_4d(smem + S::kK + s * S::kTile + box * kBoxBytes, &tm_k, k_full + s,
+                              64 * box, kvh, n * kBlockN, b);
+        hopper::mbar_arrive_expect_tx(v_full + s, S::kTile);
+#pragma unroll
+        for (int box = 0; box < kBoxes; ++box)
+          hopper::tma_load_4d(smem + S::kV + s * S::kTile + box * kBoxBytes, &tm_v, v_full + s,
+                              64 * box, kvh, n * kBlockN, b);
+      }
+    }
+  } else {
+    // Consumer c owns block rows 64 c .. 64 c + 63.  Tile n's softmax runs
+    // while tile n - 1's O += P V is in flight.
+    hopper::reg_alloc<kConsumerRegs>();
+    const int c = warpgroup - 1;
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int row_lo = q0 + 64 * c + 16 * warp + g;   // accumulator halves 0; + 8 halves 1
+    const uint32_t q_base = hopper::smem_addr(smem + S::kQ) + c * 64 * 128;
+    const uint32_t k_ring = hopper::smem_addr(smem + S::kK);
+    const uint32_t v_ring = hopper::smem_addr(smem + S::kV);
+    auto needs_mask = [&](int k0) {
+      return k0 + kBlockN > sk || (causal && k0 + kBlockN - 1 > q0 + 64 * c);
+    };
+
+    float sacc[64];
+    float oacc[D / 2];
+    uint32_t pa[8][4];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sacc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+    RowState st = {{kNegInf, kNegInf}, {0.f, 0.f}};
+    float alpha[2];
+
+    // Tile 0: S, softmax, P.
+    hopper::mbar_wait(q_full, 0);
+    hopper::mbar_wait(k_full, 0);
+    hopper::wgmma_fence();
+    issue_qk<D>(sacc, q_base, k_ring);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sacc);
+    softmax_tile(sacc, st, alpha, needs_mask(0), 0, row_lo, t, sk, causal, scale_log2);
+    pack_p(sacc, pa);
+
+    for (int n = 1; n < n_tiles; ++n) {
+      const int s = n % kSt;
+      const int sp = (n - 1) % kSt;
+      hopper::mbar_wait(k_full + s, (n / kSt) & 1);
+      hopper::wgmma_fence();
+      issue_qk<D>(sacc, q_base, k_ring + s * S::kTile);
+      hopper::wgmma_commit();
+      hopper::mbar_wait(v_full + sp, ((n - 1) / kSt) & 1);
+      issue_pv<D>(oacc, pa, v_ring + sp * S::kTile);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();   // S of tile n is done; P V of tile n - 1 runs on
+      hopper::fence_regs(sacc);
+      softmax_tile(sacc, st, alpha, needs_mask(n * kBlockN), n * kBlockN, row_lo, t, sk, causal,
+                   scale_log2);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(oacc);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) hopper::fence_regs(pa[kk]);
+      if (lane == 0) hopper::mbar_arrive(empty + sp);
+      rescale<D>(oacc, alpha);
+      pack_p(sacc, pa);
+    }
+    {
+      const int sp = (n_tiles - 1) % kSt;
+      hopper::mbar_wait(v_full + sp, ((n_tiles - 1) / kSt) & 1);
+      hopper::wgmma_fence();
+      issue_pv<D>(oacc, pa, v_ring + sp * S::kTile);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(oacc);
+      if (lane == 0) hopper::mbar_arrive(empty + sp);
+    }
+
+    // Epilogue: O / max(l, 1e-30) as bf16, staged in this consumer's own
+    // rows of the q tile (its last reader was the consumer's own S), in the
+    // q tile's layout: column chunk j (8 bf16) of row r in box j / 8 at
+    // chunk (j % 8) ^ (r % 8), conflict-free both ways; then 16-byte
+    // row-contiguous stores of the rows below Sq.
+    float denom[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float l = st.l[hr];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      denom[hr] = fmaxf(l, 1e-30f);
+    }
+    uint8_t* stage = smem + S::kQ + c * 64 * 128;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = 16 * warp + g + 8 * hr;
+        *reinterpret_cast<uint32_t*>(stage + (j / 8) * kBoxBytes + r * 128 +
+                                     (((j % 8) ^ (r & 7)) * 16) + 4 * t) =
+            pack_bf16(oacc[4 * j + 2 * hr] / denom[hr], oacc[4 * j + 2 * hr + 1] / denom[hr]);
+      }
+    hopper::named_sync(1 + c, 128);
+    constexpr int kChunks = D / 8;   // 16-byte chunks of a row
+#pragma unroll 4
+    for (int idx = tid; idx < 64 * kChunks; idx += 128) {
+      const int r = idx / kChunks;
+      const int ch = idx - r * kChunks;
+      const int row = q0 + 64 * c + r;
+      if (row < sq)
+        *reinterpret_cast<uint4*>(o + (((size_t)b * sq + row) * heads + h) * D + ch * 8) =
+            *reinterpret_cast<const uint4*>(stage + (ch / 8) * kBoxBytes + r * 128 +
+                                            (((ch % 8) ^ (r & 7)) * 16));
+    }
+  }
+}
+
+// q, k, v as 4-D tensor maps over (D, heads, S, B), boxes of 64 x 1 x 128 x 1.
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int batch, int sq, int sk,
+           int heads, int kv_heads, int causal, float scale, cudaStream_t stream) {
+  using S = Smem<D>;
+  CUtensorMap maps[3];
+  const cuuint32_t box[4] = {64, 1, 128, 1};
+  const void* bases[3] = {q, k, v};
+  const int lens[3] = {sq, sk, sk};
+  const int nheads[3] = {heads, kv_heads, kv_heads};
+  for (int i = 0; i < 3; ++i) {
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)nheads[i], (cuuint64_t)lens[i],
+                                (cuuint64_t)batch};
+    const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)nheads[i] * D * 2,
+                                   (cuuint64_t)lens[i] * nheads[i] * D * 2};
+    const int rc = hopper::encode_sw128(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, bases[i],
+                                        dims, strides, box);
+    if (rc != 0) return rc;
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((sq + kBlockM - 1) / kBlockM, heads, batch);
+  flash_fwd_wgmma_kernel<D><<<grid, kThreads, S::kBytes, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), sq, sk, heads, kv_heads,
+      scale * 1.4426950408889634f, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
+// ---------------------------------------------------------------------------
 // float32: FMAs on the CUDA cores
 // ---------------------------------------------------------------------------
 
@@ -317,7 +736,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int e = 0; e < VW; ++e) acc[i][jj][e] = 0.f;
   }
 
-  const int end = kv_end(q0, sq, sk, causal);
+  const int end = kv_end(q0, kRows, sq, sk, causal);
   for (int k0 = 0; k0 < end; k0 += kRows) {
     const int valid = min(kRows, sk - k0);
     __syncthreads();                           // q is staged; the last V is consumed
@@ -447,9 +866,11 @@ int launch(Kernel kernel, int smem_bytes, const void* q, const void* k, const vo
 // q, o: [batch][sq][heads][head_dim]; k, v: [batch][sk][kv_heads][head_dim],
 // contiguous and 16-byte aligned, heads % kv_heads == 0, sk >= 1.  dtype 0 is
 // float32 (CUDA cores), 1 bfloat16 (tensor cores); head_dim is 16, 32, 64 or
-// 128.  Launches on `stream`, allocates nothing and does not synchronise;
-// returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for a dtype or head_dim it has no instance for.
+// 128.  The instance is static: float32 -> CUDA cores; bf16 at head_dim 64
+// and 128 -> wgmma; bf16 at 16 and 32 -> mma.sync.  Launches on `stream`,
+// allocates nothing and does not synchronise; returns cudaGetLastError()
+// after the launch (0 on success), or cudaErrorInvalidValue for a dtype or
+// head_dim it has no instance for, or a tensor map the driver refuses.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* o, int batch, int sq, int sk, int heads,
                                       int kv_heads, int head_dim, int dtype, int causal,
@@ -457,17 +878,27 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   using namespace flash;
   if (batch <= 0 || sq <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_CASE(DIM)                                                                    \
+#define FLASH_F32(DIM)                                                                     \
   if (dtype == 0 && head_dim == DIM)                                                       \
     return launch<float, DIM>(flash_fwd_f32_kernel<DIM>, SimtSmem<DIM>::kBytes, q, k, v, o, \
-                              batch, sq, sk, heads, kv_heads, causal, scale, s);          \
+                              batch, sq, sk, heads, kv_heads, causal, scale, s);
+#define FLASH_MMA(DIM)                                                                     \
   if (dtype == 1 && head_dim == DIM)                                                       \
     return launch<__nv_bfloat16, DIM>(flash_fwd_mma_kernel<DIM>, MmaSmem<DIM>::kBytes, q, k, \
                                       v, o, batch, sq, sk, heads, kv_heads, causal, scale, s);
-  FLASH_CASE(16)
-  FLASH_CASE(32)
-  FLASH_CASE(64)
-  FLASH_CASE(128)
-#undef FLASH_CASE
+#define FLASH_WGMMA(DIM)                                                                   \
+  if (dtype == 1 && head_dim == DIM)                                                       \
+    return wg::launch<DIM>(q, k, v, o, batch, sq, sk, heads, kv_heads, causal, scale, s);
+  FLASH_F32(16)
+  FLASH_F32(32)
+  FLASH_F32(64)
+  FLASH_F32(128)
+  FLASH_MMA(16)
+  FLASH_MMA(32)
+  FLASH_WGMMA(64)
+  FLASH_WGMMA(128)
+#undef FLASH_F32
+#undef FLASH_MMA
+#undef FLASH_WGMMA
   return static_cast<int>(cudaErrorInvalidValue);
 }

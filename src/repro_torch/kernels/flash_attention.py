@@ -6,6 +6,13 @@ forward with an online softmax over K/V tiles and, when causal, the
 lower-triangle schedule.  Its plain version is
 :func:`repro_torch.kernels.ref.flash_attention_ref`; callers go through
 :func:`repro_torch.kernels.ops.flash_attention`.
+
+The kernel has three instances, chosen statically by type and head dim
+(:func:`instance`, the same rule as ``flash_attention_launch``): ``wgmma``
+(bf16, head dims 64 and 128: every served config), ``mma_sync`` (bf16, 16
+and 32) and ``simt_f32`` (float32).  ``flash_attention_cuda.launches``
+counts every launch; ``flash_attention_cuda.instance_launches`` counts them
+by instance.
 """
 
 from __future__ import annotations
@@ -20,6 +27,15 @@ _C = ctypes.c_void_p
 _I = ctypes.c_int
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
+INSTANCES = ("wgmma", "mma_sync", "simt_f32")
+
+
+def instance(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel instance ``flash_attention_launch`` runs for this type
+    and head dim."""
+    if dtype == torch.float32:
+        return "simt_f32"
+    return "wgmma" if head_dim in (64, 128) else "mma_sync"
 
 
 def _fn():
@@ -74,7 +90,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.instance_launches[instance(q.dtype, d)] += 1
     return out
 
 
-flash_attention_cuda.launches = 0
+def reset_launches() -> None:
+    """Zero every launch counter of the wrapper."""
+    flash_attention_cuda.launches = 0
+    flash_attention_cuda.instance_launches = dict.fromkeys(INSTANCES, 0)
+
+
+reset_launches()

@@ -29,6 +29,8 @@ from typing import Dict, Hashable, List, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.engine import resolve_device
+
 
 class _Slot:
     __slots__ = ("host", "signature", "event")
@@ -42,13 +44,14 @@ class _Slot:
 
 class TransferPool:
     """A ring of reusable host staging tensors per bucket key, copied to
-    ``device`` (a ``torch.device`` or its name) on every upload."""
+    ``device`` (a ``torch.device`` or its name; ``None`` is the card, and
+    raises without one) on every upload."""
 
-    def __init__(self, depth: int = 3, device="cpu"):
+    def __init__(self, depth: int = 3, device=None):
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         self.depth = int(depth)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._pin = self.device.type == "cuda"
         self._lock = threading.Lock()
         self._slots: Dict[Hashable, List[_Slot]] = {}

@@ -243,8 +243,11 @@ def _random_words(n, w, seed, dev):
     return torch.from_numpy(words).to(dev), torch.from_numpy(lens).to(dev)
 
 
+# The last seven sit on the kernel's 128 x 256 tile edges and its 128-byte
+# stages (b = 32, 64 and 96 below one stage), with NS % 4 != 0 in five.
 BITPLANE_SHAPES = [(33, 70, 1), (64, 64, 4), (96, 64, 16), (257, 65, 32), (300, 200, 128),
-                   (1000, 999, 32)]
+                   (1000, 999, 32), (127, 129, 1), (128, 257, 2), (129, 255, 3),
+                   (255, 127, 32), (257, 4096, 128), (4096, 129, 32), (4096, 4096, 32)]
 
 
 @pytest.mark.parametrize("nr,ns,w", BITPLANE_SHAPES)
@@ -432,7 +435,12 @@ def exact_f32(dev):
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("sq,sk,causal,group,kv", [
     (1, 1, True, 1, 2), (63, 63, True, 3, 2), (100, 100, True, 4, 2), (64, 200, True, 8, 1),
-    (200, 64, True, 3, 1), (100, 37, False, 8, 2), (1, 300, False, 1, 3)])
+    (200, 64, True, 3, 1), (100, 37, False, 8, 2), (1, 300, False, 1, 3),
+    # the wgmma instance's 128-row q tiles and 128-key K/V tiles: each side of
+    # one and two tiles, Sq != Sk both ways, groups 1, 3, 4 and 8
+    (127, 127, True, 1, 2), (128, 128, False, 3, 1), (129, 129, True, 4, 2),
+    (255, 257, True, 8, 1), (257, 255, False, 1, 2), (128, 257, True, 3, 1),
+    (257, 128, True, 4, 1), (129, 255, False, 8, 1)])
 def test_flash_attention_kernel_matches_plain_version(exact_f32, dtype, d, sq, sk, causal,
                                                       group, kv):
     gen = torch.Generator(device=exact_f32).manual_seed(sq + sk + d)
@@ -463,6 +471,18 @@ def test_flash_attention_wrapper_rejects_bad_operands(dev):
         ops.flash_attention(q, k, k, impl="ref")
 
 
+def test_flash_attention_kernel_at_a_qwen3_layer(exact_f32):
+    """One (batch) of qwen3-8b's prefill attention: S = 4,096, 32 query
+    heads on 8 KV heads of 128, bf16, causal."""
+    gen = torch.Generator(device=exact_f32).manual_seed(7)
+    q, k, v = (torch.randn((1, 4096, heads, 128), generator=gen, device=exact_f32)
+               .to(torch.bfloat16) for heads in (32, 8, 8))
+    got = flash_kernel.flash_attention_cuda(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q, k, v, causal=True, triangle=True)
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
 def test_flash_attention_launch_counter_and_dispatch(dev):
     q = torch.randn((1, 8, 4, 16), device=dev)
     k = torch.randn((1, 8, 2, 16), device=dev)
@@ -470,6 +490,24 @@ def test_flash_attention_launch_counter_and_dispatch(dev):
     ops.flash_attention(q, k, k)
     ops.flash_attention(q, k, k, impl="cuda")
     assert flash_kernel.flash_attention_cuda.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype,d,instance", [
+    (torch.bfloat16, 16, "mma_sync"), (torch.bfloat16, 32, "mma_sync"),
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.float32, 64, "simt_f32"), (torch.float32, 128, "simt_f32")])
+def test_flash_attention_head_dim_dispatch_counts_its_instance(exact_f32, dtype, d, instance):
+    q = torch.randn((1, 130, 4, d), device=exact_f32).to(dtype)
+    k = torch.randn((1, 130, 2, d), device=exact_f32).to(dtype)
+    counts = flash_kernel.flash_attention_cuda.instance_launches
+    before = flash_kernel.flash_attention_cuda.launches, dict(counts)
+    out = ops.flash_attention(q, k, k)
+    torch.cuda.synchronize()
+    assert flash_kernel.flash_attention_cuda.launches == before[0] + 1
+    assert {n: counts[n] - before[1][n] for n in counts} == {
+        n: int(n == instance) for n in flash_kernel.INSTANCES}
+    torch.testing.assert_close(out, ref.flash_attention_ref(q, k, k), rtol=FLASH_TOL[dtype],
+                               atol=FLASH_TOL[dtype])
 
 
 @pytest.mark.parametrize("name", configs.ARCHS)

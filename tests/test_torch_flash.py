@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from repro.models import layers as JL
+from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as TL
 
@@ -102,6 +103,26 @@ def test_flash_attention_dispatch_never_falls_back():
         ops.flash_attention(q, k, v, impl="mxu")
     assert torch.equal(ops.flash_attention(q, k, v, impl="ref"),
                        ops.flash_attention(q, k, v))
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 16, "mma_sync"), (torch.bfloat16, 32, "mma_sync"),
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.float32, 16, "simt_f32"), (torch.float32, 128, "simt_f32")])
+def test_flash_kernel_instance_is_static_by_type_and_head_dim(dtype, d, want):
+    """The wrapper counts launches by the instance the CUDA entry point picks:
+    wgmma for every served config's bf16 head dims, mma.sync for bf16 16 and
+    32, the CUDA-core instance for float32.  CPU tensors launch nothing."""
+    assert flash_kernel.instance(dtype, d) == want
+    assert set(flash_kernel.flash_attention_cuda.instance_launches) == set(
+        flash_kernel.INSTANCES)
+    before = (flash_kernel.flash_attention_cuda.launches,
+              dict(flash_kernel.flash_attention_cuda.instance_launches))
+    q, k, v = (t.to(dtype) for t in _t(*_qkv(np.random.default_rng(0), 1, 8, 8, 2, 1, d)))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_kernel.flash_attention_cuda(q, k, v)
+    assert (flash_kernel.flash_attention_cuda.launches,
+            flash_kernel.flash_attention_cuda.instance_launches) == before
 
 
 @pytest.mark.parametrize("shape", [(2, 5, 64), (3, 4, 2, 16)])

@@ -298,6 +298,19 @@ def test_transfer_pool_reuses_buffers():
         TransferPool(depth=0)
 
 
+def test_transfer_pool_defaults_to_the_card():
+    """Like every entry point of the port, the pool runs on the card unless
+    asked for the CPU: without one, the default raises naming device='cpu'."""
+    if torch.cuda.is_available():
+        assert TransferPool().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            TransferPool()
+    pool = TransferPool(device="cpu")
+    assert pool.device == torch.device("cpu") and pool.depth == 3
+    assert pool.upload("k", [np.ones(2, np.int32)])[0].device.type == "cpu"
+
+
 def test_min_overlap_cache_locked_and_counted():
     verify._TABLE_CACHE.clear()
     assert verify.min_overlap_cache_stats()["entries"] == 0
