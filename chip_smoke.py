@@ -9,26 +9,35 @@ Phases (any failure raises, so the script exits non-zero):
    versions, and the time to build every CUDA kernel (one ``nvcc`` per
    source, all started together), with each source's own build time and
    ptxas' registers, spills and warnings.
-2. Kernel parity: each of the six packed-word kernels against its plain PyTorch version
-   on the card, over a sweep (odd sizes, W in {1, 4, 8, 12, 128}, self-join,
-   cosine keys, the cutoff hit and not, empty rows, invalid entries) and at
-   the main paths' shapes: a 4096 x 4096 block pair of real data (W = 4) for
-   the dense kernels, the first probe chunk of the SKEWED tau = 0.8 indexed
-   join for the postings kernels.  Results must be exactly equal; each
-   kernel is then timed with CUDA events (median after warm-up) beside its
-   plain version.
+2. Kernel parity: each of the six packed-word kernels and the two
+   tensor-core verdict kernels (``candidate_matrix_mxu``,
+   ``count_candidates_mxu``: the bit-plane product on wgmma from the packed
+   words, the verdict and count in the epilogue) against its plain PyTorch
+   version on the card, over a sweep (odd sizes, W in {1, 4, 8, 12, 128},
+   self-join, cosine keys, the cutoff hit and not, empty rows, invalid
+   entries; for the tensor-core pair also W = 32, NR and NS on their
+   128 x 256 work tiles' edges, NS % 16 != 0, all-pass and all-prune rows,
+   count tiles 32 / 64 / 256) and at the main paths' shapes: a 4096 x 4096
+   block pair of real data (W = 4) for the dense kernels, the first probe
+   chunk of the SKEWED tau = 0.8 indexed join for the postings kernels.
+   Results must be exactly equal; each kernel is then timed with CUDA
+   events (median after warm-up) beside its plain version, and the two
+   forms of each dense verdict in turns (swar, mxu, mxu, swar), with their
+   bounds and the SWAR form's popcount floor.
 3. Slice parity, on the card against the port's CPU path: the blocked join
    (``compaction="device"``) on a 10,000-set ZIPF collection with planted
    duplicates, ``naive_join`` against the blocked join on 3,000 of its sets,
    and the indexed join on a 10,000-set SKEWED collection with planted
    duplicates under ``impl="auto"``, ``impl="swar"`` and a forced small
    capacity (the dense fallback).  Pairs and ``JoinStats`` must be identical.
+   The blocked join under ``impl="swar"`` drives the SWAR verdict and count.
 4. Full size, the blocked path: ZIPF (100,000 sets, Poisson(50) sizes,
    101,584 tokens, 1,000 planted clusters of 3 at Jaccard 0.9; tau = 0.8,
    an explicit blocked plan) and UNIFORM (100,000 sets, Poisson(10) sizes,
    220 tokens; tau = 0.5) through ``JoinEngine``, whose auto plan must be
    blocked; b = 128, block = 4096, device compaction.  Both must agree with
-   host compaction.
+   host compaction.  Under ``auto`` the path launches the tensor-core verdict
+   and count, and neither SWAR kernel.
 5. Full size, the indexed path: SKEWED (``skewed_collection`` of 100,000
    sets + 1,000 planted clusters of 3 at Jaccard 0.9) through
    ``JoinEngine`` at tau = 0.8 and 0.6, whose auto plans must be indexed:
@@ -48,6 +57,11 @@ Phases (any failure raises, so the script exits non-zero):
    ``compact()`` and a self-join.  At every state the pairs equal a
    from-scratch rebuild under the same plan (and its funnel counters) and
    the b = 128 blocked join; the base is prepared once across the appends.
+   The path launches the tensor-core verdict and count, and neither the SWAR
+   pair nor ``bitplane_hamming``.  Then both dense verdicts at the store's
+   4096 x 4096 block pair (W = 32): exact, timed in turns (swar, mxu, mxu,
+   swar), beside the bit-plane composite it replaces (unpack, ``bitplane_hamming``, the
+   verdict in PyTorch ops) that the tensor-core kernel replaces.
 8. Full size, serving at b = 1024: SKEWED as in phase 5 in a
    ``CorpusStore`` planned by ``JoinPlanner(b=1024)`` (indexed), a
    ``JoinSession(max_batch=512)`` warmed with ``warm_buckets``, then 2,048
@@ -57,7 +71,7 @@ Phases (any failure raises, so the script exits non-zero):
    ``JoinEngine.probe`` in pairs and ``JoinStats``; the union of all tickets
    must equal one blocked R x S join at b = 128; no entrypoint is built after
    warm-up, across the append.  Then both bit-plane kernels are timed at
-   these paths' shapes (a 4096 x 4096 block pair of the store's words, the
+   their shapes (a 4096 x 4096 block pair of the store's words, the
    first coalesced batch's candidates) beside their plain versions, their
    bounds and a PyTorch yardstick (``bitplane_hamming`` also beside the
    ``torch._int_mm`` product alone, in turns, with its TOP/s and share of
@@ -95,13 +109,17 @@ tensor-core kernels print that time too).
 
 Each path's kernel launch counters are zeroed just before it and read just
 after (launches of the comparison runs inside the serving phase are taken
-out); every kernel the path runs must have launched, and at b = 1024 the
-packed-word ``candidate_matrix`` and ``pair_verdict_tiled`` must not.  The
-two kernels no full-size path runs are driven through their entry points
-in phase 3 (``pair_verdict`` by the indexed join under ``impl="swar"``,
-``hamming_matrix`` by ``ops.hamming_matrix``), and the flash kernel's
-mma.sync instance by phase 11's reduced model, each read the same way; the
-``path`` key of each kernel names the run its ``launches`` come from.  The
+out); every kernel the path runs must have launched, the blocked paths
+(phases 4 and 7) neither SWAR verdict kernel, and at b = 1024 neither
+``bitplane_hamming`` nor ``pair_verdict_tiled``.  The kernels no full-size
+path runs are driven through their entry points in phase 3
+(``pair_verdict`` by the indexed join under ``impl="swar"``, the SWAR
+``candidate_matrix`` and ``count_candidates`` by the blocked join under
+``impl="swar"``, ``hamming_matrix`` and ``bitplane_hamming`` by
+``ops.hamming_matrix``), and the flash kernel's mma.sync instance by phase
+11's reduced model, each read the same way; the ``path`` key of each kernel
+names the run its ``launches`` come from (the tensor-core verdicts: phases
+4 and 7 together).  The
 last three lines of standard output are the card's name and power limit,
 the ``{"kernels": [...]}`` record and the ``{"ok": true, ...}`` result.
 Exits non-zero without a result when no CUDA device is available.  Data is
@@ -138,6 +156,10 @@ SPIN_CYCLES_PER_S = 3e9
 VERDICT_OPS = 10   # per pair: 2 positivity + 2 cutoff tests, sum, sub, shift, 2 min, compare
 WINDOW_OPS = 4     # per pair: two window compares and their conjunction, the triangle
 ENTRY_OPS = 16     # per entry: 5 compares, 4 for the positional bound, key, compare, triangle, 4 ands
+HAM_OPS = 3        # per pair: the Hamming distance from an inner product and two popcounts
+# The SWAR form's floor: __popc issues at a quarter of the int32 rate, 16 a
+# clock on each of the H100's 132 SMs at its 1.98 GHz boost clock.
+POPC_PER_S = 132 * 16 * 1.98e9
 
 MAIN = dict(sim="jaccard", b=128, block=4096)
 SKEWED_TAUS = (0.8, 0.6)
@@ -224,6 +246,40 @@ def bound_ms(nbytes: int, ops: int, ops_rate: float = PEAK_OPS_PER_S) -> tuple[f
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def verdict_bound(nbytes: int, pairs: int, b: int, epilogue_ops: int) -> tuple[float, str, str]:
+    """The tensor-core verdict kernels' bound: the largest of the bytes over
+    the memory rate, the inner products (2 b a pair) over the int8 tensor
+    rate and the epilogue's integer operations over the float32 rate; with
+    what bounds it ("bytes" or "operations") and which of the three terms."""
+    terms = {"bytes": nbytes / PEAK_BYTES_PER_S,
+             "int8 tensor product": 2 * pairs * b / PEAK_INT8_TENSOR_OPS_PER_S,
+             "epilogue": epilogue_ops / PEAK_OPS_PER_S}
+    term = max(terms, key=terms.get)
+    return terms[term] * 1e3, "bytes" if term == "bytes" else "operations", term
+
+
+def in_turns(kernels: dict, iters: int = 50) -> dict:
+    """Device ms of each of two named calls timed in turns (a, b, b, a):
+    ``{name: [first, second]}``."""
+    (a, fa), (b, fb) = kernels.items()
+    ta1, tb1, tb2, ta2 = (cuda_ms(f, iters) for f in (fa, fb, fb, fa))
+    return {a: [ta1, ta2], b: [tb1, tb2]}
+
+
+class LaunchCounts:
+    """Launch counters of a set of kernel wrappers, read together."""
+
+    def __init__(self, **wrappers):
+        self.wrappers = wrappers
+
+    def zero(self) -> None:
+        for f in self.wrappers.values():
+            f.launches = 0
+
+    def read(self) -> dict:
+        return {name: f.launches for name, f in self.wrappers.items()}
+
+
 def kernel_row(name, source, replaces, *, err, ms, plain_ms, bound, path,
                library_ms=None) -> dict:
     """One entry of the ``{"kernels": [...]}`` line; ``path`` names the run
@@ -290,9 +346,73 @@ def set_operands(rng, nr, ns, b, dev, *, universe=150, max_len=60):
     return wr, ws, lr, ls
 
 
+def mxu_operands(rng, nr, ns, w, kind, dev):
+    """Operands of the tensor-core verdict sweep: random words (lengths
+    below 40, every fifth row empty), real bitmaps of random sets, or words
+    and lengths bent to all-pass, all-prune or empty rows."""
+    if kind == "sets":
+        return set_operands(rng, nr, ns, 32 * w, dev)
+
+    def side(n):
+        words = rng.integers(0, 2**32, (n, w), dtype=np.uint32).view(np.int32)
+        lens = rng.integers(0, 40, n).astype(np.int32)
+        lens[::5] = 0
+        if kind == "all_pass":      # identical zero bitmaps, equal sizes: ub == |r|
+            words[:], lens[:] = 0, 20
+        elif kind == "all_prune":   # random words, tiny sets: ub < 0
+            lens[:] = 2
+        elif kind == "empty_rows":
+            lens[::3] = 0
+        return torch.from_numpy(words).to(dev), torch.from_numpy(lens).to(dev)
+
+    (wr, lr), (ws, ls) = side(nr), side(ns)
+    m = min(nr, ns)
+    ws[:m:4] = wr[:m:4]   # identical rows pass
+    return wr, ws, lr, ls
+
+
+def check_mxu(sim, tau, wr, ws, lr, ls, *, self_join, cutoff, tiles=(256,)):
+    """candidate_matrix_mxu and count_candidates_mxu (with and without the
+    window, at each tile) against their plain versions, exactly.  Returns
+    the verdicts kept and the window pairs and candidates counted."""
+    from repro_torch.core import bounds
+    from repro_torch.core.constants import COSINE
+    from repro_torch.kernels import bitmap_filter, compaction, ref
+
+    dev = wr.device
+    lo, hi = (torch.from_numpy(a).to(dev)
+              for a in bounds.length_window_int(sim, tau, lr.cpu().numpy()))
+    table = ref.prune_table_for(sim, tau, lr, ls)
+    kw = dict(key_prod=sim == COSINE, self_join=self_join, cutoff=cutoff)
+    got = bitmap_filter.candidate_matrix_mxu_cuda(wr, ws, lr, ls, table, **kw)
+    want = ref.candidate_matrix_ref(wr, ws, lr, ls, sim=sim, tau=tau, self_join=self_join,
+                                    cutoff=cutoff, table=table)
+    err = max_err(got, want)
+    for tile in tiles:
+        for window in (True, False):
+            cw, cc = compaction.count_candidates_mxu_cuda(
+                wr, ws, lr, ls, lo if window else None, hi if window else None, table,
+                tile_r=tile, tile_s=tile, **kw)
+            rw, rc = ref.count_candidates_ref(wr, ws, lr, ls, lo, hi, sim=sim, tau=tau,
+                                              self_join=self_join, cutoff=cutoff,
+                                              window=window, tile_r=tile, tile_s=tile,
+                                              table=table)
+            err = max(err, max_err(cw, rw), max_err(cc, rc))
+            if window:
+                counted = (int(rw.sum()), int(rc.sum()))
+    torch.cuda.synchronize()
+    if err:
+        raise AssertionError(f"tensor-core verdict kernels != plain versions: {sim} {tau} "
+                             f"{list(wr.shape)}x{list(ws.shape)} self_join={self_join} "
+                             f"cutoff={cutoff} tiles={tiles}: error {err}")
+    return int(want.sum()), *counted
+
+
 def phase_dense_kernels(seed: int, main_prep) -> list[dict]:
-    """candidate_matrix, count_candidates and hamming_matrix: exact parity
-    with their plain versions, then timing at the blocked path's shape."""
+    """candidate_matrix, count_candidates (both forms: SWAR and tensor-core)
+    and hamming_matrix: exact parity with their plain versions over a sweep
+    and at the blocked path's shape (W = 4), then timing there, the two
+    forms of each verdict in turns."""
     from repro_torch.core import bitmap as bm
     from repro_torch.core import bounds, expected, verify
     from repro_torch.kernels import bitmap_filter, compaction, ref
@@ -320,16 +440,17 @@ def phase_dense_kernels(seed: int, main_prep) -> list[dict]:
         err_n = max(max_err(cw, rw), max_err(cc, rc))
         err_h = max_err(bitmap_filter.hamming_matrix_cuda(wr, ws),
                         ref.hamming_matrix_ref(wr, ws))
+        check_mxu(sim, tau, wr, ws, lr, ls, self_join=self_join, cutoff=cutoff, tiles=(tile,))
         torch.cuda.synchronize()
         if err_c or err_n or err_h:
             raise AssertionError(f"kernel != plain version: {sim} {tau} "
                                  f"{list(wr.shape)}x{list(ws.shape)} self_join={self_join} "
                                  f"cutoff={cutoff} errs={err_c},{err_n},{err_h}")
-        return err_c, err_n, err_h, int(want.sum()), int(rc.sum())
+        return err_c, err_n, err_h, int(want.sum()), int(rc.sum()), int(rw.sum())
 
     # The sweep of the CPU tests: odd sizes, W in {1, 4, 128}, self-join,
     # every key kind, the cutoff hit and not, empty rows, tiles that do not
-    # divide the grid.
+    # divide the grid.  Every kernel of this phase, both forms.
     for (nr, ns, w, sim, tau, sj, cutoff, tile) in [
             (333, 517, 1, "jaccard", 0.6, False, 1 << 30, 256),
             (517, 517, 4, "cosine", 0.4, True, 1 << 30, 256),
@@ -343,6 +464,29 @@ def phase_dense_kernels(seed: int, main_prep) -> list[dict]:
         log(f"parity sweep {nr}x{ns} W={w} {sim} tau={tau} self_join={sj} "
             f"cutoff={cutoff} tile={tile}: exact, {errs[3]} candidates")
 
+    # The tensor-core verdict kernels over their own edges: W in {1, 4, 8,
+    # 12, 32, 128}, NR and NS on the 128 x 256 work tiles' edges (NS % 16 !=
+    # 0 in four), all-pass / all-prune / empty rows, the four similarities
+    # (cosine keys lr*ls), both sides of the cutoff, self-join, count tiles
+    # 32 / 64 / 256.
+    sims = [("jaccard", 0.6), ("cosine", 0.75), ("dice", 0.5), ("overlap", 3.0)]
+    kinds = ("random", "sets", "all_pass", "all_prune", "empty_rows")
+    for (nr, ns, w) in [(127, 129, 1), (128, 257, 4), (129, 255, 8), (255, 256, 12),
+                        (256, 128, 32), (257, 127, 128)]:
+        totals = np.zeros(3, np.int64)
+        for k, kind in enumerate(kinds):
+            wr, ws, lr, ls = mxu_operands(rng, nr, ns, w, kind, dev)
+            for i, (sim, tau) in enumerate(sims):
+                sj = (i + k) % 2 == 1
+                cutoff = 12 if (i + k) % 3 == 0 else 1 << 30
+                r = check_mxu(sim, tau, wr, wr if sj else ws, lr, lr if sj else ls,
+                              self_join=sj, cutoff=cutoff, tiles=(32, 64, 256))
+                totals += r
+        log(f"tensor-core verdict parity {nr}x{ns} W={w}: candidate_matrix_mxu and "
+            f"count_candidates_mxu exact over {'/'.join(kinds)} x 4 sims x tiles "
+            f"32/64/256 x window on/off; {totals[0]} verdicts kept, {totals[1]} window "
+            f"pairs, {totals[2]} candidates counted")
+
     # The blocked path's shape: the first two 4096-row blocks of real data.
     tau = 0.8
     words = main_prep.bitmap_words(MAIN["b"], "xor")
@@ -353,17 +497,23 @@ def phase_dense_kernels(seed: int, main_prep) -> list[dict]:
     cutoff = expected.cutoff_point("xor", MAIN["b"], tau)
     errs = check("jaccard", tau, wr, ws, lr, ls, self_join=False, cutoff=cutoff)
     diag = check("jaccard", tau, wr, wr, lr, lr, self_join=True, cutoff=cutoff)
-    log(f"parity main shape {blk}x{blk} W={wr.shape[1]}: exact; off-diagonal block "
-        f"{errs[3]} candidates ({errs[4]} in the window), diagonal block {diag[3]} "
-        f"({diag[4]})")
+    log(f"parity main shape {blk}x{blk} W={wr.shape[1]}: exact, both forms; off-diagonal "
+        f"block {errs[3]} candidates ({errs[4]} in the window of {errs[5]} window pairs), "
+        f"diagonal block {diag[3]} ({diag[4]} of {diag[5]})")
 
     table = verify.prune_table_dev("jaccard", tau, main_prep.max_len, main_prep.max_len, dev)
     lo, hi = (torch.from_numpy(a).to(dev) for a in
               bounds.length_window_int("jaccard", tau, lr.cpu().numpy()))
     kw = dict(key_prod=False, self_join=False, cutoff=cutoff)
-    ms_c = cuda_ms(lambda: bitmap_filter.candidate_matrix_cuda(wr, ws, lr, ls, table, **kw), 50)
-    ms_n = cuda_ms(lambda: compaction.count_candidates_cuda(
-        wr, ws, lr, ls, lo, hi, table, tile_r=256, tile_s=256, **kw), 50)
+    cand_t = in_turns({
+        "swar": lambda: bitmap_filter.candidate_matrix_cuda(wr, ws, lr, ls, table, **kw),
+        "mxu": lambda: bitmap_filter.candidate_matrix_mxu_cuda(wr, ws, lr, ls, table, **kw)})
+    count_t = in_turns({
+        "swar": lambda: compaction.count_candidates_cuda(
+            wr, ws, lr, ls, lo, hi, table, tile_r=256, tile_s=256, **kw),
+        "mxu": lambda: compaction.count_candidates_mxu_cuda(
+            wr, ws, lr, ls, lo, hi, table, tile_r=256, tile_s=256, **kw)})
+    ms_c, ms_n = cand_t["swar"][0], count_t["swar"][0]
     ms_h = cuda_ms(lambda: bitmap_filter.hamming_matrix_cuda(wr, ws), 50)
     # Yardstick: one PyTorch call computing the same Hamming matrix from the
     # unpacked bits (float planes; p = 0 counts the differing coordinates).
@@ -381,27 +531,52 @@ def phase_dense_kernels(seed: int, main_prep) -> list[dict]:
     pairs, w = blk * blk, wr.shape[1]
     words_bytes = 2 * blk * w * 4
     in_bytes = words_bytes + 2 * blk * 4 + table.numel() * 4
+    n_bytes = in_bytes + 2 * blk * 4 + 2 * (blk // 256) ** 2 * 4
     b_c = bound_ms(in_bytes + pairs, pairs * (3 * w + VERDICT_OPS))
-    b_n = bound_ms(in_bytes + 2 * blk * 4 + 2 * (blk // 256) ** 2 * 4,
-                   pairs * (3 * w + VERDICT_OPS + WINDOW_OPS))
+    b_n = bound_ms(n_bytes, pairs * (3 * w + VERDICT_OPS + WINDOW_OPS))
     b_h = bound_ms(words_bytes + 4 * pairs, pairs * 3 * w)
-    log(f"timing at {blk}x{blk} W={w}: candidate_matrix {ms_c:.4f} ms (plain {plain_c:.3f} ms, "
-        f"bound {b_c[0]:.4f} ms by {b_c[1]}); count_candidates {ms_n:.4f} ms "
-        f"(plain {plain_n:.3f} ms, bound {b_n[0]:.4f} ms by {b_n[1]}); hamming_matrix "
-        f"{ms_h:.4f} ms (plain {plain_h:.3f} ms, bound {b_h[0]:.4f} ms by {b_h[1]}, "
-        f"torch.cdist(p=0) {lib_h:.4f} ms)")
+    # The tensor-core forms: every pair needs its verdict; the count needs
+    # the window test of every pair and the product and verdict of the
+    # window pairs only (errs[5] of them here).
+    n_win = errs[5]
+    b_cm = verdict_bound(in_bytes + pairs, pairs, 32 * w, pairs * (VERDICT_OPS + HAM_OPS))
+    b_nm = verdict_bound(n_bytes, n_win, 32 * w,
+                         pairs * WINDOW_OPS + n_win * (VERDICT_OPS + HAM_OPS))
+    popc_ms = pairs * w / POPC_PER_S * 1e3
+    log(f"timing at {blk}x{blk} W={w}, device time, in turns (swar, mxu, mxu, swar): "
+        f"candidate_matrix swar {cand_t['swar'][0]:.4f} / {cand_t['swar'][1]:.4f} ms, mxu "
+        f"{cand_t['mxu'][0]:.4f} / {cand_t['mxu'][1]:.4f} ms (plain {plain_c:.3f} ms; bound "
+        f"swar {b_c[0]:.4f} ms by {b_c[1]}, mxu {b_cm[0]:.4f} ms by the {b_cm[2]}); "
+        f"count_candidates swar {count_t['swar'][0]:.4f} / {count_t['swar'][1]:.4f} ms, mxu "
+        f"{count_t['mxu'][0]:.4f} / {count_t['mxu'][1]:.4f} ms (plain {plain_n:.3f} ms; bound "
+        f"swar {b_n[0]:.4f} ms by {b_n[1]}, mxu {b_nm[0]:.4f} ms by the {b_nm[2]}); the "
+        f"SWAR form's popcount floor {popc_ms:.4f} ms; hamming_matrix {ms_h:.4f} ms (plain "
+        f"{plain_h:.3f} ms, bound {b_h[0]:.4f} ms by {b_h[1]}, torch.cdist(p=0) {lib_h:.4f} ms)")
     src = "src/repro_torch/kernels/csrc/"
+    swar_path = "off the main paths: the blocked join under impl='swar' over 10,200 ZIPF sets"
+    mxu_path = ("full size, blocked: ZIPF tau=0.8 + UNIFORM tau=0.5 (b=128) and the store "
+                f"at b={WIDE_B}")
     return [
         kernel_row("candidate_matrix", src + "bitmap_filter.cu",
                    "src/repro/kernels/bitmap_filter.py:151", err=errs[0], ms=ms_c,
-                   plain_ms=plain_c, bound=b_c, path="full size, blocked: ZIPF tau=0.8 + UNIFORM tau=0.5"),
+                   plain_ms=plain_c, bound=b_c, path=swar_path),
         kernel_row("count_candidates", src + "compaction.cu",
                    "src/repro/kernels/compaction.py:52", err=errs[1], ms=ms_n,
-                   plain_ms=plain_n, bound=b_n, path="full size, blocked: ZIPF tau=0.8 + UNIFORM tau=0.5"),
+                   plain_ms=plain_n, bound=b_n, path=swar_path),
         kernel_row("hamming_matrix", src + "bitmap_filter.cu",
                    "src/repro/kernels/bitmap_filter.py:77", err=errs[2], ms=ms_h,
                    plain_ms=plain_h, bound=b_h, library_ms=lib_h,
                    path="off the main paths: ops.hamming_matrix over 10,200 ZIPF sets"),
+        kernel_row("candidate_matrix_mxu", src + "bitmap_filter.cu (planes_mma.cuh)",
+                   "src/repro/kernels/bitmap_filter.py:151", err=0, ms=cand_t["mxu"][0],
+                   plain_ms=plain_c, bound=b_cm[:2], path=mxu_path)
+        | {"bound_term": b_cm[2], "ms_turns": cand_t["mxu"], "swar_ms_turns": cand_t["swar"],
+           "popcount_floor_ms": popc_ms},
+        kernel_row("count_candidates_mxu", src + "compaction.cu (planes_mma.cuh)",
+                   "src/repro/kernels/compaction.py:52", err=0, ms=count_t["mxu"][0],
+                   plain_ms=plain_n, bound=b_nm[:2], path=mxu_path)
+        | {"bound_term": b_nm[2], "ms_turns": count_t["mxu"],
+           "swar_ms_turns": count_t["swar"], "popcount_floor_ms": popc_ms},
     ]
 
 
@@ -566,16 +741,18 @@ def _same(a, b, what):
 
 
 def phase_slice(zipf_col, skewed_col) -> dict:
-    """Card against CPU on 10,000-set collections.  Also drives the two
-    kernels that no full-size path runs, each through its entry point with
-    its counter zeroed just before and read just after: ``pair_verdict``
-    (the indexed join under ``impl="swar"``) and ``hamming_matrix``
-    (``ops.hamming_matrix`` over the ZIPF collection's words).  Returns
-    their launches."""
+    """Card against CPU on 10,000-set collections.  Also drives the kernels
+    that no full-size path runs, each through its entry point with its
+    counter zeroed just before and read just after: ``pair_verdict`` (the
+    indexed join under ``impl="swar"``), the SWAR ``candidate_matrix`` and
+    ``count_candidates`` (the blocked join under ``impl="swar"``),
+    ``hamming_matrix`` and ``bitplane_hamming`` (``ops.hamming_matrix``
+    over the ZIPF collection's words at b = 128 and, under
+    ``impl="mxu"``, at b = 1024).  Returns their launches."""
     from repro_torch.core import engine, join
     from repro_torch.core.collection import Collection
     from repro_torch.index import indexed_bitmap_join
-    from repro_torch.kernels import bitmap_filter, ops, postings, ref
+    from repro_torch.kernels import bitmap_filter, bitplane, compaction, ops, postings, ref
 
     tau = 0.8
     kw = dict(sim=MAIN["sim"], tau=tau, b=MAIN["b"], block=MAIN["block"],
@@ -597,17 +774,32 @@ def phase_slice(zipf_col, skewed_col) -> dict:
         raise AssertionError(f"naive_join {len(oracle)} pairs vs blocked {len(got)}")
     log(f"naive_join parity {sub.num_sets} sets: {len(oracle)} pairs, identical")
 
-    words = engine.prepare(zipf_col, "cuda").bitmap_words(MAIN["b"], "xor")
-    bitmap_filter.hamming_matrix_cuda.launches = 0
-    ham = ops.hamming_matrix(words, words)
-    launches = {"hamming_matrix": bitmap_filter.hamming_matrix_cuda.launches}
-    err = max_err(ham, ref.hamming_matrix_ref(words, words))
-    if err or launches["hamming_matrix"] != 1:
-        raise AssertionError(f"hamming_matrix over {words.shape[0]} sets: error {err}, "
-                             f"launches {launches}")
-    log(f"hamming_matrix path: ops.hamming_matrix over {words.shape[0]} ZIPF sets "
-        f"(W={words.shape[1]}): exact, mean distance {ham.double().mean():.3f}")
-    del ham
+    swar = LaunchCounts(candidate_matrix=bitmap_filter.candidate_matrix_cuda,
+                        count_candidates=compaction.count_candidates_cuda)
+    swar.zero()
+    got = join.blocked_bitmap_join(zipf_col, **kw, device="cuda", impl="swar")
+    launches = swar.read()
+    _same(got, cpu, "card (impl='swar') vs CPU blocked join")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the impl='swar' blocked join never launched: {launches}")
+    log(f"SWAR verdict path: the blocked join under impl='swar' over {zipf_col.num_sets} "
+        f"ZIPF sets, identical to the CPU join; launches {json.dumps(launches)}")
+
+    prep = engine.prepare(zipf_col, "cuda")
+    for name, counter, b, impl in (
+            ("hamming_matrix", bitmap_filter.hamming_matrix_cuda, MAIN["b"], "auto"),
+            ("bitplane_hamming", bitplane.bitplane_hamming_cuda, WIDE_B, "mxu")):
+        words = prep.bitmap_words(b, "xor")
+        counter.launches = 0
+        ham = ops.hamming_matrix(words, words, impl=impl)
+        launches[name] = counter.launches
+        err = max_err(ham, ref.hamming_matrix_ref(words, words))
+        if err or launches[name] != 1:
+            raise AssertionError(f"{name} over {words.shape[0]} sets: error {err}, "
+                                 f"launches {launches[name]}")
+        log(f"{name} path: ops.hamming_matrix(impl={impl!r}) over {words.shape[0]} ZIPF "
+            f"sets (W={words.shape[1]}): exact, mean distance {ham.double().mean():.3f}")
+        del ham
 
     ikw = dict(sim=MAIN["sim"], tau=tau, b=MAIN["b"], probe_block=MAIN["block"],
                return_stats=True)
@@ -655,17 +847,18 @@ def phase_full_blocked(seed: int, zipf) -> dict:
         f"UNIFORM auto plan: {uni_engine.plan.driver}, b={uni_engine.plan.b}, "
         f"block={uni_engine.plan.block}")
 
+    counts = LaunchCounts(candidate_matrix_mxu=bitmap_filter.candidate_matrix_mxu_cuda,
+                          count_candidates_mxu=compaction.count_candidates_mxu_cuda,
+                          candidate_matrix=bitmap_filter.candidate_matrix_cuda,
+                          count_candidates=compaction.count_candidates_cuda)
     # The path: counters zeroed just before, read just after.
-    bitmap_filter.candidate_matrix_cuda.launches = 0
-    compaction.count_candidates_cuda.launches = 0
+    counts.zero()
     runs = {"ZIPF": _join(zipf_prep, 0.8, "device")}
     (pairs, stats), secs = _timed(lambda: uni_engine.self_join(return_stats=True))
     runs["UNIFORM"] = (pairs, stats, secs)
-    launches = {"candidate_matrix": bitmap_filter.candidate_matrix_cuda.launches,
-                "count_candidates": compaction.count_candidates_cuda.launches}
+    launches = counts.read()
     log(f"blocked path launches: {json.dumps(launches)}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the blocked path never launched: {launches}")
+    check_dense_launches(launches, MAIN["b"], "the blocked path")
 
     for name, prep, tau in (("ZIPF", zipf_prep, 0.8), ("UNIFORM", uni_engine.prepared, 0.5)):
         pairs, stats, cold = runs[name]
@@ -678,7 +871,23 @@ def phase_full_blocked(seed: int, zipf) -> dict:
             f"{host_s:.3f} s; identical; stats {json.dumps(stats.to_dict())}")
         if name == "ZIPF" and stats.verified_true < 2000:
             raise AssertionError(f"ZIPF found {stats.verified_true} < 2000 planted pairs")
-    return launches
+    return {k: v for k, v in launches.items() if k.endswith("_mxu")}
+
+
+def check_dense_launches(launches: dict, b: int, path: str) -> None:
+    """A blocked path at b-bit rows launches the dense verdict and count
+    that ``auto`` picks there: the tensor-core kernels, and then neither
+    SWAR kernel."""
+    from repro_torch.kernels import ops
+
+    picked = ops._resolve_dense_impl("auto", torch.device("cuda"), b)
+    run = [launches[f"{k}_mxu" if picked == "mxu" else k]
+           for k in ("candidate_matrix", "count_candidates")]
+    idle = [launches[k if picked == "mxu" else f"{k}_mxu"]
+            for k in ("candidate_matrix", "count_candidates")]
+    if min(run) <= 0 or max(idle) != 0:
+        raise AssertionError(f"{path} at b={b} must launch the {picked} verdict and count "
+                             f"kernels and not the others: {launches}")
 
 
 def _perturbed(row: list, rng, universe: int) -> list:
@@ -738,7 +947,8 @@ def phase_full_indexed(seed: int, skewed, batches) -> dict:
 
     counters = (postings.entry_filter_cuda, postings.pair_verdict_tiled_cuda,
                 postings.pair_verdict_cuda, bitmap_filter.hamming_matrix_cuda,
-                bitmap_filter.candidate_matrix_cuda, compaction.count_candidates_cuda)
+                bitmap_filter.candidate_matrix_cuda, compaction.count_candidates_cuda,
+                bitmap_filter.candidate_matrix_mxu_cuda, compaction.count_candidates_mxu_cuda)
     # The path: counters zeroed just before, read just after.
     for f in counters:
         f.launches = 0
@@ -753,8 +963,10 @@ def phase_full_indexed(seed: int, skewed, batches) -> dict:
     log(f"indexed path launches: {json.dumps(launches)}; not on it: pair_verdict "
         f"{postings.pair_verdict_cuda.launches}, hamming_matrix "
         f"{bitmap_filter.hamming_matrix_cuda.launches}, candidate_matrix (dense "
-        f"fallback) {bitmap_filter.candidate_matrix_cuda.launches}, count_candidates "
-        f"{compaction.count_candidates_cuda.launches}")
+        f"fallback) {bitmap_filter.candidate_matrix_cuda.launches} / mxu "
+        f"{bitmap_filter.candidate_matrix_mxu_cuda.launches}, count_candidates "
+        f"{compaction.count_candidates_cuda.launches} / mxu "
+        f"{compaction.count_candidates_mxu_cuda.launches}")
     if min(launches["entry_filter"], launches["pair_verdict_tiled"]) <= 0:
         raise AssertionError(f"a kernel of the indexed path never launched: {launches}")
 
@@ -859,31 +1071,19 @@ def phase_bitplane_parity(seed: int) -> None:
             f"kernels, random / all-pass / all-prune / empty rows, 4 sims")
 
 
-class LaunchCounts:
-    """Launch counters of a set of kernel wrappers, read together."""
-
-    def __init__(self, **wrappers):
-        self.wrappers = wrappers
-
-    def zero(self) -> None:
-        for f in self.wrappers.values():
-            f.launches = 0
-
-    def read(self) -> dict:
-        return {name: f.launches for name, f in self.wrappers.items()}
-
-
 def _funnel(stats) -> dict:
     from repro_torch.store import FUNNEL_SUM_FIELDS
 
     return {f: getattr(stats, f) for f in FUNNEL_SUM_FIELDS}
 
 
-def phase_store(seed: int, zipf) -> tuple[dict, torch.Tensor]:
+def phase_store(seed: int, zipf) -> tuple[dict, tuple]:
     """The corpus store on the blocked path at b = 1024: returns the path's
-    launches and the first two 4096-row blocks of its words (the timing
-    operands of bitplane_hamming)."""
-    from repro_torch.core import engine, join
+    launches of the tensor-core verdict kernels, and the first two 4096-row
+    blocks of its words and lengths with its cutoff and longest set (the
+    timing operands at W = 32)."""
+    from repro_torch.core import bitmap as bm
+    from repro_torch.core import engine, expected, join
     from repro_torch.core.plan import JoinPlan
     from repro_torch.data.collections import zipf_collection
     from repro_torch.kernels import bitmap_filter, bitplane, compaction
@@ -896,9 +1096,11 @@ def phase_store(seed: int, zipf) -> tuple[dict, torch.Tensor]:
                           seed + 30 + k) for k in range(2)]
     store = CorpusStore(zipf, MAIN["sim"], tau, plan=plan,
                         policy=CompactionPolicy.never(), device="cuda")
-    counts = LaunchCounts(bitplane_hamming=bitplane.bitplane_hamming_cuda,
+    counts = LaunchCounts(candidate_matrix_mxu=bitmap_filter.candidate_matrix_mxu_cuda,
+                          count_candidates_mxu=compaction.count_candidates_mxu_cuda,
                           candidate_matrix=bitmap_filter.candidate_matrix_cuda,
-                          count_candidates=compaction.count_candidates_cuda)
+                          count_candidates=compaction.count_candidates_cuda,
+                          bitplane_hamming=bitplane.bitplane_hamming_cuda)
     log(f"full size, store on the blocked path: ZIPF {zipf.num_sets} sets + 2 appends of "
         f"{[d.num_sets for d in deltas]} sets, plan {plan.driver} b={plan.b} "
         f"block={plan.block} compaction={plan.compaction}")
@@ -917,9 +1119,10 @@ def phase_store(seed: int, zipf) -> tuple[dict, torch.Tensor]:
     runs["compacted"], compacted_s = _timed(lambda: store.self_join(return_stats=True))
     launches = counts.read()
     log(f"store path launches: {json.dumps(launches)}")
-    if launches["bitplane_hamming"] <= 0 or launches["candidate_matrix"] != 0:
-        raise AssertionError(f"at b={WIDE_B} the blocked store must run bitplane_hamming "
-                             f"and not candidate_matrix: {launches}")
+    check_dense_launches(launches, WIDE_B, "the blocked store")
+    if launches["bitplane_hamming"] != 0:
+        raise AssertionError(f"at b={WIDE_B} the blocked store's verdict is one kernel; "
+                             f"it must not run bitplane_hamming: {launches}")
 
     # The comparisons: a from-scratch rebuild under the same plan, and the
     # b = 128 blocked join, at each state.
@@ -947,8 +1150,14 @@ def phase_store(seed: int, zipf) -> tuple[dict, torch.Tensor]:
         f"appends {', '.join(f'{t:.3f}' for t in append_s)} s; self-join with 2 deltas "
         f"{appended_s:.3f} s; compaction {compact_s:.3f} s; self-join after it "
         f"{compacted_s:.3f} s; builds {json.dumps(store.stats().lifetime_builds)}")
-    words = store.base.prepared.bitmap_words(WIDE_B, plan.method, tau=tau)
-    return launches, words[:2 * MAIN["block"]]
+    prep = store.base.prepared
+    method = bm.choose_method(tau, WIDE_B) if plan.method == "combined" else plan.method
+    words = prep.bitmap_words(WIDE_B, method)
+    _, lengths = prep.device_arrays()
+    blocks = slice(0, 2 * MAIN["block"])
+    return ({k: v for k, v in launches.items() if k.endswith("_mxu")},
+            (words[blocks], lengths[blocks], expected.cutoff_point(method, WIDE_B, tau),
+             prep.max_len))
 
 
 def serve_requests(col, seed: int, n: int):
@@ -1097,6 +1306,77 @@ def phase_serve(seed: int, skewed) -> tuple[dict, tuple]:
     return launches, (args, kw)
 
 
+def phase_wide_verdict_timing(store_ops) -> dict:
+    """The two dense verdicts at the store's block pair (W = 32): both forms
+    of each exactly equal to the plain version and timed in turns (swar,
+    mxu, mxu, swar), and the bit-plane composite of candidate_matrix
+    (unpack, bitplane_hamming, the verdict in PyTorch ops) that the
+    tensor-core kernel replaces.  Returns each tensor-core kernel's
+    numbers there."""
+    from repro_torch.core import bounds, verify
+    from repro_torch.kernels import bitmap_filter, bitplane, compaction, ops, ref
+
+    words, lengths, cutoff, max_len = store_ops
+    blk, tau = MAIN["block"], 0.8
+    wr, ws = words[:blk], words[blk:2 * blk]
+    lr, ls = lengths[:blk], lengths[blk:2 * blk]
+    dev = wr.device
+    counted = check_mxu("jaccard", tau, wr, ws, lr, ls, self_join=False, cutoff=cutoff)
+    check_mxu("jaccard", tau, wr, wr, lr, lr, self_join=True, cutoff=cutoff)
+    table = verify.prune_table_dev("jaccard", tau, max_len, max_len, dev)
+    lo, hi = (torch.from_numpy(a).to(dev) for a in
+              bounds.length_window_int("jaccard", tau, lr.cpu().numpy()))
+    kw = dict(key_prod=False, self_join=False, cutoff=cutoff)
+
+    def composite():
+        (pr, pc_r), (ps, pc_s) = ops._planes(wr), ops._planes(ws)
+        ham = bitplane.bitplane_hamming_cuda(pr, ps, pc_r, pc_s)
+        return bounds.verdict_from_hamming(ham, lr[:, None], ls[None, :], table,
+                                           sim="jaccard", cutoff=cutoff)
+
+    want = ref.candidate_matrix_ref(wr, ws, lr, ls, sim="jaccard", tau=tau, self_join=False,
+                                    cutoff=cutoff, table=table)
+    err = max(max_err(composite(), want),
+              max_err(bitmap_filter.candidate_matrix_cuda(wr, ws, lr, ls, table, **kw), want))
+    if err:
+        raise AssertionError(f"the W = 32 verdicts disagree with the plain version: {err}")
+    cand_t = in_turns({
+        "swar": lambda: bitmap_filter.candidate_matrix_cuda(wr, ws, lr, ls, table, **kw),
+        "mxu": lambda: bitmap_filter.candidate_matrix_mxu_cuda(wr, ws, lr, ls, table, **kw)})
+    count_t = in_turns({
+        "swar": lambda: compaction.count_candidates_cuda(
+            wr, ws, lr, ls, lo, hi, table, tile_r=256, tile_s=256, **kw),
+        "mxu": lambda: compaction.count_candidates_mxu_cuda(
+            wr, ws, lr, ls, lo, hi, table, tile_r=256, tile_s=256, **kw)})
+    comp_ms = cuda_ms(composite, 20)
+    rkw = dict(sim="jaccard", tau=tau, self_join=False, cutoff=cutoff, table=table)
+    plain_c = cuda_ms(lambda: ref.candidate_matrix_ref(wr, ws, lr, ls, **rkw), 10)
+    plain_n = cuda_ms(lambda: ref.count_candidates_ref(wr, ws, lr, ls, lo, hi, **rkw), 10)
+
+    pairs, w = blk * blk, wr.shape[1]
+    in_bytes = 2 * blk * w * 4 + 2 * blk * 4 + table.numel() * 4
+    n_win = counted[1]
+    b_c = verdict_bound(in_bytes + pairs, pairs, 32 * w, pairs * (VERDICT_OPS + HAM_OPS))
+    b_n = verdict_bound(in_bytes + 2 * blk * 4 + 2 * (blk // 256) ** 2 * 4, n_win, 32 * w,
+                        pairs * WINDOW_OPS + n_win * (VERDICT_OPS + HAM_OPS))
+    popc_ms = pairs * w / POPC_PER_S * 1e3
+    log(f"timing at {blk}x{blk} W={w} (the store's words), device time, in turns (swar, "
+        f"mxu, mxu, swar): candidate_matrix swar {cand_t['swar'][0]:.4f} / "
+        f"{cand_t['swar'][1]:.4f} ms, mxu {cand_t['mxu'][0]:.4f} / {cand_t['mxu'][1]:.4f} ms, "
+        f"the bit-plane composite (unpack + bitplane_hamming + PyTorch verdict) {comp_ms:.4f} ms "
+        f"(plain {plain_c:.3f} ms; mxu bound {b_c[0]:.4f} ms by the {b_c[2]}); "
+        f"count_candidates swar {count_t['swar'][0]:.4f} / {count_t['swar'][1]:.4f} ms, mxu "
+        f"{count_t['mxu'][0]:.4f} / {count_t['mxu'][1]:.4f} ms (plain {plain_n:.3f} ms; mxu "
+        f"bound {b_n[0]:.4f} ms by the {b_n[2]}, {n_win} window pairs, {counted[2]} "
+        f"candidates); the SWAR form's popcount floor {popc_ms:.4f} ms; exact")
+    row = lambda t, plain, bound: {  # noqa: E731
+        "ms": t["mxu"][0], "ms_turns": t["mxu"], "swar_ms_turns": t["swar"],
+        "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1], "bound_term": bound[2],
+        "popcount_floor_ms": popc_ms}
+    return {"candidate_matrix_mxu": row(cand_t, plain_c, b_c) | {"composite_ms": comp_ms},
+            "count_candidates_mxu": row(count_t, plain_n, b_n)}
+
+
 def phase_bitplane_timing(store_words, serve_call) -> list[dict]:
     """Both bit-plane kernels timed at their paths' shapes beside their
     plain versions, bounds and a PyTorch yardstick."""
@@ -1174,7 +1454,8 @@ def phase_bitplane_timing(store_words, serve_call) -> list[dict]:
         kernel_row("bitplane_hamming", src + "bitplane.cu",
                    "src/repro/kernels/bitplane.py:41", err=err_h, ms=ms_h, plain_ms=plain_h,
                    bound=b_h, library_ms=lib_h,
-                   path=f"full size, store on the blocked path at b={WIDE_B}: ZIPF tau=0.8")
+                   path=f"off the full-size paths: ops.hamming_matrix(impl='mxu') over "
+                        f"10,200 ZIPF sets at b={WIDE_B}")
         | {"library_product_ms": mm_h, "call_ms": call_h},
         kernel_row("pair_verdict_bitplane", src + "postings.cu",
                    "src/repro/kernels/postings.py:271", err=err_v, ms=ms_v, plain_ms=plain_v,
@@ -1504,13 +1785,18 @@ def main(argv=None) -> int:
     launches = phase_slice(zipf_10k, skewed_10k)
     launches.update(phase_full_blocked(args.seed, zipf))
     launches.update(phase_full_indexed(args.seed, skewed, batches))
-    store_launches, store_words = phase_store(args.seed, zipf)
+    store_launches, store_ops = phase_store(args.seed, zipf)
     serve_launches, serve_call = phase_serve(args.seed, skewed)
-    launches["bitplane_hamming"] = store_launches["bitplane_hamming"]
+    for name, n in store_launches.items():   # the tensor-core verdicts: b = 128 and 1024
+        launches[name] += n
     launches["pair_verdict_bitplane"] = serve_launches["pair_verdict_bitplane"]
-    kernels += phase_bitplane_timing(store_words, serve_call)
+    wide = phase_wide_verdict_timing(store_ops)
+    for k in kernels:
+        if k["name"] in wide:
+            k[f"at_b{WIDE_B}"] = wide[k["name"]]
+    kernels += phase_bitplane_timing(store_ops[0], serve_call)
     # The LM phases need the card's memory: release the join phases' tensors.
-    del store_words, serve_call
+    del store_ops, serve_call
     gc.collect()
     torch.cuda.empty_cache()
     phase_flash_parity(args.seed)

@@ -17,7 +17,9 @@ once under ``torch.profiler``, and prints per cell: both wall times, the
 device's busy time (the sum of the times of the kernels that ran on it,
 each counted once) and idle share during the profiled join, the device
 time of the largest kernels and of each of the port's own CUDA kernels
-(time, calls, and the mean per call).  The SKEWED cells run
+(time, calls, and the mean per call; the tensor-core verdict kernels show
+as ``planes_mma::planes_verdict_kernel<true>``, the count, and ``<false>``,
+the verdict).  The SKEWED cells run
 ``JoinEngine``'s auto plan, which must be the indexed driver.  The Chrome
 traces go to ``--out`` (default ``profile_traces/``).  Needs a CUDA device.
 """
@@ -138,8 +140,9 @@ def main(argv=None) -> int:
                      for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA}
         busy_us = sum(us for us, _ in by_kernel.values())
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
-        own = {k.split("(")[0]: (us, n) for k, (us, n) in by_kernel.items()
-               if k.startswith(("bitmap_join::", "bitplane::"))}
+        own = {k.removeprefix("void ").split("(")[0]: (us, n) for k, (us, n) in by_kernel.items()
+               if k.removeprefix("void ").startswith(("bitmap_join::", "bitplane::",
+                                                      "planes_mma::"))}
         print(json.dumps({
             "cell": name, "driver": driver, "tau": tau, "n_sets": prep.num_sets,
             "wall_s": wall_plain, "wall_s_profiled": wall, "device_busy_s": busy_us / 1e6,

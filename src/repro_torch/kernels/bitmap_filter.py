@@ -1,8 +1,11 @@
 """The dense bitmap-filter kernels (CUDA C++, ``csrc/bitmap_filter.cu``).
 
-* :func:`candidate_matrix_cuda` replaces
-  ``repro.kernels.bitmap_filter.candidate_matrix_pallas``; its plain version
-  is :func:`repro_torch.kernels.ref.candidate_matrix_ref`.
+* :func:`candidate_matrix_cuda` (the packed-word SWAR kernel) and
+  :func:`candidate_matrix_mxu_cuda` (the bit-plane product on the tensor
+  cores from the same packed words, with the verdict in its epilogue,
+  ``csrc/planes_mma.cuh``) replace
+  ``repro.kernels.bitmap_filter.candidate_matrix_pallas``; their plain
+  version is :func:`repro_torch.kernels.ref.candidate_matrix_ref`.
 * :func:`hamming_matrix_cuda` replaces ``hamming_matrix_pallas``; its plain
   version is :func:`repro_torch.kernels.ref.hamming_matrix_ref`.
 
@@ -22,9 +25,8 @@ _C = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _lib():
-    lib = _build.library("bitmap_filter")
-    fn = lib.candidate_matrix_launch
+def _lib(entry: str = "candidate_matrix_launch"):
+    fn = getattr(_build.library("bitmap_filter"), entry)
     fn.argtypes = [_C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _C, _C]
     fn.restype = _I
     return fn
@@ -85,6 +87,34 @@ def candidate_matrix_cuda(words_r: torch.Tensor, words_s: torch.Tensor,
 
 
 candidate_matrix_cuda.launches = 0
+
+
+def candidate_matrix_mxu_cuda(words_r: torch.Tensor, words_s: torch.Tensor,
+                              len_r: torch.Tensor, len_s: torch.Tensor,
+                              table: torch.Tensor, *, key_prod: bool,
+                              self_join: bool, cutoff: int) -> torch.Tensor:
+    """The verdicts of :func:`candidate_matrix_cuda`, equal to them, from the
+    tensor-core kernel (any W >= 1)."""
+    nr, ns = words_r.shape[0], words_s.shape[0]
+    check_operands(words_r, words_s, (len_r, nr), (len_s, ns),
+                   (table, table.shape[0]))
+    if words_r.shape[1] == 0:
+        raise ValueError("words must have at least one column")
+    out = torch.empty((nr, ns), dtype=torch.bool, device=words_r.device)
+    if nr == 0 or ns == 0:
+        return out
+    with torch.cuda.device(words_r.device):
+        rc = _lib("candidate_matrix_mxu_launch")(
+            words_r.data_ptr(), words_s.data_ptr(), len_r.data_ptr(), len_s.data_ptr(),
+            table.data_ptr(), nr, ns, words_r.shape[1], int(key_prod), int(self_join),
+            int(cutoff), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"candidate_matrix_mxu kernel launch failed: CUDA error {rc}")
+    candidate_matrix_mxu_cuda.launches += 1
+    return out
+
+
+candidate_matrix_mxu_cuda.launches = 0
 
 
 def hamming_matrix_cuda(words_r: torch.Tensor, words_s: torch.Tensor) -> torch.Tensor:

@@ -63,37 +63,6 @@ constexpr int kPcS = kPcR + 2 * 64 * 4;  // int32[2][kBN]
 constexpr int kBar = kPcS + 2 * kBN * 4;
 constexpr int kSmemBytes = kBar + 2 * kStages * 8 + 1024;   // + alignment slack
 
-#define ACC_I8(d, i)                                                                     \
-  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), "+r"(d[i + 5]), \
-      "+r"(d[i + 6]), "+r"(d[i + 7])
-
-// D (64 x 256, s32) (+)= A (64 x 32) B^T, A and B s8, K-major in shared memory.
-__device__ __forceinline__ void wgmma_m64n256k32_s8(int (&d)[128], uint64_t desc_a,
-                                                    uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
-      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
-      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
-      " %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73,"
-      " %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85,"
-      " %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97,"
-      " %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
-      " %108, %109, %110, %111, %112, %113, %114, %115, %116, %117,"
-      " %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p;\n}\n"
-      : ACC_I8(d, 0), ACC_I8(d, 8), ACC_I8(d, 16), ACC_I8(d, 24),
-        ACC_I8(d, 32), ACC_I8(d, 40), ACC_I8(d, 48), ACC_I8(d, 56),
-        ACC_I8(d, 64), ACC_I8(d, 72), ACC_I8(d, 80), ACC_I8(d, 88),
-        ACC_I8(d, 96), ACC_I8(d, 104), ACC_I8(d, 112), ACC_I8(d, 120)
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-#undef ACC_I8
 
 __global__ void __launch_bounds__(kThreads, 1)
 bitplane_hamming_kernel(const __grid_constant__ CUtensorMap tm_r,
@@ -171,8 +140,8 @@ bitplane_hamming_kernel(const __grid_constant__ CUtensorMap tm_r,
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kBK / 32; ++kk)
-          wgmma_m64n256k32_s8(acc, hopper::sw128_desc(a_base + 32 * kk),
-                              hopper::sw128_desc(b_base + 32 * kk), kt > 0 || kk > 0);
+          hopper::wgmma_m64n256k32_s8(acc, hopper::sw128_desc(a_base + 32 * kk),
+                                      hopper::sw128_desc(b_base + 32 * kk), kt > 0 || kk > 0);
         hopper::wgmma_commit();
         // The previous stage's group is done: release its stage.
         hopper::wgmma_wait<1>();

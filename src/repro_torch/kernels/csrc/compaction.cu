@@ -1,6 +1,7 @@
-// count_candidates: the tile-count prepass of the device-resident join.
+// count_candidates: the tile-count prepass of the device-resident join, in
+// two forms (count_candidates_launch and count_candidates_mxu_launch below).
 //
-// Replaces the TPU kernel src/repro/kernels/compaction.py
+// Both replace the TPU kernel src/repro/kernels/compaction.py
 // count_candidates_pallas (body _make_count_kernel, sharing _tile_verdict
 // with candidate_matrix_pallas).  For each tile_r x tile_s tile of the pair
 // grid it writes two int32 counts:
@@ -8,16 +9,18 @@
 //          and i < j (for a self-join);
 //   cand = #of those that also pass the candidate_matrix verdict.
 //
-// What bounds it on an H100: the same per-pair work as candidate_matrix
-// (W XOR + popcount + add, then the verdict) plus the window and triangle
-// tests, with no large output at all: two ints per tile.  Popcount issue
-// rate bounds it; the memory traffic is the word rows and lengths only.
+// What bounds the SWAR form on an H100: the same per-pair work as
+// candidate_matrix (W XOR + popcount + add, then the verdict) plus the
+// window and triangle tests, with no large output at all: two ints per
+// tile.  Popcount issue rate bounds it; the memory traffic is the word rows
+// and lengths only.
 //
 // Design: one block of 256 threads per output tile, walking the tile's
 // 64 x 64 sub-tiles with the candidate kernel's staging (verdict.cuh); each
 // thread counts in registers, then a warp-shuffle and shared-memory
 // reduction ends in one store per output.  The order of the sums is fixed,
 // so the result is deterministic and needs no atomics.
+#include "planes_mma.cuh"
 #include "verdict.cuh"
 
 namespace bitmap_join {
@@ -111,4 +114,51 @@ extern "C" int count_candidates_launch(const void* wr, const void* ws,
       static_cast<const int*>(table), nr, ns, w, key_prod, self_join, cutoff,
       tile_r, tile_s, static_cast<int*>(out_win), static_cast<int*>(out_cand));
   return static_cast<int>(cudaGetLastError());
+}
+
+// count_candidates_mxu: the same counts from the tensor cores
+// (planes_mma.cuh), the form ops.count_candidates runs on the card.
+//
+// What bounds it on an H100: at the blocked join's 4096 x 4096 block pair,
+// the per-pair epilogue (the window, the triangle, the verdict and the two
+// sums: about 17 integer operations a pair, 4.3 us at 67 T/s) at W = 4, and
+// the bit-plane product (2 NR NS b operations at the int8 tensor rate of
+// 1,979 T/s, 17.4 us) at W = 32.  The SWAR form above issues W popcounts a
+// pair at a quarter of the int32 rate: a floor of 16 us at W = 4 and 128 us
+// at W = 32 that no tuning of it removes.
+//
+// Design: the product runs on wgmma s8 from the packed words (expanded to
+// bit planes in shared memory by the producer warpgroup), and the
+// epilogue takes the whole test in integers: a window check as one unsigned
+// compare against the row's [lo, hi], the triangle only on tiles that meet
+// the diagonal, the verdict as three compares after one table lookup.  A
+// warp's pairs at one accumulator column group share an output tile when
+// tile_r and tile_s are multiples of 8, so each thread sums in registers,
+// and one warp reduction and one atomicAdd a tile and row half carry the
+// sums into the zeroed outputs (any other tile: an atomicAdd a pair).
+// Integer sums are exact in any order, so the counts are deterministic.
+// Work tiles whose pairs all fail the window or the triangle are skipped.
+// out_win/out_cand must be zeroed.  Launches on `stream`, allocates nothing
+// and does not synchronise; returns cudaGetLastError().
+extern "C" int count_candidates_mxu_launch(const void* wr, const void* ws, const void* len_r,
+                                           const void* len_s, const void* lo, const void* hi,
+                                           const void* table, int nr, int ns, int w,
+                                           int key_prod, int self_join, int cutoff,
+                                           int tile_r, int tile_s, void* out_win,
+                                           void* out_cand, void* stream) {
+  planes_mma::Params p{};
+  p.wr = static_cast<const uint32_t*>(wr);
+  p.ws = static_cast<const uint32_t*>(ws);
+  p.len_r = static_cast<const int*>(len_r);
+  p.len_s = static_cast<const int*>(len_s);
+  p.lo = static_cast<const int*>(lo);
+  p.hi = static_cast<const int*>(hi);
+  p.table = static_cast<const int*>(table);
+  p.nr = nr, p.ns = ns, p.w = w;
+  p.key_prod = key_prod, p.self_join = self_join, p.cutoff = cutoff;
+  p.tile_r = tile_r, p.tile_s = tile_s, p.gs = (ns + tile_s - 1) / tile_s;
+  p.aligned = tile_r % 8 == 0 && tile_s % 8 == 0;
+  p.out_win = static_cast<int*>(out_win);
+  p.out_cand = static_cast<int*>(out_cand);
+  return planes_mma::launch<true>(p, static_cast<cudaStream_t>(stream));
 }

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) machinery shared by the warp-specialised kernels
-// (flash_attention.cu, bitplane.cu): mbarriers, TMA tile loads, wgmma
-// fences and shared-memory matrix descriptors, register reallocation, named
-// barriers, and the host-side encoding of TMA tensor maps.
+// (flash_attention.cu, bitplane.cu, planes_mma.cuh): mbarriers, TMA tile
+// loads, wgmma fences, the s8 product and shared-memory matrix descriptors,
+// register reallocation, named barriers, and the host-side encoding of TMA
+// tensor maps.
 //
 // The pattern both kernels follow: one producer warp issues TMA loads of
 // 128-byte-swizzled tiles into a ring of stages in shared memory, each stage
@@ -99,6 +100,58 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+#define ACC_I8(d, i)                                                                     \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), "+r"(d[i + 5]), \
+      "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// D (64 x 256, s32) (+)= A (64 x 32) B^T, A and B s8, K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n256k32_s8(int (&d)[128], uint64_t desc_a,
+                                                    uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      " %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73,"
+      " %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85,"
+      " %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97,"
+      " %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+      " %108, %109, %110, %111, %112, %113, %114, %115, %116, %117,"
+      " %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      : ACC_I8(d, 0), ACC_I8(d, 8), ACC_I8(d, 16), ACC_I8(d, 24),
+        ACC_I8(d, 32), ACC_I8(d, 40), ACC_I8(d, 48), ACC_I8(d, 56),
+        ACC_I8(d, 64), ACC_I8(d, 72), ACC_I8(d, 80), ACC_I8(d, 88),
+        ACC_I8(d, 96), ACC_I8(d, 104), ACC_I8(d, 112), ACC_I8(d, 120)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+
+// D (64 x 128, s32) (+)= A (64 x 32) B^T, A and B s8, K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      " %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : ACC_I8(d, 0), ACC_I8(d, 8), ACC_I8(d, 16), ACC_I8(d, 24),
+        ACC_I8(d, 32), ACC_I8(d, 40), ACC_I8(d, 48), ACC_I8(d, 56)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+#undef ACC_I8
+
 // Keeps the compiler from moving accesses of an accumulator register across
 // the asynchronous wgmma that owns it.
 __device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r)::"memory"); }
@@ -124,6 +177,14 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo_bytes
   d |= static_cast<uint64_t>((1024 >> 4) & 0x3FFF) << 32;
   d |= static_cast<uint64_t>(1) << 62;   // layout type: 128-byte swizzle
   return d;
+}
+
+// Orders this thread's generic-proxy writes to shared memory (st.shared)
+// before later async-proxy reads of them (wgmma operands): a producer that
+// writes a tile with ordinary stores fences, then arrives on the barrier
+// its consumers wait on.
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // -- warp specialisation -----------------------------------------------------

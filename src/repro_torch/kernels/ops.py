@@ -8,20 +8,26 @@ lengths when omitted).
 
 ``impl`` selects by the tensors' device and never falls back:
 
-* ``"auto"`` — on CUDA tensors what the reference picks on its accelerator:
-  the bit-plane kernels (``"mxu"``) for b >= 512, else the SWAR kernel
-  (``"swar"``; for ``pair_verdict`` the candidate-major ``"swar_tiled"``);
-  on CPU tensors the plain version (``"ref"``);
+* ``"auto"`` — on CPU tensors the plain version (``"ref"``); on CUDA
+  tensors, for ``hamming_matrix`` and ``pair_verdict`` what the reference
+  picks on its accelerator: the bit-plane kernels (``"mxu"``) for b >= 512,
+  else the SWAR kernel (``"swar"``; for ``pair_verdict`` the
+  candidate-major ``"swar_tiled"``); for ``candidate_matrix`` and
+  ``count_candidates`` the tensor-core verdict kernels (``"mxu"``) at every
+  b, the form the card measured faster at both main shapes (b = 128 and
+  1024; PERF.md);
 * ``"swar"`` — the packed-word CUDA kernel; raises on CPU tensors;
 * ``"swar_tiled"`` — ``pair_verdict``'s candidate-major CUDA kernel
   (``entry_filter`` maps it to ``"swar"``, as the reference does);
-* ``"mxu"`` — the int8 bit-plane CUDA kernels (``bitplane_hamming``, on the
-  tensor cores, and ``pair_verdict_bitplane``); the words are unpacked into
-  {0, 1} int8 planes and row popcounts here, outside the kernel, as the
-  reference does.  Raises on CPU tensors.  ``count_candidates`` has no
-  bit-plane kernel in the reference either: ``mxu`` launches the SWAR count
-  kernel, which gives the same counts; ``entry_filter`` has no words and
-  maps it to ``"swar"``;
+* ``"mxu"`` — the tensor-core CUDA kernels.  ``candidate_matrix`` and
+  ``count_candidates`` launch one kernel each that reads the packed words,
+  expands them into bit planes in shared memory, runs the product on
+  ``wgmma`` and fuses the verdict (and the count's window, triangle and
+  per-tile sums) into its epilogue.  ``hamming_matrix`` and
+  ``pair_verdict`` unpack the words into {0, 1} int8 planes and row
+  popcounts here, outside the kernel, as the reference does
+  (``bitplane_hamming``, ``pair_verdict_bitplane``).  ``entry_filter`` has
+  no words and maps it to ``"swar"``.  Raises on CPU tensors;
 * ``"ref"`` / ``"ref_mxu"`` — the plain versions (packed-word and
   bit-plane); raise on CUDA tensors (compare against the plain version on
   the card by calling :mod:`repro_torch.kernels.ref`).
@@ -77,6 +83,14 @@ def _resolve_pairwise_impl(impl: str, device: torch.device, b: int) -> str:
     and the bit-plane ``"mxu"`` kernel from there on."""
     return resolve_impl(impl, device, b, kernels=("swar", "swar_tiled"),
                         auto="swar_tiled")
+
+
+def _resolve_dense_impl(impl: str, device: torch.device, b: int) -> str:
+    """``candidate_matrix`` and ``count_candidates``: ``auto`` on CUDA
+    tensors is the tensor-core verdict kernel (``"mxu"``) at every b, the
+    form the card measured faster than the SWAR one at the blocked join's
+    block pairs, b = 128 and 1024 (PERF.md)."""
+    return resolve_impl(impl, device, b, auto="mxu")
 
 
 def _resolve_entry_impl(impl: str, device: torch.device) -> str:
@@ -142,29 +156,19 @@ def candidate_matrix(
     depend on tiling.
     """
     _check_interpret(interpret)
-    impl = resolve_impl(impl, words_r.device, 32 * words_r.shape[1])
+    impl = _resolve_dense_impl(impl, words_r.device, 32 * words_r.shape[1])
     if table is None:
         table = ref.prune_table_for(sim, tau, len_r, len_s)
-    if impl in ("mxu", "ref_mxu"):
-        # The Hamming matrix from the bit planes, then the elementwise
-        # verdict outside the kernel, as the reference does.
-        ham = hamming_matrix(words_r, words_s, impl=impl)
-        cand = bounds.verdict_from_hamming(
-            ham, len_r.to(torch.int32)[:, None], len_s.to(torch.int32)[None, :],
-            table, sim=sim, cutoff=cutoff)
-        if self_join:
-            dev = words_r.device
-            cand &= (torch.arange(words_r.shape[0], device=dev)[:, None]
-                     < torch.arange(words_s.shape[0], device=dev)[None, :])
-        return cand
-    if impl == "ref":
+    if impl in ("ref", "ref_mxu"):
         return ref.candidate_matrix_ref(
             words_r, words_s, len_r, len_s, sim=sim, tau=tau,
-            self_join=self_join, cutoff=cutoff, table=table)
-    return bitmap_filter.candidate_matrix_cuda(
-        words_r, words_s, len_r.to(torch.int32).contiguous(),
-        len_s.to(torch.int32).contiguous(), table, key_prod=sim == COSINE,
-        self_join=self_join, cutoff=cutoff)
+            self_join=self_join, cutoff=cutoff, table=table,
+            bitplane=impl == "ref_mxu")
+    kernel = (bitmap_filter.candidate_matrix_mxu_cuda if impl == "mxu"
+              else bitmap_filter.candidate_matrix_cuda)
+    return kernel(words_r, words_s, len_r.to(torch.int32).contiguous(),
+                  len_s.to(torch.int32).contiguous(), table, key_prod=sim == COSINE,
+                  self_join=self_join, cutoff=cutoff)
 
 
 def count_candidates(
@@ -190,22 +194,27 @@ def count_candidates(
 
     Counts exactly what :func:`candidate_matrix` intersected with the
     integer length window (``lo_s``/``hi_s`` per R row) would mark true,
-    without materialising the dense mask.  The reference has no bit-plane
-    count kernel (its ``mxu``/``ref_mxu`` run its plain version): here
-    ``ref_mxu`` is the plain version and ``mxu`` launches the SWAR count
-    kernel, which gives the same counts.
+    without materialising the dense mask.  ``mxu`` (``auto`` on the card)
+    is the tensor-core kernel with the window, the triangle, the verdict and
+    the per-tile sums in its epilogue, ``swar`` the packed-word kernel;
+    ``ref_mxu`` is the plain version with the Hamming distances taken from
+    the bit planes, as the tensor-core kernel takes them (the reference
+    runs its plain version for ``mxu``/``ref_mxu``: it has no bit-plane
+    count kernel).  All give the same counts.
     """
     _check_interpret(interpret)
-    impl = resolve_impl(impl, words_r.device, 32 * words_r.shape[1])
+    impl = _resolve_dense_impl(impl, words_r.device, 32 * words_r.shape[1])
     if table is None:
         table = ref.prune_table_for(sim, tau, len_r, len_s)
     if impl in ("ref", "ref_mxu"):
         return ref.count_candidates_ref(
             words_r, words_s, len_r, len_s, lo_s, hi_s, sim=sim, tau=tau,
             self_join=self_join, cutoff=cutoff, window=window,
-            tile_r=tile, tile_s=tile, table=table)
+            tile_r=tile, tile_s=tile, table=table, bitplane=impl == "ref_mxu")
     i32 = lambda t: t.to(torch.int32).contiguous()  # noqa: E731
-    return compaction.count_candidates_cuda(
+    kernel = (compaction.count_candidates_mxu_cuda if impl == "mxu"
+              else compaction.count_candidates_cuda)
+    return kernel(
         words_r, words_s, i32(len_r), i32(len_s),
         i32(lo_s) if window else None, i32(hi_s) if window else None, table,
         key_prod=sim == COSINE, self_join=self_join, cutoff=cutoff,

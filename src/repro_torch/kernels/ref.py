@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import bounds, verify
-from repro_torch.core.bitmap import hamming_packed, popcount32
+from repro_torch.core.bitmap import hamming_packed, popcount32, popcount_rows, unpack_planes
 from repro_torch.core.bounds import positional_upper_bound_int
 
 
@@ -68,11 +68,21 @@ def candidate_matrix_ref(
     self_join: bool,
     cutoff: int = 1 << 30,
     table: torch.Tensor | None = None,
+    bitplane: bool = False,
 ) -> torch.Tensor:
-    """Fused bitmap-filter verdicts -> bool[NR, NS] (self-join: global i<j)."""
+    """Fused bitmap-filter verdicts -> bool[NR, NS] (self-join: global i<j).
+
+    ``bitplane`` takes the Hamming distances from the {0, 1} bit planes and
+    row popcounts (:func:`bitplane_hamming_ref`), the arithmetic of the
+    tensor-core kernels, instead of the packed words; the result is the
+    same."""
     if table is None:
         table = prune_table_for(sim, tau, len_r, len_s)
-    ham = hamming_matrix_ref(words_r, words_s)
+    if bitplane:
+        ham = bitplane_hamming_ref(unpack_planes(words_r), unpack_planes(words_s),
+                                   popcount_rows(words_r), popcount_rows(words_s))
+    else:
+        ham = hamming_matrix_ref(words_r, words_s)
     lr = len_r.to(torch.int32)[:, None]
     ls = len_s.to(torch.int32)[None, :]
     cand = bounds.verdict_from_hamming(ham, lr, ls, table, sim=sim, cutoff=cutoff)
@@ -102,11 +112,13 @@ def count_candidates_ref(
     tile_r: int = 256,
     tile_s: int = 256,
     table: torch.Tensor | None = None,
+    bitplane: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-tile (window-pair count, candidate count) -> two int32[GR, GS].
 
     ``lo_s``/``hi_s`` are the integer admissible |s| windows per R row.  The
-    last tiles count as if padded with empty (length-0) rows.
+    last tiles count as if padded with empty (length-0) rows.  ``bitplane``
+    as for :func:`candidate_matrix_ref`.
     """
     nr, ns = words_r.shape[0], words_s.shape[0]
     lr = len_r.to(torch.int32)[:, None]
@@ -117,7 +129,8 @@ def count_candidates_ref(
     if self_join:
         win &= _upper_triangle(nr, ns, words_r.device)
     cand = candidate_matrix_ref(words_r, words_s, len_r, len_s, sim=sim, tau=tau,
-                                self_join=self_join, cutoff=cutoff, table=table) & win
+                                self_join=self_join, cutoff=cutoff, table=table,
+                                bitplane=bitplane) & win
 
     def tile_sums(m):
         gr, gs = -(-nr // tile_r), -(-ns // tile_s)

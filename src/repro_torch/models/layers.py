@@ -85,8 +85,9 @@ def flash_attention(
     q: (B, Sq, H, D); k, v: (B, Sk, KV, D); GQA via H % KV == 0.  The (S, S)
     score matrix is never materialised.  ``q_chunk``, ``kv_chunk`` and
     ``triangle_schedule`` keep the reference's signature and shape only the
-    plain version's blocks (the CUDA kernel tiles by 64 and always skips the
-    blocks above the diagonal).
+    plain version's blocks (the CUDA kernel has its own tiles, 128 q rows by
+    128 keys in the bf16 instance every served config runs, and always
+    skips the blocks above the diagonal).
     """
     if q.requires_grad or k.requires_grad or v.requires_grad:
         raise NotImplementedError(

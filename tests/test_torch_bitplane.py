@@ -6,12 +6,14 @@ versions themselves must equal the JAX package's ``ops`` at ``impl="mxu",
 interpret=True`` (its Pallas bit-plane kernels, interpreted) and at
 ``impl="ref_mxu"``, exactly: b ∈ {64, 512, 1024, 4096}, odd sizes (96 × 64;
 G ∈ {5, 2500}), every similarity, the cutoff hit and not, all-pass,
-all-prune and empty rows.  Then the dispatch: on CUDA devices ``auto`` is
-the reference's accelerator rule (the bit-plane kernels from b = 512),
-``count_candidates(mxu)`` launches the count kernel and
-``entry_filter(mxu)`` the SWAR entry kernel.  The CUDA kernels themselves
-are held against these plain versions on the card
-(``tests/test_torch_cuda.py``).
+all-prune and empty rows; ``ops.count_candidates(impl="ref_mxu")`` (the
+tensor-core count's arithmetic) against the JAX package's count.  Then the
+dispatch: on CUDA devices ``auto`` is the reference's accelerator rule for
+``hamming_matrix`` and ``pair_verdict`` (the bit-plane kernels from
+b = 512), the tensor-core verdict kernels at every b for
+``candidate_matrix`` and ``count_candidates``, and ``entry_filter(mxu)``
+the SWAR entry kernel.  The CUDA kernels themselves are held against these
+plain versions on the card (``tests/test_torch_cuda.py``).
 """
 
 import jax.numpy as jnp
@@ -19,13 +21,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import bounds as jbounds
 from repro.core.bitmap import popcount_rows as jpopcount_rows
 from repro.core.bitmap import unpack_bits as junpack_bits
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import bitmap as tbm
 from repro_torch.core import bounds as tbounds
-from repro_torch.kernels import compaction, postings
+from repro_torch.kernels import bitmap_filter, bitplane, compaction, postings
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -177,19 +180,92 @@ def test_auto_resolves_as_the_reference_does_on_its_accelerator(monkeypatch):
 
 
 def test_mxu_dispatch_of_count_candidates_and_entry_filter(monkeypatch):
-    """``count_candidates(mxu)`` launches the count kernel (the reference has
-    no bit-plane count kernel) and ``entry_filter(mxu)`` the SWAR entry
-    kernel; the resolution is forced to the card's here, and the kernels'
-    wrappers are replaced by recorders."""
+    """``count_candidates`` launches the tensor-core count kernel under
+    ``mxu`` and ``auto`` (at b = 1024 and below 512 alike) and the SWAR one
+    under ``swar``; ``entry_filter(mxu)`` the SWAR entry kernel.  The
+    resolution is forced to the card's here, and the kernels' wrappers are
+    replaced by recorders."""
     calls = []
+    orig = tops.resolve_impl
     monkeypatch.setattr(tops, "resolve_impl",
-                        lambda impl, device, b, **kw: "mxu" if impl == "auto" else impl)
+                        lambda impl, device, b, **kw: orig(impl, torch.device("cuda"), b, **kw))
     monkeypatch.setattr(compaction, "count_candidates_cuda",
                         lambda *a, **k: calls.append("count_candidates"))
+    monkeypatch.setattr(compaction, "count_candidates_mxu_cuda",
+                        lambda *a, **k: calls.append("count_candidates_mxu"))
     monkeypatch.setattr(postings, "entry_filter_cuda",
                         lambda *a, **k: calls.append("entry_filter"))
     wr, lr = (_t(a) for a in _operands(8, 1024, 3))
     tops.count_candidates(wr, wr, lr, lr, lr, lr, "jaccard", 0.8)
     tops.count_candidates(wr, wr, lr, lr, lr, lr, "jaccard", 0.8, impl="mxu")
+    tops.count_candidates(wr, wr, lr, lr, lr, lr, "jaccard", 0.8, impl="swar")
+    tops.count_candidates(wr[:, :4], wr[:, :4], lr, lr, lr, lr, "jaccard", 0.8)   # b = 128
     tops.entry_filter(*[lr] * 8, lr > 0, "jaccard", 0.8, impl="mxu")
-    assert calls == ["count_candidates", "count_candidates", "entry_filter"]
+    assert calls == ["count_candidates_mxu", "count_candidates_mxu", "count_candidates",
+                     "count_candidates_mxu", "entry_filter"]
+
+
+# The wrapper ``auto`` launches on CUDA tensors, by entry point: the
+# reference's accelerator rule (bit planes from b = 512) for hamming_matrix
+# and pair_verdict, the tensor-core verdict kernels at every b for the two
+# dense verdicts (the form the card measured faster), the SWAR entry filter.
+AUTO_KERNELS = {
+    "hamming_matrix": lambda b: "bitplane_hamming" if b >= 512 else "hamming_matrix",
+    "candidate_matrix": lambda b: "candidate_matrix_mxu",
+    "count_candidates": lambda b: "count_candidates_mxu",
+    "pair_verdict": lambda b: "pair_verdict_bitplane" if b >= 512 else "pair_verdict_tiled",
+    "entry_filter": lambda b: "entry_filter",
+}
+
+
+@pytest.mark.parametrize("entry", sorted(AUTO_KERNELS))
+@pytest.mark.parametrize("b", [64, 256, 512, 1024])
+def test_auto_dispatch_rule_per_entry_point(monkeypatch, entry, b):
+    """Under ``auto`` each entry point launches exactly the kernel the rule
+    names, with the resolution forced to the card's and every CUDA wrapper
+    replaced by a recorder."""
+    calls = []
+    orig = tops.resolve_impl
+    monkeypatch.setattr(tops, "resolve_impl",
+                        lambda impl, device, b, **kw: orig(impl, torch.device("cuda"), b, **kw))
+    wrappers = {"hamming_matrix": bitmap_filter, "candidate_matrix": bitmap_filter,
+                "candidate_matrix_mxu": bitmap_filter, "bitplane_hamming": bitplane,
+                "count_candidates": compaction, "count_candidates_mxu": compaction,
+                "pair_verdict": postings, "pair_verdict_tiled": postings,
+                "pair_verdict_bitplane": postings, "entry_filter": postings}
+    for name, module in wrappers.items():
+        monkeypatch.setattr(module, f"{name}_cuda",
+                            lambda *a, name=name, **k: calls.append(name) or
+                            torch.zeros(a[0].shape[0], dtype=torch.bool))
+    (wr, lr), (ws, ls) = (tuple(_t(a) for a in _operands(16, b, b + k)) for k in (0, 1))
+    args = {"hamming_matrix": (wr, ws),
+            "candidate_matrix": (wr, ws, lr, ls, "jaccard", 0.8, False),
+            "count_candidates": (wr, ws, lr, ls, lr, lr, "jaccard", 0.8),
+            "pair_verdict": (wr, ws, lr, ls, "jaccard", 0.8),
+            "entry_filter": (*[lr] * 8, lr > 0, "jaccard", 0.8)}[entry]
+    getattr(tops, entry)(*args)
+    assert calls == [AUTO_KERNELS[entry](b)]
+
+
+@pytest.mark.parametrize("sim,tau", SIM_TAUS)
+@pytest.mark.parametrize("self_join", [False, True])
+@pytest.mark.parametrize("tile", [32, 64, 256])
+def test_count_candidates_ref_mxu_matches_reference(sim, tau, self_join, tile):
+    """The bit-plane plain count (Hamming distances from the planes and row
+    popcounts, as the tensor-core count takes them) equals the JAX
+    package's count, window and triangle included."""
+    (wr, lr), (ws, ls) = _operands(96, 64, tile, "empty_rows"), _operands(80, 64, tile + 1)
+    ws[::4] = wr[:80:4]  # identical rows pass,
+    wr[48:], lr[48:] = wr[:48], lr[:48]  # and in a self-join, rows i and i + 48
+    if self_join:
+        ws, ls = wr, lr
+    lo, hi = jbounds.length_window_int(sim, tau, lr)
+    kw = dict(self_join=self_join, cutoff=25 if sim in ("dice", "overlap") else 1 << 30,
+              tile=tile)
+    want = jops.count_candidates(*(jnp.asarray(a) for a in (wr, ws, lr, ls, lo, hi)), sim,
+                                 tau, impl="ref", **kw)
+    got = tops.count_candidates(*(_t(a) for a in (wr, ws, lr, ls, lo, hi)), sim, tau,
+                                impl="ref_mxu", **kw)
+    for g, r in zip(got, want):
+        assert g.dtype == torch.int32 and np.array_equal(g.numpy(), np.asarray(r))
+    assert int(got[1].sum()) > 0

@@ -7,6 +7,7 @@ raising with the source's name) is checked without a CUDA toolkit.
 """
 
 import importlib.util
+import shutil
 import stat
 import sys
 from pathlib import Path
@@ -73,4 +74,41 @@ def test_kernel_comparison_script_needs_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(module, "build", lambda *a: pytest.fail("built without a card"))
     assert module.main(["--baseline", str(ROOT)]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_build_hash_covers_the_shared_verdict_header(tmp_path, monkeypatch):
+    """Every file in ``csrc/`` feeds the build hash, the tensor-core verdict
+    kernels' shared main loop ``planes_mma.cuh`` among them, so an edit to it
+    rebuilds both sources that include it."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build.build_dir()
+    header = csrc / "planes_mma.cuh"
+    header.write_text(header.read_text() + "\n")
+    assert _build.build_dir() != before
+    for name in ("bitmap_filter", "compaction"):
+        assert name in _build.SOURCES
+        assert '#include "planes_mma.cuh"' in (csrc / f"{name}.cu").read_text()
+
+
+def _script(name):
+    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_verdict_breakdown_needs_a_card_and_matches_the_header(monkeypatch, capsys):
+    """``scripts/verdict_breakdown.py`` exits non-zero without a GPU before
+    building anything, and every line its variants switch off is still in
+    ``planes_mma.cuh`` (it refuses to run otherwise)."""
+    module = _script("verdict_breakdown")
+    header = (_build.CSRC / "planes_mma.cuh").read_text()
+    for _, old, _ in module.SWITCHES:
+        assert old in header
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(module, "build_variant", lambda *a: pytest.fail("built without a card"))
+    assert module.main([]) == 1
     assert "no CUDA device" in capsys.readouterr().err

@@ -95,13 +95,118 @@ def test_kernels_match_plain_versions(dev, nr, ns, w, sim, tau, self_join, cutof
 
 
 def test_launch_counters_count_launches(dev):
+    """``auto`` launches the tensor-core verdict kernels at b = 128 too (the
+    form the card measured faster); ``swar`` the packed-word ones."""
     wr, ws, lr, ls = _operands(70, 50, 4, 1, dev)
-    before = (bitmap_filter.candidate_matrix_cuda.launches,
-              compaction.count_candidates_cuda.launches)
+    counters = (bitmap_filter.candidate_matrix_mxu_cuda, compaction.count_candidates_mxu_cuda,
+                bitmap_filter.candidate_matrix_cuda, compaction.count_candidates_cuda)
+    before = [f.launches for f in counters]
     ops.candidate_matrix(wr, ws, lr, ls, "jaccard", 0.8, False)
     ops.count_candidates(wr, ws, lr, ls, lr, lr, "jaccard", 0.8)
-    assert bitmap_filter.candidate_matrix_cuda.launches == before[0] + 1
-    assert compaction.count_candidates_cuda.launches == before[1] + 1
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 0, 0]
+    ops.candidate_matrix(wr, ws, lr, ls, "jaccard", 0.8, False, impl="swar")
+    ops.count_candidates(wr, ws, lr, ls, lr, lr, "jaccard", 0.8, impl="swar")
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1, 1]
+
+
+# -- the tensor-core verdict kernels (candidate_matrix_mxu, count_candidates_mxu) --
+
+# The sweep of W (1, 4, 8, 12, 32, 128) and the kernels' 128 x 256 work-tile
+# edges (NR, NS in {127, 128, 129, 255, 256, 257}); NS % 16 != 0 in most.
+MXU_SHAPES = [(33, 70, 1), (300, 200, 4), (129, 257, 8), (255, 127, 12), (256, 256, 32),
+              (257, 129, 128), (127, 255, 4), (128, 128, 1), (1000, 999, 4)]
+# sim, tau, self_join, cutoff: every key kind, the cutoff hit and not.
+MXU_VERDICTS = [("jaccard", 0.6, False, 1 << 30), ("cosine", 0.75, True, 1 << 30),
+                ("dice", 0.5, False, 12), ("overlap", 3.0, True, 12)]
+# Count tiles: the sweeps' 32 and 64, ops' 256, and 20 (not a multiple of 8:
+# the kernel's per-pair path).
+MXU_TILES = (32, 64, 256, 20)
+
+
+def _verdict_operands(nr, ns, w, kind, dev):
+    if kind == "sets":
+        return _operands(nr, ns, w, nr + ns + w, dev)
+    (wr, lr), (ws, ls) = _random_words(nr, w, nr, dev), _random_words(ns, w, ns + 1, dev)
+    if kind == "all_pass":     # identical zero bitmaps, equal sizes: ub == |r|
+        wr.zero_(), ws.zero_(), lr.fill_(20), ls.fill_(20)
+    elif kind == "all_prune":  # random words, tiny sets: ub < 0
+        lr.fill_(2), ls.fill_(2)
+    return wr, ws, lr, ls
+
+
+@pytest.mark.parametrize("nr,ns,w", MXU_SHAPES)
+@pytest.mark.parametrize("kind", ["sets", "random", "all_pass", "all_prune"])
+def test_mxu_verdict_kernels_match_plain_versions(dev, nr, ns, w, kind):
+    wr, ws, lr, ls = _verdict_operands(nr, ns, w, kind, dev)
+    for sim, tau, self_join, cutoff in MXU_VERDICTS:
+        r_words, r_len = (wr, lr)
+        s_words, s_len = (wr, lr) if self_join else (ws, ls)
+        table = ref.prune_table_for(sim, tau, r_len, s_len)
+        kw = dict(key_prod=sim == COSINE, self_join=self_join, cutoff=cutoff)
+        got = bitmap_filter.candidate_matrix_mxu_cuda(r_words, s_words, r_len, s_len, table,
+                                                      **kw)
+        want = ref.candidate_matrix_ref(r_words, s_words, r_len, s_len, sim=sim, tau=tau,
+                                        self_join=self_join, cutoff=cutoff, table=table)
+        assert torch.equal(got, want), (sim, self_join, cutoff)
+        lo, hi = (torch.from_numpy(a).to(dev)
+                  for a in bounds.length_window_int(sim, tau, r_len.cpu().numpy()))
+        for tile in MXU_TILES:
+            for window in (False, True):
+                got_n = compaction.count_candidates_mxu_cuda(
+                    r_words, s_words, r_len, s_len, lo if window else None,
+                    hi if window else None, table, tile_r=tile, tile_s=tile, **kw)
+                want_n = ref.count_candidates_ref(
+                    r_words, s_words, r_len, s_len, lo, hi, sim=sim, tau=tau,
+                    self_join=self_join, cutoff=cutoff, window=window, tile_r=tile,
+                    tile_s=tile, table=table)
+                assert all(torch.equal(g, r) for g, r in zip(got_n, want_n)), \
+                    (sim, self_join, cutoff, tile, window)
+
+
+@pytest.mark.parametrize("b", [128, 1024])
+def test_mxu_and_swar_verdict_kernels_agree(dev, b):
+    """The two forms of each dense verdict give equal results through ops,
+    at the blocked join's two widths."""
+    wr, ws, lr, ls = _operands(700, 650, b // 32, b, dev)
+    kept = 0
+    for sim, tau, self_join, cutoff in MXU_VERDICTS:
+        s_words, s_len = (wr, lr) if self_join else (ws, ls)
+        args = (wr, s_words, lr, s_len)
+        lo, hi = (torch.from_numpy(a).to(dev)
+                  for a in bounds.length_window_int(sim, tau, lr.cpu().numpy()))
+        mxu = ops.candidate_matrix(*args, sim, tau, self_join, cutoff, impl="mxu")
+        assert torch.equal(mxu, ops.candidate_matrix(*args, sim, tau, self_join, cutoff,
+                                                     impl="swar"))
+        kept += int(mxu.sum())
+        for tile in (64, 256):
+            kw = dict(self_join=self_join, cutoff=cutoff, tile=tile)
+            got = ops.count_candidates(*args, lo, hi, sim, tau, impl="mxu", **kw)
+            want = ops.count_candidates(*args, lo, hi, sim, tau, impl="swar", **kw)
+            assert all(torch.equal(g, r) for g, r in zip(got, want))
+    assert kept > 0
+
+
+def test_mxu_verdict_wrappers_reject_bad_operands(dev):
+    wr, ws, lr, ls = _operands(8, 8, 4, 2, dev)
+    table = ref.prune_table_for("jaccard", 0.8, lr, ls)
+    kw = dict(key_prod=False, self_join=False, cutoff=1 << 30)
+    nkw = dict(kw, tile_r=32, tile_s=32)
+    for bad in ((wr.cpu(), ws, lr, ls), (wr, ws[:, :2], lr, ls), (wr, ws, lr.long(), ls),
+                (wr[:, :0], ws[:, :0], lr, ls)):
+        with pytest.raises(ValueError):
+            bitmap_filter.candidate_matrix_mxu_cuda(*bad, table, **kw)
+        with pytest.raises(ValueError):
+            compaction.count_candidates_mxu_cuda(*bad, None, None, table, **nkw)
+    with pytest.raises(ValueError):
+        compaction.count_candidates_mxu_cuda(wr, ws, lr, ls, lr, None, table, **nkw)
+    with pytest.raises(ValueError):
+        compaction.count_candidates_mxu_cuda(wr, ws, lr, ls, None, None, table,
+                                             **dict(nkw, tile_r=0))
+    empty = bitmap_filter.candidate_matrix_mxu_cuda(wr[:0], ws, lr[:0], ls, table, **kw)
+    assert empty.shape == (0, 8)
+    win, cand = compaction.count_candidates_mxu_cuda(wr, ws[:0], lr, ls[:0], None, None,
+                                                     table, **nkw)
+    assert win.shape == cand.shape == (1, 0)
 
 
 def test_wrappers_reject_bad_operands(dev):
@@ -343,22 +448,24 @@ def test_bitplane_wrappers_reject_bad_operands(dev):
 
 
 def test_bitplane_launch_counters_and_auto_dispatch(dev):
-    """``auto`` on CUDA tensors is the reference's accelerator rule: the
-    bit-plane kernels from b = 512, the SWAR kernels below."""
+    """``auto`` on CUDA tensors: the bit-plane kernels from b = 512 (the
+    reference's accelerator rule), the SWAR kernels below; the dense
+    verdict and count are the tensor-core verdict kernels."""
     wr, ws, lr, ls = _operands(70, 50, 32, 1, dev)       # b = 1024
     gr, gs, glr, gls = _gathered(300, 16, 5, dev)         # b = 512
     ents, valid = _entries(300, 5, dev)
     counters = (bitplane.bitplane_hamming_cuda, postings.pair_verdict_bitplane_cuda,
                 bitmap_filter.candidate_matrix_cuda, bitmap_filter.hamming_matrix_cuda,
                 postings.pair_verdict_tiled_cuda, compaction.count_candidates_cuda,
-                postings.entry_filter_cuda)
+                postings.entry_filter_cuda, bitmap_filter.candidate_matrix_mxu_cuda,
+                compaction.count_candidates_mxu_cuda)
     before = [f.launches for f in counters]
     ops.hamming_matrix(wr, ws)
-    ops.candidate_matrix(wr, ws, lr, ls, "jaccard", 0.8, False)
+    ops.candidate_matrix(wr, ws, lr, ls, "jaccard", 0.8, False)    # the tensor-core verdict
     ops.pair_verdict(gr, gs, glr, gls, "jaccard", 0.8)
-    ops.count_candidates(wr, ws, lr, ls, lr, lr, "jaccard", 0.8)   # mxu: the count kernel
+    ops.count_candidates(wr, ws, lr, ls, lr, lr, "jaccard", 0.8)   # the tensor-core count
     ops.entry_filter(*ents, valid, "jaccard", 0.8, impl="mxu")     # mxu: swar
-    assert [f.launches - b for f, b in zip(counters, before)] == [2, 1, 0, 0, 0, 1, 1]
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 0, 0, 0, 0, 1, 1, 1]
     ops.pair_verdict(gr[:, :8], gs[:, :8], glr, gls, "jaccard", 0.8)  # b = 256: swar_tiled
     assert postings.pair_verdict_tiled_cuda.launches == before[4] + 1
 
@@ -370,7 +477,7 @@ def test_card_join_at_b1024_matches_cpu_join(dev, driver):
         run = lambda d: join.blocked_bitmap_join(col, "jaccard", 0.7, b=1024, block=128,  # noqa: E731
                                                  compaction="device", return_stats=True,
                                                  device=d)
-        counter = bitplane.bitplane_hamming_cuda
+        counter = compaction.count_candidates_mxu_cuda
     else:
         run = lambda d: indexed_bitmap_join(col, "jaccard", 0.7, b=1024, probe_block=128,  # noqa: E731
                                             return_stats=True, device=d)

@@ -146,6 +146,31 @@ def test_cpu_tensors_never_launch_the_kernel():
         tops.count_candidates(wr, ws, lr, ls, lr, lr, "jaccard", 0.8, impl="swar")
 
 
+@pytest.mark.parametrize("wrapper", ["candidate_matrix_mxu", "count_candidates_mxu"])
+@pytest.mark.parametrize("bad", ["cpu_tensors", "int64_words", "int64_lengths", "uint8_words"])
+def test_mxu_verdict_wrappers_raise_before_building(monkeypatch, wrapper, bad):
+    """The tensor-core verdict kernels' wrappers refuse CPU tensors and
+    wrong dtypes before anything is built (no nvcc here)."""
+    from repro_torch.kernels import _build, bitmap_filter, compaction
+
+    monkeypatch.setattr(_build, "library", lambda name: pytest.fail(f"built {name}"))
+    wr, ws, lr, ls = (_t(a) for a in _operands((8, 8, 4, "random"), seed=3))
+    if bad == "int64_words":
+        wr = wr.long()
+    elif bad == "int64_lengths":
+        lr = lr.long()
+    elif bad == "uint8_words":
+        wr = wr.view(torch.uint8)
+    table = tref.prune_table_for("jaccard", 0.8, ls, ls)
+    kw = dict(key_prod=False, self_join=False, cutoff=1 << 30)
+    with pytest.raises(ValueError):
+        if wrapper == "candidate_matrix_mxu":
+            bitmap_filter.candidate_matrix_mxu_cuda(wr, ws, lr, ls, table, **kw)
+        else:
+            compaction.count_candidates_mxu_cuda(wr, ws, lr, ls, None, None, table,
+                                                 tile_r=256, tile_s=256, **kw)
+
+
 @pytest.mark.parametrize("impl", ["mxu", "ref_mxu"])
 def test_bitplane_impls_are_not_ported_yet(impl):
     """The bit-plane impls are ported: on CPU tensors ``mxu`` (a CUDA
