@@ -78,10 +78,12 @@ Phases (any failure raises, so the script exits non-zero):
    its bound).
 9. Flash-attention parity: ``flash_attention`` against its plain version on
    the same card tensors (TF32 off, both flags printed), causal and not,
-   Sq != Sk, lengths 1 to 1,000 and the wgmma instance's 128-row tile edges
-   (127, 128, 129, 255, 257), GQA groups 1, 3, 4 and 8, head dims 16, 32,
-   64 and 128, float32 (rtol = atol = 2e-5) and bf16 (1e-2), and one batch
-   of a qwen3-8b layer (S = 4,096, 32/8 heads of 128).
+   Sq != Sk, lengths 1 to 1,000 and the wgmma instance's 128- and 192-row
+   tile edges (127, 128, 129, 191, 193, 255, 257, 384, 385), GQA groups 1,
+   3, 4 and 8, head dims 16, 32, 64 and 128, float32 (rtol = atol = 2e-5)
+   and bf16 (1e-2), every instance with a kernel there (bf16 at 16 and 32:
+   wgmma, the static rule, and mma.sync), and one batch of a qwen3-8b layer
+   (S = 4,096, 32/8 heads of 128, and the same with head dim 32).
 10. Full size, LM serving: qwen3-8b at its published widths and depth (36
    layers, d_model 4,096, 32/8 heads of 128, d_ff 12,288, vocab 151,936;
    f32 parameters drawn on the card from ``--seed``, bf16 compute), 4
@@ -94,12 +96,21 @@ Phases (any failure raises, so the script exits non-zero):
    the kernel must equal its plain version at layer 0's captured q, k, v,
    where it is then timed beside its plain version, its bound (with its
    TFLOP/s and share of it) and ``scaled_dot_product_attention``.
-11. The flash kernel's mma.sync instance (bf16 at head dims 16 and 32, which
-   no full-width config has): the reduced qwen3-8b config in bf16 (head_dim
-   16) serves 2 prompts of 200 tokens and 8 greedy tokens, once a layer
-   through that instance, teacher-forced against ``Model.forward``; the
-   kernel equals its plain version at layer 0's operands and at qwen3-8b's
-   layer shape with head_dim 32, where it is timed.
+11. The flash kernel's other instances.  bf16 at head dims 16 and 32 (the
+   wgmma instance; no full-width config has these head dims): the reduced
+   qwen3-8b config in bf16 (head_dim 16) serves 2 prompts of 200 tokens and
+   8 greedy tokens, once a layer through the wgmma instance and never the
+   mma.sync one, teacher-forced against ``Model.forward``; both instances
+   equal the plain version at layer 0's operands and at qwen3-8b's layer
+   shape with head dims 32 and 16, where they are timed in turns (wgmma,
+   mma_sync, mma_sync, wgmma) beside ``scaled_dot_product_attention``.
+   float32 (CUDA cores): the reduced config in float32 through the same
+   path, then the kernel at qwen3-8b's layer shape in float32 (TF32 off)
+   against its plain version, timed beside it and
+   ``scaled_dot_product_attention`` in float32.  Every flash bound is the
+   largest of its bytes, its products (bf16 tensor rate, or the float32 rate
+   of the CUDA cores) and its exps (ex2 at 16 a clock an SM at the card's
+   maximum SM clock), printed with the term that binds.
 
 Kernel times are device times: CUDA events around 50 (20 for attention)
 back-to-back launches, a spin kernel queued first so that the host's
@@ -116,8 +127,8 @@ path runs are driven through their entry points in phase 3
 (``pair_verdict`` by the indexed join under ``impl="swar"``, the SWAR
 ``candidate_matrix`` and ``count_candidates`` by the blocked join under
 ``impl="swar"``, ``hamming_matrix`` and ``bitplane_hamming`` by
-``ops.hamming_matrix``), and the flash kernel's mma.sync instance by phase
-11's reduced model, each read the same way; the ``path`` key of each kernel
+``ops.hamming_matrix``), and the flash kernel at head dims 16 and 32 and in
+float32 by phase 11's reduced models, each read the same way; the ``path`` key of each kernel
 names the run its ``launches`` come from (the tensor-core verdicts: phases
 4 and 7 together).  The
 last three lines of standard output are the card's name and power limit,
@@ -150,6 +161,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 PEAK_INT8_TENSOR_OPS_PER_S = 1.979e15   # dense int8 tensor-core rate
 PEAK_BF16_TENSOR_OPS_PER_S = 989e12     # dense bf16 tensor-core rate
+# ex2 (MUFU.EX2) issues 16 a clock on each SM of compute capability 9.0
+# (CUDA C++ Programming Guide, arithmetic instruction throughput table).
+EX2_PER_CLOCK_PER_SM = 16
 # Cycles of torch.cuda._sleep a second, above the H100's 1.98 GHz boost
 # clock, so the spin outlasts the host's queueing at any clock.
 SPIN_CYCLES_PER_S = 3e9
@@ -1499,30 +1513,36 @@ def phase_flash_parity(seed: int) -> None:
         (127, 127, True, 1, 2), (128, 128, False, 3, 1), (129, 129, True, 4, 2),
         (255, 257, True, 8, 1), (257, 255, False, 1, 2), (128, 257, True, 3, 1),
         (257, 128, True, 4, 1), (129, 255, False, 8, 1), (255, 129, True, 3, 2),
-        (257, 257, False, 4, 1)]
+        (257, 257, False, 4, 1),
+        # the 192-row q tiles of the head dims 16 and 32 instance
+        (191, 193, True, 3, 1), (193, 191, False, 4, 2), (385, 384, True, 8, 1)]
     for dtype in (torch.float32, torch.bfloat16):
         for d in fa.HEAD_DIMS:
-            worst = 0.0
-            for sq, sk, causal, g, kv in cases:
-                q, k, v = (torch.randn((2, n, heads, d), generator=gen, device="cuda").to(dtype)
-                           for n, heads in ((sq, g * kv), (sk, kv), (sk, kv)))
-                got = fa.flash_attention_cuda(q, k, v, causal=causal)
-                want = ref.flash_attention_ref(q, k, v, causal=causal, triangle=True)
-                what = f"{dtype} D={d} Sq={sq} Sk={sk} causal={causal} H={g * kv} KV={kv}"
-                worst = max(worst, flash_close(got, want, what))
-            torch.cuda.synchronize()
-            log(f"flash parity {str(dtype).split('.')[-1]} D={d} ({fa.instance(dtype, d)} "
-                f"instance): {len(cases)} shapes (Sq, Sk in 1..1000 and on the 128-row tile "
-                f"edges, groups 1/3/4/8, causal and not) within rtol = atol = "
-                f"{FLASH_TOL[dtype]}, max |err| {worst:.3g}")
-    # One batch of a qwen3-8b layer at full length.
-    q, k, v = (torch.randn((1, 4096, heads, 128), generator=gen, device="cuda")
-               .to(torch.bfloat16) for heads in (32, 8, 8))
-    err = flash_close(fa.flash_attention_cuda(q, k, v, causal=True),
-                      ref.flash_attention_ref(q, k, v, causal=True, triangle=True),
-                      "B=1 S=4096 H=32 KV=8 D=128 causal")
-    log(f"flash parity bf16 B=1 S=4096 H=32 KV=8 D=128 causal: within rtol = atol = "
-        f"{FLASH_TOL[torch.bfloat16]}, max |err| {err:.3g}")
+            for name in fa.instances(dtype, d):
+                worst = 0.0
+                for sq, sk, causal, g, kv in cases:
+                    q, k, v = (torch.randn((2, n, heads, d), generator=gen, device="cuda")
+                               .to(dtype) for n, heads in ((sq, g * kv), (sk, kv), (sk, kv)))
+                    got = fa.flash_attention_cuda(q, k, v, causal=causal, instance=name)
+                    want = ref.flash_attention_ref(q, k, v, causal=causal, triangle=True)
+                    what = (f"{name} {dtype} D={d} Sq={sq} Sk={sk} causal={causal} "
+                            f"H={g * kv} KV={kv}")
+                    worst = max(worst, flash_close(got, want, what))
+                torch.cuda.synchronize()
+                log(f"flash parity {str(dtype).split('.')[-1]} D={d} ({name} instance"
+                    f"{', the static rule' if name == fa.instance(dtype, d) else ''}): "
+                    f"{len(cases)} shapes (Sq, Sk in 1..1000 and on the 128- and 192-row tile "
+                    f"edges, groups 1/3/4/8, causal and not) within rtol = atol = "
+                    f"{FLASH_TOL[dtype]}, max |err| {worst:.3g}")
+    # One batch of a qwen3-8b layer at full length, and the same with head dim 32.
+    for d in (128, 32):
+        q, k, v = (torch.randn((1, 4096, heads, d), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for heads in (32, 8, 8))
+        err = flash_close(fa.flash_attention_cuda(q, k, v, causal=True),
+                          ref.flash_attention_ref(q, k, v, causal=True, triangle=True),
+                          f"B=1 S=4096 H=32 KV=8 D={d} causal")
+        log(f"flash parity bf16 B=1 S=4096 H=32 KV=8 D={d} causal ({fa.instance(q.dtype, d)} "
+            f"instance): within rtol = atol = {FLASH_TOL[torch.bfloat16]}, max |err| {err:.3g}")
 
 
 def rel_rms(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1631,15 +1651,35 @@ def phase_lm(seed: int) -> tuple[dict, tuple, float]:
     return launches, qkv, err
 
 
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock, as ``nvidia-smi --query-gpu=clocks.max.sm``
+    reports it (1,980 MHz on an H100 SXM)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits", "-i", "0"],
+                         check=True, capture_output=True, text=True, timeout=60)
+    return float(out.stdout.strip()) * 1e6
+
+
 def flash_bound(q: torch.Tensor, k: torch.Tensor, causal: bool = True):
-    """FLOPs (4 D a (q, k) pair the mask leaves), bytes (q, o, k, v once) and
-    the bound at the bf16 tensor rate."""
+    """FLOPs (4 D a (q, k) pair the mask leaves), bytes (q, o, k, v once),
+    exps (one a pair) and the bound: the largest of the bytes over the memory
+    rate, the FLOPs over the bf16 tensor rate (float32: the CUDA cores' rate,
+    since the 2e-5 tolerance rules out TF32) and the exps over the ex2 rate
+    (16 a clock an SM at the card's maximum SM clock).  Returns (flops,
+    bytes, (bound ms, "bytes" or "operations"), the binding term)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
     flops = 4 * b * h * d * pairs
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    return flops, nbytes, bound_ms(nbytes, flops, PEAK_BF16_TENSOR_OPS_PER_S)
+    ex2_per_s = (EX2_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count
+                 * max_sm_clock_hz())
+    product = ("bf16 tensor product", PEAK_BF16_TENSOR_OPS_PER_S) if q.dtype == torch.bfloat16 \
+        else ("float32 FMA", PEAK_OPS_PER_S)
+    terms = {"bytes": nbytes / PEAK_BYTES_PER_S, product[0]: flops / product[1],
+             "exp": b * h * pairs / ex2_per_s}
+    term = max(terms, key=terms.get)
+    return flops, nbytes, (terms[term] * 1e3, "bytes" if term == "bytes" else "operations"), term
 
 
 def phase_flash_timing(qkv: tuple, err: float) -> dict:
@@ -1660,98 +1700,213 @@ def phase_flash_timing(qkv: tuple, err: float) -> dict:
     plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 3)
     ms2, lib2 = cuda_ms(kernel, 20), cuda_ms(sdpa, 20)
     call = call_ms(kernel, 20)
-    flops, nbytes, bound = flash_bound(q, k)
+    flops, nbytes, bound, term = flash_bound(q, k)
     log(f"timing at B={b} S={sq} H={h} KV={k.shape[2]} D={d} {q.dtype} causal (layer 0 of "
         f"the prefill), device time of back-to-back launches: flash_attention (wgmma) "
         f"{ms:.4f} / {ms2:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {bound[0] / ms:.1%} of its "
-        f"bound {bound[0]:.4f} ms by {bound[1]}: {flops / 1e9:.1f} GFLOP and "
+        f"bound {bound[0]:.4f} ms by {bound[1]}, the {term} term: {flops / 1e9:.1f} GFLOP and "
         f"{nbytes / 1e6:.1f} MB); scaled_dot_product_attention {lib:.4f} / {lib2:.4f} ms "
         f"({flops / lib / 1e9:.1f} TFLOP/s); plain {plain:.3f} ms; the kernel timed alone "
         f"{call:.4f} ms")
-    return kernel_row("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-                      "src/repro/kernels/flash_attention.py:93", err=err, ms=ms,
-                      plain_ms=plain, bound=bound, library_ms=lib,
-                      path=f"full size, LM serving: {LM['arch']} prefill of "
-                           f"{LM['batch']} x {LM['prompt']:,} tokens (wgmma instance)")
+    row = kernel_row("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:93", err=err, ms=ms,
+                     plain_ms=plain, bound=bound, library_ms=lib,
+                     path=f"full size, LM serving: {LM['arch']} prefill of "
+                          f"{LM['batch']} x {LM['prompt']:,} tokens (wgmma instance)")
+    row["bound_term"] = term
+    return row
 
 
-def phase_flash_mma_sync(seed: int) -> tuple[dict, dict]:
-    """The mma.sync instance (bf16 at head dims 16 and 32, which no
-    full-width config has) through the serving path: the reduced qwen3-8b
-    config in bf16 (head_dim 16), ``greedy_generate`` of 8 tokens after 2
-    prompts of 200, teacher-forced against ``Model.forward``.  Then the
-    kernel against its plain version at layer 0's captured operands, and
-    timed at qwen3-8b's layer shape with head_dim 32.  Returns the path's
-    launches and the kernel's row."""
+def flash_layer_operands(gen, d: int, dtype) -> tuple:
+    """Random q, k, v at qwen3-8b's layer shape (LM batch and prompt, 32 / 8
+    heads) with head dim d."""
+    return tuple(torch.randn((LM["batch"], LM["prompt"], heads, d), generator=gen,
+                             device="cuda").to(dtype) for heads in (32, 8, 8))
+
+
+def sdpa_call(q, k, v):
+    """One scaled_dot_product_attention call on the kernel's (B, S, H, D)
+    operands: the yardstick the port never calls."""
     import torch.nn.functional as F
 
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The backend PyTorch's dispatcher picks for ``sdpa_call(q, k, v)``."""
+    from torch.nn.attention import SDPBackend
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    try:
+        return SDPBackend(torch._fused_sdp_choice(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)).name
+    except (AttributeError, RuntimeError, TypeError, ValueError) as exc:
+        return f"not known ({exc})"
+
+
+def serve_reduced(seed: int, dtype: str, instance: str) -> tuple[int, tuple, float]:
+    """The reduced qwen3-8b config in ``dtype`` through the serving path:
+    ``greedy_generate`` of 8 tokens after 2 prompts of 200, checked
+    teacher-forced against ``Model.forward``.  The prefill must launch the
+    flash kernel once a layer, every time as ``instance``.  Returns the
+    launches, layer 0's captured (q, k, v) and the kernel's error against
+    its plain version there."""
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.models import DecodeEngine, Model
     from repro_torch.models.generate import greedy_generate
 
-    cfg = configs.get_reduced(LM["arch"], dtype="bfloat16")
+    cfg = configs.get_reduced(LM["arch"], dtype=dtype)
     dev = torch.device("cuda")
     model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
     engine = DecodeEngine(model)
     rng = np.random.default_rng(seed + 71)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 200)).astype(np.int32)).to(dev)
     n = 8
+    # The path: the counters zeroed just before, read just after.
     fa.reset_launches()
     out = greedy_generate(engine, prompt, n, max_len=200 + n)
-    launches = {"flash_attention_mma_sync": fa.flash_attention_cuda.instance_launches["mma_sync"]}
-    if launches["flash_attention_mma_sync"] != cfg.num_layers or (
-            fa.flash_attention_cuda.launches != cfg.num_layers):
-        raise AssertionError(f"the reduced bf16 prefill launched flash_attention "
-                             f"{fa.flash_attention_cuda.instance_launches}; expected "
-                             f"{cfg.num_layers} mma_sync launches")
+    counts = dict(fa.flash_attention_cuda.instance_launches)
+    if counts != {name: cfg.num_layers * (name == instance) for name in fa.INSTANCES}:
+        raise AssertionError(f"the reduced {dtype} prefill launched flash_attention {counts}; "
+                             f"expected {cfg.num_layers} {instance} launches and no other")
     with torch.inference_mode():
         full = torch.cat([prompt, out.tokens[:, :-1]], dim=1)
         want, _ = model({"tokens": full})
         errs = [rel_rms(lg, want[:, 199 + t]) for t, lg in enumerate(out.logits)]
         if not all(np.isfinite(errs)) or max(errs) > LOGITS_REL_TOL:
-            raise AssertionError(f"reduced bf16 teacher-forced logits beyond "
+            raise AssertionError(f"reduced {dtype} teacher-forced logits beyond "
                                  f"{LOGITS_REL_TOL}: {errs}")
         calls = []
         with capture_calls(fa, "flash_attention_cuda", calls):
             engine.prefill(model, {"tokens": prompt}, max_len=200 + n, last_only=True)
         (qkv, kw), = calls[:1]
         err = flash_close(fa.flash_attention_cuda(*qkv, **kw),
-                          ref.flash_attention_ref(*qkv, **kw), "reduced bf16 layer 0")
-    log(f"reduced {cfg.name} in bf16 ({cfg.num_layers} layers, {cfg.num_heads}/"
+                          ref.flash_attention_ref(*qkv, **kw), f"reduced {dtype} layer 0")
+    log(f"reduced {cfg.name} in {dtype} ({cfg.num_layers} layers, {cfg.num_heads}/"
         f"{cfg.num_kv_heads} heads of {cfg.head_dim}): 2 x 200 prompt tokens, {n} greedy "
-        f"tokens; mma_sync launches {launches['flash_attention_mma_sync']}; teacher-forced "
-        f"logits max relative RMS error {max(errs):.5f}; kernel at layer 0's q "
-        f"{list(qkv[0].shape)} within {FLASH_TOL[torch.bfloat16]} of its plain version, "
-        f"max |err| {err:.4g}")
-    del model, engine, out, want
+        f"tokens; flash_attention launches by instance {counts}; teacher-forced logits max "
+        f"relative RMS error {max(errs):.5f}; kernel at layer 0's q {list(qkv[0].shape)} within "
+        f"{FLASH_TOL[qkv[0].dtype]} of its plain version, max |err| {err:.4g}")
+    return counts[instance], qkv, err
 
-    gen = torch.Generator(device=dev).manual_seed(seed + 72)
-    q, k, v = (torch.randn((LM["batch"], LM["prompt"], heads, 32), generator=gen, device=dev)
-               .to(torch.bfloat16) for heads in (32, 8, 8))
-    err = max(err, flash_close(fa.flash_attention_cuda(q, k, v, causal=True),
-                               ref.flash_attention_ref(q, k, v, causal=True, triangle=True),
-                               "mma_sync at B=4 S=4096 H=32 KV=8 D=32"))
+
+def phase_flash_small_d(seed: int) -> tuple[dict, dict]:
+    """The flash kernel's bf16 instance at head dims 16 and 32 (wgmma; no
+    full-width config has these head dims) through the serving path: the
+    reduced qwen3-8b config in bf16 (head_dim 16).  Then both instances
+    (wgmma and the mma.sync one it replaced) against the plain version at
+    qwen3-8b's layer shape with head dims 32 and 16, timed in turns (wgmma,
+    mma_sync, mma_sync, wgmma) beside scaled_dot_product_attention, with
+    their bound and its binding term.  Returns the path's launches and the
+    kernel's row."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    launches, _, err = serve_reduced(seed, "bfloat16", "wgmma")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 72)
+    at = {}
+    for d in (32, 16):
+        q, k, v = flash_layer_operands(gen, d, torch.bfloat16)
+        want = ref.flash_attention_ref(q, k, v, causal=True, triangle=True)
+        for name in ("wgmma", "mma_sync"):
+            err = max(err, flash_close(fa.flash_attention_cuda(q, k, v, instance=name), want,
+                                       f"{name} at B=4 S=4096 H=32 KV=8 D={d}"))
+        del want
+        turns = in_turns({name: (lambda name=name: fa.flash_attention_cuda(
+            q, k, v, instance=name)) for name in ("wgmma", "mma_sync")}, iters=20)
+        sdpa = sdpa_call(q, k, v)
+        lib = [cuda_ms(sdpa, 20), cuda_ms(sdpa, 20)]
+        plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 3)
+        flops, nbytes, bound, term = flash_bound(q, k)
+        ms = turns["wgmma"][0]
+        log(f"timing at B={LM['batch']} S={LM['prompt']} H=32 KV=8 D={d} bf16 causal, device "
+            f"ms in turns: flash_attention wgmma {turns['wgmma'][0]:.4f} / "
+            f"{turns['wgmma'][1]:.4f}, mma_sync {turns['mma_sync'][0]:.4f} / "
+            f"{turns['mma_sync'][1]:.4f} (wgmma {flops / ms / 1e9:.1f} TFLOP/s, "
+            f"{bound[0] / ms:.1%} of its bound {bound[0]:.4f} ms by {bound[1]}, the {term} "
+            f"term; mma_sync {bound[0] / turns['mma_sync'][0]:.1%}); "
+            f"scaled_dot_product_attention {lib[0]:.4f} / {lib[1]:.4f} ms "
+            f"({bound[0] / lib[0]:.1%}, backend {sdpa_backend(q, k, v)}); plain {plain:.3f} ms")
+        at[d] = {"ms": ms, "ms_turns": turns, "plain_ms": plain, "library_ms": lib[0],
+                 "library_ms_turns": lib, "bound_ms": bound[0], "bound_by": bound[1],
+                 "bound_term": term}
+        del q, k, v
+    row = kernel_row("flash_attention_d16_32", "src/repro_torch/kernels/csrc/flash_attention.cu",
+                     "src/repro/kernels/flash_attention.py:93", err=err, ms=at[32]["ms"],
+                     plain_ms=at[32]["plain_ms"],
+                     bound=(at[32]["bound_ms"], at[32]["bound_by"]),
+                     library_ms=at[32]["library_ms"],
+                     path=f"reduced {LM['arch']} in bf16 (head_dim 16): prefill of 2 x 200 "
+                          f"tokens (wgmma instance); timed at B={LM['batch']} S={LM['prompt']} "
+                          f"H=32 KV=8 D=32 (at_d16: D=16)")
+    row.update(bound_term=at[32]["bound_term"], ms_turns=at[32]["ms_turns"], at_d16=at[16])
+    return {"flash_attention_d16_32": launches}, row
+
+
+def phase_flash_f32(seed: int) -> tuple[dict, dict]:
+    """The flash kernel's float32 instance (CUDA cores): the reduced
+    qwen3-8b config in float32 through the serving path, then the kernel
+    against its plain version at qwen3-8b's layer shape in float32 (TF32
+    off), timed beside its plain version, scaled_dot_product_attention in
+    float32 (as dispatched, and under the memory-efficient backend; the
+    faster is the library time) and its bound.  Returns the path's launches and the row."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launches, _, err = serve_reduced(seed, "float32", "simt_f32")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 73)
+    q, k, v = flash_layer_operands(gen, 128, torch.float32)
     kernel = lambda: fa.flash_attention_cuda(q, k, v, causal=True)  # noqa: E731
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    ms = cuda_ms(kernel, 10)
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                         enable_gqa=True), 10)
+    err = max(err, flash_close(kernel(), ref.flash_attention_ref(q, k, v, causal=True,
+                                                                 triangle=True),
+                               "simt_f32 at B=4 S=4096 H=32 KV=8 D=128"))
+    sdpa = sdpa_call(q, k, v)
+    # The memory-efficient backend takes float32 but not GQA: K and V are
+    # expanded to the 32 query heads before the timed region.
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k.repeat_interleave(4, dim=2),
+                                              v.repeat_interleave(4, dim=2)))
+
+    def efficient_ms():
+        """None, logged, where this PyTorch has no such kernel for the shape:
+        it is a yardstick, not part of the port."""
+        try:
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                return cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                      is_causal=True), 5)
+        except RuntimeError as exc:
+            log(f"scaled_dot_product_attention under EFFICIENT_ATTENTION: {exc}")
+            return None
+
+    ms, lib, eff = cuda_ms(kernel, 5), cuda_ms(sdpa, 5), efficient_ms()
     plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 3)
-    flops, nbytes, bound = flash_bound(q, k)
-    log(f"timing at B={LM['batch']} S={LM['prompt']} H=32 KV=8 D=32 bf16 causal: "
-        f"flash_attention (mma_sync) {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
-        f"{bound[0] / ms:.1%} of its bound {bound[0]:.4f} ms by {bound[1]}); "
-        f"scaled_dot_product_attention {lib:.4f} ms; plain {plain:.3f} ms")
-    row = kernel_row("flash_attention_mma_sync",
-                     "src/repro_torch/kernels/csrc/flash_attention.cu",
+    ms2, lib2, eff2 = cuda_ms(kernel, 5), cuda_ms(sdpa, 5), efficient_ms()
+    del qt, kt, vt
+    flops, nbytes, bound, term = flash_bound(q, k)
+    log(f"timing at B={LM['batch']} S={LM['prompt']} H=32 KV=8 D=128 float32 causal (TF32 "
+        f"off), device time of back-to-back launches: flash_attention (simt_f32) {ms:.4f} / "
+        f"{ms2:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s, {bound[0] / ms:.1%} of its bound "
+        f"{bound[0]:.4f} ms by {bound[1]}, the {term} term: {flops / 1e9:.1f} GFLOP and "
+        f"{nbytes / 1e6:.1f} MB); scaled_dot_product_attention (float32, enable_gqa, backend "
+        f"{sdpa_backend(q, k, v)}) {lib:.4f} / {lib2:.4f} ms, under EFFICIENT_ATTENTION with "
+        f"K and V expanded to 32 heads {eff} / {eff2} ms; plain {plain:.3f} ms")
+    row = kernel_row("flash_attention_f32", "src/repro_torch/kernels/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:93", err=err, ms=ms, plain_ms=plain,
-                     bound=bound, library_ms=lib,
-                     path=f"reduced {LM['arch']} in bf16 (head_dim {cfg.head_dim}): prefill "
-                          f"of 2 x 200 tokens; timed at B={LM['batch']} S={LM['prompt']} "
-                          f"H=32 KV=8 D=32")
-    return launches, row
+                     bound=bound, library_ms=min(lib, eff or lib),
+                     path=f"reduced {LM['arch']} in float32: prefill of 2 x 200 tokens "
+                          f"(simt_f32 instance); timed at B={LM['batch']} S={LM['prompt']} "
+                          f"H=32 KV=8 D=128")
+    row.update(bound_term=term, ms_runs=[ms, ms2], library_ms_runs=[lib, lib2],
+               library_efficient_ms_runs=[eff, eff2])
+    del q, k, v
+    return {"flash_attention_f32": launches}, row
 
 
 def main(argv=None) -> int:
@@ -1806,9 +1961,12 @@ def main(argv=None) -> int:
     del qkv
     gc.collect()
     torch.cuda.empty_cache()
-    mma_launches, mma_row = phase_flash_mma_sync(args.seed)
-    launches.update(mma_launches)
-    kernels.append(mma_row)
+    for phase in (phase_flash_small_d, phase_flash_f32):
+        phase_launches, row = phase(args.seed)
+        launches.update(phase_launches)
+        kernels.append(row)
+        gc.collect()
+        torch.cuda.empty_cache()
     for k in kernels:
         k["launches"] = launches[k["name"]]
     log(smi_line())

@@ -14,8 +14,11 @@ through their plain C entry points on the same inputs:
   b = 1024, random {0, 1} planes: both trees must equal the plain version
   exactly;
 * ``flash_attention``, bf16, causal, at qwen3-8b's layer shape (B = 4,
-  S = 4,096, H = 32, KV = 8, D = 128): both trees within 1e-2 of the plain
-  version.
+  S = 4,096, H = 32, KV = 8) with head dims 128 and 64: both trees within
+  1e-2 of the plain version.  Whether the two trees' outputs are
+  bit-identical is printed, and so is whether the SASS of their wgmma
+  kernels at those head dims (``cuobjdump -sass``, addresses and comments
+  dropped) is.
 
 Each is timed as device time of back-to-back launches
 (``chip_smoke.cuda_ms``) in turns, baseline, this tree, this tree,
@@ -28,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import difflib
 import json
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -70,6 +74,28 @@ def build(trees: dict, out: Path) -> dict:
     keys = [(tag, name) for tag in trees for name in SIGNATURES]
     with ThreadPoolExecutor(max_workers=len(keys)) as pool:
         return dict(pool.map(one, keys))
+
+
+def wgmma_sass(lib: Path, d: int):
+    """The SASS of ``flash_fwd_wgmma_kernel<d>`` in ``lib`` as a list of
+    instructions (addresses, encodings and comments dropped), or None when
+    ``cuobjdump`` is not found."""
+    import re
+    import shutil
+    import subprocess
+
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).with_name("cuobjdump"))
+    if not Path(tool).exists():
+        return None
+    text = subprocess.run([tool, "-sass", str(lib)], check=True, capture_output=True,
+                          text=True).stdout
+    for block in text.split("Function : ")[1:]:
+        if f"flash_fwd_wgmma_kernelILi{d}E" in block.split("\n", 1)[0]:
+            return [re.sub(r"\s+", " ", m.group(1)).strip()
+                    for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+([^;]*;)", block)]
+    raise RuntimeError(f"{lib} has no flash_fwd_wgmma_kernel<{d}>")
 
 
 def checked(rc: int, what: str) -> None:
@@ -126,32 +152,47 @@ def main(argv=None) -> int:
               f"{mm}; both exact", flush=True)
         summary[f"bitplane_hamming_{nr}x{ns}"] = {"ms": times, "int_mm_ms": mm}
 
-    q = torch.randn((4, 4096, 32, 128), generator=gen, device=dev).to(torch.bfloat16)
-    k, v = (torch.randn((4, 4096, 8, 128), generator=gen, device=dev).to(torch.bfloat16)
-            for _ in range(2))
-    want = ref.flash_attention_ref(q, k, v, causal=True, triangle=True)
-    runs, errs = {}, {}
-    for tag in trees:
-        out = torch.empty_like(q)
-        fn = fns[(tag, "flash_attention")]
-        runs[tag] = lambda fn=fn, out=out: checked(fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 4, 4096, 4096, 32, 8, 128,
-            1, 1, 128 ** -0.5, stream()), "flash_attention")
-        runs[tag]()
-        errs[tag] = max_err_float(out, want)
-    if not all(np.isfinite(list(errs.values()))) or max(errs.values()) > FLASH_TOL[q.dtype]:
-        raise AssertionError(f"flash_attention against its plain version: {errs}")
-    times = {tag: [] for tag in trees}
-    for tag in ("baseline", "this", "this", "baseline"):
-        times[tag].append(cuda_ms(runs[tag], 20))
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                          enable_gqa=True), 20)
-    print(f"flash_attention B=4 S=4096 H=32 KV=8 D=128 bf16 causal, device ms in turns: "
-          f"baseline {times['baseline']}, this tree {times['this']}; "
-          f"scaled_dot_product_attention {sdpa}; max |err| against the plain version {errs}",
-          flush=True)
-    summary["flash_attention"] = {"ms": times, "sdpa_ms": sdpa, "max_abs_err": errs}
+    out_dir = _build.BUILD_ROOT / "compare"
+    for d in (128, 64):
+        q = torch.randn((4, 4096, 32, d), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((4, 4096, 8, d), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        want = ref.flash_attention_ref(q, k, v, causal=True, triangle=True)
+        runs, errs, outs = {}, {}, {}
+        for tag in trees:
+            out = outs[tag] = torch.empty_like(q)
+            fn = fns[(tag, "flash_attention")]
+            runs[tag] = lambda fn=fn, out=out: checked(fn(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 4, 4096, 4096, 32, 8,
+                d, 1, 1, d ** -0.5, stream()), "flash_attention")
+            runs[tag]()
+            errs[tag] = max_err_float(out, want)
+        if not all(np.isfinite(list(errs.values()))) or max(errs.values()) > FLASH_TOL[q.dtype]:
+            raise AssertionError(f"flash_attention D={d} against its plain version: {errs}")
+        del want
+        same_out = torch.equal(outs["baseline"], outs["this"])
+        times = {tag: [] for tag in trees}
+        for tag in ("baseline", "this", "this", "baseline"):
+            times[tag].append(cuda_ms(runs[tag], 20))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                              enable_gqa=True), 20)
+        sass = {tag: wgmma_sass(out_dir / f"lib{tag}_flash_attention.so", d) for tag in trees}
+        same = None if None in sass.values() else sass["baseline"] == sass["this"]
+        changed = None if same is None else sum(
+            line[:1] in "+-" and line[:3] not in ("+++", "---")
+            for line in difflib.unified_diff(sass["baseline"], sass["this"], lineterm=""))
+        print(f"flash_attention B=4 S=4096 H=32 KV=8 D={d} bf16 causal, device ms in turns: "
+              f"baseline {times['baseline']}, this tree {times['this']}; "
+              f"scaled_dot_product_attention {sdpa}; max |err| against the plain version "
+              f"{errs}; outputs bit-identical: {same_out}; wgmma kernel SASS identical: {same} (instructions: "
+              f"{ {tag: None if x is None else len(x) for tag, x in sass.items()} }, "
+              f"lines added or removed: {changed})",
+              flush=True)
+        summary[f"flash_attention_d{d}"] = {"ms": times, "sdpa_ms": sdpa, "max_abs_err": errs,
+                                            "outputs_identical": same_out, "sass_identical": same,
+                                            "sass_lines_changed": changed}
+        del q, k, v, runs, outs
     print(smi_line())
     print(json.dumps(summary))
     return 0

@@ -12,24 +12,31 @@
 // output is rounded to q's type.
 //
 // What bounds it on an H100 (published peaks, 700 W), at the serving phase's
-// shape B = 4, Sq = Sk = 4,096, H = 32, KV = 8, D = 128, bf16, causal: the
-// two products do 2*B*H*S^2*D = 549.8 GFLOP after the causal half, 0.556 ms
-// at the dense bf16 tensor rate of 989 TFLOP/s; q, o, k and v are 335.5 MB,
-// 0.100 ms at 3.35 TB/s.  Operations bound it, at 0.556 ms a layer.
+// shape B = 4, Sq = Sk = 4,096, H = 32, KV = 8, causal: the two products do
+// 4 D flops for each of the 1.074e9 (q, k) pairs the mask leaves, and each
+// pair takes one exponential.  At D = 128 (bf16) the products bound it,
+// 549.8 GFLOP at 989 TFLOP/s = 0.556 ms; at D = 32 the exponentials, 1.074e9
+// ex2 at 16 a clock on each of 132 SMs at 1.98 GHz = 0.257 ms (the products
+// 0.139 ms, the bytes 0.025 ms); in float32 the products on the CUDA cores,
+// 8.2 ms at 67 TFLOP/s.
 //
-// Three instances, chosen statically by dtype and head_dim in
-// flash_attention_launch (never as a fallback after a failed launch):
+// Three instances, chosen statically by dtype in flash_attention_launch
+// (never as a fallback after a failed launch); flash_attention_launch_instance
+// also takes a named one, for measurement and tests:
 //
-// * bf16, head_dim 64 and 128 (every config the repo serves): wgmma with a
-//   TMA-fed, warp-specialised K/V ring, since only wgmma reaches Hopper's
-//   tensor rate.  A block of 384 threads takes 128 q rows of one (batch,
-//   head); q tiles are issued longest-first (the long causal rows start
-//   early).  Warpgroup 0 is the producer (setmaxnreg down to 40): one thread
-//   loads the q tile once by TMA and streams 128-key K and V tiles of the
-//   block's KV head into a ring of 3 stages (4 at D = 64), 128-byte
-//   swizzled, each stage with full and empty mbarriers; TMA's zero fill past
-//   Sq and Sk replaces row masking on the loads.  Warpgroups 1 and 2 are
-//   consumers (setmaxnreg up to 232) of 64 q rows each:
+// * bf16, every head dim (16, 32, 64, 128): wgmma with a TMA-fed,
+//   warp-specialised K/V ring, since only wgmma reaches Hopper's tensor
+//   rate.  A block of 384 threads takes 128 q rows of one (batch, head); q
+//   tiles are issued longest-first (the long causal rows start early).
+//   Warpgroup 0 is the producer (setmaxnreg down to 40): one thread loads
+//   the q tile once by TMA and streams K and V tiles of the block's KV head
+//   (128 keys; 64 at D = 16) into a ring of stages (3 at D = 128, 4 at 64, 6 at 16 and 32),
+//   each with full and empty mbarriers; TMA's zero fill past Sq and Sk
+//   replaces row masking on the loads.  A D-wide bf16 row is 2 D bytes, and
+//   TMA and wgmma swizzle it over min(2 D, 128) bytes (descriptor layout
+//   types 1, 2, 3 for 128, 64, 32), so D = 128 is two boxes of 64 columns
+//   and D <= 64 one box.  Warpgroups 1 and 2 are consumers (setmaxnreg up to
+//   232) of 64 q rows each:
 //     S = Q K^T   wgmma.m64n128k16.f32.bf16.bf16, A (q) and B (K) both from
 //                 shared memory, K-major; D / 16 k-steps;
 //     softmax     in the accumulator registers: D^-0.5 * log2(e) folded
@@ -47,14 +54,29 @@
 //   rescales O.  The epilogue divides by max(l, 1e-30), rounds to bf16 and
 //   stores through the consumer's own rows of the q tile as 16-byte
 //   row-contiguous stores masked at Sq.  Tensor maps (4-D over D, heads, S,
-//   B; boxes of 64 bf16 = the 128-byte swizzle span, so D = 128 is two
-//   boxes) are encoded on the host each call through the runtime's driver
-//   entry point.
-// * bf16, head_dim 16 and 32 (no config uses them; only the tests): the
-//   warp-level mma.sync.m16n8k16 instance.  One block of 128 threads per
-//   64-row q tile walks 64-key K/V tiles staged synchronously; each warp
-//   owns 16 query rows, P is re-packed from the S accumulators into the A
-//   fragments of PV, V fragments come transposed by ldmatrix.trans.
+//   B) are encoded on the host each call through the runtime's driver entry
+//   point.
+//   At D = 16 and 32 the exponentials, not the products, set the bound, and
+//   the registers and shared memory are nearly free; the shape there (Cfg) is
+//   the fastest of those measured in turns by scripts/flash_variants.py.
+//   Both head dims take turns issuing the two consumers' products over named
+//   barriers (ping-pong, which paid here and not at D = 128) and run each
+//   row's maximum as 4 independent chains; D = 32 keeps 128-key tiles and a
+//   6-stage ring, D = 16 takes 64-key tiles, a 4-stage ring and two blocks
+//   an SM (consumers at 104 registers), so one block's start-up and epilogue
+//   run under the other's loop.  Three consumers, turns around the
+//   exponentials, other ring depths, and S issued a tile ahead into a second
+//   buffer measured no better.  The kernel reaches about half of its exp
+//   bound: taking the exponentials out barely moves its time, and taking the
+//   whole softmax out leaves three quarters of it, so the per-tile
+//   synchronisation and wgmma latency, not the ex2 pipe, set the pace
+//   (PERF.md).
+// * bf16, head dims 16 and 32, mma.sync (instance="mma_sync" only; the rule
+//   until the wgmma instance took these head dims): one block of 128
+//   threads per 64-row q tile walks 64-key K/V tiles staged synchronously;
+//   each warp owns 16 query rows, P is re-packed from the S accumulators
+//   into the A fragments of PV, V fragments come transposed by
+//   ldmatrix.trans.
 // * float32 (the reduced configs): float32 FMAs on the CUDA cores, 4 rows
 //   x 8 keys of the score tile and 4 rows x D/8 output columns a thread, P
 //   through shared memory; ROADMAP's 2e-5 tolerance rules out bf16 or TF32
@@ -65,8 +87,9 @@
 //
 // What the wgmma instance leaves on the table: a persistent grid (a block's
 // start-up and epilogue are not overlapped with another block's loads), and
-// the masked half of the diagonal tile's products.  Ordering the two
-// consumers' product issue by named barriers (ping-pong) measured no gain.
+// the masked half of the diagonal tile's products.  At D = 128 ordering the
+// two consumers' product issue by named barriers (ping-pong) measured no
+// gain.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,7 +108,7 @@ __device__ __forceinline__ int kv_end(int q0, int rows, int sq, int sk, int caus
 }
 
 // ---------------------------------------------------------------------------
-// bf16, head dims 16 and 32: mma.sync on the tensor cores
+// bf16, head dims 16 and 32: mma.sync on the tensor cores (instance 1 only)
 // ---------------------------------------------------------------------------
 
 template <int D>
@@ -280,31 +303,63 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 }
 
 // ---------------------------------------------------------------------------
-// bf16, head dims 64 and 128: wgmma fed by a warp-specialised TMA ring
+// bf16, every head dim: wgmma fed by a warp-specialised TMA ring
 // ---------------------------------------------------------------------------
 
 namespace wg {
 
-constexpr int kBlockM = 128;           // q rows per block: two consumer warpgroups of 64
-constexpr int kBlockN = 128;           // keys per K/V tile
-constexpr int kThreads = 384;          // producer warpgroup + two consumer warpgroups
-constexpr int kBoxBytes = 128 * 128;   // one TMA box: 128 rows of 64 bf16 (128 bytes)
-constexpr int kProducerRegs = 40;
-constexpr int kConsumerRegs = 232;
-
-// Shared memory, from a 1,024-byte aligned base: the q tile (which the
-// epilogue reuses to stage the output), the K and V rings (each tile 128
-// rows x D bf16, as D / 64 boxes of 128 rows), then the mbarriers.
+// The instance for head dim D.  A D-wide bf16 row is 2 D bytes; TMA and
+// wgmma swizzle it over min(2 D, 128) bytes, so D = 128 is two boxes of 64
+// columns and D <= 64 one box.  Shared memory, from a 1,024-byte aligned
+// base: the q tile (which the epilogue reuses to stage the output), the K
+// and V rings (each tile kBlockN rows x D bf16, as kBoxes boxes), then the
+// mbarriers.  Two consumer warpgroups of 64 q rows take setmaxnreg 40 / 232,
+// or 24 / 104 at two blocks an SM.
+//
+// D = 64 and 128 are tensor-bound: 128-key tiles, 4 and 3 stages, one block
+// an SM.  D = 16 and 32 are bound by the exponentials (one ex2 a score at
+// 4 D tensor FLOPs); their shapes are the fastest of those measured in
+// turns (PERF.md, scripts/flash_variants.py): the consumers take turns
+// issuing their products over named barriers, each row's maximum runs as 4
+// independent chains, D = 32 keeps 128-key tiles in 6 stages and D = 16
+// takes 64-key tiles in 4 stages with two blocks an SM.
 template <int D>
-struct Smem {
-  static constexpr int kStages = D == 64 ? 4 : 3;
-  static constexpr int kTile = 128 * D * 2;
+struct Cfg {
+  static constexpr bool kSmall = D < 64;
+  static constexpr int kSwizzle = D >= 64 ? 128 : 2 * D;   // bytes
+  static constexpr int kBoxCols = kSwizzle / 2;
+  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kConsumers = 2;
+  static constexpr int kStages = D == 16 ? 4 : D == 32 ? 6 : D == 64 ? 4 : 3;
+  static constexpr bool kTurns = kSmall;                    // ping-pong the product issue
+  static constexpr int kBlockN = D == 16 ? 64 : 128;        // keys per K/V tile
+  static constexpr int kBlocksPerSM = D == 16 ? 2 : 1;
+  static constexpr int kMaxChains = kSmall ? 4 : 1;
+  static constexpr int kBlockM = 64 * kConsumers;           // q rows per block
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static constexpr int kProducerRegs = kBlocksPerSM == 1 ? 40 : 24;
+  static constexpr int kConsumerRegs = kBlocksPerSM == 1 ? 232 : 104;
+  static constexpr int kQBox = kBlockM * kSwizzle;          // bytes of one q box
+  static constexpr int kKVBox = kBlockN * kSwizzle;         // bytes of one K or V box
+  static constexpr int kQTile = kBoxes * kQBox;
+  static constexpr int kTile = kBoxes * kKVBox;
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kTile;
+  static constexpr int kK = kQ + kQTile;
   static constexpr int kV = kK + kStages * kTile;
   static constexpr int kBar = kV + kStages * kTile;
   static constexpr int kBytes = kBar + (1 + 3 * kStages) * 8 + 1024;   // + alignment slack
+  // The split must fit the registers the block launched with (setmaxnreg
+  // waits forever otherwise): 65,536 a SM over its threads, in steps of 8.
+  static_assert(128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <=
+                    kThreads * ((65536 / (kThreads * kBlocksPerSM)) & ~7),
+                "register split");
+  static_assert(kBlocksPerSM * kBytes <= 228 * 1024, "shared memory of the SM's blocks");
+  static_assert(kQBox % 1024 == 0 && kKVBox % 1024 == 0, "tiles keep 1,024-byte alignment");
+  static_assert(kBytes <= 232448, "shared memory of one block");
 };
+
+// Named barriers: 1 and 2 each consumer's epilogue, 3 and 4 the turns.
+constexpr int kTurnBar = 3;
 
 #define ACC_F8(d, i)                                                                     \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
@@ -326,6 +381,21 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
       "%64, %65, p, 1, 1, 0, 0;\n}\n"
       : ACC_F8(d, 0), ACC_F8(d, 8), ACC_F8(d, 16), ACC_F8(d, 24),
         ACC_F8(d, 32), ACC_F8(d, 40), ACC_F8(d, 48), ACC_F8(d, 56)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// S (64 x 64, f32) = A (64 x 16) B^T, as above with 64-key tiles.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC_F8(d, 0), ACC_F8(d, 8), ACC_F8(d, 16), ACC_F8(d, 24)
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
@@ -363,6 +433,32 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
+// O (64 x 32, f32) += P V, as above with D = 32.
+__device__ __forceinline__ void wgmma_m64n32k16_rs_tb(float (&d)[16], const uint32_t (&a)[4],
+                                                      uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : ACC_F8(d, 0), ACC_F8(d, 8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// O (64 x 16, f32) += P V, as above with D = 16.
+__device__ __forceinline__ void wgmma_m64n16k16_rs_tb(float (&d)[8], const uint32_t (&a)[4],
+                                                      uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : ACC_F8(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
 #undef ACC_F8
 
 __device__ __forceinline__ float ex2(float x) {
@@ -379,41 +475,60 @@ struct RowState {
   float l[2];   // this thread's part of the running sums
 };
 
-// S = q K^T (64 x 128): k-step kk reads bytes 32 (kk % 4) of box kk / 4's rows.
+// S = q K^T (64 x kBlockN): k-step kk reads bytes 32 kk of each swizzled
+// row, in box kk / (steps a box).
 template <int D>
-__device__ __forceinline__ void issue_qk(float (&sacc)[64], uint32_t q_base, uint32_t k_base) {
+__device__ __forceinline__ void issue_qk(float (&sacc)[Cfg<D>::kBlockN / 2], uint32_t q_base,
+                                         uint32_t k_base) {
+  using C = Cfg<D>;
+  constexpr int kSteps = C::kBoxCols / 16;   // k-steps inside one box's rows
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-    wgmma_m64n128k16_ss(sacc, hopper::sw128_desc(q_base + off),
-                        hopper::sw128_desc(k_base + off), kk > 0);
+    const uint32_t off = (kk % kSteps) * 32;
+    const uint64_t desc_q =
+        hopper::swizzled_desc<C::kSwizzle>(q_base + (kk / kSteps) * C::kQBox + off);
+    const uint64_t desc_k =
+        hopper::swizzled_desc<C::kSwizzle>(k_base + (kk / kSteps) * C::kKVBox + off);
+    if constexpr (C::kBlockN == 128)
+      wgmma_m64n128k16_ss(sacc, desc_q, desc_k, kk > 0);
+    else
+      wgmma_m64n64k16_ss(sacc, desc_q, desc_k, kk > 0);
   }
 }
 
-// O += P V: k-step kk reads keys 16 kk .. 16 kk + 15 (16 rows of 128 bytes);
-// the D / 64 column blocks of V lie one box apart (LBO).
+// O += P V: k-step kk reads keys 16 kk .. 16 kk + 15 (16 swizzled rows); the
+// D / 64 column blocks of V at D = 128 lie one box apart (LBO).
 template <int D>
-__device__ __forceinline__ void issue_pv(float (&oacc)[D / 2], const uint32_t (&pa)[8][4],
+__device__ __forceinline__ void issue_pv(float (&oacc)[D / 2],
+                                         const uint32_t (&pa)[Cfg<D>::kBlockN / 16][4],
                                          uint32_t v_base) {
+  using C = Cfg<D>;
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const uint64_t desc = hopper::sw128_desc(v_base + kk * 16 * 128, kBoxBytes);
+  for (int kk = 0; kk < C::kBlockN / 16; ++kk) {
+    const uint64_t desc =
+        hopper::swizzled_desc<C::kSwizzle>(v_base + kk * 16 * C::kSwizzle, C::kKVBox);
     if constexpr (D == 128)
       wgmma_m64n128k16_rs_tb(oacc, pa[kk], desc, 1);
-    else
+    else if constexpr (D == 64)
       wgmma_m64n64k16_rs_tb(oacc, pa[kk], desc, 1);
+    else if constexpr (D == 32)
+      wgmma_m64n32k16_rs_tb(oacc, pa[kk], desc, 1);
+    else
+      wgmma_m64n16k16_rs_tb(oacc, pa[kk], desc, 1);
   }
 }
 
-// Masks S when asked (the diagonal tile and the one holding Sk's edge),
-// then the online softmax in the log2 domain: p = 2^(s * scale_log2 -
-// m * scale_log2), in place.  Returns each row's rescale factor.
-__device__ __forceinline__ void softmax_tile(float (&sacc)[64], RowState& st, float (&alpha)[2],
-                                             bool mask, int k0, int row_lo, int t, int sk,
-                                             int causal, float scale_log2) {
+// Masks S (64 x N) when asked (the diagonal tile and the one holding Sk's
+// edge), then the online softmax's row maxima: each row's rescale factor
+// and -max * scale_log2 for softmax_exp.
+template <int N, int kChains>
+__device__ __forceinline__ void softmax_max(float (&sacc)[N / 2], RowState& st,
+                                            float (&alpha)[2], float (&neg_ms)[2], bool mask,
+                                            int k0, int row_lo, int t, int sk, int causal,
+                                            float scale_log2) {
   if (mask) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < N / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + 8 * j + 2 * t + (e & 1);
@@ -421,12 +536,24 @@ __device__ __forceinline__ void softmax_tile(float (&sacc)[64], RowState& st, fl
         if (col >= sk || (causal && col > row)) sacc[4 * j + e] = kNegInf;
       }
   }
-  float mx[2] = {st.m[0], st.m[1]};
+  // kChains independent chains a row (max is exact: any order gives the
+  // same value), so the first exponentials wait for a shorter chain.
+  float chain[2][kChains];
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int i = 0; i < kChains; ++i) chain[0][i] = chain[1][i] = i == 0 ? st.m[0] : kNegInf;
+  chain[1][0] = st.m[1];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sacc[4 * j + e]);
-  float neg_ms[2];
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      chain[e >> 1][j % kChains] = fmaxf(chain[e >> 1][j % kChains], sacc[4 * j + e]);
+  float mx[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    mx[hr] = chain[hr][0];
+#pragma unroll
+    for (int i = 1; i < kChains; ++i) mx[hr] = fmaxf(mx[hr], chain[hr][i]);
+  }
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
@@ -435,9 +562,17 @@ __device__ __forceinline__ void softmax_tile(float (&sacc)[64], RowState& st, fl
     neg_ms[hr] = -mx[hr] * scale_log2;
     st.m[hr] = mx[hr];
   }
+}
+
+// The online softmax in the log2 domain: p = 2^(s * scale_log2 - m *
+// scale_log2), in place, and the running sums.
+template <int N>
+__device__ __forceinline__ void softmax_exp(float (&sacc)[N / 2], RowState& st,
+                                            const float (&alpha)[2], const float (&neg_ms)[2],
+                                            float scale_log2) {
   float rs[2] = {0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < N / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float& x = sacc[4 * j + e];
@@ -448,11 +583,12 @@ __device__ __forceinline__ void softmax_tile(float (&sacc)[64], RowState& st, fl
   for (int hr = 0; hr < 2; ++hr) st.l[hr] = st.l[hr] * alpha[hr] + rs[hr];
 }
 
-// P as the A fragments of 8 k-steps of 16 keys: the accumulators of 8-key
-// groups 2 kk and 2 kk + 1, rounded to bf16.
-__device__ __forceinline__ void pack_p(const float (&sacc)[64], uint32_t (&pa)[8][4]) {
+// P as the A fragments of N / 16 k-steps of 16 keys: the accumulators of
+// 8-key groups 2 kk and 2 kk + 1, rounded to bf16.
+template <int N>
+__device__ __forceinline__ void pack_p(const float (&sacc)[N / 2], uint32_t (&pa)[N / 16][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < N / 16; ++kk) {
     pa[kk][0] = pack_bf16(sacc[8 * kk], sacc[8 * kk + 1]);
     pa[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
     pa[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
@@ -471,28 +607,51 @@ __device__ __forceinline__ void rescale(float (&oacc)[D / 2], const float (&alph
   }
 }
 
+// Byte offset of 16-byte chunk `ch` of row r in a tile of kSwizzle-byte rows,
+// in TMA's swizzle: the chunk index XOR the row's bits above the 128-byte line.
+template <int kSwizzle>
+__device__ __forceinline__ int swizzled_chunk(int r, int ch) {
+  return r * kSwizzle + ((ch ^ ((r * kSwizzle >> 7) & (kSwizzle / 16 - 1))) * 16);
+}
+
+// Consumer c's turn at issuing its products, when Cfg<D>::kTurns: it waits
+// for the other consumer's signal, issues, then signals the other one.  Both
+// consumers take the same number of turns.
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__device__ __forceinline__ void wait_turn(int c) {
+  if constexpr (Cfg<D>::kTurns) hopper::named_sync(kTurnBar + c, 256);
+}
+
+template <int D>
+__device__ __forceinline__ void pass_turn(int c, bool last) {
+  // The last consumer's last signal would have no reader.
+  if constexpr (Cfg<D>::kTurns) {
+    if (!(last && c == 1)) hopper::named_arrive(kTurnBar + (c ^ 1), 256);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::kThreads, Cfg<D>::kBlocksPerSM)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
                        int sq, int sk, int heads, int kv_heads, float scale_log2, int causal) {
-  using S = Smem<D>;
-  constexpr int kSt = S::kStages;
-  constexpr int kBoxes = D / 64;
+  using C = Cfg<D>;
+  constexpr int kSt = C::kStages;
+  constexpr int kBlockN = C::kBlockN;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::kBar);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::kBar);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + kSt;
   uint64_t* empty = v_full + kSt;
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockM;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * C::kBlockM;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (heads / kv_heads);
-  const int end = kv_end(q0, kBlockM, sq, sk, causal);
+  const int end = kv_end(q0, C::kBlockM, sq, sk, causal);
   const int n_tiles = (end + kBlockN - 1) / kBlockN;
 
   if (threadIdx.x == 0) {
@@ -501,7 +660,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int s = 0; s < kSt; ++s) {
       hopper::mbar_init(k_full + s, 1);
       hopper::mbar_init(v_full + s, 1);
-      hopper::mbar_init(empty + s, 8);   // one arrival per consumer warp
+      hopper::mbar_init(empty + s, 4 * C::kConsumers);   // one arrival per consumer warp
     }
     hopper::fence_barrier_init();
   }
@@ -510,31 +669,32 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int warpgroup = threadIdx.x / 128;
   if (warpgroup == 0) {
     // Producer.
-    hopper::reg_dealloc<kProducerRegs>();
+    hopper::reg_dealloc<C::kProducerRegs>();
     if (threadIdx.x == 0) {
-      hopper::mbar_arrive_expect_tx(q_full, S::kTile);
+      hopper::mbar_arrive_expect_tx(q_full, C::kQTile);
 #pragma unroll
-      for (int box = 0; box < kBoxes; ++box)
-        hopper::tma_load_4d(smem + S::kQ + box * kBoxBytes, &tm_q, q_full, 64 * box, h, q0, b);
+      for (int box = 0; box < C::kBoxes; ++box)
+        hopper::tma_load_4d(smem + C::kQ + box * C::kQBox, &tm_q, q_full, C::kBoxCols * box, h,
+                            q0, b);
       for (int n = 0; n < n_tiles; ++n) {
         const int s = n % kSt;
         hopper::mbar_wait(empty + s, ((n / kSt) & 1) ^ 1);
-        hopper::mbar_arrive_expect_tx(k_full + s, S::kTile);
+        hopper::mbar_arrive_expect_tx(k_full + s, C::kTile);
 #pragma unroll
-        for (int box = 0; box < kBoxes; ++box)
-          hopper::tma_load_4d(smem + S::kK + s * S::kTile + box * kBoxBytes, &tm_k, k_full + s,
-                              64 * box, kvh, n * kBlockN, b);
-        hopper::mbar_arrive_expect_tx(v_full + s, S::kTile);
+        for (int box = 0; box < C::kBoxes; ++box)
+          hopper::tma_load_4d(smem + C::kK + s * C::kTile + box * C::kKVBox, &tm_k, k_full + s,
+                              C::kBoxCols * box, kvh, n * kBlockN, b);
+        hopper::mbar_arrive_expect_tx(v_full + s, C::kTile);
 #pragma unroll
-        for (int box = 0; box < kBoxes; ++box)
-          hopper::tma_load_4d(smem + S::kV + s * S::kTile + box * kBoxBytes, &tm_v, v_full + s,
-                              64 * box, kvh, n * kBlockN, b);
+        for (int box = 0; box < C::kBoxes; ++box)
+          hopper::tma_load_4d(smem + C::kV + s * C::kTile + box * C::kKVBox, &tm_v, v_full + s,
+                              C::kBoxCols * box, kvh, n * kBlockN, b);
       }
     }
   } else {
     // Consumer c owns block rows 64 c .. 64 c + 63.  Tile n's softmax runs
     // while tile n - 1's O += P V is in flight.
-    hopper::reg_alloc<kConsumerRegs>();
+    hopper::reg_alloc<C::kConsumerRegs>();
     const int c = warpgroup - 1;
     const int tid = threadIdx.x & 127;
     const int warp = tid >> 5;
@@ -542,71 +702,99 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int g = lane >> 2;
     const int t = lane & 3;
     const int row_lo = q0 + 64 * c + 16 * warp + g;   // accumulator halves 0; + 8 halves 1
-    const uint32_t q_base = hopper::smem_addr(smem + S::kQ) + c * 64 * 128;
-    const uint32_t k_ring = hopper::smem_addr(smem + S::kK);
-    const uint32_t v_ring = hopper::smem_addr(smem + S::kV);
+    const uint32_t q_base = hopper::smem_addr(smem + C::kQ) + c * 64 * C::kSwizzle;
+    const uint32_t k_ring = hopper::smem_addr(smem + C::kK);
+    const uint32_t v_ring = hopper::smem_addr(smem + C::kV);
     auto needs_mask = [&](int k0) {
       return k0 + kBlockN > sk || (causal && k0 + kBlockN - 1 > q0 + 64 * c);
     };
+    // With 64-key tiles a block's last tile can lie wholly above consumer
+    // 0's diagonal: it computes up to its own last tile.
+    int my_tiles = n_tiles;
+    if constexpr (kBlockN < 128)
+      my_tiles = (kv_end(q0 + 64 * c, 64, sq, sk, causal) + kBlockN - 1) / kBlockN;
 
-    float sacc[64];
+    float sacc[kBlockN / 2];
     float oacc[D / 2];
-    uint32_t pa[8][4];
+    uint32_t pa[kBlockN / 16][4];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) sacc[i] = 0.f;
+    for (int i = 0; i < kBlockN / 2; ++i) sacc[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
     RowState st = {{kNegInf, kNegInf}, {0.f, 0.f}};
     float alpha[2];
+    float neg_ms[2];
+    if constexpr (C::kTurns) {
+      if (c == 1) hopper::named_arrive(kTurnBar, 256);   // consumer 0 first
+    }
+    auto softmax = [&](int n) {
+      softmax_max<kBlockN, C::kMaxChains>(sacc, st, alpha, neg_ms, needs_mask(n * kBlockN),
+                                          n * kBlockN, row_lo, t, sk, causal, scale_log2);
+      softmax_exp<kBlockN>(sacc, st, alpha, neg_ms, scale_log2);
+    };
 
     // Tile 0: S, softmax, P.
     hopper::mbar_wait(q_full, 0);
     hopper::mbar_wait(k_full, 0);
+    wait_turn<D>(c);
     hopper::wgmma_fence();
     issue_qk<D>(sacc, q_base, k_ring);
     hopper::wgmma_commit();
+    pass_turn<D>(c, false);
     hopper::wgmma_wait<0>();
     hopper::fence_regs(sacc);
-    softmax_tile(sacc, st, alpha, needs_mask(0), 0, row_lo, t, sk, causal, scale_log2);
-    pack_p(sacc, pa);
+    softmax(0);
+    pack_p<kBlockN>(sacc, pa);
 
-    for (int n = 1; n < n_tiles; ++n) {
+    for (int n = 1; n < my_tiles; ++n) {
       const int s = n % kSt;
       const int sp = (n - 1) % kSt;
       hopper::mbar_wait(k_full + s, (n / kSt) & 1);
+      wait_turn<D>(c);
       hopper::wgmma_fence();
-      issue_qk<D>(sacc, q_base, k_ring + s * S::kTile);
+      issue_qk<D>(sacc, q_base, k_ring + s * C::kTile);
       hopper::wgmma_commit();
       hopper::mbar_wait(v_full + sp, ((n - 1) / kSt) & 1);
-      issue_pv<D>(oacc, pa, v_ring + sp * S::kTile);
+      issue_pv<D>(oacc, pa, v_ring + sp * C::kTile);
       hopper::wgmma_commit();
+      pass_turn<D>(c, false);
       hopper::wgmma_wait<1>();   // S of tile n is done; P V of tile n - 1 runs on
       hopper::fence_regs(sacc);
-      softmax_tile(sacc, st, alpha, needs_mask(n * kBlockN), n * kBlockN, row_lo, t, sk, causal,
-                   scale_log2);
+      softmax(n);
       hopper::wgmma_wait<0>();
       hopper::fence_regs(oacc);
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) hopper::fence_regs(pa[kk]);
+      for (int kk = 0; kk < kBlockN / 16; ++kk) hopper::fence_regs(pa[kk]);
       if (lane == 0) hopper::mbar_arrive(empty + sp);
       rescale<D>(oacc, alpha);
-      pack_p(sacc, pa);
+      pack_p<kBlockN>(sacc, pa);
     }
     {
-      const int sp = (n_tiles - 1) % kSt;
-      hopper::mbar_wait(v_full + sp, ((n_tiles - 1) / kSt) & 1);
+      const int sp = (my_tiles - 1) % kSt;
+      hopper::mbar_wait(v_full + sp, ((my_tiles - 1) / kSt) & 1);
+      wait_turn<D>(c);
       hopper::wgmma_fence();
-      issue_pv<D>(oacc, pa, v_ring + sp * S::kTile);
+      issue_pv<D>(oacc, pa, v_ring + sp * C::kTile);
       hopper::wgmma_commit();
+      pass_turn<D>(c, my_tiles == n_tiles);
       hopper::wgmma_wait<0>();
       hopper::fence_regs(oacc);
       if (lane == 0) hopper::mbar_arrive(empty + sp);
+    }
+    // The block's tiles past this consumer's diagonal: released in order
+    // once loaded (so the arrival counts toward that tile's round of the
+    // stage), each still taking its turn.
+    for (int n = my_tiles; n < n_tiles; ++n) {
+      const int s = n % kSt;
+      hopper::mbar_wait(k_full + s, (n / kSt) & 1);
+      if (lane == 0) hopper::mbar_arrive(empty + s);
+      wait_turn<D>(c);
+      pass_turn<D>(c, n == n_tiles - 1);
     }
 
     // Epilogue: O / max(l, 1e-30) as bf16, staged in this consumer's own
     // rows of the q tile (its last reader was the consumer's own S), in the
-    // q tile's layout: column chunk j (8 bf16) of row r in box j / 8 at
-    // chunk (j % 8) ^ (r % 8), conflict-free both ways; then 16-byte
+    // q tile's swizzled layout, conflict-free both ways; then 16-byte
     // row-contiguous stores of the rows below Sq.
     float denom[2];
 #pragma unroll
@@ -616,14 +804,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       denom[hr] = fmaxf(l, 1e-30f);
     }
-    uint8_t* stage = smem + S::kQ + c * 64 * 128;
+    constexpr int kBoxChunks = C::kBoxCols / 8;   // 16-byte chunks of a box row
+    uint8_t* stage = smem + C::kQ + c * 64 * C::kSwizzle;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
         const int r = 16 * warp + g + 8 * hr;
-        *reinterpret_cast<uint32_t*>(stage + (j / 8) * kBoxBytes + r * 128 +
-                                     (((j % 8) ^ (r & 7)) * 16) + 4 * t) =
+        *reinterpret_cast<uint32_t*>(
+            stage + (j / kBoxChunks) * C::kQBox +
+            swizzled_chunk<C::kSwizzle>(r, j % kBoxChunks) + 4 * t) =
             pack_bf16(oacc[4 * j + 2 * hr] / denom[hr], oacc[4 * j + 2 * hr + 1] / denom[hr]);
       }
     hopper::named_sync(1 + c, 128);
@@ -635,36 +825,38 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int row = q0 + 64 * c + r;
       if (row < sq)
         *reinterpret_cast<uint4*>(o + (((size_t)b * sq + row) * heads + h) * D + ch * 8) =
-            *reinterpret_cast<const uint4*>(stage + (ch / 8) * kBoxBytes + r * 128 +
-                                            (((ch % 8) ^ (r & 7)) * 16));
+            *reinterpret_cast<const uint4*>(stage + (ch / kBoxChunks) * C::kQBox +
+                                            swizzled_chunk<C::kSwizzle>(r, ch % kBoxChunks));
     }
   }
 }
 
-// q, k, v as 4-D tensor maps over (D, heads, S, B), boxes of 64 x 1 x 128 x 1.
+// q, k, v as 4-D tensor maps over (D, heads, S, B), boxes of kBoxCols x 1 x
+// rows x 1 (rows: the block's q rows, or a K/V tile's keys).
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int batch, int sq, int sk,
            int heads, int kv_heads, int causal, float scale, cudaStream_t stream) {
-  using S = Smem<D>;
+  using C = Cfg<D>;
   CUtensorMap maps[3];
-  const cuuint32_t box[4] = {64, 1, 128, 1};
   const void* bases[3] = {q, k, v};
   const int lens[3] = {sq, sk, sk};
   const int nheads[3] = {heads, kv_heads, kv_heads};
+  const int rows[3] = {C::kBlockM, C::kBlockN, C::kBlockN};
   for (int i = 0; i < 3; ++i) {
     const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)nheads[i], (cuuint64_t)lens[i],
                                 (cuuint64_t)batch};
     const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)nheads[i] * D * 2,
                                    (cuuint64_t)lens[i] * nheads[i] * D * 2};
-    const int rc = hopper::encode_sw128(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, bases[i],
-                                        dims, strides, box);
+    const cuuint32_t box[4] = {(cuuint32_t)C::kBoxCols, 1, (cuuint32_t)rows[i], 1};
+    const int rc = hopper::encode_swizzled(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                                           bases[i], dims, strides, box, C::kSwizzle);
     if (rc != 0) return rc;
   }
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
+      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + kBlockM - 1) / kBlockM, heads, batch);
-  flash_fwd_wgmma_kernel<D><<<grid, kThreads, S::kBytes, stream>>>(
+  const dim3 grid((sq + C::kBlockM - 1) / C::kBlockM, heads, batch);
+  flash_fwd_wgmma_kernel<D><<<grid, C::kThreads, C::kBytes, stream>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), sq, sk, heads, kv_heads,
       scale * 1.4426950408889634f, causal);
   return static_cast<int>(cudaGetLastError());
@@ -866,28 +1058,31 @@ int launch(Kernel kernel, int smem_bytes, const void* q, const void* k, const vo
 // q, o: [batch][sq][heads][head_dim]; k, v: [batch][sk][kv_heads][head_dim],
 // contiguous and 16-byte aligned, heads % kv_heads == 0, sk >= 1.  dtype 0 is
 // float32 (CUDA cores), 1 bfloat16 (tensor cores); head_dim is 16, 32, 64 or
-// 128.  The instance is static: float32 -> CUDA cores; bf16 at head_dim 64
-// and 128 -> wgmma; bf16 at 16 and 32 -> mma.sync.  Launches on `stream`,
+// 128.  `instance` names the kernel: 0 wgmma (bf16, every head dim), 1
+// mma.sync (bf16 at 16 and 32), 2 CUDA cores (float32); -1 takes the static
+// rule: float32 -> CUDA cores, bf16 -> wgmma.  Launches on `stream`,
 // allocates nothing and does not synchronise; returns cudaGetLastError()
-// after the launch (0 on success), or cudaErrorInvalidValue for a dtype or
-// head_dim it has no instance for, or a tensor map the driver refuses.
-extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      void* o, int batch, int sq, int sk, int heads,
-                                      int kv_heads, int head_dim, int dtype, int causal,
-                                      float scale, void* stream) {
+// after the launch (0 on success), or cudaErrorInvalidValue for an
+// instance, dtype or head_dim it has no kernel for, or a tensor map the
+// driver refuses.  Never a fallback: an instance that fails is an error.
+extern "C" int flash_attention_launch_instance(const void* q, const void* k, const void* v,
+                                               void* o, int batch, int sq, int sk, int heads,
+                                               int kv_heads, int head_dim, int dtype, int causal,
+                                               float scale, int instance, void* stream) {
   using namespace flash;
+  if (instance == -1) instance = dtype == 0 ? 2 : 0;
   if (batch <= 0 || sq <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FLASH_F32(DIM)                                                                     \
-  if (dtype == 0 && head_dim == DIM)                                                       \
+  if (instance == 2 && dtype == 0 && head_dim == DIM)                                      \
     return launch<float, DIM>(flash_fwd_f32_kernel<DIM>, SimtSmem<DIM>::kBytes, q, k, v, o, \
                               batch, sq, sk, heads, kv_heads, causal, scale, s);
 #define FLASH_MMA(DIM)                                                                     \
-  if (dtype == 1 && head_dim == DIM)                                                       \
+  if (instance == 1 && dtype == 1 && head_dim == DIM)                                      \
     return launch<__nv_bfloat16, DIM>(flash_fwd_mma_kernel<DIM>, MmaSmem<DIM>::kBytes, q, k, \
                                       v, o, batch, sq, sk, heads, kv_heads, causal, scale, s);
 #define FLASH_WGMMA(DIM)                                                                   \
-  if (dtype == 1 && head_dim == DIM)                                                       \
+  if (instance == 0 && dtype == 1 && head_dim == DIM)                                      \
     return wg::launch<DIM>(q, k, v, o, batch, sq, sk, heads, kv_heads, causal, scale, s);
   FLASH_F32(16)
   FLASH_F32(32)
@@ -895,10 +1090,21 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   FLASH_F32(128)
   FLASH_MMA(16)
   FLASH_MMA(32)
+  FLASH_WGMMA(16)
+  FLASH_WGMMA(32)
   FLASH_WGMMA(64)
   FLASH_WGMMA(128)
 #undef FLASH_F32
 #undef FLASH_MMA
 #undef FLASH_WGMMA
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The static rule's entry point (instance -1).
+extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
+                                      int batch, int sq, int sk, int heads, int kv_heads,
+                                      int head_dim, int dtype, int causal, float scale,
+                                      void* stream) {
+  return flash_attention_launch_instance(q, k, v, o, batch, sq, sk, heads, kv_heads, head_dim,
+                                         dtype, causal, scale, -1, stream);
 }

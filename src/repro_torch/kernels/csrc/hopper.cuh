@@ -5,7 +5,7 @@
 // tensor maps.
 //
 // The pattern both kernels follow: one producer warp issues TMA loads of
-// 128-byte-swizzled tiles into a ring of stages in shared memory, each stage
+// swizzled tiles into a ring of stages in shared memory, each stage
 // guarded by a "full" mbarrier (the producer's arrival plus the bytes the
 // TMA unit delivers) and an "empty" one (one arrival per consumer warp once
 // its wgmma has read the stage); consumer warpgroups run wgmma on the
@@ -164,19 +164,28 @@ __device__ __forceinline__ void fence_regs(T (&r)[N]) {
   for (int i = 0; i < N; ++i) fence_reg(r[i]);
 }
 
-// The shared-memory matrix descriptor of a tile written by TMA with 128-byte
-// swizzle: rows of 128 bytes in atoms of 8 rows (1,024 bytes), the tile
-// 1,024-byte aligned.  K-major operands (the K extent inside a row) use
-// only the 8-row-group stride (SBO = 1,024 bytes; LBO is ignored); an
-// MN-major operand also gives the stride between its 64-element column
-// blocks as LBO.  A k-step inside a row advances `addr` by its bytes.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo_bytes = 16) {
+// The shared-memory matrix descriptor of a tile written by TMA with a
+// swizzle span of kSwizzle = 128, 64 or 32 bytes: rows of kSwizzle bytes in
+// atoms of 8 rows, the tile aligned to 1,024 bytes.  K-major operands (the
+// K extent inside a row) use only the 8-row-group stride (SBO = 8 kSwizzle
+// bytes; LBO is ignored); an MN-major operand also gives the stride between
+// its column blocks of kSwizzle bytes as LBO.  A k-step inside a row
+// advances `addr` by its bytes.  Layout types: 1 = 128-byte swizzle, 2 = 64,
+// 3 = 32.
+template <int kSwizzle>
+__device__ __forceinline__ uint64_t swizzled_desc(uint32_t addr, uint32_t lbo_bytes = 16) {
+  static_assert(kSwizzle == 128 || kSwizzle == 64 || kSwizzle == 32, "swizzle span");
+  constexpr uint64_t kLayout = kSwizzle == 128 ? 1 : kSwizzle == 64 ? 2 : 3;
   uint64_t d = 0;
   d |= static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
   d |= static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16;
-  d |= static_cast<uint64_t>((1024 >> 4) & 0x3FFF) << 32;
-  d |= static_cast<uint64_t>(1) << 62;   // layout type: 128-byte swizzle
+  d |= static_cast<uint64_t>(((8 * kSwizzle) >> 4) & 0x3FFF) << 32;
+  d |= kLayout << 62;
   return d;
+}
+
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo_bytes = 16) {
+  return swizzled_desc<128>(addr, lbo_bytes);
 }
 
 // Orders this thread's generic-proxy writes to shared memory (st.shared)
@@ -202,6 +211,12 @@ __device__ __forceinline__ void reg_alloc() {
 // A barrier among `count` threads (a multiple of 32); id 0 is __syncthreads.
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Counts this warp's threads at barrier `id` (of `count` threads) without
+// waiting for the others: a signal to the threads that bar.sync on it.
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // -- host: tensor maps -------------------------------------------------------
@@ -230,20 +245,30 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A tiled, 128-byte-swizzled tensor map of `rank` dimensions (innermost
-// first; strides in bytes of dimensions 1.. as cuTensorMapEncodeTiled takes
-// them).  Elements outside the tensor read as zero.  Returns 0 on success,
-// or cudaErrorInvalidValue.
-inline int encode_sw128(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
-                        const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
+// A tiled tensor map of `rank` dimensions (innermost first; strides in
+// bytes of dimensions 1.. as cuTensorMapEncodeTiled takes them), swizzled
+// over 128, 64 or 32 bytes (the box's inner extent must fit in that span).
+// Elements outside the tensor read as zero.  Returns 0 on success, or
+// cudaErrorInvalidValue.
+inline int encode_swizzled(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                           const void* base, const cuuint64_t* dims, const cuuint64_t* strides,
+                           const cuuint32_t* box, int swizzle_bytes) {
   const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (fn == nullptr || (swizzle_bytes != 128 && swizzle_bytes != 64 && swizzle_bytes != 32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const CUtensorMapSwizzle swizzle = swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                           : CU_TENSOR_MAP_SWIZZLE_32B;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   const CUresult r = fn(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base), dims,
-                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+inline int encode_sw128(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
+                        const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
+  return encode_swizzled(map, type, rank, base, dims, strides, box, 128);
 }
 
 }  // namespace hopper

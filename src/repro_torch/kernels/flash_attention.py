@@ -7,12 +7,14 @@ lower-triangle schedule.  Its plain version is
 :func:`repro_torch.kernels.ref.flash_attention_ref`; callers go through
 :func:`repro_torch.kernels.ops.flash_attention`.
 
-The kernel has three instances, chosen statically by type and head dim
-(:func:`instance`, the same rule as ``flash_attention_launch``): ``wgmma``
-(bf16, head dims 64 and 128: every served config), ``mma_sync`` (bf16, 16
-and 32) and ``simt_f32`` (float32).  ``flash_attention_cuda.launches``
-counts every launch; ``flash_attention_cuda.instance_launches`` counts them
-by instance.
+The kernel has three instances, chosen statically by type (:func:`instance`,
+the same rule as ``flash_attention_launch``): ``wgmma`` for bf16 at every
+head dim, ``simt_f32`` for float32.  The ``mma_sync`` instance (bf16, head
+dims 16 and 32; the rule until the wgmma instance took those head dims)
+stays callable for measurement and tests through ``instance="mma_sync"``.
+``flash_attention_cuda.launches`` counts every launch;
+``flash_attention_cuda.instance_launches`` counts them by the instance that
+ran.
 """
 
 from __future__ import annotations
@@ -27,20 +29,37 @@ _C = ctypes.c_void_p
 _I = ctypes.c_int
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
-INSTANCES = ("wgmma", "mma_sync", "simt_f32")
+INSTANCES = ("wgmma", "mma_sync", "simt_f32")   # codes 0, 1, 2 of the C entry point
 
 
-def instance(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel instance ``flash_attention_launch`` runs for this type
-    and head dim."""
+def instances(dtype: torch.dtype, head_dim: int) -> tuple[str, ...]:
+    """Every instance with a kernel for this type and head dim, the static
+    rule's first."""
     if dtype == torch.float32:
-        return "simt_f32"
-    return "wgmma" if head_dim in (64, 128) else "mma_sync"
+        return ("simt_f32",)
+    return ("wgmma", "mma_sync") if head_dim in (16, 32) else ("wgmma",)
+
+
+def instance(dtype: torch.dtype, head_dim: int, requested: str | None = None) -> str:
+    """The kernel instance that runs for this type and head dim: the static
+    rule of ``flash_attention_launch`` when ``requested`` is None, else
+    ``requested``, which must have a kernel for them (``ValueError``)."""
+    if requested is None:
+        return instances(dtype, head_dim)[0]
+    if requested not in INSTANCES:
+        raise ValueError(f"unknown instance {requested!r}; one of {INSTANCES}")
+    if requested not in instances(dtype, head_dim):
+        raise ValueError(f"the {requested} instance has no kernel for {dtype} at head dim "
+                         f"{head_dim}")
+    return requested
+
+
+_instance = instance   # flash_attention_cuda's keyword hides the name
 
 
 def _fn():
-    fn = _build.library("flash_attention").flash_attention_launch
-    fn.argtypes = [_C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _C]
+    fn = _build.library("flash_attention").flash_attention_launch_instance
+    fn.argtypes = [_C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _C]
     fn.restype = _I
     return fn
 
@@ -75,9 +94,14 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = True) -> torch.Tensor:
+                         causal: bool = True, instance: str | None = None) -> torch.Tensor:
     """(B, Sq, H, D) attention output in q's type: query head h attends KV
-    head h // (H / KV) with scale D^-0.5, causal with positions from 0."""
+    head h // (H / KV) with scale D^-0.5, causal with positions from 0.
+
+    ``instance`` (one of ``INSTANCES``) picks a kernel for measurement and
+    tests; None is the static rule (:func:`instance`), the only choice the
+    port's callers make."""
+    name = _instance(q.dtype, q.shape[-1] if q.dim() else 0, instance)
     check_operands(q, k, v)
     b, sq, h, d = q.shape
     out = torch.empty_like(q)
@@ -86,11 +110,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         rc = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
                    k.shape[1], h, k.shape[2], d, DTYPES[q.dtype], int(causal), d ** -0.5,
-                   torch.cuda.current_stream().cuda_stream)
+                   INSTANCES.index(name), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"flash_attention kernel launch failed ({name} instance): CUDA "
+                           f"error {rc}")
     flash_attention_cuda.launches += 1
-    flash_attention_cuda.instance_launches[instance(q.dtype, d)] += 1
+    flash_attention_cuda.instance_launches[name] += 1
     return out
 
 

@@ -538,26 +538,51 @@ def exact_f32(dev):
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
-@pytest.mark.parametrize("sq,sk,causal,group,kv", [
+FLASH_SHAPES = [  # sq, sk, causal, group (H / KV), KV
     (1, 1, True, 1, 2), (63, 63, True, 3, 2), (100, 100, True, 4, 2), (64, 200, True, 8, 1),
     (200, 64, True, 3, 1), (100, 37, False, 8, 2), (1, 300, False, 1, 3),
     # the wgmma instance's 128-row q tiles and 128-key K/V tiles: each side of
     # one and two tiles, Sq != Sk both ways, groups 1, 3, 4 and 8
     (127, 127, True, 1, 2), (128, 128, False, 3, 1), (129, 129, True, 4, 2),
     (255, 257, True, 8, 1), (257, 255, False, 1, 2), (128, 257, True, 3, 1),
-    (257, 128, True, 4, 1), (129, 255, False, 8, 1)])
+    (257, 128, True, 4, 1), (129, 255, False, 8, 1),
+    # the 192-row q tiles of the head dims 16 and 32 instance
+    (191, 193, True, 3, 1), (193, 191, False, 4, 2), (385, 384, True, 8, 1)]
+
+
+def _flash_operands(dev, dtype, d, sq, sk, group, kv):
+    gen = torch.Generator(device=dev).manual_seed(sq + sk + d)
+    return tuple(torch.randn((2, n, heads, d), generator=gen, device=dev).to(dtype)
+                 for n, heads in ((sq, group * kv), (sk, kv), (sk, kv)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("sq,sk,causal,group,kv", FLASH_SHAPES)
 def test_flash_attention_kernel_matches_plain_version(exact_f32, dtype, d, sq, sk, causal,
                                                       group, kv):
-    gen = torch.Generator(device=exact_f32).manual_seed(sq + sk + d)
-    q, k, v = (torch.randn((2, n, heads, d), generator=gen, device=exact_f32).to(dtype)
-               for n, heads in ((sq, group * kv), (sk, kv), (sk, kv)))
+    q, k, v = _flash_operands(exact_f32, dtype, d, sq, sk, group, kv)
     got = flash_kernel.flash_attention_cuda(q, k, v, causal=causal)
     want = ref.flash_attention_ref(q, k, v, causal=causal)
     assert got.dtype == dtype and got.shape == q.shape
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("sq,sk,causal,group,kv", FLASH_SHAPES)
+def test_flash_attention_mma_sync_instance_matches_plain_version(exact_f32, d, sq, sk, causal,
+                                                                 group, kv):
+    """The mma.sync instance, which bf16 at head dims 16 and 32 ran before
+    the wgmma instance took them, stays held to the plain version."""
+    q, k, v = _flash_operands(exact_f32, torch.bfloat16, d, sq, sk, group, kv)
+    counts = flash_kernel.flash_attention_cuda.instance_launches
+    before = counts["mma_sync"]
+    got = flash_kernel.flash_attention_cuda(q, k, v, causal=causal, instance="mma_sync")
+    assert counts["mma_sync"] == before + 1
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, causal=causal), rtol=tol,
+                               atol=tol)
 
 
 def test_flash_attention_wrapper_rejects_bad_operands(dev):
@@ -590,6 +615,32 @@ def test_flash_attention_kernel_at_a_qwen3_layer(exact_f32):
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("instance", ["wgmma", "mma_sync"])
+def test_flash_attention_kernel_at_a_qwen3_layer_with_head_dim_32(exact_f32, instance):
+    """The same layer shape with head dim 32 (no served config has it), both
+    bf16 instances."""
+    gen = torch.Generator(device=exact_f32).manual_seed(8)
+    q, k, v = (torch.randn((1, 4096, heads, 32), generator=gen, device=exact_f32)
+               .to(torch.bfloat16) for heads in (32, 8, 8))
+    got = flash_kernel.flash_attention_cuda(q, k, v, causal=True, instance=instance)
+    want = ref.flash_attention_ref(q, k, v, causal=True, triangle=True)
+    tol = FLASH_TOL[torch.bfloat16]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+def test_flash_attention_instance_keyword_on_the_card(dev):
+    """An instance with no kernel raises before launching; the static rule
+    never picks mma.sync."""
+    q = torch.randn((1, 8, 4, 64), device=dev).to(torch.bfloat16)
+    k = torch.randn((1, 8, 2, 64), device=dev).to(torch.bfloat16)
+    before = flash_kernel.flash_attention_cuda.launches
+    with pytest.raises(ValueError, match="no kernel"):
+        flash_kernel.flash_attention_cuda(q, k, k, instance="mma_sync")
+    with pytest.raises(ValueError, match="no kernel"):
+        flash_kernel.flash_attention_cuda(q.float(), k.float(), k.float(), instance="wgmma")
+    assert flash_kernel.flash_attention_cuda.launches == before
+
+
 def test_flash_attention_launch_counter_and_dispatch(dev):
     q = torch.randn((1, 8, 4, 16), device=dev)
     k = torch.randn((1, 8, 2, 16), device=dev)
@@ -600,7 +651,7 @@ def test_flash_attention_launch_counter_and_dispatch(dev):
 
 
 @pytest.mark.parametrize("dtype,d,instance", [
-    (torch.bfloat16, 16, "mma_sync"), (torch.bfloat16, 32, "mma_sync"),
+    (torch.bfloat16, 16, "wgmma"), (torch.bfloat16, 32, "wgmma"),
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.float32, 64, "simt_f32"), (torch.float32, 128, "simt_f32")])
 def test_flash_attention_head_dim_dispatch_counts_its_instance(exact_f32, dtype, d, instance):

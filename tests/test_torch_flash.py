@@ -106,13 +106,14 @@ def test_flash_attention_dispatch_never_falls_back():
 
 
 @pytest.mark.parametrize("dtype,d,want", [
-    (torch.bfloat16, 16, "mma_sync"), (torch.bfloat16, 32, "mma_sync"),
+    (torch.bfloat16, 16, "wgmma"), (torch.bfloat16, 32, "wgmma"),
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.float32, 16, "simt_f32"), (torch.float32, 128, "simt_f32")])
 def test_flash_kernel_instance_is_static_by_type_and_head_dim(dtype, d, want):
     """The wrapper counts launches by the instance the CUDA entry point picks:
-    wgmma for every served config's bf16 head dims, mma.sync for bf16 16 and
-    32, the CUDA-core instance for float32.  CPU tensors launch nothing."""
+    wgmma for bf16 at every head dim (at 16 and 32 it measured faster than
+    the mma.sync instance), the CUDA-core instance for float32.  CPU tensors
+    launch nothing."""
     assert flash_kernel.instance(dtype, d) == want
     assert set(flash_kernel.flash_attention_cuda.instance_launches) == set(
         flash_kernel.INSTANCES)
@@ -123,6 +124,43 @@ def test_flash_kernel_instance_is_static_by_type_and_head_dim(dtype, d, want):
         flash_kernel.flash_attention_cuda(q, k, v)
     assert (flash_kernel.flash_attention_cuda.launches,
             flash_kernel.flash_attention_cuda.instance_launches) == before
+
+
+@pytest.mark.parametrize("dtype,d,requested,error", [
+    (torch.bfloat16, 16, "wgmma", None), (torch.bfloat16, 16, "mma_sync", None),
+    (torch.bfloat16, 32, "mma_sync", None), (torch.bfloat16, 128, "wgmma", None),
+    (torch.float32, 64, "simt_f32", None),
+    (torch.bfloat16, 64, "mma_sync", "no kernel"), (torch.bfloat16, 128, "mma_sync", "no kernel"),
+    (torch.bfloat16, 32, "simt_f32", "no kernel"), (torch.float32, 32, "wgmma", "no kernel"),
+    (torch.float32, 16, "mma_sync", "no kernel"), (torch.bfloat16, 32, "swar", "unknown")])
+def test_flash_kernel_instance_keyword(dtype, d, requested, error):
+    """``instance=`` picks a kernel for measurement and tests: a name with
+    no kernel for the type and head dim raises ValueError before anything
+    else; a valid one still needs CUDA tensors.  Nothing launches."""
+    before = (flash_kernel.flash_attention_cuda.launches,
+              dict(flash_kernel.flash_attention_cuda.instance_launches))
+    q, k, v = (t.to(dtype) for t in _t(*_qkv(np.random.default_rng(1), 1, 8, 8, 2, 1, d)))
+    if error is None:
+        assert flash_kernel.instance(dtype, d, requested) == requested
+        assert requested in flash_kernel.instances(dtype, d)
+        error = "CUDA tensors"
+    else:
+        with pytest.raises(ValueError, match=error):
+            flash_kernel.instance(dtype, d, requested)
+    with pytest.raises(ValueError, match=error):
+        flash_kernel.flash_attention_cuda(q, k, v, instance=requested)
+    assert (flash_kernel.flash_attention_cuda.launches,
+            flash_kernel.flash_attention_cuda.instance_launches) == before
+
+
+def test_flash_kernel_instances_put_the_static_rule_first():
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in flash_kernel.HEAD_DIMS:
+            names = flash_kernel.instances(dtype, d)
+            assert names[0] == flash_kernel.instance(dtype, d)
+            assert set(names) <= set(flash_kernel.INSTANCES)
+    assert flash_kernel.instances(torch.bfloat16, 32) == ("wgmma", "mma_sync")
+    assert flash_kernel.instances(torch.bfloat16, 64) == ("wgmma",)
 
 
 @pytest.mark.parametrize("shape", [(2, 5, 64), (3, 4, 2, 16)])
