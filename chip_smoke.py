@@ -78,12 +78,14 @@ Phases (any failure raises, so the script exits non-zero):
    its bound).
 9. Flash-attention parity: ``flash_attention`` against its plain version on
    the same card tensors (TF32 off, both flags printed), causal and not,
-   Sq != Sk, lengths 1 to 1,000 and the wgmma instance's 128- and 192-row
+   Sq != Sk, lengths 1 to 1,000 and the wgmma instances' 128- and 192-row
    tile edges (127, 128, 129, 191, 193, 255, 257, 384, 385), GQA groups 1,
    3, 4 and 8, head dims 16, 32, 64 and 128, float32 (rtol = atol = 2e-5)
-   and bf16 (1e-2), every instance with a kernel there (bf16 at 16 and 32:
-   wgmma, the static rule, and mma.sync), and one batch of a qwen3-8b layer
-   (S = 4,096, 32/8 heads of 128, and the same with head dim 32).
+   and bf16 (1e-2), every instance with a kernel there (float32: 3xTF32, the
+   static rule, and the CUDA cores; its prepass ``split_kv`` bit-identical to
+   its plain version on each case's k and v), and one batch of a qwen3-8b
+   layer (S = 4,096, 32/8 heads of 128 in bf16 and in float32 by both
+   float32 instances, and bf16 with head dim 32).
 10. Full size, LM serving: qwen3-8b at its published widths and depth (36
    layers, d_model 4,096, 32/8 heads of 128, d_ff 12,288, vocab 151,936;
    f32 parameters drawn on the card from ``--seed``, bf16 compute), 4
@@ -99,18 +101,24 @@ Phases (any failure raises, so the script exits non-zero):
 11. The flash kernel's other instances.  bf16 at head dims 16 and 32 (the
    wgmma instance; no full-width config has these head dims): the reduced
    qwen3-8b config in bf16 (head_dim 16) serves 2 prompts of 200 tokens and
-   8 greedy tokens, once a layer through the wgmma instance and never the
-   mma.sync one, teacher-forced against ``Model.forward``; both instances
-   equal the plain version at layer 0's operands and at qwen3-8b's layer
-   shape with head dims 32 and 16, where they are timed in turns (wgmma,
-   mma_sync, mma_sync, wgmma) beside ``scaled_dot_product_attention``.
-   float32 (CUDA cores): the reduced config in float32 through the same
-   path, then the kernel at qwen3-8b's layer shape in float32 (TF32 off)
-   against its plain version, timed beside it and
-   ``scaled_dot_product_attention`` in float32.  Every flash bound is the
-   largest of its bytes, its products (bf16 tensor rate, or the float32 rate
-   of the CUDA cores) and its exps (ex2 at 16 a clock an SM at the card's
-   maximum SM clock), printed with the term that binds.
+   8 greedy tokens, once a layer through the wgmma instance, teacher-forced
+   against ``Model.forward``; the instance equals the plain version at
+   layer 0's operands and at qwen3-8b's layer shape with head dims 32 and
+   16, where it is timed in turns with ``scaled_dot_product_attention``
+   (wgmma, SDPA, SDPA, wgmma).  float32: the reduced config in float32
+   through the same path, once a layer through the static rule's instance
+   (3xTF32, after its prepass) and never the other; then at qwen3-8b's
+   layer shape in float32 (TF32 off) both float32 instances against the
+   plain version and the prepass bit-identical to its own, the two
+   instances timed in turns (3xTF32, CUDA cores, CUDA cores, 3xTF32; the
+   static rule's must be the faster in both), the prepass alone, the plain
+   version and ``scaled_dot_product_attention`` in float32 (as dispatched,
+   and under the memory-efficient backend).  Every flash bound is the
+   largest of its bytes, its products (the bf16 tensor rate; in float32 the
+   TF32 tensor rate for three products, or the CUDA cores' rate for the
+   CUDA-core instance) and its exps (ex2 at 16 a clock an SM at the card's
+   maximum SM clock), printed with the term that binds; the prepass's is its
+   bytes.
 
 Kernel times are device times: CUDA events around 50 (20 for attention)
 back-to-back launches, a spin kernel queued first so that the host's
@@ -161,6 +169,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 PEAK_INT8_TENSOR_OPS_PER_S = 1.979e15   # dense int8 tensor-core rate
 PEAK_BF16_TENSOR_OPS_PER_S = 989e12     # dense bf16 tensor-core rate
+PEAK_TF32_TENSOR_OPS_PER_S = 495e12     # dense TF32 tensor-core rate
 # ex2 (MUFU.EX2) issues 16 a clock on each SM of compute capability 9.0
 # (CUDA C++ Programming Guide, arithmetic instruction throughput table).
 EX2_PER_CLOCK_PER_SM = 16
@@ -1491,10 +1500,23 @@ def flash_close(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     return err
 
 
+def split_kv_exact(k: torch.Tensor, v: torch.Tensor, what: str) -> None:
+    """The 3xTF32 prepass against its plain version: bit-identical or raise."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    for name, got, want in zip(("k_hi", "k_lo", "vt_hi", "vt_lo"), fa.split_kv_cuda(k, v),
+                               ref.split_kv_ref(k, v)):
+        if got.shape != want.shape or not torch.equal(got.view(torch.int32),
+                                                      want.view(torch.int32)):
+            raise AssertionError(f"split_kv != plain version: {name} at {what}")
+
+
 def phase_flash_parity(seed: int) -> None:
     """flash_attention_cuda against flash_attention_ref on the same card
     tensors: causal and not, Sq != Sk, odd lengths, GQA groups 1, 3, 4 and
-    8, every supported head dim, float32 and bf16."""
+    8, every supported head dim, float32 and bf16, every instance; the
+    3xTF32 instance's prepass against its plain version."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
@@ -1516,6 +1538,7 @@ def phase_flash_parity(seed: int) -> None:
         (257, 257, False, 4, 1),
         # the 192-row q tiles of the head dims 16 and 32 instance
         (191, 193, True, 3, 1), (193, 191, False, 4, 2), (385, 384, True, 8, 1)]
+    split_cases = 0
     for dtype in (torch.float32, torch.bfloat16):
         for d in fa.HEAD_DIMS:
             for name in fa.instances(dtype, d):
@@ -1528,21 +1551,30 @@ def phase_flash_parity(seed: int) -> None:
                     what = (f"{name} {dtype} D={d} Sq={sq} Sk={sk} causal={causal} "
                             f"H={g * kv} KV={kv}")
                     worst = max(worst, flash_close(got, want, what))
+                    if name == "wgmma_tf32x3":
+                        split_kv_exact(k, v, what)
+                        split_cases += 1
                 torch.cuda.synchronize()
                 log(f"flash parity {str(dtype).split('.')[-1]} D={d} ({name} instance"
                     f"{', the static rule' if name == fa.instance(dtype, d) else ''}): "
                     f"{len(cases)} shapes (Sq, Sk in 1..1000 and on the 128- and 192-row tile "
                     f"edges, groups 1/3/4/8, causal and not) within rtol = atol = "
                     f"{FLASH_TOL[dtype]}, max |err| {worst:.3g}")
-    # One batch of a qwen3-8b layer at full length, and the same with head dim 32.
-    for d in (128, 32):
+    log(f"flash parity: split_kv (the 3xTF32 prepass) bit-identical to its plain version on "
+        f"the {split_cases} float32 cases' k and v")
+    # One batch of a qwen3-8b layer at full length (bf16 and float32 at head
+    # dim 128, every instance), and bf16 with head dim 32.
+    for dtype, d in ((torch.bfloat16, 128), (torch.float32, 128), (torch.bfloat16, 32)):
         q, k, v = (torch.randn((1, 4096, heads, d), generator=gen, device="cuda")
-                   .to(torch.bfloat16) for heads in (32, 8, 8))
-        err = flash_close(fa.flash_attention_cuda(q, k, v, causal=True),
-                          ref.flash_attention_ref(q, k, v, causal=True, triangle=True),
-                          f"B=1 S=4096 H=32 KV=8 D={d} causal")
-        log(f"flash parity bf16 B=1 S=4096 H=32 KV=8 D={d} causal ({fa.instance(q.dtype, d)} "
-            f"instance): within rtol = atol = {FLASH_TOL[torch.bfloat16]}, max |err| {err:.3g}")
+                   .to(dtype) for heads in (32, 8, 8))
+        want = ref.flash_attention_ref(q, k, v, causal=True, triangle=True)
+        for name in fa.instances(dtype, d):
+            err = flash_close(fa.flash_attention_cuda(q, k, v, causal=True, instance=name), want,
+                              f"{name} {dtype} B=1 S=4096 H=32 KV=8 D={d} causal")
+            log(f"flash parity {str(dtype).split('.')[-1]} B=1 S=4096 H=32 KV=8 D={d} causal "
+                f"({name} instance{', the static rule' if name == fa.instance(dtype, d) else ''})"
+                f": within rtol = atol = {FLASH_TOL[dtype]}, max |err| {err:.3g}")
+        del q, k, v, want
 
 
 def rel_rms(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1660,13 +1692,19 @@ def max_sm_clock_hz() -> float:
     return float(out.stdout.strip()) * 1e6
 
 
-def flash_bound(q: torch.Tensor, k: torch.Tensor, causal: bool = True):
+def flash_bound(q: torch.Tensor, k: torch.Tensor, causal: bool = True,
+                instance: str | None = None):
     """FLOPs (4 D a (q, k) pair the mask leaves), bytes (q, o, k, v once),
-    exps (one a pair) and the bound: the largest of the bytes over the memory
-    rate, the FLOPs over the bf16 tensor rate (float32: the CUDA cores' rate,
-    since the 2e-5 tolerance rules out TF32) and the exps over the ex2 rate
-    (16 a clock an SM at the card's maximum SM clock).  Returns (flops,
-    bytes, (bound ms, "bytes" or "operations"), the binding term)."""
+    exps (one a pair) and the bound of ``instance`` (None: the static rule's
+    for q's type): the largest of the bytes over the memory rate, the
+    products over their rate and the exps over the ex2 rate (16 a clock an
+    SM at the card's maximum SM clock).  The products: the FLOPs over the
+    bf16 tensor rate in bf16; in float32 three TF32 products each over the
+    TF32 tensor rate for the 3xTF32 instance, the FLOPs over the CUDA
+    cores' rate for ``simt_f32``.  Returns (flops, bytes, (bound ms,
+    "bytes" or "operations"), the binding term)."""
+    from repro_torch.kernels import flash_attention as fa
+
     b, sq, h, d = q.shape
     sk = k.shape[1]
     pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
@@ -1674,9 +1712,11 @@ def flash_bound(q: torch.Tensor, k: torch.Tensor, causal: bool = True):
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     ex2_per_s = (EX2_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count
                  * max_sm_clock_hz())
-    product = ("bf16 tensor product", PEAK_BF16_TENSOR_OPS_PER_S) if q.dtype == torch.bfloat16 \
-        else ("float32 FMA", PEAK_OPS_PER_S)
-    terms = {"bytes": nbytes / PEAK_BYTES_PER_S, product[0]: flops / product[1],
+    product = {"wgmma": ("bf16 tensor product", flops / PEAK_BF16_TENSOR_OPS_PER_S),
+               "wgmma_tf32x3": ("3xTF32 tensor product", 3 * flops / PEAK_TF32_TENSOR_OPS_PER_S),
+               "simt_f32": ("float32 FMA", flops / PEAK_OPS_PER_S)}[
+                   fa.instance(q.dtype, d, instance)]
+    terms = {"bytes": nbytes / PEAK_BYTES_PER_S, product[0]: product[1],
              "exp": b * h * pairs / ex2_per_s}
     term = max(terms, key=terms.get)
     return flops, nbytes, (terms[term] * 1e3, "bytes" if term == "bytes" else "operations"), term
@@ -1745,13 +1785,15 @@ def sdpa_backend(q, k, v) -> str:
         return f"not known ({exc})"
 
 
-def serve_reduced(seed: int, dtype: str, instance: str) -> tuple[int, tuple, float]:
+def serve_reduced(seed: int, dtype: str) -> tuple[dict, tuple, float]:
     """The reduced qwen3-8b config in ``dtype`` through the serving path:
     ``greedy_generate`` of 8 tokens after 2 prompts of 200, checked
     teacher-forced against ``Model.forward``.  The prefill must launch the
-    flash kernel once a layer, every time as ``instance``.  Returns the
-    launches, layer 0's captured (q, k, v) and the kernel's error against
-    its plain version there."""
+    flash kernel once a layer, every time as the static rule's instance, and
+    the 3xTF32 instance's prepass once before each of its launches.  Returns
+    the launches (``{"flash_attention": n, "split_kv": n}``), layer 0's
+    captured (q, k, v) and the kernel's error against its plain version
+    there."""
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -1759,6 +1801,7 @@ def serve_reduced(seed: int, dtype: str, instance: str) -> tuple[int, tuple, flo
     from repro_torch.models.generate import greedy_generate
 
     cfg = configs.get_reduced(LM["arch"], dtype=dtype)
+    instance = fa.instance(getattr(torch, dtype), cfg.head_dim)
     dev = torch.device("cuda")
     model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
     engine = DecodeEngine(model)
@@ -1769,9 +1812,12 @@ def serve_reduced(seed: int, dtype: str, instance: str) -> tuple[int, tuple, flo
     fa.reset_launches()
     out = greedy_generate(engine, prompt, n, max_len=200 + n)
     counts = dict(fa.flash_attention_cuda.instance_launches)
-    if counts != {name: cfg.num_layers * (name == instance) for name in fa.INSTANCES}:
-        raise AssertionError(f"the reduced {dtype} prefill launched flash_attention {counts}; "
-                             f"expected {cfg.num_layers} {instance} launches and no other")
+    splits = fa.split_kv_cuda.launches
+    if counts != {name: cfg.num_layers * (name == instance) for name in fa.INSTANCES} or (
+            splits != cfg.num_layers * (instance == "wgmma_tf32x3")):
+        raise AssertionError(f"the reduced {dtype} prefill launched flash_attention {counts} "
+                             f"and split_kv {splits} times; expected {cfg.num_layers} {instance} "
+                             f"launches and no other (and a prepass before each 3xTF32 one)")
     with torch.inference_mode():
         full = torch.cat([prompt, out.tokens[:, :-1]], dim=1)
         want, _ = model({"tokens": full})
@@ -1787,50 +1833,44 @@ def serve_reduced(seed: int, dtype: str, instance: str) -> tuple[int, tuple, flo
                           ref.flash_attention_ref(*qkv, **kw), f"reduced {dtype} layer 0")
     log(f"reduced {cfg.name} in {dtype} ({cfg.num_layers} layers, {cfg.num_heads}/"
         f"{cfg.num_kv_heads} heads of {cfg.head_dim}): 2 x 200 prompt tokens, {n} greedy "
-        f"tokens; flash_attention launches by instance {counts}; teacher-forced logits max "
+        f"tokens; flash_attention launches by instance {counts}, split_kv {splits}; "
+        f"teacher-forced logits max "
         f"relative RMS error {max(errs):.5f}; kernel at layer 0's q {list(qkv[0].shape)} within "
         f"{FLASH_TOL[qkv[0].dtype]} of its plain version, max |err| {err:.4g}")
-    return counts[instance], qkv, err
+    return {"flash_attention": counts[instance], "split_kv": splits}, qkv, err
 
 
-def phase_flash_small_d(seed: int) -> tuple[dict, dict]:
+def phase_flash_small_d(seed: int) -> tuple[dict, list[dict]]:
     """The flash kernel's bf16 instance at head dims 16 and 32 (wgmma; no
     full-width config has these head dims) through the serving path: the
-    reduced qwen3-8b config in bf16 (head_dim 16).  Then both instances
-    (wgmma and the mma.sync one it replaced) against the plain version at
-    qwen3-8b's layer shape with head dims 32 and 16, timed in turns (wgmma,
-    mma_sync, mma_sync, wgmma) beside scaled_dot_product_attention, with
-    their bound and its binding term.  Returns the path's launches and the
-    kernel's row."""
+    reduced qwen3-8b config in bf16 (head_dim 16).  Then the instance
+    against the plain version at qwen3-8b's layer shape with head dims 32
+    and 16, timed in turns with scaled_dot_product_attention (wgmma, SDPA,
+    SDPA, wgmma), with its bound and its binding term.  Returns the path's
+    launches and the kernel's row."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
-    launches, _, err = serve_reduced(seed, "bfloat16", "wgmma")
+    launches, _, err = serve_reduced(seed, "bfloat16")
     gen = torch.Generator(device="cuda").manual_seed(seed + 72)
     at = {}
     for d in (32, 16):
         q, k, v = flash_layer_operands(gen, d, torch.bfloat16)
         want = ref.flash_attention_ref(q, k, v, causal=True, triangle=True)
-        for name in ("wgmma", "mma_sync"):
-            err = max(err, flash_close(fa.flash_attention_cuda(q, k, v, instance=name), want,
-                                       f"{name} at B=4 S=4096 H=32 KV=8 D={d}"))
+        err = max(err, flash_close(fa.flash_attention_cuda(q, k, v), want,
+                                   f"wgmma at B=4 S=4096 H=32 KV=8 D={d}"))
         del want
-        turns = in_turns({name: (lambda name=name: fa.flash_attention_cuda(
-            q, k, v, instance=name)) for name in ("wgmma", "mma_sync")}, iters=20)
-        sdpa = sdpa_call(q, k, v)
-        lib = [cuda_ms(sdpa, 20), cuda_ms(sdpa, 20)]
+        turns = in_turns({"wgmma": lambda: fa.flash_attention_cuda(q, k, v),
+                          "sdpa": sdpa_call(q, k, v)}, iters=20)
         plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 3)
         flops, nbytes, bound, term = flash_bound(q, k)
-        ms = turns["wgmma"][0]
+        ms, lib = turns["wgmma"], turns["sdpa"]
         log(f"timing at B={LM['batch']} S={LM['prompt']} H=32 KV=8 D={d} bf16 causal, device "
-            f"ms in turns: flash_attention wgmma {turns['wgmma'][0]:.4f} / "
-            f"{turns['wgmma'][1]:.4f}, mma_sync {turns['mma_sync'][0]:.4f} / "
-            f"{turns['mma_sync'][1]:.4f} (wgmma {flops / ms / 1e9:.1f} TFLOP/s, "
-            f"{bound[0] / ms:.1%} of its bound {bound[0]:.4f} ms by {bound[1]}, the {term} "
-            f"term; mma_sync {bound[0] / turns['mma_sync'][0]:.1%}); "
-            f"scaled_dot_product_attention {lib[0]:.4f} / {lib[1]:.4f} ms "
+            f"ms in turns: flash_attention wgmma {ms[0]:.4f} / {ms[1]:.4f} ({flops / ms[0] / 1e9:.1f}"
+            f" TFLOP/s, {bound[0] / ms[0]:.1%} of its bound {bound[0]:.4f} ms by {bound[1]}, the "
+            f"{term} term); scaled_dot_product_attention {lib[0]:.4f} / {lib[1]:.4f} ms "
             f"({bound[0] / lib[0]:.1%}, backend {sdpa_backend(q, k, v)}); plain {plain:.3f} ms")
-        at[d] = {"ms": ms, "ms_turns": turns, "plain_ms": plain, "library_ms": lib[0],
+        at[d] = {"ms": ms[0], "ms_turns": ms, "plain_ms": plain, "library_ms": lib[0],
                  "library_ms_turns": lib, "bound_ms": bound[0], "bound_by": bound[1],
                  "bound_term": term}
         del q, k, v
@@ -1842,17 +1882,23 @@ def phase_flash_small_d(seed: int) -> tuple[dict, dict]:
                      path=f"reduced {LM['arch']} in bf16 (head_dim 16): prefill of 2 x 200 "
                           f"tokens (wgmma instance); timed at B={LM['batch']} S={LM['prompt']} "
                           f"H=32 KV=8 D=32 (at_d16: D=16)")
-    row.update(bound_term=at[32]["bound_term"], ms_turns=at[32]["ms_turns"], at_d16=at[16])
-    return {"flash_attention_d16_32": launches}, row
+    row.update(bound_term=at[32]["bound_term"], ms_turns=at[32]["ms_turns"],
+               library_ms_turns=at[32]["library_ms_turns"], at_d16=at[16])
+    return {"flash_attention_d16_32": launches["flash_attention"]}, [row]
 
 
-def phase_flash_f32(seed: int) -> tuple[dict, dict]:
-    """The flash kernel's float32 instance (CUDA cores): the reduced
-    qwen3-8b config in float32 through the serving path, then the kernel
-    against its plain version at qwen3-8b's layer shape in float32 (TF32
-    off), timed beside its plain version, scaled_dot_product_attention in
-    float32 (as dispatched, and under the memory-efficient backend; the
-    faster is the library time) and its bound.  Returns the path's launches and the row."""
+def phase_flash_f32(seed: int) -> tuple[dict, list[dict]]:
+    """The flash kernel in float32: the reduced qwen3-8b config in float32
+    through the serving path (the static rule's instance once a layer, the
+    3xTF32 prepass before each), then at qwen3-8b's layer shape in float32
+    (TF32 off) both float32 instances against the plain version and the
+    prepass against its own, the instances timed in turns (3xTF32, CUDA
+    cores, CUDA cores, 3xTF32; the static rule's must be the faster in both
+    turns), the prepass alone, the plain version, and
+    scaled_dot_product_attention in float32 (as dispatched, and under the
+    memory-efficient backend; the faster is the library time), each with
+    its bound.  Returns the path's launches and the rows of the kernel and
+    of its prepass."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -1861,13 +1907,27 @@ def phase_flash_f32(seed: int) -> tuple[dict, dict]:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    launches, _, err = serve_reduced(seed, "float32", "simt_f32")
+    launches, _, err = serve_reduced(seed, "float32")
+    rule = fa.instance(torch.float32, 128)
+    names = fa.instances(torch.float32, 128)
     gen = torch.Generator(device="cuda").manual_seed(seed + 73)
     q, k, v = flash_layer_operands(gen, 128, torch.float32)
-    kernel = lambda: fa.flash_attention_cuda(q, k, v, causal=True)  # noqa: E731
-    err = max(err, flash_close(kernel(), ref.flash_attention_ref(q, k, v, causal=True,
-                                                                 triangle=True),
-                               "simt_f32 at B=4 S=4096 H=32 KV=8 D=128"))
+    want = ref.flash_attention_ref(q, k, v, causal=True, triangle=True)
+    errs = {name: flash_close(fa.flash_attention_cuda(q, k, v, instance=name), want,
+                              f"{name} at B=4 S=4096 H=32 KV=8 D=128") for name in names}
+    del want
+    split_kv_exact(k, v, "B=4 S=4096 KV=8 D=128")
+    turns = in_turns({name: (lambda name=name: fa.flash_attention_cuda(q, k, v, instance=name))
+                      for name in names}, iters=5)
+    if max(turns[rule]) >= min(min(turns[n]) for n in names if n != rule):
+        raise AssertionError(f"the float32 static rule's instance ({rule}) is not the faster "
+                             f"in turns: {turns}")
+    split_ms = cuda_ms(lambda: fa.split_kv_cuda(k, v), 20)
+    split_plain = cuda_ms(lambda: ref.split_kv_ref(k, v), 5)
+    # k and v read once; K's two parts and V^T's two (keys padded to 8) written once.
+    skp = -(-k.shape[1] // 8) * 8
+    split_bytes = 4 * k.numel() * 4 + 2 * (k.numel() // k.shape[1]) * skp * 4
+    split_bound = bound_ms(split_bytes, 0)
     sdpa = sdpa_call(q, k, v)
     # The memory-efficient backend takes float32 but not GQA: K and V are
     # expanded to the 32 query heads before the timed region.
@@ -1885,28 +1945,42 @@ def phase_flash_f32(seed: int) -> tuple[dict, dict]:
             log(f"scaled_dot_product_attention under EFFICIENT_ATTENTION: {exc}")
             return None
 
-    ms, lib, eff = cuda_ms(kernel, 5), cuda_ms(sdpa, 5), efficient_ms()
+    lib, eff = cuda_ms(sdpa, 5), efficient_ms()
     plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 3)
-    ms2, lib2, eff2 = cuda_ms(kernel, 5), cuda_ms(sdpa, 5), efficient_ms()
+    lib2, eff2 = cuda_ms(sdpa, 5), efficient_ms()
     del qt, kt, vt
-    flops, nbytes, bound, term = flash_bound(q, k)
+    bounds = {name: flash_bound(q, k, instance=name) for name in names}
+    flops, nbytes = bounds[rule][:2]
     log(f"timing at B={LM['batch']} S={LM['prompt']} H=32 KV=8 D=128 float32 causal (TF32 "
-        f"off), device time of back-to-back launches: flash_attention (simt_f32) {ms:.4f} / "
-        f"{ms2:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s, {bound[0] / ms:.1%} of its bound "
-        f"{bound[0]:.4f} ms by {bound[1]}, the {term} term: {flops / 1e9:.1f} GFLOP and "
-        f"{nbytes / 1e6:.1f} MB); scaled_dot_product_attention (float32, enable_gqa, backend "
-        f"{sdpa_backend(q, k, v)}) {lib:.4f} / {lib2:.4f} ms, under EFFICIENT_ATTENTION with "
-        f"K and V expanded to 32 heads {eff} / {eff2} ms; plain {plain:.3f} ms")
+        f"off), device ms in turns: " + "; ".join(
+            f"flash_attention {name} {turns[name][0]:.4f} / {turns[name][1]:.4f} "
+            f"({flops / turns[name][0] / 1e9:.2f} TFLOP/s, max |err| {errs[name]:.3g}, "
+            f"{bounds[name][2][0] / turns[name][0]:.1%} of its bound {bounds[name][2][0]:.4f} ms "
+            f"by {bounds[name][2][1]}, the {bounds[name][3]} term)" for name in names) +
+        f"; {flops / 1e9:.1f} GFLOP and {nbytes / 1e6:.1f} MB; static rule {rule}, "
+        f"{max(turns[n][0] for n in names) / turns[rule][0]:.2f}x the other instance; "
+        f"split_kv (the 3xTF32 prepass, inside its time) {split_ms:.4f} ms "
+        f"({split_bound[0] / split_ms:.1%} of its bound {split_bound[0]:.4f} ms by "
+        f"{split_bound[1]}, {split_bytes / 1e6:.1f} MB; plain {split_plain:.3f} ms); "
+        f"scaled_dot_product_attention (float32, enable_gqa, backend {sdpa_backend(q, k, v)}) "
+        f"{lib:.4f} / {lib2:.4f} ms, under EFFICIENT_ATTENTION with K and V expanded to 32 "
+        f"heads {eff} / {eff2} ms; plain {plain:.3f} ms")
+    path = (f"reduced {LM['arch']} in float32: prefill of 2 x 200 tokens ({rule} instance); "
+            f"timed at B={LM['batch']} S={LM['prompt']} H=32 KV=8 D=128")
     row = kernel_row("flash_attention_f32", "src/repro_torch/kernels/csrc/flash_attention.cu",
-                     "src/repro/kernels/flash_attention.py:93", err=err, ms=ms, plain_ms=plain,
-                     bound=bound, library_ms=min(lib, eff or lib),
-                     path=f"reduced {LM['arch']} in float32: prefill of 2 x 200 tokens "
-                          f"(simt_f32 instance); timed at B={LM['batch']} S={LM['prompt']} "
-                          f"H=32 KV=8 D=128")
-    row.update(bound_term=term, ms_runs=[ms, ms2], library_ms_runs=[lib, lib2],
-               library_efficient_ms_runs=[eff, eff2])
+                     "src/repro/kernels/flash_attention.py:93", err=max(err, errs[rule]),
+                     ms=turns[rule][0], plain_ms=plain, bound=bounds[rule][2],
+                     library_ms=min(lib, eff or lib), path=path)
+    row.update(instance=rule, bound_term=bounds[rule][3], ms_turns=turns,
+               max_abs_err_by_instance=errs,
+               bound_by_instance={n: [bounds[n][2][0], bounds[n][3]] for n in names},
+               library_ms_runs=[lib, lib2], library_efficient_ms_runs=[eff, eff2])
+    split_row = kernel_row("flash_split_kv", "src/repro_torch/kernels/csrc/flash_attention.cu",
+                           "src/repro/kernels/flash_attention.py:93", err=0.0, ms=split_ms,
+                           plain_ms=split_plain, bound=split_bound, path=path)
     del q, k, v
-    return {"flash_attention_f32": launches}, row
+    return ({"flash_attention_f32": launches["flash_attention"],
+             "flash_split_kv": launches["split_kv"]}, [row, split_row])
 
 
 def main(argv=None) -> int:
@@ -1962,9 +2036,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     for phase in (phase_flash_small_d, phase_flash_f32):
-        phase_launches, row = phase(args.seed)
+        phase_launches, rows = phase(args.seed)
         launches.update(phase_launches)
-        kernels.append(row)
+        kernels.extend(rows)
         gc.collect()
         torch.cuda.empty_cache()
     for k in kernels:

@@ -45,8 +45,12 @@ _C, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "bitplane": ("bitplane_hamming_launch", [_C, _C, _C, _C, _I, _I, _I, _C, _C]),
     "flash_attention": ("flash_attention_launch",
-                        [_C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _C]),
+                        [_C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+                         _C]),
 }
+# A tree older than the float32 3xTF32 instance has no `scratch` argument
+# after `o` (bf16 reads none): its entry point is called without it.
+NO_SCRATCH = "void* o,\n                                      int batch"
 
 
 def build(trees: dict, out: Path) -> dict:
@@ -68,6 +72,9 @@ def build(trees: dict, out: Path) -> dict:
             raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
         fn_name, argtypes = SIGNATURES[name]
         fn = getattr(ctypes.CDLL(str(lib)), fn_name)
+        if name == "flash_attention" and NO_SCRATCH in src.read_text():
+            fn.argtypes, fn.restype = argtypes[:4] + argtypes[5:], _I
+            return key, lambda q, k, v, o, scratch, *rest, fn=fn: fn(q, k, v, o, *rest)
         fn.argtypes, fn.restype = argtypes, _I
         return key, fn
 
@@ -163,8 +170,8 @@ def main(argv=None) -> int:
             out = outs[tag] = torch.empty_like(q)
             fn = fns[(tag, "flash_attention")]
             runs[tag] = lambda fn=fn, out=out: checked(fn(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 4, 4096, 4096, 32, 8,
-                d, 1, 1, d ** -0.5, stream()), "flash_attention")
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, 4, 4096, 4096, 32,
+                8, d, 1, 1, d ** -0.5, stream()), "flash_attention")
             runs[tag]()
             errs[tag] = max_err_float(out, want)
         if not all(np.isfinite(list(errs.values()))) or max(errs.values()) > FLASH_TOL[q.dtype]:

@@ -19,10 +19,11 @@ spills; then, at head dims 32 and 16, bf16, causal:
    and 192-row tile edges, groups 1, 3, 4 and 8, causal and not) and at the
    layer shape B = 4, S = 4,096, H = 32, KV = 8;
 2. unless ``--check-only``, times the variants at the layer shape as device
-   time (``chip_smoke.cuda_ms``) in turns: the ``mma_sync`` instance, each
-   variant, then the same in reverse, beside ``scaled_dot_product_attention``
-   (``enable_gqa=True``), the yardstick the port never calls, with the SM
-   clock (``nvidia-smi``, sampled every 0.1 s) while they run.
+   time (``chip_smoke.cuda_ms``) in turns: the shipped shape (``default``,
+   the baseline), each other variant, then the same in reverse, beside
+   ``scaled_dot_product_attention`` (``enable_gqa=True``), the yardstick the
+   port never calls, with the SM clock (``nvidia-smi``, sampled every 0.1 s)
+   while they run.
 
 With ``--breakdown`` it builds the source's own shape instead with one
 part of the work taken out (``BREAKDOWN``: the exponentials, the row
@@ -100,7 +101,7 @@ BREAKDOWN = {"no exp": ("exp",), "no max": ("max",), "no sum": ("sum",),
              "no cvt": ("cvt",), "no PV": ("pv",), "no QK": ("qk",),
              "no products": ("pv", "qk"), "no softmax": ("exp", "max", "sum", "cvt")}
 C, I = ctypes.c_void_p, ctypes.c_int
-INSTANCE = {"wgmma": 0, "mma_sync": 1}
+WGMMA = 0   # the bf16 wgmma instance's code in flash_attention_launch_instance
 
 
 def build_variant(name: str, out: Path):
@@ -129,7 +130,7 @@ def build_variant(name: str, out: Path):
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}{proc.stderr}")
     fn = ctypes.CDLL(str(lib)).flash_attention_launch_instance
-    fn.argtypes = [C, C, C, C, I, I, I, I, I, I, I, I, ctypes.c_float, I, C]
+    fn.argtypes = [C, C, C, C, C, I, I, I, I, I, I, I, I, ctypes.c_float, I, C]
     fn.restype = I
     lines, keep = [], False
     for line in (proc.stdout + proc.stderr).splitlines():
@@ -165,12 +166,12 @@ class ClockSampler:
         self.thread.join()
 
 
-def runner(fn, q, k, v, out, instance: int, causal: bool = True):
+def runner(fn, q, k, v, out, causal: bool = True):
     b, sq, h, d = q.shape
 
     def run():
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, k.shape[1], h,
-                k.shape[2], d, 1, int(causal), d ** -0.5, instance,
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, b, sq,
+                k.shape[1], h, k.shape[2], d, 1, int(causal), d ** -0.5, WGMMA,
                 torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"flash_attention launch: CUDA error {rc}")
@@ -196,7 +197,9 @@ def main(argv=None) -> int:
     print(smi_line(), flush=True)
     out = _build.BUILD_ROOT / "variants"
     out.mkdir(parents=True, exist_ok=True)
-    names = ["default", *BREAKDOWN] if args.breakdown else args.variants
+    # The shipped shape is always built: it is the baseline of the turns.
+    names = ["default", *(BREAKDOWN if args.breakdown else
+                          [n for n in args.variants if n != "default"])]
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
         built = dict(zip(names, pool.map(lambda n: build_variant(n, out), names)))
     for name, (_, info) in built.items():
@@ -218,18 +221,16 @@ def main(argv=None) -> int:
                 if name in BREAKDOWN:
                     continue
                 got = torch.empty_like(q)
-                runner(fn, q, k, v, got, INSTANCE["wgmma"], causal)()
+                runner(fn, q, k, v, got, causal)()
                 flash_close(got, want, f"{name} D={d} Sq={sq} Sk={sk} H={g * kv} KV={kv} "
                                        f"causal={causal}")
         q, k, v = (torch.randn((4, 4096, heads, d), generator=gen, device=dev)
                    .to(torch.bfloat16) for heads in (32, 8, 8))
         want = ref.flash_attention_ref(q, k, v, causal=True, triangle=True)
         runs, errs = {}, {}
-        first = next(iter(built.values()))[0]
-        for name, fn in [("mma_sync", first)] + [(n, f) for n, (f, _) in built.items()]:
+        for name, (fn, _) in built.items():
             got = torch.empty_like(q)
-            runs[name] = runner(fn, q, k, v, got, INSTANCE["mma_sync" if name == "mma_sync"
-                                                          else "wgmma"])
+            runs[name] = runner(fn, q, k, v, got)
             runs[name]()
             if name not in BREAKDOWN:
                 errs[name] = flash_close(got, want, f"{name} D={d} B=4 S=4096 H=32 KV=8")

@@ -17,8 +17,9 @@
 // pair takes one exponential.  At D = 128 (bf16) the products bound it,
 // 549.8 GFLOP at 989 TFLOP/s = 0.556 ms; at D = 32 the exponentials, 1.074e9
 // ex2 at 16 a clock on each of 132 SMs at 1.98 GHz = 0.257 ms (the products
-// 0.139 ms, the bytes 0.025 ms); in float32 the products on the CUDA cores,
-// 8.2 ms at 67 TFLOP/s.
+// 0.139 ms, the bytes 0.025 ms).  In float32 at D = 128 the products bound
+// it as three TF32 products each (below): 3 x 549.8 GFLOP at 495 TFLOP/s =
+// 3.33 ms (the bytes 0.20 ms; on the CUDA cores 8.2 ms at 67 TFLOP/s).
 //
 // Three instances, chosen statically by dtype in flash_attention_launch
 // (never as a fallback after a failed launch); flash_attention_launch_instance
@@ -71,16 +72,33 @@
 //   whole softmax out leaves three quarters of it, so the per-tile
 //   synchronisation and wgmma latency, not the ex2 pipe, set the pace
 //   (PERF.md).
-// * bf16, head dims 16 and 32, mma.sync (instance="mma_sync" only; the rule
-//   until the wgmma instance took these head dims): one block of 128
-//   threads per 64-row q tile walks 64-key K/V tiles staged synchronously;
-//   each warp owns 16 query rows, P is re-packed from the S accumulators
-//   into the A fragments of PV, V fragments come transposed by
-//   ldmatrix.trans.
-// * float32 (the reduced configs): float32 FMAs on the CUDA cores, 4 rows
-//   x 8 keys of the score tile and 4 rows x D/8 output columns a thread, P
-//   through shared memory; ROADMAP's 2e-5 tolerance rules out bf16 or TF32
-//   products there.
+// * float32, every head dim (x3::): 3xTF32 on wgmma.  A TF32 operand keeps
+//   10 mantissa bits, so each float32 operand x is split into TF32 parts,
+//   hi = tf32(x) (cvt.rna) and lo = tf32(x - hi), |x - hi - lo| <= 2^-22 |x|,
+//   and each product a b is taken as a_lo b_hi + a_hi b_lo + a_hi b_hi (the
+//   small products first) in the tensor cores' float32 sums: float32
+//   accuracy (the dropped a_lo b_lo is 2^-22 relative) for three TF32
+//   products.  TF32 wgmma reads both shared-memory operands K-major only
+//   (the transpose bits are f16 / bf16's), so a prepass (split_kv_kernel)
+//   writes K's parts in k's layout and V's transposed, keys contiguous, into
+//   scratch the wrapper allocates (0.12 ms of bytes at the layer shape, 4%
+//   of the product bound).  q is read once a block, so its consumers split
+//   it themselves: q_hi stays in registers as S's A fragments, q_lo goes to
+//   shared memory.  The block is wg::'s: 384 threads over 128 q rows, a
+//   producer warpgroup streaming K and V^T tiles (hi and lo) by TMA into a
+//   ring, two consumer warpgroups of 64 rows with the softmax of wg::;
+//     S = q_hi K_lo + q_lo K_hi + q_hi K_hi   wgmma.m64n{N}k8.f32.tf32.tf32;
+//     O += P_lo V_hi + P_hi V_lo + P_hi V_hi   P split in registers.
+//   In TF32 the S accumulator's layout (keys 2t, 2t + 1 of each 8-key group)
+//   is not the A fragment's (slots t, t + 4), so the prepass stores each
+//   8-key group of V^T in the order 0, 2, 4, 6, 1, 3, 5, 7 and P enters P V
+//   as its accumulators lie.  Shared memory binds at D = 128: a float32 row
+//   is 512 bytes (four 128-byte swizzle atoms), q_lo of 128 rows takes 64 KB
+//   and a 32-key stage of K and V^T, hi and lo, 64 KB: 32-key tiles in two
+//   stages; D <= 64 takes 64-key tiles in 3 (D = 64) or 4 stages.
+// * float32, CUDA cores (instance="simt_f32" only; the rule until the 3xTF32
+//   instance measured faster): float32 FMAs, 4 rows x 8 keys of the score
+//   tile and 4 rows x D/8 output columns a thread, P through shared memory.
 // When causal, every instance stops after the diagonal tile (the TPU
 // kernel's lower-triangle schedule) and masks the ragged Sq / Sk edges
 // itself, so no length has to divide anything.
@@ -107,199 +125,10 @@ __device__ __forceinline__ int kv_end(int q0, int rows, int sq, int sk, int caus
   return causal ? min(sk, min(q0 + rows, sq)) : sk;
 }
 
-// ---------------------------------------------------------------------------
-// bf16, head dims 16 and 32: mma.sync on the tensor cores (instance 1 only)
-// ---------------------------------------------------------------------------
-
-template <int D>
-struct MmaSmem {
-  static constexpr int kPitch = D + 8;                      // bf16 per staged row
-  static constexpr int kBytes = 3 * kRows * kPitch * 2;     // q, K, V tiles
-};
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices, transposed: lane i gives the address of row i % 16
-// of the 16 x 16 block at column offset 8 * (i / 16).
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 // Two floats rounded to bf16, the first in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Stage 64 rows from row0 of a (S, heads, D) bf16 slice (row r at
-// src + r * stride) into rows of pitch D + 8; rows past `valid` are 0.
-template <int D>
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           size_t stride, int row0, int valid) {
-  constexpr int kVecsPerRow = D / 8;                        // 16-byte vectors
-#pragma unroll
-  for (int idx = threadIdx.x; idx < kRows * kVecsPerRow; idx += kThreads) {
-    const int r = idx / kVecsPerRow;
-    const int c = (idx - r * kVecsPerRow) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) val = __ldg(reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * stride + c));
-    *reinterpret_cast<uint4*>(dst + r * MmaSmem<D>::kPitch + c) = val;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                     int sq, int sk, int heads, int kv_heads, float scale, int causal) {
-  constexpr int P = MmaSmem<D>::kPitch;
-  constexpr int KS = D / 16;                 // k-steps of q . k
-  constexpr int ND = D / 8;                  // 8-column tiles of the output
-  extern __shared__ __align__(16) __nv_bfloat16 smem_bf16[];
-  __nv_bfloat16* qs = smem_bf16;             // [64][P]
-  __nv_bfloat16* ks = qs + kRows * P;        // [64][P]
-  __nv_bfloat16* vs = ks + kRows * P;        // [64][P]
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (heads / kv_heads);
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;                   // accumulator rows g and g + 8
-  const int t = lane & 3;                    // accumulator columns 2t, 2t + 1
-  const int wr = 16 * (threadIdx.x >> 5);    // the warp's first row of the tile
-  const size_t kv_stride = (size_t)kv_heads * D;
-  const __nv_bfloat16* kb = k + ((size_t)b * sk * kv_heads + kvh) * D;
-  const __nv_bfloat16* vb = v + ((size_t)b * sk * kv_heads + kvh) * D;
-  stage_bf16<D>(qs, q + ((size_t)b * sq * heads + h) * D, (size_t)heads * D, q0,
-                min(kRows, sq - q0));
-  __syncthreads();
-
-  // The warp's q rows as A fragments: a0 (g, 2t), a1 (g + 8, 2t),
-  // a2 (g, 2t + 8), a3 (g + 8, 2t + 8) of each 16-column step.
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const __nv_bfloat16* base = qs + (wr + g) * P + 16 * kk + 2 * t;
-    qa[kk][0] = lds32(base);
-    qa[kk][1] = lds32(base + 8 * P);
-    qa[kk][2] = lds32(base + 8);
-    qa[kk][3] = lds32(base + 8 * P + 8);
-  }
-
-  float acc[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-  const int row0 = q0 + wr + g;              // row of c0, c1; row0 + 8 holds c2, c3
-
-  const int end = kv_end(q0, kRows, sq, sk, causal);
-  for (int k0 = 0; k0 < end; k0 += kRows) {
-    const int valid = min(kRows, sk - k0);
-    __syncthreads();                         // the previous tile's K and V are consumed
-    stage_bf16<D>(ks, kb, kv_stride, k0, valid);
-    stage_bf16<D>(vs, vb, kv_stride, k0, valid);
-    __syncthreads();
-
-    // S = q k^T for the warp's 16 rows x 64 keys: 8 tiles of 8 keys.
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const __nv_bfloat16* kp = ks + (8 * j + g) * P + 16 * kk + 2 * t;
-        mma_bf16(s[j], qa[kk], lds32(kp), lds32(kp + 8));
-      }
-
-    // Scale, mask, and the online softmax of rows row0 (hr = 0) and row0 + 8.
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int row = row0 + 8 * hr;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = k0 + 8 * j + 2 * t + e;
-          const bool keep = col < sk && (!causal || row >= col);
-          float& x = s[j][2 * hr + e];
-          x = keep ? x * scale : kNegInf;
-          mx = fmaxf(mx, x);
-        }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[hr], mx);
-      const float alpha = expf(m[hr] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[j][2 * hr + e];
-          x = expf(x - m_new);
-          sum += x;
-        }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l[hr] = l[hr] * alpha + sum;
-      m[hr] = m_new;
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        acc[nd][2 * hr] *= alpha;
-        acc[nd][2 * hr + 1] *= alpha;
-      }
-    }
-
-    // O += P V: P re-packed from the S accumulators (keys 16 kk .. 16 kk + 15
-    // are S tiles 2 kk and 2 kk + 1) into bf16 A fragments.
-#pragma unroll
-    for (int kk = 0; kk < kRows / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int nd2 = 0; nd2 < ND / 2; ++nd2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vs + (16 * kk + (lane & 15)) * P + 16 * nd2 + 8 * (lane >> 4));
-        mma_bf16(acc[2 * nd2], pa, vf[0], vf[1]);
-        mma_bf16(acc[2 * nd2 + 1], pa, vf[2], vf[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = row0 + 8 * hr;
-    if (row >= sq) continue;
-    const float denom = fmaxf(l[hr], 1e-30f);
-    __nv_bfloat16* out = o + (((size_t)b * sq + row) * heads + h) * D + 2 * t;
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-      *reinterpret_cast<uint32_t*>(out + 8 * nd) =
-          pack_bf16(acc[nd][2 * hr] / denom, acc[nd][2 * hr + 1] / denom);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -865,6 +694,567 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
+// float32, every head dim: 3xTF32 on wgmma, fed by a split prepass
+// ---------------------------------------------------------------------------
+
+namespace x3 {
+
+// x rounded to TF32 (cvt.rna: 10 mantissa bits, ties away from zero) as a
+// float32 bit pattern whose low 13 bits are cleared.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r & 0xFFFFE000u;
+}
+
+// x = hi + lo to within 2^-22 |x|, hi and lo TF32 (x - hi is exact).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// The split K and V that the tf32x3 instance reads, one float32 buffer from
+// `scratch`: k_hi, k_lo as [batch][sk][kv_heads][D] (k's layout), then
+// vt_hi, vt_lo as [batch][kv_heads][D][skp], skp = sk rounded up to 8: V
+// transposed, keys contiguous, each group of 8 keys in the slot order of
+// slot_key, zero past sk.
+struct Split {
+  float* k_hi;
+  float* k_lo;
+  float* vt_hi;
+  float* vt_lo;
+  int skp;
+};
+
+inline Split split_parts(void* scratch, int batch, int sk, int kv_heads, int d) {
+  const int skp = (sk + 7) / 8 * 8;
+  const size_t nk = (size_t)batch * sk * kv_heads * d;
+  const size_t nv = (size_t)batch * kv_heads * d * skp;
+  float* base = static_cast<float*>(scratch);
+  return {base, base + nk, base + 2 * nk, base + 2 * nk + nv, skp};
+}
+
+// The key in slot i of a group of 8 of V^T: 0, 2, 4, 6, 1, 3, 5, 7.  Lane
+// (g, t) holds S's keys 2t and 2t + 1 of each 8-key group and the TF32 A
+// fragment wants slots t and t + 4 from it (PTX ISA, wgmma .tf32 register
+// fragments), so P enters P V as its accumulators lie once V^T's slots hold
+// the keys in this order.
+__host__ __device__ constexpr int slot_key(int i) { return 2 * (i % 4) + i / 4; }
+
+constexpr int kSplitKeys = 32;      // keys a prepass block splits
+constexpr int kSplitThreads = 256;
+
+// The prepass: K split in place of k's layout (16-byte loads and stores),
+// V staged through shared memory and written transposed, hi and lo.
+template <int D>
+__global__ void __launch_bounds__(kSplitThreads)
+split_kv_kernel(const float* __restrict__ k, const float* __restrict__ v, Split out, int sk,
+                int kv_heads) {
+  __shared__ float vs[kSplitKeys][D + 1];
+  const int k0 = blockIdx.x * kSplitKeys;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t stride = (size_t)kv_heads * D;                   // floats from key to key
+  const size_t base = ((size_t)b * sk * kv_heads + kvh) * D;    // key 0 of this head
+  for (int idx = threadIdx.x; idx < kSplitKeys * (D / 4); idx += kSplitThreads) {
+    const int r = idx / (D / 4);
+    const int c = 4 * (idx % (D / 4));
+    float4 vx = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (k0 + r < sk) {
+      const size_t at = base + (size_t)(k0 + r) * stride + c;
+      const float4 kx = __ldg(reinterpret_cast<const float4*>(k + at));
+      vx = __ldg(reinterpret_cast<const float4*>(v + at));
+      uint4 hi, lo;
+      split(kx.x, hi.x, lo.x);
+      split(kx.y, hi.y, lo.y);
+      split(kx.z, hi.z, lo.z);
+      split(kx.w, hi.w, lo.w);
+      *reinterpret_cast<uint4*>(out.k_hi + at) = hi;
+      *reinterpret_cast<uint4*>(out.k_lo + at) = lo;
+    }
+    vs[r][c] = vx.x;
+    vs[r][c + 1] = vx.y;
+    vs[r][c + 2] = vx.z;
+    vs[r][c + 3] = vx.w;
+  }
+  __syncthreads();
+  const size_t vt = ((size_t)b * kv_heads + kvh) * D * out.skp + k0;
+  for (int idx = threadIdx.x; idx < D * kSplitKeys; idx += kSplitThreads) {
+    const int d = idx / kSplitKeys;
+    const int slot = idx % kSplitKeys;
+    if (k0 + slot >= out.skp) continue;
+    uint32_t hi, lo;
+    split(vs[(slot & ~7) | slot_key(slot & 7)][d], hi, lo);
+    reinterpret_cast<uint32_t*>(out.vt_hi)[vt + (size_t)d * out.skp + slot] = hi;
+    reinterpret_cast<uint32_t*>(out.vt_lo)[vt + (size_t)d * out.skp + slot] = lo;
+  }
+}
+
+// The instance for head dim D.  A float32 row of q or K is 4 D bytes, which
+// TMA and wgmma swizzle over min(4 D, 128) bytes, so D = 128 is four boxes
+// of 32 columns; V^T's rows are keys, 32 to a 128-byte box.  Shared memory,
+// from a 1,024-byte aligned base: q_lo of both consumers (64 rows each),
+// then the ring (each stage K_hi, K_lo, V^T_hi, V^T_lo of kBlockN keys),
+// then the mbarriers.  q_hi lives in the consumers' registers.  At D = 128
+// q_lo takes 64 KB and a 32-key stage 64 KB, so two stages fit; D <= 64
+// keeps 64-key tiles.  Setmaxnreg 40 / 232 as in wg::.
+template <int D>
+struct Cfg {
+  static constexpr int kSwizzle = D >= 32 ? 128 : 4 * D;   // bytes of a q / K swizzle span
+  static constexpr int kBoxCols = kSwizzle / 4;
+  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kSteps = kBoxCols / 8;               // k-steps of 8 inside a box
+  static constexpr int kBlockN = D == 128 ? 32 : 64;        // keys per K/V tile
+  static constexpr int kVBoxes = kBlockN / 32;              // V^T boxes: D rows x 32 keys
+  static constexpr int kStages = D == 128 ? 2 : D == 64 ? 3 : 4;
+  static constexpr int kConsumers = 2;
+  static constexpr int kBlockM = 64 * kConsumers;           // q rows per block
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static constexpr int kProducerRegs = 40;
+  static constexpr int kConsumerRegs = 232;
+  static constexpr int kQBox = 64 * kSwizzle;               // one consumer's rows of a q_lo box
+  static constexpr int kKBox = kBlockN * kSwizzle;
+  static constexpr int kVBox = D * 128;
+  static constexpr int kKPart = kBoxes * kKBox;             // the hi or lo part of a K tile
+  static constexpr int kVPart = kVBoxes * kVBox;            // the hi or lo part of a V^T tile
+  static constexpr int kStage = 2 * kKPart + 2 * kVPart;
+  static constexpr int kQ = 0;
+  static constexpr int kRing = kQ + kConsumers * kBoxes * kQBox;
+  static constexpr int kBar = kRing + kStages * kStage;
+  static constexpr int kBytes = kBar + 3 * kStages * 8 + 1024;   // + alignment slack
+  static_assert(128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <=
+                    kThreads * ((65536 / kThreads) & ~7),
+                "register split");
+  static_assert(kQBox % 1024 == 0 && kKBox % 1024 == 0 && kVBox % 1024 == 0,
+                "tiles keep 1,024-byte alignment");
+  static_assert(kBytes <= 232448, "shared memory of one block");
+};
+
+#define X3_F8(d, i)                                                                     \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// D (64 x N, f32) (+)= A (64 x 8) B^T, TF32: "ss" with A and B K-major in
+// shared memory, "rs" with A from registers (a0 (g, t), a1 (g + 8, t), a2
+// (g, t + 4), a3 (g + 8, t + 4) of each warp's 16 rows).
+
+__device__ __forceinline__ void mma_ss_n32(float (&d)[16],
+                                           uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : X3_F8(d, 0), X3_F8(d, 8)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void mma_ss_n64(float (&d)[32],
+                                           uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : X3_F8(d, 0), X3_F8(d, 8), X3_F8(d, 16), X3_F8(d, 24)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void mma_rs_n16(float (&d)[8],
+                                           const uint32_t (&a)[4], uint64_t desc_b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : X3_F8(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void mma_rs_n32(float (&d)[16],
+                                           const uint32_t (&a)[4], uint64_t desc_b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : X3_F8(d, 0), X3_F8(d, 8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void mma_rs_n64(float (&d)[32],
+                                           const uint32_t (&a)[4], uint64_t desc_b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : X3_F8(d, 0), X3_F8(d, 8), X3_F8(d, 16), X3_F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void mma_rs_n128(float (&d)[64],
+                                            const uint32_t (&a)[4], uint64_t desc_b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43,"
+      " %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57,"
+      " %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : X3_F8(d, 0), X3_F8(d, 8), X3_F8(d, 16), X3_F8(d, 24),
+        X3_F8(d, 32), X3_F8(d, 40), X3_F8(d, 48), X3_F8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+
+#undef X3_F8
+
+template <int N>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                       int accumulate) {
+  if constexpr (N == 32)
+    mma_ss_n32(d, desc_a, desc_b, accumulate);
+  else
+    mma_ss_n64(d, desc_a, desc_b, accumulate);
+}
+
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                       uint64_t desc_b, int accumulate) {
+  if constexpr (N == 16)
+    mma_rs_n16(d, a, desc_b, accumulate);
+  else if constexpr (N == 32)
+    mma_rs_n32(d, a, desc_b, accumulate);
+  else if constexpr (N == 64)
+    mma_rs_n64(d, a, desc_b, accumulate);
+  else
+    mma_rs_n128(d, a, desc_b, accumulate);
+}
+
+// Byte offset of k-step kk (8 columns, 32 bytes) in a K-major tile of
+// `box`-byte boxes of kSteps k-steps each.
+template <int kSteps, int kBox>
+__device__ __forceinline__ uint32_t kstep(int kk) {
+  return (kk / kSteps) * kBox + (kk % kSteps) * 32;
+}
+
+// S = q K^T (64 x kBlockN) = q_hi K_lo + q_lo K_hi + q_hi K_hi, the small
+// products first; q_hi from registers, q_lo and K from shared memory.
+template <int D>
+__device__ __forceinline__ void issue_s(float (&sacc)[Cfg<D>::kBlockN / 2],
+                                        const uint32_t (&qh)[D / 8][4], uint32_t q_lo,
+                                        uint32_t k_hi, uint32_t k_lo) {
+  using C = Cfg<D>;
+  constexpr int N = C::kBlockN;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const uint32_t ko = kstep<C::kSteps, C::kKBox>(kk);
+    mma_rs<N>(sacc, qh[kk], hopper::swizzled_desc<C::kSwizzle>(k_lo + ko), kk > 0);
+    mma_ss<N>(sacc, hopper::swizzled_desc<C::kSwizzle>(q_lo + kstep<C::kSteps, C::kQBox>(kk)),
+              hopper::swizzled_desc<C::kSwizzle>(k_hi + ko), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+    mma_rs<N>(sacc, qh[kk],
+              hopper::swizzled_desc<C::kSwizzle>(k_hi + kstep<C::kSteps, C::kKBox>(kk)), 1);
+}
+
+// O += P V = P_lo V_hi + P_hi V_lo + P_hi V_hi: k-step j takes the 8 slots
+// of key group j (32 bytes of each V^T row, 4 k-steps a box).
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&oacc)[D / 2],
+                                         const uint32_t (&ph)[Cfg<D>::kBlockN / 8][4],
+                                         const uint32_t (&pl)[Cfg<D>::kBlockN / 8][4],
+                                         uint32_t v_hi, uint32_t v_lo) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int j = 0; j < C::kBlockN / 8; ++j)
+    mma_rs<D>(oacc, pl[j], hopper::swizzled_desc<128>(v_hi + kstep<4, C::kVBox>(j)), 1);
+#pragma unroll
+  for (int j = 0; j < C::kBlockN / 8; ++j)
+    mma_rs<D>(oacc, ph[j], hopper::swizzled_desc<128>(v_lo + kstep<4, C::kVBox>(j)), 1);
+#pragma unroll
+  for (int j = 0; j < C::kBlockN / 8; ++j)
+    mma_rs<D>(oacc, ph[j], hopper::swizzled_desc<128>(v_hi + kstep<4, C::kVBox>(j)), 1);
+}
+
+// P as the TF32 A fragments of k-step j, hi and lo: slots t and t + 4 take
+// the keys 2t and 2t + 1 this lane holds (V^T's slots are permuted to match).
+template <int N>
+__device__ __forceinline__ void split_p(const float (&sacc)[N / 2], uint32_t (&ph)[N / 8][4],
+                                        uint32_t (&pl)[N / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    split(sacc[4 * j], ph[j][0], pl[j][0]);          // row g,     key 2t
+    split(sacc[4 * j + 2], ph[j][1], pl[j][1]);      // row g + 8, key 2t
+    split(sacc[4 * j + 1], ph[j][2], pl[j][2]);      // row g,     key 2t + 1
+    split(sacc[4 * j + 3], ph[j][3], pl[j][3]);      // row g + 8, key 2t + 1
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
+flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tm_k_hi,
+                        const __grid_constant__ CUtensorMap tm_k_lo,
+                        const __grid_constant__ CUtensorMap tm_vt_hi,
+                        const __grid_constant__ CUtensorMap tm_vt_lo,
+                        const float* __restrict__ q, float* __restrict__ o, int sq, int sk,
+                        int heads, int kv_heads, float scale_log2, int causal) {
+  using C = Cfg<D>;
+  constexpr int kSt = C::kStages;
+  constexpr int kBlockN = C::kBlockN;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(smem + C::kBar);
+  uint64_t* v_full = k_full + kSt;
+  uint64_t* empty = v_full + kSt;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * C::kBlockM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (heads / kv_heads);
+  const int end = kv_end(q0, C::kBlockM, sq, sk, causal);
+  const int n_tiles = (end + kBlockN - 1) / kBlockN;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kSt; ++s) {
+      hopper::mbar_init(k_full + s, 1);
+      hopper::mbar_init(v_full + s, 1);
+      hopper::mbar_init(empty + s, 4 * C::kConsumers);   // one arrival per consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int warpgroup = threadIdx.x / 128;
+  if (warpgroup == 0) {
+    // Producer: K_hi, K_lo, V^T_hi, V^T_lo of tile n into stage n % kSt.
+    hopper::reg_dealloc<C::kProducerRegs>();
+    if (threadIdx.x == 0) {
+      for (int n = 0; n < n_tiles; ++n) {
+        const int s = n % kSt;
+        uint8_t* stage = smem + C::kRing + s * C::kStage;
+        hopper::mbar_wait(empty + s, ((n / kSt) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(k_full + s, 2 * C::kKPart);
+#pragma unroll
+        for (int box = 0; box < C::kBoxes; ++box) {
+          hopper::tma_load_4d(stage + box * C::kKBox, &tm_k_hi, k_full + s, C::kBoxCols * box,
+                              kvh, n * kBlockN, b);
+          hopper::tma_load_4d(stage + C::kKPart + box * C::kKBox, &tm_k_lo, k_full + s,
+                              C::kBoxCols * box, kvh, n * kBlockN, b);
+        }
+        hopper::mbar_arrive_expect_tx(v_full + s, 2 * C::kVPart);
+#pragma unroll
+        for (int box = 0; box < C::kVBoxes; ++box) {
+          hopper::tma_load_4d(stage + 2 * C::kKPart + box * C::kVBox, &tm_vt_hi, v_full + s,
+                              n * kBlockN + 32 * box, 0, kvh, b);
+          hopper::tma_load_4d(stage + 2 * C::kKPart + C::kVPart + box * C::kVBox, &tm_vt_lo,
+                              v_full + s, n * kBlockN + 32 * box, 0, kvh, b);
+        }
+      }
+    }
+  } else {
+    // Consumer c owns block rows 64 c .. 64 c + 63.  Tile n's softmax runs
+    // while tile n - 1's O += P V is in flight.
+    hopper::reg_alloc<C::kConsumerRegs>();
+    const int c = warpgroup - 1;
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int row_lo = q0 + 64 * c + 16 * warp + g;   // accumulator halves 0; + 8 halves 1
+
+    // q, split: q_hi as the A fragments of S in registers, q_lo into this
+    // consumer's rows of the swizzled q_lo tile.  Rows past Sq read as 0.
+    uint32_t qh[D / 8][4];
+    uint8_t* q_lo_tile = smem + C::kQ + c * C::kBoxes * C::kQBox;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = row_lo + 8 * hr;
+      const float* src = q + (((size_t)b * sq + min(row, sq - 1)) * heads + h) * D;
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * kk + t + 4 * e;
+          uint32_t lo;
+          split(row < sq ? __ldg(src + col) : 0.f, qh[kk][hr + 2 * e], lo);
+          *reinterpret_cast<uint32_t*>(
+              q_lo_tile + (col / C::kBoxCols) * C::kQBox +
+              wg::swizzled_chunk<C::kSwizzle>(16 * warp + g + 8 * hr, (col % C::kBoxCols) / 4) +
+              4 * (col % 4)) = lo;
+        }
+    }
+    hopper::fence_proxy_async_shared();   // q_lo, written by threads, read by wgmma
+    hopper::named_sync(1 + c, 128);
+
+    const uint32_t q_lo = hopper::smem_addr(q_lo_tile);
+    const uint32_t ring = hopper::smem_addr(smem + C::kRing);
+    auto k_hi = [&](int s) { return ring + s * C::kStage; };
+    auto v_hi = [&](int s) { return ring + s * C::kStage + 2 * C::kKPart; };
+    auto needs_mask = [&](int k0) {
+      return k0 + kBlockN > sk || (causal && k0 + kBlockN - 1 > q0 + 64 * c);
+    };
+    // With tiles under 128 keys a block's last tiles can lie wholly above
+    // consumer 0's diagonal: it computes up to its own last tile.
+    const int my_tiles = (kv_end(q0 + 64 * c, 64, sq, sk, causal) + kBlockN - 1) / kBlockN;
+
+    float sacc[kBlockN / 2];
+    float oacc[D / 2];
+    uint32_t ph[kBlockN / 8][4];
+    uint32_t pl[kBlockN / 8][4];
+#pragma unroll
+    for (int i = 0; i < kBlockN / 2; ++i) sacc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+    wg::RowState st = {{kNegInf, kNegInf}, {0.f, 0.f}};
+    float alpha[2];
+    float neg_ms[2];
+    auto softmax = [&](int n) {
+      wg::softmax_max<kBlockN, 1>(sacc, st, alpha, neg_ms, needs_mask(n * kBlockN),
+                                  n * kBlockN, row_lo, t, sk, causal, scale_log2);
+      wg::softmax_exp<kBlockN>(sacc, st, alpha, neg_ms, scale_log2);
+    };
+
+    // Tile 0: S, softmax, P.
+    hopper::mbar_wait(k_full, 0);
+    hopper::wgmma_fence();
+    issue_s<D>(sacc, qh, q_lo, k_hi(0), k_hi(0) + C::kKPart);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sacc);
+    softmax(0);
+    split_p<kBlockN>(sacc, ph, pl);
+
+    for (int n = 1; n < my_tiles; ++n) {
+      const int s = n % kSt;
+      const int sp = (n - 1) % kSt;
+      hopper::mbar_wait(k_full + s, (n / kSt) & 1);
+      hopper::wgmma_fence();
+      issue_s<D>(sacc, qh, q_lo, k_hi(s), k_hi(s) + C::kKPart);
+      hopper::wgmma_commit();
+      hopper::mbar_wait(v_full + sp, ((n - 1) / kSt) & 1);
+      issue_pv<D>(oacc, ph, pl, v_hi(sp), v_hi(sp) + C::kVPart);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();   // S of tile n is done; P V of tile n - 1 runs on
+      hopper::fence_regs(sacc);
+      softmax(n);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(oacc);
+#pragma unroll
+      for (int j = 0; j < kBlockN / 8; ++j) {
+        hopper::fence_regs(ph[j]);
+        hopper::fence_regs(pl[j]);
+      }
+      if (lane == 0) hopper::mbar_arrive(empty + sp);
+      wg::rescale<D>(oacc, alpha);
+      split_p<kBlockN>(sacc, ph, pl);
+    }
+    {
+      const int sp = (my_tiles - 1) % kSt;
+      hopper::mbar_wait(v_full + sp, ((my_tiles - 1) / kSt) & 1);
+      hopper::wgmma_fence();
+      issue_pv<D>(oacc, ph, pl, v_hi(sp), v_hi(sp) + C::kVPart);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(oacc);
+      if (lane == 0) hopper::mbar_arrive(empty + sp);
+    }
+    // The block's tiles past this consumer's diagonal: released in order
+    // once loaded, so the arrival counts toward that tile's round.
+    for (int n = my_tiles; n < n_tiles; ++n) {
+      const int s = n % kSt;
+      hopper::mbar_wait(k_full + s, (n / kSt) & 1);
+      if (lane == 0) hopper::mbar_arrive(empty + s);
+    }
+
+    // Epilogue: O / max(l, 1e-30), 8-byte stores of the rows below Sq (the
+    // 4 lanes of a quad write 32 contiguous bytes of a row).
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float l = st.l[hr];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float denom = fmaxf(l, 1e-30f);
+      const int row = row_lo + 8 * hr;
+      if (row >= sq) continue;
+      float* out = o + (((size_t)b * sq + row) * heads + h) * D + 2 * t;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(out + 8 * j) =
+            make_float2(oacc[4 * j + 2 * hr] / denom, oacc[4 * j + 2 * hr + 1] / denom);
+    }
+  }
+}
+
+// The prepass over k and v into `scratch` (split_parts' layout).
+template <int D>
+int split_launch(const float* k, const float* v, void* scratch, int batch, int sk, int kv_heads,
+                 cudaStream_t stream) {
+  const dim3 grid((sk + kSplitKeys - 1) / kSplitKeys, kv_heads, batch);
+  split_kv_kernel<D><<<grid, kSplitThreads, 0, stream>>>(
+      k, v, split_parts(scratch, batch, sk, kv_heads, D), sk, kv_heads);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K's parts as 4-D tensor maps over (D, KV, Sk, B) in boxes of kBoxCols x 1
+// x kBlockN x 1, V^T's over (skp, D, KV, B) in boxes of 32 x D x 1 x 1.
+template <int D>
+int launch(const void* q, const void* scratch, void* o, int batch, int sq, int sk, int heads,
+           int kv_heads, int causal, float scale, cudaStream_t stream) {
+  using C = Cfg<D>;
+  const Split parts = split_parts(const_cast<void*>(scratch), batch, sk, kv_heads, D);
+  const cuuint64_t skp = parts.skp;
+  CUtensorMap maps[4];
+  const float* bases[4] = {parts.k_hi, parts.k_lo, parts.vt_hi, parts.vt_lo};
+  for (int i = 0; i < 4; ++i) {
+    const bool is_k = i < 2;
+    const cuuint64_t dims[4] = {is_k ? (cuuint64_t)D : skp,
+                                is_k ? (cuuint64_t)kv_heads : (cuuint64_t)D,
+                                is_k ? (cuuint64_t)sk : (cuuint64_t)kv_heads, (cuuint64_t)batch};
+    const cuuint64_t strides[3] = {dims[0] * 4, dims[0] * dims[1] * 4,
+                                   dims[0] * dims[1] * dims[2] * 4};
+    const cuuint32_t box[4] = {is_k ? (cuuint32_t)C::kBoxCols : 32u,
+                               is_k ? 1u : (cuuint32_t)D,
+                               is_k ? (cuuint32_t)C::kBlockN : 1u, 1u};
+    const int rc = hopper::encode_swizzled(&maps[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                                           bases[i], dims, strides, box,
+                                           is_k ? C::kSwizzle : 128);
+    if (rc != 0) return rc;
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tf32x3_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((sq + C::kBlockM - 1) / C::kBlockM, heads, batch);
+  flash_fwd_tf32x3_kernel<D><<<grid, C::kThreads, C::kBytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(q), static_cast<float*>(o),
+      sq, sk, heads, kv_heads, scale * 1.4426950408889634f, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace x3
+
+// ---------------------------------------------------------------------------
 // float32: FMAs on the CUDA cores
 // ---------------------------------------------------------------------------
 
@@ -1039,72 +1429,90 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <typename T, int D, typename Kernel>
-int launch(Kernel kernel, int smem_bytes, const void* q, const void* k, const void* v,
-           void* o, int batch, int sq, int sk, int heads, int kv_heads, int causal,
-           float scale, cudaStream_t stream) {
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+template <int D>
+int simt_launch(const void* q, const void* k, const void* v, void* o, int batch, int sq, int sk,
+                int heads, int kv_heads, int causal, float scale, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, SimtSmem<D>::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kRows - 1) / kRows, heads, batch);
-  kernel<<<grid, kThreads, smem_bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), sq, sk, heads, kv_heads, scale, causal);
+  flash_fwd_f32_kernel<D><<<grid, kThreads, SimtSmem<D>::kBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), sq, sk, heads, kv_heads, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace flash
 
+// k, v: [batch][sk][kv_heads][head_dim] float32, contiguous and 16-byte
+// aligned, sk >= 1, head_dim 16, 32, 64 or 128.  Writes the split K and V
+// that the tf32x3 instance reads into `scratch`, (2 batch sk kv_heads +
+// 2 batch kv_heads skp) head_dim floats, skp = sk rounded up to 8 (layout:
+// flash::x3::Split).  Launches on `stream`; returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for a head_dim it has no
+// kernel for.
+extern "C" int flash_split_kv_launch(const void* k, const void* v, void* scratch, int batch,
+                                     int sk, int kv_heads, int head_dim, void* stream) {
+  using namespace flash;
+  if (batch <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  switch (head_dim) {
+    case 16: return x3::split_launch<16>(kf, vf, scratch, batch, sk, kv_heads, s);
+    case 32: return x3::split_launch<32>(kf, vf, scratch, batch, sk, kv_heads, s);
+    case 64: return x3::split_launch<64>(kf, vf, scratch, batch, sk, kv_heads, s);
+    case 128: return x3::split_launch<128>(kf, vf, scratch, batch, sk, kv_heads, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // q, o: [batch][sq][heads][head_dim]; k, v: [batch][sk][kv_heads][head_dim],
 // contiguous and 16-byte aligned, heads % kv_heads == 0, sk >= 1.  dtype 0 is
-// float32 (CUDA cores), 1 bfloat16 (tensor cores); head_dim is 16, 32, 64 or
-// 128.  `instance` names the kernel: 0 wgmma (bf16, every head dim), 1
-// mma.sync (bf16 at 16 and 32), 2 CUDA cores (float32); -1 takes the static
-// rule: float32 -> CUDA cores, bf16 -> wgmma.  Launches on `stream`,
+// float32, 1 bfloat16; head_dim is 16, 32, 64 or 128.  `instance` names the
+// kernel: 0 wgmma (bf16), 1 3xTF32 on wgmma (float32), 2 CUDA cores
+// (float32), each at every head dim; -1 takes the static rule: float32 ->
+// 3xTF32, bf16 -> wgmma.  The 3xTF32 instance reads K and V from `scratch`,
+// split from these k and v by flash_split_kv_launch (k and v themselves
+// are not read); the others ignore `scratch`.  Launches on `stream`,
 // allocates nothing and does not synchronise; returns cudaGetLastError()
 // after the launch (0 on success), or cudaErrorInvalidValue for an
-// instance, dtype or head_dim it has no kernel for, or a tensor map the
-// driver refuses.  Never a fallback: an instance that fails is an error.
+// instance, dtype or head_dim it has no kernel for, a missing scratch, or a
+// tensor map cuTensorMapEncodeTiled refuses.  Never a fallback: an instance
+// that fails is an error.
 extern "C" int flash_attention_launch_instance(const void* q, const void* k, const void* v,
-                                               void* o, int batch, int sq, int sk, int heads,
-                                               int kv_heads, int head_dim, int dtype, int causal,
-                                               float scale, int instance, void* stream) {
+                                               void* o, const void* scratch, int batch, int sq,
+                                               int sk, int heads, int kv_heads, int head_dim,
+                                               int dtype, int causal, float scale, int instance,
+                                               void* stream) {
   using namespace flash;
-  if (instance == -1) instance = dtype == 0 ? 2 : 0;
+  if (instance == -1) instance = dtype == 0 ? 1 : 0;
   if (batch <= 0 || sq <= 0) return 0;
+  if (instance == 1 && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_F32(DIM)                                                                     \
-  if (instance == 2 && dtype == 0 && head_dim == DIM)                                      \
-    return launch<float, DIM>(flash_fwd_f32_kernel<DIM>, SimtSmem<DIM>::kBytes, q, k, v, o, \
-                              batch, sq, sk, heads, kv_heads, causal, scale, s);
-#define FLASH_MMA(DIM)                                                                     \
-  if (instance == 1 && dtype == 1 && head_dim == DIM)                                      \
-    return launch<__nv_bfloat16, DIM>(flash_fwd_mma_kernel<DIM>, MmaSmem<DIM>::kBytes, q, k, \
-                                      v, o, batch, sq, sk, heads, kv_heads, causal, scale, s);
-#define FLASH_WGMMA(DIM)                                                                   \
-  if (instance == 0 && dtype == 1 && head_dim == DIM)                                      \
-    return wg::launch<DIM>(q, k, v, o, batch, sq, sk, heads, kv_heads, causal, scale, s);
-  FLASH_F32(16)
-  FLASH_F32(32)
-  FLASH_F32(64)
-  FLASH_F32(128)
-  FLASH_MMA(16)
-  FLASH_MMA(32)
-  FLASH_WGMMA(16)
-  FLASH_WGMMA(32)
-  FLASH_WGMMA(64)
-  FLASH_WGMMA(128)
-#undef FLASH_F32
-#undef FLASH_MMA
-#undef FLASH_WGMMA
+#define FLASH_INSTANCES(DIM)                                                                \
+  if (head_dim == DIM) {                                                                    \
+    if (instance == 0 && dtype == 1)                                                        \
+      return wg::launch<DIM>(q, k, v, o, batch, sq, sk, heads, kv_heads, causal, scale, s); \
+    if (instance == 1 && dtype == 0)                                                        \
+      return x3::launch<DIM>(q, scratch, o, batch, sq, sk, heads, kv_heads, causal, scale,  \
+                             s);                                                            \
+    if (instance == 2 && dtype == 0)                                                        \
+      return simt_launch<DIM>(q, k, v, o, batch, sq, sk, heads, kv_heads, causal, scale, s); \
+  }
+  FLASH_INSTANCES(16)
+  FLASH_INSTANCES(32)
+  FLASH_INSTANCES(64)
+  FLASH_INSTANCES(128)
+#undef FLASH_INSTANCES
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The static rule's entry point (instance -1).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      int batch, int sq, int sk, int heads, int kv_heads,
-                                      int head_dim, int dtype, int causal, float scale,
-                                      void* stream) {
-  return flash_attention_launch_instance(q, k, v, o, batch, sq, sk, heads, kv_heads, head_dim,
-                                         dtype, causal, scale, -1, stream);
+                                      const void* scratch, int batch, int sq, int sk, int heads,
+                                      int kv_heads, int head_dim, int dtype, int causal,
+                                      float scale, void* stream) {
+  return flash_attention_launch_instance(q, k, v, o, scratch, batch, sq, sk, heads, kv_heads,
+                                         head_dim, dtype, causal, scale, -1, stream);
 }

@@ -8,13 +8,16 @@ lower-triangle schedule.  Its plain version is
 :func:`repro_torch.kernels.ops.flash_attention`.
 
 The kernel has three instances, chosen statically by type (:func:`instance`,
-the same rule as ``flash_attention_launch``): ``wgmma`` for bf16 at every
-head dim, ``simt_f32`` for float32.  The ``mma_sync`` instance (bf16, head
-dims 16 and 32; the rule until the wgmma instance took those head dims)
-stays callable for measurement and tests through ``instance="mma_sync"``.
-``flash_attention_cuda.launches`` counts every launch;
-``flash_attention_cuda.instance_launches`` counts them by the instance that
-ran.
+the same rule as ``flash_attention_launch``): ``wgmma`` for bf16 and
+``wgmma_tf32x3`` (three TF32 products a float32 product, on the tensor
+cores) for float32, at every head dim.  ``simt_f32`` (float32 on the CUDA
+cores, the rule until the 3xTF32 instance measured faster) stays callable for
+measurement and tests through ``instance="simt_f32"``.  The 3xTF32 instance
+reads K and V split into TF32 parts by a prepass kernel,
+:func:`split_kv_cuda` (plain version :func:`repro_torch.kernels.ref.split_kv_ref`).
+``flash_attention_cuda.launches`` counts every launch of the attention
+kernel; ``flash_attention_cuda.instance_launches`` counts them by the
+instance that ran, and ``split_kv_cuda.launches`` the prepass's.
 """
 
 from __future__ import annotations
@@ -29,15 +32,13 @@ _C = ctypes.c_void_p
 _I = ctypes.c_int
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
-INSTANCES = ("wgmma", "mma_sync", "simt_f32")   # codes 0, 1, 2 of the C entry point
+INSTANCES = ("wgmma", "wgmma_tf32x3", "simt_f32")   # codes 0, 1, 2 of the C entry point
 
 
 def instances(dtype: torch.dtype, head_dim: int) -> tuple[str, ...]:
     """Every instance with a kernel for this type and head dim, the static
     rule's first."""
-    if dtype == torch.float32:
-        return ("simt_f32",)
-    return ("wgmma", "mma_sync") if head_dim in (16, 32) else ("wgmma",)
+    return ("wgmma_tf32x3", "simt_f32") if dtype == torch.float32 else ("wgmma",)
 
 
 def instance(dtype: torch.dtype, head_dim: int, requested: str | None = None) -> str:
@@ -59,9 +60,62 @@ _instance = instance   # flash_attention_cuda's keyword hides the name
 
 def _fn():
     fn = _build.library("flash_attention").flash_attention_launch_instance
-    fn.argtypes = [_C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _C]
+    fn.argtypes = [_C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I,
+                   _C]
     fn.restype = _I
     return fn
+
+
+def _split_fn():
+    fn = _build.library("flash_attention").flash_split_kv_launch
+    fn.argtypes = [_C, _C, _C, _I, _I, _I, _I, _C]
+    fn.restype = _I
+    return fn
+
+
+def split_views(flat: torch.Tensor, b: int, sk: int, kv: int, d: int) -> tuple:
+    """(k_hi, k_lo, vt_hi, vt_lo) as views of one flat float32 buffer, in the
+    layout the C entry points share: k's parts (B, Sk, KV, D), then V's
+    transposed parts (B, KV, D, Skp), Skp = Sk rounded up to 8.  ``flat``
+    must hold ``split_numel(b, sk, kv, d)`` floats."""
+    skp = -(-sk // 8) * 8
+    nk, nv = b * sk * kv * d, b * kv * d * skp
+    k_hi, k_lo, vt_hi, vt_lo = flat.split([nk, nk, nv, nv])
+    return (k_hi.view(b, sk, kv, d), k_lo.view(b, sk, kv, d),
+            vt_hi.view(b, kv, d, skp), vt_lo.view(b, kv, d, skp))
+
+
+def split_numel(b: int, sk: int, kv: int, d: int) -> int:
+    return 2 * b * kv * d * (sk + -(-sk // 8) * 8)
+
+
+def split_kv_cuda(k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """The 3xTF32 instance's prepass: k and v (B, Sk, KV, D) float32 on the
+    card -> (k_hi, k_lo, vt_hi, vt_lo) of :func:`split_views`, each value x
+    split as hi = tf32(x), lo = tf32(x - hi) (round to nearest, ties away),
+    V transposed with each group of 8 keys in the order 0, 2, 4, 6, 1, 3, 5,
+    7 and zeros past Sk.  Bit-identical to ``ref.split_kv_ref``."""
+    if k.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {k.device}")
+    if (k.dim() != 4 or k.shape != v.shape or k.dtype != torch.float32
+            or v.dtype != torch.float32 or v.device != k.device or k.shape[1] < 1
+            or k.shape[3] not in HEAD_DIMS):
+        raise ValueError(f"expected float32 k, v (B, Sk >= 1, KV, D in {HEAD_DIMS}) alike, "
+                         f"got {k.dtype}{list(k.shape)}, {v.dtype}{list(v.shape)}")
+    if not (k.is_contiguous() and v.is_contiguous()) or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("k and v must be contiguous, 16-byte aligned tensors")
+    b, sk, kv, d = k.shape
+    if b > 65535 or kv > 65535:
+        raise ValueError(f"B={b}, KV={kv} exceed the kernel's grid")
+    flat = torch.empty(split_numel(b, sk, kv, d), dtype=torch.float32, device=k.device)
+    if b:
+        with torch.cuda.device(k.device):
+            rc = _split_fn()(k.data_ptr(), v.data_ptr(), flat.data_ptr(), b, sk, kv, d,
+                             torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"flash split_kv kernel launch failed: CUDA error {rc}")
+        split_kv_cuda.launches += 1
+    return split_views(flat, b, sk, kv, d)
 
 
 def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -107,10 +161,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if b == 0 or sq == 0:
         return out
+    # The split K and V stay referenced until the launch is queued; the
+    # caching allocator orders their reuse after it on this stream.
+    split = split_kv_cuda(k, v) if name == "wgmma_tf32x3" else None
     with torch.cuda.device(q.device):
-        rc = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-                   k.shape[1], h, k.shape[2], d, DTYPES[q.dtype], int(causal), d ** -0.5,
-                   INSTANCES.index(name), torch.cuda.current_stream().cuda_stream)
+        rc = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   split[0].data_ptr() if split else None, b, sq, k.shape[1], h, k.shape[2], d,
+                   DTYPES[q.dtype], int(causal), d ** -0.5, INSTANCES.index(name),
+                   torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed ({name} instance): CUDA "
                            f"error {rc}")
@@ -120,9 +178,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def reset_launches() -> None:
-    """Zero every launch counter of the wrapper."""
+    """Zero every launch counter of the module's wrappers."""
     flash_attention_cuda.launches = 0
     flash_attention_cuda.instance_launches = dict.fromkeys(INSTANCES, 0)
+    split_kv_cuda.launches = 0
 
 
 reset_launches()

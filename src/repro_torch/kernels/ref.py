@@ -215,9 +215,58 @@ def flash_chunks(sq: int, sk: int, q_chunk: int = 512, kv_chunk: int = 512) -> t
     return q_chunk, kv_chunk
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: to the
+    nearest value with 10 mantissa bits, ties away from zero, the low 13 bits
+    of the float32 pattern zero.  On the int32 bit pattern: add half of the
+    dropped unit, clear the 13 bits (a carry out of the mantissa bumps the
+    exponent, up to inf).  inf and NaN pass through."""
+    bits = x.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x)
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo), both TF32: hi = tf32(x), lo = tf32(x - hi) (x - hi is exact
+    in float32), so |x - (hi + lo)| <= 2^-22 |x| for normal x (and at most
+    2^-137 below the normal range): the split of the 3xTF32 flash instance."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+# Slot i of each group of 8 keys of V^T holds key SLOT_KEYS[i]: the TF32
+# A fragment takes a lane's S accumulators (keys 2t, 2t + 1) as slots t, t + 4.
+SLOT_KEYS = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def split_kv_ref(k: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The plain version of ``split_kv_cuda``: float32 k, v (B, Sk, KV, D) ->
+    (k_hi, k_lo) (B, Sk, KV, D) and (vt_hi, vt_lo) (B, KV, D, Skp), Skp = Sk
+    rounded up to 8: V transposed, slot 8 j + i of a row holding key 8 j +
+    ``SLOT_KEYS[i]``, zeros past Sk."""
+    b, sk, kv, d = v.shape
+    skp = -(-sk // 8) * 8
+    vt = torch.zeros((b, kv, d, skp), dtype=torch.float32, device=v.device)
+    vt[..., :sk] = v.permute(0, 2, 3, 1)
+    order = (torch.arange(skp, device=v.device) // 8 * 8
+             + torch.tensor(SLOT_KEYS, device=v.device).repeat(skp // 8))
+    return (*split_tf32(k.float()), *split_tf32(vt[..., order]))
+
+
+def _product(eq: str, a: torch.Tensor, b: torch.Tensor, tf32x3: bool) -> torch.Tensor:
+    """``einsum(eq, a, b)`` in float32, or as the 3xTF32 instance takes it:
+    a_lo b_hi + a_hi b_lo + a_hi b_hi of the split parts, in float64 and
+    rounded once to float32 (the dropped a_lo b_lo is 2^-22 relative)."""
+    if not tf32x3:
+        return torch.einsum(eq, a, b)
+    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+    f = lambda x, y: torch.einsum(eq, x.double(), y.double())  # noqa: E731
+    return (f(al, bh) + f(ah, bl) + f(ah, bh)).float()
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, q_chunk: int = 512, kv_chunk: int = 512,
-                        triangle: bool = False) -> torch.Tensor:
+                        triangle: bool = False, tf32x3: bool = False) -> torch.Tensor:
     """GQA attention forward, blockwise with an online softmax: the plain
     version of ``flash_attention_cuda``.
 
@@ -229,7 +278,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     to v's type before PV, sums are float32, and the output takes q's type.
     In float32 this is the reference's jnp path; in bf16 it rounds where the
     kernel rounds.  ``triangle`` skips the blocks above the diagonal, which
-    contribute exactly nothing.
+    contribute exactly nothing.  ``tf32x3`` (float32) takes both products as
+    the 3xTF32 instance does (``_product``): the model of its arithmetic,
+    held against the exact float32 reference in the tests.
     """
     b, sq, h, d = q.shape
     _, sk, kv, _ = k.shape
@@ -251,7 +302,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         for k0 in range(0, sk, kv_chunk):
             if triangle and causal and k0 > q0 + q_chunk - 1:
                 break
-            s = torch.einsum("bqkgd,bckd->bkgqc", q_blk, kf[:, k0:k0 + kv_chunk]) * scale
+            s = _product("bqkgd,bckd->bkgqc", q_blk, kf[:, k0:k0 + kv_chunk], tf32x3) * scale
             if causal:
                 k_pos = torch.arange(k0, k0 + kv_chunk, device=q.device)
                 s = torch.where(q_pos[:, None] >= k_pos[None, :], s, NEG_INF)
@@ -261,8 +312,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             l = l * alpha + p.sum(-1)
             # p rounds to v's type; the product of two such values is exact
             # in float32, so a float32 product accumulates as the kernel does.
-            pv = torch.einsum("bkgqc,bckd->bkgqd", p.to(v.dtype).float(),
-                              v[:, k0:k0 + kv_chunk].float())
+            pv = _product("bkgqc,bckd->bkgqd", p.to(v.dtype).float(),
+                          v[:, k0:k0 + kv_chunk].float(), tf32x3)
             o = o * alpha[..., None] + pv
             m = m_new
         o = (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)

@@ -10,9 +10,10 @@ machine that has only PyTorch:
 
 The join kernels' outputs are integers or bools: those comparisons are
 exact.  The flash-attention kernel is held against its plain version on
-the same card tensors at rtol = atol = 2e-5 in float32 and 1e-2 in bf16
-(both round p to bf16 against their own running maxima, and round the
-output to bf16).
+the same card tensors at rtol = atol = 2e-5 in float32 (TF32 off in
+PyTorch; both float32 instances, the 3xTF32 one's prepass bit-identical to
+its plain version) and 1e-2 in bf16 (both round p to bf16 against their own
+running maxima, and round the output to bf16).
 """
 
 import numpy as np
@@ -547,7 +548,10 @@ FLASH_SHAPES = [  # sq, sk, causal, group (H / KV), KV
     (255, 257, True, 8, 1), (257, 255, False, 1, 2), (128, 257, True, 3, 1),
     (257, 128, True, 4, 1), (129, 255, False, 8, 1),
     # the 192-row q tiles of the head dims 16 and 32 instance
-    (191, 193, True, 3, 1), (193, 191, False, 4, 2), (385, 384, True, 8, 1)]
+    (191, 193, True, 3, 1), (193, 191, False, 4, 2), (385, 384, True, 8, 1),
+    # the 3xTF32 instance's 32- and 64-key tiles (32 at D = 128), Sk % 8 != 0
+    (31, 33, True, 3, 2), (33, 31, False, 1, 1), (65, 63, True, 8, 1), (64, 97, False, 4, 2),
+    (96, 95, True, 1, 2)]
 
 
 def _flash_operands(dev, dtype, d, sq, sk, group, kv):
@@ -569,18 +573,49 @@ def test_flash_attention_kernel_matches_plain_version(exact_f32, dtype, d, sq, s
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("sq,sk,causal,group,kv", FLASH_SHAPES)
-def test_flash_attention_mma_sync_instance_matches_plain_version(exact_f32, d, sq, sk, causal,
+def test_flash_attention_simt_f32_instance_matches_plain_version(exact_f32, d, sq, sk, causal,
                                                                  group, kv):
-    """The mma.sync instance, which bf16 at head dims 16 and 32 ran before
-    the wgmma instance took them, stays held to the plain version."""
-    q, k, v = _flash_operands(exact_f32, torch.bfloat16, d, sq, sk, group, kv)
+    """The CUDA-core float32 instance, the rule until the 3xTF32 instance
+    measured faster, stays held to the plain version."""
+    q, k, v = _flash_operands(exact_f32, torch.float32, d, sq, sk, group, kv)
     counts = flash_kernel.flash_attention_cuda.instance_launches
-    before = counts["mma_sync"]
-    got = flash_kernel.flash_attention_cuda(q, k, v, causal=causal, instance="mma_sync")
-    assert counts["mma_sync"] == before + 1
-    tol = FLASH_TOL[torch.bfloat16]
+    before = counts["simt_f32"]
+    got = flash_kernel.flash_attention_cuda(q, k, v, causal=causal, instance="simt_f32")
+    assert counts["simt_f32"] == before + 1
+    tol = FLASH_TOL[torch.float32]
+    torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, causal=causal), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("sk,group,kv", [(1, 1, 1), (13, 3, 2), (64, 4, 1), (100, 8, 2),
+                                         (4096, 4, 2)])
+def test_flash_split_kv_kernel_matches_plain_version(exact_f32, d, sk, group, kv):
+    """The 3xTF32 instance's prepass: bit-identical to its plain version."""
+    _, k, v = _flash_operands(exact_f32, torch.float32, d, 1, sk, group, kv)
+    before = flash_kernel.split_kv_cuda.launches
+    got = flash_kernel.split_kv_cuda(k, v)
+    assert flash_kernel.split_kv_cuda.launches == before + 1
+    for part, want in zip(got, ref.split_kv_ref(k, v)):
+        assert part.shape == want.shape
+        assert torch.equal(part.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("d,sk,causal", [(128, 128, False), (128, 128, True), (128, 100, True),
+                                         (64, 64, False), (64, 61, True), (16, 16, False)])
+def test_flash_attention_tf32x3_sees_each_key_in_its_slot(exact_f32, d, sk, causal):
+    """V = one-hot key indices (v[j] = e_j), so the output's column j is the
+    attention weight of key j: a key that entered P V through another key's
+    V^T slot shows as a wrong column."""
+    gen = torch.Generator(device=exact_f32).manual_seed(d + sk)
+    q = torch.randn((2, 64, 4, d), generator=gen, device=exact_f32)
+    k = torch.randn((2, sk, 2, d), generator=gen, device=exact_f32)
+    v = torch.zeros((2, sk, 2, d), device=exact_f32)
+    v[:, torch.arange(sk), :, torch.arange(sk) % d] = 1.0
+    got = flash_kernel.flash_attention_cuda(q, k, v, causal=causal, instance="wgmma_tf32x3")
+    tol = FLASH_TOL[torch.float32]
     torch.testing.assert_close(got, ref.flash_attention_ref(q, k, v, causal=causal), rtol=tol,
                                atol=tol)
 
@@ -603,42 +638,47 @@ def test_flash_attention_wrapper_rejects_bad_operands(dev):
         ops.flash_attention(q, k, k, impl="ref")
 
 
-def test_flash_attention_kernel_at_a_qwen3_layer(exact_f32):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_kernel_at_a_qwen3_layer(exact_f32, dtype):
     """One (batch) of qwen3-8b's prefill attention: S = 4,096, 32 query
-    heads on 8 KV heads of 128, bf16, causal."""
+    heads on 8 KV heads of 128, causal, in bf16 and in float32."""
     gen = torch.Generator(device=exact_f32).manual_seed(7)
     q, k, v = (torch.randn((1, 4096, heads, 128), generator=gen, device=exact_f32)
-               .to(torch.bfloat16) for heads in (32, 8, 8))
+               .to(dtype) for heads in (32, 8, 8))
     got = flash_kernel.flash_attention_cuda(q, k, v, causal=True)
     want = ref.flash_attention_ref(q, k, v, causal=True, triangle=True)
-    tol = FLASH_TOL[torch.bfloat16]
+    tol = FLASH_TOL[dtype]
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("instance", ["wgmma", "mma_sync"])
-def test_flash_attention_kernel_at_a_qwen3_layer_with_head_dim_32(exact_f32, instance):
-    """The same layer shape with head dim 32 (no served config has it), both
-    bf16 instances."""
+@pytest.mark.parametrize("dtype,instance", [(torch.bfloat16, "wgmma"),
+                                            (torch.float32, "wgmma_tf32x3")])
+def test_flash_attention_kernel_at_a_qwen3_layer_with_head_dim_32(exact_f32, dtype, instance):
+    """The same layer shape with head dim 32 (no served config has it)."""
     gen = torch.Generator(device=exact_f32).manual_seed(8)
     q, k, v = (torch.randn((1, 4096, heads, 32), generator=gen, device=exact_f32)
-               .to(torch.bfloat16) for heads in (32, 8, 8))
+               .to(dtype) for heads in (32, 8, 8))
     got = flash_kernel.flash_attention_cuda(q, k, v, causal=True, instance=instance)
     want = ref.flash_attention_ref(q, k, v, causal=True, triangle=True)
-    tol = FLASH_TOL[torch.bfloat16]
+    tol = FLASH_TOL[dtype]
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
 def test_flash_attention_instance_keyword_on_the_card(dev):
-    """An instance with no kernel raises before launching; the static rule
-    never picks mma.sync."""
+    """An instance with no kernel raises before launching, the prepass too."""
     q = torch.randn((1, 8, 4, 64), device=dev).to(torch.bfloat16)
     k = torch.randn((1, 8, 2, 64), device=dev).to(torch.bfloat16)
-    before = flash_kernel.flash_attention_cuda.launches
+    before = flash_kernel.flash_attention_cuda.launches, flash_kernel.split_kv_cuda.launches
     with pytest.raises(ValueError, match="no kernel"):
-        flash_kernel.flash_attention_cuda(q, k, k, instance="mma_sync")
+        flash_kernel.flash_attention_cuda(q, k, k, instance="wgmma_tf32x3")
     with pytest.raises(ValueError, match="no kernel"):
         flash_kernel.flash_attention_cuda(q.float(), k.float(), k.float(), instance="wgmma")
-    assert flash_kernel.flash_attention_cuda.launches == before
+    with pytest.raises(ValueError, match="unknown"):
+        flash_kernel.flash_attention_cuda(q, k, k, instance="mma_sync")
+    with pytest.raises(ValueError, match="float32"):
+        flash_kernel.split_kv_cuda(k, k)
+    assert (flash_kernel.flash_attention_cuda.launches,
+            flash_kernel.split_kv_cuda.launches) == before
 
 
 def test_flash_attention_launch_counter_and_dispatch(dev):
@@ -653,17 +693,20 @@ def test_flash_attention_launch_counter_and_dispatch(dev):
 @pytest.mark.parametrize("dtype,d,instance", [
     (torch.bfloat16, 16, "wgmma"), (torch.bfloat16, 32, "wgmma"),
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.float32, 64, "simt_f32"), (torch.float32, 128, "simt_f32")])
+    (torch.float32, 16, "wgmma_tf32x3"), (torch.float32, 64, "wgmma_tf32x3"),
+    (torch.float32, 128, "wgmma_tf32x3")])
 def test_flash_attention_head_dim_dispatch_counts_its_instance(exact_f32, dtype, d, instance):
     q = torch.randn((1, 130, 4, d), device=exact_f32).to(dtype)
     k = torch.randn((1, 130, 2, d), device=exact_f32).to(dtype)
     counts = flash_kernel.flash_attention_cuda.instance_launches
-    before = flash_kernel.flash_attention_cuda.launches, dict(counts)
+    before = (flash_kernel.flash_attention_cuda.launches, dict(counts),
+              flash_kernel.split_kv_cuda.launches)
     out = ops.flash_attention(q, k, k)
     torch.cuda.synchronize()
     assert flash_kernel.flash_attention_cuda.launches == before[0] + 1
     assert {n: counts[n] - before[1][n] for n in counts} == {
         n: int(n == instance) for n in flash_kernel.INSTANCES}
+    assert flash_kernel.split_kv_cuda.launches == before[2] + (instance == "wgmma_tf32x3")
     torch.testing.assert_close(out, ref.flash_attention_ref(q, k, k), rtol=FLASH_TOL[dtype],
                                atol=FLASH_TOL[dtype])
 

@@ -108,31 +108,36 @@ def test_flash_attention_dispatch_never_falls_back():
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 16, "wgmma"), (torch.bfloat16, 32, "wgmma"),
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.float32, 16, "simt_f32"), (torch.float32, 128, "simt_f32")])
+    (torch.float32, 16, "wgmma_tf32x3"), (torch.float32, 128, "wgmma_tf32x3")])
 def test_flash_kernel_instance_is_static_by_type_and_head_dim(dtype, d, want):
     """The wrapper counts launches by the instance the CUDA entry point picks:
-    wgmma for bf16 at every head dim (at 16 and 32 it measured faster than
-    the mma.sync instance), the CUDA-core instance for float32.  CPU tensors
-    launch nothing."""
+    wgmma for bf16 at every head dim, the 3xTF32 one for float32 (it
+    measured faster than the CUDA-core instance).  CPU tensors launch
+    nothing, the prepass neither."""
     assert flash_kernel.instance(dtype, d) == want
     assert set(flash_kernel.flash_attention_cuda.instance_launches) == set(
         flash_kernel.INSTANCES)
     before = (flash_kernel.flash_attention_cuda.launches,
-              dict(flash_kernel.flash_attention_cuda.instance_launches))
+              dict(flash_kernel.flash_attention_cuda.instance_launches),
+              flash_kernel.split_kv_cuda.launches)
     q, k, v = (t.to(dtype) for t in _t(*_qkv(np.random.default_rng(0), 1, 8, 8, 2, 1, d)))
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_kernel.flash_attention_cuda(q, k, v)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_kernel.split_kv_cuda(k.float(), v.float())
     assert (flash_kernel.flash_attention_cuda.launches,
-            flash_kernel.flash_attention_cuda.instance_launches) == before
+            flash_kernel.flash_attention_cuda.instance_launches,
+            flash_kernel.split_kv_cuda.launches) == before
 
 
 @pytest.mark.parametrize("dtype,d,requested,error", [
-    (torch.bfloat16, 16, "wgmma", None), (torch.bfloat16, 16, "mma_sync", None),
-    (torch.bfloat16, 32, "mma_sync", None), (torch.bfloat16, 128, "wgmma", None),
+    (torch.bfloat16, 16, "wgmma", None), (torch.float32, 16, "wgmma_tf32x3", None),
+    (torch.float32, 32, "wgmma_tf32x3", None), (torch.bfloat16, 128, "wgmma", None),
     (torch.float32, 64, "simt_f32", None),
-    (torch.bfloat16, 64, "mma_sync", "no kernel"), (torch.bfloat16, 128, "mma_sync", "no kernel"),
+    (torch.bfloat16, 64, "wgmma_tf32x3", "no kernel"),
+    (torch.bfloat16, 128, "wgmma_tf32x3", "no kernel"),
     (torch.bfloat16, 32, "simt_f32", "no kernel"), (torch.float32, 32, "wgmma", "no kernel"),
-    (torch.float32, 16, "mma_sync", "no kernel"), (torch.bfloat16, 32, "swar", "unknown")])
+    (torch.float32, 16, "mma_sync", "unknown"), (torch.bfloat16, 32, "swar", "unknown")])
 def test_flash_kernel_instance_keyword(dtype, d, requested, error):
     """``instance=`` picks a kernel for measurement and tests: a name with
     no kernel for the type and head dim raises ValueError before anything
@@ -159,8 +164,9 @@ def test_flash_kernel_instances_put_the_static_rule_first():
             names = flash_kernel.instances(dtype, d)
             assert names[0] == flash_kernel.instance(dtype, d)
             assert set(names) <= set(flash_kernel.INSTANCES)
-    assert flash_kernel.instances(torch.bfloat16, 32) == ("wgmma", "mma_sync")
+    assert flash_kernel.instances(torch.bfloat16, 32) == ("wgmma",)
     assert flash_kernel.instances(torch.bfloat16, 64) == ("wgmma",)
+    assert flash_kernel.instances(torch.float32, 16) == ("wgmma_tf32x3", "simt_f32")
 
 
 @pytest.mark.parametrize("shape", [(2, 5, 64), (3, 4, 2, 16)])
