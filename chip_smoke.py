@@ -20,17 +20,28 @@ Phases (any failure raises, so the script exits non-zero):
    count tiles 32 / 64 / 256) and at the main paths' shapes: a 4096 x 4096
    block pair of real data (W = 4) for the dense kernels, the first probe
    chunk of the SKEWED tau = 0.8 indexed join for the postings kernels.
+   The indexed driver's stage kernels (``expand_filter``: the CSR
+   expansion and entry admission; ``verdict_verify``: the pairwise verdict
+   at the candidates' own rows and exact verification of the survivors)
+   against their plain versions and the unfused compositions (the PyTorch
+   ops around ``entry_filter`` and ``pair_verdict``) over the CPU tests'
+   grid (4 similarities x 4 taus x self-join and R x S x W in {1, 4, 32},
+   and the edges) and at the first chunk of SKEWED at tau = 0.8 and 0.6.
    Results must be exactly equal; each kernel is then timed with CUDA
-   events (median after warm-up) beside its plain version, and the two
-   forms of each dense verdict in turns (swar, mxu, mxu, swar), with their
-   bounds and the SWAR form's popcount floor.
+   events (median after warm-up) beside its plain version, the two forms of
+   each dense verdict in turns (swar, mxu, mxu, swar) and each stage kernel
+   in turns with the unfused composition (kernel, composition,
+   composition, kernel), with their bounds and the SWAR form's popcount
+   floor; and the postings wrappers' host cost a call.
 3. Slice parity, on the card against the port's CPU path: the blocked join
    (``compaction="device"``) on a 10,000-set ZIPF collection with planted
    duplicates, ``naive_join`` against the blocked join on 3,000 of its sets,
    and the indexed join on a 10,000-set SKEWED collection with planted
-   duplicates under ``impl="auto"``, ``impl="swar"`` and a forced small
-   capacity (the dense fallback).  Pairs and ``JoinStats`` must be identical.
-   The blocked join under ``impl="swar"`` drives the SWAR verdict and count.
+   duplicates under ``impl="auto"`` (the stage kernels), ``impl="swar"``,
+   ``impl="swar_tiled"`` (the unfused composition) and a forced small
+   capacity (the dense fallback), and at b = 1024 under ``impl="mxu"``.
+   Pairs and ``JoinStats`` must be identical.  The blocked join under
+   ``impl="swar"`` drives the SWAR verdict and count.
 4. Full size, the blocked path: ZIPF (100,000 sets, Poisson(50) sizes,
    101,584 tokens, 1,000 planted clusters of 3 at Jaccard 0.9; tau = 0.8,
    an explicit blocked plan) and UNIFORM (100,000 sets, Poisson(10) sizes,
@@ -42,9 +53,11 @@ Phases (any failure raises, so the script exits non-zero):
    sets + 1,000 planted clusters of 3 at Jaccard 0.9) through
    ``JoinEngine`` at tau = 0.8 and 0.6, whose auto plans must be indexed:
    a cold and a warm self-join, then four probe batches of 4,096 rows cut
-   from the corpus (a third of them perturbed).  Pairs must equal the
-   blocked join's, self-join and R x S, and the postings index is built
-   once per engine.
+   from the corpus (a third of them perturbed), all through the stage
+   kernels and no other postings kernel; then each self-join again under
+   the unfused composition (``impl="swar_tiled"``).  Pairs and counters
+   must agree, and pairs must equal the blocked join's, self-join and
+   R x S; the postings index is built once per engine.
 
 6. Bit-plane kernel parity: ``bitplane_hamming`` and
    ``pair_verdict_bitplane`` against their plain versions and against the
@@ -70,12 +83,14 @@ Phases (any failure raises, so the script exits non-zero):
    and 256 more.  Sampled tickets (64 a flush) must equal a solo
    ``JoinEngine.probe`` in pairs and ``JoinStats``; the union of all tickets
    must equal one blocked R x S join at b = 128; no entrypoint is built after
-   warm-up, across the append.  Then both bit-plane kernels are timed at
-   their shapes (a 4096 x 4096 block pair of the store's words, the
+   warm-up, across the append; the flushes run the stage kernels and none
+   of the unfused path's pairwise kernels.  Then both bit-plane kernels are timed
+   at their shapes (a 4096 x 4096 block pair of the store's words, the
    first coalesced batch's candidates) beside their plain versions, their
    bounds and a PyTorch yardstick (``bitplane_hamming`` also beside the
    ``torch._int_mm`` product alone, in turns, with its TOP/s and share of
-   its bound).
+   its bound), and ``verdict_verify`` at that batch in turns with the
+   unfused composition at b = 1024 (``impl="mxu"``).
 9. Flash-attention parity: ``flash_attention`` against its plain version on
    the same card tensors (TF32 off, both flags printed), causal and not,
    Sq != Sk, lengths 1 to 1,000 and the wgmma instances' 128- and 192-row
@@ -129,10 +144,13 @@ tensor-core kernels print that time too).
 Each path's kernel launch counters are zeroed just before it and read just
 after (launches of the comparison runs inside the serving phase are taken
 out); every kernel the path runs must have launched, the blocked paths
-(phases 4 and 7) neither SWAR verdict kernel, and at b = 1024 neither
-``bitplane_hamming`` nor ``pair_verdict_tiled``.  The kernels no full-size
+(phases 4 and 7) neither SWAR verdict kernel, the indexed and serving
+paths the stage kernels and none of the unfused path's postings kernels.
+``entry_filter`` and ``pair_verdict_tiled`` report their launches from
+phase 5's runs under the unfused composition.  The kernels no full-size
 path runs are driven through their entry points in phase 3
-(``pair_verdict`` by the indexed join under ``impl="swar"``, the SWAR
+(``pair_verdict`` by the indexed join under ``impl="swar"``,
+``pair_verdict_bitplane`` under ``impl="mxu"`` at b = 1024, the SWAR
 ``candidate_matrix`` and ``count_candidates`` by the blocked join under
 ``impl="swar"``, ``hamming_matrix`` and ``bitplane_hamming`` by
 ``ops.hamming_matrix``), and the flash kernel at head dims 16 and 32 and in
@@ -625,14 +643,199 @@ def capture_calls(module, name: str, into: list):
         setattr(module, name, orig)
 
 
+class StageForms:
+    """The two stage kernels, their plain versions and the unfused
+    compositions (``impl``: the PyTorch ops around ``entry_filter`` and
+    ``pair_verdict``) on one chunk step's operands, the verdict's at
+    ``words`` = ``(words_r, probe_words)``."""
+
+    def __init__(self, args, st, words, unfused_impl: str):
+        from repro_torch.core.constants import COSINE
+        from repro_torch.index import candidates
+        from repro_torch.kernels import ops, postings, ref
+
+        self.st, self.table = st, st["table"]
+        self.eops = candidates.expand_filter_operands(args, st)
+        sim, tau, cap = st["sim"], st["tau"], st["cap"]
+        kp = sim == COSINE
+        ekw = dict(sim=sim, tau=tau, cap=cap, lp=st["lp"], self_join=st["self_join"],
+                   table=self.table)
+        self.expand = lambda: postings.expand_filter_cuda(  # noqa: E731
+            *self.eops, self.table, cap=cap, lp=st["lp"], key_prod=kp,
+            self_join=st["self_join"])
+        self.expand_plain = lambda: ref.expand_filter_ref(*self.eops, **ekw)  # noqa: E731
+        self.expand_unfused = lambda: ops.expand_filter(  # noqa: E731
+            *self.eops, **ekw, impl=unfused_impl)
+        rr, ss = self.expand_plain()
+        cr, cs, n_gen = candidates.dedup_pairs(rr, ss, cap)
+        self.slot_ok = torch.arange(cap, device=cr.device) < n_gen
+        wr, ws = words
+        self.vargs = (args[0], args[1], wr, args[9], args[10], ws, cr, cs, self.slot_ok,
+                      args[15])
+        vkw = dict(sim=sim, tau=tau, cutoff=st["cutoff"], table=self.table)
+        self.verdict = lambda: postings.verdict_verify_cuda(  # noqa: E731
+            *self.vargs[:9], self.table, args[15], key_prod=kp, cutoff=st["cutoff"])
+        self.verdict_plain = lambda: ref.verdict_verify_ref(*self.vargs, **vkw)  # noqa: E731
+        self.verdict_unfused = lambda: ops.verdict_verify(  # noqa: E731
+            *self.vargs, **vkw, impl=unfused_impl)
+
+    def check(self, what: str) -> tuple[dict, dict]:
+        """Both kernels and the unfused compositions against the plain
+        versions, bit for bit or raise: the counts of this chunk's funnel, and
+        each kernel's measured largest error (0)."""
+        e_want, v_want = self.expand_plain(), self.verdict_plain()
+        errs = {"expand_filter": max(max_err(a, b) for got in (self.expand(),
+                                                              self.expand_unfused())
+                                     for a, b in zip(got, e_want)),
+                "verdict_verify": max(max_err(a, b) for got in (self.verdict(),
+                                                               self.verdict_unfused())
+                                      for a, b in zip(got, v_want))}
+        torch.cuda.synchronize()
+        if any(errs.values()):
+            raise AssertionError(f"stage kernels != plain versions at {what}: {errs}")
+        counts = {"expanded": int(self.eops[2][-1]),
+                  "kept": int((e_want[0] != 2**31 - 1).sum()),
+                  "generated": int(self.slot_ok.sum()), "bitmap": int(v_want[0].sum()),
+                  "verified": int(v_want[1].sum())}
+        return counts, errs
+
+    def bounds(self) -> tuple:
+        """The least time of each kernel's work on these inputs: bytes over
+        the memory rate against integer operations over the float32 rate.
+        Bytes count each input element read once: the postings the chunk's
+        segments cover, the distinct word rows the generated candidates
+        name, and the non-PAD tokens of the distinct token rows the bitmap's
+        survivors name.  Operations count this chunk's work: ENTRY_OPS an
+        expanded entry, the verdict a candidate, and for each survivor one
+        binary search of s's len_s tokens for each of r's len_r."""
+        cap = self.st["cap"]
+        rng, cnt, seg_end, post_set = self.eops[:4]
+        c, npost = self.eops[6].shape[0], post_set.shape[0]
+        n_exp = min(int(seg_end[-1]), cap)
+        live = cnt > 0
+        edges = torch.zeros(npost + 1, dtype=torch.int32, device=cnt.device)
+        edges.index_add_(0, rng[live], torch.ones_like(rng[live]))
+        edges.index_add_(0, (rng + cnt)[live].clamp(max=npost), -torch.ones_like(rng[live]))
+        covered = min(int((torch.cumsum(edges, 0)[:npost] > 0).sum()), n_exp)
+        tab = self.table.numel() * 4
+        b_e = bound_ms(covered * 12 + cap * 8 + rng.shape[0] * 12 + c * 12 + tab,
+                       n_exp * ENTRY_OPS)
+        _, len_r, wr, _, len_s, ws, cand_r, cand_s, slot_ok, need = self.vargs
+        w = wr.shape[1]
+        cand_mask = self.verdict_plain()[0]
+        n_gen, n_bm = int(slot_ok.sum()), int(cand_mask.sum())
+        distinct = lambda idx: torch.unique(idx)  # noqa: E731
+        gen_rows = distinct(cand_r[slot_ok]).numel() + distinct(cand_s[slot_ok]).numel()
+        lr, ls = len_r[cand_r[cand_mask]].long(), len_s[cand_s[cand_mask]].long()
+        tokens = (int(len_r[distinct(cand_r[cand_mask])].sum())
+                  + int(len_s[distinct(cand_s[cand_mask])].sum()))
+        nbytes = (cap * 3 + n_gen * 8 + gen_rows * (4 * w + 4) + tokens * 4 + tab
+                  + need.numel() * 4)
+        steps = torch.ceil(torch.log2(ls.double() + 1)).long()
+        b_v = bound_ms(nbytes, n_gen * (3 * w + VERDICT_OPS) + int((lr * steps).sum()))
+        return b_e, b_v
+
+
+def stage_sweep(seed: int) -> int:
+    """The stage kernels against their plain versions (and the unfused
+    compositions) over the CPU tests' grid: 4 similarities x tau in {0.5,
+    0.6, 0.8, 0.95} (overlap: tau * 8 tokens) x self-join and R x S, the
+    verdict at W in {1, 4, 32}, on small seeded collections in one chunk;
+    and a segment of ~1,500 postings (longer than a kernel block), a stream
+    that fills its capacity, PAD probe rows, a cutoff below the lengths and
+    a later chunk's offset.  Returns the cases checked."""
+    from repro_torch.core import engine
+    from repro_torch.core.collection import from_lists
+    from repro_torch.core.constants import PAD_TOKEN
+    from repro_torch.data.collections import near_duplicate_lists, shared_token_lists
+    from repro_torch.index import candidates
+
+    sets_r = near_duplicate_lists(64, seed + 3)
+    sets_s = near_duplicate_lists(40, seed + 4)
+    sets_s[:8] = [s[:-1] or s for s in sets_r[:40:5]]
+    prep_r = engine.prepare(from_lists(sets_r, pad_to=16), "cuda")
+    prep_s = engine.prepare(from_lists(sets_s, pad_to=16), "cuda")
+    long_seg = engine.prepare(from_lists(shared_token_lists(1500, seed + 5),
+                                         pad_to=16), "cuda")
+
+    def specs(preps, sim, tau):
+        out = [candidates.chunk_step_spec(*preps, sim=sim, tau=tau, b=32 * w,
+                                          probe_block=128) for w in (1, 4, 32)]
+        return list(out[0][0]), dict(out[0][1]), [(a[2], a[11]) for a, _ in out]
+
+    cases = 0
+
+    def run(args, st, words, what):
+        nonlocal cases
+        for pair in words:
+            unfused = "mxu" if pair[0].shape[1] * 32 >= 512 else "swar_tiled"
+            StageForms(args, st, pair, unfused).check(what)
+            cases += 1
+
+    for sim in ("jaccard", "cosine", "dice", "overlap"):
+        for tau in (0.5, 0.6, 0.8, 0.95):
+            th = float(max(1, round(tau * 8))) if sim == "overlap" else tau
+            for preps in ((prep_r, None), (prep_r, prep_s)):
+                run(*specs(preps, sim, th), f"sweep {sim} {th}")
+    run(*specs((long_seg, None), "jaccard", 0.5), "a long segment")
+    for edge in ("fills_cap", "pad_probe_rows", "cutoff_below_lengths", "probe_offset"):
+        args, st, words = specs((prep_r, None if edge == "probe_offset" else prep_s),
+                                "jaccard", 0.5)
+        if edge == "fills_cap":
+            st["cap"] = int(candidates.expand_filter_operands(args, st)[2][-1])
+        elif edge == "pad_probe_rows":
+            for i, fill in ((9, PAD_TOKEN), (10, 0), (12, 0), (13, 0), (14, 0)):
+                a = args[i]
+                args[i] = torch.cat([a, torch.full((5, *a.shape[1:]), fill, dtype=a.dtype,
+                                                   device=a.device)])
+            words = [(wr, torch.cat([ws, ws.new_zeros(5, ws.shape[1])])) for wr, ws in words]
+        elif edge == "cutoff_below_lengths":
+            st["cutoff"] = 2
+        else:
+            args[16] = 7
+        run(args, st, words, edge)
+    return cases
+
+
+def time_stage(forms: StageForms, iters: int) -> dict:
+    """Each stage kernel in turns with the unfused composition (kernel,
+    composition, composition, kernel), the plain versions, and the bounds."""
+    t_e = in_turns({"kernel": forms.expand, "unfused": forms.expand_unfused}, iters)
+    t_v = in_turns({"kernel": forms.verdict, "unfused": forms.verdict_unfused}, iters)
+    plain_e = cuda_ms(forms.expand_plain, max(2, iters // 4), warmup=1, reps=1)
+    plain_v = cuda_ms(forms.verdict_plain, max(2, iters // 4), warmup=1, reps=1)
+    b_e, b_v = forms.bounds()
+    return {"expand_filter": {"ms_turns": t_e["kernel"], "unfused_ms_turns": t_e["unfused"],
+                              "plain_ms": plain_e, "bound": b_e},
+            "verdict_verify": {"ms_turns": t_v["kernel"], "unfused_ms_turns": t_v["unfused"],
+                               "plain_ms": plain_v, "bound": b_v}}
+
+
+def host_us(fn, n: int = 300) -> float:
+    """Host microseconds of one ``fn()`` call: ``n`` calls queued back to
+    back (their kernels run behind), over the count."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / n * 1e6
+
+
 def phase_postings_kernels(seed: int, skewed_prep) -> list[dict]:
-    """entry_filter, pair_verdict_tiled and pair_verdict: exact parity with
-    their plain versions over a sweep and at the indexed path's shape (the
-    operands of the first probe chunk of SKEWED tau = 0.8), then timing."""
+    """The stage kernels (expand_filter, verdict_verify) and the unfused path's
+    postings kernels (entry_filter, pair_verdict_tiled, pair_verdict):
+    exact parity with their plain versions over a sweep and at the indexed
+    path's shapes (the first probe chunk of SKEWED tau = 0.8 and 0.6), then
+    timing: each stage kernel in turns with the unfused composition, the
+    unfused path's kernels alone, and each wrapper's host cost per call.  Returns
+    the kernel rows."""
     from repro_torch.core import bounds
     from repro_torch.core.constants import COSINE
     from repro_torch.index import candidates
-    from repro_torch.kernels import postings, ref
+    from repro_torch.kernels import _build, postings, ref
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 1)
@@ -687,16 +890,29 @@ def phase_postings_kernels(seed: int, skewed_prep) -> list[dict]:
                     check_pairs(*t, table, sim, tau, cutoff)
         log(f"parity sweep G={g}: entry_filter exact ({kept} kept), pair_verdict_tiled and "
             f"pair_verdict exact at W in (1, 4, 8, 12, 128)")
+    cases = stage_sweep(seed)
+    log(f"parity sweep, stage kernels: expand_filter and verdict_verify exact against their "
+        f"plain versions and the unfused compositions in {cases} cases (4 sims x 4 taus x "
+        f"self / R x S x W in (1, 4, 32), and the edges)")
 
-    # The indexed path's shape: capture the kernel operands of the first
-    # chunk of the SKEWED tau = 0.8 self-join.
-    args, statics = candidates.chunk_step_spec(
-        skewed_prep, sim=MAIN["sim"], tau=SKEWED_TAUS[0], b=MAIN["b"],
-        probe_block=MAIN["block"])
+    # The indexed path's shapes: the first chunk of the SKEWED self-join at
+    # each tau, through the stage kernels and, for the unfused path's kernels, the
+    # operands they take there under the unfused composition.
+    chunks = {}
+    for tau in SKEWED_TAUS:
+        args, st = candidates.chunk_step_spec(
+            skewed_prep, sim=MAIN["sim"], tau=tau, b=MAIN["b"], probe_block=MAIN["block"])
+        forms = StageForms(args, st, (args[2], args[11]), "swar_tiled")
+        counts, errs = forms.check(f"the first SKEWED tau={tau} chunk")
+        chunks[tau] = (args, st, forms, errs)
+        log(f"parity main shape (first SKEWED tau={tau} chunk, cap {st['cap']}): "
+            f"expand_filter and verdict_verify exact against their plain versions and the "
+            f"unfused composition; funnel {json.dumps(counts)}")
+    args, statics = chunks[SKEWED_TAUS[0]][:2]
     ent_calls, pair_calls = [], []
     with capture_calls(postings, "entry_filter_cuda", ent_calls), \
             capture_calls(postings, "pair_verdict_tiled_cuda", pair_calls):
-        candidates._indexed_chunk_step(*args, **statics)
+        candidates._indexed_chunk_step(*args, **dict(statics, impl="swar_tiled"))
     (ent_args, ent_kw), = ent_calls
     (pair_args, pair_kw), = pair_calls
     ents, valid, table = list(ent_args[:8]), ent_args[8], ent_args[9]
@@ -705,9 +921,9 @@ def phase_postings_kernels(seed: int, skewed_prep) -> list[dict]:
     wr, ws, lr, ls, _ = pair_args
     err_t, err_w, passed = check_pairs(wr, ws, lr, ls, table, sim, tau, cutoff)
     g_e, g_p, w = valid.shape[0], wr.shape[0], wr.shape[1]
-    log(f"parity main shape (first SKEWED tau={tau} chunk, cap {statics['cap']}): "
-        f"entry_filter G={g_e} exact, {kept} kept of {int(valid.sum())} valid; "
-        f"pair verdicts G={g_p} W={w} exact, {passed} pass")
+    log(f"parity main shape (first SKEWED tau={tau} chunk, cap {statics['cap']}, the "
+        f"unfused composition): entry_filter G={g_e} exact, {kept} kept of "
+        f"{int(valid.sum())} valid; pair verdicts G={g_p} W={w} exact, {passed} pass")
 
     ekw = dict(key_prod=False, self_join=ent_kw["self_join"])
     pkw = dict(key_prod=False, cutoff=cutoff)
@@ -725,16 +941,60 @@ def phase_postings_kernels(seed: int, skewed_prep) -> list[dict]:
         f"bound {b_e[0]:.4f} ms by {b_e[1]}); pair_verdict_tiled {ms_t:.4f} ms, "
         f"pair_verdict {ms_w:.4f} ms (plain {plain_p:.3f} ms, bound {b_p[0]:.4f} ms "
         f"by {b_p[1]})")
+
+    stage = {}
+    for tau, (_, st, forms, _) in chunks.items():
+        stage[tau] = time_stage(forms, 20 if tau >= 0.8 else 5)
+        for name, t in stage[tau].items():
+            log(f"timing at the first SKEWED tau={tau} chunk (cap {st['cap']}), device time "
+                f"in turns (kernel, unfused composition, composition, kernel): {name} "
+                f"{t['ms_turns'][0]:.4f} / {t['ms_turns'][1]:.4f} ms, the unfused "
+                f"composition {t['unfused_ms_turns'][0]:.4f} / {t['unfused_ms_turns'][1]:.4f} "
+                f"ms; plain {t['plain_ms']:.3f} ms; bound {t['bound'][0]:.5f} ms by "
+                f"{t['bound'][1]} ({t['bound'][0] / min(t['ms_turns']):.1%} of it)")
+
+    # The wrappers' host cost per call: the ctypes entry looked up once per
+    # library, and looked up afresh on every call (the lookup's own cost).
+    forms = chunks[SKEWED_TAUS[0]][2]
+    calls = {"entry_filter": lambda: postings.entry_filter_cuda(*ents, valid, table, **ekw),
+             "pair_verdict_tiled": lambda: postings.pair_verdict_tiled_cuda(
+                 wr, ws, lr, ls, table, **pkw),
+             "expand_filter": forms.expand, "verdict_verify": forms.verdict}
+    host = {}
+    for name, fn in calls.items():
+        fresh = lambda fn=fn: (_build._functions.clear(), fn())  # noqa: E731
+        host[name] = {"cached": host_us(fn), "fresh_lookup": host_us(fresh),
+                      "cached_again": host_us(fn)}
+    log(f"wrapper host cost, microseconds a call (entry looked up once per library / "
+        f"afresh each call / once again): {json.dumps(host)}")
+
     src = "src/repro_torch/kernels/csrc/postings.cu"
-    return [
+    old_path = ("full size, indexed, impl='swar_tiled' (the unfused composition): SKEWED "
+                "tau=0.8 + 0.6 self-joins")
+    new_path = "full size, indexed: SKEWED tau=0.8 + 0.6, self-joins and probes"
+    rows = [
         kernel_row("entry_filter", src, "src/repro/kernels/postings.py:89", err=err_e,
-                   ms=ms_e, plain_ms=plain_e, bound=b_e, path="full size, indexed: SKEWED tau=0.8 + 0.6, self-joins and probes"),
+                   ms=ms_e, plain_ms=plain_e, bound=b_e, path=old_path)
+        | {"host_us": host["entry_filter"]},
         kernel_row("pair_verdict_tiled", src, "src/repro/kernels/postings.py:220",
-                   err=err_t, ms=ms_t, plain_ms=plain_p, bound=b_p, path="full size, indexed: SKEWED tau=0.8 + 0.6, self-joins and probes"),
+                   err=err_t, ms=ms_t, plain_ms=plain_p, bound=b_p, path=old_path)
+        | {"host_us": host["pair_verdict_tiled"]},
         kernel_row("pair_verdict", src, "src/repro/kernels/postings.py:169", err=err_w,
                    ms=ms_w, plain_ms=plain_p, bound=b_p,
                    path="off the main paths: indexed join, impl='swar', 10,200 SKEWED sets"),
     ]
+    for name, replaces in (("expand_filter", "src/repro/kernels/postings.py:89"),
+                           ("verdict_verify", "src/repro/kernels/postings.py:220")):
+        t = stage[SKEWED_TAUS[0]][name]
+        err = max(chunk[3][name] for chunk in chunks.values())
+        rows.append(kernel_row(name, src, replaces, err=err, ms=t["ms_turns"][0],
+                               plain_ms=t["plain_ms"], bound=t["bound"], path=new_path)
+                    | {"ms_turns": t["ms_turns"], "unfused_ms_turns": t["unfused_ms_turns"],
+                       "host_us": host[name],
+                       "at_tau0.6": {k: v for k, v in stage[SKEWED_TAUS[1]][name].items()
+                                     if k != "bound"}
+                       | {"bound_ms": stage[SKEWED_TAUS[1]][name]["bound"][0]}})
+    return rows
 
 
 def _join(prep, tau, compaction):
@@ -771,7 +1031,11 @@ def phase_slice(zipf_col, skewed_col) -> dict:
     ``count_candidates`` (the blocked join under ``impl="swar"``),
     ``hamming_matrix`` and ``bitplane_hamming`` (``ops.hamming_matrix``
     over the ZIPF collection's words at b = 128 and, under
-    ``impl="mxu"``, at b = 1024).  Returns their launches."""
+    ``impl="mxu"``, at b = 1024), ``pair_verdict_bitplane`` (the indexed
+    join at b = 1024 under ``impl="mxu"``).  The indexed join runs under
+    ``auto`` (the stage kernels), ``swar``, ``swar_tiled`` (the unfused
+    composition at b = 128) and a forced small capacity: pairs and counters
+    equal the CPU join's.  Returns the launches."""
     from repro_torch.core import engine, join
     from repro_torch.core.collection import Collection
     from repro_torch.index import indexed_bitmap_join
@@ -830,16 +1094,28 @@ def phase_slice(zipf_col, skewed_col) -> dict:
     blocked = join.blocked_bitmap_join(skewed_col, **kw, device="cuda")[0]
     if not np.array_equal(cpu[0], blocked):
         raise AssertionError(f"indexed {len(cpu[0])} pairs vs blocked {len(blocked)}")
-    for impl, capacity in (("auto", None), ("swar", None), ("auto", 4096)):
+    stage = LaunchCounts(expand_filter=postings.expand_filter_cuda,
+                         verdict_verify=postings.verdict_verify_cuda,
+                         entry_filter=postings.entry_filter_cuda,
+                         pair_verdict_tiled=postings.pair_verdict_tiled_cuda)
+    for impl, capacity in (("auto", None), ("swar", None), ("swar_tiled", None),
+                           ("auto", 4096)):
         postings.pair_verdict_cuda.launches = 0
+        stage.zero()
         t0 = time.perf_counter()
         gpu = indexed_bitmap_join(skewed_col, device="cuda", impl=impl, capacity=capacity,
                                   **ikw)
         t1 = time.perf_counter()
+        ran = stage.read()
         if impl == "swar":
             launches["pair_verdict"] = postings.pair_verdict_cuda.launches
             if launches["pair_verdict"] <= 0:
                 raise AssertionError("the impl='swar' indexed join never launched pair_verdict")
+        fused = min(ran["expand_filter"], ran["verdict_verify"]) > 0
+        if capacity is None and (fused != (impl == "auto")
+                                 or (impl == "auto") == (ran["entry_filter"] > 0)):
+            raise AssertionError(f"impl={impl}: the stage kernels run under 'auto' only, "
+                                 f"the unfused path's kernels otherwise: {ran}")
         want = cpu
         if capacity is not None:
             want = indexed_bitmap_join(skewed_col, device="cpu", capacity=capacity, **ikw)
@@ -848,7 +1124,23 @@ def phase_slice(zipf_col, skewed_col) -> dict:
         _same(gpu, want, f"card vs CPU indexed join, impl={impl} capacity={capacity}")
         log(f"slice parity, indexed, {skewed_col.num_sets} SKEWED sets, impl={impl} "
             f"capacity={capacity}: card {t1 - t0:.2f} s, {len(gpu[0])} pairs (= blocked), "
-            f"identical; stats {json.dumps(gpu[1].to_dict())}")
+            f"identical; stats {json.dumps(gpu[1].to_dict())}; stage launches "
+            f"{json.dumps(ran)}")
+    # The bit-plane pairwise verdict, off the serving path since the stage
+    # kernels: the indexed join at b = 1024 under impl='mxu'.
+    wide = dict(ikw, b=WIDE_B)
+    postings.pair_verdict_bitplane_cuda.launches = 0
+    gpu = indexed_bitmap_join(skewed_col, device="cuda", impl="mxu", **wide)
+    launches["pair_verdict_bitplane"] = postings.pair_verdict_bitplane_cuda.launches
+    if launches["pair_verdict_bitplane"] <= 0:
+        raise AssertionError("the impl='mxu' indexed join never launched pair_verdict_bitplane")
+    _same(gpu, indexed_bitmap_join(skewed_col, device="cpu", **wide),
+          f"card (impl='mxu') vs CPU indexed join at b={WIDE_B}")
+    _same(gpu, indexed_bitmap_join(skewed_col, device="cuda", **wide),
+          f"impl='mxu' vs 'auto' indexed join at b={WIDE_B}")
+    log(f"pair_verdict_bitplane path: the indexed join at b={WIDE_B} under impl='mxu' over "
+        f"{skewed_col.num_sets} SKEWED sets, identical to the CPU join and to 'auto'; "
+        f"launches {launches['pair_verdict_bitplane']}")
     return launches
 
 
@@ -955,8 +1247,10 @@ def mixed_delta(col, fresh, seed: int):
 
 def phase_full_indexed(seed: int, skewed, batches) -> dict:
     """The indexed path: SKEWED tau = 0.8 and 0.6 through JoinEngine with
-    auto plans — cold and warm self-joins, then the probe batches."""
+    auto plans — cold and warm self-joins, then the probe batches — and the
+    same self-joins under the unfused composition (``impl="swar_tiled"``)."""
     from repro_torch.core import engine, join
+    from repro_torch.index import candidates
     from repro_torch.kernels import bitmap_filter, compaction, postings
 
     engines = {tau: engine.JoinEngine(skewed, MAIN["sim"], tau, device="cuda")
@@ -968,8 +1262,10 @@ def phase_full_indexed(seed: int, skewed, batches) -> dict:
         f"{skewed.max_len}; auto plans {[e.plan.driver for e in engines.values()]}, "
         f"b={MAIN['b']}, probe block {engines[0.8].plan.block}")
 
-    counters = (postings.entry_filter_cuda, postings.pair_verdict_tiled_cuda,
-                postings.pair_verdict_cuda, bitmap_filter.hamming_matrix_cuda,
+    counters = (postings.expand_filter_cuda, postings.verdict_verify_cuda,
+                postings.entry_filter_cuda, postings.pair_verdict_tiled_cuda,
+                postings.pair_verdict_cuda, postings.pair_verdict_bitplane_cuda,
+                bitmap_filter.hamming_matrix_cuda,
                 bitmap_filter.candidate_matrix_cuda, compaction.count_candidates_cuda,
                 bitmap_filter.candidate_matrix_mxu_cuda, compaction.count_candidates_mxu_cuda)
     # The path: counters zeroed just before, read just after.
@@ -981,21 +1277,42 @@ def phase_full_indexed(seed: int, skewed, batches) -> dict:
         warm_out, warm = _timed(lambda: eng.self_join(return_stats=True))
         probes = [_timed(lambda: eng.probe(b)) for b in batches]
         results[tau] = (cold_out, warm_out, cold, warm, probes)
-    launches = {"entry_filter": postings.entry_filter_cuda.launches,
-                "pair_verdict_tiled": postings.pair_verdict_tiled_cuda.launches}
-    log(f"indexed path launches: {json.dumps(launches)}; not on it: pair_verdict "
-        f"{postings.pair_verdict_cuda.launches}, hamming_matrix "
-        f"{bitmap_filter.hamming_matrix_cuda.launches}, candidate_matrix (dense "
-        f"fallback) {bitmap_filter.candidate_matrix_cuda.launches} / mxu "
-        f"{bitmap_filter.candidate_matrix_mxu_cuda.launches}, count_candidates "
-        f"{compaction.count_candidates_cuda.launches} / mxu "
-        f"{compaction.count_candidates_mxu_cuda.launches}")
-    if min(launches["entry_filter"], launches["pair_verdict_tiled"]) <= 0:
-        raise AssertionError(f"a kernel of the indexed path never launched: {launches}")
+    launches = {"expand_filter": postings.expand_filter_cuda.launches,
+                "verdict_verify": postings.verdict_verify_cuda.launches}
+    idle = {f.__name__.removesuffix("_cuda"): f.launches for f in counters[2:]}
+    log(f"indexed path launches: {json.dumps(launches)}; not on it: {json.dumps(idle)}")
+    if min(launches.values()) <= 0 or max(idle.values()) != 0:
+        raise AssertionError(f"the indexed path must launch the stage kernels and no other "
+                             f"postings or dense kernel: {launches} {idle}")
+
+    # The unfused composition (the PyTorch ops around entry_filter and
+    # pair_verdict_tiled, impl='swar_tiled'): the same self-joins, the same
+    # pairs and counters; the unfused path's kernels' launches come from here.
+    old = LaunchCounts(entry_filter=postings.entry_filter_cuda,
+                       pair_verdict_tiled=postings.pair_verdict_tiled_cuda,
+                       expand_filter=postings.expand_filter_cuda,
+                       verdict_verify=postings.verdict_verify_cuda)
+    old.zero()
+    unfused = {}
+    for tau, eng in engines.items():
+        p = eng.plan
+        unfused[tau] = _timed(lambda: candidates.indexed_join_prepared(
+            eng.prepared, sim=MAIN["sim"], tau=tau, b=p.b, method=p.method, mix=p.mix,
+            ell=p.ell, probe_block=p.block, impl="swar_tiled", use_cutoff=p.use_cutoff,
+            capacity=p.capacity, return_stats=True))
+    ran = old.read()
+    log(f"the unfused composition (impl='swar_tiled') launches: {json.dumps(ran)}")
+    if (min(ran["entry_filter"], ran["pair_verdict_tiled"]) <= 0
+            or ran["expand_filter"] or ran["verdict_verify"]):
+        raise AssertionError(f"impl='swar_tiled' must run the unfused path's kernels only: {ran}")
+    launches.update(entry_filter=ran["entry_filter"],
+                    pair_verdict_tiled=ran["pair_verdict_tiled"])
 
     for tau, eng in engines.items():
         (pairs, stats), warm_out, cold, warm, probes = results[tau]
         _same((pairs, stats), warm_out, f"SKEWED tau={tau} cold vs warm")
+        _same((pairs, stats), unfused[tau][0], f"SKEWED tau={tau} stage kernels vs the "
+                                              f"unfused composition")
         (bp, bstats), blocked_s = _timed(lambda: join.blocked_bitmap_join_prepared(
             eng.prepared, sim=MAIN["sim"], tau=tau, b=MAIN["b"], block=MAIN["block"],
             compaction="device", return_stats=True))
@@ -1006,7 +1323,8 @@ def phase_full_indexed(seed: int, skewed, batches) -> dict:
             raise AssertionError(f"SKEWED tau={tau} found {stats.verified_true} < 2000 "
                                  f"planted pairs")
         log(f"SKEWED tau={tau} self-join: indexed cold {cold:.3f} s (incl. postings and "
-            f"bitmap build), warm {warm:.3f} s; blocked {blocked_s:.3f} s, same "
+            f"bitmap build), warm {warm:.3f} s, the unfused composition (warm) "
+            f"{unfused[tau][1]:.3f} s, same pairs and counters; blocked {blocked_s:.3f} s, same "
             f"{len(pairs)} pairs; postings_expanded {stats.postings_expanded}, "
             f"candidates_generated {stats.candidates_generated} (blocked window pairs "
             f"{bstats.total_pairs}); stats {json.dumps(stats.to_dict())}")
@@ -1204,12 +1522,12 @@ def serve_requests(col, seed: int, n: int):
 
 def phase_serve(seed: int, skewed) -> tuple[dict, tuple]:
     """Serving at b = 1024 over a store: returns the path's launches and the
-    operands of the first coalesced batch's pairwise verdict."""
+    operands of the first coalesced batch's ``verdict_verify``."""
     from repro_torch.core import engine, join
     from repro_torch.core.collection import Collection
     from repro_torch.core.plan import JoinPlanner
     from repro_torch.data.collections import skewed_collection
-    from repro_torch.kernels import bitmap_filter, bitplane, ops, postings
+    from repro_torch.kernels import bitmap_filter, bitplane, postings
     from repro_torch.serve import JoinSession
     from repro_torch.store import CompactionPolicy, CorpusStore
 
@@ -1228,9 +1546,10 @@ def phase_serve(seed: int, skewed) -> tuple[dict, tuple]:
     # Warm-up: the bucket ladder calibrated on the traffic's own groups.
     built = sum(sess.warm_buckets(requests[k:k + fe])
                 for k in range(0, SERVE["requests"], fe))
-    # The operands of the first coalesced batch's verdict (a throwaway flush).
+    # The operands of the first coalesced batch's verdict and verification
+    # (a throwaway flush).
     calls = []
-    with capture_calls(ops, "pair_verdict", calls):
+    with capture_calls(postings, "verdict_verify_cuda", calls):
         for r in requests[:fe]:
             sess.submit(r)
         sess.flush()
@@ -1240,7 +1559,9 @@ def phase_serve(seed: int, skewed) -> tuple[dict, tuple]:
         f"b={store.plan.b} block={store.plan.block}; max_batch {sess.coalescer.max_batch}; "
         f"set-up and warm-up {warm_s:.1f} s ({built} entrypoints built)")
 
-    counts = LaunchCounts(pair_verdict_bitplane=postings.pair_verdict_bitplane_cuda,
+    counts = LaunchCounts(expand_filter=postings.expand_filter_cuda,
+                          verdict_verify=postings.verdict_verify_cuda,
+                          pair_verdict_bitplane=postings.pair_verdict_bitplane_cuda,
                           entry_filter=postings.entry_filter_cuda,
                           pair_verdict_tiled=postings.pair_verdict_tiled_cuda,
                           candidate_matrix=bitmap_filter.candidate_matrix_cuda,
@@ -1287,10 +1608,11 @@ def phase_serve(seed: int, skewed) -> tuple[dict, tuple]:
     launches = {k: v - oracle_launches[k] for k, v in counts.read().items()}
     log(f"serving path launches: {json.dumps(launches)} (solo-probe checks took out: "
         f"{json.dumps(oracle_launches)})")
-    if (launches["pair_verdict_bitplane"] <= 0 or launches["pair_verdict_tiled"] != 0
-            or launches["candidate_matrix"] != 0):
-        raise AssertionError(f"at b={WIDE_B} serving must run pair_verdict_bitplane and "
-                             f"neither packed-word verdict: {launches}")
+    if (min(launches["expand_filter"], launches["verdict_verify"]) <= 0
+            or any(launches[k] for k in ("pair_verdict_bitplane", "entry_filter",
+                                         "pair_verdict_tiled", "candidate_matrix"))):
+        raise AssertionError(f"at b={WIDE_B} serving must run the stage kernels and none of "
+                             f"the unfused path's pairwise kernels: {launches}")
     if builds_traffic:
         raise AssertionError(f"{builds_traffic} entrypoints built after warm-up")
 
@@ -1400,9 +1722,11 @@ def phase_wide_verdict_timing(store_ops) -> dict:
             "count_candidates_mxu": row(count_t, plain_n, b_n)}
 
 
-def phase_bitplane_timing(store_words, serve_call) -> list[dict]:
-    """Both bit-plane kernels timed at their paths' shapes beside their
-    plain versions, bounds and a PyTorch yardstick."""
+def phase_bitplane_timing(store_words, serve_call) -> tuple[list[dict], dict]:
+    """Both bit-plane kernels timed at their shapes beside their plain
+    versions, bounds and a PyTorch yardstick; and ``verdict_verify`` at the
+    first coalesced serving batch, in turns with the unfused composition
+    (returned beside the rows)."""
     from repro_torch.core import bounds
     from repro_torch.core.constants import COSINE
     from repro_torch.kernels import bitmap_filter, bitplane, ops, postings, ref
@@ -1442,9 +1766,15 @@ def phase_bitplane_timing(store_words, serve_call) -> list[dict]:
         log(f"note: bitplane_hamming ({ms_h:.4f} / {ms_h2:.4f} ms) is slower than the "
             f"torch._int_mm product alone ({mm_h:.4f} / {mm_h2:.4f} ms) in this run")
 
-    (words_r, words_s, len_r, len_s), kw = serve_call
-    sim, cutoff, table = kw["sim"], kw["cutoff"], kw["table"]
-    len_r, len_s = len_r.to(torch.int32).contiguous(), len_s.to(torch.int32).contiguous()
+    # The first coalesced batch's candidates (the operands its
+    # verdict_verify took), gathered as the unfused composition gathers them
+    # for the pairwise verdict.
+    vargs, kw = serve_call
+    tokens_r, lengths_r, store_r, ptok, plen, pwords, cand_r, cand_s, slot_ok, table, need = vargs
+    sim, cutoff = ("cosine" if kw["key_prod"] else "jaccard"), kw["cutoff"]
+    safe_r, safe_s = torch.where(slot_ok, cand_r, 0), torch.where(slot_ok, cand_s, 0)
+    words_r, words_s = store_r[safe_r], pwords[safe_s]
+    len_r, len_s = lengths_r[safe_r], plen[safe_s]
     (qr, qc_r), (qs, qc_s) = ops._planes(words_r), ops._planes(words_s)
     vkw = dict(key_prod=sim == COSINE, cutoff=cutoff)
     got_v = postings.pair_verdict_bitplane_cuda(qr, qs, qc_r, qc_s, len_r, len_s, table, **vkw)
@@ -1452,7 +1782,7 @@ def phase_bitplane_timing(store_words, serve_call) -> list[dict]:
         ref.bitplane_pair_hamming_ref(qr, qs, qc_r, qc_s), len_r, len_s, table, sim=sim,
         cutoff=cutoff)
     tiled = lambda: postings.pair_verdict_tiled_cuda(  # noqa: E731
-        words_r.contiguous(), words_s.contiguous(), len_r, len_s, table, **vkw)
+        words_r, words_s, len_r, len_s, table, **vkw)
     err_v = max(max_err(got_v, plain_v_fn()), max_err(got_v, tiled()))
     if err_v:
         raise AssertionError(f"pair_verdict_bitplane at the first batch: error {err_v}")
@@ -1466,12 +1796,33 @@ def phase_bitplane_timing(store_words, serve_call) -> list[dict]:
     b_v = bound_ms(g * (2 * b + 4 * 4 + 1) + tab_bytes, g * (2 * b + VERDICT_OPS))
     b_t = bound_ms(g * (2 * (b // 32) * 4 + 2 * 4 + 1) + tab_bytes,
                    g * (3 * (b // 32) + VERDICT_OPS))
-    log(f"timing at the first coalesced batch (G={g} candidates, b={b}): "
+    log(f"timing at the first coalesced batch (G={g} candidate slots, b={b}): "
         f"pair_verdict_bitplane {ms_v:.4f} ms (plain {plain_v:.3f} ms, bound {b_v[0]:.4f} ms "
         f"by {b_v[1]}; {2 * b + 17} bytes a candidate) against the packed-word "
         f"pair_verdict_tiled {ms_t:.4f} ms (bound {b_t[0]:.4f} ms; {8 * (b // 32) + 9} bytes "
         f"a candidate); unpacking both sides into planes {ms_unpack:.4f} ms; "
         f"{int(got_v.sum())} pass, exact")
+
+    # verdict_verify at the same batch, in turns with the unfused
+    # composition at b = 1024 (impl='mxu': gathers, unpack, the bit-plane
+    # verdict, the (cap, L) token gathers and the overlap search).
+    vv_args = (tokens_r, lengths_r, store_r, ptok, plen, pwords, cand_r, cand_s, slot_ok, need)
+    vv_kw = dict(sim=sim, tau=SKEWED_TAUS[0], cutoff=cutoff, table=table)
+    fused = lambda: postings.verdict_verify_cuda(*vargs, **kw)  # noqa: E731
+    unfused = lambda: ops.verdict_verify(*vv_args, **vv_kw, impl="mxu")  # noqa: E731
+    want = ref.verdict_verify_ref(*vv_args, **vv_kw)
+    err_f = max(max_err(a, b) for got in (fused(), unfused()) for a, b in zip(got, want))
+    if err_f:
+        raise AssertionError(f"verdict_verify at the first coalesced batch: error {err_f}")
+    turns = in_turns({"kernel": fused, "unfused": unfused}, 20)
+    n_gen, n_bm = int(slot_ok.sum()), int(want[0].sum())
+    log(f"timing at the first coalesced batch (cap {g}, {n_gen} candidates, {n_bm} bitmap "
+        f"survivors, {int(want[1].sum())} verified, b={b}), device time in turns: "
+        f"verdict_verify {turns['kernel'][0]:.4f} / {turns['kernel'][1]:.4f} ms, the "
+        f"unfused composition (impl='mxu') {turns['unfused'][0]:.4f} / "
+        f"{turns['unfused'][1]:.4f} ms; exact")
+    serve_turns = {"ms_turns": turns["kernel"], "unfused_ms_turns": turns["unfused"],
+                   "cap": g, "generated": n_gen, "bitmap": n_bm}
     src = "src/repro_torch/kernels/csrc/"
     return [
         kernel_row("bitplane_hamming", src + "bitplane.cu",
@@ -1482,8 +1833,10 @@ def phase_bitplane_timing(store_words, serve_call) -> list[dict]:
         | {"library_product_ms": mm_h, "call_ms": call_h},
         kernel_row("pair_verdict_bitplane", src + "postings.cu",
                    "src/repro/kernels/postings.py:271", err=err_v, ms=ms_v, plain_ms=plain_v,
-                   bound=b_v, path=f"full size, serving at b={WIDE_B}: SKEWED tau=0.8"),
-    ]
+                   bound=b_v, path=f"off the main paths: indexed join, impl='mxu', "
+                                   f"b={WIDE_B}, 10,200 SKEWED sets; timed at the first "
+                                   f"coalesced serving batch"),
+    ], serve_turns
 
 
 def flash_close(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
@@ -2015,15 +2368,18 @@ def main(argv=None) -> int:
     launches.update(phase_full_blocked(args.seed, zipf))
     launches.update(phase_full_indexed(args.seed, skewed, batches))
     store_launches, store_ops = phase_store(args.seed, zipf)
-    serve_launches, serve_call = phase_serve(args.seed, skewed)
+    _, serve_call = phase_serve(args.seed, skewed)
     for name, n in store_launches.items():   # the tensor-core verdicts: b = 128 and 1024
         launches[name] += n
-    launches["pair_verdict_bitplane"] = serve_launches["pair_verdict_bitplane"]
     wide = phase_wide_verdict_timing(store_ops)
     for k in kernels:
         if k["name"] in wide:
             k[f"at_b{WIDE_B}"] = wide[k["name"]]
-    kernels += phase_bitplane_timing(store_ops[0], serve_call)
+    rows, serve_turns = phase_bitplane_timing(store_ops[0], serve_call)
+    kernels += rows
+    for k in kernels:
+        if k["name"] == "verdict_verify":
+            k[f"at_serve_b{WIDE_B}"] = serve_turns
     # The LM phases need the card's memory: release the join phases' tensors.
     del store_ops, serve_call
     gc.collect()

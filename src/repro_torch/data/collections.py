@@ -8,6 +8,11 @@ uniform / Zipf token draws.
 ``with_duplicates`` plants near-duplicate clusters with a controlled Jaccard
 level — used by the join tests and ``chip_smoke.py`` (ground truth
 guaranteed to be non-empty).
+
+``near_duplicate_lists`` and ``shared_token_lists`` are the port's own (no
+counterpart in the JAX package): the small inputs on which the indexed
+driver's stage kernels are held against their plain versions, by the card
+tests and ``chip_smoke.py`` alike.
 """
 
 from __future__ import annotations
@@ -94,3 +99,29 @@ def with_duplicates(
                      for _ in range(n - keep)]
             rows.append(sorted(set(kept + extra)))
     return preprocess(from_lists(rows))
+
+
+def near_duplicate_lists(n: int, seed: int, universe: int = 110) -> list[list[int]]:
+    """``n`` sets of 2 to 12 tokens, each a copy of one of ``n // 4`` random
+    bases with, half of the time, one token dropped; then one empty set.  A
+    probe chunk of these expands, generates, passes the bitmap and verifies
+    at every similarity and threshold."""
+    rng = np.random.default_rng(seed)
+    base = [rng.choice(universe, size=rng.integers(2, 13), replace=False).tolist()
+            for _ in range(max(n // 4, 1))]
+    sets = []
+    for _ in range(n):
+        src = list(base[int(rng.integers(len(base)))])
+        if len(src) > 2 and rng.random() < 0.5:
+            src.pop(int(rng.integers(len(src))))
+        sets.append(src)
+    return sets + [[]]
+
+
+def shared_token_lists(n: int = 1500, seed: int = 31) -> list[list[int]]:
+    """``n`` sets of 4 to 9 tokens that all hold token 0, so a probe's
+    prefix position on token 0 expands into one segment of about ``n``
+    postings, longer than a stage kernel's block."""
+    rng = np.random.default_rng(seed)
+    return [[0] + rng.choice(np.arange(1, 60), size=int(rng.integers(3, 9)),
+                             replace=False).tolist() for _ in range(n)]

@@ -8,17 +8,22 @@ Per probe chunk of S:
    (:mod:`repro_torch.index.postings`) and expand the matching, length-window
    narrowed lists into a flat entry stream, sized by a host count prepass.
 2. **Filter** — admit entries through the length window, the positional
-   bound and the self-join triangle (:func:`repro_torch.kernels.ops.entry_filter`,
-   a CUDA kernel on the card).
+   bound and the self-join triangle.
 3. **Deduplicate** — sort the surviving ``(probe, set)`` keys and keep the
    unique ones, compacted into a fixed ``cap``-slot candidate buffer.
-4. **Verify** — the pairwise bitmap verdict
-   (:func:`repro_torch.kernels.ops.pair_verdict`, a CUDA kernel), exact
-   integer verification, and compaction down to the verified pairs.
+4. **Verify** — the pairwise bitmap verdict, exact integer verification,
+   and compaction down to the verified pairs.
 
 The stages are the three functions :func:`expand_and_filter`,
 :func:`dedup_pairs` and :func:`verdict_and_verify`, with the reference's
-signatures; :func:`_indexed_chunk_step` composes them.  Buffers keep the
+signatures; :func:`_indexed_chunk_step` composes them.  On the card under
+``impl="auto"``, steps 1–2 after the window lookups are one kernel
+(:func:`repro_torch.kernels.ops.expand_filter`), and so is step 4 before its
+compaction (:func:`repro_torch.kernels.ops.verdict_verify`), which reads the
+candidates' words where they lie and verifies only the bitmap's survivors;
+an explicit kernel impl runs the PyTorch compositions around the
+``entry_filter`` and ``pair_verdict`` kernels instead, and CPU tensors the
+plain versions.  Buffers keep the
 reference's fixed ``cap`` shapes, so every counter matches it, and the host
 reads back once per chunk: the four counts, then the verified pairs.  Every
 gather index is clipped or masked as in the reference: on the card an index
@@ -54,8 +59,6 @@ _INT32_MAX = int(np.iinfo(np.int32).max)
 # int64) expansion count exceeds it escalates to the dense fallback instead
 # of allocating multi-GiB device buffers (or wrapping int32 on device).
 _MAX_AUTO_CAPACITY = 1 << 26
-# Rows of the (cap, L) token gathers that exact verification holds at once.
-_VERIFY_ROWS = 1 << 22
 
 
 def _windowed_ranges(vocab, vocab_tid, post_key, probe_tokens, probe_prefix,
@@ -84,6 +87,29 @@ def _windowed_ranges(vocab, vocab_tid, post_key, probe_tokens, probe_prefix,
     return a.to(torch.int32), cnt.to(torch.int32)
 
 
+def expansion_segments(vocab, vocab_tid, post_key, probe_tokens, probe_prefix,
+                       lo_r, hi_r, lp: int, scale: int):
+    """Stage 1's segments, one per (probe, prefix position) ``k = s_loc *
+    lp + pos``: ``(rng_flat, cnt, seg_end)``, int32[C * lp] each, the
+    window-narrowed CSR start and count and the counts' inclusive prefix
+    sum (``seg_end[-1]`` is the chunk's expansion)."""
+    rng_start, cnt2d = _windowed_ranges(vocab, vocab_tid, post_key, probe_tokens,
+                                        probe_prefix, lo_r, hi_r, lp, scale)
+    cnt = cnt2d.reshape(-1)
+    return rng_start.reshape(-1), cnt, torch.cumsum(cnt, 0, dtype=torch.int32)
+
+
+def expand_filter_operands(args, statics) -> tuple:
+    """The positional operands of :func:`repro_torch.kernels.ops.expand_filter`
+    (and of its kernel and plain version) from a chunk step's ``args`` and
+    ``statics`` (:func:`chunk_step_spec`)."""
+    (_, _, _, vocab, vocab_tid, post_set, post_pos, post_len, post_key, ptok, plen, _,
+     ppre, lo, hi, _, s0) = args
+    return (*expansion_segments(vocab, vocab_tid, post_key, ptok, ppre, lo, hi,
+                                statics["lp"], statics["scale"]),
+            post_set, post_pos, post_len, plen, lo, hi, s0)
+
+
 def _expansion_count_host(post, tokens_np, ps_np, lo_np, hi_np,
                           lp: int, scale: int) -> int:
     """Count prepass on host numpy (int64-exact): the window-surviving
@@ -110,36 +136,14 @@ def expand_and_filter(
     streams (pruned slots hold ``INT32_MAX``) ready for :func:`dedup_pairs`,
     plus the exact expansion count (an int32 device scalar).
     """
-    dev = probe_tokens.device
-    c = probe_tokens.shape[0]
-
     # -- expand: window-narrowed CSR lookups per (probe, prefix position) --
-    rng_start, cnt2d = _windowed_ranges(
-        vocab, vocab_tid, post_key, probe_tokens, probe_prefix, lo_r, hi_r,
-        lp, scale)
-    rng_flat = rng_start.reshape(-1)
-    cnt = cnt2d.reshape(-1)
-    seg_end = torch.cumsum(cnt, 0, dtype=torch.int32)
+    rng_flat, cnt, seg_end = expansion_segments(
+        vocab, vocab_tid, post_key, probe_tokens, probe_prefix, lo_r, hi_r, lp, scale)
     n_expanded = seg_end[-1]
 
-    g = torch.arange(cap, dtype=torch.int32, device=dev)
-    k = torch.searchsorted(seg_end, g, right=True).clamp_(0, c * lp - 1)
-    in_range = g < n_expanded
-    within = g - (seg_end[k] - cnt[k])
-    pidx = (rng_flat[k] + within).clamp_(0, post_set.shape[0] - 1)
-    r_idx = post_set[pidx]
-    s_loc = torch.div(k, lp, rounding_mode="floor").to(torch.int32)
-
-    # -- filter: length window + positional bound + triangle ---------------
-    keep = kops.entry_filter(
-        post_len[pidx], post_pos[pidx],
-        probe_lengths[s_loc], (k % lp).to(torch.int32),
-        lo_r[s_loc], hi_r[s_loc],
-        r_idx, s0 + s_loc, in_range,
-        sim=sim, tau=tau, self_join=self_join, impl=impl, table=table)
-
-    rr = torch.where(keep, r_idx, _INT32_MAX)
-    ss = torch.where(keep, s_loc, _INT32_MAX)
+    rr, ss = kops.expand_filter(
+        rng_flat, cnt, seg_end, post_set, post_pos, post_len, probe_lengths, lo_r, hi_r,
+        s0, sim=sim, tau=tau, cap=cap, lp=lp, self_join=self_join, impl=impl, table=table)
     return rr, ss, n_expanded
 
 
@@ -168,21 +172,6 @@ def dedup_pairs(rr, ss, cap: int):
     return cand_r, cand_s, n_generated
 
 
-def _overlap_gathered(tokens_r, safe_r, probe_tokens, safe_s) -> torch.Tensor:
-    """int32[cap] exact overlaps of ``tokens_r[safe_r]`` and
-    ``probe_tokens[safe_s]``, gathered ``_VERIFY_ROWS`` rows at a time so
-    the (cap, L) token gathers never all sit in memory together."""
-    cap = safe_r.shape[0]
-    if cap <= _VERIFY_ROWS:
-        return verify.pairwise_overlap(tokens_r[safe_r], probe_tokens[safe_s])
-    out = torch.empty(cap, dtype=torch.int32, device=safe_r.device)
-    for a in range(0, cap, _VERIFY_ROWS):
-        b = min(a + _VERIFY_ROWS, cap)
-        out[a:b] = verify.pairwise_overlap(tokens_r[safe_r[a:b]],
-                                           probe_tokens[safe_s[a:b]])
-    return out
-
-
 def verdict_and_verify(
     tokens_r, lengths_r, words_r, probe_tokens, probe_lengths, probe_words,
     cand_r, cand_s, slot_ok, need_tab, s0,
@@ -197,23 +186,15 @@ def verdict_and_verify(
     bitmap-survivor and verified masks (``bool[cap]`` each).
     """
     cap = cand_r.shape[0]
-    safe_r = torch.where(slot_ok, cand_r, 0)
-    safe_s = torch.where(slot_ok, cand_s, 0)
-    bm_pass = kops.pair_verdict(
-        words_r[safe_r], probe_words[safe_s],
-        lengths_r[safe_r], probe_lengths[safe_s],
-        sim=sim, tau=tau, cutoff=cutoff, impl=impl, table=table)
-    cand_mask = slot_ok & bm_pass
+    cand_mask, ok = kops.verdict_verify(
+        tokens_r, lengths_r, words_r, probe_tokens, probe_lengths, probe_words,
+        cand_r, cand_s, slot_ok, need_tab, sim=sim, tau=tau, cutoff=cutoff, impl=impl,
+        table=table)
     n_bitmap = cand_mask.sum(dtype=torch.int32)
-    o = _overlap_gathered(tokens_r, safe_r, probe_tokens, safe_s)
-    # Integer-exact acceptance (min_overlap_table), identical to the f64
-    # oracle; the prune table only ever prunes.
-    need = bounds.min_overlap_gather(sim, need_tab, lengths_r[safe_r],
-                                     probe_lengths[safe_s])
-    ok = cand_mask & (o >= need)
     n_verified = ok.sum(dtype=torch.int32)
     vi = _nonzero_capped(ok, cap)[:, 0]
-    pairs = torch.stack([safe_r[vi], safe_s[vi] + s0], dim=1)
+    pairs = torch.stack([torch.where(slot_ok[vi], cand_r[vi], 0),
+                         torch.where(slot_ok[vi], cand_s[vi], 0) + s0], dim=1)
     if return_masks:
         return pairs, n_bitmap, n_verified, cand_mask, ok
     return pairs, n_bitmap, n_verified

@@ -28,6 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+# (source, symbol) -> (the library it was looked up in, the typed function).
+_functions: dict[tuple[str, str], tuple[ctypes.CDLL, object]] = {}
 # Wall seconds of each source's nvcc in this process's builds.
 BUILD_SECONDS: dict[str, float] = {}
 
@@ -95,3 +97,18 @@ def library(name: str) -> ctypes.CDLL:
             path = build((name,))[name]
             _loaded[name] = ctypes.CDLL(str(path))
         return _loaded[name]
+
+
+def function(name: str, symbol: str, argtypes):
+    """The C entry point ``symbol`` of ``csrc/<name>.cu`` with its argument
+    types set and an int result, looked up once per loaded library: a
+    wrapper's per-call host work is then the call itself."""
+    lib = library(name)
+    hit = _functions.get((name, symbol))
+    if hit is not None and hit[0] is lib:
+        return hit[1]
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    _functions[(name, symbol)] = (lib, fn)
+    return fn

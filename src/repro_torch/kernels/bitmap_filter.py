@@ -26,17 +26,13 @@ _I = ctypes.c_int
 
 
 def _lib(entry: str = "candidate_matrix_launch"):
-    fn = getattr(_build.library("bitmap_filter"), entry)
-    fn.argtypes = [_C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _C, _C]
-    fn.restype = _I
-    return fn
+    return _build.function("bitmap_filter", entry,
+                           [_C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _C, _C])
 
 
 def _hamming_lib():
-    fn = _build.library("bitmap_filter").hamming_matrix_launch
-    fn.argtypes = [_C, _C, _I, _I, _I, _C, _C]
-    fn.restype = _I
-    return fn
+    return _build.function("bitmap_filter", "hamming_matrix_launch",
+                           [_C, _C, _I, _I, _I, _C, _C])
 
 
 def check_operands(words_r: torch.Tensor, words_s: torch.Tensor,

@@ -21,10 +21,8 @@ _I = ctypes.c_int
 
 
 def _fn():
-    fn = _build.library("bitplane").bitplane_hamming_launch
-    fn.argtypes = [_C, _C, _C, _C, _I, _I, _I, _C, _C]
-    fn.restype = _I
-    return fn
+    return _build.function("bitplane", "bitplane_hamming_launch",
+                           [_C, _C, _C, _C, _I, _I, _I, _C, _C])
 
 
 def check_planes(planes_r: torch.Tensor, planes_s: torch.Tensor,

@@ -30,11 +30,9 @@ _I = ctypes.c_int
 
 
 def _lib(entry: str = "count_candidates_launch"):
-    fn = getattr(_build.library("compaction"), entry)
-    fn.argtypes = [_C, _C, _C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I, _I,
-                   _C, _C, _C]
-    fn.restype = _I
-    return fn
+    return _build.function("compaction", entry,
+                           [_C, _C, _C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _C, _C, _C])
 
 
 def _check(words_r, words_s, len_r, len_s, lo_s, hi_s, table, tile_r, tile_s):

@@ -59,18 +59,14 @@ _instance = instance   # flash_attention_cuda's keyword hides the name
 
 
 def _fn():
-    fn = _build.library("flash_attention").flash_attention_launch_instance
-    fn.argtypes = [_C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I,
-                   _C]
-    fn.restype = _I
-    return fn
+    return _build.function(
+        "flash_attention", "flash_attention_launch_instance",
+        [_C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _C])
 
 
 def _split_fn():
-    fn = _build.library("flash_attention").flash_split_kv_launch
-    fn.argtypes = [_C, _C, _C, _I, _I, _I, _I, _C]
-    fn.restype = _I
-    return fn
+    return _build.function("flash_attention", "flash_split_kv_launch",
+                           [_C, _C, _C, _I, _I, _I, _I, _C])
 
 
 def split_views(flat: torch.Tensor, b: int, sk: int, kv: int, d: int) -> tuple:

@@ -4,7 +4,9 @@ The twins of ``repro.kernels.ops``: ``hamming_matrix``, ``candidate_matrix``
 and ``count_candidates`` (dense), ``entry_filter`` and ``pair_verdict``
 (1-D over the indexed driver's entry and candidate streams), with the same
 argument lists plus an optional precomputed prune ``table`` (built from the
-lengths when omitted).
+lengths when omitted).  Beside them, the indexed driver's two stages,
+:func:`expand_filter` and :func:`verdict_verify`, which on the card under
+``auto`` run one fused kernel each (below).
 
 ``impl`` selects by the tensors' device and never falls back:
 
@@ -32,12 +34,25 @@ lengths when omitted).
   bit-plane); raise on CUDA tensors (compare against the plain version on
   the card by calling :mod:`repro_torch.kernels.ref`).
 
+The stages :func:`expand_filter` and :func:`verdict_verify` take the same
+names: ``"auto"`` on CUDA tensors launches their own kernel
+(``postings.expand_filter_cuda``, ``postings.verdict_verify_cuda``: the
+gathers fused in, only bitmap survivors verified); an explicit kernel name
+(``"swar"``, ``"swar_tiled"``, ``"mxu"``) runs the PyTorch composition
+around :func:`entry_filter` and :func:`pair_verdict` under that name, the
+unfused form of these stages; on CPU tensors ``"auto"`` and
+``"ref"`` run the plain versions (``ref.expand_filter_ref``,
+``ref.verdict_verify_ref``) and ``"ref_mxu"`` the latter with the bit-plane
+plain verdict.
+
 :func:`flash_attention`, the LM scaffold's entry, has its own two impls:
 ``"cuda"`` (the kernel; ``auto`` on CUDA tensors) and ``"ref"`` (the plain
 version; ``auto`` on CPU tensors), each raising on the other device.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -305,6 +320,97 @@ def pair_verdict(
               else postings.pair_verdict_cuda)
     return kernel(words_r.contiguous(), words_s.contiguous(), len_r, len_s,
                   table, key_prod=sim == COSINE, cutoff=cutoff)
+
+
+def _stage_impl(impl: str, device: torch.device) -> str:
+    """The stages' dispatch: ``"fused"`` (their own kernel; ``auto`` on
+    CUDA tensors), ``"ref"`` (``auto`` on CPU tensors), or the name of the
+    impl their composition passes on; raises where :func:`resolve_impl`
+    would."""
+    if impl == "auto":
+        return "fused" if torch.device(device).type == "cuda" else "ref"
+    return resolve_impl(impl, device, 32, kernels=("swar", "swar_tiled"))
+
+
+def expand_filter(
+    rng_flat: torch.Tensor,
+    cnt: torch.Tensor,
+    seg_end: torch.Tensor,
+    post_set: torch.Tensor,
+    post_pos: torch.Tensor,
+    post_len: torch.Tensor,
+    probe_lengths: torch.Tensor,
+    lo_r: torch.Tensor,
+    hi_r: torch.Tensor,
+    s0: int,
+    *,
+    sim: str,
+    tau: float,
+    cap: int,
+    lp: int,
+    self_join: bool,
+    impl: str = "auto",
+    table: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """A probe chunk's expanded, admitted postings entries -> ``(rr, ss)``,
+    int32[cap] each with ``INT32_MAX`` in every other slot (the contract of
+    :func:`repro_torch.kernels.ref.expand_filter_ref`)."""
+    impl = _stage_impl(impl, rng_flat.device)
+    if table is None:
+        table = ref.prune_table_for(sim, tau, post_len, probe_lengths)
+    kw = dict(sim=sim, tau=tau, cap=cap, lp=lp, self_join=self_join, table=table)
+    if impl == "fused":
+        i32 = lambda t: t.to(torch.int32).contiguous()  # noqa: E731
+        return postings.expand_filter_cuda(
+            *(i32(t) for t in (rng_flat, cnt, seg_end, post_set, post_pos, post_len,
+                               probe_lengths, lo_r, hi_r)),
+            s0, table, cap=cap, lp=lp, key_prod=sim == COSINE, self_join=self_join)
+    args = (rng_flat, cnt, seg_end, post_set, post_pos, post_len, probe_lengths, lo_r,
+            hi_r, s0)
+    if impl == "ref":
+        return ref.expand_filter_ref(*args, **kw)
+    return ref.expand_filter_ref(*args, **kw,
+                                 entry_filter=functools.partial(entry_filter, impl=impl))
+
+
+def verdict_verify(
+    tokens_r: torch.Tensor,
+    lengths_r: torch.Tensor,
+    words_r: torch.Tensor,
+    probe_tokens: torch.Tensor,
+    probe_lengths: torch.Tensor,
+    probe_words: torch.Tensor,
+    cand_r: torch.Tensor,
+    cand_s: torch.Tensor,
+    slot_ok: torch.Tensor,
+    need_tab: torch.Tensor,
+    *,
+    sim: str,
+    tau: float,
+    cutoff: int = 1 << 30,
+    impl: str = "auto",
+    table: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bitmap verdict and exact verification of a candidate buffer ->
+    ``(cand_mask, ok)``, bool[cap] each (the contract of
+    :func:`repro_torch.kernels.ref.verdict_verify_ref`)."""
+    impl = _stage_impl(impl, cand_r.device)
+    if table is None:
+        table = ref.prune_table_for(sim, tau, lengths_r, probe_lengths)
+    if impl == "fused":
+        i32 = lambda t: t.to(torch.int32).contiguous()  # noqa: E731
+        return postings.verdict_verify_cuda(
+            *(i32(t) for t in (tokens_r, lengths_r, words_r, probe_tokens, probe_lengths,
+                               probe_words, cand_r, cand_s)),
+            slot_ok.contiguous(), table, i32(need_tab), key_prod=sim == COSINE,
+            cutoff=cutoff)
+    args = (tokens_r, lengths_r, words_r, probe_tokens, probe_lengths, probe_words, cand_r,
+            cand_s, slot_ok, need_tab)
+    kw = dict(sim=sim, tau=tau, cutoff=cutoff, table=table)
+    if impl == "ref":
+        return ref.verdict_verify_ref(*args, **kw)
+    return ref.verdict_verify_ref(*args, **kw,
+                                  pair_verdict=functools.partial(pair_verdict, impl=impl))
 
 
 def flash_attention(

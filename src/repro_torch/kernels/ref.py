@@ -195,6 +195,118 @@ def pair_verdict_ref(
                                        table, sim=sim, cutoff=cutoff)
 
 
+# Rows of the (cap, L) token gathers that verdict_verify_ref holds at once.
+_VERIFY_ROWS = 1 << 22
+_INT32_MAX = 2**31 - 1
+
+
+def expand_filter_ref(
+    rng_flat: torch.Tensor,
+    cnt: torch.Tensor,
+    seg_end: torch.Tensor,
+    post_set: torch.Tensor,
+    post_pos: torch.Tensor,
+    post_len: torch.Tensor,
+    probe_lengths: torch.Tensor,
+    lo_r: torch.Tensor,
+    hi_r: torch.Tensor,
+    s0: int,
+    *,
+    sim: str,
+    tau: float,
+    cap: int,
+    lp: int,
+    self_join: bool,
+    table: torch.Tensor | None = None,
+    entry_filter=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """A probe chunk's CSR expansion and entry admission -> ``(rr, ss)``,
+    int32[cap] each, ``INT32_MAX`` in the slots not admitted: the indexed
+    driver's stage 1 after the window lookups (the reference's
+    ``expand_and_filter`` from its ``arange`` on).  ``rng_flat``, ``cnt`` and
+    ``seg_end`` are int32[C * lp]: each (probe, prefix position)'s
+    window-narrowed CSR start and count, and the counts' inclusive prefix
+    sum.  ``entry_filter`` is the admission test, called as
+    :func:`entry_filter_ref` is (the default); ``ops`` passes a CUDA
+    kernel's entry there to run this composition on the card."""
+    entry_filter = entry_filter_ref if entry_filter is None else entry_filter
+    dev = rng_flat.device
+    n_expanded = seg_end[-1]
+    g = torch.arange(cap, dtype=torch.int32, device=dev)
+    k = torch.searchsorted(seg_end, g, right=True).clamp_(0, rng_flat.shape[0] - 1)
+    in_range = g < n_expanded
+    within = g - (seg_end[k] - cnt[k])
+    pidx = (rng_flat[k] + within).clamp_(0, post_set.shape[0] - 1)
+    r_idx = post_set[pidx]
+    s_loc = torch.div(k, lp, rounding_mode="floor").to(torch.int32)
+    keep = entry_filter(
+        post_len[pidx], post_pos[pidx],
+        probe_lengths[s_loc], (k % lp).to(torch.int32),
+        lo_r[s_loc], hi_r[s_loc],
+        r_idx, s0 + s_loc, in_range,
+        sim=sim, tau=tau, self_join=self_join, table=table)
+    rr = torch.where(keep, r_idx, _INT32_MAX)
+    ss = torch.where(keep, s_loc, _INT32_MAX)
+    return rr, ss
+
+
+def _overlap_gathered(tokens_r, safe_r, probe_tokens, safe_s) -> torch.Tensor:
+    """int32[cap] exact overlaps of ``tokens_r[safe_r]`` and
+    ``probe_tokens[safe_s]``, gathered ``_VERIFY_ROWS`` rows at a time so
+    the (cap, L) token gathers never all sit in memory together."""
+    cap = safe_r.shape[0]
+    if cap <= _VERIFY_ROWS:
+        return verify.pairwise_overlap(tokens_r[safe_r], probe_tokens[safe_s])
+    out = torch.empty(cap, dtype=torch.int32, device=safe_r.device)
+    for a in range(0, cap, _VERIFY_ROWS):
+        b = min(a + _VERIFY_ROWS, cap)
+        out[a:b] = verify.pairwise_overlap(tokens_r[safe_r[a:b]],
+                                           probe_tokens[safe_s[a:b]])
+    return out
+
+
+def verdict_verify_ref(
+    tokens_r: torch.Tensor,
+    lengths_r: torch.Tensor,
+    words_r: torch.Tensor,
+    probe_tokens: torch.Tensor,
+    probe_lengths: torch.Tensor,
+    probe_words: torch.Tensor,
+    cand_r: torch.Tensor,
+    cand_s: torch.Tensor,
+    slot_ok: torch.Tensor,
+    need_tab: torch.Tensor,
+    *,
+    sim: str,
+    tau: float,
+    cutoff: int = 1 << 30,
+    table: torch.Tensor | None = None,
+    pair_verdict=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pairwise bitmap verdict and exact verification of a candidate
+    buffer -> ``(cand_mask, ok)``, bool[cap] each: the indexed driver's
+    stage 3 before its compaction (the reference's ``verdict_and_verify`` up
+    to its counts).  ``cand_mask`` is ``slot_ok`` and the verdict of
+    ``words_r[cand_r]`` against ``probe_words[cand_s]``; ``ok`` is
+    ``cand_mask`` and the exact overlap of the two token rows reaching the
+    min-overlap table ``need_tab`` (integer-exact, identical to the f64
+    oracle; the prune table only ever prunes).  ``pair_verdict`` is the
+    verdict, called as :func:`pair_verdict_ref` is (the default); ``ops``
+    passes a CUDA kernel's entry, or the bit-plane plain verdict, there."""
+    pair_verdict = pair_verdict_ref if pair_verdict is None else pair_verdict
+    safe_r = torch.where(slot_ok, cand_r, 0)
+    safe_s = torch.where(slot_ok, cand_s, 0)
+    bm_pass = pair_verdict(
+        words_r[safe_r], probe_words[safe_s],
+        lengths_r[safe_r], probe_lengths[safe_s],
+        sim=sim, tau=tau, cutoff=cutoff, table=table)
+    cand_mask = slot_ok & bm_pass
+    o = _overlap_gathered(tokens_r, safe_r, probe_tokens, safe_s)
+    need = bounds.min_overlap_gather(sim, need_tab, lengths_r[safe_r],
+                                     probe_lengths[safe_s])
+    return cand_mask, cand_mask & (o >= need)
+
+
 # ---------------------------------------------------------------------------
 # Flash attention forward (the LM scaffold's prefill attention)
 # ---------------------------------------------------------------------------

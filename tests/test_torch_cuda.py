@@ -24,8 +24,9 @@ from repro_torch.core import bitmap, bounds, engine, join
 from repro_torch.core.collection import Collection
 from repro_torch.core.constants import COSINE, PAD_TOKEN
 from repro_torch.core.plan import JoinPlan
-from repro_torch.data.collections import skewed_collection, with_duplicates
-from repro_torch.index import indexed_bitmap_join
+from repro_torch.data.collections import (near_duplicate_lists, shared_token_lists,
+                                         skewed_collection, with_duplicates)
+from repro_torch.index import candidates, indexed_bitmap_join
 from repro_torch import configs
 from repro_torch.kernels import bitmap_filter, bitplane, compaction, ops, postings, ref
 from repro_torch.kernels import flash_attention as flash_kernel
@@ -337,6 +338,169 @@ def test_card_indexed_join_matches_cpu_join(dev, impl, capacity):
     assert eng.plan.compaction == "device"
 
 
+# -- the indexed driver's stage kernels (expand_filter, verdict_verify) -------
+
+STAGE_SIMS = ("jaccard", "cosine", "dice", "overlap")
+STAGE_TAUS = (0.5, 0.6, 0.8, 0.95)
+
+
+def _stage_threshold(sim, tau):
+    return float(max(1, round(tau * 8))) if sim == "overlap" else tau
+
+
+def _stage_preps(rs, dev):
+    from repro_torch.core.collection import from_lists
+
+    sets_r = near_duplicate_lists(64, 21)
+    prep_r = engine.prepare(from_lists(sets_r, pad_to=16), dev)
+    if not rs:
+        return prep_r, None
+    sets_s = near_duplicate_lists(40, 22)
+    sets_s[:8] = [s[:-1] or s for s in sets_r[:40:5]]
+    return prep_r, engine.prepare(from_lists(sets_s, pad_to=16), dev)
+
+
+def _check_stage_kernels(args, st, words):
+    """Both kernels against their plain versions on the same card tensors,
+    bit for bit, the verdict at each ``(words_r, probe_words)``; returns the
+    expansion, generated, bitmap and verified counts."""
+    sim, tau, cap, table = st["sim"], st["tau"], st["cap"], st["table"]
+    ops_e = candidates.expand_filter_operands(args, st)
+    key_prod = sim == COSINE
+    got = postings.expand_filter_cuda(*ops_e, table, cap=cap, lp=st["lp"],
+                                      key_prod=key_prod, self_join=st["self_join"])
+    want = ref.expand_filter_ref(*ops_e, sim=sim, tau=tau, cap=cap, lp=st["lp"],
+                                 self_join=st["self_join"], table=table)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    cr, cs, n_gen = candidates.dedup_pairs(*got, cap)
+    slot_ok = torch.arange(cap, device=cr.device) < n_gen
+    counts = [int(ops_e[2][-1]), int(n_gen), 0, 0]
+    for wr, ws in words:
+        vargs = (args[0], args[1], wr, args[9], args[10], ws, cr, cs, slot_ok, args[15])
+        got = postings.verdict_verify_cuda(*vargs[:9], table, args[15], key_prod=key_prod,
+                                           cutoff=st["cutoff"])
+        want = ref.verdict_verify_ref(*vargs, sim=sim, tau=tau, cutoff=st["cutoff"],
+                                      table=table)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        counts[2:] = [int(want[0].sum()), int(want[1].sum())]
+    return counts
+
+
+def _stage_specs(preps, sim, tau, widths=(1, 4, 32)):
+    specs = [candidates.chunk_step_spec(*preps, sim=sim, tau=tau, b=32 * w,
+                                        probe_block=128) for w in widths]
+    (args, st), words = specs[0], [(a[2], a[11]) for a, _ in specs]
+    return list(args), dict(st), words
+
+
+@pytest.mark.parametrize("rs", [False, True], ids=["self", "rs"])
+@pytest.mark.parametrize("tau", STAGE_TAUS)
+@pytest.mark.parametrize("sim", STAGE_SIMS)
+def test_stage_kernels_match_plain_versions(dev, sim, tau, rs):
+    args, st, words = _stage_specs(_stage_preps(rs, dev), sim, _stage_threshold(sim, tau))
+    counts = _check_stage_kernels(args, st, words)
+    assert counts[0] > 0 and counts[1] >= counts[2] >= counts[3]
+
+
+@pytest.mark.parametrize("edge", ["no_expansion", "fills_cap", "long_segment",
+                                  "pad_probe_rows", "cutoff_below_lengths", "probe_offset"])
+def test_stage_kernels_at_the_edges(dev, edge):
+    from repro_torch.core.collection import from_lists
+
+    preps = _stage_preps(edge != "probe_offset", dev)  # the offset moves the triangle
+    if edge == "no_expansion":
+        preps = (preps[0], engine.prepare(from_lists(
+            [[t + 1000 for t in s] for s in near_duplicate_lists(20, 8)], pad_to=16), dev))
+    elif edge == "long_segment":  # one (probe, position) expands into ~1,500 postings
+        preps = (engine.prepare(from_lists(shared_token_lists(1500, 31), pad_to=16), dev),
+                 None)
+    args, st, words = _stage_specs(preps, "jaccard", 0.5)
+    if edge == "fills_cap":
+        st["cap"] = int(candidates.expand_filter_operands(args, st)[2][-1])
+    elif edge == "pad_probe_rows":
+        for i, fill in ((9, PAD_TOKEN), (10, 0), (12, 0), (13, 0), (14, 0)):
+            a = args[i]
+            args[i] = torch.cat([a, torch.full((5, *a.shape[1:]), fill, dtype=a.dtype,
+                                               device=dev)])
+        words = [(wr, torch.cat([ws, ws.new_zeros(5, ws.shape[1])])) for wr, ws in words]
+    elif edge == "cutoff_below_lengths":
+        st["cutoff"] = 2
+    elif edge == "probe_offset":
+        args[16] = 7
+    counts = _check_stage_kernels(args, st, words)
+    if edge == "no_expansion":
+        assert counts[:2] == [0, 0]
+    elif edge == "fills_cap":
+        assert counts[0] == st["cap"]
+    elif edge == "long_segment":
+        assert counts[0] > 2 * 1024
+    elif edge == "cutoff_below_lengths":
+        assert counts[2] > counts[3]
+
+
+def test_stage_kernels_dispatch_and_counters(dev):
+    """``auto`` on CUDA tensors launches the stage kernels; an explicit
+    kernel impl runs the composition around the unfused path's kernels; the
+    plain versions' names raise on the card; the wrappers check operands."""
+    args, st, words = _stage_specs(_stage_preps(False, dev), "jaccard", 0.6, (4, 32))
+    eargs = candidates.expand_filter_operands(args, st)
+    ekw = dict(sim="jaccard", tau=0.6, cap=st["cap"], lp=st["lp"], self_join=True,
+               table=st["table"])
+    counters = (postings.expand_filter_cuda, postings.verdict_verify_cuda,
+                postings.entry_filter_cuda, postings.pair_verdict_tiled_cuda,
+                postings.pair_verdict_bitplane_cuda)
+    before = [f.launches for f in counters]
+    rr, ss = ops.expand_filter(*eargs, **ekw)
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 0, 0, 0, 0]
+    composed = ops.expand_filter(*eargs, **ekw, impl="swar_tiled")
+    assert torch.equal(rr, composed[0]) and torch.equal(ss, composed[1])
+    cr, cs, n_gen = candidates.dedup_pairs(rr, ss, st["cap"])
+    slot_ok = torch.arange(st["cap"], device=dev) < n_gen
+    vkw = dict(sim="jaccard", tau=0.6, cutoff=st["cutoff"], table=st["table"])
+    for (wr, ws), impl, old in ((words[0], "swar_tiled", 3), (words[1], "mxu", 4)):
+        vargs = (args[0], args[1], wr, args[9], args[10], ws, cr, cs, slot_ok, args[15])
+        mid = [f.launches for f in counters]
+        fused = ops.verdict_verify(*vargs, **vkw)
+        composed = ops.verdict_verify(*vargs, **vkw, impl=impl)
+        ran = [f.launches - b for f, b in zip(counters, mid)]
+        assert ran[1] == 1 and ran[old] == 1 and sum(ran) == 2, (impl, ran)
+        assert torch.equal(fused[0], composed[0]) and torch.equal(fused[1], composed[1])
+        with pytest.raises(ValueError):
+            ops.verdict_verify(*vargs, **vkw, impl="ref")
+    with pytest.raises(ValueError):
+        ops.expand_filter(*eargs, **ekw, impl="ref_mxu")
+    with pytest.raises(ValueError):
+        postings.expand_filter_cuda(*eargs, st["table"], cap=st["cap"], lp=st["lp"] + 1,
+                                    key_prod=False, self_join=True)
+    with pytest.raises(ValueError):
+        postings.verdict_verify_cuda(args[0], args[1], words[0][0], args[9], args[10],
+                                     words[1][1], cr, cs, slot_ok, st["table"], args[15],
+                                     key_prod=False, cutoff=1)
+
+
+@pytest.mark.parametrize("b", [128, 1024])
+def test_card_indexed_join_runs_the_stage_kernels(dev, b):
+    """The indexed join under ``auto`` launches both stage kernels and none
+    of the per-op postings kernels; under ``swar_tiled`` / ``mxu`` those and
+    not the stage kernels; both equal the CPU join, pairs and every counter."""
+    col = with_duplicates(skewed_collection(n_sets=600, seed=4), n_clusters=30, seed=5)
+    kw = dict(b=b, probe_block=128, return_stats=True)
+    counters = (postings.expand_filter_cuda, postings.verdict_verify_cuda,
+                postings.entry_filter_cuda,
+                postings.pair_verdict_tiled_cuda if b < 512
+                else postings.pair_verdict_bitplane_cuda)
+    cpu = indexed_bitmap_join(col, "jaccard", 0.7, device="cpu", **kw)
+    for impl in ("auto", "swar_tiled" if b < 512 else "mxu"):
+        before = [f.launches for f in counters]
+        gpu = indexed_bitmap_join(col, "jaccard", 0.7, device=dev, impl=impl, **kw)
+        ran = [f.launches - x for f, x in zip(counters, before)]
+        if impl == "auto":
+            assert min(ran[:2]) > 0 and ran[2:] == [0, 0], ran
+        else:
+            assert ran[:2] == [0, 0] and min(ran[2:]) > 0, ran
+        assert np.array_equal(gpu[0], cpu[0]) and gpu[1].to_dict() == cpu[1].to_dict()
+
+
 # -- the bit-plane kernels (bitplane_hamming, pair_verdict_bitplane) ----------
 
 def _random_words(n, w, seed, dev):
@@ -482,7 +646,7 @@ def test_card_join_at_b1024_matches_cpu_join(dev, driver):
     else:
         run = lambda d: indexed_bitmap_join(col, "jaccard", 0.7, b=1024, probe_block=128,  # noqa: E731
                                             return_stats=True, device=d)
-        counter = postings.pair_verdict_bitplane_cuda
+        counter = postings.verdict_verify_cuda
     before = counter.launches
     gpu = run(dev)
     assert counter.launches > before
@@ -494,7 +658,8 @@ def test_card_join_at_b1024_matches_cpu_join(dev, driver):
 def test_card_session_at_b1024_matches_cpu_session(dev):
     """A store-backed session at b = 1024 serves the same tickets on the
     card as on the CPU, through appends and a compaction, and its probe
-    step runs the bit-plane pairwise verdict."""
+    step runs the fused verdict and verification (neither the bit-plane nor
+    the packed-word pairwise verdict)."""
     col = with_duplicates(skewed_collection(n_sets=800, seed=6), n_clusters=40, seed=7)
     rows = lambda idx: Collection(tokens=col.tokens[idx], lengths=col.lengths[idx])  # noqa: E731
     rng = np.random.default_rng(8)
@@ -515,11 +680,12 @@ def test_card_session_at_b1024_matches_cpu_session(dev):
         sess.flush()
         return [t.result() for t in tickets], [t.route for t in tickets]
 
-    before = (postings.pair_verdict_bitplane_cuda.launches,
-              postings.pair_verdict_tiled_cuda.launches)
+    counters = (postings.verdict_verify_cuda, postings.expand_filter_cuda,
+                postings.pair_verdict_bitplane_cuda, postings.pair_verdict_tiled_cuda)
+    before = [f.launches for f in counters]
     gpu, routes = serve(dev)
-    assert postings.pair_verdict_bitplane_cuda.launches > before[0]
-    assert postings.pair_verdict_tiled_cuda.launches == before[1]
+    ran = [f.launches - b for f, b in zip(counters, before)]
+    assert min(ran[:2]) > 0 and ran[2:] == [0, 0], ran
     assert "coalesced" in routes
     cpu, cpu_routes = serve("cpu")
     assert routes == cpu_routes
