@@ -134,6 +134,35 @@ Phases (any failure raises, so the script exits non-zero):
    CUDA-core instance) and its exps (ex2 at 16 a clock an SM at the card's
    maximum SM clock), printed with the term that binds; the prepass's is its
    bytes.
+12. Full size, LM training: smollm-135m at its published widths and depth
+   (30 layers, d_model 576, 9/3 heads of 64, d_ff 1,536, vocab 49,152, tied
+   embeddings; f32 parameters drawn on the card from ``--seed``, bf16
+   compute, each layer recomputed in the backward), batches of 8 x 2,048
+   tokens from ``SyntheticLMLoader``.  (a) The kernel's lse output against
+   the plain version's at the layer shape (bf16, D = 64, causal) and at a
+   reduced float32 shape (D = 16, the 3xTF32 instance), within 1e-4 (1 +
+   |lse|); at the layer shape the plain backward's dq, dk, dv from the
+   kernel's out and lse against ``scaled_dot_product_attention``'s, within
+   5% relative RMS.  (b) The train step's loss and gradients with the
+   forward through the kernel against the same with the plain forward, from
+   the same weights and batch: the loss within 1e-3 relative and every
+   gradient leaf within 5% relative RMS; the same gate must fail when the
+   kernel's lse is shifted by log 2 on one head; then the reduced
+   smollm-135m config in float32 within 1e-4 relative RMS.  Both sides of
+   (b) run the same plain backward, so (b) holds the kernel's out and lse;
+   (a)'s comparison with SDPA holds the backward.  (c) 20 AdamW steps (lr 3e-3, 5 warmup steps)
+   through ``FaultTolerantRunner`` with a checkpoint every 10 steps (async)
+   and no restart allowed: every loss finite, the last below the first, no
+   failure; the flash kernel launches twice a layer a step (the forward and
+   the layer's recomputation), each writing lse.  (d) The last checkpoint
+   restored into a fresh model's state equals the trained state leaf for
+   leaf, and the next step's loss from it equals the uninterrupted run's.
+   Printed: step ms (CUDA events, median of steps 3-20), tokens/s, peak
+   memory, the forward and loss share of a step, the kernel with and
+   without lse in turns at the layer shape beside its bound, and the plain
+   backward's time a call there (host launch time included: the card runs
+   its small kernels faster than the host launches them) beside
+   ``scaled_dot_product_attention``'s forward and backward.
 
 Kernel times are device times: CUDA events around 50 (20 for attention)
 back-to-back launches, a spin kernel queued first so that the host's
@@ -170,6 +199,7 @@ import collections
 import contextlib
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -217,6 +247,17 @@ LM = dict(arch="qwen3-8b", batch=4, prompt=4096, gen=32)
 # output to bf16, so outputs of order 1 may differ by a couple of bf16
 # ulps (2^-8 each).
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+# The LM training phase: smollm-135m at its published widths and depth, 8
+# sequences of 2,048 tokens (SmolLM's context), 20 AdamW steps.
+TRAIN = dict(arch="smollm-135m", batch=8, seq=2048, steps=20, lr=3e-3, warmup=5,
+             ckpt_every=10)
+# lse of the kernel against its plain version: |err| <= tol (1 + |lse|).
+LSE_TOL = 1e-4
+# Each gradient leaf of the train step through the kernel against the plain
+# forward's, as relative RMS error: bf16 at full width (the LM serving
+# phase's logits gate) and float32 on the reduced config; the loss relative.
+GRAD_REL_TOL = {torch.bfloat16: 0.05, torch.float32: 1e-4}
+TRAIN_LOSS_REL_TOL = 1e-3
 # Teacher-forced logits against Model.forward, as the relative RMS error of
 # each step's (B, V) logits: every bf16 matmul rounds its output (2^-9
 # relative), and decode (M = B rows, attention in PyTorch) rounds in other
@@ -633,9 +674,9 @@ def capture_calls(module, name: str, into: list):
         into.append((args, kw))
         return orig(*args, **kw)
 
-    wrapper.launches = 0
-    if hasattr(orig, "instance_launches"):
-        wrapper.instance_launches = dict.fromkeys(orig.instance_launches, 0)
+    for attr, value in vars(orig).items():   # launches, instance_launches, lse_launches
+        if attr.endswith("launches"):
+            setattr(wrapper, attr, dict.fromkeys(value, 0) if isinstance(value, dict) else 0)
     setattr(module, name, wrapper)
     try:
         yield
@@ -1972,11 +2013,13 @@ def phase_lm(seed: int) -> tuple[dict, tuple, float]:
     launches = {"flash_attention": fa.flash_attention_cuda.instance_launches["wgmma"]}
     peak = torch.cuda.max_memory_allocated()
     if launches["flash_attention"] != cfg.num_layers or (
-            fa.flash_attention_cuda.launches != cfg.num_layers):
+            fa.flash_attention_cuda.launches != cfg.num_layers) or (
+            fa.flash_attention_cuda.lse_launches):
         raise AssertionError(f"flash_attention launched {fa.flash_attention_cuda.launches} "
-                             f"times ({fa.flash_attention_cuda.instance_launches}) in a "
-                             f"prefill of {cfg.num_layers} layers; every launch must be the "
-                             f"wgmma instance")
+                             f"times ({fa.flash_attention_cuda.instance_launches}, "
+                             f"{fa.flash_attention_cuda.lse_launches} with lse) in a prefill of "
+                             f"{cfg.num_layers} layers; every launch must be the wgmma "
+                             f"instance, and serving asks for no lse")
     log(f"LM serving: {b} requests x {p} prompt tokens, max_len {max_len}: prefill "
         f"{out.prefill_s:.3f} s ({b * p / out.prefill_s:.1f} tokens/s); {n - 1} decode steps "
         f"{out.decode_s:.3f} s ({1e3 * out.decode_s / (n - 1):.2f} ms a step, "
@@ -2336,6 +2379,313 @@ def phase_flash_f32(seed: int) -> tuple[dict, list[dict]]:
              "flash_split_kv": launches["split_kv"]}, [row, split_row])
 
 
+@contextlib.contextmanager
+def flash_forward(mode: str):
+    """Route the layers' attention forward (``ops.flash_attention``) while
+    inside: ``"plain"`` runs the plain version on the card's tensors (no
+    kernel launches), ``"shifted"`` the kernel with the lse it hands the
+    backward raised by log 2 on query head 0 (the negative control)."""
+    from repro_torch.kernels import ops, ref
+
+    orig = ops.flash_attention
+
+    def plain(q, k, v, *, causal=True, impl="auto", q_chunk=512, kv_chunk=512,
+              triangle=False, return_lse=False):
+        return ref.flash_attention_ref(q, k, v, causal=causal, q_chunk=q_chunk,
+                                       kv_chunk=kv_chunk, triangle=triangle,
+                                       return_lse=return_lse)
+
+    def shifted(q, k, v, **kw):
+        out = orig(q, k, v, **kw)
+        if not kw.get("return_lse"):
+            return out
+        out, lse = out
+        lse = lse.clone()
+        lse[:, 0, 0] += math.log(2.0)
+        return out, lse
+
+    ops.flash_attention = {"plain": plain, "shifted": shifted}[mode]
+    try:
+        yield
+    finally:
+        ops.flash_attention = orig
+
+
+def loss_and_grads(model, batch) -> tuple:
+    """The train step's loss and gradients (its work before the optimizer),
+    the gradients in the state's leaf order."""
+    from repro_torch.train.tree import leaves_with_paths
+
+    named = leaves_with_paths(model.param_tree())
+    loss, _ = model.loss(batch)
+    grads = torch.autograd.grad(loss, [p for _, p in named])
+    return float(loss.detach()), {"/".join(n): g for (n, _), g in zip(named, grads)}
+
+
+def grad_gate(got: tuple, want: tuple, dtype) -> tuple[float, float, str, bool]:
+    """(loss relative error, the largest leaf's relative RMS error, that
+    leaf, whether both are within the gate for ``dtype``)."""
+    loss_err = abs(got[0] - want[0]) / abs(want[0])
+    errs = {name: rel_rms(g, want[1][name]) for name, g in got[1].items()}
+    worst = max(errs, key=errs.get)
+    ok = (loss_err <= TRAIN_LOSS_REL_TOL and all(np.isfinite(list(errs.values())))
+          and errs[worst] <= GRAD_REL_TOL[dtype])
+    return loss_err, errs[worst], worst, ok
+
+
+def lse_close(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """The largest |lse error|; raises beyond LSE_TOL (1 + |want|)."""
+    diff = (got.double() - want.double()).abs()
+    if got.shape != want.shape or not bool((diff <= LSE_TOL * (1 + want.double().abs())).all()):
+        raise AssertionError(f"flash lse != plain version at {what}: max |err| "
+                             f"{float(diff.max()):.3g}, tolerance {LSE_TOL} (1 + |lse|)")
+    return float(diff.max())
+
+
+def phase_train(seed: int) -> dict:
+    """The LM training path at full width (phase 12 of the module's
+    docstring).  Returns the measurements that the flash_attention row of
+    the kernels line carries under ``training``."""
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.data.loader import LoaderConfig, SyntheticLMLoader
+    from repro_torch.distributed import CheckpointManager, FaultTolerantRunner, RunnerConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import Model
+    from repro_torch.train import OptimizerConfig, init_state, make_train_step
+    from repro_torch.train.tree import leaves_with_paths
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = configs.get(TRAIN["arch"])
+    dev = torch.device("cuda")
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    out: dict = {"path": f"full size, LM training: {cfg.name}, {TRAIN['steps']} AdamW steps of "
+                         f"{b} x {s:,} tokens through FaultTolerantRunner"}
+
+    # (a) lse at the layer shape (bf16, D = 64) and at a reduced float32 shape.
+    gen = torch.Generator(device=dev).manual_seed(seed + 80)
+    shapes = {"bf16 D=64": ((b, s, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim),
+                            torch.bfloat16),
+              "float32 D=16": ((2, 512, 4, 2, 16), torch.float32)}
+    out["lse_max_err"] = {}
+    for what, ((bb, ss, h, kv, d), dtype) in shapes.items():
+        q, k, v = (torch.randn((bb, ss, heads, d), generator=gen, device=dev).to(dtype)
+                   for heads in (h, kv, kv))
+        got, lse = fa.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+        want, want_lse = ref.flash_attention_ref(q, k, v, causal=True, triangle=True,
+                                                 return_lse=True)
+        flash_close(got, want, f"training lse check, {what}")
+        out["lse_max_err"][what] = lse_close(lse, want_lse, f"B={bb} S={ss} H={h} KV={kv} {what}")
+        log(f"flash lse {what} ({fa.instance(dtype, d)} instance) at B={bb} S={ss} H={h} "
+            f"KV={kv} causal: within {LSE_TOL} (1 + |lse|) of the plain version, max |err| "
+            f"{out['lse_max_err'][what]:.3g}; lse range [{float(want_lse.min()):.3f}, "
+            f"{float(want_lse.max()):.3f}]")
+        if what == "bf16 D=64":
+            layer = (q, k, v, got, lse)
+    del q, k, v, got, lse, want, want_lse
+
+    # The kernel with and without lse in turns at the layer shape, and the
+    # plain backward there beside SDPA's forward and backward.
+    q, k, v, o, lse = layer
+    do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+    turns = in_turns({"lse": lambda: fa.flash_attention_cuda(q, k, v, return_lse=True),
+                      "no_lse": lambda: fa.flash_attention_cuda(q, k, v)}, iters=20)
+    flops, nbytes, bound, term = flash_bound(q, k)
+    bwd_ms = cuda_ms(lambda: ops.flash_attention_bwd(q, k, v, o, lse, do), 3)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True).backward(dot)
+
+    sdpa_ms = cuda_ms(sdpa_fwd_bwd, 5)
+    # The plain backward on the card at full width, from the kernel's out and
+    # lse, against SDPA's gradients (an independent backward) on one call.
+    for t in (qt, kt, vt):
+        t.grad = None
+    sdpa_fwd_bwd()
+    bwd_err = {f"d{n}": rel_rms(g, t.grad.transpose(1, 2)) for n, g, t in
+               zip("qkv", ops.flash_attention_bwd(q, k, v, o, lse, do), (qt, kt, vt))}
+    if not max(bwd_err.values()) <= GRAD_REL_TOL[torch.bfloat16]:
+        raise AssertionError(f"the plain backward on the card != scaled_dot_product_attention's "
+                             f"at a {cfg.name} layer: relative RMS {bwd_err} (gate "
+                             f"{GRAD_REL_TOL[torch.bfloat16]})")
+    out.update(ms_with_lse=turns["lse"], ms_without_lse=turns["no_lse"], bound_ms=bound[0],
+               bound_by=bound[1], bound_term=term, plain_bwd_call_ms=bwd_ms,
+               sdpa_fwd_bwd_ms=sdpa_ms, plain_bwd_vs_sdpa_rel_rms=bwd_err)
+    log(f"timing at B={b} S={s} H={cfg.num_heads} KV={cfg.num_kv_heads} D={cfg.head_dim} bf16 "
+        f"causal (a {cfg.name} layer), device ms in turns: flash_attention with lse "
+        f"{turns['lse'][0]:.4f} / {turns['lse'][1]:.4f}, without {turns['no_lse'][0]:.4f} / "
+        f"{turns['no_lse'][1]:.4f} (bound {bound[0]:.4f} ms by {bound[1]}, the {term} term; "
+        f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); the plain backward "
+        f"(ops.flash_attention_bwd) {bwd_ms:.3f} ms a call, host launch time included (the "
+        f"card runs its small kernels faster than the host launches them; "
+        f"scripts/profile_torch_train.py has its device time); scaled_dot_product_attention "
+        f"forward and backward {sdpa_ms:.3f} ms; the plain backward's dq, dk, dv against "
+        f"SDPA's, relative RMS {', '.join(f'{n} {e:.4g}' for n, e in bwd_err.items())} (gate "
+        f"{GRAD_REL_TOL[torch.bfloat16]})")
+    del layer, q, k, v, o, lse, do, qt, kt, vt, dot
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) Gradient parity at full width, and the negative control.
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    opt_cfg = OptimizerConfig(learning_rate=TRAIN["lr"], warmup_steps=TRAIN["warmup"],
+                              decay_steps=TRAIN["steps"])
+    state = init_state(model, opt_cfg)
+    loader = SyntheticLMLoader(cfg, LoaderConfig(batch_size=b, seq_len=s, seed=seed,
+                                                 vocab_size=cfg.vocab_size), device=dev)
+    batch = next(loader)
+    torch.cuda.synchronize()
+    log(f"full size, LM training: {cfg.name}, {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, tied {cfg.tie_embeddings}, remat {cfg.remat}; {model.num_params():,} "
+        f"{cfg.param_dtype} parameters drawn from seed {seed} and their AdamW state in "
+        f"{time.perf_counter() - t0:.2f} s (set-up); compute {cfg.dtype}; batches {b} x {s}")
+    fa.reset_launches()
+    kernel = loss_and_grads(model, batch)
+    launches_per_step = fa.flash_attention_cuda.launches
+    if launches_per_step != 2 * cfg.num_layers or (
+            fa.flash_attention_cuda.lse_launches != launches_per_step):
+        raise AssertionError(f"a train step launched flash_attention {launches_per_step} times, "
+                             f"{fa.flash_attention_cuda.lse_launches} with lse; expected "
+                             f"{2 * cfg.num_layers} (forward and recomputation), all with lse")
+    with flash_forward("plain"):
+        plain = loss_and_grads(model, batch)
+    if fa.flash_attention_cuda.launches != launches_per_step:
+        raise AssertionError("the plain-forward step launched the flash kernel")
+    loss_err, worst, leaf, ok = grad_gate(kernel, plain, torch.bfloat16)
+    if not ok:
+        raise AssertionError(f"train step through the kernel != plain forward's: loss relative "
+                             f"error {loss_err:.3g} (gate {TRAIN_LOSS_REL_TOL}), {leaf} gradient "
+                             f"relative RMS {worst:.4g} (gate {GRAD_REL_TOL[torch.bfloat16]})")
+    with flash_forward("shifted"):
+        bad = loss_and_grads(model, batch)
+    bad_loss, bad_worst, bad_leaf, bad_ok = grad_gate(bad, plain, torch.bfloat16)
+    if bad_ok:
+        raise AssertionError(f"the lse shifted by log 2 on one head passed the gradient gate: "
+                             f"{bad_leaf} relative RMS {bad_worst:.4g}")
+    out.update(loss=kernel[0], loss_plain=plain[0], loss_rel_err=loss_err,
+               grad_rel_rms_max=worst, grad_rel_rms_leaf=leaf,
+               negative_control_rel_rms_max=bad_worst, negative_control_leaf=bad_leaf,
+               launches_per_step=launches_per_step)
+    log(f"LM training gradients: the step through the kernel against the plain forward, "
+        f"loss {kernel[0]:.6f} vs {plain[0]:.6f} (relative {loss_err:.3g}, gate "
+        f"{TRAIN_LOSS_REL_TOL}); largest gradient relative RMS error {worst:.5f} ({leaf}; gate "
+        f"{GRAD_REL_TOL[torch.bfloat16]}); flash_attention launches a step {launches_per_step} "
+        f"(all with lse). Negative control, lse + log 2 on one head: {bad_worst:.4f} "
+        f"({bad_leaf}), fails the gate as it must")
+    del kernel, plain, bad
+    gc.collect()
+
+    small = Model(configs.get_reduced(TRAIN["arch"]), device=dev,
+                  generator=torch.Generator(device=dev).manual_seed(seed))
+    init_state(small, opt_cfg)
+    toks = torch.from_numpy(np.random.default_rng(seed + 81).integers(
+        0, small.cfg.vocab_size, (4, 513)).astype(np.int32)).to(dev)
+    small_batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    kernel = loss_and_grads(small, small_batch)
+    with flash_forward("plain"):
+        plain = loss_and_grads(small, small_batch)
+    s_loss, s_worst, s_leaf, s_ok = grad_gate(kernel, plain, torch.float32)
+    if not s_ok:
+        raise AssertionError(f"reduced float32 train step through the kernel != plain forward's: "
+                             f"loss {s_loss:.3g}, {s_leaf} relative RMS {s_worst:.3g} (gate "
+                             f"{GRAD_REL_TOL[torch.float32]})")
+    out.update(reduced_f32_grad_rel_rms_max=s_worst, reduced_f32_loss_rel_err=s_loss)
+    log(f"reduced {small.cfg.name} in float32 ({fa.instance(torch.float32, small.cfg.head_dim)} "
+        f"instance), 4 x 512 tokens: loss relative error {s_loss:.3g}, largest gradient relative "
+        f"RMS error {s_worst:.3g} ({s_leaf}; gate {GRAD_REL_TOL[torch.float32]})")
+    del small, kernel, plain
+
+    # Forward and loss alone, as the step runs them (graph built, lse written).
+    def forward_loss():
+        model.loss(batch)
+
+    fwd_ms = cuda_ms(forward_loss, 3, warmup=1)
+
+    # (c) The trainer: every step's device time by CUDA events.
+    step_raw = make_train_step(model, opt_cfg)
+    events, losses = [], []
+
+    def step_fn(st, bt):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        st, metrics = step_raw(st, bt)
+        ev[1].record()
+        events.append(ev)
+        losses.append(metrics["loss"])
+        return st, metrics
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+        ckpt = CheckpointManager(ckpt_dir)
+        runner = FaultTolerantRunner(step_fn, lambda _: (state, None), loader, ckpt,
+                                     RunnerConfig(checkpoint_every=TRAIN["ckpt_every"],
+                                                  async_checkpoint=True, max_restarts=0))
+        torch.cuda.reset_peak_memory_stats()
+        # The path: the counters zeroed just before, read just after.
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        result = runner.run(TRAIN["steps"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention": fa.flash_attention_cuda.instance_launches["wgmma"],
+                    "lse": fa.flash_attention_cuda.lse_launches}
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(x) for x in losses]
+        step_ms = [e[0].elapsed_time(e[1]) for e in events]
+        kinds = [e.kind for e in result["events"]]
+        expected = TRAIN["steps"] * launches_per_step
+        if (result["restarts"] or "failure" in kinds or len(losses) != TRAIN["steps"]
+                or not all(np.isfinite(losses)) or not losses[-1] < losses[0]
+                or launches != {"flash_attention": expected, "lse": expected}):
+            raise AssertionError(f"training run: restarts {result['restarts']}, events {kinds}, "
+                                 f"losses {losses}, flash launches {launches} (expected "
+                                 f"{expected}, all wgmma with lse)")
+        med = statistics.median(step_ms[2:])
+        out.update(losses=losses, step_ms=med, step_ms_all=step_ms, tokens_per_s=b * s / med * 1e3,
+                   peak_memory_gb=peak / 1e9, forward_loss_ms=fwd_ms,
+                   forward_loss_share=fwd_ms / med, launches=launches["flash_attention"],
+                   lse_launches=launches["lse"], run_s=wall)
+        log(f"LM training: {TRAIN['steps']} AdamW steps (lr {TRAIN['lr']}, {TRAIN['warmup']} "
+            f"warmup) through FaultTolerantRunner in {wall:.2f} s (async checkpoints every "
+            f"{TRAIN['ckpt_every']} steps included), restarts {result['restarts']}, events {kinds}; "
+            f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; step {med:.2f} ms (CUDA events, median "
+            f"of steps 3-{TRAIN['steps']}; range {min(step_ms[2:]):.2f}-{max(step_ms[2:]):.2f}), "
+            f"{b * s / med * 1e3:,.0f} tokens/s; forward and loss {fwd_ms:.2f} ms "
+            f"({fwd_ms / med:.1%} of a step); peak memory {peak / 1e9:.2f} GB "
+            f"(torch.cuda.max_memory_allocated); flash_attention launches {launches['flash_attention']}"
+            f" ({launches_per_step} a step), {launches['lse']} with lse")
+
+        # (d) The checkpoint round trip.
+        at = ckpt.latest_step()
+        fresh = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed + 1))
+        fresh_state, at = ckpt.restore(init_state(fresh, opt_cfg))
+    trained = leaves_with_paths(result["state"])
+    restored = leaves_with_paths(fresh_state)
+    same = [a == c and torch.equal(x, y) for (a, x), (c, y) in zip(trained, restored)]
+    if at != TRAIN["steps"] or len(trained) != len(restored) or not all(same):
+        raise AssertionError(f"checkpoint round trip: step {at}, "
+                             f"{len(same) - sum(same)} of {len(same)} leaves differ")
+    nxt = next(loader)
+    _, m_run = step_raw(result["state"], nxt)
+    _, m_restored = make_train_step(fresh, opt_cfg)(fresh_state, nxt)
+    if float(m_run["loss"]) != float(m_restored["loss"]):
+        raise AssertionError(f"the step after the restore: loss {float(m_restored['loss'])} != "
+                             f"the uninterrupted run's {float(m_run['loss'])}")
+    out.update(checkpoint_leaves=len(same), next_loss=float(m_run["loss"]))
+    log(f"LM training checkpoint: step {at} restored into a fresh model's state, {len(same)} "
+        f"leaves identical; the next step's loss {float(m_restored['loss']):.6f} equals the "
+        f"uninterrupted run's")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2397,8 +2747,11 @@ def main(argv=None) -> int:
         kernels.extend(rows)
         gc.collect()
         torch.cuda.empty_cache()
+    training = phase_train(args.seed)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        if k["name"] == "flash_attention":
+            k["training"] = training
     log(smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -45,12 +45,14 @@ _C, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "bitplane": ("bitplane_hamming_launch", [_C, _C, _C, _C, _I, _I, _I, _C, _C]),
     "flash_attention": ("flash_attention_launch",
-                        [_C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-                         _C]),
+                        [_C, _C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I, _I,
+                         ctypes.c_float, _C]),
 }
 # A tree older than the float32 3xTF32 instance has no `scratch` argument
-# after `o` (bf16 reads none): its entry point is called without it.
+# after `o` (bf16 reads none), and one older than the lse output no `lse`
+# after `scratch`: their entry points are called without them.
 NO_SCRATCH = "void* o,\n                                      int batch"
+NO_LSE = "const void* scratch, int batch"
 
 
 def build(trees: dict, out: Path) -> dict:
@@ -73,8 +75,12 @@ def build(trees: dict, out: Path) -> dict:
         fn_name, argtypes = SIGNATURES[name]
         fn = getattr(ctypes.CDLL(str(lib)), fn_name)
         if name == "flash_attention" and NO_SCRATCH in src.read_text():
-            fn.argtypes, fn.restype = argtypes[:4] + argtypes[5:], _I
-            return key, lambda q, k, v, o, scratch, *rest, fn=fn: fn(q, k, v, o, *rest)
+            fn.argtypes, fn.restype = argtypes[:4] + argtypes[6:], _I
+            return key, lambda q, k, v, o, scratch, lse, *rest, fn=fn: fn(q, k, v, o, *rest)
+        if name == "flash_attention" and NO_LSE in src.read_text():
+            fn.argtypes, fn.restype = argtypes[:5] + argtypes[6:], _I
+            return key, lambda q, k, v, o, scratch, lse, *rest, fn=fn: fn(q, k, v, o, scratch,
+                                                                          *rest)
         fn.argtypes, fn.restype = argtypes, _I
         return key, fn
 
@@ -84,7 +90,7 @@ def build(trees: dict, out: Path) -> dict:
 
 
 def wgmma_sass(lib: Path, d: int):
-    """The SASS of ``flash_fwd_wgmma_kernel<d>`` in ``lib`` as a list of
+    """The SASS of ``flash_fwd_wgmma_kernel<d>`` (without lse) in ``lib`` as a list of
     instructions (addresses, encodings and comments dropped), or None when
     ``cuobjdump`` is not found."""
     import re
@@ -98,10 +104,14 @@ def wgmma_sass(lib: Path, d: int):
         return None
     text = subprocess.run([tool, "-sass", str(lib)], check=True, capture_output=True,
                           text=True).stdout
-    for block in text.split("Function : ")[1:]:
-        if f"flash_fwd_wgmma_kernelILi{d}E" in block.split("\n", 1)[0]:
-            return [re.sub(r"\s+", " ", m.group(1)).strip()
-                    for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+([^;]*;)", block)]
+    # A tree with the lse output has two instances a head dim; the one
+    # without lse (``Lb0``) is the one the baseline's kernel compares with.
+    blocks = text.split("Function : ")[1:]
+    for name in (f"flash_fwd_wgmma_kernelILi{d}ELb0E", f"flash_fwd_wgmma_kernelILi{d}E"):
+        for block in blocks:
+            if name in block.split("\n", 1)[0]:
+                return [re.sub(r"\s+", " ", m.group(1)).strip()
+                        for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+([^;]*;)", block)]
     raise RuntimeError(f"{lib} has no flash_fwd_wgmma_kernel<{d}>")
 
 
@@ -170,8 +180,8 @@ def main(argv=None) -> int:
             out = outs[tag] = torch.empty_like(q)
             fn = fns[(tag, "flash_attention")]
             runs[tag] = lambda fn=fn, out=out: checked(fn(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, 4, 4096, 4096, 32,
-                8, d, 1, 1, d ** -0.5, stream()), "flash_attention")
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, None, 4, 4096,
+                4096, 32, 8, d, 1, 1, d ** -0.5, stream()), "flash_attention")
             runs[tag]()
             errs[tag] = max_err_float(out, want)
         if not all(np.isfinite(list(errs.values()))) or max(errs.values()) > FLASH_TOL[q.dtype]:

@@ -130,12 +130,14 @@ def build_variant(name: str, out: Path):
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}{proc.stderr}")
     fn = ctypes.CDLL(str(lib)).flash_attention_launch_instance
-    fn.argtypes = [C, C, C, C, C, I, I, I, I, I, I, I, I, ctypes.c_float, I, C]
+    fn.argtypes = [C, C, C, C, C, C, I, I, I, I, I, I, I, I, ctypes.c_float, I, C]
     fn.restype = I
     lines, keep = [], False
     for line in (proc.stdout + proc.stderr).splitlines():
         if "Compiling entry" in line:
-            keep = "flash_fwd_wgmma_kernelILi16" in line or "flash_fwd_wgmma_kernelILi32" in line
+            # The instances without lse (Lb0), the ones the variants run.
+            keep = ("flash_fwd_wgmma_kernelILi16ELb0" in line
+                    or "flash_fwd_wgmma_kernelILi32ELb0" in line)
             if keep:
                 lines.append("D=16" if "ILi16" in line else "D=32")
         elif keep and any(w in line for w in ("registers", "spill", "warning", "serializ")):
@@ -170,7 +172,7 @@ def runner(fn, q, k, v, out, causal: bool = True):
     b, sq, h, d = q.shape
 
     def run():
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, b, sq,
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, None, b, sq,
                 k.shape[1], h, k.shape[2], d, 1, int(causal), d ** -0.5, WGMMA,
                 torch.cuda.current_stream().cuda_stream)
         if rc:

@@ -1,1 +1,2 @@
-"""Synthetic collections for the port's tests and smoke run."""
+"""Synthetic collections for the port's tests and smoke run, and the LM batch
+loader (``data.loader``)."""

@@ -9,7 +9,9 @@
 // with s_ij = -1e30 for j > i when causal (positions from 0 on both sides).
 // The cast points are the TPU kernel's: the q . k products are exact in
 // float32, p is rounded to v's type before PV, every sum is float32 and the
-// output is rounded to q's type.
+// output is rounded to q's type.  On request every instance also writes each
+// query row's log-sum-exp, lse_i = log sum_j exp(s_ij), in float32 (the
+// reference's _flash_fwd returns it for the training path's backward).
 //
 // What bounds it on an H100 (published peaks, 700 W), at the serving phase's
 // shape B = 4, Sq = Sk = 4,096, H = 32, KV = 8, causal: the two products do
@@ -304,6 +306,16 @@ struct RowState {
   float l[2];   // this thread's part of the running sums
 };
 
+// lse[b][h][row] = m * D^-0.5 + log(max(l, 1e-30)) in natural-log units (m is
+// the raw score maximum, scale_log2 = D^-0.5 log2(e)), from lane t = 0 of the
+// row's quad and for rows below Sq only.
+__device__ __forceinline__ void store_lse(float* lse, float m, float denom, float scale_log2,
+                                          int row, int t, int b, int h, int sq, int heads) {
+  if (t == 0 && row < sq)
+    lse[((size_t)b * heads + h) * sq + row] =
+        m * (scale_log2 * 0.6931471805599453f) + logf(denom);
+}
+
 // S = q K^T (64 x kBlockN): k-step kk reads bytes 32 kk of each swizzled
 // row, in box kk / (steps a box).
 template <int D>
@@ -459,12 +471,15 @@ __device__ __forceinline__ void pass_turn(int c, bool last) {
   }
 }
 
-template <int D>
+// kLse: also write lse (the last parameter, so the other parameters keep
+// their offsets; the instance without it is the serving path's kernel).
+template <int D, bool kLse>
 __global__ void __launch_bounds__(Cfg<D>::kThreads, Cfg<D>::kBlocksPerSM)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
-                       int sq, int sk, int heads, int kv_heads, float scale_log2, int causal) {
+                       int sq, int sk, int heads, int kv_heads, float scale_log2, int causal,
+                       float* __restrict__ lse) {
   using C = Cfg<D>;
   constexpr int kSt = C::kStages;
   constexpr int kBlockN = C::kBlockN;
@@ -624,7 +639,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // Epilogue: O / max(l, 1e-30) as bf16, staged in this consumer's own
     // rows of the q tile (its last reader was the consumer's own S), in the
     // q tile's swizzled layout, conflict-free both ways; then 16-byte
-    // row-contiguous stores of the rows below Sq.
+    // row-contiguous stores of the rows below Sq.  lse, when asked, from
+    // lane t = 0 of each quad (all four hold the row's m and l).
     float denom[2];
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
@@ -632,6 +648,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       l += __shfl_xor_sync(0xffffffffu, l, 1);
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       denom[hr] = fmaxf(l, 1e-30f);
+      if constexpr (kLse)
+        store_lse(lse, st.m[hr], denom[hr], scale_log2, row_lo + 8 * hr, t, b, h, sq, heads);
     }
     constexpr int kBoxChunks = C::kBoxCols / 8;   // 16-byte chunks of a box row
     uint8_t* stage = smem + C::kQ + c * 64 * C::kSwizzle;
@@ -663,8 +681,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 // q, k, v as 4-D tensor maps over (D, heads, S, B), boxes of kBoxCols x 1 x
 // rows x 1 (rows: the block's q rows, or a K/V tile's keys).
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int batch, int sq, int sk,
-           int heads, int kv_heads, int causal, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int batch, int sq,
+           int sk, int heads, int kv_heads, int causal, float scale, cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap maps[3];
   const void* bases[3] = {q, k, v};
@@ -681,13 +699,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
                                            bases[i], dims, strides, box, C::kSwizzle);
     if (rc != 0) return rc;
   }
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
+  const auto kernel = lse ? flash_fwd_wgmma_kernel<D, true> : flash_fwd_wgmma_kernel<D, false>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + C::kBlockM - 1) / C::kBlockM, heads, batch);
-  flash_fwd_wgmma_kernel<D><<<grid, C::kThreads, C::kBytes, stream>>>(
+  kernel<<<grid, C::kThreads, C::kBytes, stream>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), sq, sk, heads, kv_heads,
-      scale * 1.4426950408889634f, causal);
+      scale * 1.4426950408889634f, causal, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1009,14 +1028,15 @@ __device__ __forceinline__ void split_p(const float (&sacc)[N / 2], uint32_t (&p
   }
 }
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
 flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tm_k_hi,
                         const __grid_constant__ CUtensorMap tm_k_lo,
                         const __grid_constant__ CUtensorMap tm_vt_hi,
                         const __grid_constant__ CUtensorMap tm_vt_lo,
                         const float* __restrict__ q, float* __restrict__ o, int sq, int sk,
-                        int heads, int kv_heads, float scale_log2, int causal) {
+                        int heads, int kv_heads, float scale_log2, int causal,
+                        float* __restrict__ lse) {
   using C = Cfg<D>;
   constexpr int kSt = C::kStages;
   constexpr int kBlockN = C::kBlockN;
@@ -1189,7 +1209,7 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tm_k_hi,
     }
 
     // Epilogue: O / max(l, 1e-30), 8-byte stores of the rows below Sq (the
-    // 4 lanes of a quad write 32 contiguous bytes of a row).
+    // 4 lanes of a quad write 32 contiguous bytes of a row); lse as wg::'s.
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       float l = st.l[hr];
@@ -1197,6 +1217,7 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tm_k_hi,
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       const float denom = fmaxf(l, 1e-30f);
       const int row = row_lo + 8 * hr;
+      if constexpr (kLse) wg::store_lse(lse, st.m[hr], denom, scale_log2, row, t, b, h, sq, heads);
       if (row >= sq) continue;
       float* out = o + (((size_t)b * sq + row) * heads + h) * D + 2 * t;
 #pragma unroll
@@ -1220,8 +1241,8 @@ int split_launch(const float* k, const float* v, void* scratch, int batch, int s
 // K's parts as 4-D tensor maps over (D, KV, Sk, B) in boxes of kBoxCols x 1
 // x kBlockN x 1, V^T's over (skp, D, KV, B) in boxes of 32 x D x 1 x 1.
 template <int D>
-int launch(const void* q, const void* scratch, void* o, int batch, int sq, int sk, int heads,
-           int kv_heads, int causal, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* scratch, void* o, float* lse, int batch, int sq, int sk,
+           int heads, int kv_heads, int causal, float scale, cudaStream_t stream) {
   using C = Cfg<D>;
   const Split parts = split_parts(const_cast<void*>(scratch), batch, sk, kv_heads, D);
   const cuuint64_t skp = parts.skp;
@@ -1242,13 +1263,15 @@ int launch(const void* q, const void* scratch, void* o, int batch, int sq, int s
                                            is_k ? C::kSwizzle : 128);
     if (rc != 0) return rc;
   }
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tf32x3_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
+  const auto kernel =
+      lse ? flash_fwd_tf32x3_kernel<D, true> : flash_fwd_tf32x3_kernel<D, false>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + C::kBlockM - 1) / C::kBlockM, heads, batch);
-  flash_fwd_tf32x3_kernel<D><<<grid, C::kThreads, C::kBytes, stream>>>(
+  kernel<<<grid, C::kThreads, C::kBytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(q), static_cast<float*>(o),
-      sq, sk, heads, kv_heads, scale * 1.4426950408889634f, causal);
+      sq, sk, heads, kv_heads, scale * 1.4426950408889634f, causal, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1280,11 +1303,11 @@ __device__ __forceinline__ void stage_f32(float* dst, const float* src, size_t s
   }
 }
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o, int sq, int sk,
-                     int heads, int kv_heads, float scale, int causal) {
+                     int heads, int kv_heads, float scale, int causal, float* __restrict__ lse) {
   constexpr int P = SimtSmem<D>::kPitch;
   constexpr int PP = SimtSmem<D>::kPPitch;
   constexpr int VW = D >= 32 ? 4 : 2;          // contiguous output columns per group
@@ -1421,6 +1444,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + 4 * ty + i;
     if (row >= sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    // m is the scaled maximum here; the row's 8 lanes hold the same m and l.
+    if constexpr (kLse)
+      if (tx == 0) lse[((size_t)b * heads + h) * sq + row] = m[i] + logf(denom);
     float* out = o + (((size_t)b * sq + row) * heads + h) * D;
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj)
@@ -1430,15 +1456,18 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D>
-int simt_launch(const void* q, const void* k, const void* v, void* o, int batch, int sq, int sk,
-                int heads, int kv_heads, int causal, float scale, cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, SimtSmem<D>::kBytes);
+int simt_launch(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
+                int sq, int sk, int heads, int kv_heads, int causal, float scale,
+                cudaStream_t stream) {
+  const auto kernel = lse ? flash_fwd_f32_kernel<D, true> : flash_fwd_f32_kernel<D, false>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           SimtSmem<D>::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kRows - 1) / kRows, heads, batch);
-  flash_fwd_f32_kernel<D><<<grid, kThreads, SimtSmem<D>::kBytes, stream>>>(
+  kernel<<<grid, kThreads, SimtSmem<D>::kBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), sq, sk, heads, kv_heads, scale, causal);
+      static_cast<float*>(o), sq, sk, heads, kv_heads, scale, causal, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1479,12 +1508,16 @@ extern "C" int flash_split_kv_launch(const void* k, const void* v, void* scratch
 // after the launch (0 on success), or cudaErrorInvalidValue for an
 // instance, dtype or head_dim it has no kernel for, a missing scratch, or a
 // tensor map cuTensorMapEncodeTiled refuses.  Never a fallback: an instance
-// that fails is an error.
+// that fails is an error.  `lse`, when not null, receives each query row's
+// log-sum-exp of its scaled scores, m + log(max(l, 1e-30)) in natural-log
+// units, as float32 [batch][heads][sq] (the reference's (B, KV, G, Sq), head
+// h = kv G + g); when null, the kernel is the instance without lse, the
+// one built before the lse output.
 extern "C" int flash_attention_launch_instance(const void* q, const void* k, const void* v,
-                                               void* o, const void* scratch, int batch, int sq,
-                                               int sk, int heads, int kv_heads, int head_dim,
-                                               int dtype, int causal, float scale, int instance,
-                                               void* stream) {
+                                               void* o, const void* scratch, float* lse,
+                                               int batch, int sq, int sk, int heads,
+                                               int kv_heads, int head_dim, int dtype, int causal,
+                                               float scale, int instance, void* stream) {
   using namespace flash;
   if (instance == -1) instance = dtype == 0 ? 1 : 0;
   if (batch <= 0 || sq <= 0) return 0;
@@ -1493,12 +1526,14 @@ extern "C" int flash_attention_launch_instance(const void* q, const void* k, con
 #define FLASH_INSTANCES(DIM)                                                                \
   if (head_dim == DIM) {                                                                    \
     if (instance == 0 && dtype == 1)                                                        \
-      return wg::launch<DIM>(q, k, v, o, batch, sq, sk, heads, kv_heads, causal, scale, s); \
-    if (instance == 1 && dtype == 0)                                                        \
-      return x3::launch<DIM>(q, scratch, o, batch, sq, sk, heads, kv_heads, causal, scale,  \
+      return wg::launch<DIM>(q, k, v, o, lse, batch, sq, sk, heads, kv_heads, causal, scale, \
                              s);                                                            \
+    if (instance == 1 && dtype == 0)                                                        \
+      return x3::launch<DIM>(q, scratch, o, lse, batch, sq, sk, heads, kv_heads, causal,    \
+                             scale, s);                                                     \
     if (instance == 2 && dtype == 0)                                                        \
-      return simt_launch<DIM>(q, k, v, o, batch, sq, sk, heads, kv_heads, causal, scale, s); \
+      return simt_launch<DIM>(q, k, v, o, lse, batch, sq, sk, heads, kv_heads, causal, scale, \
+                              s);                                                           \
   }
   FLASH_INSTANCES(16)
   FLASH_INSTANCES(32)
@@ -1510,9 +1545,9 @@ extern "C" int flash_attention_launch_instance(const void* q, const void* k, con
 
 // The static rule's entry point (instance -1).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      const void* scratch, int batch, int sq, int sk, int heads,
-                                      int kv_heads, int head_dim, int dtype, int causal,
-                                      float scale, void* stream) {
-  return flash_attention_launch_instance(q, k, v, o, scratch, batch, sq, sk, heads, kv_heads,
-                                         head_dim, dtype, causal, scale, -1, stream);
+                                      const void* scratch, float* lse, int batch, int sq, int sk,
+                                      int heads, int kv_heads, int head_dim, int dtype,
+                                      int causal, float scale, void* stream) {
+  return flash_attention_launch_instance(q, k, v, o, scratch, lse, batch, sq, sk, heads,
+                                         kv_heads, head_dim, dtype, causal, scale, -1, stream);
 }

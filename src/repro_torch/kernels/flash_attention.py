@@ -15,9 +15,13 @@ cores, the rule until the 3xTF32 instance measured faster) stays callable for
 measurement and tests through ``instance="simt_f32"``.  The 3xTF32 instance
 reads K and V split into TF32 parts by a prepass kernel,
 :func:`split_kv_cuda` (plain version :func:`repro_torch.kernels.ref.split_kv_ref`).
+``return_lse=True`` also asks the kernel for each query row's
+log-sum-exp (float32, the reference's (B, KV, G, Sq)), which the training
+path's backward reads; without it the kernel writes none.
 ``flash_attention_cuda.launches`` counts every launch of the attention
 kernel; ``flash_attention_cuda.instance_launches`` counts them by the
-instance that ran, and ``split_kv_cuda.launches`` the prepass's.
+instance that ran, ``lse_launches`` those that wrote lse, and
+``split_kv_cuda.launches`` the prepass's.
 """
 
 from __future__ import annotations
@@ -61,7 +65,7 @@ _instance = instance   # flash_attention_cuda's keyword hides the name
 def _fn():
     return _build.function(
         "flash_attention", "flash_attention_launch_instance",
-        [_C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _C])
+        [_C, _C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _C])
 
 
 def _split_fn():
@@ -144,9 +148,13 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = True, instance: str | None = None) -> torch.Tensor:
+                         causal: bool = True, instance: str | None = None,
+                         return_lse: bool = False):
     """(B, Sq, H, D) attention output in q's type: query head h attends KV
     head h // (H / KV) with scale D^-0.5, causal with positions from 0.
+    With ``return_lse``, ``(out, lse)``: lse the float32 log-sum-exp of each
+    query row's scaled scores, (B, KV, G, Sq) with G = H / KV (a view of the
+    kernel's (B, H, Sq), head h = kv G + g).
 
     ``instance`` (one of ``INSTANCES``) picks a kernel for measurement and
     tests; None is the static rule (:func:`instance`), the only choice the
@@ -154,15 +162,19 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     name = _instance(q.dtype, q.shape[-1] if q.dim() else 0, instance)
     check_operands(q, k, v)
     b, sq, h, d = q.shape
+    kv = k.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty((b, kv, h // kv, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if b == 0 or sq == 0:
-        return out
+        return (out, lse) if return_lse else out
     # The split K and V stay referenced until the launch is queued; the
     # caching allocator orders their reuse after it on this stream.
     split = split_kv_cuda(k, v) if name == "wgmma_tf32x3" else None
     with torch.cuda.device(q.device):
         rc = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   split[0].data_ptr() if split else None, b, sq, k.shape[1], h, k.shape[2], d,
+                   split[0].data_ptr() if split else None,
+                   lse.data_ptr() if return_lse else None, b, sq, k.shape[1], h, kv, d,
                    DTYPES[q.dtype], int(causal), d ** -0.5, INSTANCES.index(name),
                    torch.cuda.current_stream().cuda_stream)
     if rc != 0:
@@ -170,13 +182,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"error {rc}")
     flash_attention_cuda.launches += 1
     flash_attention_cuda.instance_launches[name] += 1
-    return out
+    flash_attention_cuda.lse_launches += bool(return_lse)
+    return (out, lse) if return_lse else out
 
 
 def reset_launches() -> None:
     """Zero every launch counter of the module's wrappers."""
     flash_attention_cuda.launches = 0
     flash_attention_cuda.instance_launches = dict.fromkeys(INSTANCES, 0)
+    flash_attention_cuda.lse_launches = 0
     split_kv_cuda.launches = 0
 
 

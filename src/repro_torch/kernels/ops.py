@@ -47,7 +47,8 @@ plain verdict.
 
 :func:`flash_attention`, the LM scaffold's entry, has its own two impls:
 ``"cuda"`` (the kernel; ``auto`` on CUDA tensors) and ``"ref"`` (the plain
-version; ``auto`` on CPU tensors), each raising on the other device.
+version; ``auto`` on CPU tensors), each raising on the other device.  Its
+backward, :func:`flash_attention_bwd`, is the plain version on every device.
 """
 
 from __future__ import annotations
@@ -423,9 +424,11 @@ def flash_attention(
     q_chunk: int = 512,
     kv_chunk: int = 512,
     triangle: bool = False,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """GQA attention forward -> (B, Sq, H, D) in q's type, for q (B, Sq, H,
-    D) and k, v (B, Sk, KV, D).
+    D) and k, v (B, Sk, KV, D); with ``return_lse``, ``(out, lse)``, lse the
+    float32 log-sum-exp of each query row, (B, KV, G, Sq).
 
     ``impl="auto"`` launches the CUDA kernel on CUDA tensors and runs the
     plain version on CPU tensors; ``"cuda"`` raises on CPU tensors and
@@ -440,10 +443,36 @@ def flash_attention(
         if not on_cuda:
             raise ValueError("impl='cuda' launches the CUDA kernel; CPU tensors take "
                              "impl='ref'")
-        return flash_kernel.flash_attention_cuda(q, k, v, causal=causal)
+        return flash_kernel.flash_attention_cuda(q, k, v, causal=causal, return_lse=return_lse)
     if impl == "ref":
         if on_cuda:
             raise ValueError("impl='ref' is the CPU path; CUDA tensors launch the kernel")
         return ref.flash_attention_ref(q, k, v, causal=causal, q_chunk=q_chunk,
-                                       kv_chunk=kv_chunk, triangle=triangle)
+                                       kv_chunk=kv_chunk, triangle=triangle,
+                                       return_lse=return_lse)
     raise ValueError(f"unknown impl {impl!r}")
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_chunk: int = 512,
+    kv_chunk: int = 512,
+    triangle: bool = False,
+) -> tuple:
+    """The attention backward -> (dq, dk, dv) from the forward's inputs, its
+    output and lse, and the output's gradient ``do``.
+
+    This is the plain version (``ref.flash_attention_bwd_ref``) on every
+    device, the CUDA card included: the reference computes its backward in
+    jnp outside any Pallas kernel, so there is no TPU kernel to port here.
+    ``q_chunk``, ``kv_chunk`` and ``triangle`` shape its blocks as the
+    reference's do."""
+    return ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal, q_chunk=q_chunk,
+                                       kv_chunk=kv_chunk, triangle=triangle)

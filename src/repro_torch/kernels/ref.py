@@ -378,9 +378,12 @@ def _product(eq: str, a: torch.Tensor, b: torch.Tensor, tf32x3: bool) -> torch.T
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, q_chunk: int = 512, kv_chunk: int = 512,
-                        triangle: bool = False, tf32x3: bool = False) -> torch.Tensor:
+                        triangle: bool = False, tf32x3: bool = False,
+                        return_lse: bool = False):
     """GQA attention forward, blockwise with an online softmax: the plain
-    version of ``flash_attention_cuda``.
+    version of ``flash_attention_cuda``.  With ``return_lse``, ``(out,
+    lse)``: lse = m + log(max(l, 1e-30)) of each query row, float32 (B, KV,
+    G, Sq), as ``_flash_fwd`` returns it.
 
     q: (B, Sq, H, D); k, v: (B, Sk, KV, D) with H % KV == 0; query head h
     reads KV head h // (H / KV).  Scores are ``(q . k) * D^-0.5``, masked to
@@ -405,6 +408,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qf = q.float().reshape(b, sq, kv, g, d)
     kf = k.float()
     out = torch.empty((b, sq, kv, g, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, kv, g, sq), dtype=torch.float32, device=q.device)
     for q0 in range(0, sq, q_chunk):
         q_blk = qf[:, q0:q0 + q_chunk]
         q_pos = torch.arange(q0, q0 + q_chunk, device=q.device)
@@ -430,4 +434,59 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             m = m_new
         o = (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
         out[:, q0:q0 + q_chunk] = o.permute(0, 3, 1, 2, 4)
-    return out.reshape(b, sq, h, d)
+        lse[..., q0:q0 + q_chunk] = m + torch.log(torch.clamp(l, min=1e-30))
+    out = out.reshape(b, sq, h, d)
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                            causal: bool = True, q_chunk: int = 512, kv_chunk: int = 512,
+                            triangle: bool = False) -> tuple:
+    """The attention backward, blockwise, p recomputed from lse: the twin of
+    ``repro.models.layers._flash_bwd_impl``, with its chunk rule
+    (:func:`flash_chunks`), its float32 accumulations and its casts (each
+    block's products in the operands' type, then widened).  q, out, do (B,
+    Sq, H, D); k, v (B, Sk, KV, D); lse (B, KV, G, Sq) from the forward.
+    Returns (dq, dk, dv) in q's, k's and v's types.
+
+    When causal, a block wholly above the diagonal is skipped, triangle or
+    not: its p is exactly 0, so the reference adds exact zeros there."""
+    b, sq, h, d = q.shape
+    _, sk, kv, _ = k.shape
+    if h % kv or k.shape != v.shape or out.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"GQA needs H % KV == 0, k, v alike and out, do like q: q "
+                         f"{list(q.shape)}, k {list(k.shape)}, v {list(v.shape)}")
+    g = h // kv
+    q_chunk, kv_chunk = flash_chunks(sq, sk, q_chunk, kv_chunk)
+    scale = d ** -0.5
+    qg, dog = q.reshape(b, sq, kv, g, d), do.reshape(b, sq, kv, g, d)
+    # D_i = rowsum(do * out), (B, KV, G, Sq).
+    dsum = (do * out).float().sum(-1).reshape(b, sq, kv, g).permute(0, 2, 3, 1)
+    dq = torch.empty((b, sq, kv, g, d), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((b, sk, kv, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((b, sk, kv, d), dtype=torch.float32, device=q.device)
+    for q0 in range(0, sq, q_chunk):
+        q_blk, do_blk = qg[:, q0:q0 + q_chunk], dog[:, q0:q0 + q_chunk]
+        lse_blk, d_blk = lse[..., q0:q0 + q_chunk, None], dsum[..., q0:q0 + q_chunk, None]
+        q_pos = torch.arange(q0, q0 + q_chunk, device=q.device)
+        dq_i = torch.zeros((b, q_chunk, kv, g, d), dtype=torch.float32, device=q.device)
+        for k0 in range(0, sk, kv_chunk):
+            if causal and k0 > q0 + q_chunk - 1:
+                break
+            k_blk, v_blk = k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk]
+            s = torch.einsum("bqkgd,bckd->bkgqc", q_blk, k_blk).float() * scale
+            if causal:
+                k_pos = torch.arange(k0, k0 + kv_chunk, device=q.device)
+                s = torch.where(q_pos[:, None] >= k_pos[None, :], s, NEG_INF)
+            p = torch.exp(s - lse_blk)                                    # (B, KV, G, Cq, Ck)
+            dv_c = torch.einsum("bkgqc,bqkgd->bckd", p.to(do.dtype), do_blk)
+            dp = torch.einsum("bqkgd,bckd->bkgqc", do_blk, v_blk).float()
+            ds = p * (dp - d_blk)
+            dq_c = torch.einsum("bkgqc,bckd->bqkgd", ds.to(k.dtype), k_blk)
+            dk_c = torch.einsum("bkgqc,bqkgd->bckd", ds.to(q.dtype), q_blk)
+            dq_i = dq_i + dq_c.float() * scale
+            dk[:, k0:k0 + kv_chunk] += (dk_c * scale).float()
+            dv[:, k0:k0 + kv_chunk] += dv_c.float()
+        dq[:, q0:q0 + q_chunk] = dq_i
+    return dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

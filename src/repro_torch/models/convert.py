@@ -1,9 +1,11 @@
-"""Carry the reference's parameters into the port's :class:`Model`.
+"""Carry the reference's parameters and train state into the port.
 
 :func:`params_from_numpy` takes the JAX package's parameter pytree
 (``repro.models.Model(cfg).init(key)``) as nested dicts of numpy arrays,
 leaves stacked per layer along axis 0, and copies it leaf for leaf into a
 port ``Model`` of the same config, so both packages compute the same thing.
+:func:`state_from_numpy` does the same for a whole train state
+(``repro.train.init_state``: step, parameters, optimizer moments).
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import Model
+from repro_torch.train.step import init_state
+from repro_torch.train.tree import leaves_with_paths
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> dict:
@@ -43,3 +47,25 @@ def params_from_numpy(model: Model, tree: Mapping) -> Model:
                 raise ValueError(f"{name}: shape {a.shape} != {tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
     return model
+
+
+def state_from_numpy(model: Model, opt_cfg, tree: Mapping) -> dict:
+    """The port's train state (``repro_torch.train.step.init_state``) over
+    ``model`` holding the reference's train state ``tree`` (``{"step",
+    "params", "opt"}`` as nested dicts of numpy arrays): the parameters
+    copied into the model, the step and every optimizer moment into the
+    state's tensors.  Raises on a missing, extra or misshapen leaf."""
+    params_from_numpy(model, tree["params"])
+    state = init_state(model, opt_cfg)
+    want = dict(leaves_with_paths({"step": tree["step"], "opt": tree["opt"]}))
+    have = dict(leaves_with_paths({"step": state["step"], "opt": state["opt"]}))
+    if set(want) != set(have):
+        raise KeyError(f"train states differ: missing {sorted(set(have) - set(want))}, "
+                       f"extra {sorted(set(want) - set(have))}")
+    with torch.no_grad():
+        for path, t in have.items():
+            a = np.asarray(want[path])
+            if tuple(a.shape) != tuple(t.shape):
+                raise ValueError(f"{'/'.join(path)}: shape {a.shape} != {tuple(t.shape)}")
+            t.copy_(torch.from_numpy(np.array(a)))
+    return state

@@ -79,8 +79,7 @@ class DecodeEngine:
         ``cur`` advanced by one."""
         cur = cache["cur"]
         x = model.embed_tokens(batch["tokens"])
-        for i in range(self.cfg.num_layers):
-            blk = model.layer(i)
+        for i, blk in enumerate(model.layers()):
             x = self._attn_decode(x, blk, cache["k"][i], cache["v"][i], cur)
             x = model.mlp(x, blk)
         logits = model.head(x)
@@ -105,8 +104,7 @@ class DecodeEngine:
         cache = self.init_cache(b, max_len)
         cache["cur"].fill_(s)
         positions = torch.arange(s, device=x.device)[None, :]
-        for i in range(cfg.num_layers):
-            blk = model.layer(i)
+        for i, blk in enumerate(model.layers()):
             h = L.rms_norm(x, blk["attn_norm"], cfg.norm_eps)
             q, k, v = self._qkv(h, blk, positions)
             out = L.flash_attention(q, k, v, causal=True)

@@ -1,14 +1,18 @@
-"""Shared neural layers: RMSNorm, RoPE, GQA attention (prefill + decode
-paths), SwiGLU MLP.  The port of ``repro.models.layers``, forward only.
+"""Shared neural layers: RMSNorm, RoPE, GQA attention (train, prefill and
+decode paths), SwiGLU MLP.  The port of ``repro.models.layers``.
 
 Attention has two forms:
 
 * :func:`flash_attention` — blockwise online-softmax attention, used by the
-  forward pass and prefill.  On CUDA tensors it launches the hand-written
-  kernel (``kernels/csrc/flash_attention.cu``); on CPU tensors it runs the
-  plain version (``kernels.ref.flash_attention_ref``), the blockwise twin
-  of the reference's ``_flash_fwd``.  The backward is the training slice's
-  (ROADMAP Queue 1 item 13): an input that requires grad raises.
+  forward pass, training and prefill.  On CUDA tensors its forward launches
+  the hand-written kernel (``kernels/csrc/flash_attention.cu``); on CPU
+  tensors it runs the plain version (``kernels.ref.flash_attention_ref``),
+  the blockwise twin of the reference's ``_flash_fwd``.  When an input
+  needs grad it is a ``torch.autograd.Function`` like the reference's
+  custom VJP: the forward also returns lse and saves ``(q, k, v, out,
+  lse)``, and the backward is ``ops.flash_attention_bwd``, the twin of
+  ``_flash_bwd_impl`` (plain PyTorch on every device, as the reference's is
+  jnp).  Otherwise nothing is saved and no lse is asked for.
 * :func:`decode_attention` — one-token attention against the KV cache,
   plain PyTorch as it is jnp in the reference.
 
@@ -70,6 +74,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # Attention
 # ---------------------------------------------------------------------------
 
+class _Flash(torch.autograd.Function):
+    """The reference's ``_flash`` custom VJP: the forward keeps (q, k, v, out,
+    lse), the backward recomputes p from lse block by block."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_chunk, kv_chunk, triangle):
+        out, lse = ops.flash_attention(q, k, v, causal=causal, q_chunk=q_chunk,
+                                       kv_chunk=kv_chunk, triangle=triangle, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.schedule = (causal, q_chunk, kv_chunk, triangle)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, q_chunk, kv_chunk, triangle = ctx.schedule
+        dq, dk, dv = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                             q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                             triangle=triangle)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -80,19 +106,19 @@ def flash_attention(
     kv_chunk: int = 512,
     triangle_schedule: bool = False,
 ) -> torch.Tensor:
-    """Blockwise attention, forward only.
+    """Blockwise attention with a FlashAttention-style backward.
 
     q: (B, Sq, H, D); k, v: (B, Sk, KV, D); GQA via H % KV == 0.  The (S, S)
-    score matrix is never materialised.  ``q_chunk``, ``kv_chunk`` and
-    ``triangle_schedule`` keep the reference's signature and shape only the
-    plain version's blocks (the CUDA kernel has its own tiles, 128 q rows by
-    128 keys in the bf16 instance every served config runs, and always
-    skips the blocks above the diagonal).
+    score matrix is never materialised in either pass.  ``q_chunk``,
+    ``kv_chunk`` and ``triangle_schedule`` keep the reference's signature;
+    they shape the plain versions' blocks (the CUDA kernel has its own
+    tiles, 128 q rows by 128 keys in the bf16 instance at head dims 64 and
+    128, and always skips the blocks above the diagonal).  Under
+    ``torch.no_grad()`` / ``inference_mode``, or when no input needs grad,
+    this is the forward alone: nothing is saved and no lse is written.
     """
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "flash_attention is forward only in the port: its backward comes with "
-            "the training slice (ROADMAP Queue 1 item 13)")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _Flash.apply(q, k, v, causal, q_chunk, kv_chunk, triangle_schedule)
     return ops.flash_attention(q, k, v, causal=causal, q_chunk=q_chunk,
                                kv_chunk=kv_chunk, triangle=triangle_schedule)
 

@@ -4,16 +4,19 @@
 with the same names and shapes, leaves stacked per layer along axis 0
 (``blocks.attn.wq`` is (L, d_model, H*hd)), so a JAX parameter pytree loads
 leaf for leaf (:func:`repro_torch.models.convert.params_from_numpy`).  It
-provides the seeded init, ``num_params()`` and ``forward`` returning
-``(logits, aux)``; ``DecodeEngine`` (``models/decode.py``) adds the KV-cache
-serving path.
+provides the seeded init, ``param_shapes()``, ``num_params()``,
+``num_active_params()``, ``forward`` returning ``(logits, aux)`` and
+``loss`` (next-token cross-entropy, the reference's); ``DecodeEngine``
+(``models/decode.py``) adds the KV-cache serving path.
 
 Parameters stay in ``param_dtype`` and are cast to the compute type where
-they are used, as the reference does; no cast copy is kept.  The training
-slice (``loss``, the flash backward, ``param_specs``) and the other
-families wait (ROADMAP Queue 1 item 13), so parameters are created without
-``requires_grad``.  The model runs on the card unless the caller passes
-``device="cpu"``.
+they are used, as the reference does; no cast copy is kept.  They are
+created without ``requires_grad``, so serving builds no autograd graph;
+``repro_torch.train.step.init_state`` switches them on for training.  With
+``cfg.remat`` each layer of a forward that builds a graph runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``).  The other
+families and ``param_specs`` wait (ROADMAP Queue 1 items 13b and 11).  The
+model runs on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import layers as L
@@ -60,9 +64,31 @@ def param_layout(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], Optional[
     return layout
 
 
+def nest(named) -> Dict:
+    """``(dotted name, value)`` pairs as a nested dict: ``"blocks.attn.wq"``
+    becomes ``tree["blocks"]["attn"]["wq"]``."""
+    tree: Dict = {}
+    for name, value in named:
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return tree
+
+
 def param_count(cfg: ModelConfig) -> int:
     """The number of parameters of ``Model(cfg)``, without building it."""
     return sum(math.prod(shape) for shape, _ in param_layout(cfg).values())
+
+
+def param_shapes(cfg: ModelConfig) -> Dict:
+    """The parameter tree of ``Model(cfg)`` with shapes and dtypes only
+    (tensors on the ``meta`` device), as the reference's ``eval_shape`` of
+    ``init``."""
+    pdt = dtype_of(cfg.param_dtype)
+    return nest((name, torch.empty(shape, dtype=pdt, device="meta"))
+                for name, (shape, _) in param_layout(cfg).items())
 
 
 class Model(nn.Module):
@@ -106,13 +132,18 @@ class Model(nn.Module):
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
-    def layer(self, i: int) -> Dict:
-        """Layer ``i``'s parameters as the reference's per-layer dict (views
-        of the stacked leaves)."""
-        blk = self.blocks
-        return {"attn_norm": blk.attn_norm[i], "mlp_norm": blk.mlp_norm[i],
-                "attn": {n: p[i] for n, p in blk.attn.named_parameters()},
-                "mlp": {n: p[i] for n, p in blk.mlp.named_parameters()}}
+    def param_tree(self) -> Dict:
+        """The parameters as the reference's nested tree (``{"blocks":
+        {"attn": {"wq": ...}}}``), the model's own tensors."""
+        return nest(self.named_parameters())
+
+    def param_shapes(self) -> Dict:
+        return param_shapes(self.cfg)
+
+    def num_active_params(self) -> int:
+        """Active parameters per token: all of them in the dense family (the
+        MoE family's expert discount comes with it, ROADMAP item 13b)."""
+        return param_count(self.cfg)
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         # Gathering before the cast gives the reference's embed.astype(cdt)[tokens].
@@ -130,16 +161,55 @@ class Model(nn.Module):
         return x + L.swiglu(h, blk["mlp"]["w_gate"], blk["mlp"]["w_up"],
                             blk["mlp"]["w_down"])
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, dict]:
-        """batch: tokens (B, S).  Returns (logits (B, S, V), aux metrics)."""
+    def block(self, x: torch.Tensor, blk: Dict, triangle: bool = False) -> torch.Tensor:
+        """One decoder layer: attention and MLP, each pre-norm and residual."""
         cfg = self.cfg
+        x = x + L.attention_block(
+            L.rms_norm(x, blk["attn_norm"], cfg.norm_eps), blk["attn"],
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+            qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps, triangle_schedule=triangle)
+        return self.mlp(x, blk)
+
+    def layers(self) -> list:
+        """Every layer's parameters as the reference's per-layer dicts
+        (``{"attn_norm", "mlp_norm", "attn": {...}, "mlp": {...}}``), views
+        from one ``unbind`` of each stacked leaf (so a backward writes each
+        stacked gradient once, not once a layer)."""
+        parts = {name: p.unbind(0) for name, p in self.blocks.named_parameters()}
+        return [nest((name, views[i]) for name, views in parts.items())
+                for i in range(self.cfg.num_layers)]
+
+    def forward(self, batch: Dict[str, torch.Tensor], *,
+                triangle: bool = False) -> Tuple[torch.Tensor, dict]:
+        """batch: tokens (B, S).  Returns (logits (B, S, V), aux metrics).
+        ``triangle`` is the reference's lower-triangle attention schedule."""
         x = self.embed_tokens(batch["tokens"])
-        for i in range(cfg.num_layers):
-            blk = self.layer(i)
-            x = x + L.attention_block(
-                L.rms_norm(x, blk["attn_norm"], cfg.norm_eps), blk["attn"],
-                num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-                head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-                qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps)
-            x = self.mlp(x, blk)
+        remat = self.cfg.remat and torch.is_grad_enabled() and any(
+            p.requires_grad for p in self.parameters())
+        for blk in self.layers():
+            if remat:
+                x = checkpoint(self.block, x, blk, triangle, use_reentrant=False)
+            else:
+                x = self.block(x, blk, triangle)
         return self.head(x), {}
+
+    def loss(self, batch: Dict[str, torch.Tensor], *,
+             triangle: bool = False) -> Tuple[torch.Tensor, dict]:
+        """Next-token cross-entropy over float32 logits: the mean of
+        logsumexp - gold logit, or its ``loss_mask``-weighted mean.  batch:
+        tokens and labels (B, S), integer.  Returns (loss, {"nll", "loss"})."""
+        logits, aux = self.forward(batch, triangle=triangle)
+        logits = logits.float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, batch["labels"].long()[..., None], dim=-1)[..., 0]
+        nll = logz - gold
+        mask = batch.get("loss_mask")
+        if mask is None:
+            loss = nll.mean()
+        else:
+            mask = mask.float()
+            loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        metrics = {"nll": loss, **aux}
+        metrics["loss"] = loss
+        return loss, metrics

@@ -898,3 +898,77 @@ def test_card_serving_matches_cpu_serving(exact_f32, name):
     with torch.inference_mode():
         torch.testing.assert_close(card({"tokens": tokens.to(exact_f32)})[0].cpu(),
                                    cpu({"tokens": tokens})[0], rtol=1e-4, atol=1e-4)
+
+
+LSE_SHAPES = [(1, 1, True, 1, 2), (63, 63, True, 3, 2), (100, 37, False, 8, 2),
+              (129, 129, True, 4, 2), (257, 255, False, 1, 2), (255, 257, True, 8, 1),
+              (193, 191, False, 4, 2), (385, 384, True, 8, 1), (31, 33, True, 3, 2),
+              (65, 63, True, 8, 1)]
+
+
+@pytest.mark.parametrize("dtype,instance", [(torch.bfloat16, "wgmma"),
+                                            (torch.float32, "wgmma_tf32x3"),
+                                            (torch.float32, "simt_f32")])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("sq,sk,causal,group,kv", LSE_SHAPES)
+def test_flash_attention_kernel_lse_matches_plain_version(exact_f32, dtype, instance, d, sq, sk,
+                                                          causal, group, kv):
+    """Every instance's lse output (B, KV, G, Sq) against the plain
+    version's within 1e-4 (1 + |lse|); the output equals the call without
+    lse bit for bit, and only the call that asks for lse counts in
+    ``lse_launches``."""
+    q, k, v = _flash_operands(exact_f32, dtype, d, sq, sk, group, kv)
+    before = flash_kernel.flash_attention_cuda.lse_launches
+    plain = flash_kernel.flash_attention_cuda(q, k, v, causal=causal, instance=instance)
+    out, lse = flash_kernel.flash_attention_cuda(q, k, v, causal=causal, instance=instance,
+                                                 return_lse=True)
+    assert flash_kernel.flash_attention_cuda.lse_launches == before + 1
+    assert torch.equal(out, plain)
+    _, want = ref.flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (2, kv, group, sq)
+    assert bool(((lse - want).abs() <= 1e-4 * (1 + want.abs())).all())
+
+
+def test_ops_flash_attention_returns_lse_on_the_card(exact_f32):
+    q, k, v = _flash_operands(exact_f32, torch.bfloat16, 64, 300, 300, 3, 3)
+    out, lse = ops.flash_attention(q, k, v, return_lse=True)
+    want_out, want_lse = ref.flash_attention_ref(q, k, v, return_lse=True)
+    torch.testing.assert_close(out, want_out, rtol=FLASH_TOL[torch.bfloat16],
+                               atol=FLASH_TOL[torch.bfloat16])
+    assert bool(((lse - want_lse).abs() <= 1e-4 * (1 + want_lse.abs())).all())
+
+
+@pytest.mark.parametrize("name", ["smollm-135m", "qwen3-8b"])
+def test_card_gradients_match_cpu_gradients(exact_f32, name):
+    """The reduced config (float32) on the card, its forward through the
+    kernel with lse, against the same weights on the CPU: the loss within
+    1e-5 relative and each gradient leaf within 1e-4 relative RMS; serving
+    under inference_mode asks for no lse."""
+    from repro_torch.train.tree import leaves_with_paths
+
+    cfg = configs.get_reduced(name)
+    cpu = Model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    card = Model(cfg, device=exact_f32)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 65)).astype(np.int32))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = []
+    counts = flash_kernel.flash_attention_cuda
+    for model in (card, cpu):
+        for p in model.parameters():
+            p.requires_grad_(True)
+        before = counts.launches, counts.lse_launches
+        loss, _ = model.loss({k: t.to(model.device) for k, t in batch.items()})
+        grads = torch.autograd.grad(loss, [p for _, p in leaves_with_paths(model.param_tree())])
+        out.append((float(loss.detach()), [g.cpu() for g in grads]))
+        if model is card:
+            assert (counts.launches - before[0], counts.lse_launches - before[1]) == (
+                cfg.num_layers, cfg.num_layers)
+    assert abs(out[0][0] - out[1][0]) <= 1e-5 * abs(out[1][0])
+    for g, w in zip(out[0][1], out[1][1]):
+        assert float((g - w).norm() / w.norm()) <= 1e-4
+    before = counts.lse_launches
+    with torch.inference_mode():
+        card({"tokens": batch["tokens"].to(exact_f32)})
+    assert counts.lse_launches == before

@@ -89,10 +89,71 @@ def test_flash_attention_bf16_rounds_where_the_kernel_rounds():
     np.testing.assert_allclose(got.float().numpy(), want.numpy(), rtol=1e-2, atol=1e-2)
 
 
-def test_flash_attention_is_forward_only():
+# b, sq, sk, h, kv, d, causal, q_chunk, kv_chunk, triangle: GQA groups 1, 2,
+# 3 and 4, causal and not, odd chunk counts (3 and 5 query chunks, 3 and 5
+# key chunks), the triangle schedule on and off.
+BWD_SHAPES = [
+    (2, 16, 16, 4, 2, 8, True, 4, 4, False),
+    (2, 16, 16, 4, 2, 8, True, 4, 4, True),
+    (1, 24, 24, 6, 2, 16, True, 8, 8, False),
+    (1, 24, 24, 6, 2, 16, True, 8, 8, True),
+    (2, 24, 40, 4, 4, 8, False, 8, 8, False),
+    (1, 40, 24, 8, 2, 4, False, 8, 8, True),
+    (1, 20, 20, 3, 1, 16, True, 4, 4, True),
+    (2, 32, 32, 6, 3, 16, True, 16, 8, False),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,qc,kc,triangle", BWD_SHAPES)
+def test_flash_attention_backward_matches_reference(b, sq, sk, h, kv, d, causal, qc, kc,
+                                                    triangle):
+    """The plain forward's lse against ``_flash_fwd``'s, the plain backward
+    against ``_flash_bwd_impl`` on the same (q, k, v, out, lse, do), and the
+    autograd ``flash_attention`` against ``jax.grad`` of the reference's,
+    each within 2e-5 (1 + |want|)."""
+    rng = np.random.default_rng(b + sq + sk + h + int(triangle))
+    q, k, v = _qkv(rng, b, sq, sk, h, kv, d)
+    w = rng.normal(size=(b, sq, h, d)).astype(np.float32)   # the output's cotangent
+    jq, jk, jv, jw = map(jnp.asarray, (q, k, v, w))
+
+    def close(got, want):
+        got, want = got.detach().numpy(), np.asarray(want)
+        assert got.shape == want.shape
+        assert np.all(np.abs(got - want) <= 2e-5 * (1 + np.abs(want)))
+
+    out, lse = JL._flash_fwd(jq, jk, jv, causal, qc, kc, triangle)
+    got_out, got_lse = ref.flash_attention_ref(*_t(q, k, v), causal=causal, q_chunk=qc,
+                                               kv_chunk=kc, triangle=triangle, return_lse=True)
+    close(got_out, out)
+    close(got_lse, lse)
+    want = JL._flash_bwd_impl(jq, jk, jv, out, lse, jw, causal, qc, kc, triangle)
+    got = ref.flash_attention_bwd_ref(*_t(q, k, v, np.array(out), np.array(lse), w),
+                                      causal=causal, q_chunk=qc, kv_chunk=kc, triangle=triangle)
+    for g, wnt in zip(got, want):
+        close(g, wnt)
+
+    def jloss(q_, k_, v_):
+        return jnp.sum(JL.flash_attention(q_, k_, v_, causal=causal, q_chunk=qc, kv_chunk=kc,
+                                          triangle_schedule=triangle) * jw)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    (TL.flash_attention(tq, tk, tv, causal=causal, q_chunk=qc, kv_chunk=kc,
+                        triangle_schedule=triangle) * torch.from_numpy(w)).sum().backward()
+    for g, wnt in zip((tq.grad, tk.grad, tv.grad), want):
+        close(g, wnt)
+
+
+def test_flash_attention_forward_alone_saves_nothing():
+    """Without grad (or under no_grad) the layer returns the forward's
+    output alone, equal to the autograd path's, and builds no graph."""
     q, k, v = _t(*_qkv(np.random.default_rng(0), 1, 8, 8, 2, 1, 8))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        TL.flash_attention(q.requires_grad_(), k, v)
+    plain = TL.flash_attention(q, k, v)
+    assert plain.grad_fn is None
+    with torch.no_grad():
+        assert TL.flash_attention(q.clone().requires_grad_(), k, v).grad_fn is None
+    traced = TL.flash_attention(q.clone().requires_grad_(), k, v)
+    assert traced.grad_fn is not None and torch.equal(traced.detach(), plain)
 
 
 def test_flash_attention_dispatch_never_falls_back():

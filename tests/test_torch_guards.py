@@ -37,9 +37,18 @@ from repro_torch import configs
 from repro_torch.configs import shapes
 from repro_torch.kernels import flash_attention
 from repro_torch.models import DecodeEngine, Model, convert, generate
+from repro_torch import train, distributed
+from repro_torch.data import loader
+from repro_torch.launch import train as launch_train
 model = Model(configs.get_reduced("qwen3-8b"), device="cpu")
 out = generate.greedy_generate(DecodeEngine(model), torch.arange(12).reshape(2, 6), 3)
 assert out.tokens.shape == (2, 3)
+opt_cfg = train.OptimizerConfig()
+state = train.init_state(model, opt_cfg)
+batches = loader.SyntheticLMLoader(model.cfg, loader.LoaderConfig(batch_size=2, seq_len=8),
+                                   device="cpu")
+state, metrics = train.make_train_step(model, opt_cfg)(state, next(batches))
+assert int(state["step"]) == 1 and bool(torch.isfinite(metrics["loss"]))
 col = collections.with_duplicates(collections.uniform_collection(60, seed=1),
                                   n_clusters=5, seed=2)
 for mode in ("host", "device"):
