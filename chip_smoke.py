@@ -141,28 +141,34 @@ Phases (any failure raises, so the script exits non-zero):
    tokens from ``SyntheticLMLoader``.  (a) The kernel's lse output against
    the plain version's at the layer shape (bf16, D = 64, causal) and at a
    reduced float32 shape (D = 16, the 3xTF32 instance), within 1e-4 (1 +
-   |lse|); at the layer shape the plain backward's dq, dk, dv from the
-   kernel's out and lse against ``scaled_dot_product_attention``'s, within
-   5% relative RMS.  (b) The train step's loss and gradients with the
-   forward through the kernel against the same with the plain forward, from
-   the same weights and batch: the loss within 1e-3 relative and every
-   gradient leaf within 5% relative RMS; the same gate must fail when the
-   kernel's lse is shifted by log 2 on one head; then the reduced
-   smollm-135m config in float32 within 1e-4 relative RMS.  Both sides of
-   (b) run the same plain backward, so (b) holds the kernel's out and lse;
-   (a)'s comparison with SDPA holds the backward.  (c) 20 AdamW steps (lr 3e-3, 5 warmup steps)
-   through ``FaultTolerantRunner`` with a checkpoint every 10 steps (async)
-   and no restart allowed: every loss finite, the last below the first, no
-   failure; the flash kernel launches twice a layer a step (the forward and
-   the layer's recomputation), each writing lse.  (d) The last checkpoint
-   restored into a fresh model's state equals the trained state leaf for
-   leaf, and the next step's loss from it equals the uninterrupted run's.
-   Printed: step ms (CUDA events, median of steps 3-20), tokens/s, peak
-   memory, the forward and loss share of a step, the kernel with and
-   without lse in turns at the layer shape beside its bound, and the plain
-   backward's time a call there (host launch time included: the card runs
-   its small kernels faster than the host launches them) beside
-   ``scaled_dot_product_attention``'s forward and backward.
+   |lse|).  The backward kernel (``flash_attention_bwd_cuda``) from the
+   forward kernel's out and lse: in float32 at the reduced shape (the
+   CUDA-core instance, TF32 off) within 1e-4 relative RMS of the plain
+   version, timed in turns with it; at the layer shape (the wgmma instance)
+   dq, dk, dv within 5% relative RMS of the plain version's and of
+   ``scaled_dot_product_attention``'s (the plain version's against SDPA's
+   too), then timed in turns with the plain backward (kernel, plain, plain,
+   kernel) and with SDPA's backward alone on a retained graph, beside its
+   bound (five products, their bytes, one exp a pair).  (b) The train
+   step's loss and gradients through the flash kernels (forward and
+   backward) against the same with both plain versions, from the same
+   weights and batch: the loss within 1e-3 relative and every gradient leaf
+   within 5% relative RMS; the step launches the forward twice a layer and
+   the backward once a layer, the plain step neither; the same gate must
+   fail when the kernel's lse is shifted by log 2 on one head; then the
+   reduced smollm-135m config in float32 within 1e-4 relative RMS.  (c) 20
+   AdamW steps (lr 3e-3, 5 warmup steps) through ``FaultTolerantRunner``
+   with a checkpoint every 10 steps (async) and no restart allowed: every
+   loss finite, the last below the first, no failure; the flash kernel
+   launches twice a layer a step (the forward and the layer's
+   recomputation), each writing lse, and the backward kernel once a layer a
+   step.  (d) The last checkpoint restored into a fresh model's state
+   equals the trained state leaf for leaf, and the next step's loss from it
+   equals the uninterrupted run's.  Printed: step ms (CUDA events, median
+   of steps 3-20), tokens/s, peak memory, the forward and loss share of a
+   step, the forward kernel with and without lse in turns at the layer
+   shape beside its bound, and ``scaled_dot_product_attention``'s forward
+   and backward.
 
 Kernel times are device times: CUDA events around 50 (20 for attention)
 back-to-back launches, a spin kernel queued first so that the host's
@@ -183,7 +189,8 @@ path runs are driven through their entry points in phase 3
 ``candidate_matrix`` and ``count_candidates`` by the blocked join under
 ``impl="swar"``, ``hamming_matrix`` and ``bitplane_hamming`` by
 ``ops.hamming_matrix``), and the flash kernel at head dims 16 and 32 and in
-float32 by phase 11's reduced models, each read the same way; the ``path`` key of each kernel
+float32 by phase 11's reduced models, each read the same way; the flash
+backward reports its launches from phase 12's 20 steps; the ``path`` key of each kernel
 names the run its ``launches`` come from (the tensor-core verdicts: phases
 4 and 7 together).  The
 last three lines of standard output are the card's name and power limit,
@@ -2089,7 +2096,7 @@ def max_sm_clock_hz() -> float:
 
 
 def flash_bound(q: torch.Tensor, k: torch.Tensor, causal: bool = True,
-                instance: str | None = None):
+                instance: str | None = None, backward: bool = False):
     """FLOPs (4 D a (q, k) pair the mask leaves), bytes (q, o, k, v once),
     exps (one a pair) and the bound of ``instance`` (None: the static rule's
     for q's type): the largest of the bytes over the memory rate, the
@@ -2097,21 +2104,26 @@ def flash_bound(q: torch.Tensor, k: torch.Tensor, causal: bool = True,
     SM at the card's maximum SM clock).  The products: the FLOPs over the
     bf16 tensor rate in bf16; in float32 three TF32 products each over the
     TF32 tensor rate for the 3xTF32 instance, the FLOPs over the CUDA
-    cores' rate for ``simt_f32``.  Returns (flops, bytes, (bound ms,
+    cores' rate for ``simt_f32``.  ``backward``: the backward's function,
+    five products (S, dP, dV, dQ, dK: 10 D FLOPs a pair), q, k, v, out, do
+    and lse read once and dq, dk, dv written once, one exp a pair, on the
+    backward's instance for q's type.  Returns (flops, bytes, (bound ms,
     "bytes" or "operations"), the binding term)."""
     from repro_torch.kernels import flash_attention as fa
 
     b, sq, h, d = q.shape
     sk = k.shape[1]
     pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
-    flops = 4 * b * h * d * pairs
+    flops = (10 if backward else 4) * b * h * d * pairs
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    if backward:
+        nbytes = 2 * nbytes + 4 * b * h * sq
     ex2_per_s = (EX2_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count
                  * max_sm_clock_hz())
     product = {"wgmma": ("bf16 tensor product", flops / PEAK_BF16_TENSOR_OPS_PER_S),
                "wgmma_tf32x3": ("3xTF32 tensor product", 3 * flops / PEAK_TF32_TENSOR_OPS_PER_S),
                "simt_f32": ("float32 FMA", flops / PEAK_OPS_PER_S)}[
-                   fa.instance(q.dtype, d, instance)]
+                   fa.bwd_instance(q.dtype) if backward else fa.instance(q.dtype, d, instance)]
     terms = {"bytes": nbytes / PEAK_BYTES_PER_S, product[0]: product[1],
              "exp": b * h * pairs / ex2_per_s}
     term = max(terms, key=terms.get)
@@ -2381,19 +2393,25 @@ def phase_flash_f32(seed: int) -> tuple[dict, list[dict]]:
 
 @contextlib.contextmanager
 def flash_forward(mode: str):
-    """Route the layers' attention forward (``ops.flash_attention``) while
-    inside: ``"plain"`` runs the plain version on the card's tensors (no
-    kernel launches), ``"shifted"`` the kernel with the lse it hands the
-    backward raised by log 2 on query head 0 (the negative control)."""
+    """Route the layers' attention (``ops.flash_attention`` and
+    ``ops.flash_attention_bwd``) while inside: ``"plain"`` runs both plain
+    versions on the card's tensors (no kernel launches), ``"shifted"`` the
+    kernels with the lse the forward hands the backward raised by log 2 on
+    query head 0 (the negative control)."""
     from repro_torch.kernels import ops, ref
 
-    orig = ops.flash_attention
+    orig, orig_bwd = ops.flash_attention, ops.flash_attention_bwd
 
     def plain(q, k, v, *, causal=True, impl="auto", q_chunk=512, kv_chunk=512,
               triangle=False, return_lse=False):
         return ref.flash_attention_ref(q, k, v, causal=causal, q_chunk=q_chunk,
                                        kv_chunk=kv_chunk, triangle=triangle,
                                        return_lse=return_lse)
+
+    def plain_bwd(q, k, v, out, lse, do, *, causal=True, impl="auto", q_chunk=512,
+                  kv_chunk=512, triangle=False):
+        return ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                                           q_chunk=q_chunk, kv_chunk=kv_chunk, triangle=triangle)
 
     def shifted(q, k, v, **kw):
         out = orig(q, k, v, **kw)
@@ -2405,10 +2423,12 @@ def flash_forward(mode: str):
         return out, lse
 
     ops.flash_attention = {"plain": plain, "shifted": shifted}[mode]
+    if mode == "plain":
+        ops.flash_attention_bwd = plain_bwd
     try:
         yield
     finally:
-        ops.flash_attention = orig
+        ops.flash_attention, ops.flash_attention_bwd = orig, orig_bwd
 
 
 def loss_and_grads(model, batch) -> tuple:
@@ -2442,10 +2462,11 @@ def lse_close(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     return float(diff.max())
 
 
-def phase_train(seed: int) -> dict:
+def phase_train(seed: int) -> tuple[dict, dict]:
     """The LM training path at full width (phase 12 of the module's
     docstring).  Returns the measurements that the flash_attention row of
-    the kernels line carries under ``training``."""
+    the kernels line carries under ``training``, and the flash_attention_bwd
+    row (its launches under ``bwd_launches``)."""
     import tempfile
 
     import torch.nn.functional as F
@@ -2454,7 +2475,7 @@ def phase_train(seed: int) -> dict:
     from repro_torch.data.loader import LoaderConfig, SyntheticLMLoader
     from repro_torch.distributed import CheckpointManager, FaultTolerantRunner, RunnerConfig
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ref
     from repro_torch.models import Model
     from repro_torch.train import OptimizerConfig, init_state, make_train_step
     from repro_torch.train.tree import leaves_with_paths
@@ -2467,7 +2488,8 @@ def phase_train(seed: int) -> dict:
     out: dict = {"path": f"full size, LM training: {cfg.name}, {TRAIN['steps']} AdamW steps of "
                          f"{b} x {s:,} tokens through FaultTolerantRunner"}
 
-    # (a) lse at the layer shape (bf16, D = 64) and at a reduced float32 shape.
+    # (a) lse at the layer shape (bf16, D = 64) and at a reduced float32 shape,
+    # then the backward kernel at both against its plain version.
     gen = torch.Generator(device=dev).manual_seed(seed + 80)
     shapes = {"bf16 D=64": ((b, s, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim),
                             torch.bfloat16),
@@ -2487,16 +2509,44 @@ def phase_train(seed: int) -> dict:
             f"{float(want_lse.max()):.3f}]")
         if what == "bf16 D=64":
             layer = (q, k, v, got, lse)
+        else:
+            f32_layer = (q, k, v, got, lse)
     del q, k, v, got, lse, want, want_lse
 
-    # The kernel with and without lse in turns at the layer shape, and the
-    # plain backward there beside SDPA's forward and backward.
+    # The float32 backward (the CUDA-core instance) at the reduced shape.
+    q, k, v, o, lse = f32_layer
+    do = torch.randn(q.shape, generator=gen, device=dev)
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    f32_err = {f"d{n}": rel_rms(g, w) for n, g, w in zip("qkv", got, want)}
+    if not max(f32_err.values()) <= GRAD_REL_TOL[torch.float32]:
+        raise AssertionError(f"the float32 backward kernel != its plain version at B=2 S=512 "
+                             f"H=4 KV=2 D=16: relative RMS {f32_err} (gate "
+                             f"{GRAD_REL_TOL[torch.float32]})")
+    f32_turns = in_turns({"kernel": lambda: fa.flash_attention_bwd_cuda(q, k, v, o, lse, do),
+                          "plain": lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do)},
+                         iters=5)
+    f32_bound = flash_bound(q, k, backward=True)
+    out["bwd_f32"] = dict(instance=fa.bwd_instance(torch.float32), rel_rms=f32_err,
+                          ms=f32_turns["kernel"], plain_ms=f32_turns["plain"],
+                          bound_ms=f32_bound[2][0], bound_term=f32_bound[3])
+    log(f"flash backward float32 ({fa.bwd_instance(torch.float32)} instance) at B=2 S=512 H=4 "
+        f"KV=2 D=16 causal, TF32 off: dq, dk, dv against the plain version, relative RMS "
+        f"{', '.join(f'{n} {e:.3g}' for n, e in f32_err.items())} (gate "
+        f"{GRAD_REL_TOL[torch.float32]}); device ms in turns: kernel "
+        f"{f32_turns['kernel'][0]:.4f} / {f32_turns['kernel'][1]:.4f}, plain "
+        f"{f32_turns['plain'][0]:.3f} / {f32_turns['plain'][1]:.3f} (bound "
+        f"{f32_bound[2][0]:.5f} ms, the {f32_bound[3]} term)")
+    del f32_layer, q, k, v, o, lse, do, got, want
+
+    # At the layer shape: the forward with and without lse in turns; the
+    # backward kernel against its plain version and SDPA's gradients, and in
+    # turns with each (SDPA's backward alone, on a retained graph).
     q, k, v, o, lse = layer
     do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
     turns = in_turns({"lse": lambda: fa.flash_attention_cuda(q, k, v, return_lse=True),
                       "no_lse": lambda: fa.flash_attention_cuda(q, k, v)}, iters=20)
     flops, nbytes, bound, term = flash_bound(q, k)
-    bwd_ms = cuda_ms(lambda: ops.flash_attention_bwd(q, k, v, o, lse, do), 3)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
     dot = do.transpose(1, 2)
 
@@ -2504,32 +2554,58 @@ def phase_train(seed: int) -> dict:
         F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True).backward(dot)
 
     sdpa_ms = cuda_ms(sdpa_fwd_bwd, 5)
-    # The plain backward on the card at full width, from the kernel's out and
-    # lse, against SDPA's gradients (an independent backward) on one call.
-    for t in (qt, kt, vt):
-        t.grad = None
-    sdpa_fwd_bwd()
-    bwd_err = {f"d{n}": rel_rms(g, t.grad.transpose(1, 2)) for n, g, t in
-               zip("qkv", ops.flash_attention_bwd(q, k, v, o, lse, do), (qt, kt, vt))}
-    if not max(bwd_err.values()) <= GRAD_REL_TOL[torch.bfloat16]:
-        raise AssertionError(f"the plain backward on the card != scaled_dot_product_attention's "
-                             f"at a {cfg.name} layer: relative RMS {bwd_err} (gate "
-                             f"{GRAD_REL_TOL[torch.bfloat16]})")
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    sdpa_grads = [g.transpose(1, 2) for g in
+                  torch.autograd.grad(o_sdpa, (qt, kt, vt), dot, retain_graph=True)]
+    kernel_bwd = lambda: fa.flash_attention_bwd_cuda(q, k, v, o, lse, do)  # noqa: E731
+    plain_bwd = lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do)  # noqa: E731
+    got, plain = kernel_bwd(), plain_bwd()
+    errs = {vs: {f"d{n}": rel_rms(g, w) for n, g, w in zip("qkv", got if vs != "plain vs SDPA"
+                                                             else plain, want)}
+            for vs, want in (("kernel vs plain", plain), ("kernel vs SDPA", sdpa_grads),
+                             ("plain vs SDPA", sdpa_grads))}
+    bad = {vs: e for vs, e in errs.items() if not max(e.values()) <= GRAD_REL_TOL[torch.bfloat16]}
+    if bad:
+        raise AssertionError(f"the attention backward at a {cfg.name} layer: relative RMS {bad} "
+                             f"(gate {GRAD_REL_TOL[torch.bfloat16]})")
+    bwd_err = max(max_err_float(g, w) for g, w in zip(got, plain))
+    del got, plain, sdpa_grads
+    plain_turns = in_turns({"kernel": kernel_bwd, "plain": plain_bwd}, iters=5)
+    sdpa_turns = in_turns({"kernel": kernel_bwd, "sdpa_bwd": lambda: torch.autograd.grad(
+        o_sdpa, (qt, kt, vt), dot, retain_graph=True)}, iters=20)
+    bflops, bbytes, bbound, bterm = flash_bound(q, k, backward=True)
+    bwd_ms = plain_turns["kernel"][0]
     out.update(ms_with_lse=turns["lse"], ms_without_lse=turns["no_lse"], bound_ms=bound[0],
-               bound_by=bound[1], bound_term=term, plain_bwd_call_ms=bwd_ms,
-               sdpa_fwd_bwd_ms=sdpa_ms, plain_bwd_vs_sdpa_rel_rms=bwd_err)
+               bound_by=bound[1], bound_term=term, sdpa_fwd_bwd_ms=sdpa_ms,
+               bwd_rel_rms=errs, plain_bwd_ms=plain_turns["plain"])
+    bwd_row = kernel_row(
+        "flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "repro/models/layers.py:137 _flash_bwd_impl (jnp, no TPU kernel)", err=bwd_err,
+        ms=bwd_ms, plain_ms=plain_turns["plain"][0], bound=bbound,
+        library_ms=sdpa_turns["sdpa_bwd"][0], path=out["path"])
+    bwd_row.update(bound_term=bterm, ms_turns_with_plain=plain_turns["kernel"],
+                   ms_turns_with_sdpa=sdpa_turns["kernel"], plain_ms_turns=plain_turns["plain"],
+                   library_ms_turns=sdpa_turns["sdpa_bwd"], rel_rms=errs,
+                   instance=fa.bwd_instance(q.dtype), f32=out["bwd_f32"])
     log(f"timing at B={b} S={s} H={cfg.num_heads} KV={cfg.num_kv_heads} D={cfg.head_dim} bf16 "
         f"causal (a {cfg.name} layer), device ms in turns: flash_attention with lse "
         f"{turns['lse'][0]:.4f} / {turns['lse'][1]:.4f}, without {turns['no_lse'][0]:.4f} / "
         f"{turns['no_lse'][1]:.4f} (bound {bound[0]:.4f} ms by {bound[1]}, the {term} term; "
-        f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); the plain backward "
-        f"(ops.flash_attention_bwd) {bwd_ms:.3f} ms a call, host launch time included (the "
-        f"card runs its small kernels faster than the host launches them; "
-        f"scripts/profile_torch_train.py has its device time); scaled_dot_product_attention "
-        f"forward and backward {sdpa_ms:.3f} ms; the plain backward's dq, dk, dv against "
-        f"SDPA's, relative RMS {', '.join(f'{n} {e:.4g}' for n, e in bwd_err.items())} (gate "
-        f"{GRAD_REL_TOL[torch.bfloat16]})")
-    del layer, q, k, v, o, lse, do, qt, kt, vt, dot
+        f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); scaled_dot_product_attention forward "
+        f"and backward {sdpa_ms:.3f} ms")
+    log(f"flash backward (flash_attention_bwd_cuda, {fa.bwd_instance(q.dtype)} instance) at the "
+        f"same layer, relative RMS of dq, dk, dv: "
+        + "; ".join(f"{vs} {', '.join(f'{n} {e:.4g}' for n, e in err.items())}"
+                    for vs, err in errs.items())
+        + f" (gate {GRAD_REL_TOL[torch.bfloat16]}); max |kernel - plain| {bwd_err:.3g}. Device "
+        f"ms in turns: kernel {plain_turns['kernel'][0]:.4f} / {plain_turns['kernel'][1]:.4f}, "
+        f"plain {plain_turns['plain'][0]:.3f} / {plain_turns['plain'][1]:.3f}; kernel "
+        f"{sdpa_turns['kernel'][0]:.4f} / {sdpa_turns['kernel'][1]:.4f}, SDPA's backward "
+        f"{sdpa_turns['sdpa_bwd'][0]:.4f} / {sdpa_turns['sdpa_bwd'][1]:.4f}; bound "
+        f"{bbound[0]:.4f} ms by {bbound[1]}, the {bterm} term ({bflops / 1e9:.1f} GFLOP, "
+        f"{bbytes / 1e6:.1f} MB; {bflops / bwd_ms / 1e9:.1f} TFLOP/s, {bbound[0] / bwd_ms:.1%} "
+        f"of the bound)")
+    del layer, q, k, v, o, lse, do, qt, kt, vt, dot, o_sdpa
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2551,18 +2627,22 @@ def phase_train(seed: int) -> dict:
     fa.reset_launches()
     kernel = loss_and_grads(model, batch)
     launches_per_step = fa.flash_attention_cuda.launches
+    bwd_per_step = fa.flash_attention_bwd_cuda.launches
     if launches_per_step != 2 * cfg.num_layers or (
-            fa.flash_attention_cuda.lse_launches != launches_per_step):
+            fa.flash_attention_cuda.lse_launches != launches_per_step) or (
+            bwd_per_step != cfg.num_layers):
         raise AssertionError(f"a train step launched flash_attention {launches_per_step} times, "
-                             f"{fa.flash_attention_cuda.lse_launches} with lse; expected "
-                             f"{2 * cfg.num_layers} (forward and recomputation), all with lse")
+                             f"{fa.flash_attention_cuda.lse_launches} with lse, and its backward "
+                             f"{bwd_per_step} times; expected {2 * cfg.num_layers} (forward and "
+                             f"recomputation), all with lse, and {cfg.num_layers}")
     with flash_forward("plain"):
         plain = loss_and_grads(model, batch)
-    if fa.flash_attention_cuda.launches != launches_per_step:
-        raise AssertionError("the plain-forward step launched the flash kernel")
+    if (fa.flash_attention_cuda.launches, fa.flash_attention_bwd_cuda.launches) != (
+            launches_per_step, bwd_per_step):
+        raise AssertionError("the plain step launched a flash kernel")
     loss_err, worst, leaf, ok = grad_gate(kernel, plain, torch.bfloat16)
     if not ok:
-        raise AssertionError(f"train step through the kernel != plain forward's: loss relative "
+        raise AssertionError(f"train step through the kernels != plain versions': loss relative "
                              f"error {loss_err:.3g} (gate {TRAIN_LOSS_REL_TOL}), {leaf} gradient "
                              f"relative RMS {worst:.4g} (gate {GRAD_REL_TOL[torch.bfloat16]})")
     with flash_forward("shifted"):
@@ -2574,13 +2654,14 @@ def phase_train(seed: int) -> dict:
     out.update(loss=kernel[0], loss_plain=plain[0], loss_rel_err=loss_err,
                grad_rel_rms_max=worst, grad_rel_rms_leaf=leaf,
                negative_control_rel_rms_max=bad_worst, negative_control_leaf=bad_leaf,
-               launches_per_step=launches_per_step)
-    log(f"LM training gradients: the step through the kernel against the plain forward, "
-        f"loss {kernel[0]:.6f} vs {plain[0]:.6f} (relative {loss_err:.3g}, gate "
-        f"{TRAIN_LOSS_REL_TOL}); largest gradient relative RMS error {worst:.5f} ({leaf}; gate "
-        f"{GRAD_REL_TOL[torch.bfloat16]}); flash_attention launches a step {launches_per_step} "
-        f"(all with lse). Negative control, lse + log 2 on one head: {bad_worst:.4f} "
-        f"({bad_leaf}), fails the gate as it must")
+               launches_per_step=launches_per_step, bwd_launches_per_step=bwd_per_step)
+    log(f"LM training gradients: the step through the flash kernels (forward and backward) "
+        f"against the plain versions, loss {kernel[0]:.6f} vs {plain[0]:.6f} (relative "
+        f"{loss_err:.3g}, gate {TRAIN_LOSS_REL_TOL}); largest gradient relative RMS error "
+        f"{worst:.5f} ({leaf}; gate {GRAD_REL_TOL[torch.bfloat16]}); flash_attention launches a "
+        f"step {launches_per_step} (all with lse), flash_attention_bwd {bwd_per_step}. Negative "
+        f"control, lse + log 2 on one head: {bad_worst:.4f} ({bad_leaf}), fails the gate as it "
+        f"must")
     del kernel, plain, bad
     gc.collect()
 
@@ -2636,7 +2717,8 @@ def phase_train(seed: int) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"flash_attention": fa.flash_attention_cuda.instance_launches["wgmma"],
-                    "lse": fa.flash_attention_cuda.lse_launches}
+                    "lse": fa.flash_attention_cuda.lse_launches,
+                    "flash_attention_bwd": fa.flash_attention_bwd_cuda.instance_launches["wgmma"]}
         peak = torch.cuda.max_memory_allocated()
         losses = [float(x) for x in losses]
         step_ms = [e[0].elapsed_time(e[1]) for e in events]
@@ -2644,15 +2726,18 @@ def phase_train(seed: int) -> dict:
         expected = TRAIN["steps"] * launches_per_step
         if (result["restarts"] or "failure" in kinds or len(losses) != TRAIN["steps"]
                 or not all(np.isfinite(losses)) or not losses[-1] < losses[0]
-                or launches != {"flash_attention": expected, "lse": expected}):
+                or launches != {"flash_attention": expected, "lse": expected,
+                                "flash_attention_bwd": TRAIN["steps"] * bwd_per_step}):
             raise AssertionError(f"training run: restarts {result['restarts']}, events {kinds}, "
                                  f"losses {losses}, flash launches {launches} (expected "
-                                 f"{expected}, all wgmma with lse)")
+                                 f"{expected}, all wgmma with lse, and "
+                                 f"{TRAIN['steps'] * bwd_per_step} of the backward's wgmma)")
         med = statistics.median(step_ms[2:])
         out.update(losses=losses, step_ms=med, step_ms_all=step_ms, tokens_per_s=b * s / med * 1e3,
                    peak_memory_gb=peak / 1e9, forward_loss_ms=fwd_ms,
                    forward_loss_share=fwd_ms / med, launches=launches["flash_attention"],
-                   lse_launches=launches["lse"], run_s=wall)
+                   lse_launches=launches["lse"], bwd_launches=launches["flash_attention_bwd"],
+                   run_s=wall)
         log(f"LM training: {TRAIN['steps']} AdamW steps (lr {TRAIN['lr']}, {TRAIN['warmup']} "
             f"warmup) through FaultTolerantRunner in {wall:.2f} s (async checkpoints every "
             f"{TRAIN['ckpt_every']} steps included), restarts {result['restarts']}, events {kinds}; "
@@ -2661,7 +2746,8 @@ def phase_train(seed: int) -> dict:
             f"{b * s / med * 1e3:,.0f} tokens/s; forward and loss {fwd_ms:.2f} ms "
             f"({fwd_ms / med:.1%} of a step); peak memory {peak / 1e9:.2f} GB "
             f"(torch.cuda.max_memory_allocated); flash_attention launches {launches['flash_attention']}"
-            f" ({launches_per_step} a step), {launches['lse']} with lse")
+            f" ({launches_per_step} a step), {launches['lse']} with lse; flash_attention_bwd "
+            f"launches {launches['flash_attention_bwd']} ({bwd_per_step} a step)")
 
         # (d) The checkpoint round trip.
         at = ckpt.latest_step()
@@ -2683,7 +2769,7 @@ def phase_train(seed: int) -> dict:
     log(f"LM training checkpoint: step {at} restored into a fresh model's state, {len(same)} "
         f"leaves identical; the next step's loss {float(m_restored['loss']):.6f} equals the "
         f"uninterrupted run's")
-    return out
+    return out, bwd_row
 
 
 def main(argv=None) -> int:
@@ -2747,7 +2833,9 @@ def main(argv=None) -> int:
         kernels.extend(rows)
         gc.collect()
         torch.cuda.empty_cache()
-    training = phase_train(args.seed)
+    training, bwd_row = phase_train(args.seed)
+    kernels.append(bwd_row)
+    launches["flash_attention_bwd"] = training["bwd_launches"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["name"] == "flash_attention":

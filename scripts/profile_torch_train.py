@@ -19,16 +19,18 @@ config at 2 x 256 tokens, a quick check of the script).
    per step the host's wall time, the process's CPU time (all threads) and
    the device time between CUDA events around the step.
 3. The same steps again under ``torch.profiler``: per step the device's busy
-   time (the sum of its kernels) in the step's window, and over all of them
-   the busy time of the plain attention backward (``ops.flash_attention_bwd``),
-   of the first forward and loss (``Model.loss``), of the clipping and
-   optimizer update, of the flash kernel, and the largest kernels; the host
-   time inside the first two scopes; the idle share against the profiled
-   walls and against the walls of part 2.
+   time (the sum of its kernels) in the step's window and its kernels, and
+   over all of them the busy time of the attention backward (its kernels by
+   name: the profiler gives kernels launched through ``ctypes`` no parent
+   op, so a scope's device time leaves them out), of the first forward and
+   loss (``Model.loss``, less its flash kernels), of the clipping and
+   optimizer update, of the flash forward kernel, and the largest kernels;
+   the host time inside the backward's and the forward's scopes; the idle
+   share against the profiled walls and against the walls of part 2.
 
-Prints one JSON object a part.  At full size part 3 holds about 7 million
-profiler events, and reading them takes minutes: allow the run 25 minutes
-on the GPU machine.  Runs on the card; ``--device cpu`` runs
+Prints one JSON object a part.  At full size part 3 held about 7 million
+profiler events with the plain backward on the card (before its kernel), and
+reading them took minutes: allow the run 25 minutes on the GPU machine.  Runs on the card; ``--device cpu`` runs
 the same logic with no device times (use it with ``--reduced``).
 """
 
@@ -182,9 +184,9 @@ def main(argv=None) -> int:
         "rows": rows}), flush=True)
 
     # Part 3: the same number of steps under the profiler.
-    labels = ("plain_flash_bwd", "forward_loss", "optimizer", "train_step")
+    labels = ("flash_bwd", "forward_loss", "optimizer", "train_step")
     with contextlib.ExitStack() as stack:
-        stack.enter_context(annotated(ops, "flash_attention_bwd", "plain_flash_bwd"))
+        stack.enter_context(annotated(ops, "flash_attention_bwd", "flash_bwd"))
         stack.enter_context(annotated(model, "loss", "forward_loss"))
         stack.enter_context(annotated(opt_lib, "clip_by_global_norm", "optimizer"))
         stack.enter_context(annotated(opt_lib, "opt_update", "optimizer"))
@@ -221,9 +223,9 @@ def main(argv=None) -> int:
         us, c = by_kernel.get(k.name, (0.0, 0))
         by_kernel[k.name] = (us + k.device_time_total, c + 1)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
-    flash_us = sum(us for name, (us, _) in by_kernel.items() if "flash" in name)
-    bwd_us, fwd_us, opt_us = (scoped_us(x) for x in ("plain_flash_bwd", "forward_loss",
-                                                     "optimizer"))
+    fwd_kernel_us = sum(us for name, (us, _) in by_kernel.items() if "flash_fwd" in name)
+    bwd_kernel_us = sum(us for name, (us, _) in by_kernel.items() if "flash_bwd" in name)
+    fwd_us, opt_us = (scoped_us(x) for x in ("forward_loss", "optimizer"))
     wall_prof = sum(r["wall_ms"] for r in per_step) / 1e3
     busy = sum(r["busy_ms"] for r in per_step)
     print(json.dumps({
@@ -235,13 +237,15 @@ def main(argv=None) -> int:
         "busy_ms_a_step_median": statistics.median(r["busy_ms"] for r in per_step),
         "busy_ms_a_step_range": [min(r["busy_ms"] for r in per_step),
                                  max(r["busy_ms"] for r in per_step)],
-        "plain_bwd_busy_s": bwd_us / 1e6, "plain_bwd_share_of_busy": bwd_us / busy_us,
-        "plain_bwd_host_s": scoped_us("plain_flash_bwd", host=True) / 1e6,
+        "flash_bwd_busy_s": bwd_kernel_us / 1e6,
+        "flash_bwd_share_of_busy": bwd_kernel_us / busy_us,
+        "flash_bwd_host_s": scoped_us("flash_bwd", host=True) / 1e6,
         "forward_loss_host_s": scoped_us("forward_loss", host=True) / 1e6,
         "forward_loss_busy_s": fwd_us / 1e6, "forward_loss_share_of_busy": fwd_us / busy_us,
         "optimizer_busy_s": opt_us / 1e6, "optimizer_share_of_busy": opt_us / busy_us,
-        "rest_share_of_busy": 1.0 - (bwd_us + fwd_us + opt_us) / busy_us,
-        "flash_kernel_busy_s": flash_us / 1e6, "kernel_launches": len(kernels),
+        "rest_share_of_busy": 1.0 - (bwd_kernel_us + fwd_us + opt_us) / busy_us,
+        "flash_fwd_kernel_busy_s": fwd_kernel_us / 1e6, "kernel_launches": len(kernels),
+        "kernels_a_step_median": statistics.median(r["kernels"] for r in per_step),
         "cpu_ops": sum(1 for e in events if e.device_type == DeviceType.CPU),
         "per_step": per_step,
         "device_us_by_kernel": [{"kernel": k[:100], "us": us, "calls": c}

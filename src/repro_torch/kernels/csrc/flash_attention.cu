@@ -118,6 +118,8 @@
 
 namespace flash {
 
+using hopper::pack_bf16;
+
 constexpr int kRows = 64;        // q rows per block; keys per K/V tile
 constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;
@@ -125,12 +127,6 @@ constexpr float kNegInf = -1e30f;
 // Keys a q tile of `rows` rows from q0 visits: up to its last row when causal.
 __device__ __forceinline__ int kv_end(int q0, int rows, int sq, int sk, int causal) {
   return causal ? min(sk, min(q0 + rows, sq)) : sk;
-}
-
-// Two floats rounded to bf16, the first in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // ---------------------------------------------------------------------------
@@ -192,111 +188,16 @@ struct Cfg {
 // Named barriers: 1 and 2 each consumer's epilogue, 3 and 4 the turns.
 constexpr int kTurnBar = 3;
 
-#define ACC_F8(d, i)                                                                     \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// S (64 x 128, f32) = A (64 x 16) B^T with A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
-                                                    uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
-      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
-      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
-      " %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : ACC_F8(d, 0), ACC_F8(d, 8), ACC_F8(d, 16), ACC_F8(d, 24),
-        ACC_F8(d, 32), ACC_F8(d, 40), ACC_F8(d, 48), ACC_F8(d, 56)
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// S (64 x 64, f32) = A (64 x 16) B^T, as above with 64-key tiles.
-__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
-                                                   uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-      " %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : ACC_F8(d, 0), ACC_F8(d, 8), ACC_F8(d, 16), ACC_F8(d, 24)
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// O (64 x 128, f32) += P (64 x 16, bf16 registers) V (16 x 128), V MN-major.
-__device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64], const uint32_t (&a)[4],
-                                                       uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
-      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
-      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
-      " %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : ACC_F8(d, 0), ACC_F8(d, 8), ACC_F8(d, 16), ACC_F8(d, 24),
-        ACC_F8(d, 32), ACC_F8(d, 40), ACC_F8(d, 48), ACC_F8(d, 56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
-}
-
-// O (64 x 64, f32) += P V, as above with D = 64.
-__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint32_t (&a)[4],
-                                                      uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-      " %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : ACC_F8(d, 0), ACC_F8(d, 8), ACC_F8(d, 16), ACC_F8(d, 24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
-}
-
-// O (64 x 32, f32) += P V, as above with D = 32.
-__device__ __forceinline__ void wgmma_m64n32k16_rs_tb(float (&d)[16], const uint32_t (&a)[4],
-                                                      uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : ACC_F8(d, 0), ACC_F8(d, 8)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
-}
-
-// O (64 x 16, f32) += P V, as above with D = 16.
-__device__ __forceinline__ void wgmma_m64n16k16_rs_tb(float (&d)[8], const uint32_t (&a)[4],
-                                                      uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : ACC_F8(d, 0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
-}
-
-#undef ACC_F8
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
+// The bf16 wgmma products and fragment helpers live in hopper.cuh.
+using hopper::ex2;
+using hopper::pack_p;
+using hopper::swizzled_chunk;
+using hopper::wgmma_m64n128k16_rs_tb;
+using hopper::wgmma_m64n128k16_ss;
+using hopper::wgmma_m64n16k16_rs_tb;
+using hopper::wgmma_m64n32k16_rs_tb;
+using hopper::wgmma_m64n64k16_rs_tb;
+using hopper::wgmma_m64n64k16_ss;
 
 // The consumer's per-thread view of one 64 x 128 S tile and of its rows:
 // lane (g, t) of warp w holds rows 16 w + g (halves 0) and 16 w + g + 8
@@ -424,19 +325,6 @@ __device__ __forceinline__ void softmax_exp(float (&sacc)[N / 2], RowState& st,
   for (int hr = 0; hr < 2; ++hr) st.l[hr] = st.l[hr] * alpha[hr] + rs[hr];
 }
 
-// P as the A fragments of N / 16 k-steps of 16 keys: the accumulators of
-// 8-key groups 2 kk and 2 kk + 1, rounded to bf16.
-template <int N>
-__device__ __forceinline__ void pack_p(const float (&sacc)[N / 2], uint32_t (&pa)[N / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-    pa[kk][0] = pack_bf16(sacc[8 * kk], sacc[8 * kk + 1]);
-    pa[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
-    pa[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
-    pa[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
-  }
-}
-
 template <int D>
 __device__ __forceinline__ void rescale(float (&oacc)[D / 2], const float (&alpha)[2]) {
 #pragma unroll
@@ -446,13 +334,6 @@ __device__ __forceinline__ void rescale(float (&oacc)[D / 2], const float (&alph
     oacc[4 * j + 2] *= alpha[1];
     oacc[4 * j + 3] *= alpha[1];
   }
-}
-
-// Byte offset of 16-byte chunk `ch` of row r in a tile of kSwizzle-byte rows,
-// in TMA's swizzle: the chunk index XOR the row's bits above the 128-byte line.
-template <int kSwizzle>
-__device__ __forceinline__ int swizzled_chunk(int r, int ch) {
-  return r * kSwizzle + ((ch ^ ((r * kSwizzle >> 7) & (kSwizzle / 16 - 1))) * 16);
 }
 
 // Consumer c's turn at issuing its products, when Cfg<D>::kTurns: it waits

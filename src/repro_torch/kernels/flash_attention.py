@@ -1,4 +1,5 @@
-"""The flash-attention forward kernel (CUDA C++, ``csrc/flash_attention.cu``).
+"""The flash-attention kernels (CUDA C++): the forward
+(``csrc/flash_attention.cu``) and the backward (``csrc/flash_attention_bwd.cu``).
 
 :func:`flash_attention_cuda` replaces
 ``repro.kernels.flash_attention.flash_attention_fwd_pallas``: GQA attention
@@ -22,6 +23,18 @@ path's backward reads; without it the kernel writes none.
 kernel; ``flash_attention_cuda.instance_launches`` counts them by the
 instance that ran, ``lse_launches`` those that wrote lse, and
 ``split_kv_cuda.launches`` the prepass's.
+
+:func:`flash_attention_bwd_cuda` is the training path's backward, (dq, dk,
+dv) from the forward's inputs, its output and lse and the output's gradient.
+It replaces no TPU kernel: the reference's backward is jnp
+(``repro.models.layers._flash_bwd_impl``), and its plain version here is
+:func:`repro_torch.kernels.ref.flash_attention_bwd_ref`; callers go through
+:func:`repro_torch.kernels.ops.flash_attention_bwd`.  Its instances are
+chosen statically by type (:func:`bwd_instance`): ``wgmma`` for bf16 and
+``simt_f32`` (the CUDA cores) for float32, at every head dim; each call is
+two launches on the current stream (dq query-major, then dk and dv
+key-major), counted once in ``flash_attention_bwd_cuda.launches`` and in
+``instance_launches``.
 """
 
 from __future__ import annotations
@@ -66,6 +79,12 @@ def _fn():
     return _build.function(
         "flash_attention", "flash_attention_launch_instance",
         [_C, _C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _C])
+
+
+def _bwd_fn():
+    return _build.function(
+        "flash_attention_bwd", "flash_attention_bwd_launch",
+        [_C] * 10 + [_I] * 8 + [ctypes.c_float, _C])
 
 
 def _split_fn():
@@ -186,12 +205,66 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (out, lse) if return_lse else out
 
 
+BWD_INSTANCES = ("wgmma", "simt_f32")   # the backward's, by dtype code 1 and 0
+
+
+def bwd_instance(dtype: torch.dtype) -> str:
+    """The backward's instance for this type: ``wgmma`` for bf16,
+    ``simt_f32`` for float32."""
+    return "simt_f32" if dtype == torch.float32 else "wgmma"
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool = True) -> tuple:
+    """The attention backward on the card -> (dq, dk, dv) in q's, k's and
+    v's types: ``ref.flash_attention_bwd_ref``'s function (p recomputed
+    from lse, D_i = rowsum(do * out), float32 sums, GQA groups summed into
+    dk and dv), computed by the hand-written kernel.  q, out, do (B, Sq, H,
+    D) and k, v (B, Sk, KV, D) as :func:`check_operands` takes them; lse
+    float32 (B, KV, G, Sq) from ``flash_attention_cuda(...,
+    return_lse=True)``.  Two calls on the same inputs give bit-identical
+    gradients (no atomics)."""
+    check_operands(q, k, v)
+    b, sq, h, d = q.shape
+    kv = k.shape[2]
+    for name, t in (("out", out), ("do", do)):
+        if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned tensor like q "
+                             f"{q.dtype}{list(q.shape)}, got {t.dtype}{list(t.shape)}")
+    if (lse.shape != (b, kv, h // kv, sq) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 (B, KV, G, Sq) = "
+                         f"{[b, kv, h // kv, sq]} tensor on {q.device}, got "
+                         f"{lse.dtype}{list(lse.shape)} on {lse.device}")
+    name = bwd_instance(q.dtype)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if b == 0 or sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                       lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                       dv.data_ptr(), dsum.data_ptr(), b, sq, k.shape[1], h, kv, d,
+                       DTYPES[q.dtype], int(causal), d ** -0.5,
+                       torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed ({name} "
+                           f"instance): CUDA error {rc}")
+    flash_attention_bwd_cuda.launches += 1
+    flash_attention_bwd_cuda.instance_launches[name] += 1
+    return dq, dk, dv
+
+
 def reset_launches() -> None:
     """Zero every launch counter of the module's wrappers."""
     flash_attention_cuda.launches = 0
     flash_attention_cuda.instance_launches = dict.fromkeys(INSTANCES, 0)
     flash_attention_cuda.lse_launches = 0
     split_kv_cuda.launches = 0
+    flash_attention_bwd_cuda.launches = 0
+    flash_attention_bwd_cuda.instance_launches = dict.fromkeys(BWD_INSTANCES, 0)
 
 
 reset_launches()

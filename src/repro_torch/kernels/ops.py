@@ -45,10 +45,10 @@ unfused form of these stages; on CPU tensors ``"auto"`` and
 ``ref.verdict_verify_ref``) and ``"ref_mxu"`` the latter with the bit-plane
 plain verdict.
 
-:func:`flash_attention`, the LM scaffold's entry, has its own two impls:
-``"cuda"`` (the kernel; ``auto`` on CUDA tensors) and ``"ref"`` (the plain
-version; ``auto`` on CPU tensors), each raising on the other device.  Its
-backward, :func:`flash_attention_bwd`, is the plain version on every device.
+:func:`flash_attention`, the LM scaffold's entry, and its backward
+:func:`flash_attention_bwd` have their own two impls: ``"cuda"`` (the
+kernel; ``auto`` on CUDA tensors) and ``"ref"`` (the plain version; ``auto``
+on CPU tensors), each raising on the other device.
 """
 
 from __future__ import annotations
@@ -414,6 +414,22 @@ def verdict_verify(
                                   pair_verdict=functools.partial(pair_verdict, impl=impl))
 
 
+def _flash_impl(impl: str, device: torch.device) -> str:
+    """The flash entry points' implementation on ``device``: ``"cuda"`` (the
+    kernel) or ``"ref"`` (the plain version); ``"auto"`` picks by device,
+    and each of the two raises on the other device."""
+    on_cuda = device.type == "cuda"
+    if impl == "auto":
+        return "cuda" if on_cuda else "ref"
+    if impl == "cuda" and not on_cuda:
+        raise ValueError("impl='cuda' launches the CUDA kernel; CPU tensors take impl='ref'")
+    if impl == "ref" and on_cuda:
+        raise ValueError("impl='ref' is the CPU path; CUDA tensors launch the kernel")
+    if impl not in ("cuda", "ref"):
+        raise ValueError(f"unknown impl {impl!r}")
+    return impl
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -436,21 +452,10 @@ def flash_attention(
     shape only the plain version's blocks (the kernel has its own tiles);
     the result does not depend on them beyond float rounding.
     """
-    on_cuda = q.device.type == "cuda"
-    if impl == "auto":
-        impl = "cuda" if on_cuda else "ref"
-    if impl == "cuda":
-        if not on_cuda:
-            raise ValueError("impl='cuda' launches the CUDA kernel; CPU tensors take "
-                             "impl='ref'")
+    if _flash_impl(impl, q.device) == "cuda":
         return flash_kernel.flash_attention_cuda(q, k, v, causal=causal, return_lse=return_lse)
-    if impl == "ref":
-        if on_cuda:
-            raise ValueError("impl='ref' is the CPU path; CUDA tensors launch the kernel")
-        return ref.flash_attention_ref(q, k, v, causal=causal, q_chunk=q_chunk,
-                                       kv_chunk=kv_chunk, triangle=triangle,
-                                       return_lse=return_lse)
-    raise ValueError(f"unknown impl {impl!r}")
+    return ref.flash_attention_ref(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                   triangle=triangle, return_lse=return_lse)
 
 
 def flash_attention_bwd(
@@ -462,6 +467,7 @@ def flash_attention_bwd(
     do: torch.Tensor,
     *,
     causal: bool = True,
+    impl: str = "auto",
     q_chunk: int = 512,
     kv_chunk: int = 512,
     triangle: bool = False,
@@ -469,10 +475,15 @@ def flash_attention_bwd(
     """The attention backward -> (dq, dk, dv) from the forward's inputs, its
     output and lse, and the output's gradient ``do``.
 
-    This is the plain version (``ref.flash_attention_bwd_ref``) on every
-    device, the CUDA card included: the reference computes its backward in
-    jnp outside any Pallas kernel, so there is no TPU kernel to port here.
-    ``q_chunk``, ``kv_chunk`` and ``triangle`` shape its blocks as the
-    reference's do."""
+    ``impl`` follows :func:`flash_attention`'s rule: ``"auto"`` launches the
+    CUDA kernel (``flash_attention_bwd_cuda``) on CUDA tensors and runs the
+    plain version (``ref.flash_attention_bwd_ref``, the twin of the
+    reference's jnp ``_flash_bwd_impl``) on CPU tensors; ``"cuda"`` raises on
+    CPU tensors and ``"ref"`` on CUDA tensors.  ``q_chunk``, ``kv_chunk``
+    and ``triangle`` shape only the plain version's blocks, as the
+    reference's do.
+    """
+    if _flash_impl(impl, q.device) == "cuda":
+        return flash_kernel.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal)
     return ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal, q_chunk=q_chunk,
                                        kv_chunk=kv_chunk, triangle=triangle)

@@ -10,9 +10,11 @@ Attention has two forms:
   the blockwise twin of the reference's ``_flash_fwd``.  When an input
   needs grad it is a ``torch.autograd.Function`` like the reference's
   custom VJP: the forward also returns lse and saves ``(q, k, v, out,
-  lse)``, and the backward is ``ops.flash_attention_bwd``, the twin of
-  ``_flash_bwd_impl`` (plain PyTorch on every device, as the reference's is
-  jnp).  Otherwise nothing is saved and no lse is asked for.
+  lse)``, and the backward is ``ops.flash_attention_bwd``: on CUDA tensors
+  the hand-written backward kernel (``kernels/csrc/flash_attention_bwd.cu``),
+  on CPU tensors the plain version (``kernels.ref.flash_attention_bwd_ref``),
+  the twin of the reference's jnp ``_flash_bwd_impl``.  Otherwise nothing is
+  saved and no lse is asked for.
 * :func:`decode_attention` — one-token attention against the KV cache,
   plain PyTorch as it is jnp in the reference.
 
@@ -90,9 +92,9 @@ class _Flash(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         causal, q_chunk, kv_chunk, triangle = ctx.schedule
-        dq, dk, dv = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
-                                             q_chunk=q_chunk, kv_chunk=kv_chunk,
-                                             triangle=triangle)
+        dq, dk, dv = ops.flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                             causal=causal, q_chunk=q_chunk,
+                                             kv_chunk=kv_chunk, triangle=triangle)
         return dq, dk, dv, None, None, None, None
 
 

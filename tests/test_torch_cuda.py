@@ -13,7 +13,8 @@ exact.  The flash-attention kernel is held against its plain version on
 the same card tensors at rtol = atol = 2e-5 in float32 (TF32 off in
 PyTorch; both float32 instances, the 3xTF32 one's prepass bit-identical to
 its plain version) and 1e-2 in bf16 (both round p to bf16 against their own
-running maxima, and round the output to bf16).
+running maxima, and round the output to bf16).  The backward kernel's dq,
+dk and dv: float32 at 2e-5, bf16 within 5% relative RMS (``BWD_GRAD_REL``).
 """
 
 import numpy as np
@@ -972,3 +973,159 @@ def test_card_gradients_match_cpu_gradients(exact_f32, name):
     with torch.inference_mode():
         card({"tokens": batch["tokens"].to(exact_f32)})
     assert counts.lse_launches == before
+
+
+# The backward kernel against its plain version on the card.  float32 (the
+# CUDA-core instance, TF32 off): elementwise at the forward's 2e-5 (the same
+# float32 arithmetic, summed in another order).  bf16: relative RMS within
+# chip_smoke's gradient gate (5%) plus 1e-2 of absolute RMS; both round p
+# and ds to bf16 before their products, but the plain version also rounds the
+# scores and each block's partial products to bf16, which the kernel does not.
+BWD_GRAD_REL = 0.05
+BWD_SHAPES = [  # sq, sk, causal, group (H / KV), KV
+    (1, 1, True, 1, 2), (63, 63, True, 3, 1), (63, 63, False, 4, 1), (128, 128, True, 1, 2),
+    (128, 128, False, 3, 1), (200, 200, True, 4, 1), (200, 200, False, 1, 3),
+    (257, 257, True, 3, 1), (257, 257, False, 4, 2),
+    # Sq != Sk both ways; causal with Sk > Sq leaves key blocks no q row sees
+    (128, 257, True, 3, 1), (257, 128, True, 4, 1), (63, 200, False, 1, 2),
+    (200, 63, False, 3, 1), (1, 300, True, 4, 1), (129, 255, True, 1, 2)]
+
+
+def _bwd_operands(dev, dtype, d, sq, sk, group, kv, causal):
+    """q, k, v, out, lse from the forward kernel, and a seeded do."""
+    q, k, v = _flash_operands(dev, dtype, d, sq, sk, group, kv)
+    gen = torch.Generator(device=dev).manual_seed(sq + 2 * sk + d)
+    do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+    out, lse = flash_kernel.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+    return q, k, v, out, lse, do
+
+
+def _bwd_within(got, want, dtype) -> bool:
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if dtype == torch.float32:
+            if not torch.allclose(g, w, rtol=FLASH_TOL[dtype], atol=FLASH_TOL[dtype]):
+                return False
+        else:
+            err = float((g.double() - w.double()).pow(2).mean().sqrt())
+            if not err <= BWD_GRAD_REL * float(w.double().pow(2).mean().sqrt()) + 1e-2:
+                return False
+    return True
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("sq,sk,causal,group,kv", BWD_SHAPES)
+def test_flash_attention_bwd_kernel_matches_plain_version(exact_f32, dtype, d, sq, sk, causal,
+                                                          group, kv):
+    ops_ = _bwd_operands(exact_f32, dtype, d, sq, sk, group, kv, causal)
+    counts = flash_kernel.flash_attention_bwd_cuda.instance_launches
+    before = flash_kernel.flash_attention_bwd_cuda.launches, dict(counts)
+    got = flash_kernel.flash_attention_bwd_cuda(*ops_, causal=causal)
+    torch.cuda.synchronize()
+    name = flash_kernel.bwd_instance(dtype)
+    assert flash_kernel.flash_attention_bwd_cuda.launches == before[0] + 1
+    assert {n: counts[n] - before[1][n] for n in counts} == {
+        n: int(n == name) for n in flash_kernel.BWD_INSTANCES}
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert _bwd_within(got, ref.flash_attention_bwd_ref(*ops_, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_flash_attention_bwd_kernel_fails_with_the_other_mask(exact_f32, dtype, d):
+    """The negative control: the same comparison against the plain version
+    with ``causal`` flipped must fail its tolerance."""
+    ops_ = _bwd_operands(exact_f32, dtype, d, 200, 200, 3, 1, True)
+    got = flash_kernel.flash_attention_bwd_cuda(*ops_, causal=True)
+    assert _bwd_within(got, ref.flash_attention_bwd_ref(*ops_, causal=True), dtype)
+    assert not _bwd_within(got, ref.flash_attention_bwd_ref(*ops_, causal=False), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_attention_bwd_kernel_is_deterministic(exact_f32, dtype, d):
+    """No atomics: two calls give bit-identical dq, dk and dv."""
+    ops_ = _bwd_operands(exact_f32, dtype, d, 257, 257, 3, 2, True)
+    first = flash_kernel.flash_attention_bwd_cuda(*ops_)
+    second = flash_kernel.flash_attention_bwd_cuda(*ops_)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_attention_bwd_kernel_at_a_smollm_layer(dev):
+    """One batch of smollm-135m's training attention: S = 2,048, 9 query
+    heads on 3 KV heads of 64, causal, bf16."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q, do = (torch.randn((1, 2048, 9, 64), generator=gen, device=dev).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn((1, 2048, 3, 64), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    out, lse = flash_kernel.flash_attention_cuda(q, k, v, return_lse=True)
+    got = flash_kernel.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, triangle=True)
+    assert _bwd_within(got, want, torch.bfloat16)
+
+
+def test_flash_attention_bwd_wrapper_rejects_bad_operands(dev):
+    q, k, v, out, lse, do = _bwd_operands(dev, torch.bfloat16, 64, 64, 64, 2, 2, True)
+    before = flash_kernel.flash_attention_bwd_cuda.launches
+    bad = [
+        (q.cpu(), k, v, out, lse, do),                        # not on the card
+        (q, k, v, out, lse.to(torch.bfloat16), do),           # lse not float32
+        (q, k, v, out, lse[:, :1].contiguous(), do),          # lse of the wrong shape
+        (q, k, v, out, lse, do.float()),                      # do of another type
+        (q, k, v, out.transpose(1, 2).contiguous().transpose(1, 2), lse, do),   # strided out
+        (q, k, v, out, lse, do[:, :32]),                      # do of the wrong shape
+        (q[..., :8].contiguous(), k[..., :8].contiguous(), v[..., :8].contiguous(),
+         out[..., :8].contiguous(), lse, do[..., :8].contiguous()),            # head dim 8
+        (q.half(), k.half(), v.half(), out.half(), lse, do.half()),            # float16
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            flash_kernel.flash_attention_bwd_cuda(*args)
+    with pytest.raises(ValueError, match="impl='ref'"):
+        ops.flash_attention_bwd(q, k, v, out, lse, do, impl="ref")
+    with pytest.raises(ValueError, match="unknown impl"):
+        ops.flash_attention_bwd(q, k, v, out, lse, do, impl="swar")
+    assert flash_kernel.flash_attention_bwd_cuda.launches == before
+
+
+def test_flash_attention_bwd_dispatch_on_the_card(exact_f32):
+    """``auto`` and ``cuda`` launch the kernel on CUDA tensors, each once."""
+    ops_ = _bwd_operands(exact_f32, torch.bfloat16, 32, 100, 100, 3, 1, True)
+    before = flash_kernel.flash_attention_bwd_cuda.launches
+    auto = ops.flash_attention_bwd(*ops_)
+    cuda = ops.flash_attention_bwd(*ops_, impl="cuda")
+    assert flash_kernel.flash_attention_bwd_cuda.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(auto, cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layers_flash_attention_backward_runs_the_kernel(exact_f32, dtype, monkeypatch):
+    """The autograd ``layers.flash_attention`` on CUDA tensors: one forward
+    launch with lse, one backward launch of the static rule's instance, and
+    the plain backward never; its gradients are the kernel's on the saved
+    out and lse."""
+    from repro_torch.models import layers
+
+    q, k, v = (t.detach().requires_grad_() for t in
+               _flash_operands(exact_f32, dtype, 64, 130, 130, 3, 1))
+    w = torch.randn(q.shape, device=exact_f32).to(dtype)
+    fwd, bwd = flash_kernel.flash_attention_cuda, flash_kernel.flash_attention_bwd_cuda
+    before = fwd.lse_launches, bwd.launches, dict(bwd.instance_launches)
+
+    def plain_backward(*args, **kw):
+        raise AssertionError("the plain backward ran on the card")
+
+    monkeypatch.setattr(ref, "flash_attention_bwd_ref", plain_backward)
+    (layers.flash_attention(q, k, v) * w).sum().backward()
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    name = flash_kernel.bwd_instance(dtype)
+    assert (fwd.lse_launches - before[0], bwd.launches - before[1]) == (1, 1)
+    assert bwd.instance_launches[name] == before[2][name] + 1
+    out, lse = flash_kernel.flash_attention_cuda(q.detach(), k.detach(), v.detach(),
+                                                 return_lse=True)
+    want = flash_kernel.flash_attention_bwd_cuda(q.detach(), k.detach(), v.detach(), out, lse,
+                                                 w.contiguous())
+    assert all(torch.equal(g, x) for g, x in zip((q.grad, k.grad, v.grad), want))

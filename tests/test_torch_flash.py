@@ -166,6 +166,43 @@ def test_flash_attention_dispatch_never_falls_back():
                        ops.flash_attention(q, k, v))
 
 
+def test_flash_attention_bwd_dispatch_never_falls_back():
+    """``ops.flash_attention_bwd`` on CPU tensors: ``impl="cuda"`` raises,
+    an unknown impl raises, and ``"ref"`` equals ``"auto"``, which is the
+    reference's ``_flash_bwd_impl``.  Nothing launches."""
+    rng = np.random.default_rng(5)
+    q, k, v = _qkv(rng, 1, 16, 16, 4, 2, 8)
+    w = rng.normal(size=q.shape).astype(np.float32)
+    out, lse = JL._flash_fwd(*map(jnp.asarray, (q, k, v)), True, 8, 8, False)
+    args = _t(q, k, v, np.array(out), np.array(lse), w)
+    before = flash_kernel.flash_attention_bwd_cuda.launches
+    with pytest.raises(ValueError, match="impl='cuda'"):
+        ops.flash_attention_bwd(*args, impl="cuda")
+    with pytest.raises(ValueError, match="unknown impl"):
+        ops.flash_attention_bwd(*args, impl="mxu")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_kernel.flash_attention_bwd_cuda(*args)
+    auto = ops.flash_attention_bwd(*args, q_chunk=8, kv_chunk=8)
+    plain = ops.flash_attention_bwd(*args, impl="ref", q_chunk=8, kv_chunk=8)
+    want = JL._flash_bwd_impl(*map(jnp.asarray, (q, k, v)), out, lse, jnp.asarray(w), True, 8,
+                              8, False)
+    for a, p_, wnt in zip(auto, plain, want):
+        assert torch.equal(a, p_)
+        np.testing.assert_allclose(a.numpy(), np.asarray(wnt), **F32_TOL)
+    assert flash_kernel.flash_attention_bwd_cuda.launches == before
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "wgmma"), (torch.float32, "simt_f32")])
+def test_flash_bwd_kernel_instance_is_static_by_type(dtype, want):
+    """The backward's instance follows the type alone (wgmma for bf16, the
+    CUDA cores for float32) and is one of ``BWD_INSTANCES``, whose counters
+    ``reset_launches`` keeps."""
+    assert flash_kernel.bwd_instance(dtype) == want
+    assert want in flash_kernel.BWD_INSTANCES
+    assert set(flash_kernel.flash_attention_bwd_cuda.instance_launches) == set(
+        flash_kernel.BWD_INSTANCES)
+
+
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 16, "wgmma"), (torch.bfloat16, 32, "wgmma"),
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
