@@ -169,6 +169,35 @@ Phases (any failure raises, so the script exits non-zero):
    step, the forward kernel with and without lse in turns at the layer
    shape beside its bound, and ``scaled_dot_product_attention``'s forward
    and backward.
+13. The paper's CPU algorithms and dedup (at most about 120 s).  (a)
+   ``BitmapFilter.build`` on the card gives the CPU's ``uint32`` words bit
+   for bit (Set, Xor, Next at b = 64 and 128).  (b) Tables 5-8 in part, at
+   the reference benchmark's collections and sizes (UNIFORM 2,000 at b =
+   64, ZIPF 1,200 and DBLP-like 500 at b = 128; ``bench_cpu_algos.py``):
+   tau = 0.8 on all three and 0.6 on UNIFORM (0.5 too when the budget
+   allows), AllPairs, PPJoin, GroupJoin and AdaptJoin each without and
+   with the filter (its words built on the card): ms, ``bitmap_pruned`` and
+   the improvement t_orig / t_bf - 1; pairs identical with and without the
+   filter, to the card's blocked join and to its ``naive_join``.  (c) For
+   each of those cells the card's warm blocked join against the fastest
+   CPU algorithm with the filter (the port's Python algorithms, not the
+   paper's C++).  (d) ``JoinEngine`` on a card-prepared UNIFORM 2,000 under
+   each CPU driver (explicit plans, and ``JoinPlanner.plan(prefer="cpu")``
+   at tau = 0.8 and 0.5): the self-join and three 500-row probes equal the
+   blocked engine's pairs, the prefix index built once (GroupJoin: none).
+   (e) Dedup on the card at full size: ``dedup_collection`` of phase 4's
+   ZIPF at tau = 0.8 (its pairs equal phase 4's blocked join; every planted
+   cluster in one component that keeps one row; the kept sets hold no
+   pair); ``dedup_shards`` of four 5,000-set shards, near-copies planted
+   against the corpus (the deduped first 80,000 sets) and across shards,
+   through a ``CorpusStore`` (the final store's self-join is empty, its base
+   sorted once, some copy dropped against a prior shard's survivor); and
+   ``dedup_documents`` of 20,000 synthetic documents, a tenth planted
+   near-copies, every one dropped.  Wall times split into shingling, the
+   join, and union-find or the store's probes and appends.  (f) The dense
+   verdict and count kernels (rows 1-2) launched on the dedup path, read
+   as in every other path, go into the kernels line as
+   ``launches_by_path["dedup"]``.
 
 Kernel times are device times: CUDA events around 50 (20 for attention)
 back-to-back launches, a spin kernel queued first so that the host's
@@ -1192,9 +1221,10 @@ def phase_slice(zipf_col, skewed_col) -> dict:
     return launches
 
 
-def phase_full_blocked(seed: int, zipf) -> dict:
+def phase_full_blocked(seed: int, zipf) -> tuple[dict, np.ndarray]:
     """The blocked path: ZIPF tau = 0.8 (explicit blocked plan) and UNIFORM
-    tau = 0.5 (JoinEngine, auto plan)."""
+    tau = 0.5 (JoinEngine, auto plan).  Returns the tensor-core kernels'
+    launches and ZIPF's pairs (phase 13's dedup is held to them)."""
     from repro_torch.core import engine
     from repro_torch.data.collections import uniform_collection
     from repro_torch.kernels import bitmap_filter, compaction
@@ -1234,7 +1264,7 @@ def phase_full_blocked(seed: int, zipf) -> dict:
             f"{host_s:.3f} s; identical; stats {json.dumps(stats.to_dict())}")
         if name == "ZIPF" and stats.verified_true < 2000:
             raise AssertionError(f"ZIPF found {stats.verified_true} < 2000 planted pairs")
-    return {k: v for k, v in launches.items() if k.endswith("_mxu")}
+    return {k: v for k, v in launches.items() if k.endswith("_mxu")}, runs["ZIPF"][0]
 
 
 def check_dense_launches(launches: dict, b: int, path: str) -> None:
@@ -2771,6 +2801,411 @@ def phase_train(seed: int) -> tuple[dict, dict]:
         f"uninterrupted run's")
     return out, bwd_row
 
+# ---------------------------------------------------------------------------
+# Phase 13: the paper's CPU algorithms and the dedup pipeline
+# ---------------------------------------------------------------------------
+
+# The paper's Tables 5-8 at the reference benchmark's sizes (jaccard); the
+# extra cell reaches Bitmap-Set and runs only while the phase is inside its
+# budget.
+CPU_CELLS = (("UNIFORM", 0.8), ("UNIFORM", 0.6), ("ZIPF", 0.8), ("DBLP", 0.8))
+CPU_EXTRA_CELL = ("UNIFORM", 0.5)
+PHASE13_BUDGET_S = 120.0
+# Dedup at full size (phase 4's ZIPF): the corpus is the deduped first
+# 80,000 sets, then four shards of 5,000 from the rest, each with 50
+# near-copies of corpus rows and (after the first) 50 of the previous
+# shard's rows; then 20,000 synthetic documents, a tenth near-copies.
+DEDUP = dict(tau=0.8, corpus_rows=80_000, shards=4, shard_rows=5_000, plant=50,
+             documents=20_000)
+# The clusters planted into ZIPF (phases 4, 7 and 13).
+ZIPF_CLUSTERS = dict(n_clusters=1000, cluster_size=3, jaccard=0.9)
+
+
+@contextlib.contextmanager
+def timed_calls(owner, name: str, totals: dict, key: str):
+    """Wrap ``owner.name`` so that each call adds its wall seconds (the card
+    synchronised on both sides) to ``totals[key]``; restored on exit."""
+    fn = getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.cuda.synchronize()
+            totals[key] = totals.get(key, 0.0) + time.perf_counter() - t0
+
+    setattr(owner, name, wrapper)
+    try:
+        yield totals
+    finally:
+        setattr(owner, name, fn)
+
+
+def cpu_collections(seed: int) -> dict:
+    """The reference benchmark's collections and sizes
+    (``benchmarks/bench_cpu_algos.py:22-27`` through ``benchmarks/common.py``):
+    UNIFORM 2,000 at b = 64; ZIPF 1,200 and DBLP-like at b = 128 (the
+    benchmark asks ``collection("dblp", 700)``, which makes 500 sets)."""
+    from repro_torch.data.collections import (dblp_like_collection, uniform_collection,
+                                              zipf_collection)
+
+    return {"UNIFORM": (uniform_collection(n_sets=2000, avg_size=10, n_tokens=220,
+                                           seed=seed), 64),
+            "ZIPF": (zipf_collection(n_sets=1200, avg_size=50, n_tokens=101_584,
+                                     seed=seed), 128),
+            "DBLP": (dblp_like_collection(n_sets=500, seed=seed), 128)}
+
+
+def cpu_bitmaps_on_card(cols: dict) -> None:
+    """(a) ``BitmapFilter.build`` on the card gives the CPU's words, bit for
+    bit, for Set, Xor and Next at b = 64 and 128."""
+    from repro_torch.core.filters import BitmapFilter
+
+    words = 0
+    for name, (col, _) in cols.items():
+        for b in (64, 128):
+            for method in ("set", "xor", "next"):
+                args = (col.tokens, col.lengths, "jaccard", 0.8)
+                card = BitmapFilter.build(*args, b=b, method=method, device="cuda")
+                cpu = BitmapFilter.build(*args, b=b, method=method, device="cpu")
+                if card.words.dtype != np.uint32 or not np.array_equal(card.words, cpu.words):
+                    raise AssertionError(f"{name} b={b} {method}: the card's bitmap words "
+                                         f"differ from the CPU's")
+                words += card.words.size
+    log(f"phase 13 (a) bitmaps on the card: BitmapFilter.build for set, xor, next at b = 64 "
+        f"and 128 over {', '.join(f'{n} {c.num_sets}' for n, (c, _) in cols.items())}: "
+        f"{words} uint32 words, identical to the CPU's bit for bit")
+
+
+def cpu_cell(name: str, col, b: int, tau: float) -> dict:
+    """(b) and (c) for one collection and threshold: each CPU algorithm
+    without and with the Bitmap Filter (its words built on the card), against
+    the card's blocked join and ``naive_join``; times on the host's clock."""
+    from repro_torch.core import cpu_algos, engine, join
+    from repro_torch.core.filters import BitmapFilter
+
+    t0 = time.perf_counter()
+    bf = BitmapFilter.build(col.tokens, col.lengths, "jaccard", tau, b=b, device="cuda")
+    build_ms = (time.perf_counter() - t0) * 1e3
+    prep = engine.prepare(col, "cuda")
+
+    def blocked():
+        return join.blocked_bitmap_join_prepared(prep, sim="jaccard", tau=tau, b=b,
+                                                 block=MAIN["block"], compaction="device")
+
+    want, cold_s = _timed(blocked)
+    warm = [_timed(blocked) for _ in range(3)]
+    oracle = join.naive_join(col, "jaccard", tau, device="cuda")
+    if not all(np.array_equal(p, oracle) for p in [want] + [p for p, _ in warm]):
+        raise AssertionError(f"{name} tau={tau}: blocked {len(want)} pairs vs naive "
+                             f"{len(oracle)}")
+    card_ms = statistics.median(s for _, s in warm) * 1e3
+    runs = {}
+    for algo, fn in cpu_algos.ALGORITHMS.items():
+        t0 = time.perf_counter()
+        orig = fn(col, "jaccard", tau)
+        t1 = time.perf_counter()
+        stats = cpu_algos.AlgoStats()
+        with_bf = fn(col, "jaccard", tau, bitmap=bf, stats=stats)
+        t2 = time.perf_counter()
+        if not (np.array_equal(orig, with_bf) and np.array_equal(orig, want)):
+            raise AssertionError(f"{name} tau={tau} {algo}: {len(orig)} pairs without the "
+                                 f"filter, {len(with_bf)} with, {len(want)} by the card")
+        runs[algo] = dict(orig_ms=(t1 - t0) * 1e3, bf_ms=(t2 - t1) * 1e3,
+                          improvement=(t1 - t0) / (t2 - t1) - 1.0,
+                          bitmap_pruned=stats.bitmap_pruned, candidates=stats.candidates,
+                          verified=stats.verified, pairs=len(orig))
+        r = runs[algo]
+        log(f"phase 13 (b) {name} n={col.num_sets} tau={tau} b={b} {bf.method} {algo}: "
+            f"{r['orig_ms']:.1f} ms, with the filter {r['bf_ms']:.1f} ms, improvement "
+            f"t_orig / t_bf - 1 = {r['improvement']:+.1%}; bitmap_pruned "
+            f"{r['bitmap_pruned']} of {r['candidates']} candidates, {r['verified']} "
+            f"verified, {r['pairs']} pairs (= the card's blocked and naive joins)")
+    fastest = min(runs, key=lambda a: runs[a]["bf_ms"])
+    ratio = runs[fastest]["bf_ms"] / card_ms
+    log(f"phase 13 (c) {name} tau={tau}: the card's warm blocked join {card_ms:.3f} ms "
+        f"(median of 3; cold {cold_s * 1e3:.1f} ms), the fastest CPU algorithm with the filter "
+        f"({fastest}) {runs[fastest]['bf_ms']:.1f} ms: the card {ratio:.1f}x faster, against "
+        f"the port's Python CPU algorithms (not the paper's C++)")
+    return dict(n=col.num_sets, b=b, method=bf.method, cutoff=bf.cutoff,
+                filter_build_ms=build_ms, card_warm_ms=card_ms, card_cold_ms=cold_s * 1e3,
+                fastest=fastest, card_speedup=ratio, algos=runs)
+
+
+def engine_cpu_plans(col, b: int, seed: int) -> list:
+    """(d) ``JoinEngine`` under each CPU driver, from explicit plans and from
+    ``JoinPlanner.plan(prefer="cpu")``, on a card-prepared collection: the
+    self-join and three probes of one 500-row batch equal the blocked
+    engine's pairs, and the prefix index is built once (GroupJoin indexes its
+    groups and builds none, as in the reference)."""
+    from repro_torch.core import cpu_algos, engine
+    from repro_torch.core.plan import JoinPlan, JoinPlanner
+
+    batch = probe_batches(col, seed, n_batches=1, rows=500)[0]
+    plans = [("explicit", JoinPlan(driver=d, sim="jaccard", tau=0.8, b=b))
+             for d in cpu_algos.ALGORITHMS]
+    plans += [("planner", JoinPlanner(b=b).plan("jaccard", tau, col.num_sets, prefer="cpu",
+                                                backend="gpu", n_devices=1))
+              for tau in (0.8, 0.5)]
+    want, out = {}, []
+    for source, plan in plans:
+        tau = plan.tau
+        if tau not in want:
+            blocked = engine.JoinEngine(
+                engine.prepare(col, "cuda"), "jaccard", tau,
+                plan=JoinPlan(driver="blocked", sim="jaccard", tau=tau, b=b,
+                              compaction="device"))
+            want[tau] = (blocked.self_join(), blocked.probe(batch, return_stats=False))
+        eng = engine.JoinEngine(engine.prepare(col, "cuda"), "jaccard", tau, plan=plan)
+        (pairs, stats), self_s = _timed(lambda: eng.self_join(return_stats=True))
+        probes = [_timed(lambda: eng.probe(batch)) for _ in range(3)]
+        if not np.array_equal(pairs, want[tau][0]):
+            raise AssertionError(f"{source} {plan.driver} tau={tau}: self-join {len(pairs)} "
+                                 f"pairs vs the blocked engine's {len(want[tau][0])}")
+        for (got, _), _s in probes:
+            if not np.array_equal(got, want[tau][1]):
+                raise AssertionError(f"{source} {plan.driver} tau={tau}: probe {len(got)} "
+                                     f"pairs vs the blocked engine's {len(want[tau][1])}")
+        builds = eng.prepared.builds["prefix_index"]
+        if builds != (plan.driver != "groupjoin") or eng.fallbacks:
+            raise AssertionError(f"{source} {plan.driver}: prefix_index built {builds} times, "
+                                 f"fallbacks {eng.fallbacks}")
+        probe_ms = [s * 1e3 for _, s in probes]
+        log(f"phase 13 (d) JoinEngine, {source} plan {plan.driver} (tau={tau}, b={plan.b}, "
+            f"{plan.method}) on a card-prepared UNIFORM {col.num_sets}: self-join "
+            f"{self_s * 1e3:.1f} ms, {len(pairs)} pairs; 500-row probes "
+            f"{', '.join(f'{t:.1f}' for t in probe_ms)} ms, {len(probes[0][0][0])} pairs; "
+            f"= the blocked engine's; prefix_index built {builds}; stats "
+            f"{json.dumps(stats.to_dict())}")
+        out.append(dict(source=source, driver=plan.driver, tau=tau, self_ms=self_s * 1e3,
+                        probe_ms=probe_ms, prefix_index=builds))
+    return out
+
+
+def planted_clusters(base, col, n_clusters: int, cluster_size: int, jaccard: float,
+                     seed: int) -> list:
+    """The clusters ``with_duplicates(base, ...)`` planted, as sets of row
+    indices of ``col`` (its result): the draws replayed, each cluster's rows
+    relabelled as ``preprocess`` relabels the whole and looked up in ``col``
+    (a row that ``col`` holds more than once maps to every copy)."""
+    import itertools
+
+    from repro_torch.core.collection import _frequency_lut
+
+    rng = np.random.default_rng(seed)
+    rows = base.as_lists()
+    universe = max(max(r) for r in rows if r) + 1
+    clusters = []
+    for _ in range(n_clusters):
+        src = rows[int(rng.integers(0, len(rows)))]
+        n = len(src)
+        keep = min(max(int(round(2 * jaccard * n / (1 + jaccard))), 1), n)
+        members = [src]
+        for _ in range(cluster_size - 1):
+            kept = list(rng.choice(src, size=keep, replace=False))
+            extra = [int(rng.integers(universe, universe + 10 * n)) for _ in range(n - keep)]
+            rows.append(sorted(set(kept + extra)))
+            members.append(rows[-1])
+        clusters.append(members)
+    lut = _frequency_lut(np.fromiter(itertools.chain.from_iterable(rows), dtype=np.int64))
+    where = collections.defaultdict(list)
+    for i in range(col.num_sets):
+        where[tuple(col.row(i).tolist())].append(i)
+    return [set(itertools.chain.from_iterable(
+        where[tuple(sorted(lut[int(t)] for t in m))] for m in members)) for members in clusters]
+
+
+def synthetic_documents(n: int, seed: int) -> tuple[list, list]:
+    """``n`` documents of 15-35 words from a 5,000-word random vocabulary;
+    every tenth after the first 100 is a copy of an earlier document with one
+    character changed (its index is returned as planted)."""
+    rng = np.random.default_rng(seed + 13)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    vocab = ["".join(rng.choice(letters, size=int(rng.integers(3, 10)))) for _ in range(5000)]
+    docs, planted = [], []
+    for i in range(n):
+        if i >= 100 and i % 10 == 0:
+            src = docs[int(rng.integers(i))]
+            k = int(rng.integers(len(src)))
+            docs.append(src[:k] + "~" + src[k + 1:])
+            planted.append(i)
+        else:
+            docs.append(" ".join(rng.choice(vocab, size=int(rng.integers(15, 36)))))
+    return docs, planted
+
+
+def dedup_full(seed: int, zipf_base, zipf, zipf_pairs) -> tuple[dict, dict]:
+    """(e) Dedup at full size on the card, through the port's entry points,
+    with the dense kernels' launch counters zeroed just before and read just
+    after; returns the timings and the launches."""
+    from repro_torch.core import join
+    from repro_torch.core.collection import Collection, from_lists
+    from repro_torch.data import dedup
+    from repro_torch.kernels import bitmap_filter, compaction
+    from repro_torch.store import CorpusStore
+
+    tau = DEDUP["tau"]
+    t0 = time.perf_counter()
+    clusters = planted_clusters(zipf_base, zipf, **ZIPF_CLUSTERS, seed=seed)
+    docs, planted = synthetic_documents(DEDUP["documents"], seed)
+    log(f"phase 13 (e) set-up, not timed: replayed the {len(clusters)} planted clusters of ZIPF and "
+        f"generated {len(docs)} documents in {time.perf_counter() - t0:.1f} s")
+    counts = LaunchCounts(candidate_matrix_mxu=bitmap_filter.candidate_matrix_mxu_cuda,
+                          count_candidates_mxu=compaction.count_candidates_mxu_cuda,
+                          candidate_matrix=bitmap_filter.candidate_matrix_cuda,
+                          count_candidates=compaction.count_candidates_cuda)
+    out = {}
+    counts.zero()
+
+    # dedup_collection over the whole collection, then over what it kept.
+    t, t2 = {}, {}
+    with timed_calls(dedup, "blocked_bitmap_join", t, "join"):
+        res, total_s = _timed(lambda: dedup.dedup_collection(zipf, tau, device="cuda"))
+    kept = Collection(tokens=zipf.tokens[res.keep], lengths=zipf.lengths[res.keep])
+    with timed_calls(dedup, "blocked_bitmap_join", t2, "join"):
+        res2, again_s = _timed(lambda: dedup.dedup_collection(kept, tau, device="cuda"))
+    if not np.array_equal(res.pairs, zipf_pairs):
+        raise AssertionError(f"dedup_collection found {len(res.pairs)} pairs, phase 4's "
+                             f"blocked join {len(zipf_pairs)}")
+    if len(res2.pairs):
+        raise AssertionError(f"the kept sets still hold {len(res2.pairs)} pairs at {tau}")
+    kept_mask = np.zeros(zipf.num_sets, dtype=bool)
+    kept_mask[res.keep] = True
+    uf = dedup._UnionFind(zipf.num_sets)
+    for i, j in res.pairs:
+        uf.union(int(i), int(j))
+    roots = np.array([uf.find(i) for i in range(zipf.num_sets)])
+    component = collections.Counter(roots.tolist())
+    alone = 0
+    for c, rows in enumerate(clusters):
+        rows = sorted(rows)
+        n_kept = int(kept_mask[rows].sum())
+        if len(rows) < 2 or len({int(roots[r]) for r in rows}) != 1 or n_kept > 1:
+            raise AssertionError(f"planted cluster {c} (rows {rows}): roots "
+                                 f"{[int(roots[r]) for r in rows]}, {n_kept} kept")
+        if component[int(roots[rows[0]])] == len(rows):
+            alone += 1
+            if n_kept != 1:
+                raise AssertionError(f"planted cluster {c} keeps {n_kept} members")
+    uf_s = total_s - t["join"]
+    log(f"phase 13 (e) dedup_collection, ZIPF {zipf.num_sets} sets at tau={tau} on the card: "
+        f"{total_s:.3f} s = join {t['join']:.3f} s + union-find and keep / drop "
+        f"{uf_s:.3f} s; kept {len(res.keep)}, dropped {len(res.drop)}, {len(res.pairs)} "
+        f"pairs = phase 4's blocked join; every planted cluster in one component keeping at "
+        f"most one member, exactly one for the {alone} of {len(clusters)} whose component is the "
+        f"cluster itself (the rest are joined to other rows); the kept sets deduped again: "
+        f"no pair, {again_s:.3f} s = join {t2['join']:.3f} s + union-find "
+        f"{again_s - t2['join']:.3f} s")
+    out["collection"] = dict(sets=zipf.num_sets, kept=len(res.keep), dropped=len(res.drop),
+                             pairs=len(res.pairs), wall_s=total_s, join_s=t["join"],
+                             union_find_s=uf_s, again_s=again_s, again_join_s=t2["join"],
+                             clusters_alone=alone)
+
+    # dedup_shards: the deduped first 80,000 sets as the corpus, four shards.
+    rng = np.random.default_rng(seed + 17)
+    raw = Collection(tokens=zipf.tokens[:DEDUP["corpus_rows"]],
+                     lengths=zipf.lengths[:DEDUP["corpus_rows"]])
+    base = dedup.dedup_collection(raw, tau, device="cuda")
+    corpus = Collection(tokens=raw.tokens[base.keep], lengths=raw.lengths[base.keep])
+    universe = int(zipf.tokens[zipf.lengths > 0].max()) + 1
+    shards, prev = [], None
+    for k in range(DEDUP["shards"]):
+        a = DEDUP["corpus_rows"] + k * DEDUP["shard_rows"]
+        rows = [zipf.row(i).tolist() for i in range(a, a + DEDUP["shard_rows"])]
+        step = DEDUP["shard_rows"] // DEDUP["plant"]
+        for j in range(0, len(rows), step):
+            rows[j] = _perturbed(corpus.row(int(rng.integers(corpus.num_sets))).tolist(),
+                                 rng, universe)
+            if prev is not None:
+                rows[j + step // 2] = _perturbed(list(prev[int(rng.integers(len(prev)))]),
+                                                 rng, universe)
+        shards.append(from_lists(rows))
+        prev = rows
+    t = {}
+    with timed_calls(CorpusStore, "probe", t, "probe"), \
+            timed_calls(CorpusStore, "append", t, "append"), \
+            timed_calls(dedup, "dedup_collection", t, "within"):
+        (results, store), shards_s = _timed(lambda: dedup.dedup_shards(
+            corpus, shards, tau, return_store=True, device="cuda"))
+    final, final_s = _timed(store.self_join)
+    if len(final) or store.builds()["sort"] != 1:
+        raise AssertionError(f"dedup_shards: the final store's self-join holds {len(final)} "
+                             f"pairs, its base sorted {store.builds()['sort']} times")
+    if not any(len(r.pairs_rs) and r.pairs_rs[:, 0].max() >= corpus.num_sets
+               for r in results):
+        raise AssertionError("no shard dropped a document against a prior shard's survivor")
+    log(f"phase 13 (e) dedup_shards: corpus {corpus.num_sets} sets (the deduped first "
+        f"{raw.num_sets}), {len(shards)} shards of {DEDUP['shard_rows']} with "
+        f"{DEDUP['plant']} near-copies of corpus rows each and {DEDUP['plant']} of the "
+        f"previous shard's: {shards_s:.3f} s = probes of the store {t['probe']:.3f} s + "
+        f"within-shard dedup {t['within']:.3f} s + appends {t['append']:.3f} s + the rest "
+        f"(preparing the corpus, masks) "
+        f"{shards_s - t['probe'] - t['within'] - t['append']:.3f} s; dropped against the "
+        f"store {[len(r.drop_vs_corpus) for r in results]}, within "
+        f"{[len(r.drop_within) for r in results]}; the final store ({store.num_sets} sets) "
+        f"self-joins to no pair in {final_s:.3f} s; its base sorted once")
+    out["shards"] = dict(corpus=corpus.num_sets, wall_s=shards_s, probe_s=t["probe"],
+                         within_s=t["within"], append_s=t["append"],
+                         dropped=[len(r.drop_vs_corpus) for r in results],
+                         store_sets=store.num_sets, final_self_join_s=final_s)
+
+    # dedup_documents: shingling, the join, union-find.
+    t = {}
+    with timed_calls(dedup, "dedup_collection", t, "dedup"), \
+            timed_calls(dedup, "blocked_bitmap_join", t, "join"):
+        (kept_docs, res), docs_s = _timed(lambda: dedup.dedup_documents(docs, tau,
+                                                                         device="cuda"))
+    missed = sorted(set(planted) - set(res.drop.tolist()))
+    if missed:
+        raise AssertionError(f"dedup_documents kept {len(missed)} planted copies: {missed[:10]}")
+    log(f"phase 13 (e) dedup_documents: {len(docs)} documents, {len(planted)} planted "
+        f"near-copies, all dropped; kept {len(kept_docs)}: {docs_s:.3f} s = shingling "
+        f"{docs_s - t['dedup']:.3f} s + join {t['join']:.3f} s + union-find "
+        f"{t['dedup'] - t['join']:.3f} s; stats {json.dumps(res.stats.to_dict())}")
+    out["documents"] = dict(docs=len(docs), planted=len(planted), kept=len(kept_docs),
+                            wall_s=docs_s, shingle_s=docs_s - t["dedup"], join_s=t["join"],
+                            union_find_s=t["dedup"] - t["join"])
+    launches = counts.read()
+    log(f"phase 13 (e) dedup path launches: {json.dumps(launches)}")
+    check_dense_launches(launches, MAIN["b"], "the dedup path")
+    return out, launches
+
+
+def phase_cpu_and_dedup(seed: int, zipf_base, zipf, zipf_pairs) -> tuple[dict, dict]:
+    """Phase 13: the paper's CPU algorithms with the filter's words built on
+    the card, the card against them, the engine's CPU plans, and dedup at
+    full size.  Returns a summary and the dedup path's launches."""
+    t0 = time.perf_counter()
+    cols = cpu_collections(seed)
+    cpu_bitmaps_on_card(cols)
+    cells = {}
+    for name, tau in CPU_CELLS:
+        col, b = cols[name]
+        cells[f"{name} tau={tau}"] = cpu_cell(name, col, b, tau)
+    plans = engine_cpu_plans(*cols["UNIFORM"], seed)
+    dedup_out, launches = dedup_full(seed, zipf_base, zipf, zipf_pairs)
+    # The extra cell only when the phase's budget allows it (its run about
+    # 1.5 times the tau = 0.6 cell's).
+    spent = time.perf_counter() - t0
+    prev = cells["UNIFORM tau=0.6"]["algos"].values()
+    need = 1.5 * sum(r["orig_ms"] + r["bf_ms"] for r in prev) / 1e3
+    name, tau = CPU_EXTRA_CELL
+    if spent + need < PHASE13_BUDGET_S:
+        cells[f"{name} tau={tau}"] = cpu_cell(name, cols[name][0], cols[name][1], tau)
+    else:
+        log(f"phase 13 (b) {name} tau={tau} skipped: {spent:.1f} s spent, about {need:.1f} s "
+            f"more would pass the {PHASE13_BUDGET_S:.0f} s budget")
+    improvements = [r["improvement"] for c in cells.values() for r in c["algos"].values()]
+    seconds = time.perf_counter() - t0
+    log(f"phase 13: {len(improvements)} algorithm runs, the filter faster in "
+        f"{sum(i > 0 for i in improvements)}, mean improvement "
+        f"{statistics.mean(improvements):+.1%}; phase {seconds:.1f} s")
+    summary = dict(cells=cells, engine_cpu_plans=plans, dedup=dedup_out, seconds=seconds)
+    log(json.dumps({"phase13": summary}))
+    return summary, launches
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2790,8 +3225,8 @@ def main(argv=None) -> int:
                                cluster_size=3, jaccard=0.9, seed=args.seed)
     skewed_10k = with_duplicates(skewed_collection(n_sets=10_000, seed=args.seed),
                                  n_clusters=100, cluster_size=3, jaccard=0.9, seed=args.seed)
-    zipf = with_duplicates(zipf_collection(n_sets=100_000, seed=args.seed), n_clusters=1000,
-                           cluster_size=3, jaccard=0.9, seed=args.seed)
+    zipf_base = zipf_collection(n_sets=100_000, seed=args.seed)
+    zipf = with_duplicates(zipf_base, **ZIPF_CLUSTERS, seed=args.seed)
     skewed = with_duplicates(skewed_collection(n_sets=100_000, seed=args.seed),
                              n_clusters=1000, cluster_size=3, jaccard=0.9, seed=args.seed)
     batches = probe_batches(skewed, args.seed)
@@ -2801,7 +3236,8 @@ def main(argv=None) -> int:
     kernels += phase_postings_kernels(args.seed, engine.prepare(skewed, "cuda"))
     phase_bitplane_parity(args.seed)
     launches = phase_slice(zipf_10k, skewed_10k)
-    launches.update(phase_full_blocked(args.seed, zipf))
+    blocked_launches, zipf_pairs = phase_full_blocked(args.seed, zipf)
+    launches.update(blocked_launches)
     launches.update(phase_full_indexed(args.seed, skewed, batches))
     store_launches, store_ops = phase_store(args.seed, zipf)
     _, serve_call = phase_serve(args.seed, skewed)
@@ -2836,10 +3272,16 @@ def main(argv=None) -> int:
     training, bwd_row = phase_train(args.seed)
     kernels.append(bwd_row)
     launches["flash_attention_bwd"] = training["bwd_launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, dedup_launches = phase_cpu_and_dedup(args.seed, zipf_base, zipf, zipf_pairs)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["name"] == "flash_attention":
             k["training"] = training
+        if k["name"] in dedup_launches:   # rows 1-2: their launches on the dedup path too
+            k["launches_by_path"] = {k["path"]: k["launches"],
+                                     "dedup": dedup_launches[k["name"]]}
     log(smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

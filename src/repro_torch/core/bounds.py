@@ -1,8 +1,9 @@
 """Threshold conversions, length bounds and the verdicts' threshold tables.
 
-Implements Table 1 (equivalent overlap) and Table 2 (length bounds + prefix
-lengths), plus the integer tables that the Eq. 2 verdict and exact
-verification compare against.  The host-side functions are numpy copies of
+Implements Table 1 (similarities, equivalent overlap), Table 2 (length
+bounds + prefix lengths), the Eq. 2 and positional upper bounds, plus the
+integer tables that the Eq. 2 verdict and exact verification compare
+against.  The host-side functions are numpy copies of
 ``repro.core.bounds``; the ``*_int``/``required_overlap*``/``*_gather``
 twins take and return torch tensors.
 
@@ -27,6 +28,20 @@ from repro_torch.core.constants import COSINE, DICE, JACCARD, OVERLAP
 # ---------------------------------------------------------------------------
 # Similarity functions (Table 1)
 # ---------------------------------------------------------------------------
+
+def similarity(sim: str, overlap, len_r, len_s):
+    """sim(r, s) given |r ∩ s| and the set sizes."""
+    o = overlap
+    if sim == OVERLAP:
+        return o
+    if sim == JACCARD:
+        return o / (len_r + len_s - o)
+    if sim == COSINE:
+        return o / (len_r * 1.0 * len_s) ** 0.5
+    if sim == DICE:
+        return 2.0 * o / (len_r + len_s)
+    raise ValueError(f"unknown similarity {sim!r}")
+
 
 def equivalent_overlap(sim: str, tau: float, len_r, len_s):
     """Minimum overlap needed for sim(r,s) >= tau (Table 1, real-valued).
@@ -258,8 +273,21 @@ def prefix_length_ell(sim: str, tau: float, n, ell: int):
 
 
 # ---------------------------------------------------------------------------
-# Positional bound (Section 2.3.3)
+# Eq. 2 and the positional bound (Section 2.3.3), host and device
 # ---------------------------------------------------------------------------
+
+def overlap_upper_bound(len_r, len_s, hamming):
+    """⌊(|r| + |s| - popcount(b_r ⊕ b_s)) / 2⌋ (Theorem 1), on numpy
+    arrays or Python ints (the CPU algorithms' ``BitmapFilter``)."""
+    return (len_r + len_s - hamming) // 2
+
+
+def positional_upper_bound(len_r, len_s, pos_r, pos_s):
+    """The positional filter's bound on numpy arrays or Python ints: given
+    the 0-based positions of the first common prefix token in r and s, the
+    overlap is at most 1 + min(remaining suffix lengths)."""
+    return 1 + np.minimum(len_r - pos_r - 1, len_s - pos_s - 1)
+
 
 def positional_upper_bound_int(len_r, len_s, pos_r, pos_s) -> torch.Tensor:
     """int32 torch twin of the Section 2.3.3 positional bound: at most

@@ -5,16 +5,19 @@ The port of ``repro.core.engine``:
 * :class:`PreparedCollection` — a length-sorted view of a
   :class:`~repro_torch.core.collection.Collection` with the inverse
   permutation, the sorted token/length tensors on one device, packed bitmap
-  words cached per ``(b, method, mix)``, integer length windows cached per
-  ``(sim, tau)`` and the CSR postings index cached per ``(sim, tau, ell)``.
-  ``builds`` counts each build so reuse is assertable.
+  words cached per ``(b, method, mix)`` (and their numpy ``uint32`` copy
+  for the CPU algorithms), integer length windows cached per ``(sim,
+  tau)``, the CPU algorithms' ℓ-prefix index and the CSR postings index
+  cached per ``(sim, tau, ell)``.  ``builds`` counts each build so reuse is
+  assertable.
 * :class:`JoinEngine` — prepare R once, stream batches of S through
   :meth:`JoinEngine.probe`, each returning pairs plus a per-batch
   :class:`~repro_torch.core.join.JoinStats`, under an explicit
   :class:`~repro_torch.core.plan.JoinPlan`.  It executes the ``naive``,
-  ``blocked`` and ``indexed`` drivers, with the reference's recorded
-  fallbacks for the mesh drivers, over a prepared corpus or an appendable
-  :class:`~repro_torch.store.CorpusStore`.
+  ``blocked`` and ``indexed`` drivers and the four CPU algorithms
+  (:mod:`repro_torch.core.cpu_algos`, with :func:`prepared_bitmap_filter`),
+  with the reference's recorded fallbacks for the mesh drivers, over a
+  prepared corpus or an appendable :class:`~repro_torch.store.CorpusStore`.
 
 Entry points run on the card: ``prepare(col)`` without a ``device`` resolves
 to ``cuda`` and raises when no card is present; tests pass ``device="cpu"``.
@@ -39,6 +42,7 @@ from repro_torch.core import bitmap as bm
 from repro_torch.core import bounds
 from repro_torch.core.collection import Collection
 from repro_torch.core.constants import BITMAP_COMBINED, JACCARD
+from repro_torch.core.filters import BitmapFilter
 from repro_torch.core.plan import CPU_DRIVERS, JoinPlan, JoinPlanner, backend_of
 
 
@@ -58,9 +62,9 @@ class PreparedCollection:
 
     Construction performs the only eager step — the stable length sort.
     Everything else (device tensors, packed words per ``(b, method, mix)``,
-    integer length windows per ``(sim, tau)``, postings indexes per
-    ``(sim, tau, ell)``) is built on first use and cached; ``builds``
-    counts each build.
+    integer length windows per ``(sim, tau)``, CPU prefix indexes and
+    postings indexes per ``(sim, tau, ell)``) is built on first use and
+    cached; ``builds`` counts each build.
     """
 
     def __init__(self, source: Collection, device=None):
@@ -78,11 +82,14 @@ class PreparedCollection:
         for arr in (source.tokens, source.lengths, self.tokens, self.lengths):
             arr.flags.writeable = False
         self.builds: Dict[str, int] = {"sort": 1, "bitmap": 0, "window": 0,
-                                       "postings": 0}
+                                       "prefix_index": 0, "postings": 0}
         self._device_arrays: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._words: Dict[Tuple[int, str, bool], torch.Tensor] = {}
+        self._words_np: Dict[Tuple[int, str, bool], np.ndarray] = {}
         self._windows: Dict[Tuple[str, float], Tuple] = {}
+        self._prefix: Dict[Tuple[str, float, int], dict] = {}
         self._postings: Dict[Tuple[str, float, int], object] = {}
+        self._sorted_collection: Optional[Collection] = None
 
     # -- Collection duck-typing (over the length-sorted view) ---------------
 
@@ -99,6 +106,14 @@ class PreparedCollection:
 
     def row(self, i: int) -> np.ndarray:
         return self.tokens[i, : self.lengths[i]]
+
+    @property
+    def sorted_collection(self) -> Collection:
+        """The length-sorted view as a plain :class:`Collection`."""
+        if self._sorted_collection is None:
+            self._sorted_collection = Collection(tokens=self.tokens,
+                                                 lengths=self.lengths)
+        return self._sorted_collection
 
     # -- cached artifacts ----------------------------------------------------
 
@@ -125,6 +140,20 @@ class PreparedCollection:
             self.builds["bitmap"] += 1
         return self._words[key]
 
+    def bitmap_words_np(self, b: int, method: str, *, mix: bool = False,
+                        tau: Optional[float] = None) -> np.ndarray:
+        """:meth:`bitmap_words` on the host as numpy ``uint32`` (the int32
+        bit patterns viewed), for the CPU ``BitmapFilter``; cached per key."""
+        if method == BITMAP_COMBINED:
+            if tau is None:
+                raise ValueError("combined method needs tau to resolve")
+            method = bm.choose_method(float(tau), b)
+        key = (int(b), method, bool(mix))
+        if key not in self._words_np:
+            words = self.bitmap_words(b, method, mix=mix)
+            self._words_np[key] = words.cpu().numpy().view(np.uint32)
+        return self._words_np[key]
+
     def length_window_int(self, sim: str, tau: float):
         """Integer-exact Table 2 windows for every sorted row, cached per
         ``(sim, tau)``.  Returns ``(lo_np, hi_np, lo_dev, hi_dev)``."""
@@ -135,6 +164,19 @@ class PreparedCollection:
                                   torch.from_numpy(hi).to(self.device))
             self.builds["window"] += 1
         return self._windows[key]
+
+    def prefix_index(self, sim: str, tau: float, ell: int = 1) -> dict:
+        """Cached ℓ-prefix inverted index over the sorted view (the CPU
+        algorithms' build artifact), built at most once per
+        ``(sim, tau, ell)``."""
+        key = (sim, float(tau), int(ell))
+        if key not in self._prefix:
+            # Imported here: cpu_algos imports this module.
+            from repro_torch.core import cpu_algos
+            self._prefix[key] = cpu_algos._build_prefix_index(
+                self.sorted_collection, sim, tau, ell=ell)
+            self.builds["prefix_index"] += 1
+        return self._prefix[key]
 
     def postings(self, sim: str, tau: float, ell: int = 1):
         """The CSR ℓ-prefix postings index over the sorted view (the
@@ -150,7 +192,8 @@ class PreparedCollection:
         return self._postings[key]
 
     def build_counts(self) -> Dict[str, int]:
-        """A copy of the build counters (sort/bitmap/window/postings)."""
+        """A copy of the build counters
+        (sort/bitmap/window/prefix_index/postings)."""
         return dict(self.builds)
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
@@ -251,6 +294,39 @@ def store_from_numpy(segments: Sequence[Mapping], sim: str, tau: float, *,
     return store
 
 
+def prepared_bitmap_filter(
+    prep_r: PreparedCollection,
+    prep_s: Optional[PreparedCollection] = None,
+    *,
+    sim: str,
+    tau: float,
+    b: int = 64,
+    method: str = BITMAP_COMBINED,
+    mix: bool = False,
+    use_cutoff: bool = True,
+) -> BitmapFilter:
+    """A :class:`~repro_torch.core.filters.BitmapFilter` over prepared
+    collections.
+
+    Reuses the prepared words (built on the prepared collections' device,
+    no regeneration); index side R, probe side S (self-join when ``prep_s``
+    is omitted).  Indices fed to ``prune_mask`` are in the prepared
+    (length-sorted) space, as the CPU algorithms use with prepared inputs.
+    """
+    from repro_torch.core import expected
+
+    chosen = bm.choose_method(float(tau), b) if method == BITMAP_COMBINED else method
+    words_r = prep_r.bitmap_words_np(b, chosen, mix=mix)
+    cutoff = (expected.cutoff_point(chosen, b, float(tau)) if use_cutoff
+              else np.iinfo(np.int32).max)
+    kw = {}
+    if prep_s is not None and prep_s is not prep_r:
+        kw = dict(probe_words=prep_s.bitmap_words_np(b, chosen, mix=mix),
+                  probe_lengths=prep_s.lengths)
+    return BitmapFilter(words=words_r, lengths=prep_r.lengths, sim=sim,
+                        tau=tau, b=b, cutoff=int(cutoff), method=chosen, **kw)
+
+
 # ---------------------------------------------------------------------------
 # JoinEngine: prepare R once, stream probe batches against it
 # ---------------------------------------------------------------------------
@@ -284,8 +360,9 @@ class JoinEngine:
     The ``ring`` and ``sharded-indexed`` drivers need a device mesh, which
     the port does not have yet: a ring plan runs ``blocked`` and a
     sharded-indexed plan runs ``indexed``, each recorded in ``fallbacks``
-    as the reference does without a mesh.  CPU-algorithm plans raise
-    ``NotImplementedError`` (ROADMAP Queue 1 item 10).
+    as the reference does without a mesh.  A CPU-algorithm plan runs its
+    algorithm over the prepared sorted views on the host, with the bitmap
+    words built on the engine's device (:func:`prepared_bitmap_filter`).
 
     The corpus may also be a :class:`repro_torch.store.CorpusStore`: the
     engine then adopts the store's plan, sim, τ and device, and every probe
@@ -443,10 +520,6 @@ class JoinEngine:
             self.fallbacks.append(
                 "sharded-indexed plan without a mesh -> indexed")
             driver = "indexed"
-        if driver in CPU_DRIVERS:
-            raise NotImplementedError(
-                f"driver {driver!r} needs the port of the CPU algorithms "
-                f"(ROADMAP Queue 1 item 10)")
         if driver == "naive" and self._auto_planned and batch is not None:
             # Planned from the corpus size alone; a large batch would make
             # the dense oracle quadratic.
@@ -472,15 +545,32 @@ class JoinEngine:
                 compaction=plan.compaction, capacity=plan.capacity,
                 return_stats=True)
 
+        prep_s = None if batch is None else prepare(batch, self.device)
         if driver == "indexed":
             from repro_torch.index.candidates import indexed_join_prepared
 
-            prep_s = None if batch is None else prepare(batch, self.device)
             return indexed_join_prepared(
                 self.prepared, prep_s, sim=self.sim, tau=self.tau,
                 b=plan.b, method=plan.method, mix=plan.mix, ell=plan.ell,
                 probe_block=plan.block, impl=plan.impl,
                 use_cutoff=plan.use_cutoff, capacity=plan.capacity,
                 return_stats=True)
+
+        if driver in CPU_DRIVERS:
+            from repro_torch.core import cpu_algos
+
+            bf = prepared_bitmap_filter(
+                self.prepared, prep_s, sim=self.sim, tau=self.tau, b=plan.b,
+                method=plan.method, mix=plan.mix, use_cutoff=plan.use_cutoff)
+            astats = cpu_algos.AlgoStats()
+            algo = cpu_algos.ALGORITHMS[driver]
+            pairs = algo(self.prepared, prep_s, self.sim, self.tau,
+                         bitmap=bf, stats=astats)
+            stats = join_mod.JoinStats(
+                total_pairs=astats.candidates,
+                candidates=astats.candidates - astats.bitmap_pruned,
+                verified_true=astats.results,
+                candidates_generated=astats.candidates)
+            return pairs, stats
 
         raise ValueError(f"unknown driver {driver!r}")  # pragma: no cover

@@ -17,8 +17,9 @@ the filter still discriminates at Jaccard threshold tau — and the
 All computations are done in log space where needed so they stay stable for
 the n ~ 10^4, b ~ 4096 regime plotted in Fig. 6 of the paper.
 
-The numpy part of ``repro.core.expected`` that the join needs
-(``cutoff_point`` and ``combined_crossovers``), copied for the PyTorch port.
+A numpy copy of ``repro.core.expected`` for the PyTorch port; only
+:func:`monte_carlo_expected_bound` touches torch, to generate its bitmaps
+on a device.
 """
 
 from __future__ import annotations
@@ -51,6 +52,17 @@ def expected_bound_xor(b: int, n: np.ndarray | int) -> np.ndarray:
     n = np.asarray(n, dtype=np.float64)
     p_odd = 0.5 * (1.0 - np.power(1.0 - 2.0 / b, 2.0 * n))
     return n - 0.5 * b * p_odd
+
+
+def expected_bound_xor_sum(b: int, n: int) -> float:
+    """Eq. 5 exactly as printed (explicit odd-k binomial sum). O(n) terms.
+
+    Used in tests to confirm the parity closed form above.
+    """
+    total = 0.0
+    for k in range(1, 2 * n + 1, 2):
+        total += math.comb(2 * n, k) * (1.0 / b) ** k * ((b - 1.0) / b) ** (2 * n - k)
+    return n - 0.5 * b * total
 
 
 def expected_bound_next(b: int, n: np.ndarray | int) -> np.ndarray:
@@ -132,3 +144,51 @@ def combined_crossovers(b: int, grid: int = 400) -> tuple[float, float]:
     if hi < lo:
         lo = hi
     return lo, hi
+
+
+def monte_carlo_expected_bound(
+    method: str,
+    b: int,
+    n: int,
+    trials: int = 2000,
+    seed: int = 0,
+    *,
+    device=None,
+) -> float:
+    """Empirical E(b, n) via random disjoint pairs (paper's validation, §3.4).
+
+    Tokens are drawn uniformly from a large universe; the expected *bound*
+    (Eq. 2) is averaged over random pairs.  The bitmaps are generated on
+    ``device`` (the card when ``None``); the popcount is numpy's on the
+    host, as in the reference.
+    """
+    # Imported here: filters imports this module.
+    from repro_torch.core.filters import words_numpy
+
+    rng = np.random.default_rng(seed)
+    universe = 1 << 30
+    toks = rng.integers(0, universe, size=(2 * trials, n), dtype=np.int64)
+    toks = np.sort(toks, axis=1).astype(np.int32)
+    lengths = np.full((2 * trials,), n, dtype=np.int32)
+    words = words_numpy(toks, lengths, b, method, False, device)
+    wr, ws = words[:trials], words[trials:]
+    x = wr ^ ws
+    lut = np.unpackbits(np.arange(256, dtype=np.uint8)[:, None], axis=1).sum(1)
+    ham = lut[x.view(np.uint8)].reshape(trials, -1).sum(axis=1)
+    # Real-valued bound (no floor) to match the closed forms' expectation.
+    bound = (2 * n - ham) / 2.0
+    return float(bound.mean())
+
+
+@functools.lru_cache(maxsize=None)
+def combined_crossovers_normalized(b: int) -> tuple[float, float]:
+    """The Algorithm 6 crossovers on the *normalised-overlap* scale.
+
+    The paper states the Bitmap-Combined thresholds as (0.56, 0.73) on the
+    normalised overlap scale E/n of Fig. 5's left axis, tau_norm = 2*tau_j /
+    (1 + tau_j); :func:`combined_crossovers` returns the Jaccard-scale
+    values (~0.39, ~0.57 for b >= 64), which map onto the paper's pair.
+    """
+    lo_j, hi_j = combined_crossovers(b)
+    to_norm = lambda tj: 2.0 * tj / (1.0 + tj)
+    return to_norm(lo_j), to_norm(hi_j)

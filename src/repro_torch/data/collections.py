@@ -3,7 +3,9 @@
 A numpy copy of ``repro.data.collections`` (same seeds, same sets), so the
 PyTorch port can build its inputs without importing the JAX package.  The
 paper's UNIFORM and ZIPF collections are generated with Poisson set sizes and
-uniform / Zipf token draws.
+uniform / Zipf token draws; the DBLP-like one is matched on the published
+statistics of the paper's Table 4 (set-size distribution family + number of
+distinct tokens).
 
 ``with_duplicates`` plants near-duplicate clusters with a controlled Jaccard
 level — used by the join tests and ``chip_smoke.py`` (ground truth
@@ -73,6 +75,18 @@ def skewed_collection(n_sets: int = 1000, avg_size: float = 9.0,
     for sz in sizes:
         u = np.unique((rng.zipf(zipf_a, size=4 * sz + 16) - 1) % n_tokens)
         sets.append(rng.permutation(u)[:sz].tolist())
+    return preprocess(from_lists(sets))
+
+
+def dblp_like_collection(n_sets: int = 1000, seed: int = 0) -> Collection:
+    """DBLP-like: symmetric size distribution around ~106, 3801 tokens."""
+    rng = np.random.default_rng(seed)
+    sizes = np.clip(rng.normal(106, 25, size=n_sets), 8, 400).astype(int)
+    sets = []
+    for sz in sizes:
+        toks = (rng.zipf(1.15, size=4 * sz + 16) - 1) % 3801
+        u = np.unique(toks)[:sz]
+        sets.append(u.tolist())
     return preprocess(from_lists(sets))
 
 

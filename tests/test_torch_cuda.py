@@ -239,6 +239,44 @@ def test_card_join_matches_cpu_join(dev, compaction_mode, capacity):
     assert np.array_equal(gpu[0], join.naive_join(col, "jaccard", 0.7, device=dev))
 
 
+def test_card_filter_and_dedup_match_cpu(dev):
+    """The Bitmap Filter's words built on the card equal the CPU's, bit for
+    bit, for every method; dedup on the card equals dedup on the CPU (plain,
+    against a corpus, and streamed through a store)."""
+    from repro_torch.core import cpu_algos
+    from repro_torch.core.filters import BitmapFilter
+    from repro_torch.data import dedup
+
+    col = with_duplicates(skewed_collection(n_sets=500, seed=6), n_clusters=25, seed=7)
+    for b in (64, 128):
+        for method in ("set", "xor", "next", "combined"):
+            args = (col.tokens, col.lengths, "jaccard", 0.6)
+            card = BitmapFilter.build(*args, b=b, method=method, device=dev)
+            cpu = BitmapFilter.build(*args, b=b, method=method, device="cpu")
+            assert card.words.dtype == np.uint32
+            assert np.array_equal(card.words, cpu.words) and card.cutoff == cpu.cutoff
+    prep = engine.prepare(col, dev)
+    bf = engine.prepared_bitmap_filter(prep, sim="jaccard", tau=0.6, b=64)
+    stats = cpu_algos.AlgoStats()
+    pairs = cpu_algos.ppjoin(prep, None, "jaccard", 0.6, bitmap=bf, stats=stats)
+    assert np.array_equal(pairs, join.naive_join(col, "jaccard", 0.6, device=dev))
+    assert stats.bitmap_pruned > 0
+    kw = dict(b=128, block=128)
+    for mode in ("host", "device"):
+        got = dedup.dedup_collection(col, 0.8, compaction=mode, device=dev, **kw)
+        want = dedup.dedup_collection(col, 0.8, compaction=mode, device="cpu", **kw)
+        assert np.array_equal(got.keep, want.keep) and np.array_equal(got.pairs, want.pairs)
+        assert got.stats.to_dict() == want.stats.to_dict() and len(got.drop) > 0
+    corpus = Collection(tokens=col.tokens[:300], lengths=col.lengths[:300])
+    shards = [Collection(tokens=col.tokens[a:a + 50], lengths=col.lengths[a:a + 50])
+              for a in range(300, col.num_sets, 50)]
+    got = dedup.dedup_shards(corpus, shards, 0.8, device=dev, **kw)
+    want = dedup.dedup_shards(corpus, shards, 0.8, device="cpu", **kw)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.keep, w.keep) and np.array_equal(g.pairs_rs, w.pairs_rs)
+        assert g.stats_rs.to_dict() == w.stats_rs.to_dict()
+
+
 def _entries(g, seed, dev):
     """Random entry-filter operands (lengths below 30, so a prune table for
     30 x 30 covers every key); every fifth set empty, a fifth invalid."""

@@ -3,7 +3,8 @@
 * It imports neither JAX nor the JAX package, at import time or while it
   joins (checked in a fresh interpreter, and in the sources).
 * Entry points run on the card unless the caller asks for the CPU: without a
-  card and without ``device=``, they raise.
+  card and without ``device=``, they raise (the joins, the Bitmap Filter's
+  words, the Monte-Carlo bound and every dedup entry point).
 """
 
 import os
@@ -27,7 +28,8 @@ import numpy as np
 import torch
 import repro_torch, repro_torch.core
 from repro_torch.core import bitmap, bounds, engine, expected, join, plan, verify
-from repro_torch.data import collections
+from repro_torch.core import cpu_algos, filters
+from repro_torch.data import collections, dedup
 from repro_torch.index import candidates, postings
 from repro_torch.kernels import _build, bitmap_filter, compaction, ops, ref
 from repro_torch.kernels import bitplane, postings as postings_kernels
@@ -59,6 +61,18 @@ eng = engine.JoinEngine(col, "jaccard", 0.6, device="cpu",
                         planner=plan.JoinPlanner(naive_cells=0, indexed_cells=0))
 assert eng.plan.driver == "indexed"
 assert np.array_equal(eng.self_join(), join.naive_join(col, "jaccard", 0.6, device="cpu"))
+for name, algo in cpu_algos.ALGORITHMS.items():
+    bf = filters.BitmapFilter.build(col.tokens, col.lengths, "jaccard", 0.6, device="cpu")
+    assert np.array_equal(algo(col, "jaccard", 0.6, bitmap=bf),
+                          join.naive_join(col, "jaccard", 0.6, device="cpu")), name
+cpu_eng = engine.JoinEngine(col, "jaccard", 0.6, device="cpu",
+                            plan=plan.JoinPlan(driver="groupjoin", sim="jaccard", tau=0.6))
+assert np.array_equal(cpu_eng.self_join(), eng.self_join())
+res = dedup.dedup_shards(col, [col], 0.6, device="cpu")
+assert len(res[0].keep) == 0 and len(dedup.dedup_collection(col, 0.6, device="cpu").drop)
+kept, _ = dedup.dedup_documents(["a b c d e f", "a b c d e f", "x y z"], 0.8, device="cpu")
+assert kept == ["a b c d e f", "x y z"]
+assert expected.monte_carlo_expected_bound("xor", 64, 8, trials=20, device="cpu") > 0
 store = CorpusStore(col, "jaccard", 0.6, device="cpu")
 sess = JoinSession(store, max_wait=0.0)
 sess.append(col, compact=False)
@@ -99,6 +113,39 @@ def test_prepare_without_device_needs_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         join.naive_join(col, "jaccard", 0.5)
     assert engine.prepare(col, device="cpu").device == torch.device("cpu")
+
+
+def test_filters_and_dedup_without_device_need_a_card(monkeypatch):
+    from repro_torch.core import expected
+    from repro_torch.core.filters import BitmapFilter
+    from repro_torch.data import dedup
+
+    _no_card(monkeypatch)
+    col = from_lists([[1, 2, 3], [1, 2, 3, 4], [7, 8]])
+    calls = [
+        lambda **kw: BitmapFilter.build(col.tokens, col.lengths, "jaccard", 0.7, **kw),
+        lambda **kw: BitmapFilter.build_rs(col.tokens, col.lengths, col.tokens, col.lengths,
+                                           "jaccard", 0.7, **kw),
+        lambda **kw: expected.monte_carlo_expected_bound("set", 64, 4, trials=5, **kw),
+        lambda **kw: dedup.dedup_collection(col, 0.7, **kw),
+        lambda **kw: dedup.dedup_documents(["abcdef", "abcdeg"], 0.7, **kw),
+        lambda **kw: dedup.dedup_against(col, col, 0.7, **kw),
+        lambda **kw: dedup.dedup_documents_against(["abcdef"], ["abcdef"], 0.7, **kw),
+        lambda **kw: dedup.dedup_shards(col, [col], 0.7, **kw),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+        call(device="cpu")
+    # The CPU plans run on the host, but their words on the engine's device.
+    cpu_plan = engine.JoinPlan(driver="ppjoin", sim="jaccard", tau=0.7)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.JoinEngine(col, "jaccard", 0.7, plan=cpu_plan)
+    eng = engine.JoinEngine(col, "jaccard", 0.7, plan=cpu_plan, device="cpu")
+    assert np.array_equal(eng.self_join(), np.array([[0, 1]]))
+    prep = engine.prepare(col, device="cpu")
+    bf = engine.prepared_bitmap_filter(prep, sim="jaccard", tau=0.7)
+    assert bf.words.dtype == np.uint32 and prep.builds["bitmap"] == 1
 
 
 def test_cpu_join_runs_without_a_card(monkeypatch):

@@ -7,8 +7,9 @@
   ``JoinStats`` under naive, blocked and indexed plans, with the same
   history, rollup, build counters and recorded fallbacks (a ring plan runs
   blocked, a sharded-indexed plan runs indexed).
-* CPU-algorithm plans and corpus stores raise ``NotImplementedError``;
-  without a card, ``backend=None`` and ``device=None`` raise.
+* CPU-algorithm plans run, with the reference engine's pairs and
+  ``JoinStats``, and a corpus store is adopted; without a card,
+  ``backend=None`` and ``device=None`` raise.
 """
 
 import numpy as np
@@ -202,16 +203,21 @@ def test_engine_naive_guard_escalates_like_reference():
 
 
 def test_engine_refuses_what_is_not_ported():
-    ct = tfrom_lists(_sets(6, 30), pad_to=_PAD)
-    cpu_plan = tplan.JoinPlanner().plan("jaccard", 0.5, 30, prefer="cpu", backend="cpu",
-                                        n_devices=1)
-    engine = tengine.JoinEngine(ct, "jaccard", 0.5, plan=cpu_plan, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        engine.probe(ct)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        engine.self_join()
+    # The name predates the CPU algorithms' port: a CPU plan used to raise.
+    # Now it runs, with the reference engine's pairs and JoinStats.
+    cj, ct = _both(_sets(6, 30))
+    kw = dict(prefer="cpu", backend="cpu", n_devices=1)
+    ref = jengine.JoinEngine(cj, "jaccard", 0.5,
+                             plan=jplan.JoinPlanner().plan("jaccard", 0.5, 30, **kw))
+    engine = tengine.JoinEngine(ct, "jaccard", 0.5, device="cpu",
+                                plan=tplan.JoinPlanner().plan("jaccard", 0.5, 30, **kw))
+    assert engine.plan.to_dict() == ref.plan.to_dict() and engine.plan.driver == "adaptjoin"
+    _assert_same(ref.probe(cj), engine.probe(ct), "cpu plan probe")
+    _assert_same(ref.self_join(return_stats=True), engine.self_join(return_stats=True),
+                 "cpu plan self-join")
+    assert engine.prepared.builds["prefix_index"] == ref.prepared.builds["prefix_index"] == 1
 
-    # A corpus store is ported now: the engine adopts its plan and device.
+    # A corpus store is ported too: the engine adopts its plan and device.
     from repro_torch.store import CorpusStore
 
     store = CorpusStore(ct, "jaccard", 0.5, device="cpu")
