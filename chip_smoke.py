@@ -95,7 +95,7 @@ Phases (any failure raises, so the script exits non-zero):
    the same card tensors (TF32 off, both flags printed), causal and not,
    Sq != Sk, lengths 1 to 1,000 and the wgmma instances' 128- and 192-row
    tile edges (127, 128, 129, 191, 193, 255, 257, 384, 385), GQA groups 1,
-   3, 4 and 8, head dims 16, 32, 64 and 128, float32 (rtol = atol = 2e-5)
+   3, 4 and 8, head dims 16, 32, 64, 112 and 128, float32 (rtol = atol = 2e-5)
    and bf16 (1e-2), every instance with a kernel there (float32: 3xTF32, the
    static rule, and the CUDA cores; its prepass ``split_kv`` bit-identical to
    its plain version on each case's k and v), and one batch of a qwen3-8b
@@ -198,6 +198,47 @@ Phases (any failure raises, so the script exits non-zero):
    verdict and count kernels (rows 1-2) launched on the dedup path, read
    as in every other path, go into the kernels line as
    ``launches_by_path["dedup"]``.
+14. The flash kernels at head dim 112 (zamba2-7b's shared attention; bf16,
+   wgmma on D = 128's tiles, zero-filled past 112): the forward with and
+   without lse (bit-identical outputs) and the backward against their
+   plain versions over odd Sq / Sk, the 128-row and 128-key tile edges,
+   GQA groups 1-8, causal and not; then at zamba2-7b's serving shape (B 4,
+   S 1,024, 32 heads) and training shape (B 2, S 2,048), each timed in
+   turns with ``scaled_dot_product_attention`` (the backward with SDPA's
+   backward alone and with the plain backward), beside the plain versions
+   and bounds of the true D = 112 work.
+15. Full size, the ssm and hybrid families served: zamba2-7b (81 layers,
+   d_model 3,584, the shared attention + MLP block before 13 groups of 6
+   Mamba2 layers, 3 tail layers) and mamba2-2.7b (64 layers, d_model
+   2,560) at their published configs (f32 parameters drawn on the card
+   from ``--seed``), each freed before the next: 4 requests of 1,024 prompt
+   tokens (a multiple of ``ssm_chunk``), ``greedy_generate`` of 16 tokens
+   in bf16 (prefill and decode timed, tokens/s, peak memory).  The prefill
+   launches ``flash_attention`` once a shared-attention application (13
+   for zamba2-7b, none for mamba2-2.7b), each its wgmma instance without
+   lse, and the kernel must equal its plain version at every application's
+   captured operands; its logits must be finite.  bf16 rounding grows
+   through the Mamba2 stack (F32_TF_REL_TOL's note), so the end-to-end
+   gates run the same generation in float32 (TF32 off): every step's
+   logits within 1e-3 relative RMS of ``Model.forward`` over the same
+   tokens (padded with seeded filler to a whole number of SSD chunks), the same
+   check failing when the prefill's SSM states are zeroed; zamba2-7b's
+   whole float32 prefill through the kernel within 1e-3 of the same through
+   the plain version (the logits and every cache leaf); each of
+   mamba2-2.7b's Mamba2 blocks in bf16 within 5% of the same block in
+   float32.
+16. Full size, the hybrid family trained: zamba2-7b at its published widths,
+   depth cut to 13 layers (two groups of 6 behind the shared block and one
+   tail layer, the reduced config's shape; 1.33e9 parameters), batches of
+   2 x 2,048 tokens.  In bf16 the step calls the forward (with lse) and the
+   backward once a shared-attention application (the shared block is not
+   recomputed), each call equal to its plain version at the step's own
+   operands (the backward's dq, dk, dv within 5% relative RMS, and the
+   same check failing with the forward's lse + log 2 on one head); in
+   float32 every gradient leaf through the kernels within 1e-3
+   relative RMS of the plain versions' and the shifted-lse control failing
+   that gate; then 4 AdamW steps in bf16, every loss finite (step ms,
+   tokens/s, peak memory).
 
 Kernel times are device times: CUDA events around 50 (20 for attention)
 back-to-back launches, a spin kernel queued first so that the host's
@@ -219,7 +260,9 @@ path runs are driven through their entry points in phase 3
 ``impl="swar"``, ``hamming_matrix`` and ``bitplane_hamming`` by
 ``ops.hamming_matrix``), and the flash kernel at head dims 16 and 32 and in
 float32 by phase 11's reduced models, each read the same way; the flash
-backward reports its launches from phase 12's 20 steps; the ``path`` key of each kernel
+backward reports its launches from phase 12's 20 steps, its D = 112
+instances theirs from zamba2-7b's prefill (phase 15) and training steps
+(phase 16); the ``path`` key of each kernel
 names the run its ``launches`` come from (the tensor-core verdicts: phases
 4 and 7 together).  The
 last three lines of standard output are the card's name and power limit,
@@ -2421,13 +2464,21 @@ def phase_flash_f32(seed: int) -> tuple[dict, list[dict]]:
              "flash_split_kv": launches["split_kv"]}, [row, split_row])
 
 
+def shift_lse(lse: torch.Tensor) -> torch.Tensor:
+    """A copy of the forward's lse (B, KV, G, Sq) raised by log 2 on query
+    head 0: the negative controls' fault."""
+    lse = lse.clone()
+    lse[:, 0, 0] += math.log(2.0)
+    return lse
+
+
 @contextlib.contextmanager
 def flash_forward(mode: str):
     """Route the layers' attention (``ops.flash_attention`` and
     ``ops.flash_attention_bwd``) while inside: ``"plain"`` runs both plain
     versions on the card's tensors (no kernel launches), ``"shifted"`` the
     kernels with the lse the forward hands the backward raised by log 2 on
-    query head 0 (the negative control)."""
+    query head 0 (the negative control, ``shift_lse``)."""
     from repro_torch.kernels import ops, ref
 
     orig, orig_bwd = ops.flash_attention, ops.flash_attention_bwd
@@ -2441,19 +2492,18 @@ def flash_forward(mode: str):
     def plain_bwd(q, k, v, out, lse, do, *, causal=True, impl="auto", q_chunk=512,
                   kv_chunk=512, triangle=False):
         return ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
-                                           q_chunk=q_chunk, kv_chunk=kv_chunk, triangle=triangle)
+                                           q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                           triangle=triangle)
 
     def shifted(q, k, v, **kw):
         out = orig(q, k, v, **kw)
         if not kw.get("return_lse"):
             return out
         out, lse = out
-        lse = lse.clone()
-        lse[:, 0, 0] += math.log(2.0)
-        return out, lse
+        return out, shift_lse(lse)
 
-    ops.flash_attention = {"plain": plain, "shifted": shifted}[mode]
-    if mode == "plain":
+    ops.flash_attention = shifted if mode == "shifted" else plain
+    if mode != "shifted":
         ops.flash_attention_bwd = plain_bwd
     try:
         yield
@@ -3207,6 +3257,582 @@ def phase_cpu_and_dedup(seed: int, zipf_base, zipf, zipf_pairs) -> tuple[dict, d
     return summary, launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 14-16: the flash kernels at head dim 112, the ssm and hybrid
+# families served at full width, the hybrid family trained at full width
+# ---------------------------------------------------------------------------
+
+# zamba2-7b's shared attention: 32 heads of 112 (MHA), at the serving phase's
+# shape and the training phase's.
+D112 = dict(heads=32, d=112, serve=(4, 1024), train=(2, 2048))
+# The lse and backward sweep at D = 112: Sq, Sk, causal, group (H / KV), KV
+# (odd lengths, the 128-row and 128-key tile edges, Sq != Sk both ways, GQA).
+D112_SWEEP = [(1, 1, True, 1, 2), (63, 63, True, 3, 2), (100, 37, False, 8, 2),
+              (127, 129, True, 1, 2), (129, 129, False, 4, 2), (257, 255, True, 3, 1),
+              (255, 257, False, 1, 2), (128, 257, True, 4, 1), (385, 384, True, 8, 1)]
+# Phase 15: both families at their published configs, 4 requests of 1,024
+# prompt tokens (a multiple of ssm_chunk = 256), 16 greedy tokens.
+SSM_SERVE = dict(archs=("zamba2-7b", "mamba2-2.7b"), batch=4, prompt=1024, gen=16)
+# In bf16 a perturbation of bf16 size grows through the Mamba2 stack: with
+# seeded weights, teacher-forced decode drifts from Model.forward by 7% at
+# the first step and 42% by the 15th at zamba2-7b's 81 layers, and the JAX
+# package's bf16 drifts as much (tests/test_torch_ssm.py).  So phase 15's
+# end-to-end gates run the same generation in float32 (TF32 off; the flash
+# kernel's 3xTF32 instance, within 2e-5 of float32): the teacher-forced
+# logits, and the hybrid family's whole prefill through the kernel against
+# the same through the plain versions, as relative RMS (logits and every
+# cache leaf).  The bf16 kernel is held to its plain version at each of the
+# prefill's captured applications (FLASH_TOL).
+F32_TF_REL_TOL = 1e-3
+# Each of mamba2-2.7b's Mamba2 blocks in bf16 against the same block in
+# float32, on the float32 forward's input at that layer (relative RMS).
+SSM_F32_REL_TOL = 0.05
+# Phase 16: zamba2-7b at full width, depth cut to 13 layers (two groups of
+# 6 Mamba2 layers behind the shared block, one tail layer: the reduced
+# config's shape), batches of 2 x 2,048 tokens, 4 AdamW steps.
+HYBRID_TRAIN = dict(arch="zamba2-7b", layers=13, batch=2, seq=2048, steps=4, lr=3e-3, warmup=2)
+
+
+def bwd_errs(got: tuple, want: tuple, one_key: bool = False) -> dict:
+    """The relative RMS error of each of dq, dk, dv against ``want``'s.  With
+    ``one_key`` (each query row sees one key: Sk = 1, or Sq = 1 causal) dq
+    and dk are left out: they are zero but for rounding, and have no
+    relative error."""
+    return {f"d{n}": rel_rms(g, w) for n, g, w in zip("qkv", got, want)
+            if not (one_key and n != "v")}
+
+
+def bwd_close(got: tuple, want: tuple, what: str, one_key: bool = False) -> float:
+    """Raises unless each of dq, dk, dv (``bwd_errs``) is within the bf16
+    gradient gate, GRAD_REL_TOL's relative RMS error.  Returns the largest
+    error."""
+    gate = GRAD_REL_TOL[torch.bfloat16]
+    errs = bwd_errs(got, want, one_key)
+    if not all(e <= gate for e in errs.values()):
+        raise AssertionError(f"flash backward != plain version at {what}: relative RMS "
+                             f"{errs} (gate {gate})")
+    return max(errs.values())
+
+
+def phase_flash_d112(seed: int) -> list[dict]:
+    """Phase 14: both flash kernels' D = 112 instances (bf16, wgmma on D =
+    128's tiles) against their plain versions on the card: the forward with
+    and without lse and the backward over D112_SWEEP; then at zamba2-7b's
+    serving shape (the forward) and training shape (the forward and the
+    backward), timed in turns with scaled_dot_product_attention (SDPA's
+    backward alone, on a retained graph), beside the plain versions and
+    bounds of the true D = 112 work.  Returns the two kernels' rows
+    (``launches`` from phases 15 and 16)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 90)
+    d, h = D112["d"], D112["heads"]
+    bf16 = torch.bfloat16
+    fwd_err = lse_err = bwd_err = 0.0
+    for sq, sk, causal, g, kv in D112_SWEEP:
+        q, do = (torch.randn((2, sq, g * kv, d), generator=gen, device=dev).to(bf16)
+                 for _ in range(2))
+        k, v = (torch.randn((2, sk, kv, d), generator=gen, device=dev).to(bf16) for _ in range(2))
+        what = f"D=112 Sq={sq} Sk={sk} causal={causal} H={g * kv} KV={kv}"
+        want, want_lse = ref.flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+        plain_out = fa.flash_attention_cuda(q, k, v, causal=causal)
+        out, lse = fa.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+        if not torch.equal(out, plain_out):
+            raise AssertionError(f"the forward with lse differs from the one without at {what}")
+        fwd_err = max(fwd_err, flash_close(out, want, what))
+        lse_err = max(lse_err, lse_close(lse, want_lse, what))
+        got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal)
+        bwd_err = max(bwd_err, bwd_close(
+            got, ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal), what,
+            one_key=sk == 1 or (causal and sq == 1)))
+    torch.cuda.synchronize()
+    log(f"flash D=112 (wgmma): {len(D112_SWEEP)} shapes (Sq, Sk in 1..385, the 128-row and "
+        f"128-key tile edges, groups 1/3/4/8, causal and not): forward within rtol = atol = "
+        f"{FLASH_TOL[bf16]} of the plain version (max |err| {fwd_err:.3g}), with lse bit-identical "
+        f"to without, lse within {LSE_TOL} (1 + |lse|) (max |err| {lse_err:.3g}); backward dq, "
+        f"dk, dv within {GRAD_REL_TOL[bf16]} relative RMS (largest {bwd_err:.4g}; where each row "
+        f"sees one key dv alone, dq and dk being zero but for rounding)")
+
+    at = {}
+    for shape in ("serve", "train"):
+        b, s = D112[shape]
+        q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device=dev).to(bf16)
+                       for _ in range(4))
+        what = f"B={b} S={s} H={h} KV={h} D={d} bf16 causal"
+        want = ref.flash_attention_ref(q, k, v, causal=True, triangle=True)
+        err = flash_close(fa.flash_attention_cuda(q, k, v), want, what)
+        del want
+        turns = in_turns({"kernel": lambda: fa.flash_attention_cuda(q, k, v),
+                          "sdpa": sdpa_call(q, k, v)}, iters=20)
+        plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 3)
+        flops, nbytes, bound, term = flash_bound(q, k)
+        ms, lib = turns["kernel"], turns["sdpa"]
+        at[shape] = {"ms": ms[0], "ms_turns": ms, "plain_ms": plain, "library_ms": lib[0],
+                     "library_ms_turns": lib, "bound_ms": bound[0], "bound_by": bound[1],
+                     "bound_term": term, "max_abs_err": err, "shape": what}
+        log(f"timing at {what} (zamba2-7b's {shape} shape), device ms in turns: flash_attention "
+            f"{ms[0]:.4f} / {ms[1]:.4f} ({flops / ms[0] / 1e9:.1f} TFLOP/s of the true D = 112 "
+            f"work, {bound[0] / ms[0]:.1%} of its bound {bound[0]:.4f} ms by {bound[1]}, the "
+            f"{term} term: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
+            f"scaled_dot_product_attention {lib[0]:.4f} / {lib[1]:.4f} ms (backend "
+            f"{sdpa_backend(q, k, v)}); plain {plain:.3f} ms; max |err| {err:.3g}")
+        if shape == "train":
+            out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+            o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            dot = do.transpose(1, 2)
+            sdpa_grads = [g.transpose(1, 2) for g in
+                          torch.autograd.grad(o_sdpa, (qt, kt, vt), dot, retain_graph=True)]
+            kernel_bwd = lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)  # noqa: E731
+            plain_bwd = lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, do)  # noqa: E731
+            got, plain_g = kernel_bwd(), plain_bwd()
+            errs = {"kernel vs plain": bwd_close(got, plain_g, what),
+                    "kernel vs SDPA": bwd_close(got, sdpa_grads, what + " (SDPA)"),
+                    "plain vs SDPA": bwd_close(plain_g, sdpa_grads, what + " (plain vs SDPA)")}
+            b_err = max(max_err_float(g, w) for g, w in zip(got, plain_g))
+            del got, plain_g, sdpa_grads
+            plain_turns = in_turns({"kernel": kernel_bwd, "plain": plain_bwd}, iters=3)
+            sdpa_turns = in_turns({"kernel": kernel_bwd, "sdpa_bwd": lambda: torch.autograd.grad(
+                o_sdpa, (qt, kt, vt), dot, retain_graph=True)}, iters=20)
+            bflops, bbytes, bbound, bterm = flash_bound(q, k, backward=True)
+            bms = sdpa_turns["kernel"][0]
+            at["bwd"] = {"ms": bms, "ms_turns_with_sdpa": sdpa_turns["kernel"],
+                         "ms_turns_with_plain": plain_turns["kernel"],
+                         "plain_ms": plain_turns["plain"][0], "plain_ms_turns": plain_turns["plain"],
+                         "library_ms": sdpa_turns["sdpa_bwd"][0],
+                         "library_ms_turns": sdpa_turns["sdpa_bwd"], "bound_ms": bbound[0],
+                         "bound_by": bbound[1], "bound_term": bterm, "rel_rms": errs,
+                         "max_abs_err": b_err, "shape": what}
+            log(f"flash backward D=112 at {what}: relative RMS of dq, dk, dv (max) "
+                + ", ".join(f"{n} {e:.4g}" for n, e in errs.items())
+                + f" (gate {GRAD_REL_TOL[bf16]}); max |kernel - plain| {b_err:.3g}. Device ms in "
+                f"turns: kernel {sdpa_turns['kernel'][0]:.4f} / {sdpa_turns['kernel'][1]:.4f}, "
+                f"SDPA's backward {sdpa_turns['sdpa_bwd'][0]:.4f} / "
+                f"{sdpa_turns['sdpa_bwd'][1]:.4f}; kernel {plain_turns['kernel'][0]:.4f} / "
+                f"{plain_turns['kernel'][1]:.4f}, plain {plain_turns['plain'][0]:.3f} / "
+                f"{plain_turns['plain'][1]:.3f}; bound {bbound[0]:.4f} ms by {bbound[1]}, the "
+                f"{bterm} term ({bflops / 1e9:.1f} GFLOP, {bbytes / 1e6:.1f} MB; "
+                f"{bflops / bms / 1e9:.1f} TFLOP/s, {bbound[0] / bms:.1%} of the bound)")
+            del out, lse, qt, kt, vt, o_sdpa, dot
+        del q, k, v, do
+    gc.collect()
+    torch.cuda.empty_cache()
+    source, replaces = "src/repro_torch/kernels/csrc/flash_attention.cu", \
+        "src/repro/kernels/flash_attention.py:93"
+    b, s = D112["serve"]
+    fwd = at["serve"]
+    fwd_row = kernel_row("flash_attention_d112", source, replaces, err=max(fwd_err, fwd["max_abs_err"]),
+                         ms=fwd["ms"], plain_ms=fwd["plain_ms"],
+                         bound=(fwd["bound_ms"], fwd["bound_by"]), library_ms=fwd["library_ms"],
+                         path=f"full size, zamba2-7b serving: prefill of {SSM_SERVE['batch']} x "
+                              f"{SSM_SERVE['prompt']:,} tokens (the shared attention block, "
+                              f"wgmma at D = 112); timed at B={b} S={s} H=32 D=112")
+    fwd_row.update(bound_term=fwd["bound_term"], ms_turns=fwd["ms_turns"],
+                   library_ms_turns=fwd["library_ms_turns"], at_train_shape=at["train"],
+                   lse_max_err=lse_err)
+    bwd = at["bwd"]
+    bwd_row = kernel_row("flash_attention_bwd_d112",
+                         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                         "repro/models/layers.py:137 _flash_bwd_impl (jnp, no TPU kernel)",
+                         err=bwd["max_abs_err"], ms=bwd["ms"], plain_ms=bwd["plain_ms"],
+                         bound=(bwd["bound_ms"], bwd["bound_by"]), library_ms=bwd["library_ms"],
+                         path=f"full size, zamba2-7b training (depth cut to "
+                              f"{HYBRID_TRAIN['layers']} layers): {HYBRID_TRAIN['steps']} AdamW "
+                              f"steps of {HYBRID_TRAIN['batch']} x {HYBRID_TRAIN['seq']:,} tokens; "
+                              f"timed at {bwd['shape']}")
+    bwd_row.update({k: v for k, v in bwd.items() if k not in bwd_row})
+    bwd_row["sweep_max_rel_rms"] = bwd_err
+    return [fwd_row, bwd_row]
+
+
+def serve_ssm(arch: str, seed: int) -> dict:
+    """One family of phase 15 at its published config: seeded weights,
+    ``greedy_generate`` of SSM_SERVE["gen"] tokens after SSM_SERVE["batch"]
+    prompts of SSM_SERVE["prompt"] tokens in bf16 (the path: timed, the
+    flash kernel once a shared-attention application, each its wgmma
+    instance, no lse; the kernel then against its plain version at every
+    application's captured operands), its logits finite; then in float32
+    (TF32 off) the same
+    generation checked teacher-forced against ``Model.forward``, with a
+    negative control (the prefill's SSM states zeroed), the hybrid
+    family's whole prefill through the kernel against the same through the
+    plain versions, and for the ssm family each Mamba2 block in bf16
+    against the same block in float32.  Frees the model before it returns
+    its measurements."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models import DecodeEngine, Model
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models.generate import greedy_generate
+    from repro_torch.models.model import attention_applications
+
+    cfg = configs.get(arch)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    attn = attention_applications(cfg)
+    log(f"full size, {cfg.family} serving: {cfg.name}, {cfg.num_layers} Mamba2 layers, d_model "
+        f"{cfg.d_model}, d_inner {cfg.ssm_inner} ({cfg.ssm_heads} heads of {cfg.ssm_head_dim}), "
+        f"state {cfg.ssm_state}, chunk {cfg.ssm_chunk}"
+        + (f", a shared attention + MLP block ({cfg.num_heads} heads of {cfg.head_dim}, d_ff "
+           f"{cfg.d_ff}) before each of {attn} groups of {cfg.attn_every}" if attn else "")
+        + f", vocab {cfg.vocab_size}; {model.num_params():,} {cfg.param_dtype} parameters "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB) drawn on the card from seed {seed} in "
+        f"{time.perf_counter() - t0:.2f} s (set-up); compute {cfg.dtype}")
+    engine = DecodeEngine(model)
+    b, p, n = SSM_SERVE["batch"], SSM_SERVE["prompt"], SSM_SERVE["gen"]
+    rng = np.random.default_rng(seed + 91)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, p)).astype(np.int32)).to(dev)
+    # Teacher-forced forwards run over the prompt, the tokens decode was fed
+    # and seeded filler up to a whole number of SSD chunks (the positions
+    # compared see none of the filler: every path is causal).
+    fed = p + n - 1
+    total = -(-fed // cfg.ssm_chunk) * cfg.ssm_chunk
+    filler = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, total - fed))
+                              .astype(np.int32)).to(dev)
+
+    def teacher_forced(out):
+        """The relative RMS error of the prefill's and each decode step's
+        logits against ``Model.forward`` over the same tokens, and the
+        forward's logits."""
+        full = torch.cat([prompt, out.tokens[:, :-1], filler], dim=1)
+        want, _ = model({"tokens": full})
+        return [rel_rms(lg, want[:, p - 1 + t]) for t, lg in enumerate(out.logits)], want
+
+    # The path: the counters zeroed just before, read just after.
+    fa.reset_launches()
+    out = greedy_generate(engine, prompt, n, max_len=p + n)
+    launches = fa.flash_attention_cuda.instance_launches["wgmma"]
+    peak = torch.cuda.max_memory_allocated()
+    if (launches, fa.flash_attention_cuda.launches, fa.flash_attention_cuda.lse_launches) != (
+            attn, attn, 0):
+        raise AssertionError(f"{cfg.name}'s prefill launched flash_attention "
+                             f"{fa.flash_attention_cuda.launches} times "
+                             f"({fa.flash_attention_cuda.instance_launches}, "
+                             f"{fa.flash_attention_cuda.lse_launches} with lse); expected {attn} "
+                             f"wgmma launches without lse")
+    res = {"prefill_s": out.prefill_s, "decode_ms_per_step": 1e3 * out.decode_s / (n - 1),
+           "prefill_tokens_per_s": b * p / out.prefill_s,
+           "decode_tokens_per_s": b * (n - 1) / out.decode_s, "peak_memory_gb": peak / 1e9,
+           "flash_launches": launches, "params": model.num_params()}
+    log(f"{cfg.name} serving: {b} requests x {p} prompt tokens, max_len {p + n}: prefill "
+        f"{out.prefill_s:.3f} s ({res['prefill_tokens_per_s']:.1f} tokens/s); {n - 1} decode "
+        f"steps {out.decode_s:.3f} s ({res['decode_ms_per_step']:.2f} ms a step, "
+        f"{res['decode_tokens_per_s']:.1f} tokens/s); flash_attention launches {launches}; peak "
+        f"memory {peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated); first request's tokens "
+        f"{out.tokens[0, :8].tolist()}...")
+
+    with torch.inference_mode():
+        if not all(bool(torch.isfinite(lg).all()) for lg in out.logits):
+            raise AssertionError(f"{cfg.name}: non-finite bf16 logits")
+        if attn:
+            # The kernel against its plain version at every shared-attention
+            # application's operands, as the prefill handed them over.
+            calls = []
+            with capture_calls(fa, "flash_attention_cuda", calls):
+                engine.prefill(model, {"tokens": prompt}, max_len=p + n, last_only=True)
+            if len(calls) != attn:
+                raise AssertionError(f"the prefill called the kernel {len(calls)} times")
+            worst = 0.0
+            for i, (qkv, kw) in enumerate(calls):
+                worst = max(worst, flash_close(fa.flash_attention_cuda(*qkv, **kw),
+                                               ref.flash_attention_ref(*qkv, **kw),
+                                               f"{cfg.name} application {i}"))
+            res["kernel_at_applications_max_abs_err"] = worst
+            log(f"{cfg.name}: flash_attention (wgmma, D={cfg.head_dim}) at each of the prefill's "
+                f"{attn} applications' q {list(calls[0][0][0].shape)}: within rtol = atol = "
+                f"{FLASH_TOL[torch.bfloat16]} of the plain version, max |err| {worst:.4g}")
+            del calls
+
+        # float32 (TF32 off): the same weights and prompt, the model's
+        # compute type switched.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        model.cfg = cfg32
+        try:
+            t0 = time.perf_counter()
+            out32 = greedy_generate(engine, prompt, n, max_len=p + n)
+            gen32_s = time.perf_counter() - t0
+            errs32, want32 = teacher_forced(out32)
+            if not all(np.isfinite(errs32)) or max(errs32) > F32_TF_REL_TOL:
+                raise AssertionError(f"{cfg.name}: float32 teacher-forced logits beyond "
+                                     f"{F32_TF_REL_TOL}: {errs32}")
+            # The negative control: the prefill's SSM states zeroed.
+            _, cache = engine.prefill(model, {"tokens": prompt}, max_len=p + n, last_only=True)
+            cache["ssm"].zero_()
+            bad = []
+            for t in range(n - 1):
+                lg, cache = engine.decode_step(model, cache, {"tokens": out32.tokens[:, t:t + 1]})
+                bad.append(rel_rms(lg[:, -1], want32[:, p + t]))
+            if max(bad) <= F32_TF_REL_TOL:
+                raise AssertionError(f"{cfg.name}: decoding without the SSM states passed the "
+                                     f"float32 logits check: {bad}")
+            del cache, want32
+            agree = int((out32.tokens == out.tokens).sum())
+            last = rel_rms(out.logits[0], out32.logits[0])
+            res.update(f32_teacher_forced_rel_rms_max=max(errs32), f32_generate_s=gen32_s,
+                       f32_negative_control_rel_rms_max=max(bad),
+                       bf16_vs_f32_prefill_logits_rel_rms=last, bf16_f32_same_tokens=agree)
+            log(f"{cfg.name} in float32 (TF32 off; generation {gen32_s:.2f} s): teacher-forced "
+                f"logits against Model.forward, relative RMS max {max(errs32):.3g}, mean "
+                f"{float(np.mean(errs32)):.3g} (gate {F32_TF_REL_TOL}); negative control, the "
+                f"prefill's SSM states zeroed: max {max(bad):.4f} (first step {bad[0]:.4f}), "
+                f"fails the gate as it must. bf16 against float32: the prefill's last logits "
+                f"{last:.4f} relative RMS, greedy tokens equal at {agree} of {out.tokens.numel()}")
+
+            if attn:
+                # The whole prefill through the kernel (the 3xTF32 instance
+                # at D = 112) against the same through the plain versions.
+                got, got_cache = engine.prefill(model, {"tokens": prompt}, max_len=p + n)
+                with flash_forward("plain"):
+                    plain, plain_cache = engine.prefill(model, {"tokens": prompt},
+                                                        max_len=p + n)
+                leaves = {"logits": rel_rms(got, plain)}
+                for name in ssm_lib.CACHE_LEAVES:
+                    leaves[name] = rel_rms(got_cache[name], plain_cache[name])
+                for name in ("k", "v"):
+                    leaves[f"shared.{name}"] = rel_rms(got_cache["shared"][name][:, :, :p],
+                                                       plain_cache["shared"][name][:, :, :p])
+                worst = max(leaves, key=leaves.get)
+                if not all(np.isfinite(list(leaves.values()))) or leaves[worst] > F32_TF_REL_TOL:
+                    raise AssertionError(f"{cfg.name}: the float32 prefill through the kernel != "
+                                         f"through the plain versions: {leaves} (gate "
+                                         f"{F32_TF_REL_TOL})")
+                res["f32_prefill_vs_plain_rel_rms"] = leaves
+                log(f"{cfg.name} float32 prefill through the flash kernel (3xTF32, D="
+                    f"{cfg.head_dim}) against the same through the plain version: relative RMS "
+                    + ", ".join(f"{k} {v:.3g}" for k, v in leaves.items())
+                    + f" (gate {F32_TF_REL_TOL})")
+                del got, got_cache, plain, plain_cache
+            else:
+                # bf16 against float32 on the SSM path, block by block: each
+                # Mamba2 block in bf16 and in float32 on the float32
+                # forward's own input at that layer.
+                x = model.embed_tokens(prompt)
+                block_errs = []
+                kw = dict(d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim, chunk=cfg.ssm_chunk,
+                          norm_eps=cfg.norm_eps)
+                for blk in model.layers():
+                    h = L.rms_norm(x, blk["norm"], cfg.norm_eps)
+                    o32, _ = ssm_lib.mamba2_block(h, blk["mamba"], **kw)
+                    o16, _ = ssm_lib.mamba2_block(h.to(torch.bfloat16), blk["mamba"], **kw)
+                    block_errs.append(rel_rms(o16, o32))
+                    x = x + o32
+                del x, h, o32, o16
+                if not all(np.isfinite(block_errs)) or max(block_errs) > SSM_F32_REL_TOL:
+                    raise AssertionError(f"{cfg.name}: a Mamba2 block in bf16 against float32 "
+                                         f"beyond {SSM_F32_REL_TOL}: {block_errs}")
+                res.update(bf16_vs_f32_block_rel_rms_max=max(block_errs),
+                           bf16_vs_f32_block_rel_rms_mean=float(np.mean(block_errs)))
+                log(f"{cfg.name}: each of the {len(block_errs)} Mamba2 blocks in bf16 against the "
+                    f"same block in float32 on the float32 forward's input (B={b}, S={p}): "
+                    f"relative RMS max {max(block_errs):.4f} (layer "
+                    f"{int(np.argmax(block_errs))}), mean {float(np.mean(block_errs)):.4f} (gate "
+                    f"{SSM_F32_REL_TOL})")
+        finally:
+            model.cfg = cfg
+    del model, engine, out, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_ssm_serving(seed: int) -> tuple[dict, dict]:
+    """Phase 15: serve_ssm of each of SSM_SERVE["archs"].  Returns the
+    measurements by arch and the path's launches of the D = 112 kernel
+    (zamba2-7b's prefill)."""
+    out = {arch: serve_ssm(arch, seed) for arch in SSM_SERVE["archs"]}
+    return out, {"flash_attention_d112": out["zamba2-7b"]["flash_launches"]}
+
+
+def phase_hybrid_train(seed: int) -> tuple[dict, dict]:
+    """Phase 16: zamba2-7b at full width, depth cut to HYBRID_TRAIN["layers"]
+    layers, on batches of 2 x 2,048 tokens.  (a) In bf16: the step calls
+    the forward once a shared-attention application with lse (the shared
+    block is not recomputed) and the backward as often, each call held to
+    its plain version at the step's own operands, and the backward fed the
+    forward's lse shifted by log 2 on one head failing that gate at every
+    call.  (b) In float32
+    (TF32 off): every gradient leaf through the kernels within F32_TF_REL_TOL
+    relative RMS of the plain versions', the shifted-lse negative control
+    failing that gate.  (c) HYBRID_TRAIN["steps"] AdamW steps in bf16: every
+    loss finite, step ms, tokens/s, peak memory.  Returns the measurements
+    and the path's launches of the backward kernel."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data.loader import LoaderConfig, SyntheticLMLoader
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models import Model
+    from repro_torch.models.model import attention_applications
+    from repro_torch.train import OptimizerConfig, init_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get(HYBRID_TRAIN["arch"]), num_layers=HYBRID_TRAIN["layers"])
+    dev = torch.device("cuda")
+    b, s, steps = HYBRID_TRAIN["batch"], HYBRID_TRAIN["seq"], HYBRID_TRAIN["steps"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    opt_cfg = OptimizerConfig(learning_rate=HYBRID_TRAIN["lr"], warmup_steps=HYBRID_TRAIN["warmup"],
+                              decay_steps=steps)
+    state = init_state(model, opt_cfg)
+    loader = SyntheticLMLoader(cfg, LoaderConfig(batch_size=b, seq_len=s, seed=seed,
+                                                 vocab_size=cfg.vocab_size), device=dev)
+    batch = next(loader)
+    torch.cuda.synchronize()
+    attn = attention_applications(cfg)
+    log(f"full size, hybrid training: {cfg.name} at its published widths (d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, d_inner {cfg.ssm_inner}, "
+        f"state {cfg.ssm_state}, vocab {cfg.vocab_size}), depth cut from 81 to {cfg.num_layers} "
+        f"layers ({attn} groups of {cfg.attn_every} behind the shared block and "
+        f"{cfg.num_layers % cfg.attn_every} tail layer); {model.num_params():,} {cfg.param_dtype} "
+        f"parameters and their AdamW state ({torch.cuda.memory_allocated() / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t0:.2f} s (set-up); compute {cfg.dtype}, remat {cfg.remat}; "
+        f"batches {b} x {s}")
+    out: dict = {"layers": cfg.num_layers, "params": model.num_params()}
+
+    # (a) bf16, the path's compute type: each kernel call of the step held
+    # to its plain version at the step's own operands, and the backward fed
+    # the forward's lse shifted on one head (the negative control) failing
+    # that gate at each call.
+    fwd_calls, bwd_calls = [], []
+    with capture_calls(fa, "flash_attention_cuda", fwd_calls), \
+            capture_calls(fa, "flash_attention_bwd_cuda", bwd_calls):
+        kernel = loss_and_grads(model, batch)
+    if len(fwd_calls) != attn or len(bwd_calls) != attn or not all(
+            kw.get("return_lse") for _, kw in fwd_calls):
+        raise AssertionError(f"a hybrid train step called flash_attention {len(fwd_calls)} "
+                             f"times and its backward {len(bwd_calls)}; expected {attn} each, "
+                             f"the forward with lse (the shared block is not recomputed)")
+    del kernel
+    gate = GRAD_REL_TOL[torch.bfloat16]
+    with torch.no_grad():
+        fwd_err = max(flash_close(fa.flash_attention_cuda(*a, **kw)[0],
+                                  ref.flash_attention_ref(*a, **kw)[0], f"step forward call {i}")
+                      for i, (a, kw) in enumerate(fwd_calls))
+        bwd_err, bad_err = [], []
+        for i, (a, kw) in enumerate(bwd_calls):
+            plain = ref.flash_attention_bwd_ref(*a, **kw)
+            bwd_err.append(bwd_close(fa.flash_attention_bwd_cuda(*a, **kw), plain,
+                                     f"step backward call {i}"))
+            q, k, v, o, lse, do = a
+            bad = bwd_errs(fa.flash_attention_bwd_cuda(q, k, v, o, shift_lse(lse), do, **kw),
+                           plain)
+            if max(bad.values()) <= gate:
+                raise AssertionError(f"the lse shifted by log 2 on one head passed the backward "
+                                     f"gate at step backward call {i}: relative RMS {bad}")
+            bad_err.append(bad)
+            del plain
+    rms = [float(a[5].float().pow(2).mean().sqrt()) for a, _ in bwd_calls]
+    del fwd_calls, bwd_calls
+    gc.collect()
+    out.update(step_fwd_calls_max_abs_err=fwd_err, step_bwd_calls_rel_rms=bwd_err,
+               step_bwd_calls_negative_control_rel_rms=bad_err)
+    log(f"hybrid training in bf16: each of the step's {attn} forward and {attn} backward kernel "
+        f"calls against the plain version at its own operands (dO RMS "
+        f"{', '.join(f'{r:.3g}' for r in rms)}): forward max |err| {fwd_err:.4g} (rtol = atol = "
+        f"{FLASH_TOL[torch.bfloat16]}), backward largest relative RMS of dq, dk, dv "
+        f"{', '.join(f'{e:.4g}' for e in bwd_err)} (gate {gate}). Negative control, the "
+        f"backward fed the forward's lse + log 2 on one head: "
+        + "; ".join(", ".join(f"{n} {e:.4f}" for n, e in bad.items()) for bad in bad_err)
+        + ", fails the gate at every call as it must")
+
+    # (b) float32 (TF32 off; the forward's 3xTF32 and the backward's
+    # CUDA-core instances at D = 112): the whole step's gradients through
+    # the kernels against the plain versions', and the shifted-lse control.
+    model.cfg = dataclasses.replace(cfg, dtype="float32")
+    try:
+        fa.reset_launches()
+        kernel = loss_and_grads(model, batch)
+        counts = (dict(fa.flash_attention_cuda.instance_launches),
+                  dict(fa.flash_attention_bwd_cuda.instance_launches))
+        if counts[0]["wgmma_tf32x3"] != attn or counts[1]["simt_f32"] != attn:
+            raise AssertionError(f"the float32 step launched {counts}; expected {attn} of the "
+                                 f"3xTF32 forward and of the CUDA-core backward")
+        with flash_forward("plain"):
+            plain = loss_and_grads(model, batch)
+        loss_err, worst, leaf, _ = grad_gate(kernel, plain, torch.float32)
+        if not (loss_err <= TRAIN_LOSS_REL_TOL and worst <= F32_TF_REL_TOL):
+            raise AssertionError(f"hybrid float32 train step through the D=112 kernels != plain "
+                                 f"versions': loss relative error {loss_err:.3g}, {leaf} gradient "
+                                 f"relative RMS {worst:.4g} (gate {F32_TF_REL_TOL})")
+        del kernel
+        with flash_forward("shifted"):
+            bad = loss_and_grads(model, batch)
+        _, bad_worst, bad_leaf, _ = grad_gate(bad, plain, torch.float32)
+        if bad_worst <= F32_TF_REL_TOL:
+            raise AssertionError(f"the lse shifted by log 2 on one head passed the hybrid "
+                                 f"float32 gradient gate: {bad_leaf} relative RMS {bad_worst:.4g}")
+        del plain, bad
+    finally:
+        model.cfg = cfg
+    gc.collect()
+    out.update(f32_loss_rel_err=loss_err, grad_rel_rms_max=worst, grad_rel_rms_leaf=leaf,
+               negative_control_rel_rms_max=bad_worst, negative_control_leaf=bad_leaf,
+               launches_per_step=attn, bwd_launches_per_step=attn)
+    log(f"hybrid training in float32 (TF32 off): the step through the D=112 kernels (3xTF32 "
+        f"forward, CUDA-core backward) against the plain versions, loss relative error "
+        f"{loss_err:.3g} (gate {TRAIN_LOSS_REL_TOL}); largest gradient relative RMS {worst:.3g} "
+        f"({leaf}; gate {F32_TF_REL_TOL}). Negative control, lse + log 2 on one head: "
+        f"{bad_worst:.4f} ({bad_leaf}), fails the gate as it must")
+
+    step = make_train_step(model, opt_cfg)
+    events, losses = [], []
+    # The path: the counters zeroed just before, read just after.
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        state, metrics = step(state, next(loader))
+        ev[1].record()
+        events.append(ev)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (fa.flash_attention_cuda.instance_launches["wgmma"],
+                fa.flash_attention_cuda.lse_launches,
+                fa.flash_attention_bwd_cuda.instance_launches["wgmma"])
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    step_ms = [e[0].elapsed_time(e[1]) for e in events]
+    if launches != (steps * attn,) * 3 or not all(np.isfinite(losses)):
+        raise AssertionError(f"hybrid training: losses {losses}, flash launches (wgmma, with lse, "
+                             f"backward) {launches}; expected {steps * attn} each")
+    med = statistics.median(step_ms[1:])
+    out.update(losses=losses, step_ms=med, step_ms_all=step_ms, tokens_per_s=b * s / med * 1e3,
+               peak_memory_gb=peak / 1e9, run_s=wall, launches=launches[0],
+               bwd_launches=launches[2])
+    log(f"hybrid training: {steps} AdamW steps (lr {HYBRID_TRAIN['lr']}, {HYBRID_TRAIN['warmup']} "
+        f"warmup) in {wall:.2f} s; loss {' -> '.join(f'{x:.4f}' for x in losses)}; step "
+        f"{med:.2f} ms (CUDA events, median of steps 2-{steps}; all {[round(x, 2) for x in step_ms]})"
+        f", {b * s / med * 1e3:,.0f} tokens/s; peak memory {peak / 1e9:.2f} GB "
+        f"(torch.cuda.max_memory_allocated); flash_attention launches {launches[0]} "
+        f"({launches[1]} with lse), flash_attention_bwd {launches[2]}")
+    del model, state, loader, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, {"flash_attention_bwd_d112": launches[2]}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3275,6 +3901,12 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     _, dedup_launches = phase_cpu_and_dedup(args.seed, zipf_base, zipf, zipf_pairs)
+    kernels.extend(phase_flash_d112(args.seed))
+    ssm_serving, serve_launches = phase_ssm_serving(args.seed)
+    hybrid_training, train_launches = phase_hybrid_train(args.seed)
+    launches.update(serve_launches)
+    launches.update(train_launches)
+    log(json.dumps({"ssm_serving": ssm_serving, "hybrid_training": hybrid_training}))
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["name"] == "flash_attention":

@@ -91,8 +91,8 @@ PARTS = {
     "cvt": [("  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);\n"
              "  return *reinterpret_cast<const uint32_t*>(&v);",
              "  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);")],
-    "pv": [("    if constexpr (D == 128)\n      wgmma_m64n128k16_rs_tb(oacc, pa[kk], desc, 1);",
-            "    if constexpr (D < 64) {\n    } else if constexpr (D == 128)\n"
+    "pv": [("    if constexpr (C::kPad == 128)\n      wgmma_m64n128k16_rs_tb(oacc, pa[kk], desc, 1);",
+            "    if constexpr (D < 64) {\n    } else if constexpr (C::kPad == 128)\n"
             "      wgmma_m64n128k16_rs_tb(oacc, pa[kk], desc, 1);")],
     "qk": [("  for (int kk = 0; kk < D / 16; ++kk) {\n    const uint32_t off",
             "  for (int kk = 0; kk < (D < 64 ? 0 : D / 16); ++kk) {\n    const uint32_t off")],

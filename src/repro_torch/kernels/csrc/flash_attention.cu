@@ -27,18 +27,24 @@
 // (never as a fallback after a failed launch); flash_attention_launch_instance
 // also takes a named one, for measurement and tests:
 //
-// * bf16, every head dim (16, 32, 64, 128): wgmma with a TMA-fed,
+// * bf16, every head dim (16, 32, 64, 112, 128): wgmma with a TMA-fed,
 //   warp-specialised K/V ring, since only wgmma reaches Hopper's tensor
 //   rate.  A block of 384 threads takes 128 q rows of one (batch, head); q
 //   tiles are issued longest-first (the long causal rows start early).
 //   Warpgroup 0 is the producer (setmaxnreg down to 40): one thread loads
 //   the q tile once by TMA and streams K and V tiles of the block's KV head
-//   (128 keys; 64 at D = 16) into a ring of stages (3 at D = 128, 4 at 64, 6 at 16 and 32),
+//   (128 keys; 64 at D = 16) into a ring of stages (3 at D = 112 and 128, 4
+//   at 64, 6 at 16 and 32),
 //   each with full and empty mbarriers; TMA's zero fill past Sq and Sk
 //   replaces row masking on the loads.  A D-wide bf16 row is 2 D bytes, and
 //   TMA and wgmma swizzle it over min(2 D, 128) bytes (descriptor layout
 //   types 1, 2, 3 for 128, 64, 32), so D = 128 is two boxes of 64 columns
-//   and D <= 64 one box.  Warpgroups 1 and 2 are consumers (setmaxnreg up to
+//   and D <= 64 one box.  D = 112 (zamba2-7b's shared attention) runs D =
+//   128's shared memory and products on tiles padded to 128 columns: its
+//   tensor maps keep the true width, so TMA writes zeros into columns
+//   112-127, S skips the last k-step and P V's last 16 columns are zero and
+//   never stored; at zamba2-7b's shapes that pads P V by 1/7 and leaves S at
+//   the true work.  Warpgroups 1 and 2 are consumers (setmaxnreg up to
 //   232) of 64 q rows each:
 //     S = Q K^T   wgmma.m64n128k16.f32.bf16.bf16, A (q) and B (K) both from
 //                 shared memory, K-major; D / 16 k-steps;
@@ -97,10 +103,13 @@
 //   as its accumulators lie.  Shared memory binds at D = 128: a float32 row
 //   is 512 bytes (four 128-byte swizzle atoms), q_lo of 128 rows takes 64 KB
 //   and a 32-key stage of K and V^T, hi and lo, 64 KB: 32-key tiles in two
-//   stages; D <= 64 takes 64-key tiles in 3 (D = 64) or 4 stages.
+//   stages; D <= 64 takes 64-key tiles in 3 (D = 64) or 4 stages.  D = 112
+//   runs D = 128's q_lo and K tiles (TMA's zeros in K's columns 112-127, 14
+//   k-steps of S) and a 112-row V^T, P V on wgmma.m64n112k8.
 // * float32, CUDA cores (instance="simt_f32" only; the rule until the 3xTF32
 //   instance measured faster): float32 FMAs, 4 rows x 8 keys of the score
-//   tile and 4 rows x D/8 output columns a thread, P through shared memory.
+//   tile and 4 rows x D/8 output columns a thread (in groups of 4, or of 2
+//   at D = 16 and 112), P through shared memory.
 // When causal, every instance stops after the diagonal tile (the TPU
 // kernel's lower-triangle schedule) and masks the ragged Sq / Sk edges
 // itself, so no length has to divide anything.
@@ -137,7 +146,10 @@ namespace wg {
 
 // The instance for head dim D.  A D-wide bf16 row is 2 D bytes; TMA and
 // wgmma swizzle it over min(2 D, 128) bytes, so D = 128 is two boxes of 64
-// columns and D <= 64 one box.  Shared memory, from a 1,024-byte aligned
+// columns and D <= 64 one box.  D = 112 runs D = 128's tiles and products
+// (kPad columns): the tensor maps keep the true width, so TMA fills columns
+// 112-127 of the second box with zeros, S takes only the 7 k-steps below
+// 112, and the epilogue stores 112 columns.  Shared memory, from a 1,024-byte aligned
 // base: the q tile (which the epilogue reuses to stage the output), the K
 // and V rings (each tile kBlockN rows x D bf16, as kBoxes boxes), then the
 // mbarriers.  Two consumer warpgroups of 64 q rows take setmaxnreg 40 / 232,
@@ -152,10 +164,12 @@ namespace wg {
 // takes 64-key tiles in 4 stages with two blocks an SM.
 template <int D>
 struct Cfg {
+  static_assert(D % 16 == 0, "head dim a multiple of 16");
+  static constexpr int kPad = D > 64 ? 128 : D;             // columns of tiles and O
   static constexpr bool kSmall = D < 64;
   static constexpr int kSwizzle = D >= 64 ? 128 : 2 * D;   // bytes
   static constexpr int kBoxCols = kSwizzle / 2;
-  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kBoxes = kPad / kBoxCols;
   static constexpr int kConsumers = 2;
   static constexpr int kStages = D == 16 ? 4 : D == 32 ? 6 : D == 64 ? 4 : 3;
   static constexpr bool kTurns = kSmall;                    // ping-pong the product issue
@@ -220,7 +234,7 @@ __device__ __forceinline__ void store_lse(float* lse, float m, float denom, floa
 // S = q K^T (64 x kBlockN): k-step kk reads bytes 32 kk of each swizzled
 // row, in box kk / (steps a box).
 template <int D>
-__device__ __forceinline__ void issue_qk(float (&sacc)[Cfg<D>::kBlockN / 2], uint32_t q_base,
+__device__ __forceinline__ void mma_qk(float (&sacc)[Cfg<D>::kBlockN / 2], uint32_t q_base,
                                          uint32_t k_base) {
   using C = Cfg<D>;
   constexpr int kSteps = C::kBoxCols / 16;   // k-steps inside one box's rows
@@ -239,9 +253,9 @@ __device__ __forceinline__ void issue_qk(float (&sacc)[Cfg<D>::kBlockN / 2], uin
 }
 
 // O += P V: k-step kk reads keys 16 kk .. 16 kk + 15 (16 swizzled rows); the
-// D / 64 column blocks of V at D = 128 lie one box apart (LBO).
+// kPad / 64 column blocks of V at D = 112 and 128 lie one box apart (LBO).
 template <int D>
-__device__ __forceinline__ void issue_pv(float (&oacc)[D / 2],
+__device__ __forceinline__ void mma_pv(float (&oacc)[Cfg<D>::kPad / 2],
                                          const uint32_t (&pa)[Cfg<D>::kBlockN / 16][4],
                                          uint32_t v_base) {
   using C = Cfg<D>;
@@ -249,7 +263,7 @@ __device__ __forceinline__ void issue_pv(float (&oacc)[D / 2],
   for (int kk = 0; kk < C::kBlockN / 16; ++kk) {
     const uint64_t desc =
         hopper::swizzled_desc<C::kSwizzle>(v_base + kk * 16 * C::kSwizzle, C::kKVBox);
-    if constexpr (D == 128)
+    if constexpr (C::kPad == 128)
       wgmma_m64n128k16_rs_tb(oacc, pa[kk], desc, 1);
     else if constexpr (D == 64)
       wgmma_m64n64k16_rs_tb(oacc, pa[kk], desc, 1);
@@ -440,12 +454,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       my_tiles = (kv_end(q0 + 64 * c, 64, sq, sk, causal) + kBlockN - 1) / kBlockN;
 
     float sacc[kBlockN / 2];
-    float oacc[D / 2];
+    float oacc[C::kPad / 2];
     uint32_t pa[kBlockN / 16][4];
 #pragma unroll
     for (int i = 0; i < kBlockN / 2; ++i) sacc[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+    for (int i = 0; i < C::kPad / 2; ++i) oacc[i] = 0.f;
     RowState st = {{kNegInf, kNegInf}, {0.f, 0.f}};
     float alpha[2];
     float neg_ms[2];
@@ -463,7 +477,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     hopper::mbar_wait(k_full, 0);
     wait_turn<D>(c);
     hopper::wgmma_fence();
-    issue_qk<D>(sacc, q_base, k_ring);
+    mma_qk<D>(sacc, q_base, k_ring);
     hopper::wgmma_commit();
     pass_turn<D>(c, false);
     hopper::wgmma_wait<0>();
@@ -477,10 +491,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       hopper::mbar_wait(k_full + s, (n / kSt) & 1);
       wait_turn<D>(c);
       hopper::wgmma_fence();
-      issue_qk<D>(sacc, q_base, k_ring + s * C::kTile);
+      mma_qk<D>(sacc, q_base, k_ring + s * C::kTile);
       hopper::wgmma_commit();
       hopper::mbar_wait(v_full + sp, ((n - 1) / kSt) & 1);
-      issue_pv<D>(oacc, pa, v_ring + sp * C::kTile);
+      mma_pv<D>(oacc, pa, v_ring + sp * C::kTile);
       hopper::wgmma_commit();
       pass_turn<D>(c, false);
       hopper::wgmma_wait<1>();   // S of tile n is done; P V of tile n - 1 runs on
@@ -491,7 +505,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int kk = 0; kk < kBlockN / 16; ++kk) hopper::fence_regs(pa[kk]);
       if (lane == 0) hopper::mbar_arrive(empty + sp);
-      rescale<D>(oacc, alpha);
+      rescale<C::kPad>(oacc, alpha);
       pack_p<kBlockN>(sacc, pa);
     }
     {
@@ -499,7 +513,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       hopper::mbar_wait(v_full + sp, ((my_tiles - 1) / kSt) & 1);
       wait_turn<D>(c);
       hopper::wgmma_fence();
-      issue_pv<D>(oacc, pa, v_ring + sp * C::kTile);
+      mma_pv<D>(oacc, pa, v_ring + sp * C::kTile);
       hopper::wgmma_commit();
       pass_turn<D>(c, my_tiles == n_tiles);
       hopper::wgmma_wait<0>();
@@ -520,7 +534,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // Epilogue: O / max(l, 1e-30) as bf16, staged in this consumer's own
     // rows of the q tile (its last reader was the consumer's own S), in the
     // q tile's swizzled layout, conflict-free both ways; then 16-byte
-    // row-contiguous stores of the rows below Sq.  lse, when asked, from
+    // row-contiguous stores of the rows below Sq, D columns (O's columns
+    // past D, zero at D = 112, stay behind).  lse, when asked, from
     // lane t = 0 of each quad (all four hold the row's m and l).
     float denom[2];
 #pragma unroll
@@ -692,7 +707,10 @@ split_kv_kernel(const float* __restrict__ k, const float* __restrict__ v, Split 
 
 // The instance for head dim D.  A float32 row of q or K is 4 D bytes, which
 // TMA and wgmma swizzle over min(4 D, 128) bytes, so D = 128 is four boxes
-// of 32 columns; V^T's rows are keys, 32 to a 128-byte box.  Shared memory,
+// of 32 columns; V^T's rows are keys, 32 to a 128-byte box.  D = 112 takes
+// D = 128's tiles for q_lo and K (kPad: TMA fills K's columns 112-127 with
+// zeros, and S takes only the 14 k-steps below 112) and V^T's 112 rows as
+// they are, so P V is a 112-wide product.  Shared memory,
 // from a 1,024-byte aligned base: q_lo of both consumers (64 rows each),
 // then the ring (each stage K_hi, K_lo, V^T_hi, V^T_lo of kBlockN keys),
 // then the mbarriers.  q_hi lives in the consumers' registers.  At D = 128
@@ -700,13 +718,14 @@ split_kv_kernel(const float* __restrict__ k, const float* __restrict__ v, Split 
 // keeps 64-key tiles.  Setmaxnreg 40 / 232 as in wg::.
 template <int D>
 struct Cfg {
+  static constexpr int kPad = D > 64 ? 128 : D;             // columns of the q_lo and K tiles
   static constexpr int kSwizzle = D >= 32 ? 128 : 4 * D;   // bytes of a q / K swizzle span
   static constexpr int kBoxCols = kSwizzle / 4;
-  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kBoxes = kPad / kBoxCols;
   static constexpr int kSteps = kBoxCols / 8;               // k-steps of 8 inside a box
-  static constexpr int kBlockN = D == 128 ? 32 : 64;        // keys per K/V tile
+  static constexpr int kBlockN = kPad == 128 ? 32 : 64;     // keys per K/V tile
   static constexpr int kVBoxes = kBlockN / 32;              // V^T boxes: D rows x 32 keys
-  static constexpr int kStages = D == 128 ? 2 : D == 64 ? 3 : 4;
+  static constexpr int kStages = kPad == 128 ? 2 : D == 64 ? 3 : 4;
   static constexpr int kConsumers = 2;
   static constexpr int kBlockM = 64 * kConsumers;           // q rows per block
   static constexpr int kThreads = 128 * (1 + kConsumers);
@@ -805,6 +824,23 @@ __device__ __forceinline__ void mma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
+__device__ __forceinline__ void mma_rs_n112(float (&d)[56],
+                                            const uint32_t (&a)[4], uint64_t desc_b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43,"
+      " %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, p, 1, 1;\n}\n"
+      : X3_F8(d, 0), X3_F8(d, 8), X3_F8(d, 16), X3_F8(d, 24),
+        X3_F8(d, 32), X3_F8(d, 40), X3_F8(d, 48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
 __device__ __forceinline__ void mma_rs_n128(float (&d)[64],
                                             const uint32_t (&a)[4], uint64_t desc_b,
                                             int accumulate) {
@@ -844,6 +880,8 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4]
     mma_rs_n32(d, a, desc_b, accumulate);
   else if constexpr (N == 64)
     mma_rs_n64(d, a, desc_b, accumulate);
+  else if constexpr (N == 112)
+    mma_rs_n112(d, a, desc_b, accumulate);
   else
     mma_rs_n128(d, a, desc_b, accumulate);
 }
@@ -1191,7 +1229,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      int heads, int kv_heads, float scale, int causal, float* __restrict__ lse) {
   constexpr int P = SimtSmem<D>::kPitch;
   constexpr int PP = SimtSmem<D>::kPPitch;
-  constexpr int VW = D >= 32 ? 4 : 2;          // contiguous output columns per group
+  constexpr int VW = D % 32 == 0 ? 4 : 2;      // contiguous output columns per group
   constexpr int NJ = D / (8 * VW);             // output column groups per thread
   extern __shared__ __align__(16) float smem_f32[];
   float* qs = smem_f32;                        // [64][P]   the q tile
@@ -1355,7 +1393,7 @@ int simt_launch(const void* q, const void* k, const void* v, void* o, float* lse
 }  // namespace flash
 
 // k, v: [batch][sk][kv_heads][head_dim] float32, contiguous and 16-byte
-// aligned, sk >= 1, head_dim 16, 32, 64 or 128.  Writes the split K and V
+// aligned, sk >= 1, head_dim 16, 32, 64, 112 or 128.  Writes the split K and V
 // that the tf32x3 instance reads into `scratch`, (2 batch sk kv_heads +
 // 2 batch kv_heads skp) head_dim floats, skp = sk rounded up to 8 (layout:
 // flash::x3::Split).  Launches on `stream`; returns cudaGetLastError()
@@ -1372,6 +1410,7 @@ extern "C" int flash_split_kv_launch(const void* k, const void* v, void* scratch
     case 16: return x3::split_launch<16>(kf, vf, scratch, batch, sk, kv_heads, s);
     case 32: return x3::split_launch<32>(kf, vf, scratch, batch, sk, kv_heads, s);
     case 64: return x3::split_launch<64>(kf, vf, scratch, batch, sk, kv_heads, s);
+    case 112: return x3::split_launch<112>(kf, vf, scratch, batch, sk, kv_heads, s);
     case 128: return x3::split_launch<128>(kf, vf, scratch, batch, sk, kv_heads, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1379,7 +1418,7 @@ extern "C" int flash_split_kv_launch(const void* k, const void* v, void* scratch
 
 // q, o: [batch][sq][heads][head_dim]; k, v: [batch][sk][kv_heads][head_dim],
 // contiguous and 16-byte aligned, heads % kv_heads == 0, sk >= 1.  dtype 0 is
-// float32, 1 bfloat16; head_dim is 16, 32, 64 or 128.  `instance` names the
+// float32, 1 bfloat16; head_dim is 16, 32, 64, 112 or 128.  `instance` names the
 // kernel: 0 wgmma (bf16), 1 3xTF32 on wgmma (float32), 2 CUDA cores
 // (float32), each at every head dim; -1 takes the static rule: float32 ->
 // 3xTF32, bf16 -> wgmma.  The 3xTF32 instance reads K and V from `scratch`,
@@ -1419,6 +1458,7 @@ extern "C" int flash_attention_launch_instance(const void* q, const void* k, con
   FLASH_INSTANCES(16)
   FLASH_INSTANCES(32)
   FLASH_INSTANCES(64)
+  FLASH_INSTANCES(112)
   FLASH_INSTANCES(128)
 #undef FLASH_INSTANCES
   return static_cast<int>(cudaErrorInvalidValue);

@@ -32,14 +32,14 @@
 //
 // Two instances, chosen statically by dtype (never as a fallback):
 //
-// * bf16, every head dim (16, 32, 64, 128): wgmma in two launches on one
+// * bf16, every head dim (16, 32, 64, 112, 128): wgmma in two launches on one
 //   stream, deterministic and free of atomics (two calls give bit-identical
 //   gradients).  Both follow the forward's block (wg:: in
 //   flash_attention.cu): 384 threads, warpgroup 0 the producer (setmaxnreg
 //   down to 40; one thread issues every TMA load into a ring of stages with
 //   full and empty mbarriers), warpgroups 1 and 2 consumers of 64 rows each
 //   (setmaxnreg up to 232).  Tiles are swizzled over min(2 D, 128) bytes as
-//   the forward's are.
+//   the forward's are, and D = 112 runs on D = 128's tiles as there (Swz).
 //     1. dq_kernel, query-major: a block takes 128 q rows of one (batch,
 //        head); q and do are loaded once, K and V stream in 64-key tiles.
 //        Each consumer first takes D_i of its rows from do and out (read
@@ -100,12 +100,18 @@ __device__ __forceinline__ int kv_end(int q0, int rows, int sq, int sk, int caus
 namespace wg {
 
 // A D-wide bf16 row is 2 D bytes; TMA and wgmma swizzle it over min(2 D, 128)
-// bytes, so D = 128 is two boxes of 64 columns and D <= 64 one box.
+// bytes, so D = 128 is two boxes of 64 columns and D <= 64 one box.  D = 112
+// runs D = 128's tiles and accumulators (kPad columns) as the forward does:
+// the tensor maps keep the true width, so TMA fills columns 112-127 with
+// zeros, S, dP, S^T and dP^T take the 7 k-steps below 112, and only 112
+// columns of dq, dk and dv are stored.
 template <int D>
 struct Swz {
+  static_assert(D % 16 == 0, "head dim a multiple of 16");
+  static constexpr int kPad = D > 64 ? 128 : D;             // columns of tiles and accumulators
   static constexpr int kSwizzle = D >= 64 ? 128 : 2 * D;   // bytes
   static constexpr int kBoxCols = kSwizzle / 2;
-  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kBoxes = kPad / kBoxCols;
   static constexpr int kSteps = kBoxCols / 16;              // k-steps inside one box's rows
 };
 
@@ -145,7 +151,7 @@ template <int D>
 struct DkvCfg {
   using S = Swz<D>;
   static constexpr int kBlockN = 128;                  // keys per block
-  static constexpr int kBlockM = D == 128 ? 32 : 64;   // q rows per q / do tile
+  static constexpr int kBlockM = S::kPad == 128 ? 32 : 64;   // q rows per q / do tile
   static constexpr int kStages = 4;
   static constexpr int kKBox = kBlockN * S::kSwizzle;
   static constexpr int kQBox = kBlockM * S::kSwizzle;
@@ -182,17 +188,18 @@ __device__ __forceinline__ void mma_ss(float (&acc)[N / 2], uint32_t a, int a_bo
   }
 }
 
-// acc (64 x D, f32) += A (64 x K, bf16 fragments in registers) B (K rows x
-// D, MN-major in shared memory): k-step kk reads rows 16 kk .. 16 kk + 15;
-// the D / 64 column blocks at D = 128 lie b_box bytes apart (LBO).
+// acc (64 x kPad, f32) += A (64 x K, bf16 fragments in registers) B (K rows
+// x kPad, MN-major in shared memory): k-step kk reads rows 16 kk .. 16 kk +
+// 15; the kPad / 64 column blocks at D = 112 and 128 lie b_box bytes apart
+// (LBO).
 template <int D, int K>
-__device__ __forceinline__ void mma_rs(float (&acc)[D / 2], const uint32_t (&a)[K / 16][4],
-                                       uint32_t b, int b_box) {
+__device__ __forceinline__ void mma_rs(float (&acc)[Swz<D>::kPad / 2],
+                                       const uint32_t (&a)[K / 16][4], uint32_t b, int b_box) {
   using S = Swz<D>;
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk) {
     const uint64_t desc = hopper::swizzled_desc<S::kSwizzle>(b + kk * 16 * S::kSwizzle, b_box);
-    if constexpr (D == 128)
+    if constexpr (S::kPad == 128)
       hopper::wgmma_m64n128k16_rs_tb(acc, a[kk], desc, 1);
     else if constexpr (D == 64)
       hopper::wgmma_m64n64k16_rs_tb(acc, a[kk], desc, 1);
@@ -254,12 +261,14 @@ __device__ __forceinline__ void ds_cols(float (&sacc)[M / 2], float (&dpacc)[M /
   }
 }
 
-// A consumer's 64 rows of a D-wide float32 accumulator, times `mul`, as bf16:
-// staged in `stage` (its own rows of a tile in shared memory, boxes `box`
-// bytes apart, in the tile's swizzled layout), then stored as 16-byte
-// row-contiguous chunks to out + row * row_stride for rows row0 + r < rows.
+// A consumer's 64 rows of a float32 accumulator, its first D columns times
+// `mul`, as bf16: staged in `stage` (its own rows of a tile in shared
+// memory, boxes `box` bytes apart, in the tile's swizzled layout), then
+// stored as 16-byte row-contiguous chunks to out + row * row_stride for rows
+// row0 + r < rows.
 template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 2], float mul, uint8_t* stage,
+__device__ __forceinline__ void store_rows(const float (&acc)[Swz<D>::kPad / 2], float mul,
+                                           uint8_t* stage,
                                            int box, int c, int warp, int g, int t, int tid,
                                            __nv_bfloat16* out, size_t row_stride, int row0,
                                            int rows) {
@@ -400,12 +409,12 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
 
   float sacc[kN / 2];
   float dpacc[kN / 2];
-  float dqacc[D / 2];
+  float dqacc[S::kPad / 2];
   uint32_t dsa[kN / 16][4];
 #pragma unroll
   for (int i = 0; i < kN / 2; ++i) sacc[i] = dpacc[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dqacc[i] = 0.f;
+  for (int i = 0; i < S::kPad / 2; ++i) dqacc[i] = 0.f;
   auto grads = [&](int n) {
     ds_rows<kN>(sacc, dpacc, needs_mask(n * kN), n * kN, row_lo, t, sk, causal, scale_log2,
                 neg_lse, di);
@@ -579,14 +588,14 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CU
 
   float sacc[kM / 2];
   float dpacc[kM / 2];
-  float dkacc[D / 2];
-  float dvacc[D / 2];
+  float dkacc[S::kPad / 2];
+  float dvacc[S::kPad / 2];
   uint32_t pa[kM / 16][4];
   uint32_t dsa[kM / 16][4];
 #pragma unroll
   for (int i = 0; i < kM / 2; ++i) sacc[i] = dpacc[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dkacc[i] = dvacc[i] = 0.f;
+  for (int i = 0; i < S::kPad / 2; ++i) dkacc[i] = dvacc[i] = 0.f;
   auto grads = [&](int n) {
     const int s = n % kSt;
     ds_cols<kM>(sacc, dpacc, needs_mask(tile_q0(n)), tile_q0(n), key_lo, t, sk, causal,
@@ -781,7 +790,7 @@ __device__ __forceinline__ void dots(float (&acc)[4][8], const float* a, const f
 // Output columns: thread tx holds tx VW + 8 VW jj + e of each of its rows.
 template <int D>
 struct Cols {
-  static constexpr int VW = D >= 32 ? 4 : 2;   // contiguous columns per group
+  static constexpr int VW = D % 32 == 0 ? 4 : 2;   // contiguous columns per group
   static constexpr int NJ = D / (8 * VW);      // column groups per thread
 };
 
@@ -1036,7 +1045,7 @@ int launch(const void* q, const void* k, const void* v, const void* o, const flo
 // [batch][sk][kv_heads][head_dim], contiguous and 16-byte aligned, heads %
 // kv_heads == 0, sk >= 1; lse: float32 [batch][heads][sq] as the forward
 // kernel writes it (natural log).  dtype 0 is float32 (the CUDA-core
-// instance), 1 bfloat16 (wgmma); head_dim is 16, 32, 64 or 128.  `dsum`
+// instance), 1 bfloat16 (wgmma); head_dim is 16, 32, 64, 112 or 128.  `dsum`
 // is float32 scratch of batch * heads * sq, written by the first launch
 // (D_i) and read by the second.  Launches both kernels on `stream`,
 // allocates nothing and does not synchronise; returns cudaGetLastError()
@@ -1063,6 +1072,7 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
   FLASH_BWD_INSTANCES(16)
   FLASH_BWD_INSTANCES(32)
   FLASH_BWD_INSTANCES(64)
+  FLASH_BWD_INSTANCES(112)
   FLASH_BWD_INSTANCES(128)
 #undef FLASH_BWD_INSTANCES
   return static_cast<int>(cudaErrorInvalidValue);

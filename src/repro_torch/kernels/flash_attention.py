@@ -11,7 +11,8 @@ lower-triangle schedule.  Its plain version is
 The kernel has three instances, chosen statically by type (:func:`instance`,
 the same rule as ``flash_attention_launch``): ``wgmma`` for bf16 and
 ``wgmma_tf32x3`` (three TF32 products a float32 product, on the tensor
-cores) for float32, at every head dim.  ``simt_f32`` (float32 on the CUDA
+cores) for float32, at every head dim of ``HEAD_DIMS`` (D = 112 on D =
+128's tiles, zero-filled past 112 by TMA).  ``simt_f32`` (float32 on the CUDA
 cores, the rule until the 3xTF32 instance measured faster) stays callable for
 measurement and tests through ``instance="simt_f32"``.  The 3xTF32 instance
 reads K and V split into TF32 parts by a prepass kernel,
@@ -48,7 +49,7 @@ from repro_torch.kernels import _build
 _C = ctypes.c_void_p
 _I = ctypes.c_int
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)   # 112: zamba2-7b's shared attention
 INSTANCES = ("wgmma", "wgmma_tf32x3", "simt_f32")   # codes 0, 1, 2 of the C entry point
 
 

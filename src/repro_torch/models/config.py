@@ -5,11 +5,13 @@ The dataclass, its derived properties, ``validate()`` and ``reduced()`` are
 copied as they are, so a config compares field by field with the
 reference's.  Families:
 
-* ``dense``  — pre-norm decoder (GQA + SwiGLU), optional qk-norm.  This is
-  the family the port runs (``repro_torch.models.model``).
-* ``moe``, ``ssm``, ``hybrid``, ``vlm``, ``audio`` — carried in the
-  dataclass so configs stay comparable; their modules are not ported yet
-  (ROADMAP Queue 1 item 13).
+* ``dense``  — pre-norm decoder (GQA + SwiGLU), optional qk-norm.
+* ``ssm``    — Mamba2 / SSD blocks alone (``repro_torch.models.ssm``).
+* ``hybrid`` — Mamba2 blocks with one weight-shared attention + MLP block
+  applied every ``attn_every`` layers (Zamba2).
+  These three are the families the port runs (``repro_torch.models.model``).
+* ``moe``, ``vlm``, ``audio`` — carried in the dataclass so configs stay
+  comparable; their modules are not ported yet (ROADMAP Queue 1 item 13b).
 """
 
 from __future__ import annotations

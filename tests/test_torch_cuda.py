@@ -33,6 +33,7 @@ from repro_torch.kernels import bitmap_filter, bitplane, compaction, ops, postin
 from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.models import DecodeEngine, Model
 from repro_torch.models.generate import greedy_generate
+from repro_torch.models.model import attention_applications
 from repro_torch.serve import JoinSession
 from repro_torch.store import CorpusStore
 
@@ -766,7 +767,7 @@ def _flash_operands(dev, dtype, d, sq, sk, group, kv):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 112, 128])
 @pytest.mark.parametrize("sq,sk,causal,group,kv", FLASH_SHAPES)
 def test_flash_attention_kernel_matches_plain_version(exact_f32, dtype, d, sq, sk, causal,
                                                       group, kv):
@@ -778,7 +779,7 @@ def test_flash_attention_kernel_matches_plain_version(exact_f32, dtype, d, sq, s
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 112, 128])
 @pytest.mark.parametrize("sq,sk,causal,group,kv", FLASH_SHAPES)
 def test_flash_attention_simt_f32_instance_matches_plain_version(exact_f32, d, sq, sk, causal,
                                                                  group, kv):
@@ -794,7 +795,7 @@ def test_flash_attention_simt_f32_instance_matches_plain_version(exact_f32, d, s
                                atol=tol)
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 112, 128])
 @pytest.mark.parametrize("sk,group,kv", [(1, 1, 1), (13, 3, 2), (64, 4, 1), (100, 8, 2),
                                          (4096, 4, 2)])
 def test_flash_split_kv_kernel_matches_plain_version(exact_f32, d, sk, group, kv):
@@ -809,7 +810,8 @@ def test_flash_split_kv_kernel_matches_plain_version(exact_f32, d, sk, group, kv
 
 
 @pytest.mark.parametrize("d,sk,causal", [(128, 128, False), (128, 128, True), (128, 100, True),
-                                         (64, 64, False), (64, 61, True), (16, 16, False)])
+                                         (64, 64, False), (64, 61, True), (16, 16, False),
+                                         (112, 112, False), (112, 100, True)])
 def test_flash_attention_tf32x3_sees_each_key_in_its_slot(exact_f32, d, sk, causal):
     """V = one-hot key indices (v[j] = e_j), so the output's column j is the
     attention weight of key j: a key that entered P V through another key's
@@ -850,6 +852,21 @@ def test_flash_attention_kernel_at_a_qwen3_layer(exact_f32, dtype):
     gen = torch.Generator(device=exact_f32).manual_seed(7)
     q, k, v = (torch.randn((1, 4096, heads, 128), generator=gen, device=exact_f32)
                .to(dtype) for heads in (32, 8, 8))
+    got = flash_kernel.flash_attention_cuda(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q, k, v, causal=True, triangle=True)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,b,s", [(torch.bfloat16, 4, 1024), (torch.bfloat16, 2, 2048),
+                                       (torch.float32, 1, 1024)])
+def test_flash_attention_kernel_at_a_zamba2_layer(exact_f32, dtype, b, s):
+    """zamba2-7b's shared attention: 32 heads of 112 (MHA), causal, at the
+    serving shape (4 x 1,024) and the training shape (2 x 2,048) in bf16,
+    and one sequence in float32."""
+    gen = torch.Generator(device=exact_f32).manual_seed(9)
+    q, k, v = (torch.randn((b, s, 32, 112), generator=gen, device=exact_f32).to(dtype)
+               for _ in range(3))
     got = flash_kernel.flash_attention_cuda(q, k, v, causal=True)
     want = ref.flash_attention_ref(q, k, v, causal=True, triangle=True)
     tol = FLASH_TOL[dtype]
@@ -897,9 +914,9 @@ def test_flash_attention_launch_counter_and_dispatch(dev):
 
 @pytest.mark.parametrize("dtype,d,instance", [
     (torch.bfloat16, 16, "wgmma"), (torch.bfloat16, 32, "wgmma"),
-    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 112, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.float32, 16, "wgmma_tf32x3"), (torch.float32, 64, "wgmma_tf32x3"),
-    (torch.float32, 128, "wgmma_tf32x3")])
+    (torch.float32, 112, "wgmma_tf32x3"), (torch.float32, 128, "wgmma_tf32x3")])
 def test_flash_attention_head_dim_dispatch_counts_its_instance(exact_f32, dtype, d, instance):
     q = torch.randn((1, 130, 4, d), device=exact_f32).to(dtype)
     k = torch.randn((1, 130, 2, d), device=exact_f32).to(dtype)
@@ -919,8 +936,9 @@ def test_flash_attention_head_dim_dispatch_counts_its_instance(exact_f32, dtype,
 @pytest.mark.parametrize("name", configs.ARCHS)
 def test_card_serving_matches_cpu_serving(exact_f32, name):
     """The reduced configs (float32) on the card against the same weights
-    on the CPU: prefill runs the kernel once a layer, and the logits of
-    forward, prefill and greedy decode agree at 1e-4."""
+    on the CPU: prefill runs the kernel once an attention application (a
+    layer; a group in the hybrid family; never in the ssm family), and the
+    logits of forward, prefill and greedy decode agree at 1e-4."""
     cfg = configs.get_reduced(name)
     cpu = Model(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
     card = Model(cfg, device=exact_f32)
@@ -929,7 +947,7 @@ def test_card_serving_matches_cpu_serving(exact_f32, name):
         0, cfg.vocab_size, (2, 24)).astype(np.int32))
     before = flash_kernel.flash_attention_cuda.launches
     got = greedy_generate(DecodeEngine(card), tokens.to(exact_f32), 6)
-    assert flash_kernel.flash_attention_cuda.launches == before + cfg.num_layers
+    assert flash_kernel.flash_attention_cuda.launches == before + attention_applications(cfg)
     want = greedy_generate(DecodeEngine(cpu), tokens, 6)
     assert torch.equal(got.tokens.cpu(), want.tokens)
     for g, w in zip(got.logits, want.logits):
@@ -948,7 +966,7 @@ LSE_SHAPES = [(1, 1, True, 1, 2), (63, 63, True, 3, 2), (100, 37, False, 8, 2),
 @pytest.mark.parametrize("dtype,instance", [(torch.bfloat16, "wgmma"),
                                             (torch.float32, "wgmma_tf32x3"),
                                             (torch.float32, "simt_f32")])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 112, 128])
 @pytest.mark.parametrize("sq,sk,causal,group,kv", LSE_SHAPES)
 def test_flash_attention_kernel_lse_matches_plain_version(exact_f32, dtype, instance, d, sq, sk,
                                                           causal, group, kv):
@@ -977,7 +995,7 @@ def test_ops_flash_attention_returns_lse_on_the_card(exact_f32):
     assert bool(((lse - want_lse).abs() <= 1e-4 * (1 + want_lse.abs())).all())
 
 
-@pytest.mark.parametrize("name", ["smollm-135m", "qwen3-8b"])
+@pytest.mark.parametrize("name", ["smollm-135m", "qwen3-8b", "mamba2-2.7b", "zamba2-7b"])
 def test_card_gradients_match_cpu_gradients(exact_f32, name):
     """The reduced config (float32) on the card, its forward through the
     kernel with lse, against the same weights on the CPU: the loss within
@@ -1003,7 +1021,7 @@ def test_card_gradients_match_cpu_gradients(exact_f32, name):
         out.append((float(loss.detach()), [g.cpu() for g in grads]))
         if model is card:
             assert (counts.launches - before[0], counts.lse_launches - before[1]) == (
-                cfg.num_layers, cfg.num_layers)
+                attention_applications(cfg),) * 2
     assert abs(out[0][0] - out[1][0]) <= 1e-5 * abs(out[1][0])
     for g, w in zip(out[0][1], out[1][1]):
         assert float((g - w).norm() / w.norm()) <= 1e-4
@@ -1016,9 +1034,11 @@ def test_card_gradients_match_cpu_gradients(exact_f32, name):
 # The backward kernel against its plain version on the card.  float32 (the
 # CUDA-core instance, TF32 off): elementwise at the forward's 2e-5 (the same
 # float32 arithmetic, summed in another order).  bf16: relative RMS within
-# chip_smoke's gradient gate (5%) plus 1e-2 of absolute RMS; both round p
-# and ds to bf16 before their products, but the plain version also rounds the
-# scores and each block's partial products to bf16, which the kernel does not.
+# chip_smoke's gradient gate (5%); both round p and ds to bf16 before their
+# products, but the plain version also rounds the scores and each block's
+# partial products to bf16, which the kernel does not.  Where each query
+# row sees one key (Sk = 1, or Sq = 1 causal) dq and dk are zero but for
+# rounding and have no relative error: dv alone is held there.
 BWD_GRAD_REL = 0.05
 BWD_SHAPES = [  # sq, sk, causal, group (H / KV), KV
     (1, 1, True, 1, 2), (63, 63, True, 3, 1), (63, 63, False, 4, 1), (128, 128, True, 1, 2),
@@ -1038,21 +1058,21 @@ def _bwd_operands(dev, dtype, d, sq, sk, group, kv, causal):
     return q, k, v, out, lse, do
 
 
-def _bwd_within(got, want, dtype) -> bool:
-    for g, w in zip(got, want):
+def _bwd_within(got, want, dtype, one_key=False) -> bool:
+    for i, (g, w) in enumerate(zip(got, want)):
         assert g.dtype == w.dtype and g.shape == w.shape
         if dtype == torch.float32:
             if not torch.allclose(g, w, rtol=FLASH_TOL[dtype], atol=FLASH_TOL[dtype]):
                 return False
-        else:
-            err = float((g.double() - w.double()).pow(2).mean().sqrt())
-            if not err <= BWD_GRAD_REL * float(w.double().pow(2).mean().sqrt()) + 1e-2:
+        elif not (one_key and i < 2):
+            err = float((g.double() - w.double()).norm())
+            if not err <= BWD_GRAD_REL * float(w.double().norm()):
                 return False
     return True
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 112, 128])
 @pytest.mark.parametrize("sq,sk,causal,group,kv", BWD_SHAPES)
 def test_flash_attention_bwd_kernel_matches_plain_version(exact_f32, dtype, d, sq, sk, causal,
                                                           group, kv):
@@ -1066,11 +1086,12 @@ def test_flash_attention_bwd_kernel_matches_plain_version(exact_f32, dtype, d, s
     assert {n: counts[n] - before[1][n] for n in counts} == {
         n: int(n == name) for n in flash_kernel.BWD_INSTANCES}
     assert all(bool(torch.isfinite(g).all()) for g in got)
-    assert _bwd_within(got, ref.flash_attention_bwd_ref(*ops_, causal=causal), dtype)
+    assert _bwd_within(got, ref.flash_attention_bwd_ref(*ops_, causal=causal), dtype,
+                       one_key=sk == 1 or (causal and sq == 1))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("d", [16, 64, 112, 128])
 def test_flash_attention_bwd_kernel_fails_with_the_other_mask(exact_f32, dtype, d):
     """The negative control: the same comparison against the plain version
     with ``causal`` flipped must fail its tolerance."""
@@ -1081,7 +1102,7 @@ def test_flash_attention_bwd_kernel_fails_with_the_other_mask(exact_f32, dtype, 
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 112, 128])
 def test_flash_attention_bwd_kernel_is_deterministic(exact_f32, dtype, d):
     """No atomics: two calls give bit-identical dq, dk and dv."""
     ops_ = _bwd_operands(exact_f32, dtype, d, 257, 257, 3, 2, True)
@@ -1098,6 +1119,18 @@ def test_flash_attention_bwd_kernel_at_a_smollm_layer(dev):
              for _ in range(2))
     k, v = (torch.randn((1, 2048, 3, 64), generator=gen, device=dev).to(torch.bfloat16)
             for _ in range(2))
+    out, lse = flash_kernel.flash_attention_cuda(q, k, v, return_lse=True)
+    got = flash_kernel.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, triangle=True)
+    assert _bwd_within(got, want, torch.bfloat16)
+
+
+def test_flash_attention_bwd_kernel_at_a_zamba2_layer(dev):
+    """zamba2-7b's training attention: 2 x 2,048 tokens, 32 heads of 112,
+    causal, bf16."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    q, k, v, do = (torch.randn((2, 2048, 32, 112), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
     out, lse = flash_kernel.flash_attention_cuda(q, k, v, return_lse=True)
     got = flash_kernel.flash_attention_bwd_cuda(q, k, v, out, lse, do)
     want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, triangle=True)

@@ -144,6 +144,47 @@ def test_flash_attention_backward_matches_reference(b, sq, sk, h, kv, d, causal,
         close(g, wnt)
 
 
+@pytest.mark.parametrize("b,sq,sk,h,kv,causal,qc,kc", [
+    (2, 48, 48, 4, 4, True, 16, 16), (1, 24, 40, 4, 2, False, 8, 8),
+    (1, 48, 48, 6, 3, True, 48, 48)])
+def test_flash_attention_at_head_dim_112_matches_reference(b, sq, sk, h, kv, causal, qc, kc):
+    """zamba2-7b's head dim (the reduced configs use 16): the plain forward
+    with lse against ``_flash_fwd``, the plain backward against
+    ``_flash_bwd_impl`` and the autograd layer against ``jax.grad``, each
+    within 2e-5 (1 + |want|)."""
+    rng = np.random.default_rng(112 + sq + h)
+    q, k, v = _qkv(rng, b, sq, sk, h, kv, 112)
+    w = rng.normal(size=q.shape).astype(np.float32)
+    jq, jk, jv, jw = map(jnp.asarray, (q, k, v, w))
+
+    def close(got, want):
+        got, want = got.detach().numpy(), np.asarray(want)
+        assert got.shape == want.shape
+        assert np.all(np.abs(got - want) <= 2e-5 * (1 + np.abs(want)))
+
+    out, lse = JL._flash_fwd(jq, jk, jv, causal, qc, kc, False)
+    got_out, got_lse = ref.flash_attention_ref(*_t(q, k, v), causal=causal, q_chunk=qc,
+                                               kv_chunk=kc, return_lse=True)
+    close(got_out, out)
+    close(got_lse, lse)
+    want = JL._flash_bwd_impl(jq, jk, jv, out, lse, jw, causal, qc, kc, False)
+    got = ref.flash_attention_bwd_ref(*_t(q, k, v, np.array(out), np.array(lse), w),
+                                      causal=causal, q_chunk=qc, kv_chunk=kc)
+    for g, wnt in zip(got, want):
+        close(g, wnt)
+    want = jax.grad(lambda *a: jnp.sum(JL.flash_attention(*a, causal=causal, q_chunk=qc,
+                                                          kv_chunk=kc) * jw),
+                    argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    (TL.flash_attention(tq, tk, tv, causal=causal, q_chunk=qc, kv_chunk=kc)
+     * torch.from_numpy(w)).sum().backward()
+    for g, wnt in zip((tq.grad, tk.grad, tv.grad), want):
+        close(g, wnt)
+    assert 112 in flash_kernel.HEAD_DIMS
+    assert flash_kernel.instances(torch.bfloat16, 112) == ("wgmma",)
+    assert flash_kernel.instances(torch.float32, 112) == ("wgmma_tf32x3", "simt_f32")
+
+
 def test_flash_attention_forward_alone_saves_nothing():
     """Without grad (or under no_grad) the layer returns the forward's
     output alone, equal to the autograd path's, and builds no graph."""

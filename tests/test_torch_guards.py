@@ -38,12 +38,15 @@ from repro_torch.store import CorpusStore
 from repro_torch import configs
 from repro_torch.configs import shapes
 from repro_torch.kernels import flash_attention
-from repro_torch.models import DecodeEngine, Model, convert, generate
+from repro_torch.models import DecodeEngine, Model, convert, generate, ssm
 from repro_torch import train, distributed
 from repro_torch.data import loader
 from repro_torch.launch import train as launch_train
 model = Model(configs.get_reduced("qwen3-8b"), device="cpu")
 out = generate.greedy_generate(DecodeEngine(model), torch.arange(12).reshape(2, 6), 3)
+assert out.tokens.shape == (2, 3)
+hybrid = Model(configs.get_reduced("zamba2-7b"), device="cpu")
+out = generate.greedy_generate(DecodeEngine(hybrid), torch.arange(16).reshape(2, 8), 3)
 assert out.tokens.shape == (2, 3)
 opt_cfg = train.OptimizerConfig()
 state = train.init_state(model, opt_cfg)

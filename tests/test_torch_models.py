@@ -1,11 +1,13 @@
 """The port's LM serving path against the JAX package's, on the CPU.
 
-For the four dense configs at reduced size (float32 compute), the JAX
+For the dense, ssm and hybrid configs at reduced size (float32 compute), the JAX
 package's parameters (``Model(cfg).init(PRNGKey(0))``) are carried into the
 port by ``params_from_numpy``; ``Model.forward``, ``DecodeEngine.prefill``
 and teacher-forced ``decode_step`` logits must then equal the reference's
 at rtol = atol = 1e-4 (float32 matmuls summed in another order), and
-greedy generation must pick the same tokens.
+greedy generation must pick the same tokens; every cache leaf (the KV
+caches, the Mamba2 layers' conv and SSM states, the hybrid family's shared
+K/V) must equal the reference's at the same tolerance.
 """
 
 import dataclasses
@@ -29,6 +31,17 @@ from repro_torch.models.model import param_count
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, PROMPT, S = 2, 24, 32
+
+
+def _leaves(tree, prefix=""):
+    """``{"a.b": leaf}`` of a nested cache dict."""
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(_leaves(val, f"{prefix}{key}."))
+        else:
+            out[prefix + key] = val
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -91,8 +104,10 @@ def test_prefill_and_decode_match_reference(built, name):
         lt, cache = eng.decode_step(model, cache, {"tokens": torch.from_numpy(tokens[:, t:t + 1])})
         np.testing.assert_allclose(lt.numpy(), np.asarray(jl), **TOL, err_msg=f"step {t}")
     assert cache["cur"].tolist() == np.asarray(jcache["cur"]).tolist() == [S] * B
-    for key in ("k", "v"):
-        np.testing.assert_allclose(cache[key].numpy(), np.asarray(jcache[key]), **TOL)
+    got, want = _leaves(cache), _leaves(jcache)
+    assert set(got) == set(want)
+    for key in want:
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), **TOL, err_msg=key)
 
 
 @pytest.mark.parametrize("name", configs.ARCHS)
@@ -148,6 +163,38 @@ def test_seeded_init_is_reproducible_and_follows_the_layout():
     assert not any(p.requires_grad for p in a.parameters())
 
 
+@pytest.mark.parametrize("name", ["mamba2-2.7b", "zamba2-7b"])
+def test_ssm_and_hybrid_init_follow_the_reference_layout(name):
+    """The reference's ``Model.init``: a_log and dt_bias zeros, d_skip and
+    the norm scales ones, the shared block's leaves with a leading dim of 1,
+    the projections N(0, 1 / fan); the flash attention runs once a group."""
+    from repro_torch.models.model import attention_applications, param_layout
+
+    cfg = configs.get_reduced(name)
+    model = Model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    mamba = model.blocks.mamba
+    assert torch.equal(mamba.a_log, torch.zeros(cfg.num_layers, cfg.ssm_heads))
+    assert torch.equal(mamba.dt_bias, torch.zeros(cfg.num_layers, cfg.ssm_heads))
+    assert torch.equal(mamba.d_skip, torch.ones(cfg.num_layers, cfg.ssm_heads))
+    assert torch.equal(mamba.norm, torch.ones(cfg.num_layers, cfg.ssm_inner))
+    assert torch.equal(model.blocks.norm, torch.ones(cfg.num_layers, cfg.d_model))
+    assert 0.8 < float(mamba.w_out.std()) * cfg.ssm_inner ** 0.5 < 1.2
+    assert param_layout(cfg)["blocks.mamba.conv_x"] == ((cfg.num_layers, 4, cfg.ssm_inner), 4)
+    if name == "zamba2-7b":
+        assert model.shared_attn.attn.wq.shape == (1, cfg.d_model, cfg.attn_dim)
+        assert [i for i in range(cfg.num_layers) if model.shared_before(i)] == [0, 2]
+        assert attention_applications(cfg) == 2
+        assert attention_applications(configs.get(name)) == 13
+    else:
+        assert not hasattr(model, "shared_attn") and attention_applications(cfg) == 0
+
+
+@pytest.mark.parametrize("name", ["mamba2-2.7b", "zamba2-7b"])
+def test_generate_cli_runs_the_ssm_and_hybrid_families_on_the_cpu(name, capsys):
+    assert generate_main([name, "--device", "cpu"]) == 0
+    assert f"{name}-smoke on cpu" in capsys.readouterr().out
+
+
 def test_entry_points_run_on_the_card_unless_told(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = configs.get_reduced("smollm-135m")
@@ -176,8 +223,16 @@ def test_shapes_equal_the_reference():
 @pytest.mark.parametrize("name", ["zamba2-7b", "phi3.5-moe-42b-a6.6b", "arctic-480b",
                                   "mamba2-2.7b", "llama-3.2-vision-11b", "musicgen-medium"])
 def test_unported_archs_name_their_roadmap_item(name):
+    """The reference's six non-dense archs: the ssm and hybrid ones load and
+    equal the reference's configs; the moe, vlm and audio ones raise naming
+    ROADMAP Queue 1 item 13b."""
     assert name in jconfigs.ARCHS
-    with pytest.raises(KeyError, match="Queue 1 item 13"):
+    if name in ("zamba2-7b", "mamba2-2.7b"):
+        assert name in configs.ARCHS
+        assert dataclasses.asdict(configs.get(name)) == dataclasses.asdict(jconfigs.get(name))
+        return
+    assert name in configs.NOT_PORTED and name not in configs.ARCHS
+    with pytest.raises(KeyError, match="Queue 1 item 13b .the moe, vlm and audio modules"):
         configs.get(name)
 
 
@@ -185,7 +240,7 @@ def test_other_families_and_bad_trees_raise():
     moe = ModelConfig(name="m", family="moe", num_layers=1, d_model=8, d_ff=8, vocab_size=8,
                       num_heads=2, num_kv_heads=1, head_dim=4, num_experts=2,
                       experts_per_token=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13b"):
         Model(moe, device="cpu")
     model = Model(configs.get_reduced("smollm-135m"), device="cpu")
     tree = {n: p.numpy() for n, p in model.named_parameters() if "." not in n}

@@ -12,6 +12,17 @@ element is as small as ``eps`` (1e-8), float32 rounding of the gradient
 percents.  Given the same gradients the AdamW update agrees to 1e-6
 (``test_optimizer_update_matches_reference``), so the three steps under
 AdamW are held to 1e-4.
+
+zamba2-7b's reduced config (five Mamba2 layers, the shared attention block
+twice) holds its gradient leaves to 3e-5 of their largest magnitude: against
+the same gradients in float64 (the reference run with ``jax_enable_x64``),
+the JAX package's float32 gradients are off by up to 7.3e-6 and the port's
+by 6.9e-6, so the two float32 results may differ by about their sum
+(measured up to 1.03e-5).  mamba2-2.7b's are within 1.7e-6 of float64 and
+keep 1e-5.  For the same reason zamba2-7b's parameters after three AdamW
+steps are held to 3e-4: they differ by up to 1.35e-4 (2 of w_x's 40,960
+elements above 1e-4, where the gradient's RMS is 1/137 of the leaf's
+largest and the first moments differ by 5e-4 relative).
 """
 
 import dataclasses
@@ -36,7 +47,10 @@ from repro_torch.train import OptimizerConfig, init_state, make_train_step
 from repro_torch.train import optimizer as topt
 from repro_torch.train.tree import leaves_with_paths
 
-ARCHS = ["smollm-135m", "qwen3-8b"]
+ARCHS = ["smollm-135m", "qwen3-8b", "mamba2-2.7b", "zamba2-7b"]
+# Each gradient leaf's largest error, relative to its largest magnitude (see
+# the module's docstring for zamba2-7b's).
+GRAD_TOL = {"zamba2-7b": 3e-5}
 OPT = dict(learning_rate=3e-3, warmup_steps=2, decay_steps=10)
 
 
@@ -182,7 +196,7 @@ def test_loss_and_gradients_match_reference(arch, variant):
     for name, g in zip(names, grads):
         w = want["/".join(name)]
         err = float(np.abs(g.numpy() - w).max())
-        assert err <= 1e-5 * float(np.abs(w).max()), ("/".join(name), err)
+        assert err <= GRAD_TOL.get(arch, 1e-5) * float(np.abs(w).max()), ("/".join(name), err)
 
 
 def test_remat_gives_the_same_gradients():
@@ -230,7 +244,7 @@ def test_train_steps_match_reference(arch, name):
             jm_["grad_norm"])
         assert abs(float(tm_["lr"]) - float(jm_["lr"])) <= 1e-9
     assert int(tstate["step"]) == int(jstate["step"]) == 3
-    tol = 1e-4 if name == "adamw" else 1e-5
+    tol = (3e-4 if arch == "zamba2-7b" else 1e-4) if name == "adamw" else 1e-5
     want, got = _named(jstate["params"]), _named(tstate["params"])
     worst = max(float(np.abs(got[k] - want[k]).max()) for k in want)
     assert worst <= tol, worst
