@@ -239,6 +239,54 @@ Phases (any failure raises, so the script exits non-zero):
    relative RMS of the plain versions' and the shifted-lse control failing
    that gate; then 4 AdamW steps in bf16, every loss finite (step ms,
    tokens/s, peak memory).
+17. Full size, the moe family served: phi3.5-moe-42b-a6.6b (16 experts
+   top-2, d_model 4,096, 32/8 heads of 128) with its depth cut from 32 to
+   8 layers and arctic-480b (128 experts top-2 beside a dense MLP, d_model
+   7,168, 56/8 heads of 128: a GQA group of 7) cut from 35 to 1, the most
+   one card's 80 GB holds in float32 (10.67e9 and 14.07e9 parameters): 4
+   requests of 1,024 prompt tokens, ``greedy_generate`` of 16 tokens in
+   bf16 (prefill and decode timed, tokens/s, peak memory), the flash
+   kernel once a layer (its wgmma instance, no lse) and equal to its plain
+   version at every layer's captured operands, ``moe_dropped`` at the
+   published capacity factor (1.25) reported.  The end-to-end gate runs
+   the same generation in float32 (TF32 off) at capacity_factor = E / k,
+   whose capacity is the whole group, so nothing is dropped (a decode step
+   is a group of one token, capacity 4, and never drops; a 1,024-token
+   prefill at 1.25 does): every step's logits within 1e-3 relative RMS of
+   ``Model.forward`` over the same tokens (padded with seeded filler to
+   whole groups of 1,024), ``moe_dropped`` 0, and the same check failing
+   when the cache is read one position off.  arctic's layer is also where
+   the kernel is timed at a GQA group of 7, in turns with
+   ``scaled_dot_product_attention``.
+18. Full size, the vlm and audio families served, not cut:
+   llama-3.2-vision-11b (32 self layers and 8 gated cross-attention layers
+   over 1,600 seeded image embeddings a request, d_model 4,096, 32/8 heads
+   of 128; its zero-initialised gates set to seeded values of either sign,
+   so cross-attention is live) and musicgen-medium (48 layers, d_model
+   1,536, 24 MHA heads of 64, frame-embedding inputs: 1,500 seeded frames
+   a request and one a decode step, argmax codes out), as phase 17: the
+   flash kernel once a self or cross layer (the cross layers non-causal
+   over 1,600 keys, 12.5 key tiles), equal to its plain version at every
+   call, timed at the cross-attention (B 4, Sq 1,024, Sk 1,600) and at
+   musicgen's layer (B 4, S 1,500, 24 heads of 64) in turns with SDPA; the
+   float32 teacher-forced gate and its off-by-one control, and for the
+   vision model a second control, zeroed image embeddings, failing the
+   gate.
+19. Full size, the three trainable families: musicgen-medium not cut (4 x
+   1,500 frames; its ``embed``, which frame inputs never read, gets zero
+   gradients and decays), llama-3.2-vision-11b cut to one group (4 self
+   layers and its cross layer; 2 x 2,048 tokens and 1,600 image
+   embeddings) and phi3.5-moe-42b-a6.6b cut to 2 layers (2 x 2,048
+   tokens), batches from ``SyntheticLMLoader``.  One bf16 step's every
+   forward and backward kernel call against its plain version at its own
+   operands (the forward twice a remat layer, the vision model's cross
+   layer once), the backward fed the forward's lse + log 2 on one head
+   failing its gate; the backward timed at the cross layer (Sq 2,048, Sk
+   1,600, non-causal) and at musicgen's layer in turns with SDPA's backward
+   and with the plain backward; then 4 AdamW steps (losses finite, the
+   moe family's aux metrics, step ms, tokens/s, peak memory, launches).
+   arctic trains on the CPU only: one layer's optimizer state (about 225
+   GB) exceeds the card.
 
 Kernel times are device times: CUDA events around 50 (20 for attention)
 back-to-back launches, a spin kernel queued first so that the host's
@@ -262,7 +310,10 @@ path runs are driven through their entry points in phase 3
 float32 by phase 11's reduced models, each read the same way; the flash
 backward reports its launches from phase 12's 20 steps, its D = 112
 instances theirs from zamba2-7b's prefill (phase 15) and training steps
-(phase 16); the ``path`` key of each kernel
+(phase 16); rows ``flash_attention`` and ``flash_attention_bwd`` add the
+launches of phases 17-19's prefills and training steps under
+``launches_by_path`` and their timings at those phases' shapes under
+``at_family_shapes``; the ``path`` key of each kernel
 names the run its ``launches`` come from (the tensor-core verdicts: phases
 4 and 7 together).  The
 last three lines of standard output are the card's name and power limit,
@@ -2245,22 +2296,22 @@ def flash_layer_operands(gen, d: int, dtype) -> tuple:
                              device="cuda").to(dtype) for heads in (32, 8, 8))
 
 
-def sdpa_call(q, k, v):
+def sdpa_call(q, k, v, causal: bool = True):
     """One scaled_dot_product_attention call on the kernel's (B, S, H, D)
     operands: the yardstick the port never calls."""
     import torch.nn.functional as F
 
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
 
 
-def sdpa_backend(q, k, v) -> str:
-    """The backend PyTorch's dispatcher picks for ``sdpa_call(q, k, v)``."""
+def sdpa_backend(q, k, v, causal: bool = True) -> str:
+    """The backend PyTorch's dispatcher picks for ``sdpa_call(q, k, v, causal)``."""
     from torch.nn.attention import SDPBackend
 
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     try:
-        return SDPBackend(torch._fused_sdp_choice(qt, kt, vt, is_causal=True,
+        return SDPBackend(torch._fused_sdp_choice(qt, kt, vt, is_causal=causal,
                                                   enable_gqa=True)).name
     except (AttributeError, RuntimeError, TypeError, ValueError) as exc:
         return f"not known ({exc})"
@@ -2518,7 +2569,8 @@ def loss_and_grads(model, batch) -> tuple:
 
     named = leaves_with_paths(model.param_tree())
     loss, _ = model.loss(batch)
-    grads = torch.autograd.grad(loss, [p for _, p in named])
+    grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True,
+                                materialize_grads=True)
     return float(loss.detach()), {"/".join(n): g for (n, _), g in zip(named, grads)}
 
 
@@ -3314,6 +3366,101 @@ def bwd_close(got: tuple, want: tuple, what: str, one_key: bool = False) -> floa
     return max(errs.values())
 
 
+def plain_chunks(sq: int, sk: int) -> dict:
+    """Chunk sizes for the plain flash versions at (Sq, Sk): the largest
+    divisors of each length under ``ref.flash_chunks``' caps.  That rule
+    halves 512 until it divides, which leaves musicgen's 1,500 positions at
+    chunks of 5 and 4 (over 100,000 blocks a call, minutes on the card);
+    these chunks compute the same function in a few dozen."""
+    cap = min(512, max(sq // 16, 64), sq)
+    return {"q_chunk": max(c for c in range(1, cap + 1) if sq % c == 0),
+            "kv_chunk": max(c for c in range(1, min(512, sk) + 1) if sk % c == 0)}
+
+
+def plain_flash(q, k, v, **kw):
+    """``ref.flash_attention_ref`` in :func:`plain_chunks`' chunks."""
+    from repro_torch.kernels import ref
+
+    return ref.flash_attention_ref(q, k, v, **kw, **plain_chunks(q.shape[1], k.shape[1]))
+
+
+def plain_flash_bwd(q, k, v, out, lse, do, **kw):
+    """``ref.flash_attention_bwd_ref`` in :func:`plain_chunks`' chunks."""
+    from repro_torch.kernels import ref
+
+    return ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw,
+                                       **plain_chunks(q.shape[1], k.shape[1]))
+
+
+def time_flash_forward(q, k, v, causal: bool, what: str) -> dict:
+    """The forward kernel at (q, k, v) against its plain version, timed in
+    turns with scaled_dot_product_attention (kernel, SDPA, SDPA, kernel),
+    beside the plain version and its bound."""
+    from repro_torch.kernels import flash_attention as fa
+
+    err = flash_close(fa.flash_attention_cuda(q, k, v, causal=causal),
+                      plain_flash(q, k, v, causal=causal), what)
+    turns = in_turns({"kernel": lambda: fa.flash_attention_cuda(q, k, v, causal=causal),
+                      "sdpa": sdpa_call(q, k, v, causal)}, iters=20)
+    plain = cuda_ms(lambda: plain_flash(q, k, v, causal=causal), 3)
+    flops, nbytes, bound, term = flash_bound(q, k, causal)
+    ms, lib = turns["kernel"], turns["sdpa"]
+    log(f"flash_attention at {what}: within rtol = atol = {FLASH_TOL[q.dtype]} of the plain "
+        f"version (max |err| {err:.3g}); device ms in turns: kernel {ms[0]:.4f} / {ms[1]:.4f} "
+        f"({flops / ms[0] / 1e9:.1f} TFLOP/s, {bound[0] / ms[0]:.1%} of its bound "
+        f"{bound[0]:.4f} ms by {bound[1]}, the {term} term: {flops / 1e9:.1f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB); scaled_dot_product_attention {lib[0]:.4f} / {lib[1]:.4f} "
+        f"(backend {sdpa_backend(q, k, v, causal)}); plain {plain:.3f} ms")
+    return {"shape": what, "ms": ms[0], "ms_turns": ms, "library_ms": lib[0],
+            "library_ms_turns": lib, "plain_ms": plain, "bound_ms": bound[0],
+            "bound_by": bound[1], "bound_term": term, "gflop": flops / 1e9, "max_abs_err": err}
+
+
+def time_flash_backward(args: tuple, causal: bool, what: str) -> dict:
+    """The backward kernel at a train step's captured operands (q, k, v,
+    out, lse, do) against its plain version and SDPA's backward (relative
+    RMS, the bf16 gate), timed in turns with SDPA's backward alone (on a
+    retained graph) and with the plain backward, beside its bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, out, lse, do = (t.detach() for t in args)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    sdpa_grads = [g.transpose(1, 2) for g in
+                  torch.autograd.grad(o_sdpa, (qt, kt, vt), dot, retain_graph=True)]
+    kernel = lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal)  # noqa: E731
+    plain = lambda: plain_flash_bwd(q, k, v, out, lse, do, causal=causal)  # noqa: E731
+    got, plain_g = kernel(), plain()
+    errs = {"kernel vs plain": bwd_close(got, plain_g, what),
+            "kernel vs SDPA": bwd_close(got, sdpa_grads, what + " (SDPA)"),
+            "plain vs SDPA": bwd_close(plain_g, sdpa_grads, what + " (plain vs SDPA)")}
+    b_err = max(max_err_float(g, w) for g, w in zip(got, plain_g))
+    del got, plain_g, sdpa_grads
+    plain_turns = in_turns({"kernel": kernel, "plain": plain}, iters=3)
+    sdpa_turns = in_turns({"kernel": kernel, "sdpa_bwd": lambda: torch.autograd.grad(
+        o_sdpa, (qt, kt, vt), dot, retain_graph=True)}, iters=20)
+    flops, nbytes, bound, term = flash_bound(q, k, causal, backward=True)
+    ms = sdpa_turns["kernel"][0]
+    log(f"flash_attention_bwd at {what}: relative RMS of dq, dk, dv (max) "
+        + ", ".join(f"{n} {e:.4g}" for n, e in errs.items())
+        + f" (gate {GRAD_REL_TOL[torch.bfloat16]}); device ms in turns: kernel "
+        f"{sdpa_turns['kernel'][0]:.4f} / {sdpa_turns['kernel'][1]:.4f}, SDPA's backward "
+        f"{sdpa_turns['sdpa_bwd'][0]:.4f} / {sdpa_turns['sdpa_bwd'][1]:.4f}; kernel "
+        f"{plain_turns['kernel'][0]:.4f} / {plain_turns['kernel'][1]:.4f}, plain "
+        f"{plain_turns['plain'][0]:.3f} / {plain_turns['plain'][1]:.3f}; bound {bound[0]:.4f} ms "
+        f"by {bound[1]}, the {term} term ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, {bound[0] / ms:.1%} of the bound)")
+    return {"shape": what, "ms": ms, "ms_turns_with_sdpa": sdpa_turns["kernel"],
+            "ms_turns_with_plain": plain_turns["kernel"], "plain_ms": plain_turns["plain"][0],
+            "plain_ms_turns": plain_turns["plain"], "library_ms": sdpa_turns["sdpa_bwd"][0],
+            "library_ms_turns": sdpa_turns["sdpa_bwd"], "bound_ms": bound[0],
+            "bound_by": bound[1], "bound_term": term, "gflop": flops / 1e9, "rel_rms": errs,
+            "max_abs_err": b_err}
+
+
 def phase_flash_d112(seed: int) -> list[dict]:
     """Phase 14: both flash kernels' D = 112 instances (bf16, wgmma on D =
     128's tiles) against their plain versions on the card: the forward with
@@ -3323,8 +3470,6 @@ def phase_flash_d112(seed: int) -> list[dict]:
     backward alone, on a retained graph), beside the plain versions and
     bounds of the true D = 112 work.  Returns the two kernels' rows
     (``launches`` from phases 15 and 16)."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
@@ -3362,62 +3507,12 @@ def phase_flash_d112(seed: int) -> list[dict]:
         b, s = D112[shape]
         q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device=dev).to(bf16)
                        for _ in range(4))
-        what = f"B={b} S={s} H={h} KV={h} D={d} bf16 causal"
-        want = ref.flash_attention_ref(q, k, v, causal=True, triangle=True)
-        err = flash_close(fa.flash_attention_cuda(q, k, v), want, what)
-        del want
-        turns = in_turns({"kernel": lambda: fa.flash_attention_cuda(q, k, v),
-                          "sdpa": sdpa_call(q, k, v)}, iters=20)
-        plain = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 3)
-        flops, nbytes, bound, term = flash_bound(q, k)
-        ms, lib = turns["kernel"], turns["sdpa"]
-        at[shape] = {"ms": ms[0], "ms_turns": ms, "plain_ms": plain, "library_ms": lib[0],
-                     "library_ms_turns": lib, "bound_ms": bound[0], "bound_by": bound[1],
-                     "bound_term": term, "max_abs_err": err, "shape": what}
-        log(f"timing at {what} (zamba2-7b's {shape} shape), device ms in turns: flash_attention "
-            f"{ms[0]:.4f} / {ms[1]:.4f} ({flops / ms[0] / 1e9:.1f} TFLOP/s of the true D = 112 "
-            f"work, {bound[0] / ms[0]:.1%} of its bound {bound[0]:.4f} ms by {bound[1]}, the "
-            f"{term} term: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
-            f"scaled_dot_product_attention {lib[0]:.4f} / {lib[1]:.4f} ms (backend "
-            f"{sdpa_backend(q, k, v)}); plain {plain:.3f} ms; max |err| {err:.3g}")
+        what = f"B={b} S={s} H={h} KV={h} D={d} bf16 causal (zamba2-7b's {shape} shape)"
+        at[shape] = time_flash_forward(q, k, v, True, what)
         if shape == "train":
             out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
-            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-            o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-            dot = do.transpose(1, 2)
-            sdpa_grads = [g.transpose(1, 2) for g in
-                          torch.autograd.grad(o_sdpa, (qt, kt, vt), dot, retain_graph=True)]
-            kernel_bwd = lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)  # noqa: E731
-            plain_bwd = lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, do)  # noqa: E731
-            got, plain_g = kernel_bwd(), plain_bwd()
-            errs = {"kernel vs plain": bwd_close(got, plain_g, what),
-                    "kernel vs SDPA": bwd_close(got, sdpa_grads, what + " (SDPA)"),
-                    "plain vs SDPA": bwd_close(plain_g, sdpa_grads, what + " (plain vs SDPA)")}
-            b_err = max(max_err_float(g, w) for g, w in zip(got, plain_g))
-            del got, plain_g, sdpa_grads
-            plain_turns = in_turns({"kernel": kernel_bwd, "plain": plain_bwd}, iters=3)
-            sdpa_turns = in_turns({"kernel": kernel_bwd, "sdpa_bwd": lambda: torch.autograd.grad(
-                o_sdpa, (qt, kt, vt), dot, retain_graph=True)}, iters=20)
-            bflops, bbytes, bbound, bterm = flash_bound(q, k, backward=True)
-            bms = sdpa_turns["kernel"][0]
-            at["bwd"] = {"ms": bms, "ms_turns_with_sdpa": sdpa_turns["kernel"],
-                         "ms_turns_with_plain": plain_turns["kernel"],
-                         "plain_ms": plain_turns["plain"][0], "plain_ms_turns": plain_turns["plain"],
-                         "library_ms": sdpa_turns["sdpa_bwd"][0],
-                         "library_ms_turns": sdpa_turns["sdpa_bwd"], "bound_ms": bbound[0],
-                         "bound_by": bbound[1], "bound_term": bterm, "rel_rms": errs,
-                         "max_abs_err": b_err, "shape": what}
-            log(f"flash backward D=112 at {what}: relative RMS of dq, dk, dv (max) "
-                + ", ".join(f"{n} {e:.4g}" for n, e in errs.items())
-                + f" (gate {GRAD_REL_TOL[bf16]}); max |kernel - plain| {b_err:.3g}. Device ms in "
-                f"turns: kernel {sdpa_turns['kernel'][0]:.4f} / {sdpa_turns['kernel'][1]:.4f}, "
-                f"SDPA's backward {sdpa_turns['sdpa_bwd'][0]:.4f} / "
-                f"{sdpa_turns['sdpa_bwd'][1]:.4f}; kernel {plain_turns['kernel'][0]:.4f} / "
-                f"{plain_turns['kernel'][1]:.4f}, plain {plain_turns['plain'][0]:.3f} / "
-                f"{plain_turns['plain'][1]:.3f}; bound {bbound[0]:.4f} ms by {bbound[1]}, the "
-                f"{bterm} term ({bflops / 1e9:.1f} GFLOP, {bbytes / 1e6:.1f} MB; "
-                f"{bflops / bms / 1e9:.1f} TFLOP/s, {bbound[0] / bms:.1%} of the bound)")
-            del out, lse, qt, kt, vt, o_sdpa, dot
+            at["bwd"] = time_flash_backward((q, k, v, out, lse, do), True, what)
+            del out, lse
         del q, k, v, do
     gc.collect()
     torch.cuda.empty_cache()
@@ -3833,6 +3928,435 @@ def phase_hybrid_train(seed: int) -> tuple[dict, dict]:
     return out, {"flash_attention_bwd_d112": launches[2]}
 
 
+# Phases 17-19: the moe, vlm and audio families at their published widths,
+# each model freed before the next.  arch: the layers kept (None: the
+# published depth).  One H100's 80 GB forces the cuts: phi3.5-moe's 32
+# layers hold 41.9e9 float32 parameters (167.5 GB), so 8 are kept (10.67e9,
+# 42.7 GB); arctic's 35 about 480e9, so 1 is kept (14.07e9, 56.3 GB).
+FAMILY_SERVE = {"phi3.5-moe-42b-a6.6b": 8, "arctic-480b": 1,
+                "llama-3.2-vision-11b": None, "musicgen-medium": None}
+# 4 requests of 1,024 prompt tokens (musicgen: 1,500 frames, 30 s at
+# EnCodec's 50 Hz; the vision model: with 1,600 image embeddings each), 16
+# greedy tokens (musicgen: codes, one seeded frame fed a step).
+FAMILY_SHAPE = dict(batch=4, prompt=1024, frames=1500, gen=16)
+# Phase 19: (arch, layers kept, batch, sequence): musicgen not cut; the
+# vision model cut to one group (4 self layers and its cross layer, 2.14e9
+# parameters); phi3.5-moe to 2 layers (2.86e9).  Their float32 parameters,
+# AdamW moments and gradients take 16 bytes a parameter; arctic's one layer
+# would take 225 GB, so it trains on the CPU only (tests/test_torch_moe.py).
+FAMILY_TRAIN = (("musicgen-medium", None, 4, 1500), ("llama-3.2-vision-11b", 5, 2, 2048),
+                ("phi3.5-moe-42b-a6.6b", 2, 2, 2048))
+FAMILY_TRAIN_OPT = dict(steps=4, lr=3e-3, warmup=2)
+
+
+def family_model(arch: str, layers, seed: int):
+    """``arch``'s published config, its depth cut to ``layers`` (None: not
+    cut), and its model on the card with float32 weights drawn from
+    ``seed``.  The vision model's cross-attention gates start at zero, which
+    switches its cross-attention off (tanh(0) = 0), so they are set to
+    seeded values of either sign with magnitudes in [0.5, 1.5)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import Model
+
+    cfg = configs.get(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    dev = torch.device("cuda")
+    model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    if cfg.family == "vlm":
+        gate = model.cross_blocks.gate
+        gen = torch.Generator(device=dev).manual_seed(seed + 101)
+        signs = torch.tensor([1.0, -1.0], device=dev).repeat(gate.numel())[:gate.numel()]
+        with torch.no_grad():
+            gate.copy_((torch.rand(gate.shape, generator=gen, device=dev) + 0.5) * signs)
+    return cfg, model
+
+
+def family_what(cfg, full_layers: int) -> str:
+    """A config's shape in a few words, for the log."""
+    what = (f"{cfg.name}, d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+            f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}")
+    if cfg.family == "moe":
+        what += (f", {cfg.num_experts} experts top-{cfg.experts_per_token} of d_ff "
+                 f"{cfg.moe_d_ff}" + (" beside a dense MLP" if cfg.dense_residual else "")
+                 + f", capacity factor {cfg.capacity_factor}")
+    if cfg.family == "vlm":
+        what += (f", a gated cross-attention layer over {cfg.num_image_tokens} image "
+                 f"embeddings after every {cfg.cross_attn_every} self layers")
+    if cfg.frame_inputs:
+        what += ", frame-embedding inputs"
+    cut = "" if cfg.num_layers == full_layers else f" (cut from {full_layers})"
+    return what + f"; {cfg.num_layers} layers{cut}"
+
+
+def serve_family(arch: str, layers, seed: int) -> dict:
+    """One model of phases 17-18: ``greedy_generate`` of FAMILY_SHAPE["gen"]
+    tokens after FAMILY_SHAPE["batch"] prompts in bf16 (the path: timed, the
+    flash kernel once an attention application, each its wgmma instance
+    without lse; then the kernel against its plain version at every
+    application's captured operands, and timed at the family's new shape:
+    arctic's group of 7, the vision model's non-causal cross-attention over
+    1,600 keys, musicgen's 24 MHA heads of 64); the moe family's
+    ``moe_dropped`` at its published capacity factor.  Then in float32 (TF32
+    off; the moe family at capacity_factor = E / k, so no choice is
+    dropped) the same generation teacher-forced against ``Model.forward``
+    within F32_TF_REL_TOL, and the negative controls: the cache read one
+    position off, and for the vision model zeroed image embeddings, each
+    failing that gate.  Frees the model before it returns its
+    measurements."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import DecodeEngine
+    from repro_torch.models.generate import greedy_generate
+    from repro_torch.models.model import attention_applications
+    from repro_torch.models.moe import moe_block
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_start = t0 = time.perf_counter()
+    cfg, model = family_model(arch, layers, seed)
+    torch.cuda.synchronize()
+    attn = attention_applications(cfg)
+    log(f"full size, {cfg.family} serving: {family_what(cfg, configs.get(arch).num_layers)}; "
+        f"{model.num_params():,} {cfg.param_dtype} parameters "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB) drawn on the card from seed {seed} in "
+        f"{time.perf_counter() - t0:.2f} s (set-up); compute {cfg.dtype}")
+    engine = DecodeEngine(model)
+    b, n = FAMILY_SHAPE["batch"], FAMILY_SHAPE["gen"]
+    p = FAMILY_SHAPE["frames"] if cfg.frame_inputs else FAMILY_SHAPE["prompt"]
+    gen = torch.Generator(device=dev).manual_seed(seed + 102)
+    rng = np.random.default_rng(seed + 103)
+    prompt, extra = None, {}
+    if cfg.frame_inputs:
+        extra["frame_embeds"] = torch.randn((b, p + n - 1, cfg.d_model), generator=gen, device=dev)
+    else:
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, p)).astype(np.int32)).to(dev)
+    if cfg.family == "vlm":
+        extra["image_embeds"] = torch.randn((b, cfg.num_image_tokens, cfg.d_model),
+                                            generator=gen, device=dev)
+
+    def prefill_batch(images=None) -> dict:
+        batch = ({"frame_embeds": extra["frame_embeds"][:, :p]} if cfg.frame_inputs
+                 else {"tokens": prompt})
+        if cfg.family == "vlm":
+            batch["image_embeds"] = extra["image_embeds"] if images is None else images
+        return batch
+
+    def step_batch(out, t: int) -> dict:
+        return ({"frame_embeds": extra["frame_embeds"][:, p + t:p + t + 1]} if cfg.frame_inputs
+                else {"tokens": out.tokens[:, t:t + 1]})
+
+    def forward_batch(out) -> dict:
+        """What decode was fed, teacher-forced; the moe family's tokens
+        padded with seeded filler to whole routing groups (the compared
+        positions see none of it: attention is causal and, with nothing
+        dropped, a token's experts read that token alone)."""
+        if cfg.frame_inputs:
+            return {"frame_embeds": extra["frame_embeds"]}
+        tokens = torch.cat([prompt, out.tokens[:, :-1]], dim=1)
+        if cfg.family == "moe":
+            group = moe_block.__kwdefaults__["group_size"]
+            pad = -tokens.shape[1] % group
+            tokens = torch.cat([tokens, torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (b, pad)).astype(np.int32)).to(dev)], dim=1)
+        batch = {"tokens": tokens}
+        if cfg.family == "vlm":
+            batch["image_embeds"] = extra["image_embeds"]
+        return batch
+
+    # The path: the counters zeroed just before, read just after.
+    fa.reset_launches()
+    out = greedy_generate(engine, prompt, n, max_len=p + n, **extra)
+    launches = fa.flash_attention_cuda.instance_launches["wgmma"]
+    peak = torch.cuda.max_memory_allocated()
+    if (launches, fa.flash_attention_cuda.launches, fa.flash_attention_cuda.lse_launches) != (
+            attn, attn, 0):
+        raise AssertionError(f"{cfg.name}'s prefill launched flash_attention "
+                             f"{fa.flash_attention_cuda.launches} times "
+                             f"({fa.flash_attention_cuda.instance_launches}, "
+                             f"{fa.flash_attention_cuda.lse_launches} with lse); expected {attn} "
+                             f"wgmma launches without lse")
+    res = {"layers": cfg.num_layers, "params": model.num_params(), "prefill_s": out.prefill_s,
+           "decode_ms_per_step": 1e3 * out.decode_s / (n - 1),
+           "prefill_tokens_per_s": b * p / out.prefill_s,
+           "decode_tokens_per_s": b * (n - 1) / out.decode_s, "peak_memory_gb": peak / 1e9,
+           "flash_launches": launches}
+    log(f"{cfg.name} serving: {b} requests x {p} prompt "
+        f"{'frames' if cfg.frame_inputs else 'tokens'}, max_len {p + n}: prefill "
+        f"{out.prefill_s:.3f} s ({res['prefill_tokens_per_s']:.1f} tokens/s); {n - 1} decode "
+        f"steps {out.decode_s:.3f} s ({res['decode_ms_per_step']:.2f} ms a step, "
+        f"{res['decode_tokens_per_s']:.1f} tokens/s); flash_attention launches {launches}; peak "
+        f"memory {peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated); first request's "
+        f"{'codes' if cfg.frame_inputs else 'tokens'} {out.tokens[0, :8].tolist()}...")
+
+    with torch.inference_mode():
+        if not all(bool(torch.isfinite(lg).all()) for lg in out.logits):
+            raise AssertionError(f"{cfg.name}: non-finite bf16 logits")
+        if cfg.family == "moe":
+            _, aux = model(prefill_batch())
+            res.update({f"published_cf_{k}": float(v) for k, v in aux.items()})
+            log(f"{cfg.name} in bf16 at the published capacity factor {cfg.capacity_factor} "
+                f"(groups of {p} tokens): moe_dropped {float(aux['moe_dropped']):.5f}, "
+                f"moe_aux_loss {float(aux['moe_aux_loss']):.4f}, moe_z_loss "
+                f"{float(aux['moe_z_loss']):.4f} (the layers' mean)")
+        # The kernel against its plain version at every application's
+        # operands, as the prefill handed them over; timed at the new shape.
+        calls = []
+        with capture_calls(fa, "flash_attention_cuda", calls):
+            engine.prefill(model, prefill_batch(), max_len=p + n, last_only=True)
+        if len(calls) != attn:
+            raise AssertionError(f"the prefill called the kernel {len(calls)} times")
+        worst = max(flash_close(fa.flash_attention_cuda(*a, **kw), plain_flash(*a, **kw),
+                                f"{cfg.name} application {i}") for i, (a, kw) in enumerate(calls))
+        res["kernel_at_applications_max_abs_err"] = worst
+        log(f"{cfg.name}: flash_attention (wgmma) at each of the prefill's {attn} applications: "
+            f"within rtol = atol = {FLASH_TOL[torch.bfloat16]} of the plain version, max |err| "
+            f"{worst:.4g}")
+        if arch != "phi3.5-moe-42b-a6.6b":   # phi3.5-moe's layer is qwen3-8b's shape
+            i = next(i for i, (_, kw) in enumerate(calls) if kw.get("causal", True)
+                     == (cfg.family != "vlm"))
+            (q, k, v), kw = calls[i]
+            causal = kw.get("causal", True)
+            res["kernel_timing"] = time_flash_forward(
+                q, k, v, causal, f"{cfg.name}'s application {i}: B={q.shape[0]} Sq={q.shape[1]} "
+                f"Sk={k.shape[1]} H={q.shape[2]} KV={k.shape[2]} D={q.shape[3]} bf16 "
+                f"{'causal' if causal else 'non-causal'}")
+        del calls
+        t_f32 = time.perf_counter()
+
+        # float32 (TF32 off): the same weights and inputs, the model's
+        # compute type switched (the moe family's capacity raised to the group).
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        if cfg.family == "moe":
+            cfg32 = dataclasses.replace(cfg32, capacity_factor=cfg.num_experts
+                                        / cfg.experts_per_token)
+        model.cfg = cfg32
+        try:
+            t0 = time.perf_counter()
+            out32 = greedy_generate(engine, prompt, n, max_len=p + n, **extra)
+            gen32_s = time.perf_counter() - t0
+            want, aux = model(forward_batch(out32))
+            errs = [rel_rms(lg, want[:, p - 1 + t]) for t, lg in enumerate(out32.logits)]
+            if not all(np.isfinite(errs)) or max(errs) > F32_TF_REL_TOL:
+                raise AssertionError(f"{cfg.name}: float32 teacher-forced logits beyond "
+                                     f"{F32_TF_REL_TOL}: {errs}")
+            if cfg.family == "moe" and float(aux["moe_dropped"]):
+                raise AssertionError(f"{cfg.name}: the float32 forward at capacity_factor "
+                                     f"{cfg32.capacity_factor} dropped {float(aux['moe_dropped'])}")
+            # The negative controls: the cache read one position off; the
+            # vision model's image embeddings zeroed.
+            _, cache = engine.prefill(model, prefill_batch(), max_len=p + n, last_only=True)
+            cache["cur"] -= 1
+            bad = []
+            for t in range(n - 1):
+                lg, cache = engine.decode_step(model, cache, step_batch(out32, t))
+                bad.append(rel_rms(lg[:, -1], want[:, p + t]))
+            del cache
+            if max(bad) <= F32_TF_REL_TOL:
+                raise AssertionError(f"{cfg.name}: the off-by-one cache passed the float32 "
+                                     f"logits check: {bad}")
+            res.update(f32_teacher_forced_rel_rms_max=max(errs), f32_generate_s=gen32_s,
+                       f32_off_by_one_rel_rms_max=max(bad),
+                       bf16_vs_f32_prefill_logits_rel_rms=rel_rms(out.logits[0], out32.logits[0]),
+                       bf16_f32_same_tokens=int((out32.tokens == out.tokens).sum()))
+            dark = ""
+            if cfg.family == "vlm":
+                lg, _ = engine.prefill(model, prefill_batch(torch.zeros_like(extra["image_embeds"])),
+                                       max_len=p + n, last_only=True)
+                res["f32_zeroed_images_rel_rms"] = rel_rms(lg[:, -1], want[:, p - 1])
+                if res["f32_zeroed_images_rel_rms"] <= F32_TF_REL_TOL:
+                    raise AssertionError(f"{cfg.name}: zeroed image embeddings passed the "
+                                         f"float32 logits check")
+                dark = (f"; zeroed image embeddings move the prefill's logits by "
+                        f"{res['f32_zeroed_images_rel_rms']:.4f}")
+            log(f"{cfg.name} in float32 (TF32 off{', capacity factor %g' % cfg32.capacity_factor if cfg.family == 'moe' else ''}; generation "
+                f"{gen32_s:.2f} s): teacher-forced logits against Model.forward over "
+                f"{want.shape[1]} positions, relative RMS max {max(errs):.3g}, mean "
+                f"{float(np.mean(errs)):.3g} (gate {F32_TF_REL_TOL})"
+                + (f", moe_dropped {float(aux['moe_dropped'])}" if cfg.family == "moe" else "")
+                + f"; negative control, the cache read one position off: max {max(bad):.4f}"
+                + dark + ", failing the gate as they must. bf16 against float32: the prefill's "
+                f"last logits {res['bf16_vs_f32_prefill_logits_rel_rms']:.4f} relative RMS, "
+                f"greedy picks equal at {res['bf16_f32_same_tokens']} of {out.tokens.numel()}")
+            del want, out32
+        finally:
+            model.cfg = cfg
+    del model, engine, out, prompt, extra
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["wall_s"] = {"bf16_and_kernel_checks": t_f32 - t_start,
+                     "float32_checks": time.perf_counter() - t_f32}
+    log(f"{arch} (phase wall): bf16 serving and the kernel checks {res['wall_s']['bf16_and_kernel_checks']:.1f} s, "
+        f"the float32 checks {res['wall_s']['float32_checks']:.1f} s")
+    return res
+
+
+def phase_family_serving(seed: int, archs) -> tuple[dict, dict]:
+    """Phases 17 (phi3.5-moe, arctic) and 18 (llama-3.2-vision, musicgen):
+    serve_family of each of ``archs``.  Returns the measurements by arch and
+    each prefill's flash launches, by path."""
+    out = {arch: serve_family(arch, FAMILY_SERVE[arch], seed) for arch in archs}
+    return out, {f"{arch} prefill ({FAMILY_SHAPE['batch']} requests)": res["flash_launches"]
+                 for arch, res in out.items()}
+
+
+def train_family(arch: str, layers, b: int, s: int, seed: int) -> dict:
+    """One model of phase 19.  (a) One bf16 step's loss and gradients with
+    every kernel call captured: the forward (with lse) once a layer and again
+    in each remat layer's recomputation (the vision model's cross layers are
+    not recomputed), the backward once a layer; each call held to its plain
+    version at its own operands, and the backward fed the forward's lse
+    shifted by log 2 on one head failing that gate (first call, and the
+    first non-causal one); the backward timed at the new shapes (the vision
+    model's cross layer, musicgen's layer).  (b) FAMILY_TRAIN_OPT["steps"]
+    AdamW steps: every loss finite, the launches counted, step ms, tokens/s,
+    peak memory.  Frees the model before it returns its measurements."""
+    from repro_torch import configs
+    from repro_torch.data.loader import LoaderConfig, SyntheticLMLoader
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import num_cross_layers
+    from repro_torch.train import OptimizerConfig, init_state, make_train_step
+
+    dev = torch.device("cuda")
+    steps = FAMILY_TRAIN_OPT["steps"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_start = t0 = time.perf_counter()
+    cfg, model = family_model(arch, layers, seed)
+    opt_cfg = OptimizerConfig(learning_rate=FAMILY_TRAIN_OPT["lr"],
+                              warmup_steps=FAMILY_TRAIN_OPT["warmup"], decay_steps=steps)
+    state = init_state(model, opt_cfg)
+    loader = SyntheticLMLoader(cfg, LoaderConfig(batch_size=b, seq_len=s, seed=seed,
+                                                 vocab_size=cfg.vocab_size), device=dev)
+    batch = next(loader)
+    torch.cuda.synchronize()
+    n_cross = num_cross_layers(cfg)
+    fwd_per_step = (2 if cfg.remat else 1) * (cfg.num_layers - n_cross) + n_cross
+    bwd_per_step = cfg.num_layers
+    log(f"full size, {cfg.family} training: {family_what(cfg, configs.get(arch).num_layers)}; "
+        f"{model.num_params():,} {cfg.param_dtype} parameters and their AdamW state "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB) in {time.perf_counter() - t0:.2f} s "
+        f"(set-up); compute {cfg.dtype}, remat {cfg.remat}; batches {b} x {s}")
+    res: dict = {"layers": cfg.num_layers, "params": model.num_params(), "batch": [b, s]}
+
+    fwd_calls, bwd_calls = [], []
+    with capture_calls(fa, "flash_attention_cuda", fwd_calls), \
+            capture_calls(fa, "flash_attention_bwd_cuda", bwd_calls):
+        loss_and_grads(model, batch)
+    if (len(fwd_calls), len(bwd_calls)) != (fwd_per_step, bwd_per_step) or not all(
+            kw.get("return_lse") for _, kw in fwd_calls):
+        raise AssertionError(f"{cfg.name}: a train step called flash_attention "
+                             f"{len(fwd_calls)} times and its backward {len(bwd_calls)}; "
+                             f"expected {fwd_per_step} (with lse) and {bwd_per_step}")
+    gate = GRAD_REL_TOL[torch.bfloat16]
+    with torch.no_grad():
+        fwd_err = max(flash_close(fa.flash_attention_cuda(*a, **kw)[0],
+                                  plain_flash(*a, **kw)[0], f"step forward call {i}")
+                      for i, (a, kw) in enumerate(fwd_calls))
+        bwd_err = max(bwd_close(fa.flash_attention_bwd_cuda(*a, **kw), plain_flash_bwd(*a, **kw),
+                                f"step backward call {i}")
+                      for i, (a, kw) in enumerate(bwd_calls))
+        controls = {}
+        for i, (a, kw) in enumerate(bwd_calls):
+            if i and (kw.get("causal", True) or any(not k.get("causal", True)
+                                                    for _, k in bwd_calls[:i])):
+                continue
+            q, k, v, o, lse, do = a
+            bad = bwd_errs(fa.flash_attention_bwd_cuda(q, k, v, o, shift_lse(lse), do, **kw),
+                           plain_flash_bwd(*a, **kw))
+            if max(bad.values()) <= gate:
+                raise AssertionError(f"the lse shifted by log 2 on one head passed the backward "
+                                     f"gate at step backward call {i}: {bad}")
+            controls[i] = bad
+    res.update(step_fwd_calls_max_abs_err=fwd_err, step_bwd_calls_rel_rms_max=bwd_err,
+               step_bwd_negative_control_rel_rms=controls)
+    log(f"{cfg.name} training in bf16: each of the step's {len(fwd_calls)} forward and "
+        f"{len(bwd_calls)} backward kernel calls against the plain version at its own "
+        f"operands: forward max |err| {fwd_err:.4g} (rtol = atol = "
+        f"{FLASH_TOL[torch.bfloat16]}), backward largest relative RMS of dq, dk, dv "
+        f"{bwd_err:.4g} (gate {gate}). Negative control, the backward fed the forward's lse + "
+        f"log 2 on one head: "
+        + "; ".join(f"call {i}: " + ", ".join(f"{n} {e:.4f}" for n, e in bad.items())
+                    for i, bad in controls.items()) + ", failing the gate as it must")
+    if cfg.family != "moe":   # phi3.5-moe's attention is the smollm / qwen3 shape
+        i = next(i for i, (_, kw) in enumerate(bwd_calls) if kw.get("causal", True)
+                 == (cfg.family != "vlm"))
+        a, kw = bwd_calls[i]
+        causal = kw.get("causal", True)
+        q, k = a[0], a[1]
+        res["bwd_timing"] = time_flash_backward(
+            a, causal, f"{cfg.name}'s backward call {i}: B={q.shape[0]} Sq={q.shape[1]} "
+            f"Sk={k.shape[1]} H={q.shape[2]} KV={k.shape[2]} D={q.shape[3]} bf16 "
+            f"{'causal' if causal else 'non-causal'}")
+    del fwd_calls, bwd_calls
+    gc.collect()
+
+    step = make_train_step(model, opt_cfg)
+    events, losses, metrics = [], [], {}
+    # The path: the counters zeroed just before, read just after.
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        state, metrics = step(state, next(loader))
+        ev[1].record()
+        events.append(ev)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (fa.flash_attention_cuda.instance_launches["wgmma"],
+                fa.flash_attention_cuda.lse_launches,
+                fa.flash_attention_bwd_cuda.instance_launches["wgmma"])
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    step_ms = [e[0].elapsed_time(e[1]) for e in events]
+    want = (steps * fwd_per_step, steps * fwd_per_step, steps * bwd_per_step)
+    if launches != want or not all(np.isfinite(losses)):
+        raise AssertionError(f"{cfg.name} training: losses {losses}, flash launches (wgmma, with "
+                             f"lse, backward) {launches}; expected {want}")
+    med = statistics.median(step_ms[1:])
+    aux = {k: float(metrics[k]) for k in ("moe_aux_loss", "moe_z_loss", "moe_dropped")
+           if k in metrics}
+    res.update(losses=losses, step_ms=med, step_ms_all=step_ms, tokens_per_s=b * s / med * 1e3,
+               peak_memory_gb=peak / 1e9, run_s=wall, launches=launches[0],
+               bwd_launches=launches[2], last_step_aux=aux)
+    log(f"{cfg.name} training: {steps} AdamW steps (lr {FAMILY_TRAIN_OPT['lr']}, "
+        f"{FAMILY_TRAIN_OPT['warmup']} warmup) in {wall:.2f} s; loss "
+        f"{' -> '.join(f'{x:.4f}' for x in losses)}"
+        + (f" (last step's {', '.join(f'{k} {v:.4f}' for k, v in aux.items())})" if aux else "")
+        + f"; step {med:.2f} ms (CUDA events, median of steps 2-{steps}; all "
+        f"{[round(x, 2) for x in step_ms]}), {b * s / med * 1e3:,.0f} tokens/s; peak memory "
+        f"{peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated); flash_attention launches "
+        f"{launches[0]} ({launches[1]} with lse), flash_attention_bwd {launches[2]}")
+    del model, state, loader, batch, step, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["wall_s"] = time.perf_counter() - t_start
+    log(f"{arch} training (phase wall): {res['wall_s']:.1f} s")
+    return res
+
+
+def phase_family_train(seed: int) -> tuple[dict, dict, dict]:
+    """Phase 19: train_family of each of FAMILY_TRAIN.  Returns the
+    measurements by arch and the forward's and the backward's launches by
+    path."""
+    out = {arch: train_family(arch, layers, b, s, seed) for arch, layers, b, s in FAMILY_TRAIN}
+    steps = FAMILY_TRAIN_OPT["steps"]
+    path = {arch: f"{arch} training ({steps} steps)" for arch in out}
+    return (out, {path[a]: r["launches"] for a, r in out.items()},
+            {path[a]: r["bwd_launches"] for a, r in out.items()})
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3907,6 +4431,15 @@ def main(argv=None) -> int:
     launches.update(serve_launches)
     launches.update(train_launches)
     log(json.dumps({"ssm_serving": ssm_serving, "hybrid_training": hybrid_training}))
+    moe_serving, moe_launches = phase_family_serving(args.seed, ("phi3.5-moe-42b-a6.6b",
+                                                                 "arctic-480b"))
+    va_serving, va_launches = phase_family_serving(args.seed, ("llama-3.2-vision-11b",
+                                                               "musicgen-medium"))
+    family_training, fwd_train_launches, bwd_train_launches = phase_family_train(args.seed)
+    family_serving = {**moe_serving, **va_serving}
+    log(json.dumps({"family_serving": family_serving, "family_training": family_training}))
+    by_path = {"flash_attention": {**moe_launches, **va_launches, **fwd_train_launches},
+               "flash_attention_bwd": bwd_train_launches}
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["name"] == "flash_attention":
@@ -3914,6 +4447,12 @@ def main(argv=None) -> int:
         if k["name"] in dedup_launches:   # rows 1-2: their launches on the dedup path too
             k["launches_by_path"] = {k["path"]: k["launches"],
                                      "dedup": dedup_launches[k["name"]]}
+        if k["name"] in by_path:          # rows 9 and 9d: phases 17-19's paths too
+            k["launches_by_path"] = {k["path"]: k["launches"], **by_path[k["name"]]}
+            k["at_family_shapes"] = {
+                arch: res[key] for arch, res in (family_serving if k["name"] ==
+                                                 "flash_attention" else family_training).items()
+                for key in ("kernel_timing", "bwd_timing") if key in res}
     log(smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

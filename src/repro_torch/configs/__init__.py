@@ -1,11 +1,9 @@
-"""Architecture registry of the port: the dense, ssm and hybrid configs (+ reduced smoke variants).
+"""Architecture registry of the port: the 10 configs of the reference (+ reduced smoke variants).
 
 ``get(name)`` returns the full published config; ``get_reduced(name)`` a tiny
 same-family config for CPU smoke tests.  ``ARCHS`` lists the selectable
 ``--arch`` ids.  The configs are the reference's (``repro.configs``), copied
-as data.  The reference's other four architectures (the moe, vlm and audio
-families) need modules the port does not have yet: ``get`` raises a
-``KeyError`` naming ROADMAP Queue 1 item 13b for them.
+as data, in its order.
 """
 
 from __future__ import annotations
@@ -21,18 +19,17 @@ _MODULES = {
     "minitron-8b": "repro_torch.configs.minitron_8b",
     "internlm2-20b": "repro_torch.configs.internlm2_20b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi35_moe",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_27b",
+    "llama-3.2-vision-11b": "repro_torch.configs.llama32_vision_11b",
+    "musicgen-medium": "repro_torch.configs.musicgen_medium",
 }
-# Registered by the reference, waiting for their model families in the port.
-NOT_PORTED = ("phi3.5-moe-42b-a6.6b", "arctic-480b", "llama-3.2-vision-11b", "musicgen-medium")
 
 ARCHS: List[str] = list(_MODULES)
 
 
 def get(name: str) -> ModelConfig:
-    if name in NOT_PORTED:
-        raise KeyError(f"arch {name!r} is not ported yet: its family waits for ROADMAP "
-                       f"Queue 1 item 13b (the moe, vlm and audio modules); ported: {ARCHS}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {ARCHS}")
     return importlib.import_module(_MODULES[name]).CONFIG

@@ -3,11 +3,12 @@
 
 ``SyntheticLMLoader`` draws each batch from ``np.random.default_rng((seed,
 step))`` exactly as the reference does, so both packages see the same
-tokens; the batch goes to the loader's device (the card unless the caller
-asks for the CPU).  Its state is a tiny dict (step, seed), saved beside the
-model's checkpoint so a restart resumes mid-epoch.  Sharding the batch over
-a mesh waits for multi-GPU (ROADMAP Queue 1 item 11); the frame-input and
-vision batches for their families (item 13b).
+tokens, frame embeddings (frame-input models) and image embeddings (the vlm
+family), the embeddings rounded to bf16 as the reference rounds them; the
+batch goes to the loader's device (the card unless the caller asks for the
+CPU).  Its state is a tiny dict (step, seed), saved beside the model's
+checkpoint so a restart resumes mid-epoch.  Sharding the batch over a mesh
+waits for multi-GPU (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -34,10 +35,6 @@ class SyntheticLMLoader:
     """Deterministic synthetic token stream with a checkpointable cursor."""
 
     def __init__(self, model_cfg: ModelConfig, cfg: LoaderConfig, *, device=None):
-        if model_cfg.frame_inputs or model_cfg.family == "vlm":
-            raise NotImplementedError(
-                f"{model_cfg.name}: frame-input and vision batches come with their model "
-                f"families (ROADMAP Queue 1 item 13b)")
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -51,14 +48,25 @@ class SyntheticLMLoader:
         self.state = dict(st)
 
     # --- deterministic batch synthesis ---
-    def host_batch(self, step: int) -> Dict[str, np.ndarray]:
-        """The batch of ``step`` as int32 numpy arrays, tokens and labels
-        (B, S): the reference's ``_host_batch``."""
-        cfg = self.cfg
+    def host_batch(self, step: int) -> Dict[str, torch.Tensor]:
+        """The batch of ``step`` on the host, the reference's ``_host_batch``
+        drawn in its order: int32 tokens (B, S) (or, for a frame-input model,
+        bf16 frame_embeds (B, S, d)) and labels (B, S), and for the vlm
+        family bf16 image_embeds (B, n_img, d)."""
+        cfg, mc = self.cfg, self.model_cfg
         rng = np.random.default_rng((self.state["seed"], step))
-        v = min(cfg.vocab_size, self.model_cfg.vocab_size)
-        toks = rng.integers(0, v, size=(cfg.batch_size, cfg.seq_len + 1), dtype=np.int32)
-        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        b, s = cfg.batch_size, cfg.seq_len
+        v = min(cfg.vocab_size, mc.vocab_size)
+        toks = torch.from_numpy(rng.integers(0, v, size=(b, s + 1), dtype=np.int32))
+        out: Dict[str, torch.Tensor] = {}
+        if mc.frame_inputs:
+            out["frame_embeds"] = _bf16(rng.normal(size=(b, s, mc.d_model)))
+        else:
+            out["tokens"] = toks[:, :-1]
+        out["labels"] = toks[:, 1:]
+        if mc.family == "vlm":
+            out["image_embeds"] = _bf16(rng.normal(size=(b, mc.num_image_tokens, mc.d_model)))
+        return out
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         return self
@@ -66,5 +74,10 @@ class SyntheticLMLoader:
     def __next__(self) -> Dict[str, torch.Tensor]:
         batch = self.host_batch(self.state["step"])
         self.state["step"] += 1
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in batch.items()}
+        return {k: v.contiguous().to(self.device) for k, v in batch.items()}
+
+
+def _bf16(a: np.ndarray) -> torch.Tensor:
+    """float64 draws rounded to float32, then to bf16 (round to nearest
+    even), as the reference's ``astype(np.float32).astype(jnp.bfloat16)``."""
+    return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)

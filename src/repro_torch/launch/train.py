@@ -30,11 +30,12 @@ from repro_torch.train import OptimizerConfig
 from repro_torch.train import step as step_lib
 
 log = logging.getLogger("repro_torch.train")
+MOE_METRICS = ("moe_aux_loss", "moe_z_loss", "moe_dropped")   # the moe family's aux
 
 
 def train_main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--arch", default="smollm-135m", choices=configs.ARCHS)
     ap.add_argument("--reduced", action="store_true",
                     help="use the tiny same-family smoke config")
     ap.add_argument("--steps", type=int, default=100)
@@ -78,8 +79,9 @@ def train_main(argv=None):
             m_host = {k: float(v) for k, v in metrics.items()}
             history.append((s, m_host))
             log.info("step %d: %s", s, {k: round(v, 4) for k, v in m_host.items()})
+            moe = "".join(f" {k}={m_host[k]:.4f}" for k in MOE_METRICS if k in m_host)
             print(f"step {s}: loss={m_host['loss']:.4f} "
-                  f"gnorm={m_host['grad_norm']:.3f} lr={m_host['lr']:.2e}", flush=True)
+                  f"gnorm={m_host['grad_norm']:.3f} lr={m_host['lr']:.2e}{moe}", flush=True)
         return state, metrics
 
     runner = FaultTolerantRunner(step_fn, make_state, iter(loader), ckpt,

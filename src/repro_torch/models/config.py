@@ -6,12 +6,16 @@ copied as they are, so a config compares field by field with the
 reference's.  Families:
 
 * ``dense``  — pre-norm decoder (GQA + SwiGLU), optional qk-norm.
+* ``moe``    — dense attention + top-k routed experts (optional dense
+  residual; ``repro_torch.models.moe``).
 * ``ssm``    — Mamba2 / SSD blocks alone (``repro_torch.models.ssm``).
 * ``hybrid`` — Mamba2 blocks with one weight-shared attention + MLP block
   applied every ``attn_every`` layers (Zamba2).
-  These three are the families the port runs (``repro_torch.models.model``).
-* ``moe``, ``vlm``, ``audio`` — carried in the dataclass so configs stay
-  comparable; their modules are not ported yet (ROADMAP Queue 1 item 13b).
+* ``vlm``    — dense decoder with a gated cross-attention layer over
+  precomputed image-patch embeddings after every ``cross_attn_every``
+  self-attention layers.
+* ``audio``  — dense decoder over precomputed frame embeddings; logits over
+  the codec vocab.
 """
 
 from __future__ import annotations

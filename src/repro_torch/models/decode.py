@@ -1,19 +1,27 @@
-"""Serving path of the dense, ssm and hybrid families: the KV / SSM-state
-cache, prefill and one-token decode.  The port of
-``repro.models.decode.DecodeEngine``.
+"""Serving path of the six families: the KV / SSM-state cache, prefill and
+one-token decode.  The port of ``repro.models.decode.DecodeEngine``.
 
 The cache is a dict of the reference's leaves, in the compute type: ``"cur"``
-int32 (B,) positions filled so far; dense: ``"k"`` and ``"v"`` (L, B,
-max_len, KV, hd); ssm: each Mamba2 layer's ``"conv_x"`` (L, B, K-1, Din),
-``"conv_b"`` and ``"conv_c"`` (L, B, K-1, N) and ``"ssm"`` (L, B, H, P, N);
-hybrid: those, and ``"shared"`` ``{"k", "v"}`` of the shared attention
-block, one slot a group (num_layers // attn_every).  Unlike the reference,
+int32 (B,) positions filled so far; dense, moe and audio: ``"k"`` and
+``"v"`` (L, B, max_len, KV, hd); vlm: those of its self layers, and
+``"img_k"`` / ``"img_v"`` (n_cross, B, n_img, KV, hd), each cross layer's
+K and V of the image embeddings, filled by the prefill; ssm: each Mamba2
+layer's ``"conv_x"`` (L, B, K-1, Din), ``"conv_b"`` and ``"conv_c"`` (L, B,
+K-1, N) and ``"ssm"`` (L, B, H, P, N); hybrid: those, and ``"shared"``
+``{"k", "v"}`` of the shared attention block, one slot a group (num_layers
+// attn_every).  A frame-input model (audio) takes ``frame_embeds`` where
+the others take ``tokens``; the vlm prefill takes ``image_embeds``, its
+decode reads them from the cache.  The moe family routes a decode step's
+tokens as groups of one (capacity 4, so nothing is dropped), as the
+reference does.  Unlike the reference,
 which returns a new cache, :meth:`DecodeEngine.decode_step` writes the new
 token's K/V and states into the cache it is given and advances ``"cur"`` in
 place (the returned cache is the same dict), so a step never copies the
 cache.  Prefill attention runs the flash kernel on the card
 (``layers.flash_attention``); decode attention and the SSM recurrences are
-plain PyTorch, as they are jnp in the reference.
+plain PyTorch, as they are jnp in the reference.  The vlm prefill's
+cross-attention is the flash kernel too, non-causal over the image tokens;
+its decode attends to the whole image cache.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import Model, dtype_of
+from repro_torch.models.model import Model, dtype_of, num_cross_layers
 
 Cache = Dict[str, torch.Tensor]
 
@@ -54,8 +62,13 @@ class DecodeEngine:
 
         nl, k = cfg.num_layers, cfg.ssm_conv
         cache: Cache = {"cur": torch.zeros((batch,), dtype=torch.int32, device=dev)}
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe", "audio"):
             cache.update(kv(nl))
+        elif cfg.family == "vlm":
+            n_cross = num_cross_layers(cfg)
+            cache.update(kv(nl - n_cross))
+            shape = (n_cross, batch, cfg.num_image_tokens, cfg.num_kv_heads, cfg.head_dim)
+            cache.update(img_k=zeros(*shape), img_v=zeros(*shape))
         else:
             cache.update(conv_x=zeros(nl, batch, k - 1, cfg.ssm_inner),
                          conv_b=zeros(nl, batch, k - 1, cfg.ssm_state),
@@ -94,6 +107,34 @@ class DecodeEngine:
         out = L.decode_attention(q, kc, vc, cur + 1).reshape(b, 1, cfg.attn_dim)
         return x + out @ blk["attn"]["wo"].to(x.dtype)
 
+    def _cross_q(self, h: torch.Tensor, cblk: Dict) -> torch.Tensor:
+        """A cross layer's q (B, S, H, hd) of normed input ``h``: qk-normed,
+        no RoPE."""
+        cfg = self.cfg
+        b, s = h.shape[:2]
+        q = (h @ cblk["attn"]["wq"].to(h.dtype)).reshape(b, s, cfg.num_heads, cfg.head_dim)
+        if cfg.qk_norm:
+            q = L.rms_norm(q, cblk["attn"]["q_norm"], cfg.norm_eps)
+        return q
+
+    def _cross_decode(self, model: Model, x: torch.Tensor, cblk: Dict, ik: torch.Tensor,
+                      iv: torch.Tensor) -> torch.Tensor:
+        """One token through a vlm cross layer against its cached image K/V
+        (B, n_img, KV, hd), all of which it attends to."""
+        cfg = self.cfg
+        b = x.shape[0]
+        q = self._cross_q(L.rms_norm(x, cblk["attn_norm"], cfg.norm_eps), cblk)
+        n_img = torch.full((b,), ik.shape[1], dtype=torch.int32, device=x.device)
+        out = L.decode_attention(q, ik, iv, n_img).reshape(b, 1, cfg.attn_dim)
+        return model.gated(x, cblk, out @ cblk["attn"]["wo"].to(x.dtype))
+
+    def _mlp_or_moe(self, model: Model, x: torch.Tensor, blk: Dict) -> torch.Tensor:
+        """The layer's MLP, or the moe family's experts, pre-norm and residual."""
+        if "moe" in blk:
+            out, _ = model.experts(L.rms_norm(x, blk["mlp_norm"], self.cfg.norm_eps), blk)
+            return x + out
+        return model.mlp(x, blk)
+
     def _mamba(self, x: torch.Tensor, blk: Dict, cache: Cache, i: int,
                step: bool) -> torch.Tensor:
         """Layer i's Mamba2 block: one decode step against the cache
@@ -113,17 +154,24 @@ class DecodeEngine:
 
     def decode_step(self, model: Model, cache: Cache,
                     batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Cache]:
-        """batch: tokens (B, 1).  Returns (logits (B, 1, V), cache), the
-        cache updated in place: this token's K/V written at ``cur``, the
-        SSM states advanced, and ``cur`` advanced by one."""
+        """batch: tokens (B, 1), or frame_embeds (B, 1, d) for a frame-input
+        model.  Returns (logits (B, 1, V), cache), the cache updated in
+        place: this token's K/V written at ``cur``, the SSM states advanced,
+        and ``cur`` advanced by one."""
+        cfg = self.cfg
         cur = cache["cur"]
-        x = model.embed_tokens(batch["tokens"])
-        fam = self.cfg.family
+        x = model.inputs(batch)
+        fam = cfg.family
         shared = model.shared_layer() if fam == "hybrid" else None
+        cross = model.cross_layers() if fam == "vlm" else []
         for i, blk in enumerate(model.layers()):
-            if fam == "dense":
+            if fam not in ("ssm", "hybrid"):
                 x = self._attn_decode(x, blk, cache["k"][i], cache["v"][i], cur)
-                x = model.mlp(x, blk)
+                x = self._mlp_or_moe(model, x, blk)
+                if cross and (i + 1) % cfg.cross_attn_every == 0:
+                    g = i // cfg.cross_attn_every
+                    x = self._cross_decode(model, x, cross[g], cache["img_k"][g],
+                                           cache["img_v"][g])
                 continue
             if shared is not None and model.shared_before(i):
                 g = i // self.cfg.attn_every
@@ -145,7 +193,7 @@ class DecodeEngine:
         (B, 1, V) — what serving needs; it avoids the (B, S, V) tensor.
         """
         cfg = self.cfg
-        x = model.embed_tokens(batch["tokens"])
+        x = model.inputs(batch)
         b, s = x.shape[:2]
         max_len = max_len or s
         if max_len < s:
@@ -160,17 +208,34 @@ class DecodeEngine:
             out = L.flash_attention(q, k, v, causal=True)
             kc[:, :s] = k
             vc[:, :s] = v
-            x = x + out.reshape(b, s, cfg.attn_dim) @ blk["attn"]["wo"].to(x.dtype)
-            return model.mlp(x, blk)
+            return x + out.reshape(b, s, cfg.attn_dim) @ blk["attn"]["wo"].to(x.dtype)
 
-        shared = model.shared_layer() if cfg.family == "hybrid" else None
+        def cross_attention(x, cblk, ik, iv):
+            # The image K/V into the cache, then the flash kernel non-causal
+            # over all of them.
+            kv = model.image_kv(cblk, images)
+            ik.copy_(kv[0])
+            iv.copy_(kv[1])
+            q = self._cross_q(L.rms_norm(x, cblk["attn_norm"], cfg.norm_eps), cblk)
+            out = L.flash_attention(q, *kv, causal=False).reshape(b, s, cfg.attn_dim)
+            return model.gated(x, cblk, out @ cblk["attn"]["wo"].to(x.dtype))
+
+        fam = cfg.family
+        shared = model.shared_layer() if fam == "hybrid" else None
+        cross = model.cross_layers() if fam == "vlm" else []
+        if cross:
+            images = batch["image_embeds"].to(x.dtype)
         for i, blk in enumerate(model.layers()):
-            if cfg.family == "dense":
-                x = attention(x, blk, cache["k"][i], cache["v"][i])
+            if fam not in ("ssm", "hybrid"):
+                x = self._mlp_or_moe(model, attention(x, blk, cache["k"][i], cache["v"][i]), blk)
+                if cross and (i + 1) % cfg.cross_attn_every == 0:
+                    g = i // cfg.cross_attn_every
+                    x = cross_attention(x, cross[g], cache["img_k"][g], cache["img_v"][g])
                 continue
             if shared is not None and model.shared_before(i):
                 g = i // cfg.attn_every
-                x = attention(x, shared, cache["shared"]["k"][g], cache["shared"]["v"][g])
+                x = model.mlp(attention(x, shared, cache["shared"]["k"][g],
+                                        cache["shared"]["v"][g]), shared)
             x = self._mamba(x, blk, cache, i, step=False)
         if last_only:
             x = x[:, -1:, :]

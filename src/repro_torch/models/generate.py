@@ -3,9 +3,12 @@
     python -m repro_torch.models.generate [arch] [--full] [--device cpu]
 
 Prefill of 4 seeded prompts of 24 tokens, argmax, then 15 one-token decode
-steps, as the example runs them.  The reduced config of ``arch`` (default
-qwen3-8b) runs unless ``--full`` asks for the published one; it runs on the
-card unless ``--device cpu``.
+steps, as the example runs them: a vlm model also takes seeded image
+embeddings, and a frame-input model (musicgen) takes 24 seeded prompt frames
+and one seeded frame a decode step in place of the tokens, and returns the
+argmax codes.  The reduced config of ``arch`` (default qwen3-8b) runs unless
+``--full`` asks for the published one; it runs on the card unless
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -36,29 +39,42 @@ def _sync(device: torch.device) -> None:
 
 
 @torch.inference_mode()
-def greedy_generate(engine: DecodeEngine, tokens: torch.Tensor, gen: int, *,
-                    max_len: Optional[int] = None) -> Generation:
+def greedy_generate(engine: DecodeEngine, tokens: Optional[torch.Tensor], gen: int, *,
+                    max_len: Optional[int] = None, image_embeds: Optional[torch.Tensor] = None,
+                    frame_embeds: Optional[torch.Tensor] = None) -> Generation:
     """Greedy-decode ``gen`` tokens after the prompt ``tokens`` (B, P): prefill,
-    argmax, then ``gen - 1`` decode steps.  The cache is allocated at
+    argmax, then ``gen - 1`` decode steps, each fed the last pick.  A vlm
+    model takes ``image_embeds`` (B, n_img, d) with the prompt.  A
+    frame-input model takes ``frame_embeds`` (B, P + gen - 1, d) in place of
+    ``tokens`` (pass None): the prompt's P frames, then one frame a decode
+    step; its picks are the argmax codes.  The cache is allocated at
     ``max_len`` (default P + gen).  Both phases are timed on the host clock,
     each ending in a device synchronise."""
     model = engine.model
-    b, p = tokens.shape
-    _sync(tokens.device)
+    if frame_embeds is not None:
+        b, p = frame_embeds.shape[0], frame_embeds.shape[1] - (gen - 1)
+        batch = {"frame_embeds": frame_embeds[:, :p]}
+    else:
+        (b, p), batch = tokens.shape, {"tokens": tokens}
+    if image_embeds is not None:
+        batch["image_embeds"] = image_embeds
+    device = next(iter(batch.values())).device
+    _sync(device)
     t0 = time.perf_counter()
-    logits, cache = engine.prefill(model, {"tokens": tokens}, max_len=max_len or p + gen,
-                                   last_only=True)
+    logits, cache = engine.prefill(model, batch, max_len=max_len or p + gen, last_only=True)
     step_logits = [logits[:, -1]]
     tok = logits[:, -1:].argmax(dim=-1).to(torch.int32)
-    _sync(tokens.device)
+    _sync(device)
     t1 = time.perf_counter()
     out = [tok]
-    for _ in range(gen - 1):
-        logits, cache = engine.decode_step(model, cache, {"tokens": tok})
+    for t in range(gen - 1):
+        step = ({"frame_embeds": frame_embeds[:, p + t:p + t + 1]} if frame_embeds is not None
+                else {"tokens": tok})
+        logits, cache = engine.decode_step(model, cache, step)
         step_logits.append(logits[:, -1])
         tok = logits.argmax(dim=-1).to(torch.int32)
         out.append(tok)
-    _sync(tokens.device)
+    _sync(device)
     return Generation(torch.cat(out, dim=1), step_logits, t1 - t0, time.perf_counter() - t1)
 
 
@@ -77,9 +93,16 @@ def main(argv=None) -> int:
     cfg = configs.get(args.arch) if args.full else configs.get_reduced(args.arch)
     model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
     b, p, gen = 4, 24, 16
-    prompt = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (b, p)).astype(np.int32)).to(dev)
-    out = greedy_generate(DecodeEngine(model), prompt, gen)
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, p)).astype(np.int32)).to(dev)
+    extra = {}
+    if cfg.family == "vlm":
+        extra["image_embeds"] = torch.from_numpy(rng.normal(
+            size=(b, cfg.num_image_tokens, cfg.d_model)).astype(np.float32)).to(dev)
+    if cfg.frame_inputs:
+        prompt, extra["frame_embeds"] = None, torch.from_numpy(rng.normal(
+            size=(b, p + gen - 1, cfg.d_model)).astype(np.float32)).to(dev)
+    out = greedy_generate(DecodeEngine(model), prompt, gen, **extra)
     print(f"{cfg.name} on {dev}: {model.num_params():,} parameters; prefilled {p} tokens x "
           f"{b} in {out.prefill_s:.3f} s ({b * p / out.prefill_s:.1f} tokens/s), greedy-"
           f"decoded {gen} tokens per sequence ({gen - 1} steps in {out.decode_s:.3f} s, "

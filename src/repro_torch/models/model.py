@@ -1,5 +1,5 @@
-"""The decoder LM of the port: the dense, ssm and hybrid families of
-``repro.models.model``.
+"""The decoder LM of the port: the six families of ``repro.models.model``
+(dense, moe, ssm, hybrid, vlm, audio).
 
 :class:`Model` is an ``nn.Module`` holding the reference's parameter tree
 with the same names and shapes, leaves stacked per layer along axis 0
@@ -7,8 +7,9 @@ with the same names and shapes, leaves stacked per layer along axis 0
 leaf for leaf (:func:`repro_torch.models.convert.params_from_numpy`).  It
 provides the seeded init, ``param_shapes()``, ``num_params()``,
 ``num_active_params()``, ``forward`` returning ``(logits, aux)`` and
-``loss`` (next-token cross-entropy, the reference's); ``DecodeEngine``
-(``models/decode.py``) adds the KV-cache serving path.
+``loss`` (next-token cross-entropy plus the MoE auxiliary terms, the
+reference's); ``DecodeEngine`` (``models/decode.py``) adds the KV-cache
+serving path.
 
 Parameters stay in ``param_dtype`` and are cast to the compute type where
 they are used, as the reference does; no cast copy is kept.  They are
@@ -22,9 +23,17 @@ The ssm family (mamba2-2.7b) is a stack of pre-norm Mamba2 blocks
 attention + MLP block (``shared_attn``, leaves with a leading dim of 1)
 before every group of ``attn_every`` Mamba2 layers and none before the tail
 layers; as in the reference, remat covers the Mamba2 layers and not the
-shared block.  The moe, vlm and audio families and ``param_specs`` wait
-(ROADMAP Queue 1 items 13b and 11).  The model runs on the card unless the
-caller passes ``device="cpu"``.
+shared block.  The moe family (phi3.5-moe, arctic) replaces the MLP by the
+routed experts of ``models/moe.py`` (arctic adds a dense MLP beside them);
+remat covers attention and experts together, and ``forward`` returns the
+layers' mean of the aux metrics.  The vlm family (llama-3.2-vision) runs
+one gated cross-attention + MLP block (``cross_blocks``, ``gate`` starting
+at zero) over ``batch["image_embeds"]`` after every ``cross_attn_every``
+self layers: no RoPE, non-causal, outside remat.  The audio family
+(musicgen) is the dense decoder fed ``batch["frame_embeds"]`` in place of
+the embedding lookup (``embed`` is then unused).  ``param_specs`` waits for
+multi-GPU (ROADMAP Queue 1 item 11).  The model runs on the card unless
+the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -38,11 +47,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-FAMILIES = ("dense", "ssm", "hybrid")   # the families the port runs
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 Init = Union[int, str]                  # a fan (N(0, 1) / sqrt(fan)), "ones" or "zeros"
 
 
@@ -60,7 +70,11 @@ def param_layout(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], Init]]:
     if not cfg.tie_embeddings:
         layout["lm_head"] = ((d, v), d)
 
-    def attn_mlp(prefix: str, n: int) -> dict:
+    def mlp(prefix: str, n: int) -> dict:
+        return {f"{prefix}.w_gate": ((n, d, ff), d), f"{prefix}.w_up": ((n, d, ff), d),
+                f"{prefix}.w_down": ((n, ff, d), ff)}
+
+    def attn(prefix: str, n: int) -> dict:
         out = {
             f"{prefix}.attn_norm": ((n, d), "ones"),
             f"{prefix}.mlp_norm": ((n, d), "ones"),
@@ -68,14 +82,23 @@ def param_layout(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], Init]]:
             f"{prefix}.attn.wk": ((n, d, cfg.kv_dim), d),
             f"{prefix}.attn.wv": ((n, d, cfg.kv_dim), d),
             f"{prefix}.attn.wo": ((n, cfg.attn_dim, d), cfg.attn_dim),
-            f"{prefix}.mlp.w_gate": ((n, d, ff), d),
-            f"{prefix}.mlp.w_up": ((n, d, ff), d),
-            f"{prefix}.mlp.w_down": ((n, ff, d), ff),
         }
         if cfg.qk_norm:
             out[f"{prefix}.attn.q_norm"] = ((n, cfg.head_dim), "ones")
             out[f"{prefix}.attn.k_norm"] = ((n, cfg.head_dim), "ones")
         return out
+
+    def attn_mlp(prefix: str, n: int) -> dict:
+        return {**attn(prefix, n), **mlp(f"{prefix}.mlp", n)}
+
+    def moe(n: int) -> dict:
+        # The reference's dense() takes shape[-2] as the fan: d for the
+        # router and the (E, d, F) experts, F for w_down.
+        e, f = cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
+        return {"blocks.moe.router": ((n, d, e), d),
+                "blocks.moe.w_gate": ((n, e, d, f), d),
+                "blocks.moe.w_up": ((n, e, d, f), d),
+                "blocks.moe.w_down": ((n, e, f, d), f)}
 
     def mamba(n: int) -> dict:
         din, ns, h, k = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv
@@ -96,26 +119,47 @@ def param_layout(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], Init]]:
             "blocks.mamba.w_out": ((n, din, d), din),
         }
 
-    if cfg.family == "dense":
+    fam = cfg.family
+    if fam in ("dense", "audio"):
         layout.update(attn_mlp("blocks", nl))
-    elif cfg.family == "ssm":
+    elif fam == "moe":
+        layout.update(attn("blocks", nl))
+        layout.update(moe(nl))
+        if cfg.dense_residual:
+            layout.update(mlp("blocks.dense_mlp", nl))
+    elif fam == "ssm":
         layout.update(mamba(nl))
-    elif cfg.family == "hybrid":
+    elif fam == "hybrid":
         layout.update(mamba(nl))
         layout.update(attn_mlp("shared_attn", 1))
+    elif fam == "vlm":
+        n_cross = num_cross_layers(cfg)
+        n_self = nl - n_cross
+        assert n_self == n_cross * cfg.cross_attn_every, (
+            "vlm layer count must decompose as n_cross * (cross_attn_every + 1)")
+        layout.update(attn_mlp("blocks", n_self))
+        layout.update(attn_mlp("cross_blocks", n_cross))
+        layout["cross_blocks.gate"] = ((n_cross,), "zeros")
     else:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 13b); the port "
-            f"runs the {', '.join(FAMILIES)} families")
+        raise ValueError(f"unknown family {fam!r}; one of {FAMILIES}")
     return layout
+
+
+def num_cross_layers(cfg: ModelConfig) -> int:
+    """The vlm family's number of cross-attention layers (of num_layers)."""
+    return cfg.num_layers // (cfg.cross_attn_every + 1) if cfg.family == "vlm" else 0
 
 
 def attention_applications(cfg: ModelConfig) -> int:
     """How many times a forward pass runs attention: once a layer in the
-    dense family, never in the ssm family, once a group of ``attn_every``
+    dense, moe, audio and vlm families (the vlm's cross-attention layers
+    included), never in the ssm family, once a group of ``attn_every``
     layers (the shared block) in the hybrid family."""
-    return {"dense": cfg.num_layers, "ssm": 0,
-            "hybrid": cfg.num_layers // max(cfg.attn_every, 1)}[cfg.family]
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.attn_every
+    return cfg.num_layers
 
 
 def nest(named) -> Dict:
@@ -136,6 +180,19 @@ def param_count(cfg: ModelConfig) -> int:
     return sum(math.prod(shape) for shape, _ in param_layout(cfg).values())
 
 
+def active_param_count(cfg: ModelConfig) -> int:
+    """Active parameters per token, without building the model: the routed
+    experts' leaves count k / E of their size (floored, as the reference's
+    ``num_active_params``)."""
+    total = 0
+    for name, (shape, _) in param_layout(cfg).items():
+        size = math.prod(shape)
+        if name.startswith("blocks.moe.w_"):
+            size = size * cfg.experts_per_token // cfg.num_experts
+        total += size
+    return total
+
+
 def param_shapes(cfg: ModelConfig) -> Dict:
     """The parameter tree of ``Model(cfg)`` with shapes and dtypes only
     (tensors on the ``meta`` device), as the reference's ``eval_shape`` of
@@ -146,9 +203,11 @@ def param_shapes(cfg: ModelConfig) -> Dict:
 
 
 class Model(nn.Module):
-    """Pre-norm decoder for ``cfg``: dense (GQA + SwiGLU, optional qk-norm),
-    ssm (Mamba2) or hybrid (Mamba2 and a shared attention + MLP block), with
-    a tied or separate head, initialised from ``generator`` (a
+    """Pre-norm decoder for ``cfg``: dense or audio (GQA + SwiGLU, optional
+    qk-norm), moe (routed experts in place of the MLP), ssm (Mamba2), hybrid
+    (Mamba2 and a shared attention + MLP block) or vlm (gated
+    cross-attention layers among the self layers), with a tied or separate
+    head, initialised from ``generator`` (a
     ``torch.Generator`` on ``device``; seed 0 when omitted) with the
     reference's distribution (:func:`param_layout`).  The numbers differ
     from ``jax.random``'s; load the reference's parameters with
@@ -157,7 +216,7 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        layout = param_layout(cfg)   # raises for a family the port does not run
+        layout = param_layout(cfg)
         self.cfg = cfg.validate()
         dev = resolve_device(device)
         pdt = dtype_of(cfg.param_dtype)
@@ -195,13 +254,20 @@ class Model(nn.Module):
         return param_shapes(self.cfg)
 
     def num_active_params(self) -> int:
-        """Active parameters per token: all of them in the ported families
-        (the MoE family's expert discount comes with it, ROADMAP item 13b)."""
-        return param_count(self.cfg)
+        """Active parameters per token (the moe family discounts its
+        inactive experts)."""
+        return active_param_count(self.cfg)
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         # Gathering before the cast gives the reference's embed.astype(cdt)[tokens].
         return self.embed[tokens].to(dtype_of(self.cfg.dtype))
+
+    def inputs(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The first layer's input: ``frame_embeds`` (B, S, d) in the compute
+        type for a frame-input model, else the embedded ``tokens``."""
+        if self.cfg.frame_inputs:
+            return batch["frame_embeds"].to(dtype_of(self.cfg.dtype))
+        return self.embed_tokens(batch["tokens"])
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm and the output projection: (B, S, d) -> (B, S, V)."""
@@ -215,15 +281,64 @@ class Model(nn.Module):
         return x + L.swiglu(h, blk["mlp"]["w_gate"], blk["mlp"]["w_up"],
                             blk["mlp"]["w_down"])
 
-    def block(self, x: torch.Tensor, blk: Dict, triangle: bool = False) -> torch.Tensor:
-        """One decoder layer: attention and MLP, each pre-norm and residual."""
+    def attend(self, x: torch.Tensor, blk: Dict, triangle: bool = False, *,
+               kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+        """Pre-norm attention over x, or over ``kv`` (cross-attention:
+        non-causal, no RoPE), without the residual."""
         cfg = self.cfg
-        x = x + L.attention_block(
+        return L.attention_block(
             L.rms_norm(x, blk["attn_norm"], cfg.norm_eps), blk["attn"],
             num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
             head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-            qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps, triangle_schedule=triangle)
-        return self.mlp(x, blk)
+            qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps, kv_override=kv,
+            triangle_schedule=triangle)
+
+    def block(self, x: torch.Tensor, blk: Dict, triangle: bool = False) -> torch.Tensor:
+        """One decoder layer: attention and MLP, each pre-norm and residual."""
+        return self.mlp(x + self.attend(x, blk, triangle), blk)
+
+    def experts(self, h: torch.Tensor, blk: Dict) -> Tuple[torch.Tensor, dict]:
+        """The moe family's MLP on normed ``h``: the routed experts, plus the
+        dense MLP beside them when ``dense_residual`` (arctic).  Returns
+        (out, aux metrics)."""
+        cfg = self.cfg
+        out, aux = moe_lib.moe_block(h, blk["moe"], num_experts=cfg.num_experts,
+                                     k=cfg.experts_per_token,
+                                     capacity_factor=cfg.capacity_factor)
+        if cfg.dense_residual:
+            dense = blk["dense_mlp"]
+            out = out + L.swiglu(h, dense["w_gate"], dense["w_up"], dense["w_down"])
+        return out, aux
+
+    def moe_layer(self, x: torch.Tensor, blk: Dict,
+                  triangle: bool = False) -> Tuple[torch.Tensor, dict]:
+        """One moe layer: attention, then the experts, each pre-norm and
+        residual.  Returns (x, aux metrics)."""
+        x = x + self.attend(x, blk, triangle)
+        out, aux = self.experts(L.rms_norm(x, blk["mlp_norm"], self.cfg.norm_eps), blk)
+        return x + out, aux
+
+    def image_kv(self, cblk: Dict, image_embeds: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A cross layer's K and V (B, n_img, KV, hd) of the image embeddings
+        (in the compute type)."""
+        cfg = self.cfg
+        b, n = image_embeds.shape[:2]
+        return tuple((image_embeds @ cblk["attn"][w].to(image_embeds.dtype))
+                     .reshape(b, n, cfg.num_kv_heads, cfg.head_dim) for w in ("wk", "wv"))
+
+    def gated(self, x: torch.Tensor, cblk: Dict, h: torch.Tensor) -> torch.Tensor:
+        """The rest of a cross layer after its attention output ``h`` (after
+        wo): x + tanh(gate) h, then the MLP's output scaled by the same gate."""
+        gate = torch.tanh(cblk["gate"]).to(x.dtype)
+        x = x + gate * h
+        mlp = cblk["mlp"]
+        return x + gate * L.swiglu(L.rms_norm(x, cblk["mlp_norm"], self.cfg.norm_eps),
+                                   mlp["w_gate"], mlp["w_up"], mlp["w_down"])
+
+    def cross_block(self, x: torch.Tensor, cblk: Dict,
+                    image_embeds: torch.Tensor) -> torch.Tensor:
+        """One vlm cross layer over ``image_embeds`` (B, n_img, d)."""
+        return self.gated(x, cblk, self.attend(x, cblk, kv=self.image_kv(cblk, image_embeds)))
 
     def mamba_layer(self, x: torch.Tensor, blk: Dict) -> torch.Tensor:
         """One Mamba2 layer of the ssm and hybrid families, pre-norm and
@@ -235,14 +350,17 @@ class Model(nn.Module):
         return x + h
 
     def layers(self) -> list:
-        """Every layer's parameters as the reference's per-layer dicts (dense:
-        ``{"attn_norm", "mlp_norm", "attn": {...}, "mlp": {...}}``; ssm and
-        hybrid: ``{"norm", "mamba": {...}}``), views from one ``unbind`` of
-        each stacked leaf (so a backward writes each stacked gradient once,
-        not once a layer)."""
-        parts = {name: p.unbind(0) for name, p in self.blocks.named_parameters()}
-        return [nest((name, views[i]) for name, views in parts.items())
-                for i in range(self.cfg.num_layers)]
+        """Every layer of ``blocks`` as the reference's per-layer dicts (dense,
+        audio and the vlm's self layers: ``{"attn_norm", "mlp_norm", "attn":
+        {...}, "mlp": {...}}``; moe: ``"moe"`` (and ``"dense_mlp"``) in place
+        of ``"mlp"``; ssm and hybrid: ``{"norm", "mamba": {...}}``), as
+        :func:`_per_layer` gives them."""
+        return _per_layer(self.blocks)
+
+    def cross_layers(self) -> list:
+        """The vlm family's cross layers as per-layer dicts (``{"attn_norm",
+        "attn", "gate", "mlp_norm", "mlp"}``), as :meth:`layers`."""
+        return _per_layer(self.cross_blocks)
 
     def shared_layer(self) -> Dict:
         """The hybrid family's shared attention + MLP block as a per-layer
@@ -257,29 +375,50 @@ class Model(nn.Module):
 
     def forward(self, batch: Dict[str, torch.Tensor], *,
                 triangle: bool = False) -> Tuple[torch.Tensor, dict]:
-        """batch: tokens (B, S).  Returns (logits (B, S, V), aux metrics).
+        """batch: tokens (B, S), or frame_embeds (B, S, d) for a frame-input
+        model, and image_embeds (B, n_img, d) for the vlm family.  Returns
+        (logits (B, S, V), aux metrics: the moe family's ``moe_aux_loss``,
+        ``moe_z_loss`` and ``moe_dropped``, each the mean over layers).
         ``triangle`` is the reference's lower-triangle attention schedule."""
-        fam = self.cfg.family
-        x = self.embed_tokens(batch["tokens"])
-        remat = self.cfg.remat and torch.is_grad_enabled() and any(
+        cfg = self.cfg
+        fam = cfg.family
+        x = self.inputs(batch)
+        remat = cfg.remat and torch.is_grad_enabled() and any(
             p.requires_grad for p in self.parameters())
-        layer = self.block if fam == "dense" else self.mamba_layer
-        extra = (triangle,) if fam == "dense" else ()
-        shared = self.shared_layer() if fam == "hybrid" else None
-        for i, blk in enumerate(self.layers()):
-            if shared is not None and self.shared_before(i):
-                x = self.block(x, shared, triangle)
-            if remat:
-                x = checkpoint(layer, x, blk, *extra, use_reentrant=False)
-            else:
-                x = layer(x, blk, *extra)
-        return self.head(x), {}
+
+        def run(layer, *args):
+            return checkpoint(layer, *args, use_reentrant=False) if remat else layer(*args)
+
+        aux: dict = {}
+        if fam in ("ssm", "hybrid"):
+            shared = self.shared_layer() if fam == "hybrid" else None
+            for i, blk in enumerate(self.layers()):
+                if shared is not None and self.shared_before(i):
+                    x = self.block(x, shared, triangle)
+                x = run(self.mamba_layer, x, blk)
+        elif fam == "moe":
+            for blk in self.layers():
+                x, layer_aux = run(self.moe_layer, x, blk, triangle)
+                aux = {k: aux.get(k, 0.0) + v.float() for k, v in layer_aux.items()}
+            aux = {k: v / cfg.num_layers for k, v in aux.items()}
+        else:
+            cross = self.cross_layers() if fam == "vlm" else []
+            if cross:
+                images = batch["image_embeds"].to(dtype_of(cfg.dtype))
+            for i, blk in enumerate(self.layers()):
+                x = run(self.block, x, blk, triangle)
+                if cross and (i + 1) % cfg.cross_attn_every == 0:
+                    x = self.cross_block(x, cross[i // cfg.cross_attn_every], images)
+        return self.head(x), aux
 
     def loss(self, batch: Dict[str, torch.Tensor], *,
              triangle: bool = False) -> Tuple[torch.Tensor, dict]:
         """Next-token cross-entropy over float32 logits: the mean of
         logsumexp - gold logit, or its ``loss_mask``-weighted mean.  batch:
-        tokens and labels (B, S), integer.  Returns (loss, {"nll", "loss"})."""
+        tokens (or frame_embeds, and image_embeds, as :meth:`forward` takes
+        them) and labels (B, S), integer.  The moe family adds
+        ``aux_loss_coef * moe_aux_loss + router_z_coef * moe_z_loss``.
+        Returns (loss, {"nll", "loss"} and the aux metrics)."""
         logits, aux = self.forward(batch, triangle=triangle)
         logits = logits.float()
         logz = torch.logsumexp(logits, dim=-1)
@@ -292,5 +431,18 @@ class Model(nn.Module):
             mask = mask.float()
             loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
         metrics = {"nll": loss, **aux}
+        if "moe_aux_loss" in aux:
+            cfg = self.cfg
+            loss = loss + cfg.aux_loss_coef * aux["moe_aux_loss"] \
+                + cfg.router_z_coef * aux["moe_z_loss"]
         metrics["loss"] = loss
         return loss, metrics
+
+
+def _per_layer(stack: nn.Module) -> list:
+    """Views of each of ``stack``'s stacked leaves, one nested dict a layer,
+    from one ``unbind`` of each leaf (so a backward writes each stacked
+    gradient once, not once a layer)."""
+    parts = {name: p.unbind(0) for name, p in stack.named_parameters()}
+    n = len(next(iter(parts.values())))
+    return [nest((name, views[i]) for name, views in parts.items()) for i in range(n)]

@@ -64,16 +64,21 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig, *, microbatches: int
     Gradients are clipped by their global norm, then the optimizer updates;
     metrics gain ``grad_norm`` and ``lr``."""
 
+    def grad(loss, flat):
+        # A leaf the loss does not reach (a frame-input model's embed) gets
+        # zeros, as under jax.grad, so the optimizer still decays it.
+        return torch.autograd.grad(loss, flat, allow_unused=True, materialize_grads=True)
+
     def grads_of(flat, batch):
         if microbatches == 1:
             loss, metrics = model.loss(batch, triangle=triangle)
-            return loss, metrics, torch.autograd.grad(loss, flat)
+            return loss, metrics, grad(loss, flat)
         size = next(iter(batch.values())).shape[0] // microbatches
         loss_acc = metrics_acc = g_acc = None
         for i in range(microbatches):
             mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
             loss, metrics = model.loss(mb, triangle=triangle)
-            grads = torch.autograd.grad(loss, flat)
+            grads = grad(loss, flat)
             if g_acc is None:
                 loss_acc = torch.zeros((), dtype=torch.float32, device=loss.device)
                 metrics_acc = {k: torch.zeros_like(m) for k, m in metrics.items()}

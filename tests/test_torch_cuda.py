@@ -757,7 +757,12 @@ FLASH_SHAPES = [  # sq, sk, causal, group (H / KV), KV
     (191, 193, True, 3, 1), (193, 191, False, 4, 2), (385, 384, True, 8, 1),
     # the 3xTF32 instance's 32- and 64-key tiles (32 at D = 128), Sk % 8 != 0
     (31, 33, True, 3, 2), (33, 31, False, 1, 1), (65, 63, True, 8, 1), (64, 97, False, 4, 2),
-    (96, 95, True, 1, 2)]
+    (96, 95, True, 1, 2),
+    # arctic's GQA group of 7; the vision model's non-causal cross-attention
+    # over 1,600 image tokens (12.5 key tiles: a partial last one) from 1,024
+    # and 2,048 queries; musicgen's 24 MHA heads
+    (100, 130, True, 7, 1), (129, 257, False, 7, 2), (1024, 1600, False, 4, 2),
+    (2048, 1600, False, 4, 1), (150, 150, True, 1, 24)]
 
 
 def _flash_operands(dev, dtype, d, sq, sk, group, kv):
@@ -869,6 +874,29 @@ def test_flash_attention_kernel_at_a_zamba2_layer(exact_f32, dtype, b, s):
                for _ in range(3))
     got = flash_kernel.flash_attention_cuda(q, k, v, causal=True)
     want = ref.flash_attention_ref(q, k, v, causal=True, triangle=True)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+FAMILY_FWD_SHAPES = {  # b, sq, sk, heads, kv heads, d, causal
+    "vision cross-attention": (4, 1024, 1600, 32, 8, 128, False),
+    "musicgen layer": (4, 1500, 1500, 24, 24, 64, True),
+    "arctic layer": (4, 1024, 1024, 56, 8, 128, True)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", list(FAMILY_FWD_SHAPES))
+def test_flash_attention_kernel_at_the_family_shapes(exact_f32, dtype, shape):
+    """The moe, vlm and audio families' serving shapes: llama-3.2-vision's
+    cross-attention (non-causal, 1,600 image keys), musicgen's 24 MHA heads
+    of 64, arctic's 56 heads on 8 KV heads."""
+    b, sq, sk, h, kv, d, causal = FAMILY_FWD_SHAPES[shape]
+    gen = torch.Generator(device=exact_f32).manual_seed(13)
+    q = torch.randn((b, sq, h, d), generator=gen, device=exact_f32).to(dtype)
+    k, v = (torch.randn((b, sk, kv, d), generator=gen, device=exact_f32).to(dtype)
+            for _ in range(2))
+    got = flash_kernel.flash_attention_cuda(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, triangle=causal)
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
@@ -1046,7 +1074,11 @@ BWD_SHAPES = [  # sq, sk, causal, group (H / KV), KV
     (257, 257, True, 3, 1), (257, 257, False, 4, 2),
     # Sq != Sk both ways; causal with Sk > Sq leaves key blocks no q row sees
     (128, 257, True, 3, 1), (257, 128, True, 4, 1), (63, 200, False, 1, 2),
-    (200, 63, False, 3, 1), (1, 300, True, 4, 1), (129, 255, True, 1, 2)]
+    (200, 63, False, 3, 1), (1, 300, True, 4, 1), (129, 255, True, 1, 2),
+    # a GQA group of 7, non-causal Sk = 1,600 against 1,024 and 2,048 queries,
+    # 24 MHA heads (phases 17-19's shapes, cut in batch)
+    (100, 130, True, 7, 1), (129, 257, False, 7, 2), (1024, 1600, False, 4, 2),
+    (2048, 1600, False, 4, 1), (150, 150, True, 1, 24)]
 
 
 def _bwd_operands(dev, dtype, d, sq, sk, group, kv, causal):
@@ -1134,6 +1166,21 @@ def test_flash_attention_bwd_kernel_at_a_zamba2_layer(dev):
     out, lse = flash_kernel.flash_attention_cuda(q, k, v, return_lse=True)
     got = flash_kernel.flash_attention_bwd_cuda(q, k, v, out, lse, do)
     want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, triangle=True)
+    assert _bwd_within(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal", [
+    (2, 2048, 1600, 32, 8, 128, False),     # the vision model's cross layer in training
+    (4, 1500, 1500, 24, 24, 64, True)])     # musicgen's layer in training
+def test_flash_attention_bwd_kernel_at_the_family_shapes(dev, b, sq, sk, h, kv, d, causal):
+    gen = torch.Generator(device=dev).manual_seed(14)
+    q, do = (torch.randn((b, sq, h, d), generator=gen, device=dev).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn((b, sk, kv, d), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    out, lse = flash_kernel.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+    got = flash_kernel.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal, triangle=causal)
     assert _bwd_within(got, want, torch.bfloat16)
 
 

@@ -38,7 +38,7 @@ from repro_torch.store import CorpusStore
 from repro_torch import configs
 from repro_torch.configs import shapes
 from repro_torch.kernels import flash_attention
-from repro_torch.models import DecodeEngine, Model, convert, generate, ssm
+from repro_torch.models import DecodeEngine, Model, convert, generate, moe, ssm
 from repro_torch import train, distributed
 from repro_torch.data import loader
 from repro_torch.launch import train as launch_train

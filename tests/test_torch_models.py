@@ -31,6 +31,11 @@ from repro_torch.models.model import param_count
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, PROMPT, S = 2, 24, 32
+# The token-input archs without aux metrics (dense, ssm, hybrid); the moe,
+# vlm and audio archs are held to the reference in tests/test_torch_moe.py
+# and tests/test_torch_vlm_audio.py.
+TOKEN_ARCHS = ["smollm-135m", "qwen3-8b", "minitron-8b", "internlm2-20b", "zamba2-7b",
+               "mamba2-2.7b"]
 
 
 def _leaves(tree, prefix=""):
@@ -47,7 +52,7 @@ def _leaves(tree, prefix=""):
 @pytest.fixture(scope="module")
 def built():
     out = {}
-    for name in configs.ARCHS:
+    for name in TOKEN_ARCHS:
         jcfg = jconfigs.get_reduced(name)
         jmodel = JModel(jcfg)
         jparams = jmodel.init(jax.random.PRNGKey(0))
@@ -74,7 +79,7 @@ def test_param_counts_equal_the_reference(name):
     assert Model(reduced, device="cpu").num_params() == param_count(reduced)
 
 
-@pytest.mark.parametrize("name", configs.ARCHS)
+@pytest.mark.parametrize("name", TOKEN_ARCHS)
 def test_forward_matches_reference(built, name):
     jmodel, jparams, model, tokens = built[name]
     want, _ = jax.jit(jmodel.forward)(jparams, {"tokens": jnp.asarray(tokens)})
@@ -83,7 +88,7 @@ def test_forward_matches_reference(built, name):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("name", configs.ARCHS)
+@pytest.mark.parametrize("name", TOKEN_ARCHS)
 def test_prefill_and_decode_match_reference(built, name):
     """Prefill of a 24-token prompt (not a power of two) into a 32-slot
     cache, then 8 teacher-forced decode steps, against the reference's
@@ -110,7 +115,7 @@ def test_prefill_and_decode_match_reference(built, name):
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), **TOL, err_msg=key)
 
 
-@pytest.mark.parametrize("name", configs.ARCHS)
+@pytest.mark.parametrize("name", TOKEN_ARCHS)
 def test_greedy_generate_matches_the_reference_loop(built, name):
     """examples/serve_lm.py's loop (prefill, argmax, gen - 1 decode steps)
     in the JAX package against ``greedy_generate``."""
@@ -136,7 +141,7 @@ def test_greedy_generate_matches_the_reference_loop(built, name):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
 
 
-@pytest.mark.parametrize("name", configs.ARCHS)
+@pytest.mark.parametrize("name", TOKEN_ARCHS)
 def test_decode_matches_forward_teacher_forced(built, name):
     """The port's own cache check: decode steps reproduce the forward pass."""
     _, _, model, tokens = built[name]
@@ -223,25 +228,25 @@ def test_shapes_equal_the_reference():
 @pytest.mark.parametrize("name", ["zamba2-7b", "phi3.5-moe-42b-a6.6b", "arctic-480b",
                                   "mamba2-2.7b", "llama-3.2-vision-11b", "musicgen-medium"])
 def test_unported_archs_name_their_roadmap_item(name):
-    """The reference's six non-dense archs: the ssm and hybrid ones load and
-    equal the reference's configs; the moe, vlm and audio ones raise naming
-    ROADMAP Queue 1 item 13b."""
-    assert name in jconfigs.ARCHS
-    if name in ("zamba2-7b", "mamba2-2.7b"):
-        assert name in configs.ARCHS
-        assert dataclasses.asdict(configs.get(name)) == dataclasses.asdict(jconfigs.get(name))
-        return
-    assert name in configs.NOT_PORTED and name not in configs.ARCHS
-    with pytest.raises(KeyError, match="Queue 1 item 13b .the moe, vlm and audio modules"):
-        configs.get(name)
+    """The reference's six non-dense archs, which the port once lacked, are
+    all registered now, in the reference's order, and equal its configs
+    (full and reduced); a model of each builds on the CPU."""
+    assert configs.ARCHS == jconfigs.ARCHS and not hasattr(configs, "NOT_PORTED")
+    for get in ("get", "get_reduced"):
+        assert (dataclasses.asdict(getattr(configs, get)(name))
+                == dataclasses.asdict(getattr(jconfigs, get)(name)))
+    assert Model(configs.get_reduced(name), device="cpu").cfg.family == jconfigs.get(name).family
 
 
 def test_other_families_and_bad_trees_raise():
+    """Every family of the reference builds; an unknown one raises, and so do
+    parameter trees with a missing or misshapen leaf."""
     moe = ModelConfig(name="m", family="moe", num_layers=1, d_model=8, d_ff=8, vocab_size=8,
                       num_heads=2, num_kv_heads=1, head_dim=4, num_experts=2,
                       experts_per_token=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13b"):
-        Model(moe, device="cpu")
+    assert Model(moe, device="cpu").blocks.moe.w_gate.shape == (1, 2, 8, 8)
+    with pytest.raises(ValueError, match="unknown family 'rnn'"):
+        Model(dataclasses.replace(moe, family="rnn"), device="cpu")
     model = Model(configs.get_reduced("smollm-135m"), device="cpu")
     tree = {n: p.numpy() for n, p in model.named_parameters() if "." not in n}
     with pytest.raises(KeyError, match="missing"):

@@ -76,10 +76,15 @@ def test_loader_batches_are_the_references(arch, b, s, seed):
 
 
 def test_loader_needs_a_card_or_a_device_and_a_token_family(monkeypatch):
+    """A frame-input model's batch holds bf16 frame embeddings in place of
+    tokens (the vision batch is in tests/test_torch_vlm_audio.py); without
+    a card and without ``device`` the loader raises."""
     cfg = TC.get_reduced("smollm-135m")
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        SyntheticLMLoader(dataclasses.replace(cfg, frame_inputs=True), LoaderConfig(),
-                          device="cpu")
+    batch = next(SyntheticLMLoader(dataclasses.replace(cfg, frame_inputs=True),
+                                   LoaderConfig(batch_size=2, seq_len=8), device="cpu"))
+    assert set(batch) == {"frame_embeds", "labels"}
+    assert batch["frame_embeds"].dtype == torch.bfloat16
+    assert batch["frame_embeds"].shape == (2, 8, cfg.d_model)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SyntheticLMLoader(cfg, LoaderConfig())
