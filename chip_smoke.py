@@ -287,6 +287,25 @@ Phases (any failure raises, so the script exits non-zero):
    moe family's aux metrics, step ms, tokens/s, peak memory, launches).
    arctic trains on the CPU only: one layer's optimizer state (about 225
    GB) exceeds the card.
+20. The mesh drivers on ``torch.distributed`` (at most about 90 s), their
+   ranks processes of their own (this script with ``--mesh-child``, a
+   ``file://`` store, the collections written by this process, the kernels
+   built before they start): 4 gloo ranks sharing the card, then one NCCL
+   rank.  Through ``JoinEngine`` on a mesh of the ranks, the ring's ZIPF
+   self-join (tau = 0.8, b = 128: 25,500-row shards, the single rank's step
+   the whole 102,000² mask) must equal phase 4's blocked pairs, with its
+   per-device verified counters summing to them; sharded-indexed (phase
+   5's plan on 4 token slabs) its SKEWED self-join and four probes phase
+   5's pairs and ``JoinStats``; every rank the same, no fallback.  Cold
+   and warm walls per driver and run (under gloo they include the host
+   staging: not multi-GPU numbers).  Each path launches its kernels on
+   every rank (rows 1, 4, 5: ``candidate_matrix_mxu``; ``expand_filter``,
+   ``verdict_verify``) and no other verdict or postings kernel; those
+   three are held against their plain versions at the ring's shards and
+   at each slab's first chunk (sentinel-padded slabs, each rank's slice of
+   the gathered candidates) and timed there, and enter the kernels line a
+   second time under this phase's paths, their launches summed over the
+   runs' ranks.
 
 Kernel times are device times: CUDA events around 50 (20 for attention)
 back-to-back launches, a spin kernel queued first so that the host's
@@ -363,6 +382,12 @@ HAM_OPS = 3        # per pair: the Hamming distance from an inner product and tw
 POPC_PER_S = 132 * 16 * 1.98e9
 
 MAIN = dict(sim="jaccard", b=128, block=4096)
+# Phase 20, the mesh drivers: each run's ranks are processes of their own
+# (4 gloo ranks sharing the card, then one NCCL rank), ZIPF for the ring and
+# SKEWED for sharded-indexed at this tau; seconds each run may take.
+# forced_cap: a ring capacity per step that ZIPF's steps overflow (its 2,852
+# candidates over 16 steps put more than 128 in one of them).
+MESH = dict(tau=0.8, runs=(("gloo", 4), ("nccl", 1)), timeout=300, forced_cap=128)
 SKEWED_TAUS = (0.8, 0.6)
 WIDE_B = 1024      # the wide-bitmap paths (phases 7-8)
 SERVE = dict(requests=2048, flush_every=512, append_after=1024, after_compact=256,
@@ -818,9 +843,11 @@ class StageForms:
     """The two stage kernels, their plain versions and the unfused
     compositions (``impl``: the PyTorch ops around ``entry_filter`` and
     ``pair_verdict``) on one chunk step's operands, the verdict's at
-    ``words`` = ``(words_r, probe_words)``."""
+    ``words`` = ``(words_r, probe_words)`` and at the candidates of this
+    expansion, or at ``cands`` = ``(cand_r, cand_s, slot_ok)`` when given
+    (a sharded chunk's slice of the gathered candidates)."""
 
-    def __init__(self, args, st, words, unfused_impl: str):
+    def __init__(self, args, st, words, unfused_impl: str, cands=None):
         from repro_torch.core.constants import COSINE
         from repro_torch.index import candidates
         from repro_torch.kernels import ops, postings, ref
@@ -837,9 +864,11 @@ class StageForms:
         self.expand_plain = lambda: ref.expand_filter_ref(*self.eops, **ekw)  # noqa: E731
         self.expand_unfused = lambda: ops.expand_filter(  # noqa: E731
             *self.eops, **ekw, impl=unfused_impl)
-        rr, ss = self.expand_plain()
-        cr, cs, n_gen = candidates.dedup_pairs(rr, ss, cap)
-        self.slot_ok = torch.arange(cap, device=cr.device) < n_gen
+        if cands is None:
+            rr, ss = self.expand_plain()
+            cr, cs, n_gen = candidates.dedup_pairs(rr, ss, cap)
+            cands = cr, cs, torch.arange(cap, device=cr.device) < n_gen
+        cr, cs, self.slot_ok = cands
         wr, ws = words
         self.vargs = (args[0], args[1], wr, args[9], args[10], ws, cr, cs, self.slot_ok,
                       args[15])
@@ -1315,10 +1344,11 @@ def phase_slice(zipf_col, skewed_col) -> dict:
     return launches
 
 
-def phase_full_blocked(seed: int, zipf) -> tuple[dict, np.ndarray]:
+def phase_full_blocked(seed: int, zipf) -> tuple[dict, np.ndarray, int]:
     """The blocked path: ZIPF tau = 0.8 (explicit blocked plan) and UNIFORM
     tau = 0.5 (JoinEngine, auto plan).  Returns the tensor-core kernels'
-    launches and ZIPF's pairs (phase 13's dedup is held to them)."""
+    launches, ZIPF's pairs (phases 13 and 20 are held to them) and ZIPF's
+    bitmap candidates (phase 20's ring is held to them)."""
     from repro_torch.core import engine
     from repro_torch.data.collections import uniform_collection
     from repro_torch.kernels import bitmap_filter, compaction
@@ -1358,7 +1388,8 @@ def phase_full_blocked(seed: int, zipf) -> tuple[dict, np.ndarray]:
             f"{host_s:.3f} s; identical; stats {json.dumps(stats.to_dict())}")
         if name == "ZIPF" and stats.verified_true < 2000:
             raise AssertionError(f"ZIPF found {stats.verified_true} < 2000 planted pairs")
-    return {k: v for k, v in launches.items() if k.endswith("_mxu")}, runs["ZIPF"][0]
+    return ({k: v for k, v in launches.items() if k.endswith("_mxu")}, runs["ZIPF"][0],
+            runs["ZIPF"][1].candidates)
 
 
 def check_dense_launches(launches: dict, b: int, path: str) -> None:
@@ -1417,10 +1448,12 @@ def mixed_delta(col, fresh, seed: int):
     return from_lists(sets)
 
 
-def phase_full_indexed(seed: int, skewed, batches) -> dict:
+def phase_full_indexed(seed: int, skewed, batches) -> tuple[dict, dict]:
     """The indexed path: SKEWED tau = 0.8 and 0.6 through JoinEngine with
     auto plans — cold and warm self-joins, then the probe batches — and the
-    same self-joins under the unfused composition (``impl="swar_tiled"``)."""
+    same self-joins under the unfused composition (``impl="swar_tiled"``).
+    Returns the launches, and tau = 0.8's auto plan, self-join and probes
+    (``(pairs, stats)`` each; phase 20 is held to them)."""
     from repro_torch.core import engine, join
     from repro_torch.index import candidates
     from repro_torch.kernels import bitmap_filter, compaction, postings
@@ -1514,7 +1547,9 @@ def phase_full_indexed(seed: int, skewed, batches) -> dict:
             raise AssertionError(f"postings built {eng.prepared.builds['postings']} times")
         log(f"SKEWED tau={tau} engine: builds {json.dumps(eng.prepared.build_counts())}, "
             f"summary {json.dumps(eng.stats_summary())}")
-    return launches
+    (self_out, _, _, _, probes) = results[MESH["tau"]]
+    return launches, {"plan": engines[MESH["tau"]].plan, "self": self_out,
+                      "probes": [out for out, _ in probes]}
 
 
 def phase_bitplane_parity(seed: int) -> None:
@@ -4356,15 +4391,428 @@ def phase_family_train(seed: int) -> tuple[dict, dict, dict]:
     return (out, {path[a]: r["launches"] for a, r in out.items()},
             {path[a]: r["bwd_launches"] for a, r in out.items()})
 
+def mesh_child(run_dir: Path, backend: str, rank: int, world: int) -> None:
+    """One rank of phase 20 (``chip_smoke.py --mesh-child DIR BACKEND RANK
+    WORLD``): joins the group over a file store in ``run_dir``, drives the
+    ring (the ZIPF self-join) and sharded-indexed (the SKEWED self-join and
+    probes) through ``JoinEngine`` on a mesh of the group, cold and warm,
+    with the launch counters zeroed just before each path and read just
+    after, and writes its walls, launches and results' digests to
+    ``<backend><world>_rank<rank>.json``; rank 0 also writes the pairs."""
+    import hashlib
+
+    import torch.distributed as dist
+    from repro_torch.core import join
+    from repro_torch.core.collection import Collection
+    from repro_torch.core.engine import JoinEngine
+    from repro_torch.core.plan import JoinPlan
+    from repro_torch.kernels import bitmap_filter, compaction, postings
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{run_dir}/store_{backend}{world}",
+                            rank=rank, world_size=world)
+    mesh = make_mesh((world,), ("data",))
+    data = np.load(run_dir / "data.npz")
+    cols = {name: Collection(tokens=data[name + "_tokens"], lengths=data[name + "_lengths"])
+            for name in ["zipf", "skewed"] + [f"probe{k}" for k in range(int(data["probes"]))]}
+    plan = json.loads((run_dir / "plan.json").read_text())
+    si_plan = JoinPlan(**{**plan, "driver": "sharded-indexed",
+                          "reasons": tuple(plan["reasons"])})
+    ring_plan = JoinPlan(driver="ring", sim=MAIN["sim"], tau=MESH["tau"], b=MAIN["b"])
+    counts = LaunchCounts(candidate_matrix_mxu=bitmap_filter.candidate_matrix_mxu_cuda,
+                          candidate_matrix=bitmap_filter.candidate_matrix_cuda,
+                          count_candidates_mxu=compaction.count_candidates_mxu_cuda,
+                          count_candidates=compaction.count_candidates_cuda,
+                          expand_filter=postings.expand_filter_cuda,
+                          verdict_verify=postings.verdict_verify_cuda,
+                          entry_filter=postings.entry_filter_cuda,
+                          pair_verdict_tiled=postings.pair_verdict_tiled_cuda,
+                          pair_verdict=postings.pair_verdict_cuda,
+                          pair_verdict_bitplane=postings.pair_verdict_bitplane_cuda)
+    digest = lambda p: hashlib.sha256(np.ascontiguousarray(p).tobytes()).hexdigest()[:16]  # noqa: E731
+
+    def timed(fn):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    out, arrays = {"rank": rank, "backend": backend, "world": world}, {}
+    ring = JoinEngine(cols["zipf"], MAIN["sim"], MESH["tau"], plan=ring_plan, mesh=mesh,
+                      axis="data", device="cuda")
+    counts.zero()
+    (pairs, stats), cold = timed(lambda: ring.self_join(return_stats=True))
+    (warm_pairs, warm_stats), warm = timed(lambda: ring.self_join(return_stats=True))
+    launches = counts.read()
+    (drv_pairs, counters, overflow), drv = timed(lambda: join.ring_join_prepared(
+        ring.prepared, mesh=mesh, axis="data", sim=MAIN["sim"], tau=MESH["tau"],
+        b=MAIN["b"], return_stats=True))
+    if not (np.array_equal(pairs, warm_pairs) and np.array_equal(pairs, drv_pairs)
+            and stats.to_dict() == warm_stats.to_dict()):
+        raise AssertionError(f"rank {rank}: the ring's cold, warm and driver runs differ")
+    if int(counters[:, 1].sum()) != len(pairs) or ring.fallbacks:
+        raise AssertionError(f"rank {rank}: ring counters {counters.tolist()} for "
+                             f"{len(pairs)} pairs; fallbacks {ring.fallbacks}")
+    # A capacity the steps overflow: the flagged tiles are re-run densely.
+    (f_pairs, f_counters, f_overflow), forced = timed(lambda: join.ring_join_prepared(
+        ring.prepared, mesh=mesh, axis="data", sim=MAIN["sim"], tau=MESH["tau"],
+        b=MAIN["b"], capacity_per_step=MESH["forced_cap"], return_stats=True))
+    if (not f_overflow.any() or not np.array_equal(f_pairs, pairs)
+            or not np.array_equal(f_counters[:, :2], counters[:, :2])):
+        raise AssertionError(f"rank {rank}: the ring at capacity {MESH['forced_cap']} "
+                             f"(overflow {f_overflow.tolist()}) found {len(f_pairs)} pairs, "
+                             f"counters {f_counters.tolist()}; at the default {len(pairs)}, "
+                             f"{counters.tolist()}")
+    out["ring"] = {"cold_s": cold, "warm_s": warm, "driver_s": drv, "forced_s": forced,
+                   "forced_overflow_steps": int(f_overflow.sum()), "launches": launches,
+                   "pairs": len(pairs), "digest": digest(pairs), "stats": stats.to_dict(),
+                   "counters": counters.tolist(), "overflow_steps": int(overflow.sum())}
+    arrays["ring"] = pairs
+    del ring
+
+    si = JoinEngine(cols["skewed"], MAIN["sim"], MESH["tau"], plan=si_plan, mesh=mesh,
+                    axis="data", device="cuda")
+    counts.zero()
+    (pairs, stats), cold = timed(lambda: si.self_join(return_stats=True))
+    (warm_pairs, warm_stats), warm = timed(lambda: si.self_join(return_stats=True))
+    probes = [timed(lambda k=k: si.probe(cols[f"probe{k}"])) for k in range(int(data["probes"]))]
+    launches = counts.read()
+    if not np.array_equal(pairs, warm_pairs) or stats.to_dict() != warm_stats.to_dict():
+        raise AssertionError(f"rank {rank}: sharded-indexed cold and warm runs differ")
+    if si.fallbacks:
+        raise AssertionError(f"rank {rank}: sharded-indexed fell back: {si.fallbacks}")
+    out["sharded"] = {"cold_s": cold, "warm_s": warm, "probe_s": [s for _, s in probes],
+                      "launches": launches, "builds": si.prepared.build_counts(),
+                      "digests": [digest(pairs)] + [digest(p) for (p, _), _ in probes],
+                      "stats": [stats.to_dict()] + [st.to_dict() for (_, st), _ in probes]}
+    arrays["sharded"] = pairs
+    for k, ((p, _), _) in enumerate(probes):
+        arrays[f"probe{k}"] = p
+    name = f"{backend}{world}"
+    if rank == 0:
+        np.savez(run_dir / f"{name}_pairs.npz", **arrays)
+    (run_dir / f"{name}_rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_mesh_ranks(run_dir: Path, backend: str, world: int) -> list[dict]:
+    """Start ``world`` ranks of :func:`mesh_child` and wait for all of them;
+    a rank that fails or outlasts ``MESH["timeout"]`` fails the phase (every
+    rank is killed first).  Returns each rank's record."""
+    import os
+
+    env = dict(os.environ)
+    # Loopback only: the ranks share this host, and the machine may have no
+    # other interface.
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    logs = [run_dir / f"{backend}{world}_rank{r}.log" for r in range(world)]
+    procs = []
+    for r, log_path in enumerate(logs):
+        with open(log_path, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--mesh-child", str(run_dir),
+                 backend, str(r), str(world)], env=env, stdout=f, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + MESH["timeout"]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        tail = logs[bad[0]].read_text()[-4000:]
+        raise AssertionError(f"{backend} rank {bad[0]} of {world} exited "
+                             f"{procs[bad[0]].returncode}:\n{tail}")
+    return [json.loads((run_dir / f"{backend}{world}_rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def one_rank_verdict_check(words, lengths, table, cutoff: int) -> dict:
+    """Row 1 at the one NCCL rank's operands: the whole collection against
+    itself in one launch, a bool grid past 2^31 elements.  Every row that
+    holds an element at offset 2^31 or beyond is held, a band at a time,
+    against the plain version computed on those rows alone; the kernel is
+    timed at that shape.  Returns the shape, the rows checked, the time
+    and the bound."""
+    from repro_torch.kernels import bitmap_filter, ref
+
+    sim, tau = MAIN["sim"], MESH["tau"]
+    n, w = words.shape
+    kw = dict(key_prod=False, self_join=False, cutoff=cutoff)
+    got = bitmap_filter.candidate_matrix_mxu_cuda(words, words, lengths, lengths, table, **kw)
+    if got.numel() <= 1 << 31:
+        raise AssertionError(f"the one-rank grid {n} x {n} does not pass 2^31 elements")
+    r_first = (1 << 31) // n
+    bad, kept = 0, 0
+    for r0 in range(r_first, n, 2048):
+        r1 = min(r0 + 2048, n)
+        want = ref.candidate_matrix_ref(words[r0:r1], words, lengths[r0:r1], lengths, sim=sim,
+                                        tau=tau, self_join=False, cutoff=cutoff, table=table)
+        bad += int((got[r0:r1] != want).sum())
+        kept += int(want.sum())
+        del want
+    del got
+    if bad:
+        raise AssertionError(f"candidate_matrix_mxu at {n} x {n}: {bad} verdicts of rows "
+                             f"{r_first}..{n - 1} (past offset 2^31) differ from the plain "
+                             f"version's")
+    ms = cuda_ms(lambda: bitmap_filter.candidate_matrix_mxu_cuda(words, words, lengths, lengths,
+                                                                 table, **kw), 3)
+    pairs = n * n
+    in_bytes = 2 * n * (w * 4 + 4) + table.numel() * 4
+    bound = verdict_bound(in_bytes + pairs, pairs, 32 * w, pairs * (VERDICT_OPS + HAM_OPS))
+    log(f"phase 20 kernel parity: candidate_matrix_mxu at the one rank's {n} x {n} grid "
+        f"({pairs} elements): rows {r_first}..{n - 1} (every element from offset 2^31 on, "
+        f"{kept} verdicts kept) exact against the plain version on those rows alone; "
+        f"device {ms:.4f} ms, bound {bound[0]:.4f} ms by the {bound[2]} "
+        f"({bound[0] / ms:.1%} of it)")
+    return {"shape": [n, n, w], "rows": [r_first, n], "ms": ms, "bound_ms": bound[0]}
+
+
+def mesh_kernel_rows(zipf, skewed, plan, runs: dict) -> list[dict]:
+    """Rows 1, 4 and 5 on phase 20's paths, each against its plain version
+    at the operands the paths give it: ``candidate_matrix_mxu`` at the
+    4-rank ring's shards (rank 0's diagonal step and its step 1, R shard 0
+    against S shard 3) and at the one rank's whole grid
+    (:func:`one_rank_verdict_check`); ``expand_filter`` and ``verdict_verify`` at the
+    first SKEWED chunk on each of the 4 token slabs (sentinel-padded tails)
+    and each rank's slice of the gathered candidates.  ``expand_filter`` is
+    timed at the slab with the most expansion, ``verdict_verify`` at the
+    slice with the most candidates."""
+    from repro_torch.core import bitmap as bm
+    from repro_torch.core import engine, expected, verify
+    from repro_torch.core.join import _bucket_capacity
+    from repro_torch.index import candidates
+    from repro_torch.index.postings import shard_expansion_counts
+    from repro_torch.kernels import bitmap_filter, ref
+
+    dev = torch.device("cuda")
+    sim, tau, b = MAIN["sim"], MESH["tau"], MAIN["b"]
+    world = max(w for _, w in MESH["runs"])
+    src = "src/repro_torch/kernels/csrc/"
+
+    def by_run(path: str, name: str) -> dict:
+        """This kernel's launches on ``path`` (the ring or sharded-indexed),
+        per run and rank, and their sum."""
+        each = {run: [r[path]["launches"][name] for r in ranks] for run, ranks in runs.items()}
+        return {"launches": sum(map(sum, each.values())), "launches_by_run": each}
+
+    # Row 1 at the ring's shards.
+    prep = engine.prepare(zipf, dev)
+    chosen = bm.choose_method(tau, b)
+    cutoff = expected.cutoff_point(chosen, b, tau)
+    _, lengths = prep.device_arrays()
+    words = prep.bitmap_words(b, chosen)
+    shard = -(-prep.num_sets // world)
+    table = verify.prune_table_dev(sim, tau, prep.max_len, prep.max_len, dev)
+    wr, lr = words[:shard], lengths[:shard]
+    errs = []
+    for s0 in (0, (world - 1) * shard):
+        ws, ls = words[s0:s0 + shard], lengths[s0:s0 + shard]
+        got = bitmap_filter.candidate_matrix_mxu_cuda(wr, ws, lr, ls, table, key_prod=False,
+                                                      self_join=False, cutoff=cutoff)
+        want = ref.candidate_matrix_ref(wr, ws, lr, ls, sim=sim, tau=tau, self_join=False,
+                                        cutoff=cutoff, table=table)
+        errs.append(max_err(got, want))
+        kept = int(want.sum())
+        del got, want
+    if any(errs):
+        raise AssertionError(f"candidate_matrix_mxu != plain at the ring's shards: {errs}")
+    kw = dict(key_prod=False, self_join=False, cutoff=cutoff)
+    ms = cuda_ms(lambda: bitmap_filter.candidate_matrix_mxu_cuda(wr, ws, lr, ls, table, **kw),
+                 20)
+    plain = cuda_ms(lambda: ref.candidate_matrix_ref(wr, ws, lr, ls, sim=sim, tau=tau,
+                                                     self_join=False, cutoff=cutoff,
+                                                     table=table), 2, warmup=1, reps=1)
+    w = wr.shape[1]
+    pairs = shard * ws.shape[0]
+    in_bytes = (shard + ws.shape[0]) * (w * 4 + 4) + table.numel() * 4
+    b_c = verdict_bound(in_bytes + pairs, pairs, 32 * w, pairs * (VERDICT_OPS + HAM_OPS))
+    log(f"phase 20 kernel parity: candidate_matrix_mxu at the ring's {shard} x {ws.shape[0]} "
+        f"shards (W = {w}; the diagonal step and step 1 of rank 0) exact, {kept} verdicts "
+        f"kept at step 1; device {ms:.4f} ms, plain {plain:.3f} ms, bound {b_c[0]:.4f} ms "
+        f"by the {b_c[2]} ({b_c[0] / ms:.1%} of it)")
+    one = one_rank_verdict_check(words, lengths, table, cutoff)
+    rows = [kernel_row("candidate_matrix_mxu", src + "bitmap_filter.cu (planes_mma.cuh)",
+                       "src/repro/kernels/bitmap_filter.py:151", err=0, ms=ms, plain_ms=plain,
+                       bound=b_c[:2],
+                       path=f"phase 20, the ring: ZIPF tau={tau} self-join over {world} gloo "
+                            f"ranks sharing the card, then one NCCL rank")
+            | {"bound_term": b_c[2], "shape": [shard, ws.shape[0], w],
+               "shape_one_rank": one["shape"], "rows_checked_past_2_31": one["rows"],
+               "ms_one_rank": one["ms"], "bound_ms_one_rank": one["bound_ms"]}
+            | by_run("ring", "candidate_matrix_mxu")]
+    del prep, words, lengths
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Rows 4 and 5 at the slabs: the first chunk, as each rank runs it.
+    sk = engine.prepare(skewed, dev)
+    sharded = sk.sharded_postings(sim, tau, plan.ell, world)
+    post = sharded.base
+    d = candidates._chunk_inputs(sk, None, sim, tau, plan.b, plan.method, plan.mix)
+    ps_np, lp = candidates.probe_prefix_lengths(sk, sim, tau)
+    lo_np, hi_np, lo_d, hi_d = sk.length_window_int(sim, tau)
+    cb = plan.block
+    per = shard_expansion_counts(sharded, sk.tokens[:cb], ps_np[:cb], lo_np[:cb], hi_np[:cb], lp)
+    cap = min(_bucket_capacity(int(per.max())), sk.num_sets * cb * lp)
+    vocab, tid = post.device_arrays(dev)[:2]
+    ps_d = torch.from_numpy(ps_np).to(dev)
+    st = dict(sim=sim, tau=tau, cap=cap, lp=lp, scale=post.max_len + 1, self_join=True,
+              cutoff=int(plan.cutoff) if plan.use_cutoff else 1 << 30, impl="auto",
+              table=d["table"])
+    args = [(d["tokens_r"], d["lengths_r"], d["words_r"], vocab, tid,
+             *sharded.device_arrays(dev, k), d["tokens_s"][:cb], d["lengths_s"][:cb],
+             d["words_s"][:cb], ps_d[:cb], lo_d[:cb], hi_d[:cb], d["need_tab"], 0)
+            for k in range(world)]
+    local = []
+    for a in args:
+        rr, ss = ref.expand_filter_ref(*candidates.expand_filter_operands(a, st), sim=sim,
+                                       tau=tau, cap=cap, lp=lp, self_join=True,
+                                       table=d["table"])
+        local.append(candidates.dedup_pairs(rr, ss, cap)[:2])
+    u_r, u_s, n_gen = candidates.dedup_pairs(torch.cat([r for r, _ in local]),
+                                             torch.cat([s for _, s in local]), world * cap)
+    forms, funnel = [], []
+    for k, a in enumerate(args):
+        sl = slice(k * cap, (k + 1) * cap)
+        ok = (k * cap + torch.arange(cap, device=dev)) < n_gen
+        forms.append(StageForms(a, st, (d["words_r"], d["words_s"][:cb]), "swar_tiled",
+                                cands=(u_r[sl], u_s[sl], ok)))
+        funnel.append(forms[-1].check(f"slab {k} of {world}, the first SKEWED chunk")[0])
+    hot = int(np.argmax(per))
+    busy = int(np.argmax([f["generated"] for f in funnel]))
+    timed_at = {"expand_filter": hot, "verdict_verify": busy}
+    t = {name: time_stage(forms[k], 20)[name] for name, k in timed_at.items()}
+    log(f"phase 20 kernel parity: expand_filter and verdict_verify exact against their plain "
+        f"versions and the unfused compositions on each of {world} slabs (width "
+        f"{sharded.slab_width}, postings {sharded.counts.tolist()}), first chunk (cap {cap}, "
+        f"per-slab expansion {per.tolist()}); funnels {json.dumps(funnel)}")
+    path = (f"phase 20, sharded-indexed: SKEWED tau={tau} self-join and probes over {world} "
+            f"gloo ranks sharing the card, then one NCCL rank")
+    for name, replaces in (("expand_filter", "src/repro/kernels/postings.py:89"),
+                           ("verdict_verify", "src/repro/kernels/postings.py:220")):
+        tt = t[name]
+        log(f"phase 20 timing, slab {timed_at[name]}: {name} {tt['ms_turns'][0]:.4f} / "
+            f"{tt['ms_turns'][1]:.4f} ms in turns with the unfused composition "
+            f"{tt['unfused_ms_turns'][0]:.4f} / {tt['unfused_ms_turns'][1]:.4f} ms; plain "
+            f"{tt['plain_ms']:.3f} ms; bound {tt['bound'][0]:.5f} ms by {tt['bound'][1]}")
+        rows.append(kernel_row(name, src + "postings.cu", replaces, err=0,
+                               ms=tt["ms_turns"][0], plain_ms=tt["plain_ms"], bound=tt["bound"],
+                               path=path)
+                    | {"ms_turns": tt["ms_turns"], "unfused_ms_turns": tt["unfused_ms_turns"],
+                       "slab": timed_at[name], "cap": cap} | by_run("sharded", name))
+    return rows
+
+
+def phase_mesh_drivers(zipf, zipf_pairs, zipf_candidates, skewed, skewed_results,
+                       batches) -> list[dict]:
+    """Phase 20: the ring and sharded-indexed drivers on ``torch.distributed``,
+    each run's ranks processes of their own: 4 gloo ranks sharing the card,
+    then one NCCL rank.  The ring's ZIPF pairs must equal phase 4's blocked
+    pairs, and its candidate counters sum to phase 4's bitmap candidates
+    (the verdicts it kept, before exact verification hides any extra one);
+    sharded-indexed's SKEWED self-join and probes phase 5's pairs and
+    ``JoinStats``; every rank the same; each path's kernels launched on
+    every rank, and no other verdict or postings kernel.  Returns rows 1, 4
+    and 5 on these paths."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    log(smi_line())
+    run_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    try:
+        data = {"probes": np.array(len(batches))}
+        for name, col in [("zipf", zipf), ("skewed", skewed)] + [
+                (f"probe{k}", b) for k, b in enumerate(batches)]:
+            data[name + "_tokens"], data[name + "_lengths"] = col.tokens, col.lengths
+        np.savez(run_dir / "data.npz", **data)
+        (run_dir / "plan.json").write_text(json.dumps(skewed_results["plan"].to_dict()))
+        want_self, want_probes = skewed_results["self"], skewed_results["probes"]
+        runs = {}
+        for backend, world in MESH["runs"]:
+            t0 = time.perf_counter()
+            ranks = run_mesh_ranks(run_dir, backend, world)
+            wall = time.perf_counter() - t0
+            run = f"{backend} x{world}"
+            got = np.load(run_dir / f"{backend}{world}_pairs.npz")
+            if not np.array_equal(got["ring"], zipf_pairs):
+                raise AssertionError(f"{run}: the ring's {len(got['ring'])} ZIPF pairs != "
+                                     f"phase 4's blocked {len(zipf_pairs)}")
+            ring_cands = sum(c[0] for c in ranks[0]["ring"]["counters"])
+            if (ring_cands != zipf_candidates
+                    or ranks[0]["ring"]["stats"]["candidates"] != zipf_candidates):
+                raise AssertionError(f"{run}: the ring kept {ring_cands} candidates (stats "
+                                     f"{ranks[0]['ring']['stats']['candidates']}), phase 4's "
+                                     f"blocked join {zipf_candidates}")
+            wants = [want_self] + list(want_probes)
+            for k, (key, (pairs, stats)) in enumerate(zip(
+                    ["sharded"] + [f"probe{i}" for i in range(len(batches))], wants)):
+                if (not np.array_equal(got[key], pairs)
+                        or ranks[0]["sharded"]["stats"][k] != stats.to_dict()):
+                    raise AssertionError(f"{run}: sharded-indexed {key} differs from phase 5's "
+                                         f"indexed: {len(got[key])} vs {len(pairs)} pairs\n"
+                                         f"{ranks[0]['sharded']['stats'][k]}\n{stats}")
+            for r in ranks:
+                same = (r["ring"]["digest"] == ranks[0]["ring"]["digest"]
+                        and r["sharded"]["digests"] == ranks[0]["sharded"]["digests"]
+                        and r["sharded"]["stats"] == ranks[0]["sharded"]["stats"])
+                ring_l, si_l = r["ring"]["launches"], r["sharded"]["launches"]
+                idle = [n for n, v in ring_l.items() if v and n != "candidate_matrix_mxu"]
+                idle += [n for n, v in si_l.items()
+                         if v and n not in ("expand_filter", "verdict_verify")]
+                if (not same or idle or not ring_l["candidate_matrix_mxu"]
+                        or not si_l["expand_filter"] or not si_l["verdict_verify"]):
+                    raise AssertionError(f"{run} rank {r['rank']}: results differ from rank "
+                                         f"0's ({not same}) or launches {ring_l} {si_l}")
+            log(f"phase 20, {run} ({wall:.1f} s with start-up): the ring on ZIPF "
+                f"{zipf.num_sets} = phase 4's {len(zipf_pairs)} pairs and {zipf_candidates} "
+                f"candidates, at capacity {MESH['forced_cap']} too, counters "
+                f"{ranks[0]['ring']['counters']}, stats {json.dumps(ranks[0]['ring']['stats'])}; "
+                f"sharded-indexed on SKEWED {skewed.num_sets} = phase 5's pairs and JoinStats "
+                f"(self-join {len(want_self[0])} pairs, {len(batches)} probes); every rank "
+                f"the same; builds {json.dumps(ranks[0]['sharded']['builds'])}")
+            for r in ranks:
+                ring, si = r["ring"], r["sharded"]
+                log(f"  rank {r['rank']}: ring cold {ring['cold_s']:.3f} s, warm "
+                    f"{ring['warm_s']:.3f} s (driver alone {ring['driver_s']:.3f} s; at "
+                    f"capacity {MESH['forced_cap']} {ring['forced_s']:.3f} s, "
+                    f"{ring['forced_overflow_steps']} of {r['world'] ** 2} steps re-run), launches "
+                    f"{json.dumps({k: v for k, v in ring['launches'].items() if v})}; "
+                    f"sharded-indexed cold {si['cold_s']:.3f} s, warm {si['warm_s']:.3f} s, "
+                    f"probes {', '.join(f'{x:.3f}' for x in si['probe_s'])} s, launches "
+                    f"{json.dumps({k: v for k, v in si['launches'].items() if v})}")
+            runs[run] = ranks
+        rows = mesh_kernel_rows(zipf, skewed, skewed_results["plan"], runs)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    log(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--mesh-child", nargs=4, metavar=("DIR", "BACKEND", "RANK", "WORLD"),
+                        help=argparse.SUPPRESS)   # one rank of phase 20
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    if args.mesh_child:
+        run_dir, backend, rank, world = args.mesh_child
+        mesh_child(Path(run_dir), backend, int(rank), int(world))
+        return 0
     from repro_torch.core import engine
     from repro_torch.data.collections import skewed_collection, with_duplicates, zipf_collection
 
@@ -4386,9 +4834,10 @@ def main(argv=None) -> int:
     kernels += phase_postings_kernels(args.seed, engine.prepare(skewed, "cuda"))
     phase_bitplane_parity(args.seed)
     launches = phase_slice(zipf_10k, skewed_10k)
-    blocked_launches, zipf_pairs = phase_full_blocked(args.seed, zipf)
+    blocked_launches, zipf_pairs, zipf_candidates = phase_full_blocked(args.seed, zipf)
     launches.update(blocked_launches)
-    launches.update(phase_full_indexed(args.seed, skewed, batches))
+    indexed_launches, skewed_results = phase_full_indexed(args.seed, skewed, batches)
+    launches.update(indexed_launches)
     store_launches, store_ops = phase_store(args.seed, zipf)
     _, serve_call = phase_serve(args.seed, skewed)
     for name, n in store_launches.items():   # the tensor-core verdicts: b = 128 and 1024
@@ -4453,6 +4902,10 @@ def main(argv=None) -> int:
                 arch: res[key] for arch, res in (family_serving if k["name"] ==
                                                  "flash_attention" else family_training).items()
                 for key in ("kernel_timing", "bwd_timing") if key in res}
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels += phase_mesh_drivers(zipf, zipf_pairs, zipf_candidates, skewed, skewed_results,
+                                  batches)
     log(smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

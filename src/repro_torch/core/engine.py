@@ -8,16 +8,18 @@ The port of ``repro.core.engine``:
   words cached per ``(b, method, mix)`` (and their numpy ``uint32`` copy
   for the CPU algorithms), integer length windows cached per ``(sim,
   tau)``, the CPU algorithms' ℓ-prefix index and the CSR postings index
-  cached per ``(sim, tau, ell)``.  ``builds`` counts each build so reuse is
+  cached per ``(sim, tau, ell)``, and its token-slab partition per ``(sim,
+  tau, ell, n_shards)``.  ``builds`` counts each build so reuse is
   assertable.
 * :class:`JoinEngine` — prepare R once, stream batches of S through
   :meth:`JoinEngine.probe`, each returning pairs plus a per-batch
   :class:`~repro_torch.core.join.JoinStats`, under an explicit
   :class:`~repro_torch.core.plan.JoinPlan`.  It executes the ``naive``,
-  ``blocked`` and ``indexed`` drivers and the four CPU algorithms
+  ``blocked`` and ``indexed`` drivers, the four CPU algorithms
   (:mod:`repro_torch.core.cpu_algos`, with :func:`prepared_bitmap_filter`),
-  with the reference's recorded fallbacks for the mesh drivers, over a
-  prepared corpus or an appendable :class:`~repro_torch.store.CorpusStore`.
+  and on a device mesh the ``ring`` and ``sharded-indexed`` drivers (without
+  one, the reference's recorded fallbacks), over a prepared corpus or an
+  appendable :class:`~repro_torch.store.CorpusStore`.
 
 Entry points run on the card: ``prepare(col)`` without a ``device`` resolves
 to ``cuda`` and raises when no card is present; tests pass ``device="cpu"``.
@@ -82,13 +84,15 @@ class PreparedCollection:
         for arr in (source.tokens, source.lengths, self.tokens, self.lengths):
             arr.flags.writeable = False
         self.builds: Dict[str, int] = {"sort": 1, "bitmap": 0, "window": 0,
-                                       "prefix_index": 0, "postings": 0}
+                                       "prefix_index": 0, "postings": 0,
+                                       "sharded_postings": 0}
         self._device_arrays: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._words: Dict[Tuple[int, str, bool], torch.Tensor] = {}
         self._words_np: Dict[Tuple[int, str, bool], np.ndarray] = {}
         self._windows: Dict[Tuple[str, float], Tuple] = {}
         self._prefix: Dict[Tuple[str, float, int], dict] = {}
         self._postings: Dict[Tuple[str, float, int], object] = {}
+        self._sharded_postings: Dict[Tuple[str, float, int, int], object] = {}
         self._sorted_collection: Optional[Collection] = None
 
     # -- Collection duck-typing (over the length-sorted view) ---------------
@@ -191,9 +195,24 @@ class PreparedCollection:
             self.builds["postings"] += 1
         return self._postings[key]
 
+    def sharded_postings(self, sim: str, tau: float, ell: int = 1,
+                         n_shards: int = 1):
+        """The token-slab partition of :meth:`postings` (the
+        ``"sharded-indexed"`` driver's build artifact,
+        :class:`repro_torch.index.postings.ShardedPostings`), built at most
+        once per ``(sim, tau, ell, n_shards)``; the CSR index under it is the
+        single-device driver's, cached once."""
+        key = (sim, float(tau), int(ell), int(n_shards))
+        if key not in self._sharded_postings:
+            from repro_torch.index.postings import partition_postings
+            self._sharded_postings[key] = partition_postings(
+                self.postings(sim, tau, ell), n_shards)
+            self.builds["sharded_postings"] += 1
+        return self._sharded_postings[key]
+
     def build_counts(self) -> Dict[str, int]:
         """A copy of the build counters
-        (sort/bitmap/window/prefix_index/postings)."""
+        (sort/bitmap/window/prefix_index/postings/sharded_postings)."""
         return dict(self.builds)
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
@@ -357,16 +376,20 @@ class JoinEngine:
     ``(corpus_index, batch_index)`` in original indices; the corpus-side
     artifacts (words, windows, postings) are built once and reused.
 
-    The ``ring`` and ``sharded-indexed`` drivers need a device mesh, which
-    the port does not have yet: a ring plan runs ``blocked`` and a
-    sharded-indexed plan runs ``indexed``, each recorded in ``fallbacks``
-    as the reference does without a mesh.  A CPU-algorithm plan runs its
-    algorithm over the prepared sorted views on the host, with the bitmap
-    words built on the engine's device (:func:`prepared_bitmap_filter`).
+    Pass ``mesh=`` / ``axis=`` (:func:`repro_torch.launch.mesh.make_mesh`)
+    to execute a ``ring`` or ``sharded-indexed`` plan across the mesh's
+    ranks: every rank builds the same engine over the same corpus and calls
+    the same probes, and every rank gets the same pairs and ``JoinStats``.
+    Without a mesh a ring plan runs ``blocked`` and a sharded-indexed plan
+    ``indexed``, each recorded in ``fallbacks``, as the reference does.  An
+    auto plan with a mesh counts its ranks as the devices.  A CPU-algorithm
+    plan runs its algorithm over the prepared sorted views on the host, with
+    the bitmap words built on the engine's device
+    (:func:`prepared_bitmap_filter`).
 
     The corpus may also be a :class:`repro_torch.store.CorpusStore`: the
-    engine then adopts the store's plan, sim, τ and device, and every probe
-    and self-join runs the store's segment-union join (base ∪ deltas);
+    engine then adopts the store's plan, sim, τ, device and mesh, and every
+    probe and self-join runs the store's segment-union join (base ∪ deltas);
     :attr:`prepared` reads through to the store's live base segment across
     compactions.
     """
@@ -379,6 +402,7 @@ class JoinEngine:
                  plan: Optional[JoinPlan] = None,
                  planner: Optional[JoinPlanner] = None,
                  expected_batch: Optional[int] = None,
+                 mesh=None, axis=None,
                  history_limit: Optional[int] = None,
                  device=None):
         self.store = _as_store(corpus)
@@ -402,6 +426,8 @@ class JoinEngine:
             self.tau = store.tau
             self.plan = store.plan
             self._auto_planned = False
+            self.mesh = store.mesh
+            self.axis = store.axis
         else:
             if device is None and isinstance(corpus, PreparedCollection):
                 device = corpus.device
@@ -411,11 +437,14 @@ class JoinEngine:
             self.tau = float(tau)
             self._auto_planned = plan is None
             if plan is None:
+                # A mesh or the card: the planner counts the ranks (or cards).
+                n_dev = None if (self.device.type == "cuda" or mesh is not None) else 1
                 plan = self._planner.plan(
                     sim, tau, n_r=self._prepared.num_sets, n_s=expected_batch,
-                    backend=backend_of(self.device),
-                    n_devices=None if self.device.type == "cuda" else 1)
+                    backend=backend_of(self.device), n_devices=n_dev)
             self.plan = plan
+            self.mesh = mesh
+            self.axis = axis
         self.probes = 0
         if history_limit is None:
             history_limit = self.HISTORY_LIMIT
@@ -513,10 +542,10 @@ class JoinEngine:
 
         plan = self.plan
         driver = plan.driver
-        if driver == "ring":
+        if driver == "ring" and self.mesh is None:
             self.fallbacks.append("ring plan without a mesh -> blocked")
             driver = "blocked"
-        if driver == "sharded-indexed":
+        if driver == "sharded-indexed" and self.mesh is None:
             self.fallbacks.append(
                 "sharded-indexed plan without a mesh -> indexed")
             driver = "indexed"
@@ -555,6 +584,37 @@ class JoinEngine:
                 probe_block=plan.block, impl=plan.impl,
                 use_cutoff=plan.use_cutoff, capacity=plan.capacity,
                 return_stats=True)
+
+        if driver == "sharded-indexed":
+            from repro_torch.distributed.sharded_index import sharded_indexed_join_prepared
+
+            # The per-rank funnel counters come back summed, so a probe
+            # reports the same funnel as "indexed".
+            return sharded_indexed_join_prepared(
+                self.prepared, prep_s, mesh=self.mesh, axis=self.axis,
+                sim=self.sim, tau=self.tau, b=plan.b, method=plan.method,
+                mix=plan.mix, ell=plan.ell, probe_block=plan.block,
+                impl=plan.impl, use_cutoff=plan.use_cutoff,
+                capacity=plan.capacity, return_stats=True)
+
+        if driver == "ring":
+            pairs, counters, _overflow = join_mod.ring_join_prepared(
+                self.prepared, prep_s, mesh=self.mesh, axis=self.axis,
+                sim=self.sim, tau=self.tau, b=plan.b, method=plan.method,
+                mix=plan.mix, use_cutoff=plan.use_cutoff, impl=plan.impl,
+                capacity_per_step=plan.capacity, return_stats=True)
+            # The ring applies no length window: every pair of non-empty
+            # sets is bitmap-evaluated once (i < j for a self-join), so
+            # total_pairs is that grid and filter_ratio the bitmap's pruning.
+            nnz_r = int((self.prepared.lengths > 0).sum())
+            if prep_s is None:
+                total = nnz_r * (nnz_r - 1) // 2
+            else:
+                total = nnz_r * int((prep_s.lengths > 0).sum())
+            stats = join_mod.JoinStats(
+                total_pairs=total, candidates=int(counters[:, 0].sum()),
+                verified_true=len(pairs), candidates_generated=total)
+            return pairs, stats
 
         if driver in CPU_DRIVERS:
             from repro_torch.core import cpu_algos

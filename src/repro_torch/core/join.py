@@ -437,3 +437,339 @@ def _window_pair_mask(len_r: np.ndarray, len_s: np.ndarray, sim: str, tau: float
     ls = len_s[None, :]
     return ((ls >= lo_i[:, None]) & (ls <= hi_i[:, None])
             & (len_r[:, None] > 0) & (len_s[None, :] > 0))
+
+
+# ---------------------------------------------------------------------------
+# Distributed ring join (one process per device over torch.distributed)
+# ---------------------------------------------------------------------------
+
+# Candidate masks are counted and compacted a row band of at most this many
+# elements at a time (the first ``cap`` survivors of each band, then of
+# their union): a bool sum casts its band to int64 first, and no single
+# compaction indexes past int32.
+_NONZERO_BAND = 1 << 28
+# Candidates of an overflowed ring tile are verified this many at a time.
+_VERIFY_BATCH = 1 << 20
+
+
+def _count_and_first_nonzero(mask: torch.Tensor, cap: int):
+    """``(idx, n)`` for a 2-D mask of any size: :func:`_nonzero_capped`'s
+    first ``cap`` nonzero ``(row, col)`` indices in row-major order,
+    zero-filled, and the int64 count of nonzeros, both on the device."""
+    rows = max(1, _NONZERO_BAND // max(mask.shape[1], 1))
+    slots = torch.arange(cap, device=mask.device)
+    idx, ok, counts = [], [], []
+    for r0 in range(0, mask.shape[0], rows):
+        band = mask[r0:r0 + rows]
+        counts.append(band.sum(dtype=torch.int64))
+        sub = _nonzero_capped(band, cap)
+        sub[:, 0] += r0
+        idx.append(sub)
+        ok.append(slots < counts[-1])
+    n = torch.stack(counts).sum()
+    if len(idx) == 1:
+        return idx[0], n
+    idx, ok = torch.cat(idx), torch.cat(ok)
+    first = _nonzero_capped(ok, cap)[:, 0]
+    return torch.where((slots < n)[:, None], idx[first], 0), n
+
+
+def _nonzero_banded(mask: torch.Tensor) -> torch.Tensor:
+    """int64[K, 2]: every nonzero ``(row, col)`` of a 2-D mask of any size,
+    in row-major order, on its device (one ``nonzero`` per row band)."""
+    rows = max(1, _NONZERO_BAND // max(mask.shape[1], 1))
+    parts = []
+    for r0 in range(0, mask.shape[0], rows):
+        nz = torch.nonzero(mask[r0:r0 + rows])
+        nz[:, 0] += r0
+        parts.append(nz)
+    if not parts:
+        return torch.zeros((0, 2), dtype=torch.int64, device=mask.device)
+    return torch.cat(parts)
+
+
+def _ring_step(tok, length, word, s_tok, s_len, s_word, gi0: int, gj0: int,
+               need_tab, prune_tab, *, sim: str, tau: float, cutoff: int, impl: str,
+               cap: int, rs_join: bool):
+    """One ring step on one rank: the verdict of the local R shard (global
+    rows from ``gi0``) against the S shard held (from ``gj0``), the triangle
+    ``gi < gj`` on a self-join, compaction of the first ``cap`` candidates in
+    row-major order, exact verification.  Returns device tensors ``(pairs
+    int32[cap, 2], ok bool[cap], n_cand, n_ok, overflowed)``."""
+    cand = kops.candidate_matrix(word, s_word, length, s_len, sim=sim, tau=tau,
+                                 self_join=False, cutoff=cutoff, impl=impl,
+                                 table=prune_tab)
+    if not rs_join:
+        cand.triu_(gi0 - gj0 + 1)   # gi < gj  <=>  j - i >= gi0 - gj0 + 1
+    idx, n_cand = _count_and_first_nonzero(cand, cap)
+    del cand
+    ii, jj = idx[:, 0], idx[:, 1]
+    slot_ok = torch.arange(cap, device=idx.device) < n_cand
+    o = verify.pairwise_overlap(tok[ii], s_tok[jj])
+    need = bounds.min_overlap_gather(sim, need_tab, length[ii], s_len[jj])
+    ok = slot_ok & (o >= need)
+    pairs = torch.stack([ii + gi0, jj + gj0], dim=1).to(torch.int32)
+    return pairs, ok, n_cand, ok.sum(dtype=torch.int64), n_cand > cap
+
+
+def ring_join_sharded(
+    tokens: torch.Tensor,
+    lengths: torch.Tensor,
+    words: torch.Tensor,
+    *,
+    mesh,
+    axis,
+    sim: str,
+    tau: float,
+    tokens_s: torch.Tensor | None = None,
+    lengths_s: torch.Tensor | None = None,
+    words_s: torch.Tensor | None = None,
+    cutoff: int = 1 << 30,
+    impl: str = "auto",
+    capacity_per_step: int | None = None,
+):
+    """Distributed exact join via a ring sweep, one rank per device.
+
+    Every rank passes the same global tensors (on its own device).  R is
+    sharded over ``axis``: rank ``i`` keeps rows ``i * |R| / n`` onwards, and
+    at each of the ``n`` steps runs the bitmap verdict and exact
+    verification of its R shard against the S shard it holds, while that
+    shard (tokens, lengths and words in one buffer) moves one hop round the
+    ring (``batch_isend_irecv`` to the next rank and from the previous one,
+    posted before the step's compute and waited after it; on the card under
+    NCCL, through host copies under gloo).  After ``n`` steps every pair has
+    been examined once: the upper triangle (``i < j``) for a self-join (S
+    omitted), the full R×S grid otherwise.
+
+    Each step compacts its candidates into ``capacity_per_step`` slots, the
+    first survivors in row-major order, and flags the step when there were
+    more: :func:`ring_join` re-runs the flagged ``(device, step)`` tiles
+    densely.  ``impl="auto"`` runs ``candidate_matrix_mxu`` on the card and
+    the plain version on the CPU (the reference's default is ``"ref"``).
+    The reference runs the sweep as a jitted ``shard_map`` memoized per
+    static configuration (``_ring_entrypoint_cache``, ``_ring_sweep_fn``);
+    eager ranks have nothing to trace, so nothing here caches.
+
+    Returns numpy arrays, the same on every rank and equal to the
+    reference's: ``pairs`` int32[n * n * cap, 2] global ``(i, j)`` ids
+    (garbage where ``valid`` is False), ``valid`` bool[n * n * cap],
+    ``counters`` int64[n, 3] per device (candidates, verified, overflowed
+    steps) and ``overflow_steps`` bool[n, n] per ``[device, step]``.
+    """
+    from repro_torch.distributed.sharding import RingShift, all_gather_stacked, join_axes
+
+    rs_join = tokens_s is not None
+    if rs_join and (lengths_s is None or words_s is None):
+        raise ValueError("R×S ring join needs tokens_s, lengths_s and words_s")
+    if not rs_join:
+        tokens_s, lengths_s, words_s = tokens, lengths, words
+    _axes, group, n_dev, my = join_axes(mesh, axis)
+    n_r, n_s = tokens.shape[0], tokens_s.shape[0]
+    if n_r % n_dev or n_s % n_dev:
+        raise ValueError(
+            f"collection sizes {n_r}x{n_s} must divide over {n_dev} devices (pad first)")
+    shard_r, shard_s = n_r // n_dev, n_s // n_dev
+    cap = int(capacity_per_step or max(8 * max(shard_r, shard_s), 128))
+    dev = tokens.device
+    lr, ls = int(tokens.shape[1]), int(tokens_s.shape[1])
+    need_tab = verify.min_overlap_table_dev(sim, float(tau), lr, ls, dev)
+    prune_tab = verify.prune_table_dev(sim, float(tau), lr, ls, dev)
+
+    r_sl = slice(my * shard_r, (my + 1) * shard_r)
+    tok, length, word = tokens[r_sl], lengths[r_sl], words[r_sl]
+    s_sl = slice(my * shard_s, (my + 1) * shard_s)
+    # The S shard travels as one int32 buffer: tokens | length | words.
+    held = torch.cat([tokens_s[s_sl], lengths_s[s_sl, None].to(tokens_s.dtype),
+                      words_s[s_sl].to(tokens_s.dtype)], dim=1)
+    shift = RingShift(group, my, n_dev, dev) if n_dev > 1 else None
+    outbound = shift.outbound(held) if shift else None
+    steps = []
+    for t in range(n_dev):
+        s_dev = (my - t) % n_dev
+        hop = shift.start(outbound) if shift and t < n_dev - 1 else None
+        steps.append(_ring_step(
+            tok, length, word, held[:, :ls], held[:, ls].contiguous(),
+            held[:, ls + 1:].contiguous(), my * shard_r, s_dev * shard_s, need_tab,
+            prune_tab, sim=sim, tau=float(tau), cutoff=int(cutoff), impl=impl, cap=cap,
+            rs_join=rs_join))
+        if hop is not None:
+            outbound, held = shift.finish(hop)
+
+    pairs, ok, n_cand, n_ok, ovf = (list(x) for x in zip(*steps))
+    counters = torch.stack([torch.stack(n_cand).sum(), torch.stack(n_ok).sum(),
+                            torch.stack(ovf).sum()])
+    # One gather of everything this rank found, as int64.
+    mine = torch.cat([torch.cat(pairs).to(torch.int64).reshape(-1),
+                      torch.cat(ok).to(torch.int64), torch.stack(ovf).to(torch.int64),
+                      counters])
+    every = all_gather_stacked(mine, group, n_dev, "cpu").numpy()
+    n_p = n_dev * cap
+    pairs = every[:, :2 * n_p].reshape(n_dev * n_p, 2).astype(np.int32)
+    valid = every[:, 2 * n_p:3 * n_p].reshape(-1).astype(bool)
+    overflow = every[:, 3 * n_p:3 * n_p + n_dev].astype(bool)
+    return pairs, valid, every[:, 3 * n_p + n_dev:], overflow
+
+
+def ring_join(
+    tokens: torch.Tensor,
+    lengths: torch.Tensor,
+    words: torch.Tensor,
+    *,
+    mesh,
+    axis,
+    sim: str,
+    tau: float,
+    tokens_s: torch.Tensor | None = None,
+    lengths_s: torch.Tensor | None = None,
+    words_s: torch.Tensor | None = None,
+    cutoff: int = 1 << 30,
+    impl: str = "auto",
+    capacity_per_step: int | None = None,
+    return_stats: bool = False,
+):
+    """Exact distributed join: the ring sweep plus a dense re-run of the
+    tiles whose compaction overflowed.
+
+    Every rank sees the same overflow flags (they come back gathered from
+    :func:`ring_join_sharded`) and re-runs the same flagged ``(device,
+    step)`` tiles, one R shard against the S shard it held at that step:
+    the bitmap verdict, the triangle on a self-join, banded compaction of
+    every candidate and exact verification in batches, all on the device;
+    only the verified pairs reach the host.  Their complete pair sets
+    replace the truncated ones; other tiles keep the ring's output.
+
+    Returns lexsorted int64[K, 2] global indices, the same on every rank:
+    ``(i, j)`` with ``i < j`` for a self-join, ``(r_index, s_index)``
+    otherwise.  ``return_stats=True`` adds ``(counters, overflow_steps)``
+    (see :func:`ring_join_sharded`), the verified counters reconciled with
+    the re-runs, so ``counters[:, 1].sum() == len(pairs)``.
+    """
+    from repro_torch.distributed.sharding import join_axes
+
+    rs_join = tokens_s is not None
+    if not rs_join:
+        tokens_s, lengths_s, words_s = tokens, lengths, words
+    _axes, _group, n_dev, _my = join_axes(mesh, axis)
+    shard_r = tokens.shape[0] // n_dev
+    shard_s = tokens_s.shape[0] // n_dev
+
+    pairs, valid, counters, overflow = ring_join_sharded(
+        tokens, lengths, words, mesh=mesh, axis=axis, sim=sim, tau=tau,
+        tokens_s=tokens_s if rs_join else None,
+        lengths_s=lengths_s if rs_join else None,
+        words_s=words_s if rs_join else None,
+        cutoff=cutoff, impl=impl, capacity_per_step=capacity_per_step)
+    cap = pairs.shape[0] // (n_dev * n_dev)
+    p4 = pairs.reshape(n_dev, n_dev, cap, 2)
+    v3 = valid.reshape(n_dev, n_dev, cap)
+    out = [p4[v3 & ~overflow[:, :, None]].reshape(-1, 2)]
+    if overflow.any():
+        dev = tokens.device
+        prune_tab = verify.prune_table_dev(sim, float(tau), int(tokens.shape[1]),
+                                           int(tokens_s.shape[1]), dev)
+    for d, t in zip(*np.nonzero(overflow)):
+        d, t = int(d), int(t)
+        s_dev = (d - t) % n_dev
+        r_sl = slice(d * shard_r, (d + 1) * shard_r)
+        s_sl = slice(s_dev * shard_s, (s_dev + 1) * shard_s)
+        cand = kops.candidate_matrix(
+            words[r_sl], words_s[s_sl], lengths[r_sl], lengths_s[s_sl], sim=sim,
+            tau=float(tau), self_join=False, cutoff=int(cutoff), impl=impl,
+            table=prune_tab)
+        if not rs_join:
+            cand.triu_(d * shard_r - s_dev * shard_s + 1)   # gi < gj, as in a step
+        idx = _nonzero_banded(cand)
+        del cand
+        n_ok = 0
+        for k0 in range(0, idx.shape[0], _VERIFY_BATCH):
+            gi = idx[k0:k0 + _VERIFY_BATCH, 0] + d * shard_r
+            gj = idx[k0:k0 + _VERIFY_BATCH, 1] + s_dev * shard_s
+            ok = verify.verify_pairs_rs(tokens, lengths, tokens_s, lengths_s, gi, gj,
+                                        sim, float(tau))
+            found = torch.stack([gi[ok], gj[ok]], dim=1).cpu().numpy()
+            n_ok += len(found)
+            if len(found):
+                out.append(found)
+        # The ring step saw only the first cap candidates of this tile.
+        counters[d, 1] += n_ok - int(v3[d, t].sum())
+    merged = np.concatenate(out, axis=0).astype(np.int64)
+    merged = merged[np.lexsort((merged[:, 1], merged[:, 0]))]
+    if return_stats:
+        return merged, counters, overflow
+    return merged
+
+
+def ring_join_prepared(
+    prep_r: PreparedCollection,
+    prep_s: PreparedCollection | None = None,
+    *,
+    mesh,
+    axis=None,
+    sim: str = JACCARD,
+    tau: float = 0.8,
+    b: int = 128,
+    method: str = BITMAP_COMBINED,
+    mix: bool = False,
+    use_cutoff: bool = True,
+    impl: str = "auto",
+    capacity_per_step: int | None = None,
+    return_stats: bool = False,
+):
+    """:func:`ring_join` over prepared inputs, in original indices.
+
+    Bitmap words come from the prepared caches (built once per ``(b,
+    method, mix)``); both sides are padded on their device with empty sets
+    up to a multiple of the device count (an empty set is similar to
+    nothing, so padding never changes the result); pairs are mapped from
+    the padded sorted space back to original indices: ``(i, j)`` with
+    ``i < j`` for a self-join (S omitted), ``(r_index, s_index)``
+    otherwise, lexsorted, exactly :func:`naive_join`'s pairs.  The default
+    ``impl`` is ``"auto"`` (the reference's is ``"ref"``).
+
+    With ``return_stats=True`` returns ``(pairs, counters, overflow_steps)``.
+    """
+    from repro_torch.core.constants import PAD_TOKEN
+    from repro_torch.distributed.sharding import join_axes
+    from repro_torch.index.candidates import _pad_chunk
+
+    # Self-join ONLY when S is omitted: an explicit S, even the same object,
+    # is the full R×S cross product.
+    self_join = prep_s is None
+    if self_join:
+        prep_s = prep_r
+    if prep_s.device != prep_r.device:
+        raise ValueError(f"R is prepared on {prep_r.device}, S on {prep_s.device}")
+    chosen = bm.choose_method(tau, b) if method == BITMAP_COMBINED else method
+    cutoff = expected.cutoff_point(chosen, b, float(tau)) if use_cutoff else 1 << 30
+    _axes, _group, n_dev, _my = join_axes(mesh, axis)
+    nr, ns = prep_r.num_sets, prep_s.num_sets
+    nr_pad = math.ceil(nr / n_dev) * n_dev
+    ns_pad = math.ceil(ns / n_dev) * n_dev
+
+    def padded(prep, n_pad):
+        tokens, lengths = prep.device_arrays()
+        # Empty sets hash to all-zero bitmaps: zero rows are their words.
+        return (_pad_chunk(tokens, n_pad, PAD_TOKEN), _pad_chunk(lengths, n_pad, 0),
+                _pad_chunk(prep.bitmap_words(b, chosen, mix=mix), n_pad, 0))
+
+    tokens, lengths, words = padded(prep_r, nr_pad)
+    rs_kw = {}
+    if not self_join:
+        rs_kw = dict(zip(("tokens_s", "lengths_s", "words_s"), padded(prep_s, ns_pad)))
+    sorted_pairs, counters, overflow = ring_join(
+        tokens, lengths, words, mesh=mesh, axis=axis, sim=sim, tau=float(tau),
+        cutoff=int(cutoff), impl=impl, capacity_per_step=capacity_per_step,
+        return_stats=True, **rs_kw)
+    # Padded rows have length 0 and never pair; keep the guard anyway.
+    keep = (sorted_pairs[:, 0] < nr) & (sorted_pairs[:, 1] < ns)
+    sorted_pairs = sorted_pairs[keep]
+    gi = prep_r.order[sorted_pairs[:, 0]]
+    gj = prep_s.order[sorted_pairs[:, 1]]
+    if self_join:
+        pairs = np.stack([np.minimum(gi, gj), np.maximum(gi, gj)], axis=1)
+    else:
+        pairs = np.stack([gi, gj], axis=1)
+    pairs = pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))].astype(np.int64)
+    if return_stats:
+        return pairs, counters, overflow
+    return pairs

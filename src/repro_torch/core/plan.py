@@ -6,20 +6,23 @@ JAX package for the same workload are equal field for field.
 
 Backends keep the reference's names: a CUDA device plans as ``"gpu"``
 (device-resident compaction), the CPU as ``"cpu"``.  ``backend=None`` means
-the card, and raises when there is none; ``n_devices=None`` is
+the card, and raises when there is none; ``n_devices=None`` is the world
+size when a default process group is initialised (one process per device,
+the counterpart of ``jax.device_count()``), else
 ``torch.cuda.device_count()``.
 
 Driver vocabulary (see the reference for the full story):
 
 * ``"naive"`` — the O(|R|·|S|) oracle; cheapest below a few thousand cells.
 * ``"blocked"`` — the blocked device join (Algorithm 8).
-* ``"ring"`` — the multi-device ring sweep (not ported yet).
+* ``"ring"`` — the multi-device ring sweep
+  (:func:`repro_torch.core.join.ring_join_prepared`).
 * ``"indexed"`` — CSR prefix-index candidate generation
   (:mod:`repro_torch.index`).
-* ``"sharded-indexed"`` — the indexed path over a device mesh (not ported
-  yet).
+* ``"sharded-indexed"`` — the indexed path over a device mesh
+  (:mod:`repro_torch.distributed.sharded_index`).
 * ``"allpairs" | "ppjoin" | "groupjoin" | "adaptjoin"`` — the CPU
-  algorithms (not ported yet).
+  algorithms (:mod:`repro_torch.core.cpu_algos`).
 """
 
 from __future__ import annotations
@@ -61,6 +64,17 @@ def backend_of(device) -> str:
     if kind == "cpu":
         return "cpu"
     raise ValueError(f"no planner backend for device type {kind!r}")
+
+
+def default_device_count() -> int:
+    """The planner's device count: the world size of an initialised default
+    process group (one process per device), else the cards this process
+    sees."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return torch.cuda.device_count()
 
 
 def _resolve_backend(backend: Optional[str]) -> str:
@@ -167,7 +181,7 @@ class JoinPlanner:
             raise ValueError(f"n_r must be positive, got {n_r}")
         backend = _resolve_backend(backend)
         if n_devices is None:
-            n_devices = torch.cuda.device_count()
+            n_devices = default_device_count()
         b = b or self.b
         reasons = []
 

@@ -19,6 +19,11 @@ field, :meth:`PostingsIndex.carry`); :meth:`PostingsIndex.device_arrays`
 uploads the six arrays the driver reads, once per device.  Instances are
 cached on :class:`~repro_torch.core.engine.PreparedCollection` per
 ``(sim, tau, ell)`` with a ``builds["postings"]`` counter.
+
+:func:`partition_postings` cuts an index into the ``"sharded-indexed"``
+driver's token slabs (:class:`ShardedPostings`, cached per shard count
+with a ``builds["sharded_postings"]`` counter), and
+:func:`shard_expansion_counts` is its per-slab count prepass.
 """
 
 from __future__ import annotations
@@ -163,15 +168,107 @@ def build_postings(prep, sim: str, tau: float, ell: int = 1) -> PostingsIndex:
         prefix_len=p.astype(np.int32))
 
 
+# ---------------------------------------------------------------------------
+# Token-slab partitioning (the "sharded-indexed" driver's build artifact)
+# ---------------------------------------------------------------------------
+
+# Padding sentinel for the slabs' post_key tails.  build_postings guarantees
+# every real key is at most num_tokens * (max_len + 1) - 1 < INT32_MAX, and
+# the windowed lookup's upper probe is num_tokens * scale - 1 at most, so a
+# sentinel slot never falls inside a searchsorted range.
+_KEY_SENTINEL = np.int32(np.iinfo(np.int32).max)
+
+
+@dataclasses.dataclass
+class ShardedPostings:
+    """A :class:`PostingsIndex` re-cut into contiguous token-id slabs.
+
+    ``post_*[k]`` hold shard ``k``'s postings, padded to a common width with
+    ``_KEY_SENTINEL`` keys, so the same windowed ``searchsorted`` lookup
+    works unchanged on a slab; ``slab_tid[k] : slab_tid[k + 1]`` is the dense
+    token-id range shard ``k`` owns, chosen so that postings volume, not
+    token count, balances across shards.  ``vocab`` / ``vocab_tid`` stay the
+    base index's: the probe-side lookup is the same on every rank.
+    """
+
+    base: PostingsIndex
+    n_shards: int
+    slab_tid: np.ndarray    # int64[n_shards + 1] dense-token-id boundaries
+    counts: np.ndarray      # int64[n_shards] real postings per slab
+    post_set: np.ndarray    # int32[n_shards, pmax]
+    post_pos: np.ndarray    # int32[n_shards, pmax]
+    post_len: np.ndarray    # int32[n_shards, pmax]
+    post_key: np.ndarray    # int32[n_shards, pmax]; sentinel-padded tails
+    _device: Dict[Tuple[str, int], Tuple[torch.Tensor, ...]] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
+
+    @property
+    def slab_width(self) -> int:
+        return int(self.post_set.shape[1])
+
+    def device_arrays(self, device, shard: int) -> Tuple[torch.Tensor, ...]:
+        """Slab ``shard``'s (post_set, post_pos, post_len, post_key) as int32
+        tensors on ``device``, cached: a rank uploads its own slab only."""
+        key = (str(torch.device(device)), int(shard))
+        if key not in self._device:
+            self._device[key] = tuple(
+                torch.from_numpy(np.ascontiguousarray(a[shard])).to(device)
+                for a in (self.post_set, self.post_pos, self.post_len, self.post_key))
+        return self._device[key]
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return (f"ShardedPostings(n_shards={self.n_shards}, "
+                f"width={self.slab_width}, counts={self.counts.tolist()})")
+
+
+def partition_postings(post: PostingsIndex, n_shards: int) -> ShardedPostings:
+    """Cut a postings index into ``n_shards`` contiguous token slabs.
+
+    Slab ``k`` starts at the first token whose cumulative postings count
+    reaches ``k / n_shards`` of the total (from the CSR row offsets), so
+    slabs balance by postings volume; a token is never split, so a hot token
+    lands wholly in one slab (the per-shard count prepass and the escalation
+    absorb that skew).
+    """
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    cum = post.starts.astype(np.int64)
+    total = int(post.num_postings)
+    targets = (total * np.arange(n_shards + 1, dtype=np.int64)) // n_shards
+    slab_tid = np.searchsorted(cum, targets, side="left").astype(np.int64)
+    slab_tid[0] = 0
+    slab_tid[-1] = post.num_tokens
+    slab_tid = np.maximum.accumulate(slab_tid)
+    slab_post = cum[slab_tid]
+    counts = np.diff(slab_post)
+    pmax = max(int(counts.max(initial=0)), 1)
+
+    post_set = np.zeros((n_shards, pmax), dtype=np.int32)
+    post_pos = np.zeros((n_shards, pmax), dtype=np.int32)
+    post_len = np.zeros((n_shards, pmax), dtype=np.int32)
+    post_key = np.full((n_shards, pmax), _KEY_SENTINEL, dtype=np.int32)
+    for k in range(n_shards):
+        sl = slice(int(slab_post[k]), int(slab_post[k + 1]))
+        w = int(counts[k])
+        post_set[k, :w] = post.post_set[sl]
+        post_pos[k, :w] = post.post_pos[sl]
+        post_len[k, :w] = post.post_len[sl]
+        post_key[k, :w] = post.post_key[sl]
+    return ShardedPostings(
+        base=post, n_shards=int(n_shards), slab_tid=slab_tid, counts=counts,
+        post_set=post_set, post_pos=post_pos, post_len=post_len, post_key=post_key)
+
+
 def lookup_counts_host(post: PostingsIndex, tokens_np, ps_np, lo_np, hi_np,
                        lp: int):
     """Host (int64-exact) twin of the device windowed lookup.
 
     Returns ``(cnt, tid, valid)``, each ``[C, lp]``: the window-surviving
     postings count, the dense token id, and the lookup-validity mask per
-    ``(probe, prefix position)``.  The count prepass sums it to size each
-    chunk's capacity and to catch a pathological expansion before any
-    device buffer is allocated.
+    ``(probe, prefix position)``.  The count prepasses (the total one and
+    :func:`shard_expansion_counts`) sum it to size each chunk's capacity
+    and to catch a pathological expansion before any device buffer is
+    allocated.
     """
     c = int(np.asarray(tokens_np).shape[0])
     if post.num_tokens == 0 or lp == 0:
@@ -190,3 +287,18 @@ def lookup_counts_host(post: PostingsIndex, tokens_np, ps_np, lo_np, hi_np,
     b = np.searchsorted(post.post_key, base + hi_c, side="right")
     cnt = np.where(valid, np.maximum(b - a, 0), 0).astype(np.int64)
     return cnt, tid, valid
+
+
+def shard_expansion_counts(sharded: ShardedPostings, tokens_np, ps_np,
+                           lo_np, hi_np, lp: int) -> np.ndarray:
+    """Per-shard count prepass: the window-surviving postings entries this
+    probe chunk expands to on each token slab (``int64[n_shards]``).  The
+    slabs are disjoint, so these partition the single-device count: their
+    sum is the unsharded prepass's total."""
+    cnt, tid, valid = lookup_counts_host(
+        sharded.base, tokens_np, ps_np, lo_np, hi_np, lp)
+    owner = np.clip(np.searchsorted(sharded.slab_tid, tid, side="right") - 1,
+                    0, sharded.n_shards - 1)
+    out = np.zeros(sharded.n_shards, dtype=np.int64)
+    np.add.at(out, owner[valid], cnt[valid])
+    return out

@@ -1,0 +1,57 @@
+"""Device meshes over ``torch.distributed`` (the port of
+``repro.launch.mesh``).
+
+The reference builds a mesh of JAX devices under one controller.  The port
+runs one process per device (``torchrun --nproc-per-node N``, or ranks
+started by hand with ``RANK`` / ``WORLD_SIZE`` and an init method), and a
+mesh is a :class:`torch.distributed.device_mesh.DeviceMesh` over the
+default process group, which must be initialised first.  Every rank builds
+the same mesh.
+
+``make_production_mesh`` and ``named`` (the dry run's 256- and 512-chip
+meshes and sharding specs) wait for the launch tooling (ROADMAP Queue 1
+item 13c).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.distributed as dist
+
+
+def make_mesh(shape, axes, device_type: str | None = None):
+    """A ``DeviceMesh`` of ``shape`` with axis names ``axes`` over the
+    initialised default group, whose world size must be the mesh's size.
+
+    ``device_type`` defaults to ``"cuda"``; the CPU tests pass ``"cpu"``.
+    Under NCCL each rank needs a card of its own: a mesh with more ranks
+    than ``torch.cuda.device_count()`` raises (share one card between ranks
+    through a gloo group instead).
+    """
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    device_type = device_type or "cuda"
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in length")
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs an initialised default process group "
+                           "(torch.distributed.init_process_group)")
+    n = math.prod(shape)
+    if n != dist.get_world_size():
+        raise ValueError(f"a mesh of {shape} needs {n} ranks; the world has "
+                         f"{dist.get_world_size()}")
+    if (device_type == "cuda" and dist.get_backend() == "nccl"
+            and n > torch.cuda.device_count()):
+        raise RuntimeError(
+            f"NCCL needs one GPU per rank: a mesh of {n} ranks on "
+            f"{torch.cuda.device_count()} GPU(s); run several ranks on one card "
+            f"through a gloo group")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def batch_axes(mesh) -> tuple:
+    """The mesh's batch axes: ``pod`` and ``data``, those it has."""
+    return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)

@@ -30,8 +30,9 @@ per-pair funnel counters (:data:`FUNNEL_SUM_FIELDS`, plus
 are summed but not bound; a self-join's ``postings_expanded`` depends on the
 direction of each segment join and is not bound either.
 
-The reference's ``mesh``/``axis`` arguments are not carried: the port has
-no device mesh yet (ROADMAP Queue 1 item 11).
+With ``mesh=`` / ``axis=`` every segment engine runs on that mesh, so a
+``ring`` or ``sharded-indexed`` plan executes across its ranks; every rank
+builds the same store and calls the same appends and joins.
 """
 
 from __future__ import annotations
@@ -44,8 +45,7 @@ import numpy as np
 
 from repro_torch.core.collection import Collection
 from repro_torch.core.constants import JACCARD, PAD_TOKEN
-from repro_torch.core.engine import (JoinEngine, PreparedCollection, prepare,
-                                     resolve_device)
+from repro_torch.core.engine import JoinEngine, PreparedCollection, prepare, resolve_device
 from repro_torch.core.join import JoinStats
 from repro_torch.core.plan import JoinPlan, JoinPlanner, backend_of
 
@@ -157,7 +157,8 @@ class Segment:
     def engine(self, store: "CorpusStore") -> JoinEngine:
         if self._engine is None:
             self._engine = JoinEngine(self.prepared, store.sim, store.tau,
-                                      plan=store.plan, device=store.device)
+                                      plan=store.plan, device=store.device,
+                                      mesh=store.mesh, axis=store.axis)
         return self._engine
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
@@ -171,9 +172,10 @@ class CorpusStore:
     ``device`` (the card when ``None``, or the device a prepared base lives
     on) and resolves one :class:`~repro_torch.core.plan.JoinPlan` for that
     device's backend, shared by every segment join for the store's lifetime
-    (pass ``plan=`` to pin it).  ``append`` adds a delta segment (preparing
-    only the delta), ``probe``/``self_join`` run the segment-union join, and
-    ``compact`` seals everything into a fresh base.
+    (pass ``plan=`` to pin it), on ``mesh`` / ``axis`` when given (an auto
+    plan then counts the mesh's ranks as devices).  ``append`` adds a delta
+    segment (preparing only the delta), ``probe``/``self_join`` run the
+    segment-union join, and ``compact`` seals everything into a fresh base.
 
     Documents are addressed by store-global ids: the base's original
     indices first, then each delta's, in append order; compaction
@@ -185,6 +187,7 @@ class CorpusStore:
                  plan: Optional[JoinPlan] = None,
                  planner: Optional[JoinPlanner] = None,
                  policy: Optional[CompactionPolicy] = None,
+                 mesh=None, axis=None,
                  device=None):
         if base is None:
             base = empty_collection()
@@ -196,15 +199,18 @@ class CorpusStore:
         self.tau = float(tau)
         if plan is None:
             planner = planner or JoinPlanner()
+            # A mesh or the card: the planner counts the ranks (or cards).
+            n_dev = None if (self.device.type == "cuda" or mesh is not None) else 1
             plan = planner.plan(sim, self.tau, n_r=max(prepared.num_sets, 1),
-                                backend=backend_of(self.device),
-                                n_devices=None if self.device.type == "cuda" else 1)
+                                backend=backend_of(self.device), n_devices=n_dev)
         if plan.sim != sim or plan.tau != self.tau:
             raise ValueError(
                 f"plan is for (sim={plan.sim}, tau={plan.tau}); the store "
                 f"was asked for (sim={sim}, tau={self.tau})")
         self.plan = plan
         self.policy = policy or CompactionPolicy()
+        self.mesh = mesh
+        self.axis = axis
         self.base = Segment(prepared, 0, "base")
         self.deltas: List[Segment] = []
         self.appends = 0

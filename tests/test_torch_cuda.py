@@ -1247,3 +1247,108 @@ def test_layers_flash_attention_backward_runs_the_kernel(exact_f32, dtype, monke
     want = flash_kernel.flash_attention_bwd_cuda(q.detach(), k.detach(), v.detach(), out, lse,
                                                  w.contiguous())
     assert all(torch.equal(g, x) for g, x in zip((q.grad, k.grad, v.grad), want))
+
+
+# The mesh drivers on the card: ranks are processes of their own, sharing
+# cuda:0 through a gloo group (a file store, loopback only).
+_MESH_CHILD = r"""
+import json, os
+import numpy as np
+import torch
+import torch.distributed as dist
+torch.cuda.set_device(0)
+dist.init_process_group(os.environ["BACKEND"], init_method=os.environ["INIT"],
+                        rank=int(os.environ["RANK"]), world_size=int(os.environ["WORLD_SIZE"]))
+from repro_torch.launch.mesh import make_mesh
+if os.environ["BACKEND"] == "nccl":
+    try:
+        make_mesh((2,), ("data",))
+    except RuntimeError as e:
+        assert "one GPU per rank" in str(e), e
+        print("REFUSED", e)
+    else:
+        raise AssertionError("a 2-rank NCCL mesh on one GPU was accepted")
+else:
+    from repro_torch.core import engine, join
+    from repro_torch.core.collection import Collection
+    from repro_torch.distributed import sharded_indexed_join_prepared
+    from repro_torch.kernels import bitmap_filter, postings
+    d = np.load(os.environ["DATA"])
+    prep = engine.prepare(Collection(tokens=d["tokens"], lengths=d["lengths"]), "cuda")
+    mesh = make_mesh((2,), ("data",))
+    ring, counters, _ = join.ring_join_prepared(prep, mesh=mesh, sim="jaccard", tau=0.8,
+                                                return_stats=True)
+    # Capacity 8: steps overflow, and their tiles are re-run on the card.
+    forced, forced_counters, forced_ovf = join.ring_join_prepared(
+        prep, mesh=mesh, sim="jaccard", tau=0.8, capacity_per_step=8, return_stats=True)
+    si, stats = sharded_indexed_join_prepared(prep, mesh=mesh, sim="jaccard", tau=0.8,
+                                              return_stats=True)
+    np.savez(os.environ["OUT"], ring=ring, counters=counters, si=si, forced=forced,
+             forced_counters=forced_counters, forced_ovf=forced_ovf)
+    with open(os.environ["OUT"] + ".json", "w") as f:
+        json.dump({"stats": stats.to_dict(),
+                   "launches": [bitmap_filter.candidate_matrix_mxu_cuda.launches,
+                                postings.expand_filter_cuda.launches,
+                                postings.verdict_verify_cuda.launches]}, f)
+dist.destroy_process_group()
+"""
+
+
+def _mesh_ranks(tmp_path, backend, data=None):
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    procs = []
+    for r in range(2):
+        env = dict(os.environ, PYTHONPATH=src, BACKEND=backend, RANK=str(r), WORLD_SIZE="2",
+                   INIT=f"file://{tmp_path}/store_{backend}", OUT=str(tmp_path / f"r{r}.npz"),
+                   DATA=str(data), GLOO_SOCKET_IFNAME="lo")
+        procs.append(subprocess.Popen([sys.executable, "-c", _MESH_CHILD], env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    outs = []
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert all(p.returncode == 0 for p in procs), outs
+    if backend == "nccl":
+        return outs
+    return [(np.load(tmp_path / f"r{r}.npz"),
+             json.loads((tmp_path / f"r{r}.npz.json").read_text())) for r in range(2)]
+
+
+def test_mesh_drivers_on_two_gloo_ranks_match_the_single_device_joins(dev, tmp_path):
+    """The ring and sharded-indexed drivers on 2 gloo ranks sharing the card
+    return, on both ranks, the blocked join's pairs and the indexed join's
+    pairs and ``JoinStats``, through ``candidate_matrix_mxu`` and the stage
+    kernels; so does the ring with a capacity that overflows its steps."""
+    col = with_duplicates(skewed_collection(n_sets=8000, seed=5), n_clusters=80,
+                          cluster_size=3, jaccard=0.9, seed=5)
+    np.savez(tmp_path / "data.npz", tokens=col.tokens, lengths=col.lengths)
+    prep = engine.prepare(col, dev)
+    blocked = join.blocked_bitmap_join_prepared(prep, sim="jaccard", tau=0.8)
+    ipairs, istats = candidates.indexed_join_prepared(prep, sim="jaccard", tau=0.8,
+                                                      return_stats=True)
+    assert len(blocked) > 50 and np.array_equal(ipairs, blocked)
+    for got, info in _mesh_ranks(tmp_path, "gloo", tmp_path / "data.npz"):
+        assert np.array_equal(got["ring"], blocked)
+        assert got["counters"][:, 1].sum() == len(blocked)
+        assert got["forced_ovf"].any() and np.array_equal(got["forced"], blocked)
+        assert got["forced_counters"][:, 1].sum() == len(blocked)
+        assert np.array_equal(got["forced_counters"][:, 0], got["counters"][:, 0])
+        assert np.array_equal(got["si"], ipairs) and info["stats"] == istats.to_dict()
+        assert min(info["launches"]) > 0, info["launches"]
+
+
+def test_nccl_mesh_refuses_two_ranks_on_one_gpu(dev, tmp_path):
+    if torch.cuda.device_count() != 1:
+        pytest.skip("needs a machine with exactly one GPU")
+    outs = _mesh_ranks(tmp_path, "nccl")
+    assert all("REFUSED" in o for o in outs), outs

@@ -42,6 +42,8 @@ from repro_torch.models import DecodeEngine, Model, convert, generate, moe, ssm
 from repro_torch import train, distributed
 from repro_torch.data import loader
 from repro_torch.launch import train as launch_train
+from repro_torch.launch import mesh as launch_mesh
+from repro_torch.distributed import sharded_index, sharding
 model = Model(configs.get_reduced("qwen3-8b"), device="cpu")
 out = generate.greedy_generate(DecodeEngine(model), torch.arange(12).reshape(2, 6), 3)
 assert out.tokens.shape == (2, 3)
@@ -80,6 +82,17 @@ store = CorpusStore(col, "jaccard", 0.6, device="cpu")
 sess = JoinSession(store, max_wait=0.0)
 sess.append(col, compact=False)
 assert len(sess.probe(col)[0]) >= col.num_sets
+import tempfile
+import torch.distributed as dist
+with tempfile.TemporaryDirectory() as tmp:
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=0, world_size=1)
+    mesh = launch_mesh.make_mesh((1,), ("data",), device_type="cpu")
+    prep = engine.prepare(col, "cpu")
+    assert np.array_equal(join.ring_join_prepared(prep, mesh=mesh, sim="jaccard", tau=0.6),
+                          eng.self_join())
+    assert np.array_equal(sharded_index.sharded_indexed_join_prepared(
+        prep, mesh=mesh, sim="jaccard", tau=0.6), eng.self_join())
+    dist.destroy_process_group()
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 print("BAD", bad)

@@ -176,7 +176,7 @@ def test_prepared_collection_caches_its_artifacts():
     for _ in range(2):
         tjoin.blocked_bitmap_join(prep, "jaccard", 0.7, b=32, block=16, compaction="device")
     assert prep.build_counts() == {"sort": 1, "bitmap": 1, "window": 1, "prefix_index": 0,
-                                   "postings": 0}
+                                   "postings": 0, "sharded_postings": 0}
     assert np.array_equal(prep.lengths, np.sort(ct.lengths, kind="stable"))
     assert np.array_equal(prep.order[prep.inverse], np.arange(ct.num_sets))
     with pytest.raises(ValueError):

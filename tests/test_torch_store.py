@@ -43,8 +43,7 @@ def _same_store_stats(jstore, tstore):
     j, t = jstore.stats().to_dict(), tstore.stats().to_dict()
     for key in ("builds", "delta_builds", "lifetime_builds"):
         jb, tb = j.pop(key), t.pop(key)
-        # The reference also counts artifacts the port has no use for yet
-        # (prefix_index, sharded_postings); they stay 0 on this path.
+        # Counters of the reference that the port lacks stay 0 on this path.
         assert {k: jb.get(k, 0) for k in tb} == tb, (key, jb, tb)
         assert all(v == 0 for k, v in jb.items() if k not in tb), (key, jb)
     assert j == t
