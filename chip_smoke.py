@@ -306,6 +306,29 @@ Phases (any failure raises, so the script exits non-zero):
    the gathered candidates) and timed there, and enter the kernels line a
    second time under this phase's paths, their launches summed over the
    runs' ranks.
+21. Sharded training on ``torch.distributed`` (about 2 minutes): smollm-135m
+   at its published widths and depth on phase 12's global batch (8 x 2,048
+   tokens), AdamW without warmup, through ``sharded_train_step`` (FSDP over
+   ``data``, tensor parallel over ``model``), each rank a process of its
+   own (this script with ``--train-child``): 4 gloo ranks sharing the card
+   on a (4,) data mesh (FSDP only), 3 gloo ranks on (1, 3) data x model
+   (head-parallel TP) and one NCCL rank on (1, 1); NCCL with more than one
+   rank is not exercised (one card).  First phase 12's single-device step
+   here, float32 (TF32 off; its state checkpointed after each step) and
+   bf16.  Each rank: its slices of the seeded parameters, its rows of each
+   batch from the loader over the mesh; 2 float32 steps (depth cut to 6
+   of 30 layers, widths and batch uncut), then its slices
+   restored from the single-device checkpoint (each rank reading its
+   slices) and held to it (each parameter leaf's RMS difference within 1%
+   of its update, each moment within 1e-3, the losses within 1e-4), on the
+   (4,) mesh also a step with rank 0's rows shifted by one that must fail
+   that gate; then 3 bf16 steps, their losses within 1% of the single
+   device's, the first step's every flash forward and backward call held
+   to its plain version at its own operands.  Every rank the same losses;
+   60 forward and 30 backward flash launches a step on every rank (rows 9
+   and 9d's ``launches_by_path``); each rank's parameter and AdamW bytes
+   (uncut) the single rank's over the shard count (within 1%); step ms,
+   tokens/s and each rank's peak memory printed.
 
 Kernel times are device times: CUDA events around 50 (20 for attention)
 back-to-back launches, a spin kernel queued first so that the host's
@@ -4499,10 +4522,13 @@ def mesh_child(run_dir: Path, backend: str, rank: int, world: int) -> None:
     dist.destroy_process_group()
 
 
-def run_mesh_ranks(run_dir: Path, backend: str, world: int) -> list[dict]:
-    """Start ``world`` ranks of :func:`mesh_child` and wait for all of them;
-    a rank that fails or outlasts ``MESH["timeout"]`` fails the phase (every
-    rank is killed first).  Returns each rank's record."""
+def run_mesh_ranks(run_dir: Path, backend: str, world: int, flag: str = "--mesh-child",
+                   extra: tuple = (), timeout: float = MESH["timeout"]) -> list[dict]:
+    """Start ``world`` ranks of this script with ``flag`` (:func:`mesh_child`,
+    or :func:`train_child` with ``--train-child`` and its ``extra``
+    argument) and wait for all of them; a rank that fails or outlasts
+    ``timeout`` fails the phase (every rank is killed first).  Returns each
+    rank's record."""
     import os
 
     env = dict(os.environ)
@@ -4515,9 +4541,10 @@ def run_mesh_ranks(run_dir: Path, backend: str, world: int) -> list[dict]:
     for r, log_path in enumerate(logs):
         with open(log_path, "w") as f:
             procs.append(subprocess.Popen(
-                [sys.executable, str(Path(__file__).resolve()), "--mesh-child", str(run_dir),
-                 backend, str(r), str(world)], env=env, stdout=f, stderr=subprocess.STDOUT))
-    deadline = time.monotonic() + MESH["timeout"]
+                [sys.executable, str(Path(__file__).resolve()), flag, str(run_dir),
+                 backend, str(r), str(world), *extra], env=env, stdout=f,
+                stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
     try:
         for p in procs:
             p.wait(timeout=max(1.0, deadline - time.monotonic()))
@@ -4799,11 +4826,372 @@ def phase_mesh_drivers(zipf, zipf_pairs, zipf_candidates, skewed, skewed_results
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: sharded training on torch.distributed
+# ---------------------------------------------------------------------------
+
+# smollm-135m at its published widths and depth on phase 12's global batch
+# (8 x 2,048 tokens), over three meshes: 4 gloo ranks sharing the card on
+# (4,) data (FSDP only), 3 gloo ranks on (1, 3) data x model (TP: its 3 KV
+# heads make it head-parallel) and one NCCL rank on (1, 1).  float32 first
+# (held to the single-device float32 step), its depth cut from 30 to
+# ``f32_layers`` to keep the phase near 2 minutes (the float32 attention
+# backward runs on the CUDA cores, and the gloo ranks stage every collective
+# through the host), then bf16 uncut (timed, the bytes a rank held).  AdamW
+# without warmup, so every step moves the parameters.
+SHARDED = dict(arch="smollm-135m", batch=8, seq=2048, f32_steps=2, f32_layers=6, bf16_steps=3,
+               lr=3e-3, decay_steps=10,
+               runs=(("gloo", "4"), ("gloo", "1x3"), ("nccl", "1x1")), timeout=420)
+# A rank's float32 slices after the steps against the single-device step's:
+# each parameter leaf's RMS difference over its RMS update (AdamW divides by
+# sqrt(nu) + 1e-8: where a gradient is near 1e-8, summing it in another order
+# moves that element's step), each moment's relative RMS, the losses relative.
+SHARDED_PARAM_REL_RMS = 1e-2
+SHARDED_MOMENT_REL_RMS = 1e-3
+SHARDED_LOSS_RTOL = 1e-4
+# The bf16 steps' losses against the single-device bf16 steps', relative.
+SHARDED_BF16_LOSS_RTOL = 1e-2
+
+
+def _leaf_gate(mine: list, want: list, initial: list | None) -> tuple[float, int]:
+    """The largest per-leaf ratio of the RMS difference ``mine - want`` over
+    the RMS of ``want - initial`` (the update), or over the RMS of ``want``
+    without ``initial``; and that leaf's index."""
+    ratios = []
+    for i, (a, b) in enumerate(zip(mine, want)):
+        scale = (b - initial[i]) if initial is not None else b
+        den = float(scale.double().pow(2).mean().sqrt())
+        num = float((a.double() - b.double()).pow(2).mean().sqrt())
+        ratios.append(num / den if den else (0.0 if num == 0 else math.inf))
+    worst = max(range(len(ratios)), key=ratios.__getitem__)
+    return ratios[worst], worst
+
+
+def train_child(run_dir: Path, backend: str, rank: int, world: int, shape: str) -> None:
+    """One rank of phase 21 (``chip_smoke.py --train-child DIR BACKEND RANK
+    WORLD MESH``): joins the group over a file store in ``run_dir``, builds
+    the mesh (``4`` is (4,) data, ``AxB`` (A, B) data x model), and trains
+    smollm-135m sharded: this rank's slices of the seeded parameters
+    (``sharded_state``), its rows of each global batch (the loader over the
+    mesh), ``sharded_train_step``.  float32 (``SHARDED["f32_layers"]``
+    layers): ``SHARDED["f32_steps"]`` steps, then its slices held to the single-device float32 step's checkpoint
+    (restored onto this mesh, each rank reading its slices); on the (4,)
+    mesh also a control step with rank 0's rows shifted by one.  bf16:
+    ``SHARDED["bf16_steps"]`` steps timed, the first step's every flash
+    kernel call held to its plain version at its operands.  The flash
+    launch counters are zeroed just before each run's steps and read just
+    after.  Writes ``<backend><world>_rank<rank>.json``."""
+    import dataclasses
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.data.loader import LoaderConfig, SyntheticLMLoader
+    from repro_torch.distributed import CheckpointManager
+    from repro_torch.distributed.sharding import layout_of, named
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.train import OptimizerConfig
+    from repro_torch.train.optimizer import opt_init
+    from repro_torch.train.step import sharded_state, sharded_train_step
+    from repro_torch.train.tree import leaves, tree_map, unflatten
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"file://{run_dir}/store_{backend}{world}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=SHARDED["timeout"]))
+    dims = tuple(int(x) for x in shape.split("x"))
+    mesh = make_mesh(dims, ("data",) if len(dims) == 1 else ("data", "model"))
+    layout = layout_of(mesh)
+    seed = int((run_dir / "seed").read_text())
+    b, s = SHARDED["batch"], SHARDED["seq"]
+    base = configs.get(SHARDED["arch"])
+    out = {"rank": rank, "backend": backend, "world": world, "mesh": shape,
+           "coord": layout.coord}
+    for dtype in ("float32", "bfloat16"):
+        f32 = dtype == "float32"
+        cfg = dataclasses.replace(base, dtype=dtype, num_layers=SHARDED["f32_layers"] if f32
+                                  else base.num_layers)
+        opt = OptimizerConfig(learning_rate=SHARDED["lr"], warmup_steps=0,
+                              decay_steps=SHARDED["decay_steps"])
+        t0 = time.perf_counter()
+        model = Model(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
+        step, sspecs, _ = sharded_train_step(model, opt, mesh)
+        state = sharded_state(model, opt, mesh)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        initial = [p.detach().clone() for p in leaves(state["params"])] if f32 else None
+        nbytes = {part: sum(t.numel() * t.element_size() for t in leaves(state[part]))
+                  for part in ("params", "opt")}
+        loader = SyntheticLMLoader(cfg, LoaderConfig(batch_size=b, seq_len=s, seed=seed,
+                                                     vocab_size=cfg.vocab_size),
+                                   device="cuda", mesh=mesh, batch_axes=("data",))
+        setup_s = time.perf_counter() - t0
+        n = SHARDED["f32_steps"] if f32 else SHARDED["bf16_steps"]
+        torch.cuda.reset_peak_memory_stats()
+        fwd_calls, bwd_calls, captured = [], [], (0, 0)
+        losses, ms = [], []
+        fa.reset_launches()
+        for i in range(n):
+            batch = next(loader)
+            dist.barrier()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if i == 0 and not f32:   # every kernel call of the first bf16 step, captured
+                with capture_calls(fa, "flash_attention_cuda", fwd_calls), \
+                        capture_calls(fa, "flash_attention_bwd_cuda", bwd_calls):
+                    state, metrics = step(state, batch)
+                    captured = (fa.flash_attention_cuda.launches,
+                                fa.flash_attention_bwd_cuda.launches)
+            else:
+                state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(float(metrics["loss"]))
+        launches = {"flash_attention": fa.flash_attention_cuda.launches + captured[0],
+                    "flash_attention_bwd": fa.flash_attention_bwd_cuda.launches + captured[1],
+                    "instances": {k: v for k, v in fa.flash_attention_cuda.instance_launches.items()
+                                  if v},
+                    "bwd_instances": {k: v for k, v in
+                                      fa.flash_attention_bwd_cuda.instance_launches.items() if v}}
+        rec = {"losses": losses, "step_ms": ms, "bytes": nbytes, "setup_s": setup_s,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
+               "grad_norm": float(metrics["grad_norm"])}
+        if f32:
+            # The single-device step's state, restored onto this mesh.
+            like = tree_map(torch.empty_like, state)
+            want, _ = CheckpointManager(str(run_dir / "ref")).restore(
+                like, named(mesh, sspecs), step=n)
+            rec["param_gate"] = _leaf_gate(leaves(state["params"]), leaves(want["params"]),
+                                           initial)
+            rec["moment_gate"] = _leaf_gate(leaves(state["opt"]), leaves(want["opt"]), None)
+            del like, want
+            if shape == "4":
+                # The control: one step from the same slices, rank 0's rows shifted.
+                params = unflatten(state["params"],
+                                   [p0.clone().requires_grad_(True) for p0 in initial])
+                ctrl = {"step": torch.zeros((), dtype=torch.int32, device="cuda"),
+                        "params": params, "opt": opt_init(opt, params)}
+                host = loader.host_batch(0)
+                lo = loader.rows.start + (1 if rank == 0 else 0)
+                ctrl, _ = step(ctrl, {k: v[lo:lo + b // world].contiguous().cuda()
+                                      for k, v in host.items()})
+                want, _ = CheckpointManager(str(run_dir / "ref")).restore(
+                    tree_map(torch.empty_like, ctrl), named(mesh, sspecs), step=1)
+                rec["control_gate"] = _leaf_gate(leaves(ctrl["params"]), leaves(want["params"]),
+                                                 initial)
+                del ctrl, want, params
+        else:
+            with torch.no_grad():
+                rec["fwd_calls_max_abs_err"] = max(
+                    flash_close(fa.flash_attention_cuda(*a, **kw)[0],
+                                ref.flash_attention_ref(*a, **kw)[0],
+                                f"rank {rank} step forward call {j}")
+                    for j, (a, kw) in enumerate(fwd_calls))
+                rec["bwd_calls_rel_rms"] = max(
+                    bwd_close(fa.flash_attention_bwd_cuda(*a, **kw),
+                              ref.flash_attention_bwd_ref(*a, **kw),
+                              f"rank {rank} step backward call {j}")
+                    for j, (a, kw) in enumerate(bwd_calls))
+            rec["calls"] = [len(fwd_calls), len(bwd_calls)]
+            rec["local_heads"] = int(fwd_calls[0][0][0].shape[2])
+            rec["local_rows"] = int(fwd_calls[0][0][0].shape[0])
+        out[dtype] = rec
+        del state, fwd_calls, bwd_calls, initial
+        gc.collect()
+        torch.cuda.empty_cache()
+    (run_dir / f"{backend}{world}_rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_sharded_train(seed: int) -> tuple[dict, dict]:
+    """Phase 21: smollm-135m trained sharded on ``torch.distributed``, each
+    run's ranks processes of their own (:func:`train_child`), against
+    phase 12's single-device step (``make_train_step``) on the same seed
+    and global batch, run here first in float32 (its state after each step
+    checkpointed for the ranks to restore their slices of) and in bf16.
+    Returns the phase's record and rows 9 and 9d's launches by run and
+    rank."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.data.loader import LoaderConfig, SyntheticLMLoader
+    from repro_torch.distributed import CheckpointManager
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import Model
+    from repro_torch.train import OptimizerConfig, init_state, make_train_step
+    from repro_torch.train.tree import leaves
+
+    t_phase = time.perf_counter()
+    log(smi_line())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    run_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_"))
+    b, s = SHARDED["batch"], SHARDED["seq"]
+    record: dict = {"arch": SHARDED["arch"], "batch": [b, s]}
+    launches_by_path: dict = {"flash_attention": {}, "flash_attention_bwd": {}}
+    try:
+        (run_dir / "seed").write_text(str(seed))
+        single = {}
+        for dtype in ("float32", "bfloat16"):
+            f32 = dtype == "float32"
+            base = configs.get(SHARDED["arch"])
+            cfg = dataclasses.replace(base, dtype=dtype, num_layers=SHARDED["f32_layers"] if f32
+                                      else base.num_layers)
+            model = Model(cfg, device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(seed))
+            opt = OptimizerConfig(learning_rate=SHARDED["lr"], warmup_steps=0,
+                                  decay_steps=SHARDED["decay_steps"])
+            state = init_state(model, opt)
+            nbytes = {part: sum(t.numel() * t.element_size() for t in leaves(state[part]))
+                      for part in ("params", "opt")}
+            loader = SyntheticLMLoader(cfg, LoaderConfig(batch_size=b, seq_len=s, seed=seed,
+                                                         vocab_size=cfg.vocab_size),
+                                       device="cuda")
+            step = make_train_step(model, opt)
+            ckpt = CheckpointManager(str(run_dir / "ref"))
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launches()
+            losses, ms = [], []
+            for i in range(SHARDED["f32_steps"] if f32 else SHARDED["bf16_steps"]):
+                batch = next(loader)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                state, metrics = step(state, batch)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t1) * 1e3)
+                losses.append(float(metrics["loss"]))
+                if f32:
+                    ckpt.save(i + 1, state)
+            single[dtype] = {"losses": losses, "step_ms": ms, "bytes": nbytes,
+                             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                             "launches": [fa.flash_attention_cuda.launches,
+                                          fa.flash_attention_bwd_cuda.launches]}
+            del model, state, step, loader
+            gc.collect()
+            torch.cuda.empty_cache()
+        record["single"] = single
+        sf, sb = single["float32"], single["bfloat16"]
+        log(f"phase 21 single-device reference (phase 12's make_train_step), {SHARDED['arch']} "
+            f"at {b} x {s:,}, AdamW lr {SHARDED['lr']} without warmup: float32 (TF32 off; "
+            f"{SHARDED['f32_layers']} of 30 layers) losses "
+            f"{', '.join(f'{x:.6f}' for x in sf['losses'])}, step ms "
+            f"{', '.join(f'{x:.1f}' for x in sf['step_ms'])}, peak {sf['peak_gb']:.2f} GB; bf16 "
+            f"(uncut) losses {', '.join(f'{x:.4f}' for x in sb['losses'])}, step ms "
+            f"{', '.join(f'{x:.1f}' for x in sb['step_ms'])}, parameters "
+            f"{sb['bytes']['params'] / 1e9:.3f} GB and AdamW state {sb['bytes']['opt'] / 1e9:.3f} "
+            f"GB (float32), peak {sb['peak_gb']:.2f} GB")
+        layers = {"float32": SHARDED["f32_layers"],
+                  "bfloat16": configs.get(SHARDED["arch"]).num_layers}
+        runs = {}
+        for backend, shape in SHARDED["runs"]:
+            dims = tuple(int(x) for x in shape.split("x"))
+            world = math.prod(dims)
+            run = (f"{backend} x{world} on ({dims[0]},) data" if len(dims) == 1 else
+                   f"{backend} x{world} on {dims} data x model")
+            t0 = time.perf_counter()
+            ranks = run_mesh_ranks(run_dir, backend, world, flag="--train-child", extra=(shape,),
+                                   timeout=SHARDED["timeout"])
+            wall = time.perf_counter() - t0
+            for r in ranks:
+                rf, rb = r["float32"], r["bfloat16"]
+                where = f"phase 21, {run}, rank {r['rank']}"
+                loss_err = max(abs(a - w) / abs(w) for a, w in zip(rf["losses"], sf["losses"]))
+                bf16_err = max(abs(a - w) / abs(w) for a, w in zip(rb["losses"], sb["losses"]))
+                shards = world
+                share = {part: rb["bytes"][part] * shards / sb["bytes"][part]
+                         for part in ("params", "opt")}
+                want = {dt: {"flash_attention": n * 2 * layers[dt],
+                             "flash_attention_bwd": n * layers[dt]}
+                        for dt, n in (("float32", SHARDED["f32_steps"]),
+                                      ("bfloat16", SHARDED["bf16_steps"]))}
+                got = {dt: {k: r[dt]["launches"][k] for k in want[dt]} for dt in want}
+                bad = []
+                if loss_err > SHARDED_LOSS_RTOL:
+                    bad.append(f"float32 losses {rf['losses']} vs {sf['losses']}")
+                if rf["param_gate"][0] > SHARDED_PARAM_REL_RMS:
+                    bad.append(f"float32 parameter leaf {rf['param_gate'][1]}: "
+                               f"{rf['param_gate'][0]:.3g} of its update")
+                if rf["moment_gate"][0] > SHARDED_MOMENT_REL_RMS:
+                    bad.append(f"float32 moment leaf {rf['moment_gate'][1]}: "
+                               f"{rf['moment_gate'][0]:.3g}")
+                if bf16_err > SHARDED_BF16_LOSS_RTOL or not all(map(math.isfinite, rb["losses"])):
+                    bad.append(f"bf16 losses {rb['losses']} vs {sb['losses']}")
+                if "control_gate" in rf and rf["control_gate"][0] <= SHARDED_PARAM_REL_RMS:
+                    bad.append(f"the control (rank 0's rows shifted) passed: "
+                               f"{rf['control_gate'][0]:.3g}")
+                if got != want:
+                    bad.append(f"flash launches {got}, expected {want}")
+                if not all(1.0 <= v <= 1.01 for v in share.values()):
+                    bad.append(f"bytes x {shards} shards over the single rank's: {share}")
+                if r["float32"]["losses"] != ranks[0]["float32"]["losses"] or \
+                        r["bfloat16"]["losses"] != ranks[0]["bfloat16"]["losses"]:
+                    bad.append("losses differ from rank 0's")
+                if bad:
+                    raise AssertionError(f"{where}: " + "; ".join(bad))
+                for dt, k in (("bfloat16", "flash_attention"), ("bfloat16", "flash_attention_bwd")):
+                    launches_by_path[k][f"{where} ({dt} steps)"] = r[dt]["launches"][k]
+                for k in ("flash_attention", "flash_attention_bwd"):
+                    launches_by_path[k][f"{where} (float32 steps)"] = rf["launches"][k]
+            med = statistics.median(ranks[0]["bfloat16"]["step_ms"][1:])
+            f32_med = ranks[0]["float32"]["step_ms"][-1]
+            runs[run] = {"wall_s": wall, "bf16_step_ms": med, "bf16_tokens_per_s": b * s / med * 1e3,
+                         "f32_step_ms": f32_med, "ranks": ranks}
+            r0 = ranks[0]
+            log(f"phase 21, {run} ({wall:.1f} s with start-up): float32 losses "
+                f"{', '.join(f'{x:.6f}' for x in r0['float32']['losses'])} = the single "
+                f"device's within {SHARDED_LOSS_RTOL} on every rank; bf16 losses "
+                f"{', '.join(f'{x:.4f}' for x in r0['bfloat16']['losses'])} (single device "
+                f"within {SHARDED_BF16_LOSS_RTOL}); bf16 step {med:.1f} ms (median of steps "
+                f"2-{SHARDED['bf16_steps']}, wall with the barrier's sync), "
+                f"{b * s / med * 1e3:,.0f} tokens/s; float32 step {f32_med:.1f} ms (the last, "
+                f"{SHARDED['f32_layers']} layers); every rank the same losses")
+            for r in ranks:
+                rf, rb = r["float32"], r["bfloat16"]
+                ctrl = (f", control (rank 0's rows shifted) {rf['control_gate'][0]:.3g} fails "
+                        f"the gate as it must" if "control_gate" in rf else "")
+                log(f"  rank {r['rank']} {json.dumps(r['coord'])}: parameters "
+                    f"{rb['bytes']['params'] / 1e9:.3f} GB, AdamW state "
+                    f"{rb['bytes']['opt'] / 1e9:.3f} GB (float32, uncut; the single rank's "
+                    f"{sb['bytes']['params'] / 1e9:.3f} / {sb['bytes']['opt'] / 1e9:.3f}); peak "
+                    f"{rf['peak_gb']:.2f} GB float32, {rb['peak_gb']:.2f} GB bf16; float32 slices "
+                    f"against the single device's: worst parameter leaf "
+                    f"{rf['param_gate'][0]:.3g} of its update (gate {SHARDED_PARAM_REL_RMS}), "
+                    f"worst moment {rf['moment_gate'][0]:.3g} (gate {SHARDED_MOMENT_REL_RMS})"
+                    f"{ctrl}; float32 step ms {', '.join(f'{x:.1f}' for x in rf['step_ms'])}, bf16 "
+                    f"{', '.join(f'{x:.1f}' for x in rb['step_ms'])}; "
+                    f"the first bf16 step's {rb['calls'][0]} forward and {rb['calls'][1]} "
+                    f"backward kernel calls ({rb['local_rows']} rows, {rb['local_heads']} heads "
+                    f"a call) at their operands: forward max |err| "
+                    f"{rb['fwd_calls_max_abs_err']:.3g}, backward relative RMS "
+                    f"{rb['bwd_calls_rel_rms']:.3g}; launches float32 "
+                    f"{json.dumps(rf['launches'])}, bf16 {json.dumps(rb['launches'])}")
+        record["runs"] = runs
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    record["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 21: {record['phase_s']:.1f} s; NCCL with more than one rank is not exercised "
+        f"(one card): the gloo ranks share it through host copies")
+    return record, launches_by_path
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--mesh-child", nargs=4, metavar=("DIR", "BACKEND", "RANK", "WORLD"),
                         help=argparse.SUPPRESS)   # one rank of phase 20
+    parser.add_argument("--train-child", nargs=5,
+                        metavar=("DIR", "BACKEND", "RANK", "WORLD", "MESH"),
+                        help=argparse.SUPPRESS)   # one rank of phase 21
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4812,6 +5200,10 @@ def main(argv=None) -> int:
     if args.mesh_child:
         run_dir, backend, rank, world = args.mesh_child
         mesh_child(Path(run_dir), backend, int(rank), int(world))
+        return 0
+    if args.train_child:
+        run_dir, backend, rank, world, shape = args.train_child
+        train_child(Path(run_dir), backend, int(rank), int(world), shape)
         return 0
     from repro_torch.core import engine
     from repro_torch.data.collections import skewed_collection, with_duplicates, zipf_collection
@@ -4906,6 +5298,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     kernels += phase_mesh_drivers(zipf, zipf_pairs, zipf_candidates, skewed, skewed_results,
                                   batches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded, sharded_launches = phase_sharded_train(args.seed)
+    for k in kernels:
+        if k["name"] in sharded_launches:   # rows 9 and 9d: phase 21's ranks too
+            k.setdefault("launches_by_path", {k["path"]: k["launches"]})
+            k["launches_by_path"].update(sharded_launches[k["name"]])
+    log(json.dumps({"sharded_training": sharded}))
     log(smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,8 +7,11 @@ tokens, frame embeddings (frame-input models) and image embeddings (the vlm
 family), the embeddings rounded to bf16 as the reference rounds them; the
 batch goes to the loader's device (the card unless the caller asks for the
 CPU).  Its state is a tiny dict (step, seed), saved beside the model's
-checkpoint so a restart resumes mid-epoch.  Sharding the batch over a mesh
-waits for multi-GPU (ROADMAP Queue 1 item 11).
+checkpoint so a restart resumes mid-epoch.  Given a mesh, each rank keeps
+only its rows of the global batch (block i of the batch axes' row-major
+index i, as the reference's ``make_array_from_callback`` hands each device
+its shard), the same rows the single-device loader gives; the TP ranks of a
+batch rank get the same rows.
 """
 
 from __future__ import annotations
@@ -34,10 +37,23 @@ class LoaderConfig:
 class SyntheticLMLoader:
     """Deterministic synthetic token stream with a checkpointable cursor."""
 
-    def __init__(self, model_cfg: ModelConfig, cfg: LoaderConfig, *, device=None):
+    def __init__(self, model_cfg: ModelConfig, cfg: LoaderConfig, *, device=None, mesh=None,
+                 batch_axes=("pod", "data")):
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.rows = slice(None)
+        if mesh is not None:
+            from repro_torch.distributed.sharding import layout_of
+
+            layout = layout_of(mesh)
+            axes = tuple(a for a in batch_axes if a in layout.sizes)
+            n = layout.size(axes)
+            if cfg.batch_size % n:
+                raise ValueError(f"batch {cfg.batch_size} does not divide over {axes} ({n})")
+            per = cfg.batch_size // n
+            self.rows = slice(layout.index(axes) * per, (layout.index(axes) + 1) * per)
         self.state: Dict[str, Any] = {"step": 0, "seed": cfg.seed}
 
     # --- checkpointable state ---
@@ -74,7 +90,7 @@ class SyntheticLMLoader:
     def __next__(self) -> Dict[str, torch.Tensor]:
         batch = self.host_batch(self.state["step"])
         self.state["step"] += 1
-        return {k: v.contiguous().to(self.device) for k, v in batch.items()}
+        return {k: v[self.rows].contiguous().to(self.device) for k, v in batch.items()}
 
 
 def _bf16(a: np.ndarray) -> torch.Tensor:

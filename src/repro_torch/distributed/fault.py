@@ -8,8 +8,11 @@ it and resumes from that step, up to ``max_restarts`` times.  Each step's
 wall time is held against the median of the last ``straggler_window``; one
 slower than ``straggler_factor`` times that median is logged as a
 straggler.  Recovery is restore + rerun: what must survive is the checkpoint
-(and the loader's cursor).  Restarting on another mesh (``remesh``, the
-reference's elastic path) waits for multi-GPU (ROADMAP Queue 1 item 11).
+(and the loader's cursor).  With ``remesh`` (the reference's elastic path)
+the state is rebuilt on the mesh ``remesh()`` returns, at start and after
+every failure, and the checkpoint layer reshards on read.  A failed
+collective (``torch.distributed.DistError``) is not a step failure: it is
+raised at once, since the ranks can no longer agree on a restore.
 """
 
 from __future__ import annotations
@@ -18,7 +21,9 @@ import dataclasses
 import logging
 import statistics
 import time
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
+
+import torch.distributed as dist
 
 from repro_torch.distributed.checkpoint import CheckpointManager
 
@@ -44,17 +49,24 @@ class RunnerConfig:
 class FaultTolerantRunner:
     """Drives ``step_fn(state, batch) -> (state, metrics)`` with recovery.
 
-    ``make_state(None) -> (state, _)`` builds the state (the second item,
-    the reference's shardings, is ignored); it is called at start and after
-    every failure, and the latest checkpoint is restored into it."""
+    ``make_state(mesh) -> (state, shardings)`` builds the state: ``mesh`` is
+    ``remesh()``'s (None without ``remesh``), ``shardings`` None for a whole
+    state or a tree of ``NamedSharding`` for one rank's slices (checkpoints
+    are then saved and restored sharded).  It is called at start and after
+    every failure, and the latest checkpoint is restored into it.  In a
+    multi-rank run every rank drives its runner in step, and a failure is
+    one that every rank sees."""
 
     def __init__(self, step_fn: Callable, make_state: Callable, batch_iter,
-                 ckpt: CheckpointManager, cfg: RunnerConfig = RunnerConfig()):
+                 ckpt: CheckpointManager, cfg: RunnerConfig = RunnerConfig(),
+                 remesh: Optional[Callable[[], Any]] = None):
         self.step_fn = step_fn
         self.make_state = make_state
         self.batch_iter = batch_iter
         self.ckpt = ckpt
         self.cfg = cfg
+        self.remesh = remesh
+        self.shardings = None
         self.events: List[FaultEvent] = []
         self.step_times: List[float] = []
 
@@ -70,10 +82,10 @@ class FaultTolerantRunner:
 
     def run(self, num_steps: int) -> Dict[str, Any]:
         restarts = 0
-        state, _ = self.make_state(None)
+        state, self.shardings = self.make_state(self.remesh() if self.remesh else None)
         # Resume from the latest checkpoint if one exists.
         if self.ckpt.latest_step() is not None:
-            state, at = self.ckpt.restore(state)
+            state, at = self.ckpt.restore(state, self.shardings)
             self.events.append(FaultEvent(at, "restore", "startup resume"))
 
         step = int(state["step"])
@@ -83,14 +95,16 @@ class FaultTolerantRunner:
             try:
                 state, metrics = self.step_fn(state, batch)
             except Exception as e:  # noqa: BLE001 — any device loss surfaces here
+                if isinstance(e, dist.DistError):
+                    raise
                 restarts += 1
                 self.events.append(FaultEvent(step, "failure", repr(e)))
                 if restarts > self.cfg.max_restarts:
                     raise
                 log.warning("step %d failed (%s); restoring", step, e)
                 self.ckpt.wait()
-                state, _ = self.make_state(None)
-                state, at = self.ckpt.restore(state)
+                state, self.shardings = self.make_state(self.remesh() if self.remesh else None)
+                state, at = self.ckpt.restore(state, self.shardings)
                 self.events.append(FaultEvent(at, "restore", f"after failure at {step}"))
                 step = at
                 continue
@@ -98,9 +112,9 @@ class FaultTolerantRunner:
             step += 1
             if step % self.cfg.checkpoint_every == 0:
                 if self.cfg.async_checkpoint:
-                    self.ckpt.save_async(step, state)
+                    self.ckpt.save_async(step, state, self.shardings)
                 else:
-                    self.ckpt.save(step, state)
+                    self.ckpt.save(step, state, self.shardings)
         self.ckpt.wait()
-        self.ckpt.save(step, state)
+        self.ckpt.save(step, state, self.shardings)
         return {"state": state, "events": self.events, "restarts": restarts}

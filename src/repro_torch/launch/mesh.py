@@ -8,9 +8,9 @@ mesh is a :class:`torch.distributed.device_mesh.DeviceMesh` over the
 default process group, which must be initialised first.  Every rank builds
 the same mesh.
 
-``make_production_mesh`` and ``named`` (the dry run's 256- and 512-chip
-meshes and sharding specs) wait for the launch tooling (ROADMAP Queue 1
-item 13c).
+``make_production_mesh`` (the dry run's 256- and 512-chip meshes) waits
+for the launch tooling (ROADMAP Queue 1 item 13c); the reference's
+``named`` is ``repro_torch.distributed.sharding.named``.
 """
 
 from __future__ import annotations

@@ -6,6 +6,9 @@ leaves stacked per layer along axis 0, and copies it leaf for leaf into a
 port ``Model`` of the same config, so both packages compute the same thing.
 :func:`state_from_numpy` does the same for a whole train state
 (``repro.train.init_state``: step, parameters, optimizer moments).
+:func:`shards_from_numpy` takes the parameter tree straight to one rank's
+slices on a mesh (``param_specs``), never building the whole tree as
+tensors.
 """
 
 from __future__ import annotations
@@ -15,9 +18,11 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from repro_torch.models.model import Model
+from repro_torch.distributed.sharding import layout_of
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import Model, dtype_of, param_specs
 from repro_torch.train.step import init_state
-from repro_torch.train.tree import leaves_with_paths
+from repro_torch.train.tree import leaves_with_paths, tree_map
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> dict:
@@ -69,3 +74,30 @@ def state_from_numpy(model: Model, opt_cfg, tree: Mapping) -> dict:
                 raise ValueError(f"{'/'.join(path)}: shape {a.shape} != {tuple(t.shape)}")
             t.copy_(torch.from_numpy(np.array(a)))
     return state
+
+
+def _to_dict(tree):
+    return {k: _to_dict(v) for k, v in tree.items()} if isinstance(tree, Mapping) else tree
+
+
+def shards_from_numpy(cfg: ModelConfig, tree: Mapping, mesh, *, device,
+                      fsdp=("pod", "data"), tp="model") -> dict:
+    """This rank's slices of the reference's parameter tree ``tree`` (nested
+    dicts of numpy arrays) on ``mesh`` under ``param_specs``, as tensors in
+    ``param_dtype`` on ``device`` requiring grad, the tree a sharded train
+    state holds.  Raises on a missing or extra leaf."""
+    layout = layout_of(mesh)
+    specs = param_specs(cfg, mesh, fsdp=fsdp, tp=tp)
+    tree = _to_dict(tree)
+    want = {path for path, _ in leaves_with_paths(specs)}
+    have = {path for path, _ in leaves_with_paths(tree)}
+    if want != have:
+        raise KeyError(f"trees differ: missing {sorted(want - have)}, extra {sorted(have - want)}")
+
+    def cut(a, spec):
+        a = np.asarray(a)
+        part = np.array(a[layout.slices(a.shape, spec)], dtype=np.float32)
+        return torch.from_numpy(part).to(device=device, dtype=dtype_of(cfg.param_dtype)
+                                         ).requires_grad_(True)
+
+    return tree_map(cut, tree, specs)

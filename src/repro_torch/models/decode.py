@@ -38,6 +38,79 @@ from repro_torch.models.model import Model, dtype_of, num_cross_layers
 Cache = Dict[str, torch.Tensor]
 
 
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> Dict:
+    """The shape of each leaf of :meth:`DecodeEngine.init_cache` (nested as
+    the cache is), without allocating it."""
+    nl, k = cfg.num_layers, cfg.ssm_conv
+
+    def kv(n_layers):
+        shape = (n_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": shape, "v": shape}
+
+    shapes: Dict = {"cur": (batch,)}
+    if cfg.family in ("dense", "moe", "audio"):
+        shapes.update(kv(nl))
+    elif cfg.family == "vlm":
+        n_cross = num_cross_layers(cfg)
+        shapes.update(kv(nl - n_cross))
+        img = (n_cross, batch, cfg.num_image_tokens, cfg.num_kv_heads, cfg.head_dim)
+        shapes.update(img_k=img, img_v=img)
+    else:
+        shapes.update(conv_x=(nl, batch, k - 1, cfg.ssm_inner),
+                      conv_b=(nl, batch, k - 1, cfg.ssm_state),
+                      conv_c=(nl, batch, k - 1, cfg.ssm_state),
+                      ssm=(nl, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state))
+        if cfg.family == "hybrid":
+            shapes["shared"] = kv(nl // cfg.attn_every)
+    return shapes
+
+
+def cache_specs(cfg: ModelConfig, mesh, batch: int, fsdp: Tuple[str, ...] = ("pod", "data"),
+                tp: str = "model") -> Dict:
+    """The reference's ``DecodeEngine.cache_specs``: the batch dim over the
+    FSDP axes when ``batch`` divides them, else (tiny batches, long_500k)
+    the sequence dim over the non-pod FSDP axes; KV heads over TP, or the
+    head dim when the KV heads do not divide (the MHA fallback); the conv
+    states' channels and the SSM heads over TP.  The sharded decode itself
+    is ROADMAP Queue 1 item 13c's."""
+    from repro_torch.distributed.sharding import P, axes_size, mesh_sizes
+
+    sizes = mesh_sizes(mesh)
+    fsdp = tuple(a for a in fsdp if a in sizes)
+    fsdp_size = axes_size(sizes, fsdp) if fsdp else 1
+    tp_size = sizes[tp] if tp in sizes else 1
+    batch_ax = fsdp if fsdp and batch % fsdp_size == 0 else None
+    # Sequence-parallel fallback for tiny batches (long_500k).
+    seq_ax = None if batch_ax is not None else tuple(a for a in fsdp if a != "pod") or None
+
+    def ax_t(dim):
+        return tp if tp_size > 1 and dim % tp_size == 0 else None
+
+    def spec_for(name, shape):
+        if name == "cur":
+            return P(None)
+        if name in ("k", "v"):  # (L, B, S, KV, hd)
+            sax = seq_ax if seq_ax and shape[2] % fsdp_size == 0 else None
+            kv_ax = ax_t(shape[3])
+            hd_ax = ax_t(shape[4]) if kv_ax is None else None
+            return P(None, batch_ax, sax, kv_ax, hd_ax)
+        if name in ("img_k", "img_v"):
+            kv_ax = ax_t(shape[3])
+            hd_ax = ax_t(shape[4]) if kv_ax is None else None
+            return P(None, batch_ax, None, kv_ax, hd_ax)
+        if name in ("conv_x", "conv_b", "conv_c"):
+            return P(None, batch_ax, None, ax_t(shape[3]))
+        if name == "ssm":  # (L, B, H, P, N)
+            return P(None, batch_ax, ax_t(shape[2]), None, None)
+        raise ValueError(name)
+
+    # The sequence dim's divisibility needs a real max_len.
+    shapes = cache_shapes(cfg, batch, max(fsdp_size, 8) * 64)
+    return {name: ({k: spec_for(k, v) for k, v in shape.items()} if isinstance(shape, dict)
+                   else spec_for(name, shape))
+            for name, shape in shapes.items()}
+
+
 class DecodeEngine:
     """Prefill and greedy-decode bodies over a :class:`Model`.  Methods take
     the model where the reference takes its parameter tree."""
@@ -50,33 +123,19 @@ class DecodeEngine:
         return self.model.cfg
 
     def init_cache(self, batch: int, max_len: int) -> Cache:
-        cfg = self.cfg
-        dev, cdt = self.model.device, dtype_of(cfg.dtype)
+        dev, cdt = self.model.device, dtype_of(self.cfg.dtype)
 
-        def zeros(*shape):
-            return torch.zeros(shape, dtype=cdt, device=dev)
+        def zeros(name, shape):
+            return torch.zeros(shape, dtype=torch.int32 if name == "cur" else cdt, device=dev)
 
-        def kv(n_layers):
-            shape = (n_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-            return {"k": zeros(*shape), "v": zeros(*shape)}
+        return {name: ({k: zeros(k, v) for k, v in shape.items()} if isinstance(shape, dict)
+                       else zeros(name, shape))
+                for name, shape in cache_shapes(self.cfg, batch, max_len).items()}
 
-        nl, k = cfg.num_layers, cfg.ssm_conv
-        cache: Cache = {"cur": torch.zeros((batch,), dtype=torch.int32, device=dev)}
-        if cfg.family in ("dense", "moe", "audio"):
-            cache.update(kv(nl))
-        elif cfg.family == "vlm":
-            n_cross = num_cross_layers(cfg)
-            cache.update(kv(nl - n_cross))
-            shape = (n_cross, batch, cfg.num_image_tokens, cfg.num_kv_heads, cfg.head_dim)
-            cache.update(img_k=zeros(*shape), img_v=zeros(*shape))
-        else:
-            cache.update(conv_x=zeros(nl, batch, k - 1, cfg.ssm_inner),
-                         conv_b=zeros(nl, batch, k - 1, cfg.ssm_state),
-                         conv_c=zeros(nl, batch, k - 1, cfg.ssm_state),
-                         ssm=zeros(nl, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state))
-            if cfg.family == "hybrid":
-                cache["shared"] = kv(nl // cfg.attn_every)
-        return cache
+    def cache_specs(self, mesh, batch: int, fsdp: Tuple[str, ...] = ("pod", "data"),
+                    tp: str = "model") -> Dict:
+        """The cache's specs on ``mesh`` (:func:`cache_specs`)."""
+        return cache_specs(self.cfg, mesh, batch, fsdp=fsdp, tp=tp)
 
     def _qkv(self, h: torch.Tensor, blk: Dict, positions: torch.Tensor):
         """q (B, S, H, hd), k and v (B, S, KV, hd) of normed input ``h``,

@@ -18,8 +18,11 @@ Attention has two forms:
 * :func:`decode_attention` — one-token attention against the KV cache,
   plain PyTorch as it is jnp in the reference.
 
-The reference's sharding hooks (``constrain``, ``attn_partition``) are
-no-ops without a mesh and are left out; multi-GPU is ROADMAP Queue 1 item 11.
+The reference's sharding hooks (``constrain``, ``attn_partition``) live in
+``repro_torch.distributed.sharding``, where they decide the sharded dense
+block's layout (``models/model.py``); the block calls
+:func:`attention_block` on its local heads (``kv_index`` maps them to the
+KV heads it computed when the kernel's own GQA grouping does not).
 """
 
 from __future__ import annotations
@@ -163,11 +166,14 @@ def attention_block(
     q_chunk: int = 512,
     kv_chunk: int = 512,
     triangle_schedule: bool = False,
+    kv_index: Optional[Tuple[int, ...]] = None,
 ) -> torch.Tensor:
     """Self-attention (or cross-attention when ``kv_override`` is given).
 
     params: wq (D, H*hd), wk (D, KV*hd), wv (D, KV*hd), wo (H*hd, D)
             [+ q_norm (hd,), k_norm (hd,) when qk_norm].
+    ``kv_index``: query head i reads KV head ``kv_index[i]`` (k and v
+    expanded to one head a query head); None: the kernel's GQA grouping.
     """
     b, s, _ = x.shape
     h, kvh, hd = num_heads, num_kv_heads, head_dim
@@ -187,6 +193,9 @@ def attention_block(
     if kv_override is None:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
+    if kv_index is not None:
+        index = torch.tensor(kv_index, device=k.device)
+        k, v = k.index_select(2, index), v.index_select(2, index)
     out = flash_attention(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
                           triangle_schedule=triangle_schedule)
     return out.reshape(b, s, h * hd) @ params["wo"].to(x.dtype)

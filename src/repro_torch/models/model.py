@@ -31,9 +31,16 @@ one gated cross-attention + MLP block (``cross_blocks``, ``gate`` starting
 at zero) over ``batch["image_embeds"]`` after every ``cross_attn_every``
 self layers: no RoPE, non-causal, outside remat.  The audio family
 (musicgen) is the dense decoder fed ``batch["frame_embeds"]`` in place of
-the embedding lookup (``embed`` is then unused).  ``param_specs`` waits for
-multi-GPU (ROADMAP Queue 1 item 11).  The model runs on the card unless
-the caller passes ``device="cpu"``.
+the embedding lookup (``embed`` is then unused).  The model runs on the
+card unless the caller passes ``device="cpu"``.
+
+Sharding: :func:`param_specs` (and ``Model.param_specs``) is the
+reference's rule set, a pure function of the config's shapes for every
+family; :func:`sharded_loss` is the dense family's loss on one rank's
+shards of the parameters and the batch, Megatron style, for
+``repro_torch.train.step.sharded_train_step``.  The other families' sharded
+step (expert parallelism, the SSD head sharding, the cross blocks) is
+ROADMAP Queue 1 item 11c.
 """
 
 from __future__ import annotations
@@ -253,6 +260,11 @@ class Model(nn.Module):
     def param_shapes(self) -> Dict:
         return param_shapes(self.cfg)
 
+    def param_specs(self, mesh, fsdp: Tuple[str, ...] = ("pod", "data"),
+                    tp: str = "model") -> Dict:
+        """The specs of :meth:`param_tree` on ``mesh`` (:func:`param_specs`)."""
+        return param_specs(self.cfg, mesh, fsdp=fsdp, tp=tp)
+
     def num_active_params(self) -> int:
         """Active parameters per token (the moe family discounts its
         inactive experts)."""
@@ -446,3 +458,243 @@ def _per_layer(stack: nn.Module) -> list:
     parts = {name: p.unbind(0) for name, p in stack.named_parameters()}
     n = len(next(iter(parts.values())))
     return [nest((name, views[i]) for name, views in parts.items()) for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# Sharding
+# ---------------------------------------------------------------------------
+
+_STACKED = ("blocks", "cross_blocks", "shared_attn")
+_COLUMN = ("wq", "wk", "wv", "w_gate", "w_up", "w_z", "w_x", "w_b", "w_c", "w_dt")
+_ROW = ("wo", "w_down", "w_out")
+OTHER_FAMILIES = ("the sharded step of the {} family waits for ROADMAP Queue 1 item 11c: "
+                  "the sharded step for the other families (expert parallelism, the SSD head "
+                  "sharding, the cross blocks)")
+
+
+def param_specs(cfg: ModelConfig, mesh, fsdp: Tuple[str, ...] = ("pod", "data"),
+                tp: str = "model") -> Dict:
+    """The reference's ``Model.param_specs``: a spec tree matching
+    :func:`param_shapes`.  Every matrix is TP-sharded over ``tp`` on its
+    "parallel" dim and FSDP-sharded over the batch axes ``fsdp`` (those the
+    mesh has) on the other: q/k/v, gate/up and the Mamba2 input projections
+    (fsdp, tp), their (E, D, F) expert forms (tp, fsdp, None); wo/down/out
+    (tp, fsdp), experts (tp, None, fsdp); ``embed`` vocab-parallel (tp,
+    fsdp); ``lm_head`` (fsdp, tp); ``router`` (fsdp, None); ``conv_x`` its
+    channels over TP, ``conv_b`` / ``conv_c`` replicated; the SSD per-head
+    vectors over TP; norms replicated.  A stacked leaf (blocks,
+    cross_blocks, shared_attn) gets a leading None; a dim that does not
+    divide is replicated; an unknown leaf raises.  ``mesh``: anything
+    :func:`~repro_torch.distributed.sharding.mesh_sizes` reads."""
+    from repro_torch.distributed.sharding import P, axes_size, mesh_sizes
+
+    sizes = mesh_sizes(mesh)
+    fsdp = tuple(a for a in fsdp if a in sizes)
+    fsdp_size = axes_size(sizes, fsdp) if fsdp else 1
+    tp_size = sizes[tp] if tp in sizes else 1
+
+    def ax_f(dim):  # FSDP axes if divisible
+        return fsdp if fsdp and dim % fsdp_size == 0 else None
+
+    def ax_t(dim):  # TP axis if divisible
+        return tp if tp_size > 1 and dim % tp_size == 0 else None
+
+    def spec_for(path: Tuple[str, ...], shape: Tuple[int, ...]):
+        name = path[-1]
+        stacked = path[0] in _STACKED
+        if name == "embed":
+            return P(ax_t(shape[0]), ax_f(shape[1]))
+        if name == "lm_head":
+            return P(ax_f(shape[0]), ax_t(shape[1]))
+        if name == "final_norm":
+            return P(None)
+        s = shape[1:] if stacked else shape
+
+        def wrap(*spec):
+            return P(*(((None,) + spec) if stacked else spec))
+
+        if name in _COLUMN:
+            if len(s) == 3:  # MoE expert weights (E, D, F)
+                return wrap(ax_t(s[0]), ax_f(s[1]), None)
+            return wrap(ax_f(s[0]), ax_t(s[1]))
+        if name in _ROW:
+            if len(s) == 3:  # (E, F, D)
+                return wrap(ax_t(s[0]), None, ax_f(s[1]))
+            return wrap(ax_t(s[0]), ax_f(s[1]))
+        if name == "router":
+            return wrap(ax_f(s[0]), None)
+        if name == "conv_x":
+            return wrap(None, ax_t(s[1]))
+        if name in ("conv_b", "conv_c"):
+            return wrap(None, None)
+        if name in ("a_log", "dt_bias", "d_skip", "norm"):
+            return wrap(ax_t(s[0]))
+        if name in ("attn_norm", "mlp_norm", "q_norm", "k_norm"):
+            return wrap(None)
+        if name == "gate":
+            return wrap() if len(s) == 0 else wrap(None)
+        raise ValueError(f"no spec rule for {path} {shape}")
+
+    return nest((name, spec_for(tuple(name.split(".")), shape))
+                for name, (shape, _) in param_layout(cfg).items())
+
+
+def _flat(tree: Dict, prefix: str = "") -> list:
+    """``[(dotted name, leaf), ...]`` of a nested dict."""
+    out = []
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            out.extend(_flat(tree[key], f"{prefix}{key}."))
+        else:
+            out.append((prefix + key, tree[key]))
+    return out
+
+
+def sharded_loss(cfg: ModelConfig, params: Dict, specs: Dict, batch: Dict[str, torch.Tensor],
+                 *, count: torch.Tensor, triangle: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dense family's next-token loss on this rank's shards, inside
+    :func:`~repro_torch.distributed.sharding.activation_sharding` over a
+    ``DeviceMesh`` (the counterpart of :meth:`Model.loss` under the
+    reference's ``jit_train_step``).
+
+    ``params``: this rank's slices of the parameter tree, laid out by
+    ``specs`` (:func:`param_specs`); ``batch``: this rank's rows (tokens,
+    labels, optional loss_mask), the same on every TP rank; ``count``: the
+    number of counted tokens in the global batch.  Megatron style on local
+    shards: each layer all-gathers its FSDP-sharded weights over the batch
+    axes when it runs (inside the layer's remat region, so a backward
+    replays the gathers in layer order on every rank and the peak holds one
+    layer in full; the matrices cast to the compute type before they move,
+    as the unsharded step casts them where they are used; each gather's
+    backward reduce-scatters the gradient, summed in the parameter type);
+    q/k/v and gate/up are column-parallel over the TP axis and wo and down
+    row-parallel, their partial outputs all-reduced over it; the flash
+    kernels run on the local heads.  Attention follows
+    :func:`~repro_torch.distributed.sharding.attn_partition`: head-parallel
+    when the KV heads divide TP, q head-parallel with this rank's KV heads
+    computed from the gathered wk / wv when only the q heads do, and
+    replicated over the TP group when neither does (the reference shards
+    the q sequence there; the kernel takes no causal offset, item 13c).
+    The MLP is column / row parallel when d_ff divides TP, else replicated.
+    The embedding and the head are vocab-parallel when the vocabulary
+    divides TP (each rank looks up and scores its vocab slice; the
+    cross-entropy's max, sum of exponentials and gold logit are reduced
+    over TP, as the reference constrains the logits to (batch, None, tp)),
+    else gathered whole.
+
+    Returns ``(objective, nll_sum)``: this rank's share of the loss (its
+    rows' summed nll over ``count``, over the TP size, so that the shares
+    of all ranks sum to the loss) and its rows' summed nll, detached."""
+    from repro_torch.distributed.sharding import (AttnPartition, P, attn_partition, constrain,
+                                                  current_context, entry_axes)
+
+    ctx = current_context()
+    if ctx is None or ctx.layout is None:
+        raise RuntimeError("sharded_loss runs inside activation_sharding over a DeviceMesh")
+    if cfg.family != "dense":
+        raise NotImplementedError(OTHER_FAMILIES.format(cfg.family))
+    lay, tp = ctx.layout, ctx.tp
+    cdt = dtype_of(cfg.dtype)
+    part = attn_partition(cfg.num_heads, cfg.num_kv_heads) or AttnPartition(
+        "replicated", (0, cfg.num_heads), (0, cfg.num_kv_heads))
+    mlp_tp = constrain((cfg.d_ff,), ("tp",))[0] is not None
+    vocab_tp = constrain((cfg.vocab_size,), ("tp",))[0] is not None
+
+    def use(t, spec, keep=(), cast=False):
+        """``t`` (a slice laid out by ``spec``) gathered along every sharded
+        dim but those in ``keep``, which stay sharded over TP; with ``cast``
+        in the compute type (cast before the last gather, so the gradients
+        are still summed in the parameter type)."""
+        gathers = []
+        for d, e in enumerate(tuple(spec)):
+            if d in keep:
+                if e is None and ctx.tp_size > 1:
+                    raise ValueError(f"dim {d} of a {spec} leaf is not sharded over {tp}")
+            elif entry_axes(e):
+                gathers.append((d, entry_axes(e)))
+        for i, (d, axes) in enumerate(gathers):
+            t = lay.gather(t, d, axes, dtype=cdt if cast and i == len(gathers) - 1 else None)
+        return t
+
+    def cols(keep: bool) -> tuple:      # a matrix's column dim kept on TP, or none
+        return (1,) if keep else ()
+
+    def rows(keep: bool) -> tuple:
+        return (0,) if keep else ()
+
+    def layer(x, blk, lspec):
+        a, sa = blk["attn"], lspec["attn"]
+        heads = part.case == "heads"
+        w = {"wq": use(a["wq"], sa["wq"], cols(part.tp_parallel), cast=True),
+             "wk": use(a["wk"], sa["wk"], cols(heads), cast=True),
+             "wv": use(a["wv"], sa["wv"], cols(heads), cast=True),
+             "wo": use(a["wo"], sa["wo"], rows(part.tp_parallel), cast=True)}
+        if part.case == "q_heads":   # only the KV heads this rank's query heads read
+            lo, n = part.kv_heads
+            kv = slice(lo * cfg.head_dim, (lo + n) * cfg.head_dim)
+            w["wk"], w["wv"] = w["wk"][:, kv], w["wv"][:, kv]
+        for norm in ("q_norm", "k_norm"):
+            if norm in a:
+                w[norm] = use(a[norm], sa[norm])
+        h = L.attention_block(
+            L.rms_norm(x, use(blk["attn_norm"], lspec["attn_norm"]), cfg.norm_eps), w,
+            num_heads=part.q_heads[1], num_kv_heads=part.kv_heads[1], head_dim=cfg.head_dim,
+            rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
+            triangle_schedule=triangle, kv_index=part.kv_index)
+        if part.tp_parallel:
+            h = lay.psum(h, tp)
+        x = x + h
+        m, sm = blk["mlp"], lspec["mlp"]
+        h = L.swiglu(L.rms_norm(x, use(blk["mlp_norm"], lspec["mlp_norm"]), cfg.norm_eps),
+                     use(m["w_gate"], sm["w_gate"], cols(mlp_tp), cast=True),
+                     use(m["w_up"], sm["w_up"], cols(mlp_tp), cast=True),
+                     use(m["w_down"], sm["w_down"], rows(mlp_tp), cast=True))
+        if mlp_tp:
+            h = lay.psum(h, tp)
+        return x + h
+
+    # The embedding: this rank's vocab slice looked up, summed over TP.
+    emb = use(params["embed"], specs["embed"], rows(vocab_tp))
+    tokens = batch["tokens"].long()
+    v0 = lay.coord[tp] * emb.shape[0] if vocab_tp else 0
+    if vocab_tp:
+        local = tokens - v0
+        inside = (local >= 0) & (local < emb.shape[0])
+        x = torch.where(inside[..., None], emb[local.clamp(0, emb.shape[0] - 1)], 0.0)
+        x = lay.psum(x, tp).to(cdt)
+    else:
+        x = emb[tokens].to(cdt)
+
+    parts = {name: leaf.unbind(0) for name, leaf in _flat(params["blocks"])}
+    lspecs = nest((name, P(*tuple(sp)[1:])) for name, sp in _flat(specs["blocks"]))
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i in range(cfg.num_layers):
+        blk = nest((name, views[i]) for name, views in parts.items())
+        if remat:
+            x = checkpoint(layer, x, blk, lspecs, use_reentrant=False)
+        else:
+            x = layer(x, blk, lspecs)
+
+    x = L.rms_norm(x, use(params["final_norm"], specs["final_norm"]), cfg.norm_eps)
+    if cfg.tie_embeddings:
+        w = emb.T
+    else:
+        w = use(params["lm_head"], specs["lm_head"], cols(vocab_tp), cast=True)
+    logits = (x @ w.to(x.dtype)).float()
+    labels = batch["labels"].long()
+    if vocab_tp:
+        peak = lay.all_reduce(logits.detach().amax(dim=-1), tp, op=torch.distributed.ReduceOp.MAX)
+        logz = peak + torch.log(lay.psum(torch.exp(logits - peak[..., None]).sum(dim=-1), tp))
+        local = labels - v0
+        inside = (local >= 0) & (local < logits.shape[-1])
+        gold = torch.take_along_dim(logits, local.clamp(0, logits.shape[-1] - 1)[..., None],
+                                    dim=-1)[..., 0]
+        gold = lay.psum(torch.where(inside, gold, 0.0), tp)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+    nll = logz - gold
+    mask = batch.get("loss_mask")
+    nll_sum = (nll * mask.float()).sum() if mask is not None else nll.sum()
+    return nll_sum / count / ctx.tp_size, nll_sum.detach()

@@ -6,8 +6,11 @@ reference's float32 arithmetic: the step as float32, ``b1 ** t`` as a
 float32 power, decoupled weight decay on tensors of two or more dims only.
 ``adamw_update`` and ``adafactor_update`` write the new parameters and
 moments into the given tensors (the reference donates its state to the jitted
-step) and return them.  ``opt_state_specs`` shards the state over a mesh and
-waits for multi-GPU (ROADMAP Queue 1 item 11).
+step) and return them.  On one rank's shards (the sharded train step) AdamW
+is elementwise as it stands; Adafactor's factored means and its update RMS
+are over the whole leaf, so ``adafactor_update`` takes the leaves' specs and
+the mesh layout and all-reduces them over the axes that shard their dims.
+``opt_state_specs`` mirrors the parameters' specs.
 """
 
 from __future__ import annotations
@@ -32,6 +35,10 @@ class OptimizerConfig:
     eps: float = 1e-8
     weight_decay: float = 0.1
     grad_clip: float = 1.0
+    # int8 stochastic-rounding compression of the cross-pod gradient
+    # all-reduce (repro_torch.train.compress.compressed_pmean).  Accepted and
+    # read nowhere, as in the reference.
+    compress_cross_pod: bool = False
 
 
 def _f32(step, device=None) -> torch.Tensor:
@@ -105,47 +112,112 @@ def adafactor_init(params):
 
 
 @torch.no_grad()
-def adafactor_update(cfg: OptimizerConfig, params, grads, state, step):
+def adafactor_update(cfg: OptimizerConfig, params, grads, state, step, *, specs=None,
+                     layout=None):
+    """``specs`` and ``layout`` (a ``MeshLayout``), when given: the leaves
+    are one rank's slices laid out by ``specs``, and each mean over a dim is
+    all-reduced over the axes that shard it (the whole-leaf RMS over all of
+    the leaf's)."""
     lr = lr_schedule(cfg, step)
     t = _f32(step) + 1.0
     beta2 = 1.0 - torch.pow(t, -0.8)
 
-    def upd(p, g, v):
+    def mean(x, dim, spec):
+        """The mean over the whole leaf's dim ``dim``."""
+        axes = () if spec is None else _axes(spec, dim)
+        if not axes:
+            return torch.mean(x, dim=dim)
+        return layout.all_reduce(torch.sum(x, dim=dim), axes) / (x.shape[dim] * layout.size(axes))
+
+    def upd(p, g, v, spec):
         g = g.float()
         g2 = g * g + 1e-30
         if p.dim() >= 2:
-            v["vr"].copy_(beta2 * v["vr"] + (1 - beta2) * torch.mean(g2, dim=-1))
-            v["vc"].copy_(beta2 * v["vc"] + (1 - beta2) * torch.mean(g2, dim=-2))
+            v["vr"].copy_(beta2 * v["vr"] + (1 - beta2) * mean(g2, -1, spec))
+            v["vc"].copy_(beta2 * v["vc"] + (1 - beta2) * mean(g2, -2, spec))
             vr, vc = v["vr"], v["vc"]
             denom = (vr[..., None] * vc[..., None, :]) / torch.clamp(
-                torch.mean(vr, dim=-1, keepdim=True)[..., None], min=1e-30)
+                _mean_keep(vr, spec, layout)[..., None], min=1e-30)
             update = g / torch.sqrt(denom + 1e-30)
         else:
             v["v"].copy_(beta2 * v["v"] + (1 - beta2) * g2)
             update = g / torch.sqrt(v["v"] + 1e-30)
         # Update clipping (RMS <= 1) per Adafactor.
-        rms = torch.sqrt(torch.mean(update * update) + 1e-30)
+        rms = torch.sqrt(_mean_all(update * update, spec, layout) + 1e-30)
         update = update / torch.clamp(rms, min=1.0)
         if p.dim() >= 2:
             update = update + cfg.weight_decay * p.float()
         p.copy_(p.float() - lr * update)
 
     # A factored moment is a dict of its own: walk the parameters' paths.
-    def walk(p, g, v):
+    def walk(p, g, v, spec):
         if isinstance(p, dict):
             for key in p:
-                walk(p[key], g[key], v[key])
+                walk(p[key], g[key], v[key], None if spec is None else spec[key])
         else:
-            upd(p, g, v)
+            upd(p, g, v, spec)
 
-    walk(params, grads, state["v"])
+    walk(params, grads, state["v"], specs)
     return params, state, lr
+
+
+def _axes(spec, dim: int) -> tuple:
+    """The axes that shard dim ``dim`` of a leaf laid out by ``spec``."""
+    from repro_torch.distributed.sharding import entry_axes
+
+    spec = tuple(spec)
+    return entry_axes(spec[dim]) if -len(spec) <= dim < len(spec) else ()
+
+
+def _mean_keep(vr, spec, layout):
+    """mean(vr, -1, keepdims) over the whole leaf: vr's last dim is the
+    parameter's dim -2."""
+    axes = () if spec is None else _axes(spec, -2)
+    if not axes:
+        return torch.mean(vr, dim=-1, keepdim=True)
+    return layout.all_reduce(torch.sum(vr, dim=-1, keepdim=True), axes) / (
+        vr.shape[-1] * layout.size(axes))
+
+
+def _mean_all(x, spec, layout):
+    """The mean of every element of the whole leaf."""
+    from repro_torch.distributed.sharding import PartitionSpec
+
+    axes = () if spec is None else PartitionSpec(*spec).axes()
+    if not axes:
+        return torch.mean(x)
+    return layout.all_reduce(torch.sum(x), axes) / (x.numel() * layout.size(axes))
 
 
 def opt_init(cfg: OptimizerConfig, params):
     return {"adamw": adamw_init, "adafactor": adafactor_init}[cfg.name](params)
 
 
-def opt_update(cfg: OptimizerConfig, params, grads, state, step):
-    fn = {"adamw": adamw_update, "adafactor": adafactor_update}[cfg.name]
-    return fn(cfg, params, grads, state, step)
+def opt_update(cfg: OptimizerConfig, params, grads, state, step, *, specs=None, layout=None):
+    """The configured optimizer's update; ``specs`` and ``layout`` for one
+    rank's shards (only Adafactor reads them: AdamW is elementwise)."""
+    if cfg.name == "adafactor":
+        return adafactor_update(cfg, params, grads, state, step, specs=specs, layout=layout)
+    return {"adamw": adamw_update}[cfg.name](cfg, params, grads, state, step)
+
+
+def opt_state_specs(cfg: OptimizerConfig, param_specs):
+    """Optimizer-state specs mirroring the parameter specs (the state is
+    ZeRO-sharded by the parameters' FSDP axes): AdamW's ``mu`` and ``nu``
+    are the parameters' specs; Adafactor's factored ``vr`` drops the spec's
+    last entry and ``vc`` its second-to-last.  A one-dim leaf keeps its
+    unfactored ``{"v": spec}``, as ``adafactor_init`` builds it; the
+    reference gives it ``{"vr", "vc"}`` too, a tree its own state does not
+    have (ROADMAP Queue 3)."""
+    from repro_torch.distributed.sharding import P
+
+    if cfg.name == "adamw":
+        return {"mu": param_specs, "nu": param_specs}
+
+    def fac_spec(spec):
+        parts = tuple(spec)
+        if len(parts) < 2:
+            return {"v": P(*parts)}
+        return {"vr": P(*parts[:-1]), "vc": P(*(parts[:-2] + parts[-1:]))}
+
+    return {"v": tree_map(fac_spec, param_specs)}

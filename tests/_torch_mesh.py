@@ -102,13 +102,14 @@ def wait(procs: list, timeout: float = TIMEOUT) -> None:
             p.kill()
             p.communicate()
         raise
-    bad = [(p.returncode, o, e) for p, (o, e) in zip(procs, outs) if p.returncode]
+    bad = [(k, p.returncode, o, e) for k, (p, (o, e)) in enumerate(zip(procs, outs))
+           if p.returncode]
     if bad:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-        rc, o, e = bad[0]
-        raise AssertionError(f"exit {rc}\n{o[-3000:]}\n{e[-6000:]}")
+        raise AssertionError("\n".join(f"process {k} exit {rc}\n{o[-2000:]}\n{e[-3000:]}"
+                                        for k, rc, o, e in bad))
 
 
 # The port's child: join the gloo group, bind OUT's results.

@@ -43,7 +43,9 @@ from repro_torch import train, distributed
 from repro_torch.data import loader
 from repro_torch.launch import train as launch_train
 from repro_torch.launch import mesh as launch_mesh
-from repro_torch.distributed import sharded_index, sharding
+from repro_torch.distributed import checkpoint, fault, sharded_index, sharding
+from repro_torch.models import decode
+from repro_torch.train import compress, optimizer, step as train_step
 model = Model(configs.get_reduced("qwen3-8b"), device="cpu")
 out = generate.greedy_generate(DecodeEngine(model), torch.arange(12).reshape(2, 6), 3)
 assert out.tokens.shape == (2, 3)
@@ -92,6 +94,14 @@ with tempfile.TemporaryDirectory() as tmp:
                           eng.self_join())
     assert np.array_equal(sharded_index.sharded_indexed_join_prepared(
         prep, mesh=mesh, sim="jaccard", tau=0.6), eng.self_join())
+    mesh2 = launch_mesh.make_mesh((1, 1), ("data", "model"), device_type="cpu")
+    step, sspecs, _ = train_step.sharded_train_step(model, opt_cfg, mesh2)
+    sharded = train_step.sharded_state(model, opt_cfg, mesh2)
+    sharded, metrics = step(sharded, next(batches))
+    assert int(sharded["step"]) == 1 and bool(torch.isfinite(metrics["loss"]))
+    mgr = checkpoint.CheckpointManager(tmp + "/ckpt")
+    mgr.save(1, sharded, sharding.named(mesh2, sspecs))
+    assert mgr.restore(sharded, sharding.named(mesh2, sspecs))[1] == 1
     dist.destroy_process_group()
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))

@@ -296,5 +296,10 @@ def test_train_main_needs_a_card_or_a_device(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_main(["--reduced", "--steps", "1", "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(SystemExit, match="item 11"):
+    with pytest.raises(SystemExit, match="needs 4 ranks: run it under torchrun"):
         train_main(["--device", "cpu", "--mesh", "2x2", "--ckpt-dir", str(tmp_path)])
+    # Under torchrun (RANK set) the sharded path needs a card too.
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_main(["--reduced", "--mesh", "1x1", "--steps", "1", "--ckpt-dir", str(tmp_path)])
