@@ -329,6 +329,34 @@ Phases (any failure raises, so the script exits non-zero):
    and 9d's ``launches_by_path``); each rank's parameter and AdamW bytes
    (uncut) the single rank's over the shard count (within 1%); step ms,
    tokens/s and each rank's peak memory printed.
+22. Sharded serving and the launch tooling (about 2 minutes).  (a)
+   qwen3-8b at its published widths served through ``sharded_prefill`` and
+   ``sharded_decode_step``, each rank a process of its own (this script
+   with ``--serve-child``): 4 gloo ranks sharing the card on (1, 4) data x
+   model (head-parallel: 8 query and 2 KV heads a rank) and on (2, 2), the
+   depth cut from 36 to 4 layers and the generation to the prefill and one
+   decode step, then one NCCL rank on (1, 1) at full depth with phase 10's
+   4 x 4,096 prompt tokens and 31 decode steps; decode tokens are seeded
+   (teacher forcing).  Each rank draws the seeded parameters whole, computes
+   the single device's logits for its rows (``DecodeEngine``), then serves
+   from its slices: float32 (TF32 off) logits gathered over the vocabulary
+   within 1e-3 relative RMS of the single device's, the last step re-run
+   from the cache read one position off failing that gate; the NCCL rank's
+   bf16 logits within phase 10's 5%; every bf16 flash call of a prefill
+   equal to its plain version at its operands; the flash kernel launched
+   once a layer a prefill on every rank (row 9's ``launches_by_path``).
+   Printed per mesh: prefill s, decode ms a step, the flash launches and
+   the peak memory a rank.  (b) The dry run (``python -m
+   repro_torch.launch.dryrun``, each cell in its own subprocess, the first
+   two beside (a)): smollm-135m x train_4k and qwen3-8b x decode_32k at the
+   (16, 16) mesh of 256 ranks, and bitmap-join x join_1m, whose one rank's
+   256 ring hops run row 1 on the card; each cell's roofline terms printed.
+   (c) Phase 12's step (smollm-135m, 8 x 2,048, bf16, AdamW) dry-run on a
+   (1, 1) mesh and then run on the card through ``sharded_train_step``: the
+   predicted parameter and AdamW bytes must equal the measured (1.614 GB);
+   the predicted and measured peaks, the roofline's step-time bound beside
+   the measured step, and the step's share of the bf16 peak are printed,
+   each beside the card's name and power limit.
 
 Kernel times are device times: CUDA events around 50 (20 for attention)
 back-to-back launches, a spin kernel queued first so that the host's
@@ -381,15 +409,19 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the
-# float32 rate outside the tensor cores, which also caps 32-bit integer
-# work (XOR, popcount, compare) at best.  The bound is the least time the
-# card could take for the work: the larger of bytes/bandwidth and ops/rate.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
-PEAK_INT8_TENSOR_OPS_PER_S = 1.979e15   # dense int8 tensor-core rate
-PEAK_BF16_TENSOR_OPS_PER_S = 989e12     # dense bf16 tensor-core rate
-PEAK_TF32_TENSOR_OPS_PER_S = 495e12     # dense TF32 tensor-core rate
+# The H100 SXM's published peaks, from the port's roofline (its only copy,
+# with their sources): HBM3 bandwidth, and the float32 rate outside the
+# tensor cores, which also caps 32-bit integer work (XOR, popcount,
+# compare) at best.  The bound is the least time the card could take for
+# the work: the larger of bytes/bandwidth and ops/rate.
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch.launch.roofline import H100_SXM  # noqa: E402  (after the path)
+
+PEAK_BYTES_PER_S = H100_SXM.hbm_bytes_per_s
+PEAK_OPS_PER_S = H100_SXM.fp32_flops
+PEAK_INT8_TENSOR_OPS_PER_S = H100_SXM.int8_ops     # dense int8 tensor-core rate
+PEAK_BF16_TENSOR_OPS_PER_S = H100_SXM.bf16_flops   # dense bf16 tensor-core rate
+PEAK_TF32_TENSOR_OPS_PER_S = H100_SXM.tf32_flops   # dense TF32 tensor-core rate
 # ex2 (MUFU.EX2) issues 16 a clock on each SM of compute capability 9.0
 # (CUDA C++ Programming Guide, arithmetic instruction throughput table).
 EX2_PER_CLOCK_PER_SM = 16
@@ -5184,6 +5216,410 @@ def phase_sharded_train(seed: int) -> tuple[dict, dict]:
     return record, launches_by_path
 
 
+# Phase 22 (a): qwen3-8b served sharded.  Its gloo ranks share the card and
+# stage every collective through the host, so they run the depth cut from 36
+# to gloo_layers and a shorter generation (gloo_gen tokens: the prefill and
+# gloo_gen - 1 decode steps); the NCCL rank runs the published depth and
+# phase 10's prompt and generation.  Decode tokens are seeded (teacher
+# forcing), so no argmax tie can fork a run from its reference.
+SHARDED_SERVE = dict(arch="qwen3-8b", batch=4, prompt=4096, gen=32, gloo_layers=4, gloo_gen=2,
+                     runs=(("gloo", "1x4"), ("gloo", "2x2"), ("nccl", "1x1")), timeout=400)
+SERVE_F32_REL_TOL = 1e-3
+# Phase 22 (c): phase 12's step, dry-run and then measured on the card.
+DRYRUN_STEP = dict(arch="smollm-135m", batch=8, seq=2048, steps=5)
+
+
+def serve_child(run_dir: Path, backend: str, rank: int, world: int, shape: str) -> None:
+    """One rank of phase 22 (a) (``chip_smoke.py --serve-child DIR BACKEND
+    RANK WORLD MESH``): joins the group over a file store in ``run_dir``,
+    builds the (data, model) mesh ``AxB``, draws qwen3-8b's seeded
+    parameters (whole, on the card), computes the single device's logits for
+    its rows (``DecodeEngine``: the prefill's last position, then each
+    teacher-forced decode step), takes its slices (the (1, 1) mesh's are the
+    whole tensors) and serves its rows with ``sharded_prefill`` and
+    ``sharded_decode_step``; the logits gathered over the vocabulary's TP
+    slices are held to the single device's: float32 (TF32 off) within
+    ``SERVE_F32_REL_TOL`` relative RMS, the last step re-run from the cache
+    read one position off failing that gate; bf16 within ``LOGITS_REL_TOL``
+    (the NCCL rank), every flash call of its prefill equal to the plain
+    version at its operands.  The flash counters are zeroed just before the
+    sharded prefill and read after the last step.  Writes
+    ``<backend><world>_rank<rank>.json``."""
+    import dataclasses
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.distributed.sharding import activation_sharding, layout_of, shard_tree
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import DecodeEngine, Model
+    from repro_torch.models.decode import sharded_decode_step, sharded_prefill
+    from repro_torch.models.model import param_specs
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"file://{run_dir}/store", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=SHARDED_SERVE["timeout"]))
+    dims = tuple(int(x) for x in shape.split("x"))
+    mesh = make_mesh(dims, ("data", "model"))
+    layout = layout_of(mesh)
+    seed = int((run_dir.parent / "seed").read_text())
+    base = configs.get(SHARDED_SERVE["arch"])
+    full = backend == "nccl"
+    layers = base.num_layers if full else SHARDED_SERVE["gloo_layers"]
+    gen = SHARDED_SERVE["gen"] if full else SHARDED_SERVE["gloo_gen"]
+    b, p = SHARDED_SERVE["batch"], SHARDED_SERVE["prompt"]
+    tokens = np.random.default_rng(seed + 70).integers(0, base.vocab_size, (b, p + gen - 1))
+    n = b // dims[0]
+    lo = layout.index(("data",)) * n
+    prompt = torch.from_numpy(tokens[lo:lo + n, :p].astype(np.int32)).cuda()
+    steps = torch.from_numpy(tokens[lo:lo + n, p:].astype(np.int32)).cuda()
+    out = {"rank": rank, "backend": backend, "world": world, "mesh": shape,
+           "coord": layout.coord, "layers": layers, "gen": gen, "rows": n}
+
+    def whole(logits):   # this rank's rows, the whole vocabulary
+        if logits.shape[-1] < base.vocab_size:
+            logits = layout.all_gather(logits, -1, "model")
+        return logits[:, -1].float()
+
+    for dtype in (("bfloat16",) if full else ("float32", "bfloat16")):
+        f32 = dtype == "float32"
+        cfg = dataclasses.replace(base, dtype=dtype, num_layers=layers)
+        t0 = time.perf_counter()
+        model = Model(cfg, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(seed))
+        with torch.inference_mode():
+            eng = DecodeEngine(model)
+            lg, cache = eng.prefill(model, {"tokens": prompt}, max_len=p + gen, last_only=True)
+            want = [lg[:, -1].float()]
+            for t in range(gen - 1):
+                lg, cache = eng.decode_step(model, cache, {"tokens": steps[:, t:t + 1]})
+                want.append(lg[:, -1].float())
+            del cache, lg, eng
+        specs = param_specs(cfg, mesh)
+        if full:
+            params = model.param_tree()   # a (1, 1) mesh's slices are the whole tensors
+        else:
+            params = shard_tree(model.param_tree(), specs, mesh)
+            del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        setup_s = time.perf_counter() - t0
+        calls: list = []
+        dist.barrier()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        with torch.inference_mode(), activation_sharding(mesh), \
+                capture_calls(fa, "flash_attention_cuda", calls):
+            t1 = time.perf_counter()
+            logits, cache = sharded_prefill(cfg, params, specs, {"tokens": prompt},
+                                            max_len=p + gen, last_only=True)
+            got = [whole(logits)]
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t1
+            step_ms = []
+            for t in range(gen - 1):
+                t1 = time.perf_counter()
+                logits, cache = sharded_decode_step(cfg, params, specs, cache,
+                                                    {"tokens": steps[:, t:t + 1]})
+                got.append(whole(logits))
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+            launches = {"flash_attention": fa.flash_attention_cuda.launches,
+                        "instances": {k: v for k, v in
+                                      fa.flash_attention_cuda.instance_launches.items() if v}}
+            peak = torch.cuda.max_memory_allocated()
+            errs = [rel_rms(g, w) for g, w in zip(got, want)]
+            rec = {"setup_s": setup_s, "prefill_s": prefill_s, "step_ms": step_ms,
+                   "peak_gb": peak / 1e9, "launches": launches, "rel_rms": errs,
+                   "local_heads": int(calls[0][0][0].shape[2]), "calls": len(calls)}
+            if f32:
+                # The control: the last step again, from the cache read one
+                # position off.
+                cache["cur"] = cache["cur"] - 2
+                logits, _ = sharded_decode_step(cfg, params, specs, cache,
+                                                {"tokens": steps[:, gen - 2:gen - 1]})
+                rec["control_rel_rms"] = rel_rms(whole(logits), want[-1])
+        if not f32:
+            with torch.no_grad():
+                rec["calls_max_abs_err"] = max(
+                    flash_close(fa.flash_attention_cuda(*a, **kw),
+                                ref.flash_attention_ref(*a, **kw),
+                                f"rank {rank} prefill call {j}")
+                    for j, (a, kw) in enumerate(calls))
+        out[dtype] = rec
+        del params, cache, calls, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    (run_dir / f"{backend}{world}_rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_sharded_serving(seed: int, run_root: Path) -> tuple[dict, dict]:
+    """Phase 22 (a): qwen3-8b served sharded on ``torch.distributed``, each
+    run's ranks processes of their own (:func:`serve_child`): (1, 4) TP on 4
+    gloo ranks (head-parallel: 8 query and 2 KV heads a rank), (2, 2) on 4
+    gloo ranks (rows over ``data``, heads over ``model``), both at
+    ``gloo_layers`` layers, and (1, 1) on one NCCL rank at full depth.
+    Returns the record and row 9's launches by run and rank."""
+    b, p = SHARDED_SERVE["batch"], SHARDED_SERVE["prompt"]
+    record: dict = {"arch": SHARDED_SERVE["arch"], "batch": [b, p]}
+    launches: dict = {}
+    for backend, shape in SHARDED_SERVE["runs"]:
+        dims = tuple(int(x) for x in shape.split("x"))
+        world = math.prod(dims)
+        run_dir = run_root / f"serve_{backend}_{shape}"
+        run_dir.mkdir()
+        t0 = time.perf_counter()
+        ranks = run_mesh_ranks(run_dir, backend, world, flag="--serve-child", extra=(shape,),
+                               timeout=SHARDED_SERVE["timeout"])
+        wall = time.perf_counter() - t0
+        run = f"{backend} x{world} on {dims} data x model"
+        r0 = ranks[0]
+        layers, gen = r0["layers"], r0["gen"]
+        for r in ranks:
+            where = f"phase 22 (a), {run}, rank {r['rank']}"
+            bad = []
+            for dtype, rec in ((k, r[k]) for k in ("float32", "bfloat16") if k in r):
+                tol = SERVE_F32_REL_TOL if dtype == "float32" else LOGITS_REL_TOL
+                gated = dtype == "float32" or backend == "nccl"
+                if gated and (not all(map(math.isfinite, rec["rel_rms"]))
+                              or max(rec["rel_rms"]) > tol):
+                    bad.append(f"{dtype} logits {rec['rel_rms']} beyond {tol}")
+                if "control_rel_rms" in rec and rec["control_rel_rms"] <= tol:
+                    bad.append(f"the off-by-one control passed: {rec['control_rel_rms']:.3g}")
+                if rec["launches"]["flash_attention"] != layers or rec["calls"] != layers:
+                    bad.append(f"{dtype}: {rec['launches']} flash launches, {rec['calls']} "
+                               f"calls, expected {layers}")
+            if bad:
+                raise AssertionError(f"{where}: " + "; ".join(bad))
+            launches[f"{where} (bf16 prefill)"] = r["bfloat16"]["launches"]["flash_attention"]
+            if "float32" in r:
+                launches[f"{where} (float32 prefill)"] = r["float32"]["launches"][
+                    "flash_attention"]
+        rb = r0["bfloat16"]
+        med = statistics.median(rb["step_ms"])
+        record[run] = {"wall_s": wall, "layers": layers, "gen": gen, "ranks": ranks}
+        f32 = (f"; float32 logits within {max(max(r['float32']['rel_rms']) for r in ranks):.3g} "
+               f"relative RMS of the single device's on every rank (gate {SERVE_F32_REL_TOL}), "
+               f"the off-by-one control "
+               f"{min(r['float32']['control_rel_rms'] for r in ranks):.3g} failing it"
+               if "float32" in r0 else "")
+        log(f"phase 22 (a), {run} ({wall:.1f} s with start-up; {layers} layers, {b} x {p:,} "
+            f"prompt tokens, {gen - 1} decode step(s)): bf16 prefill {rb['prefill_s']:.3f} s, "
+            f"decode {med:.2f} ms a step (median); bf16 logits within "
+            f"{max(max(r['bfloat16']['rel_rms']) for r in ranks):.4f} relative RMS of the single "
+            f"device's{' (gate ' + str(LOGITS_REL_TOL) + ')' if backend == 'nccl' else ''}"
+            f"{f32}; flash launches a rank {rb['launches']['flash_attention']} "
+            f"({rb['local_heads']} heads a call), each call within its gate (max |err| "
+            f"{max(r['bfloat16']['calls_max_abs_err'] for r in ranks):.3g}); peak a rank "
+            f"{max(r['bfloat16']['peak_gb'] for r in ranks):.2f} GB bf16"
+            + (f", {max(r['float32']['peak_gb'] for r in ranks):.2f} GB float32"
+               if "float32" in r0 else "") + f"  [{smi_line()}]")
+    return record, {"flash_attention": launches}
+
+
+def dryrun_child(run_dir: Path, part: str) -> None:
+    """Phase 22 (c) (``chip_smoke.py --dryrun-child DIR PART``): phase 12's
+    step (smollm-135m, ``DRYRUN_STEP``'s batch, bf16, AdamW).  ``trace``:
+    dry-run on a (1, 1) mesh of a fake group (``launch.dryrun.trace_cell``),
+    written to ``dryrun_trace.json``; ``card``: run on the card through
+    ``sharded_train_step`` on a (1, 1) mesh of one gloo rank, the state's
+    bytes, the peak over the steps and the step times written to
+    ``dryrun_card.json``."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeSpec, demo_batch
+    from repro_torch.launch import cost, dryrun, roofline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Model
+    from repro_torch.models.model import active_param_count
+    from repro_torch.train import OptimizerConfig
+    from repro_torch.train.step import sharded_state, sharded_train_step
+    from repro_torch.train.tree import leaves
+
+    cfg = configs.get(DRYRUN_STEP["arch"])
+    b, s = DRYRUN_STEP["batch"], DRYRUN_STEP["seq"]
+    if part == "trace":
+        sp = ShapeSpec("phase12", s, b, "train")
+        cost.fake_world(1)
+        measured = dryrun.trace_cell(cfg, sp, make_mesh((1, 1), ("data", "model"),
+                                                        device_type="cpu"))
+        rl = roofline.compute_roofline(
+            arch=cfg.name, shape=sp.name, mesh_name="1x1", n_devices=1, costs=measured.costs,
+            model_flops=roofline.model_flops_for(cfg, sp, active_param_count(cfg)))
+        (run_dir / "dryrun_trace.json").write_text(json.dumps({
+            "memory": measured.memory, "flops": measured.costs.flops,
+            "hbm_bytes": measured.costs.hbm_bytes, "roofline": rl.as_dict(),
+            "trace_s": measured.seconds}))
+        dist.destroy_process_group()
+        return
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{run_dir}/store_dryrun", rank=0,
+                            world_size=1)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    seed = int((run_dir / "seed").read_text())
+    model = Model(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
+    opt = OptimizerConfig(learning_rate=3e-3, warmup_steps=0, decay_steps=10)
+    step, _, _ = sharded_train_step(model, opt, mesh)
+    state = sharded_state(model, opt, mesh)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    state_bytes = sum(t.numel() * t.element_size()
+                      for part_ in ("params", "opt") for t in leaves(state[part_]))
+    batch = demo_batch(cfg, b, s, np.random.default_rng(seed), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(DRYRUN_STEP["steps"]):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    (run_dir / "dryrun_card.json").write_text(json.dumps({
+        "state_bytes": state_bytes, "peak_bytes": torch.cuda.max_memory_allocated(),
+        "step_ms": ms, "loss": float(metrics["loss"])}))
+    dist.destroy_process_group()
+
+
+def _wait_child(proc, log_file, timeout: float, what: str) -> None:
+    """Wait for a phase 22 subprocess; a failure or a timeout raises with
+    the tail of its log."""
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log_file.close()
+    if proc.returncode:
+        raise AssertionError(f"{what} exited {proc.returncode}:\n"
+                             + Path(log_file.name).read_text()[-3000:])
+
+
+def phase_sharded_serving_and_dryrun(seed: int) -> tuple[dict, dict, dict]:
+    """Phase 22: sharded serving (a, :func:`phase_sharded_serving`) and the
+    launch tooling: (b) the dry run's cells on this machine, each in its own
+    subprocess (``python -m repro_torch.launch.dryrun``: smollm-135m x
+    train_4k and qwen3-8b x decode_32k at the 256-rank mesh, and
+    bitmap-join x join_1m, whose one rank's 256 ring hops run row 1 on the
+    card), and (c) the dry run against the card (:func:`dryrun_child`: the
+    trace, then the step on the card).  (b) and (c)'s trace start with the
+    phase and run beside (a); (c)'s card part runs alone after (a).
+    Returns (a)'s record, (b) and (c)'s, and row 9's launches."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.configs.shapes import input_specs
+
+    t_phase = time.perf_counter()
+    log(smi_line())
+    run_root = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    src = str(Path(__file__).resolve().parent / "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [src, os.environ.get(
+        "PYTHONPATH")])), OMP_NUM_THREADS="1")
+    tooling: dict = {}
+    procs: list = []
+    try:
+        (run_root / "seed").write_text(str(seed))
+        out_dir = run_root / "dryrun"
+
+        def start(name: str, cmd: list):
+            f = open(run_root / f"{name}.log", "w")
+            procs.append((name, f, subprocess.Popen(cmd, env=env, stdout=f,
+                                                    stderr=subprocess.STDOUT)))
+
+        cells = [("smollm-135m", "train_4k"), ("qwen3-8b", "decode_32k"),
+                 ("bitmap-join", "join_1m")]
+        for arch, shape in cells:
+            start(f"dryrun {arch} x {shape}",
+                  [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                   shape, "--mesh", "single", "--out", str(out_dir)])
+        start("dryrun phase 12 trace", [sys.executable, str(Path(__file__).resolve()),
+                                        "--dryrun-child", str(run_root), "trace"])
+        serving, launches = phase_sharded_serving(seed, run_root)
+        while procs:
+            name, f, proc = procs.pop(0)
+            _wait_child(proc, f, 300, f"phase 22 {name}")
+        for arch, shape in cells:
+            rec = json.loads((out_dir / f"{arch}__{shape}__single.json").read_text())
+            if not rec.get("ok") or "skipped" in rec:
+                raise AssertionError(f"dry run of {arch} x {shape}: {rec}")
+            rl, mem = rec["roofline"], rec["memory"]
+            tooling[f"{arch} x {shape}"] = rec
+            if arch == "bitmap-join":
+                extra = (f"; the ring's {rec['hops']} hops on {rec['device']} "
+                         f"({rec['shard_rows']:,} rows a shard) in {rec['trace_seconds']:.2f} s, "
+                         f"row 1 launched {rec['row1_launches']} times, "
+                         f"{rec['candidates']:,} candidates, {rec['verified']:,} verified")
+            else:
+                extra = "; inputs " + json.dumps(
+                    {k: list(v.shape) for k, v in input_specs(configs.get(arch), shape).items()})
+            log(f"phase 22 (b), dry run {arch} x {shape} at the (16, 16) mesh of 256 ranks "
+                f"(traced in {rec['trace_seconds']:.1f} s): a rank's flops "
+                f"{rl['flops_per_device']:.4g}, HBM bytes {rl['hbm_bytes_per_device']:.4g}, "
+                f"collective bytes {rl['collective_bytes_per_device']:.4g}; on the H100 SXM's "
+                f"peaks t_compute {rl['t_compute'] * 1e3:.3f} ms, t_memory "
+                f"{rl['t_memory'] * 1e3:.3f} ms, t_collective {rl['t_collective'] * 1e3:.3f} ms "
+                f"(bound {rl['step_time_bound'] * 1e3:.3f} ms, {rl['bottleneck']}), useful "
+                f"{rl['useful_ratio']:.3f}, roofline fraction {rl['roofline_fraction']:.3f}; "
+                f"arguments {mem['argument_size_in_bytes'] / 1e9:.4f} GB a rank{extra}")
+
+        # (c) phase 12's step: the dry run's prediction against the card.
+        t0 = time.perf_counter()
+        start("dryrun phase 12 on the card", [sys.executable, str(Path(__file__).resolve()),
+                                              "--dryrun-child", str(run_root), "card"])
+        name, f, proc = procs.pop(0)
+        _wait_child(proc, f, 300, f"phase 22 {name}")
+        pred = json.loads((run_root / "dryrun_trace.json").read_text())
+        meas = json.loads((run_root / "dryrun_card.json").read_text())
+        state_pred = pred["memory"]["argument_bytes_each"][0] - 4   # the state less its step
+        if state_pred != meas["state_bytes"]:
+            raise AssertionError(f"phase 22 (c): predicted state bytes {state_pred} != measured "
+                                 f"{meas['state_bytes']}")
+        med = statistics.median(meas["step_ms"][2:])
+        bound = pred["roofline"]["step_time_bound"] * 1e3
+        flops_frac = pred["flops"] / (med / 1e3) / PEAK_BF16_TENSOR_OPS_PER_S
+        bytes_frac = pred["hbm_bytes"] / (med / 1e3) / PEAK_BYTES_PER_S
+        tooling["phase12_step"] = {"predicted": pred, "measured": meas, "step_ms": med,
+                                   "flops_frac": flops_frac, "bytes_frac": bytes_frac,
+                                   "card_s": time.perf_counter() - t0}
+        log(f"phase 22 (c), phase 12's step ({DRYRUN_STEP['arch']}, {DRYRUN_STEP['batch']} x "
+            f"{DRYRUN_STEP['seq']:,} tokens, bf16, AdamW) on a (1, 1) mesh: predicted parameters "
+            f"and AdamW state {state_pred / 1e9:.4f} GB = measured {meas['state_bytes'] / 1e9:.4f} "
+            f"GB ({meas['state_bytes']:,} bytes, exact); peak predicted "
+            f"{pred['memory']['peak_bytes'] / 1e9:.3f} GB, measured "
+            f"{meas['peak_bytes'] / 1e9:.3f} GB (torch.cuda.max_memory_allocated), ratio "
+            f"{pred['memory']['peak_bytes'] / meas['peak_bytes']:.3f}; step-time bound "
+            f"{bound:.3f} ms ({pred['roofline']['bottleneck']}: flops {pred['flops']:.4g}, "
+            f"bytes {pred['hbm_bytes']:.4g}) beside the measured step {med:.1f} ms (median of "
+            f"steps 3-{DRYRUN_STEP['steps']}; ratio {med / bound:.2f}); the measured step's "
+            f"flops_frac {flops_frac:.4f}, bytes_frac {bytes_frac:.4f}; loss "
+            f"{meas['loss']:.4f}  [{smi_line()}]")
+    finally:
+        for _, f, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            f.close()
+        shutil.rmtree(run_root, ignore_errors=True)
+    tooling["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 22: {tooling['phase_s']:.1f} s; NCCL with more than one rank is not exercised "
+        f"(one card): the gloo ranks share it through host copies")
+    return serving, tooling, launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5192,11 +5628,15 @@ def main(argv=None) -> int:
     parser.add_argument("--train-child", nargs=5,
                         metavar=("DIR", "BACKEND", "RANK", "WORLD", "MESH"),
                         help=argparse.SUPPRESS)   # one rank of phase 21
+    parser.add_argument("--serve-child", nargs=5,
+                        metavar=("DIR", "BACKEND", "RANK", "WORLD", "MESH"),
+                        help=argparse.SUPPRESS)   # one rank of phase 22 (a)
+    parser.add_argument("--dryrun-child", nargs=2, metavar=("DIR", "PART"),
+                        help=argparse.SUPPRESS)   # phase 22 (c)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     if args.mesh_child:
         run_dir, backend, rank, world = args.mesh_child
         mesh_child(Path(run_dir), backend, int(rank), int(world))
@@ -5204,6 +5644,13 @@ def main(argv=None) -> int:
     if args.train_child:
         run_dir, backend, rank, world, shape = args.train_child
         train_child(Path(run_dir), backend, int(rank), int(world), shape)
+        return 0
+    if args.serve_child:
+        run_dir, backend, rank, world, shape = args.serve_child
+        serve_child(Path(run_dir), backend, int(rank), int(world), shape)
+        return 0
+    if args.dryrun_child:
+        dryrun_child(Path(args.dryrun_child[0]), args.dryrun_child[1])
         return 0
     from repro_torch.core import engine
     from repro_torch.data.collections import skewed_collection, with_duplicates, zipf_collection
@@ -5306,6 +5753,14 @@ def main(argv=None) -> int:
             k.setdefault("launches_by_path", {k["path"]: k["launches"]})
             k["launches_by_path"].update(sharded_launches[k["name"]])
     log(json.dumps({"sharded_training": sharded}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving, launch_tooling, serve_launches = phase_sharded_serving_and_dryrun(args.seed)
+    for k in kernels:
+        if k["name"] in serve_launches:     # row 9: phase 22's ranks too
+            k.setdefault("launches_by_path", {k["path"]: k["launches"]})
+            k["launches_by_path"].update(serve_launches[k["name"]])
+    log(json.dumps({"sharded_serving": serving, "launch_tooling": launch_tooling}))
     log(smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

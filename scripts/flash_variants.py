@@ -117,13 +117,21 @@ def build_variant(name: str, out: Path):
     else:
         patches = small_d_shape(*VARIANTS[name]) if VARIANTS[name] else []
     if patches:
-        text = src.read_text()
+        # A patch applies to the kernel's source or to the Hopper header it
+        # includes, whichever holds its text (once, in the two together).
+        # Both patched copies go into the variant's own directory, where the
+        # source's quoted #include "hopper.cuh" finds the header before -I.
+        texts = {f: (_build.CSRC / f).read_text() for f in ("flash_attention.cu", "hopper.cuh")}
         for old, new in patches:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: the source no longer has {old!r} once")
-            text = text.replace(old, new)
-        src = out / f"flash_{name.replace(' ', '_')}.cu"
-        src.write_text(text)
+            where = [f for f, text in texts.items() if text.count(old)]
+            if sum(texts[f].count(old) for f in where) != 1:
+                raise RuntimeError(f"{name}: the sources no longer have {old!r} once")
+            texts[where[0]] = texts[where[0]].replace(old, new)
+        vdir = out / f"flash_{name.replace(' ', '_')}"
+        vdir.mkdir(parents=True, exist_ok=True)
+        for f, text in texts.items():
+            (vdir / f).write_text(text)
+        src = vdir / "flash_attention.cu"
     flags = [f"-I{_build.CSRC}"]
     cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(lib), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)

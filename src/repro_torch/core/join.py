@@ -512,6 +512,36 @@ def _ring_step(tok, length, word, s_tok, s_len, s_word, gi0: int, gj0: int,
     return pairs, ok, n_cand, ok.sum(dtype=torch.int64), n_cand > cap
 
 
+def ring_sweep(tok, length, word, s_tok, s_len, s_word, *, group, index: int, n_dev: int,
+               sim: str, tau: float, need_tab, prune_tab, cutoff: int, impl: str, cap: int,
+               rs_join: bool) -> list:
+    """One rank's ring sweep: its R shard (``tok``, ``length``, ``word``;
+    global rows from ``index * len(tok)``) against each S shard in turn,
+    starting with its own (``s_*``), which moves one hop round the ring
+    (:class:`~repro_torch.distributed.sharding.RingShift` over ``group``)
+    while a step computes.  Returns the ``n_dev`` steps' :func:`_ring_step`
+    results, on the device."""
+    from repro_torch.distributed.sharding import RingShift
+
+    shard_r, shard_s, ls = tok.shape[0], s_tok.shape[0], s_tok.shape[1]
+    # The S shard travels as one int32 buffer: tokens | length | words.
+    held = torch.cat([s_tok, s_len[:, None].to(s_tok.dtype), s_word.to(s_tok.dtype)], dim=1)
+    shift = RingShift(group, index, n_dev, tok.device) if n_dev > 1 else None
+    outbound = shift.outbound(held) if shift else None
+    steps = []
+    for t in range(n_dev):
+        s_dev = (index - t) % n_dev
+        hop = shift.start(outbound) if shift and t < n_dev - 1 else None
+        steps.append(_ring_step(
+            tok, length, word, held[:, :ls], held[:, ls].contiguous(),
+            held[:, ls + 1:].contiguous(), index * shard_r, s_dev * shard_s, need_tab,
+            prune_tab, sim=sim, tau=float(tau), cutoff=int(cutoff), impl=impl, cap=cap,
+            rs_join=rs_join))
+        if hop is not None:
+            outbound, held = shift.finish(hop)
+    return steps
+
+
 def ring_join_sharded(
     tokens: torch.Tensor,
     lengths: torch.Tensor,
@@ -556,7 +586,7 @@ def ring_join_sharded(
     ``counters`` int64[n, 3] per device (candidates, verified, overflowed
     steps) and ``overflow_steps`` bool[n, n] per ``[device, step]``.
     """
-    from repro_torch.distributed.sharding import RingShift, all_gather_stacked, join_axes
+    from repro_torch.distributed.sharding import all_gather_stacked, join_axes
 
     rs_join = tokens_s is not None
     if rs_join and (lengths_s is None or words_s is None):
@@ -576,24 +606,11 @@ def ring_join_sharded(
     prune_tab = verify.prune_table_dev(sim, float(tau), lr, ls, dev)
 
     r_sl = slice(my * shard_r, (my + 1) * shard_r)
-    tok, length, word = tokens[r_sl], lengths[r_sl], words[r_sl]
     s_sl = slice(my * shard_s, (my + 1) * shard_s)
-    # The S shard travels as one int32 buffer: tokens | length | words.
-    held = torch.cat([tokens_s[s_sl], lengths_s[s_sl, None].to(tokens_s.dtype),
-                      words_s[s_sl].to(tokens_s.dtype)], dim=1)
-    shift = RingShift(group, my, n_dev, dev) if n_dev > 1 else None
-    outbound = shift.outbound(held) if shift else None
-    steps = []
-    for t in range(n_dev):
-        s_dev = (my - t) % n_dev
-        hop = shift.start(outbound) if shift and t < n_dev - 1 else None
-        steps.append(_ring_step(
-            tok, length, word, held[:, :ls], held[:, ls].contiguous(),
-            held[:, ls + 1:].contiguous(), my * shard_r, s_dev * shard_s, need_tab,
-            prune_tab, sim=sim, tau=float(tau), cutoff=int(cutoff), impl=impl, cap=cap,
-            rs_join=rs_join))
-        if hop is not None:
-            outbound, held = shift.finish(hop)
+    steps = ring_sweep(tokens[r_sl], lengths[r_sl], words[r_sl], tokens_s[s_sl],
+                       lengths_s[s_sl], words_s[s_sl], group=group, index=my, n_dev=n_dev,
+                       sim=sim, tau=tau, need_tab=need_tab, prune_tab=prune_tab,
+                       cutoff=cutoff, impl=impl, cap=cap, rs_join=rs_join)
 
     pairs, ok, n_cand, n_ok, ovf = (list(x) for x in zip(*steps))
     counters = torch.stack([torch.stack(n_cand).sum(), torch.stack(n_ok).sum(),

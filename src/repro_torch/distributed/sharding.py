@@ -100,6 +100,33 @@ def _via_host(group) -> bool:
     return dist.get_backend(group) == "gloo"
 
 
+# A dry run (``repro_torch.launch.cost``) records each collective the mesh
+# code issues: its kind, the group's ranks, and the bytes of its result (a
+# ring hop: of what it sends).  Nothing is recorded outside a recorder.
+
+@contextmanager
+def recording_collectives():
+    """Record every collective issued inside into the yielded list, as
+    ``(kind, ranks of the group, result bytes)``; kinds as XLA names them
+    (``all-reduce``, ``all-gather``, ``collective-permute``)."""
+    prev = getattr(_TLS, "collectives", None)
+    _TLS.collectives = out = []
+    try:
+        yield out
+    finally:
+        _TLS.collectives = prev
+
+
+def _record(kind: str, group, nbytes: int) -> None:
+    out = getattr(_TLS, "collectives", None)
+    if out is not None:
+        out.append((kind, tuple(dist.get_process_group_ranks(group)), int(nbytes)))
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def all_gather_stacked(t: torch.Tensor, group, n_dev: int, device=None) -> torch.Tensor:
     """``t`` from every rank of ``group``, stacked in rank (= index) order:
     ``[n_dev, *t.shape]`` on ``device`` (``t``'s by default; a caller that
@@ -113,6 +140,7 @@ def all_gather_stacked(t: torch.Tensor, group, n_dev: int, device=None) -> torch
     if _via_host(group):
         send = send.cpu()
     parts = [torch.empty_like(send) for _ in range(n_dev)]
+    _record("all-gather", group, _nbytes(send) * n_dev)
     dist.all_gather(parts, send, group=group)
     return torch.stack(parts).to(device=device, dtype=t.dtype)
 
@@ -128,6 +156,9 @@ class RingShift:
             raise ValueError("a ring needs two ranks: torch refuses a send to self")
         self.group, self.device = group, torch.device(device)
         self.host = _via_host(group)
+        # A fake group (the dry run's) moves nothing: a hop then receives what
+        # it sends, as the fake all-gather returns the sender's part.
+        self.fake = dist.get_backend(group) == "fake"
         self.next = dist.get_global_rank(group, (index + 1) % n_dev)
         self.prev = dist.get_global_rank(group, (index - 1) % n_dev)
 
@@ -137,7 +168,8 @@ class RingShift:
     def start(self, send: torch.Tensor):
         """Post the hop of ``send`` (from :meth:`outbound`); returns the
         handle for :meth:`finish`."""
-        recv = torch.empty_like(send)
+        recv = send.clone() if self.fake else torch.empty_like(send)
+        _record("collective-permute", self.group, _nbytes(send))
         reqs = dist.batch_isend_irecv([
             dist.P2POp(dist.isend, send, self.next, self.group),
             dist.P2POp(dist.irecv, recv, self.prev, self.group)])
@@ -326,6 +358,7 @@ class MeshLayout:
         if group is None:
             return t.clone()
         buf = t.detach().cpu().clone() if _via_host(group) else t.detach().clone()
+        _record("all-reduce", group, _nbytes(buf))
         dist.all_reduce(buf, op=op, group=group)
         return buf.to(t.device)
 
@@ -339,6 +372,7 @@ class MeshLayout:
         if _via_host(group):
             send = send.cpu()
         parts = [torch.empty_like(send) for _ in range(self.size(axes))]
+        _record("all-gather", group, _nbytes(send) * len(parts))
         dist.all_gather(parts, send, group=group)
         return torch.cat(parts, dim=dim).to(t.device)
 
@@ -360,6 +394,14 @@ class MeshLayout:
             return x
         return _PSum.apply(x, self, self._axes(axes))
 
+    def psum_scatter(self, x: torch.Tensor, dim: int, axes) -> torch.Tensor:
+        """This rank's block along ``dim`` of the sum over ``axes`` (the
+        sequence-parallel block's reduce-scatter); its backward all-gathers
+        the gradient."""
+        if self.size(axes) == 1:
+            return x
+        return _PSumScatter.apply(x, self, dim, self._axes(axes))
+
     def gather(self, x: torch.Tensor, dim: int, axes, dtype=None) -> torch.Tensor:
         """All-gather along ``dim``, cast to ``dtype`` first when given (a
         bf16 step moves half the bytes); its backward is the reduce-scatter,
@@ -378,6 +420,17 @@ class _PSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.layout.all_reduce(g, ctx.axes), None, None
+
+
+class _PSumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, layout, dim, axes):
+        ctx.layout, ctx.dim, ctx.axes = layout, dim, axes
+        return layout.reduce_scatter(x, dim, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.layout.all_gather(g.contiguous(), ctx.dim, ctx.axes), None, None, None
 
 
 class _Gather(torch.autograd.Function):
@@ -468,13 +521,14 @@ def unshard_tree(tree, specs, mesh):
 @dataclasses.dataclass(frozen=True)
 class ShardingContext:
     """What :func:`activation_sharding` binds: the mesh's sizes, the batch
-    axes and the tensor-parallel axis it has, and (for a ``DeviceMesh``)
-    its :class:`MeshLayout`."""
+    axes and the tensor-parallel axis it has, (for a ``DeviceMesh``) its
+    :class:`MeshLayout`, and whether the residual is sequence-parallel."""
     mesh: object
     sizes: dict
     batch_axes: Tuple[str, ...]
     tp: Optional[str]
     layout: Optional[MeshLayout]
+    seq_parallel: bool = False
 
     @property
     def batch_size(self) -> int:
@@ -492,16 +546,16 @@ def activation_sharding(mesh, batch_axes: Tuple[str, ...] = ("pod", "data"),
     the batch axes the mesh has, heads and the MLP's hidden dim over
     ``tp_axis`` (when it has it).  A ``DeviceMesh`` also gets its
     :class:`MeshLayout` (a collective on first use).  ``seq_parallel``
-    (Megatron-SP, which only the reference's dry run sets) raises: it is
-    ROADMAP Queue 1 item 13c's."""
-    if seq_parallel:
-        raise NotImplementedError("seq_parallel (the residual's sequence sharded over the TP "
-                                  "axis) is ROADMAP Queue 1 item 13c's, with the dry run")
+    (Megatron-SP, the reference's dry-run option) also shards the
+    residual's sequence over ``tp_axis`` between blocks, where it divides:
+    each block all-gathers it before its norm and reduce-scatters its
+    output in place of the all-reduce."""
     sizes = mesh_sizes(mesh)
     prev = getattr(_TLS, "ctx", None)
     layout = layout_of(mesh) if hasattr(mesh, "get_coordinate") else None
     _TLS.ctx = ShardingContext(mesh, sizes, tuple(a for a in batch_axes if a in sizes),
-                               tp_axis if tp_axis in sizes else None, layout)
+                               tp_axis if tp_axis in sizes else None, layout,
+                               bool(seq_parallel))
     try:
         yield _TLS.ctx
     finally:
@@ -533,8 +587,11 @@ def constrain(shape, dims: Sequence[Optional[str]]) -> PartitionSpec:
 
 
 def constrain_residual(shape) -> PartitionSpec:
-    """The residual stream's spec between blocks: (batch, None, ...)."""
-    return constrain(shape, ("batch",) + (None,) * (len(shape) - 1))
+    """The residual stream's spec between blocks: (batch, None, ...), or
+    (batch, tp, None, ...) under ``seq_parallel``."""
+    ctx = current_context()
+    seq = "tp" if ctx is not None and ctx.seq_parallel and len(shape) > 2 else None
+    return constrain(shape, ("batch", seq) + (None,) * (len(shape) - 2))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -548,7 +605,7 @@ class AttnPartition:
     ``kv_index`` maps them, None when the kernel's GQA mapping does) or
     ``"replicated"`` (every TP rank computes every head; the reference
     shards the q sequence here, which needs a causal diagonal offset the
-    flash kernel does not take: ROADMAP Queue 1 item 13c).  Heads are
+    flash kernel does not take: ROADMAP Queue 1 item 11c).  Heads are
     ``(first, count)``."""
     case: str
     q_heads: Tuple[int, int]

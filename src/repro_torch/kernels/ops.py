@@ -53,7 +53,9 @@ on CPU tensors), each raising on the other device.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 
 import torch
 
@@ -430,6 +432,54 @@ def _flash_impl(impl: str, device: torch.device) -> str:
     return impl
 
 
+# The dry run (``repro_torch.launch.cost``) runs a rank's program on ``meta``
+# tensors, which hold shapes and no data.  There the flash entry points
+# return shape-only results (no kernel and no plain version runs: the plain
+# version's blocks would cost the count hundreds of thousands of ops) and
+# record the attention's work inside ``counting_meta_attention``: the plain
+# version's products over every (q, k) pair, and the kernel's traffic, each
+# operand and result moved once.
+_META = threading.local()
+
+
+@contextlib.contextmanager
+def counting_meta_attention():
+    """Record each flash call on meta tensors inside as ``(name, flops,
+    bytes)`` in the yielded list."""
+    prev = getattr(_META, "work", None)
+    _META.work = out = []
+    try:
+        yield out
+    finally:
+        _META.work = prev
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _flash_meta(q, k, v, return_lse: bool):
+    b, sq, h, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, k.shape[2], h // k.shape[2], sq), dtype=torch.float32,
+                      device=q.device)
+    work = getattr(_META, "work", None)
+    if work is not None:   # two products (q k^T, p v) over every (q, k) pair
+        work.append(("flash_attention", 4.0 * b * h * sq * k.shape[1] * d,
+                     _nbytes(q, k, v, out, *((lse,) if return_lse else ()))))
+    return (out, lse) if return_lse else out
+
+
+def _flash_bwd_meta(q, k, v, out, lse, do):
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    work = getattr(_META, "work", None)
+    if work is not None:   # five products (s, dv, dp, dq, dk) over every pair
+        b, sq, h, d = q.shape
+        work.append(("flash_attention_bwd", 10.0 * b * h * sq * k.shape[1] * d,
+                     _nbytes(q, k, v, out, lse, do, dq, dk, dv)))
+    return dq, dk, dv
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -450,8 +500,11 @@ def flash_attention(
     plain version on CPU tensors; ``"cuda"`` raises on CPU tensors and
     ``"ref"`` on CUDA tensors.  ``q_chunk``, ``kv_chunk`` and ``triangle``
     shape only the plain version's blocks (the kernel has its own tiles);
-    the result does not depend on them beyond float rounding.
+    the result does not depend on them beyond float rounding.  On ``meta``
+    tensors (the dry run) the result has the shapes only (above).
     """
+    if q.device.type == "meta":
+        return _flash_meta(q, k, v, return_lse)
     if _flash_impl(impl, q.device) == "cuda":
         return flash_kernel.flash_attention_cuda(q, k, v, causal=causal, return_lse=return_lse)
     return ref.flash_attention_ref(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
@@ -481,8 +534,10 @@ def flash_attention_bwd(
     reference's jnp ``_flash_bwd_impl``) on CPU tensors; ``"cuda"`` raises on
     CPU tensors and ``"ref"`` on CUDA tensors.  ``q_chunk``, ``kv_chunk``
     and ``triangle`` shape only the plain version's blocks, as the
-    reference's do.
+    reference's do.  On ``meta`` tensors (the dry run) the shapes only.
     """
+    if q.device.type == "meta":
+        return _flash_bwd_meta(q, k, v, out, lse, do)
     if _flash_impl(impl, q.device) == "cuda":
         return flash_kernel.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal)
     return ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal, q_chunk=q_chunk,

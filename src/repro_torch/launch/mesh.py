@@ -8,9 +8,13 @@ mesh is a :class:`torch.distributed.device_mesh.DeviceMesh` over the
 default process group, which must be initialised first.  Every rank builds
 the same mesh.
 
-``make_production_mesh`` (the dry run's 256- and 512-chip meshes) waits
-for the launch tooling (ROADMAP Queue 1 item 13c); the reference's
-``named`` is ``repro_torch.distributed.sharding.named``.
+:func:`make_production_mesh` is the dry run's mesh: (16, 16) over
+("data", "model"), or (2, 16, 16) over ("pod", "data", "model"), over a
+world of 256 or 512 ranks (the dry run's is a fake process group, see
+``repro_torch.launch.cost``).  Like the reference's, these are functions
+and no module-level state.  ``named`` is
+``repro_torch.distributed.sharding.named``, re-exported here where the
+reference keeps it.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ import math
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.distributed.sharding import named  # noqa: F401  (the reference's home)
 
 
 def make_mesh(shape, axes, device_type: str | None = None):
@@ -50,6 +56,16 @@ def make_mesh(shape, axes, device_type: str | None = None):
             f"{torch.cuda.device_count()} GPU(s); run several ranks on one card "
             f"through a gloo group")
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def make_production_mesh(multi_pod: bool = False, device_type: str | None = None):
+    """The production mesh: (16, 16) over ("data", "model"), 256 ranks, or
+    with ``multi_pod`` (2, 16, 16) over ("pod", "data", "model"), 512 ranks;
+    ``pod`` composes with ``data`` into the batch / FSDP axes, ``model`` is
+    tensor parallel.  The default group must hold that many ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device_type=device_type)
 
 
 def batch_axes(mesh) -> tuple:

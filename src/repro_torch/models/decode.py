@@ -26,6 +26,7 @@ its decode attends to the whole image cache.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -33,7 +34,7 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import Model, dtype_of, num_cross_layers
+from repro_torch.models.model import Model, _ShardedDense, dtype_of, num_cross_layers
 
 Cache = Dict[str, torch.Tensor]
 
@@ -71,8 +72,9 @@ def cache_specs(cfg: ModelConfig, mesh, batch: int, fsdp: Tuple[str, ...] = ("po
     FSDP axes when ``batch`` divides them, else (tiny batches, long_500k)
     the sequence dim over the non-pod FSDP axes; KV heads over TP, or the
     head dim when the KV heads do not divide (the MHA fallback); the conv
-    states' channels and the SSM heads over TP.  The sharded decode itself
-    is ROADMAP Queue 1 item 13c's."""
+    states' channels and the SSM heads over TP.  :func:`sharded_prefill`
+    and :func:`sharded_decode_step` serve the dense family from a cache so
+    laid out."""
     from repro_torch.distributed.sharding import P, axes_size, mesh_sizes
 
     sizes = mesh_sizes(mesh)
@@ -141,16 +143,10 @@ class DecodeEngine:
         """q (B, S, H, hd), k and v (B, S, KV, hd) of normed input ``h``,
         qk-normed and rotated to ``positions``."""
         cfg = self.cfg
-        b, s = h.shape[:2]
-        attn = blk["attn"]
-        q = (h @ attn["wq"].to(h.dtype)).reshape(b, s, cfg.num_heads, cfg.head_dim)
-        k = (h @ attn["wk"].to(h.dtype)).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-        v = (h @ attn["wv"].to(h.dtype)).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-        if cfg.qk_norm:
-            q = L.rms_norm(q, attn["q_norm"], cfg.norm_eps)
-            k = L.rms_norm(k, attn["k_norm"], cfg.norm_eps)
-        return (L.apply_rope(q, positions, cfg.rope_theta),
-                L.apply_rope(k, positions, cfg.rope_theta), v)
+        return L.project_qkv(h, blk["attn"], num_heads=cfg.num_heads,
+                             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                             qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
+                             rope_theta=cfg.rope_theta, positions=positions)
 
     def _attn_decode(self, x: torch.Tensor, blk: Dict, kc: torch.Tensor,
                      vc: torch.Tensor, cur: torch.Tensor) -> torch.Tensor:
@@ -299,3 +295,146 @@ class DecodeEngine:
         if last_only:
             x = x[:, -1:, :]
         return model.head(x), cache
+
+
+# ---------------------------------------------------------------------------
+# Over a mesh (the dense family)
+# ---------------------------------------------------------------------------
+
+def _local_cache(core: _ShardedDense, rows: int, max_len: int) -> Cache:
+    """This rank's zeroed cache shard for ``rows`` local rows, laid out by
+    :func:`cache_specs` at the global batch.  A batch that
+    does not divide the FSDP axes (the cache's sequence fallback, which the
+    reference takes only for long_500k) raises."""
+    from repro_torch.distributed.sharding import local_shape
+
+    ctx, cfg = core.ctx, core.cfg
+    n_batch = ctx.batch_size
+    specs = cache_specs(cfg, ctx.mesh, rows * n_batch, fsdp=ctx.batch_axes,
+                        tp=ctx.tp or "model")
+    if n_batch > 1 and tuple(specs["k"])[1] is None:
+        raise NotImplementedError(
+            f"a batch that does not divide the FSDP axes ({n_batch}) puts the cache's "
+            f"sequence over them: ROADMAP Queue 1 item 11c")
+    shapes = cache_shapes(cfg, rows * n_batch, max_len)
+    dev = core.params["final_norm"].device
+    return {name: torch.zeros(local_shape(shape, specs[name], ctx.sizes),
+                              dtype=torch.int32 if name == "cur" else core.cdt, device=dev)
+            for name, shape in shapes.items()}
+
+
+def _cache_kind(core: _ShardedDense, kc: torch.Tensor) -> str:
+    """How a layer's K/V cache shard is laid out over TP: ``"heads"`` (this
+    rank's KV heads), ``"head_dim"`` (every KV head, a slice of the head
+    dim: the MHA fallback) or ``"whole"``."""
+    cfg = core.cfg
+    if kc.shape[-2] < cfg.num_kv_heads:
+        return "heads"
+    if kc.shape[-1] < cfg.head_dim:
+        return "head_dim"
+    return "whole"
+
+
+def _rows(core: _ShardedDense, rows: int) -> slice:
+    """This rank's rows of the global batch (``cur`` is replicated whole)."""
+    start = core.lay.index(core.ctx.batch_axes) * rows if core.ctx.batch_axes else 0
+    return slice(start, start + rows)
+
+
+def sharded_prefill(cfg: ModelConfig, params: Dict, specs: Dict,
+                    batch: Dict[str, torch.Tensor], *, max_len: Optional[int] = None,
+                    last_only: bool = False) -> Tuple[torch.Tensor, Cache]:
+    """:meth:`DecodeEngine.prefill` of the dense family on this rank's
+    shards, inside :func:`~repro_torch.distributed.sharding.activation_sharding`
+    over a ``DeviceMesh``.
+
+    ``params``: this rank's slices laid out by ``specs`` (``param_specs``);
+    ``batch["tokens"]``: this rank's rows (B_local, S), the batch over the
+    FSDP axes and the same on every TP rank.  The layers are the loss's
+    (``model._ShardedDense.hidden``): attention through the flash kernel on
+    this rank's heads, per ``attn_partition``, each layer's k and v written
+    into the cache shard.  Returns ``(logits, cache)``: logits (B_local, S or 1,
+    V_local) in the compute type, laid out as the reference's dry run lays
+    them out (batch over the FSDP axes, the vocabulary over ``"model"`` when
+    it divides); the cache this rank's shard under :func:`cache_specs` at
+    the global batch (KV heads over TP, or the head dim in the MHA
+    fallback, whose prefill then computes every KV head; ``cur`` whole)."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    max_len = max_len or s
+    if max_len < s:
+        raise ValueError(f"max_len {max_len} is shorter than the prompt ({s})")
+    core = _ShardedDense(cfg, params, specs, "sharded_prefill")
+    cache = _local_cache(core, b, max_len)
+
+    def attention(i, h, a, sa):
+        kc, vc = cache["k"][i], cache["v"][i]
+        kind = _cache_kind(core, kc)
+        out, (k, v) = core.flash_attention(h, core.attn_weights(a, sa),
+                                           all_kv=kind != "heads", return_kv=True)
+        if kind == "head_dim":
+            d = kc.shape[-1]
+            k, v = (t.narrow(-1, core.lay.coord[core.tp] * d, d) for t in (k, v))
+        kc[:, :s] = k
+        vc[:, :s] = v
+        return out, core.part.tp_parallel
+
+    x = core.hidden(tokens, attention, remat=False)
+    cache["cur"].fill_(s)
+    if last_only:
+        x = x[:, -1:, :]
+    return x @ core.head_weight().to(x.dtype), cache
+
+
+def sharded_decode_step(cfg: ModelConfig, params: Dict, specs: Dict, cache: Cache,
+                        batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Cache]:
+    """:meth:`DecodeEngine.decode_step` of the dense family on this rank's
+    shards (as :func:`sharded_prefill` takes them) and its cache shard,
+    updated in place.  ``batch["tokens"]``: this rank's rows (B_local, 1).
+
+    Attention is the plain ``layers.decode_attention`` (the reference's
+    decode is jnp), by the cache's layout: KV heads over TP, this rank's
+    query heads against its KV heads, wo row-parallel and all-reduced; the
+    MHA fallback's head-dim slices, every head's scores partial over the
+    slice, all-reduced over TP before the softmax, this slice of each
+    head's output through wo's matching rows and all-reduced; a cache whole
+    on every TP rank (no TP, or neither the KV heads nor the head dim
+    divide), every head on every TP rank.  Returns ``(logits (B_local, 1,
+    V_local), cache)`` with ``cur`` advanced."""
+    tokens = batch["tokens"]
+    b = tokens.shape[0]
+    cur_all = cache["cur"]
+    core = _ShardedDense(cfg, params, specs, "sharded_decode_step")
+
+    def attention(i, h, a, sa):
+        kc, vc = cache["k"][i], cache["v"][i]
+        kind = _cache_kind(core, kc)
+        cur = cur_all[_rows(core, b)]
+        rows = torch.arange(b, device=h.device)
+        hd = cfg.head_dim
+        if kind == "heads":
+            w = core.attn_weights(a, sa)
+            n_q, n_kv = core.part.q_heads[1], core.part.kv_heads[1]
+        else:
+            w = core.attn_weights(a, sa, whole=True)
+            n_q, n_kv = cfg.num_heads, cfg.num_kv_heads
+        q, k, v = L.project_qkv(h, w, num_heads=n_q, num_kv_heads=n_kv, head_dim=hd,
+                                qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
+                                rope_theta=cfg.rope_theta, positions=cur[:, None])
+        wo = w["wo"]
+        reduce = None
+        if kind == "head_dim":
+            d = kc.shape[-1]
+            d0 = core.lay.coord[core.tp] * d
+            q, k, v = (t.narrow(-1, d0, d) for t in (q, k, v))
+            wo = wo.reshape(n_q, hd, -1).narrow(1, d0, d).reshape(n_q * d, -1)
+            reduce = functools.partial(core.lay.all_reduce, axes=core.tp)
+        kc[rows, cur] = k[:, 0].to(kc.dtype)
+        vc[rows, cur] = v[:, 0].to(vc.dtype)
+        out = L.decode_attention(q, kc, vc, cur + 1, head_dim=hd, reduce_scores=reduce)
+        out = out.reshape(b, 1, -1) @ wo.to(h.dtype)
+        return out, kind != "whole"
+
+    x = core.hidden(tokens, attention, remat=False)
+    cache["cur"] = cur_all + 1
+    return x @ core.head_weight().to(x.dtype), cache

@@ -78,6 +78,44 @@ def greedy_generate(engine: DecodeEngine, tokens: Optional[torch.Tensor], gen: i
     return Generation(torch.cat(out, dim=1), step_logits, t1 - t0, time.perf_counter() - t1)
 
 
+@torch.inference_mode()
+def sharded_greedy_generate(cfg, params, specs, tokens: torch.Tensor, gen: int, *,
+                            max_len: Optional[int] = None) -> Generation:
+    """:func:`greedy_generate` of the dense family over a mesh, inside
+    ``activation_sharding``: ``sharded_prefill`` and ``sharded_decode_step``
+    on this rank's parameter slices (``params`` laid out by ``specs``) and
+    its rows of the prompt ``tokens`` (B_local, P).  Each step's logits are
+    gathered over the vocabulary's TP slices before the argmax, so every TP
+    rank picks the same tokens; ``logits`` holds those whole rows."""
+    from repro_torch.distributed.sharding import current_context
+    from repro_torch.models.decode import sharded_decode_step, sharded_prefill
+
+    ctx = current_context()
+
+    def whole(logits):
+        if logits.shape[-1] < cfg.vocab_size:
+            logits = ctx.layout.all_gather(logits, -1, ctx.tp)
+        return logits[:, -1]
+
+    p = tokens.shape[1]
+    _sync(tokens.device)
+    t0 = time.perf_counter()
+    logits, cache = sharded_prefill(cfg, params, specs, {"tokens": tokens},
+                                    max_len=max_len or p + gen, last_only=True)
+    step_logits = [whole(logits)]
+    tok = step_logits[-1][:, None].argmax(dim=-1).to(torch.int32)
+    _sync(tokens.device)
+    t1 = time.perf_counter()
+    out = [tok]
+    for _ in range(gen - 1):
+        logits, cache = sharded_decode_step(cfg, params, specs, cache, {"tokens": tok})
+        step_logits.append(whole(logits))
+        tok = step_logits[-1][:, None].argmax(dim=-1).to(torch.int32)
+        out.append(tok)
+    _sync(tokens.device)
+    return Generation(torch.cat(out, dim=1), step_logits, t1 - t0, time.perf_counter() - t1)
+
+
 def main(argv=None) -> int:
     from repro_torch import configs
     from repro_torch.core.engine import resolve_device

@@ -133,15 +133,27 @@ def decode_attention(
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
     cur_len: torch.Tensor,
+    *,
+    head_dim: Optional[int] = None,
+    reduce_scores=None,
 ) -> torch.Tensor:
     """One-token attention. q: (B, 1, H, D); caches: (B, S, KV, D); the
-    first ``cur_len[b]`` positions of row b are attended."""
+    first ``cur_len[b]`` positions of row b are attended.
+
+    A cache sharded along the head dim (the sharded decode's MHA fallback)
+    passes its slice of q and of the caches, the whole ``head_dim`` (the
+    scale's), and ``reduce_scores``, which sums the float32 partial scores
+    over the ranks holding the other slices before the softmax; the output
+    is then this slice of each head's output."""
     b, _, h, d = q.shape
     _, s, kv, _ = k_cache.shape
     g = h // kv
-    scale = d ** -0.5
+    scale = (head_dim or d) ** -0.5
     qh = q.reshape(b, kv, g, d)
-    scores = torch.einsum("bkgd,bskd->bkgs", qh, k_cache).float() * scale
+    scores = torch.einsum("bkgd,bskd->bkgs", qh, k_cache).float()
+    if reduce_scores is not None:
+        scores = reduce_scores(scores)
+    scores = scores * scale
     mask = torch.arange(s, device=q.device)[None, :] < cur_len[:, None]   # (B, S)
     scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
     m = scores.amax(dim=-1, keepdim=True)
@@ -167,35 +179,55 @@ def attention_block(
     kv_chunk: int = 512,
     triangle_schedule: bool = False,
     kv_index: Optional[Tuple[int, ...]] = None,
-) -> torch.Tensor:
+    return_kv: bool = False,
+):
     """Self-attention (or cross-attention when ``kv_override`` is given).
 
     params: wq (D, H*hd), wk (D, KV*hd), wv (D, KV*hd), wo (H*hd, D)
             [+ q_norm (hd,), k_norm (hd,) when qk_norm].
     ``kv_index``: query head i reads KV head ``kv_index[i]`` (k and v
     expanded to one head a query head); None: the kernel's GQA grouping.
+    ``return_kv``: also return the k and v attended (B, S, KV, hd), after
+    the qk-norm and RoPE and before ``kv_index``'s expansion (the prefill
+    writes them into its cache).
     """
     b, s, _ = x.shape
-    h, kvh, hd = num_heads, num_kv_heads, head_dim
-    q = (x @ params["wq"].to(x.dtype)).reshape(b, s, h, hd)
+    h, hd = num_heads, head_dim
     if kv_override is None:
-        k = (x @ params["wk"].to(x.dtype)).reshape(b, s, kvh, hd)
-        v = (x @ params["wv"].to(x.dtype)).reshape(b, s, kvh, hd)
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None, :]
+        q, k, v = project_qkv(x, params, num_heads=h, num_kv_heads=num_kv_heads,
+                              head_dim=hd, qk_norm=qk_norm, norm_eps=norm_eps,
+                              rope_theta=rope_theta, positions=positions)
         causal = True
     else:
+        q = (x @ params["wq"].to(x.dtype)).reshape(b, s, h, hd)
         k, v = kv_override
+        if qk_norm:
+            q = rms_norm(q, params["q_norm"], norm_eps)
+            k = rms_norm(k, params["k_norm"], norm_eps)
         causal = False
-    if qk_norm:
-        q = rms_norm(q, params["q_norm"], norm_eps)
-        k = rms_norm(k, params["k_norm"], norm_eps)
-    if positions is None:
-        positions = torch.arange(s, device=x.device)[None, :]
-    if kv_override is None:
-        q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, positions, rope_theta)
+    cached = (k, v)
     if kv_index is not None:
         index = torch.tensor(kv_index, device=k.device)
         k, v = k.index_select(2, index), v.index_select(2, index)
     out = flash_attention(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
                           triangle_schedule=triangle_schedule)
-    return out.reshape(b, s, h * hd) @ params["wo"].to(x.dtype)
+    out = out.reshape(b, s, h * hd) @ params["wo"].to(x.dtype)
+    return (out, cached) if return_kv else out
+
+
+def project_qkv(x: torch.Tensor, params: dict, *, num_heads: int, num_kv_heads: int,
+                head_dim: int, qk_norm: bool, norm_eps: float, rope_theta: float,
+                positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q (B, S, H, hd), k and v (B, S, KV, hd) of the normed input ``x``:
+    projected, qk-normed and rotated to ``positions`` (broadcastable to
+    (B, S))."""
+    b, s, _ = x.shape
+    q = (x @ params["wq"].to(x.dtype)).reshape(b, s, num_heads, head_dim)
+    k = (x @ params["wk"].to(x.dtype)).reshape(b, s, num_kv_heads, head_dim)
+    v = (x @ params["wv"].to(x.dtype)).reshape(b, s, num_kv_heads, head_dim)
+    if qk_norm:
+        q = rms_norm(q, params["q_norm"], norm_eps)
+        k = rms_norm(k, params["k_norm"], norm_eps)
+    return apply_rope(q, positions, rope_theta), apply_rope(k, positions, rope_theta), v

@@ -38,9 +38,11 @@ Sharding: :func:`param_specs` (and ``Model.param_specs``) is the
 reference's rule set, a pure function of the config's shapes for every
 family; :func:`sharded_loss` is the dense family's loss on one rank's
 shards of the parameters and the batch, Megatron style, for
-``repro_torch.train.step.sharded_train_step``.  The other families' sharded
-step (expert parallelism, the SSD head sharding, the cross blocks) is
-ROADMAP Queue 1 item 11c.
+``repro_torch.train.step.sharded_train_step``, and ``models/decode.py``'s
+``sharded_prefill`` / ``sharded_decode_step`` serve from the same shards,
+all through :class:`_ShardedDense`'s one copy of the layer.  The other
+families' sharded step and serving (expert parallelism, the SSD head
+sharding, the cross blocks) are ROADMAP Queue 1 item 11c.
 """
 
 from __future__ import annotations
@@ -467,8 +469,8 @@ def _per_layer(stack: nn.Module) -> list:
 _STACKED = ("blocks", "cross_blocks", "shared_attn")
 _COLUMN = ("wq", "wk", "wv", "w_gate", "w_up", "w_z", "w_x", "w_b", "w_c", "w_dt")
 _ROW = ("wo", "w_down", "w_out")
-OTHER_FAMILIES = ("the sharded step of the {} family waits for ROADMAP Queue 1 item 11c: "
-                  "the sharded step for the other families (expert parallelism, the SSD head "
+OTHER_FAMILIES = ("the sharded step and serving of the {} family wait for ROADMAP Queue 1 "
+                  "item 11c: the other families over a mesh (expert parallelism, the SSD head "
                   "sharding, the cross blocks)")
 
 
@@ -550,6 +552,209 @@ def _flat(tree: Dict, prefix: str = "") -> list:
     return out
 
 
+class _ShardedDense:
+    """The dense family's decoder on this rank's shards, inside
+    :func:`~repro_torch.distributed.sharding.activation_sharding` over a
+    ``DeviceMesh``: the one copy of the sharded layer that the loss and the
+    serving functions share.
+
+    ``params``: this rank's slices of the parameter tree, laid out by
+    ``specs`` (:func:`param_specs`).  Megatron style on local shards: each
+    layer all-gathers its FSDP-sharded weights over the batch axes when it
+    runs (inside the layer's remat region, so a backward replays the
+    gathers in layer order on every rank and the peak holds one layer in
+    full; the matrices cast to the compute type before they move, as the
+    unsharded step casts them where they are used; each gather's backward
+    reduce-scatters the gradient, summed in the parameter type); q/k/v and
+    gate/up are column-parallel over the TP axis and wo and down
+    row-parallel, their partial outputs all-reduced over it.  Attention
+    follows :func:`~repro_torch.distributed.sharding.attn_partition` (the
+    caller's ``attention`` picks the heads).  The MLP is column / row
+    parallel when d_ff divides TP, else replicated.  The embedding and the
+    head are vocab-parallel when the vocabulary divides TP (each rank looks
+    up and scores its vocab slice), else gathered whole.  Under
+    ``seq_parallel`` the residual's sequence is sharded over TP between
+    blocks where it divides: each block all-gathers it before its norm and
+    reduce-scatters its partial output (a replicated output is sliced), and
+    the final norm sees the whole sequence again."""
+
+    def __init__(self, cfg: ModelConfig, params: Dict, specs: Dict, what: str):
+        from repro_torch.distributed.sharding import (AttnPartition, attn_partition, constrain,
+                                                      current_context)
+
+        ctx = current_context()
+        if ctx is None or ctx.layout is None:
+            raise RuntimeError(f"{what} runs inside activation_sharding over a DeviceMesh")
+        if cfg.family != "dense":
+            raise NotImplementedError(OTHER_FAMILIES.format(cfg.family))
+        self.cfg, self.params, self.specs, self.ctx = cfg, params, specs, ctx
+        self.lay, self.tp = ctx.layout, ctx.tp
+        self.cdt = dtype_of(cfg.dtype)
+        self.part = attn_partition(cfg.num_heads, cfg.num_kv_heads) or AttnPartition(
+            "replicated", (0, cfg.num_heads), (0, cfg.num_kv_heads))
+        self.mlp_tp = constrain((cfg.d_ff,), ("tp",))[0] is not None
+        self.vocab_tp = constrain((cfg.vocab_size,), ("tp",))[0] is not None
+        self.emb = None
+
+    def use(self, t, spec, keep=(), cast=False):
+        """``t`` (a slice laid out by ``spec``) gathered along every sharded
+        dim but those in ``keep``, which stay sharded over TP; with ``cast``
+        in the compute type (cast before the last gather, so the gradients
+        are still summed in the parameter type)."""
+        from repro_torch.distributed.sharding import entry_axes
+
+        gathers = []
+        for d, e in enumerate(tuple(spec)):
+            if d in keep:
+                if e is None and self.ctx.tp_size > 1:
+                    raise ValueError(f"dim {d} of a {spec} leaf is not sharded over {self.tp}")
+            elif entry_axes(e):
+                gathers.append((d, entry_axes(e)))
+        for i, (d, axes) in enumerate(gathers):
+            t = self.lay.gather(t, d, axes,
+                                dtype=self.cdt if cast and i == len(gathers) - 1 else None)
+        return t
+
+    def attn_weights(self, a: Dict, sa: Dict, *, whole: bool = False) -> Dict:
+        """A layer's attention weights for this rank: q's columns and wo's
+        rows of its heads, k's and v's of its KV heads in the ``heads``
+        case and every KV head's otherwise; ``whole``: every head."""
+        part = self.part
+        heads_tp = part.tp_parallel and not whole
+        kv_tp = part.case == "heads" and not whole
+        q_cols = (1,) if heads_tp else ()
+        kv_cols = (1,) if kv_tp else ()
+        w = {"wq": self.use(a["wq"], sa["wq"], q_cols, cast=True),
+             "wk": self.use(a["wk"], sa["wk"], kv_cols, cast=True),
+             "wv": self.use(a["wv"], sa["wv"], kv_cols, cast=True),
+             "wo": self.use(a["wo"], sa["wo"], (0,) if heads_tp else (), cast=True)}
+        for norm in ("q_norm", "k_norm"):
+            if norm in a:
+                w[norm] = self.use(a[norm], sa[norm])
+        return w
+
+    def _seq_slice(self, x: torch.Tensor) -> torch.Tensor:
+        n = x.shape[1] // self.ctx.tp_size
+        return x.narrow(1, self.lay.coord[self.tp] * n, n)
+
+    def _combine(self, h: torch.Tensor, partial: bool, sp: bool) -> torch.Tensor:
+        """A block's output into the residual's layout: partial outputs
+        summed over TP (reduce-scattered along the sequence under SP)."""
+        if partial and self.ctx.tp_size > 1:
+            return self.lay.psum_scatter(h, 1, self.tp) if sp else self.lay.psum(h, self.tp)
+        return self._seq_slice(h) if sp else h
+
+    def hidden(self, tokens: torch.Tensor, attention, *, remat: bool) -> torch.Tensor:
+        """The vocab-parallel embedding of ``tokens`` (this rank's rows, the
+        same on every TP rank), the layers and the final norm: (B, S, d) in
+        the compute type, whole on every TP rank.  ``attention(i, h, a, sa)``
+        runs layer i's attention on its normed input ``h`` (whole sequence)
+        with its weight slices ``a`` laid out by ``sa``, and returns the
+        output after wo and whether it is partial over TP."""
+        from repro_torch.distributed.sharding import P
+
+        cfg, lay, tp = self.cfg, self.lay, self.tp
+        params, specs = self.params, self.specs
+        # Without a gradient to keep in the parameter type (serving), the
+        # embedding moves in the compute type: a lookup and its cast commute.
+        serving = not (torch.is_grad_enabled() and params["embed"].requires_grad)
+        emb = self.use(params["embed"], specs["embed"], (0,) if self.vocab_tp else (),
+                       cast=serving)
+        self.emb = emb
+        tokens = tokens.long()
+        if self.vocab_tp:
+            local = tokens - lay.coord[tp] * emb.shape[0]
+            inside = (local >= 0) & (local < emb.shape[0])
+            x = torch.where(inside[..., None], emb[local.clamp(0, emb.shape[0] - 1)], 0.0)
+            x = lay.psum(x, tp).to(self.cdt)
+        else:
+            x = emb[tokens].to(self.cdt)
+        sp = (self.ctx.seq_parallel and self.ctx.tp_size > 1
+              and x.shape[1] % self.ctx.tp_size == 0)
+        if sp:
+            x = self._seq_slice(x)
+
+        def layer(x, blk, lspec, i):
+            xin = lay.gather(x, 1, tp) if sp else x
+            h, partial = attention(
+                i, L.rms_norm(xin, self.use(blk["attn_norm"], lspec["attn_norm"]), cfg.norm_eps),
+                blk["attn"], lspec["attn"])
+            x = x + self._combine(h, partial, sp)
+            m, sm = blk["mlp"], lspec["mlp"]
+            cols, rows = ((1,), (0,)) if self.mlp_tp else ((), ())
+            xin = lay.gather(x, 1, tp) if sp else x
+            h = L.swiglu(
+                L.rms_norm(xin, self.use(blk["mlp_norm"], lspec["mlp_norm"]), cfg.norm_eps),
+                self.use(m["w_gate"], sm["w_gate"], cols, cast=True),
+                self.use(m["w_up"], sm["w_up"], cols, cast=True),
+                self.use(m["w_down"], sm["w_down"], rows, cast=True))
+            return x + self._combine(h, self.mlp_tp, sp)
+
+        parts = {name: leaf.unbind(0) for name, leaf in _flat(params["blocks"])}
+        lspecs = nest((name, P(*tuple(sp_)[1:])) for name, sp_ in _flat(specs["blocks"]))
+        for i in range(cfg.num_layers):
+            blk = nest((name, views[i]) for name, views in parts.items())
+            if remat:
+                x = checkpoint(layer, x, blk, lspecs, i, use_reentrant=False)
+            else:
+                x = layer(x, blk, lspecs, i)
+        if sp:
+            x = lay.gather(x, 1, tp)
+        return L.rms_norm(x, self.use(params["final_norm"], specs["final_norm"]), cfg.norm_eps)
+
+    def head_weight(self) -> torch.Tensor:
+        """The output projection's columns of this rank's vocab slice (or
+        all of them), after :meth:`hidden`."""
+        if self.cfg.tie_embeddings:
+            return self.emb.T
+        return self.use(self.params["lm_head"], self.specs["lm_head"],
+                        (1,) if self.vocab_tp else (), cast=True)
+
+    def flash_attention(self, h: torch.Tensor, w: Dict, *, triangle: bool = False,
+                        all_kv: bool = False, return_kv: bool = False):
+        """Self-attention on this rank's heads through the flash kernel:
+        ``attention_block`` on its q heads and the KV heads they read (the
+        weights of :meth:`attn_weights`).  ``all_kv``: in the ``q_heads``
+        case compute every KV head (the cache holds them all) and map each
+        query head to its own; ``return_kv`` also returns the k, v computed."""
+        cfg, part = self.cfg, self.part
+        n_kv, kv_index = part.kv_heads[1], part.kv_index
+        if part.case == "q_heads":
+            if all_kv:
+                group = cfg.num_heads // cfg.num_kv_heads
+                first = part.q_heads[0]
+                n_kv = cfg.num_kv_heads
+                kv_index = tuple((first + j) // group for j in range(part.q_heads[1]))
+            else:   # only the KV heads this rank's query heads read
+                lo, n = part.kv_heads
+                kv = slice(lo * cfg.head_dim, (lo + n) * cfg.head_dim)
+                w = dict(w, wk=w["wk"][:, kv], wv=w["wv"][:, kv])
+        return L.attention_block(
+            h, w, num_heads=part.q_heads[1], num_kv_heads=n_kv, head_dim=cfg.head_dim,
+            rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
+            triangle_schedule=triangle, kv_index=kv_index, return_kv=return_kv)
+
+
+def sharded_hidden(cfg: ModelConfig, params: Dict, specs: Dict, tokens: torch.Tensor, *,
+                   triangle: bool = False) -> Tuple[torch.Tensor, _ShardedDense]:
+    """The dense family's final hidden states (B, S, d) of this rank's rows
+    of ``tokens``, whole on every TP rank, and the :class:`_ShardedDense`
+    that ran them (its :meth:`~_ShardedDense.head_weight` is the output
+    projection's slice): the vocab-parallel embedding, the layers with
+    attention through the flash kernel on this rank's heads, and the final
+    norm (:meth:`_ShardedDense.hidden`, which the serving functions of
+    ``models/decode.py`` run with their own attention).  Layers run under
+    remat when ``cfg.remat`` and grad mode are on."""
+    core = _ShardedDense(cfg, params, specs, "sharded_hidden")
+
+    def attention(i, h, a, sa):
+        return (core.flash_attention(h, core.attn_weights(a, sa), triangle=triangle),
+                core.part.tp_parallel)
+
+    x = core.hidden(tokens, attention, remat=cfg.remat and torch.is_grad_enabled())
+    return x, core
+
+
 def sharded_loss(cfg: ModelConfig, params: Dict, specs: Dict, batch: Dict[str, torch.Tensor],
                  *, count: torch.Tensor, triangle: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -561,132 +766,27 @@ def sharded_loss(cfg: ModelConfig, params: Dict, specs: Dict, batch: Dict[str, t
     ``params``: this rank's slices of the parameter tree, laid out by
     ``specs`` (:func:`param_specs`); ``batch``: this rank's rows (tokens,
     labels, optional loss_mask), the same on every TP rank; ``count``: the
-    number of counted tokens in the global batch.  Megatron style on local
-    shards: each layer all-gathers its FSDP-sharded weights over the batch
-    axes when it runs (inside the layer's remat region, so a backward
-    replays the gathers in layer order on every rank and the peak holds one
-    layer in full; the matrices cast to the compute type before they move,
-    as the unsharded step casts them where they are used; each gather's
-    backward reduce-scatters the gradient, summed in the parameter type);
-    q/k/v and gate/up are column-parallel over the TP axis and wo and down
-    row-parallel, their partial outputs all-reduced over it; the flash
-    kernels run on the local heads.  Attention follows
-    :func:`~repro_torch.distributed.sharding.attn_partition`: head-parallel
-    when the KV heads divide TP, q head-parallel with this rank's KV heads
-    computed from the gathered wk / wv when only the q heads do, and
-    replicated over the TP group when neither does (the reference shards
-    the q sequence there; the kernel takes no causal offset, item 13c).
-    The MLP is column / row parallel when d_ff divides TP, else replicated.
-    The embedding and the head are vocab-parallel when the vocabulary
-    divides TP (each rank looks up and scores its vocab slice; the
+    number of counted tokens in the global batch.  The layers are
+    :func:`sharded_hidden`'s; the flash kernels
+    run on the local heads: head-parallel when the KV heads divide TP, q
+    head-parallel with this rank's KV heads computed from the gathered wk /
+    wv when only the q heads do, and replicated over the TP group when
+    neither does (the reference shards the q sequence there; the kernel
+    takes no causal offset, item 11c).  Vocab-parallel, the
     cross-entropy's max, sum of exponentials and gold logit are reduced
-    over TP, as the reference constrains the logits to (batch, None, tp)),
-    else gathered whole.
+    over TP, as the reference constrains the logits to (batch, None, tp).
 
     Returns ``(objective, nll_sum)``: this rank's share of the loss (its
     rows' summed nll over ``count``, over the TP size, so that the shares
     of all ranks sum to the loss) and its rows' summed nll, detached."""
-    from repro_torch.distributed.sharding import (AttnPartition, P, attn_partition, constrain,
-                                                  current_context, entry_axes)
-
-    ctx = current_context()
-    if ctx is None or ctx.layout is None:
-        raise RuntimeError("sharded_loss runs inside activation_sharding over a DeviceMesh")
-    if cfg.family != "dense":
-        raise NotImplementedError(OTHER_FAMILIES.format(cfg.family))
-    lay, tp = ctx.layout, ctx.tp
-    cdt = dtype_of(cfg.dtype)
-    part = attn_partition(cfg.num_heads, cfg.num_kv_heads) or AttnPartition(
-        "replicated", (0, cfg.num_heads), (0, cfg.num_kv_heads))
-    mlp_tp = constrain((cfg.d_ff,), ("tp",))[0] is not None
-    vocab_tp = constrain((cfg.vocab_size,), ("tp",))[0] is not None
-
-    def use(t, spec, keep=(), cast=False):
-        """``t`` (a slice laid out by ``spec``) gathered along every sharded
-        dim but those in ``keep``, which stay sharded over TP; with ``cast``
-        in the compute type (cast before the last gather, so the gradients
-        are still summed in the parameter type)."""
-        gathers = []
-        for d, e in enumerate(tuple(spec)):
-            if d in keep:
-                if e is None and ctx.tp_size > 1:
-                    raise ValueError(f"dim {d} of a {spec} leaf is not sharded over {tp}")
-            elif entry_axes(e):
-                gathers.append((d, entry_axes(e)))
-        for i, (d, axes) in enumerate(gathers):
-            t = lay.gather(t, d, axes, dtype=cdt if cast and i == len(gathers) - 1 else None)
-        return t
-
-    def cols(keep: bool) -> tuple:      # a matrix's column dim kept on TP, or none
-        return (1,) if keep else ()
-
-    def rows(keep: bool) -> tuple:
-        return (0,) if keep else ()
-
-    def layer(x, blk, lspec):
-        a, sa = blk["attn"], lspec["attn"]
-        heads = part.case == "heads"
-        w = {"wq": use(a["wq"], sa["wq"], cols(part.tp_parallel), cast=True),
-             "wk": use(a["wk"], sa["wk"], cols(heads), cast=True),
-             "wv": use(a["wv"], sa["wv"], cols(heads), cast=True),
-             "wo": use(a["wo"], sa["wo"], rows(part.tp_parallel), cast=True)}
-        if part.case == "q_heads":   # only the KV heads this rank's query heads read
-            lo, n = part.kv_heads
-            kv = slice(lo * cfg.head_dim, (lo + n) * cfg.head_dim)
-            w["wk"], w["wv"] = w["wk"][:, kv], w["wv"][:, kv]
-        for norm in ("q_norm", "k_norm"):
-            if norm in a:
-                w[norm] = use(a[norm], sa[norm])
-        h = L.attention_block(
-            L.rms_norm(x, use(blk["attn_norm"], lspec["attn_norm"]), cfg.norm_eps), w,
-            num_heads=part.q_heads[1], num_kv_heads=part.kv_heads[1], head_dim=cfg.head_dim,
-            rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
-            triangle_schedule=triangle, kv_index=part.kv_index)
-        if part.tp_parallel:
-            h = lay.psum(h, tp)
-        x = x + h
-        m, sm = blk["mlp"], lspec["mlp"]
-        h = L.swiglu(L.rms_norm(x, use(blk["mlp_norm"], lspec["mlp_norm"]), cfg.norm_eps),
-                     use(m["w_gate"], sm["w_gate"], cols(mlp_tp), cast=True),
-                     use(m["w_up"], sm["w_up"], cols(mlp_tp), cast=True),
-                     use(m["w_down"], sm["w_down"], rows(mlp_tp), cast=True))
-        if mlp_tp:
-            h = lay.psum(h, tp)
-        return x + h
-
-    # The embedding: this rank's vocab slice looked up, summed over TP.
-    emb = use(params["embed"], specs["embed"], rows(vocab_tp))
-    tokens = batch["tokens"].long()
-    v0 = lay.coord[tp] * emb.shape[0] if vocab_tp else 0
-    if vocab_tp:
-        local = tokens - v0
-        inside = (local >= 0) & (local < emb.shape[0])
-        x = torch.where(inside[..., None], emb[local.clamp(0, emb.shape[0] - 1)], 0.0)
-        x = lay.psum(x, tp).to(cdt)
-    else:
-        x = emb[tokens].to(cdt)
-
-    parts = {name: leaf.unbind(0) for name, leaf in _flat(params["blocks"])}
-    lspecs = nest((name, P(*tuple(sp)[1:])) for name, sp in _flat(specs["blocks"]))
-    remat = cfg.remat and torch.is_grad_enabled()
-    for i in range(cfg.num_layers):
-        blk = nest((name, views[i]) for name, views in parts.items())
-        if remat:
-            x = checkpoint(layer, x, blk, lspecs, use_reentrant=False)
-        else:
-            x = layer(x, blk, lspecs)
-
-    x = L.rms_norm(x, use(params["final_norm"], specs["final_norm"]), cfg.norm_eps)
-    if cfg.tie_embeddings:
-        w = emb.T
-    else:
-        w = use(params["lm_head"], specs["lm_head"], cols(vocab_tp), cast=True)
-    logits = (x @ w.to(x.dtype)).float()
+    x, core = sharded_hidden(cfg, params, specs, batch["tokens"], triangle=triangle)
+    logits = (x @ core.head_weight().to(x.dtype)).float()
     labels = batch["labels"].long()
-    if vocab_tp:
+    lay, tp = core.lay, core.tp
+    if core.vocab_tp:
         peak = lay.all_reduce(logits.detach().amax(dim=-1), tp, op=torch.distributed.ReduceOp.MAX)
         logz = peak + torch.log(lay.psum(torch.exp(logits - peak[..., None]).sum(dim=-1), tp))
-        local = labels - v0
+        local = labels - lay.coord[tp] * logits.shape[-1]
         inside = (local >= 0) & (local < logits.shape[-1])
         gold = torch.take_along_dim(logits, local.clamp(0, logits.shape[-1] - 1)[..., None],
                                     dim=-1)[..., 0]
@@ -697,4 +797,4 @@ def sharded_loss(cfg: ModelConfig, params: Dict, specs: Dict, batch: Dict[str, t
     nll = logz - gold
     mask = batch.get("loss_mask")
     nll_sum = (nll * mask.float()).sum() if mask is not None else nll.sum()
-    return nll_sum / count / ctx.tp_size, nll_sum.detach()
+    return nll_sum / count / core.ctx.tp_size, nll_sum.detach()

@@ -166,7 +166,7 @@ def sharded_state(model: Model, opt_cfg: OptimizerConfig, mesh,
 
 def sharded_train_step(model, opt_cfg: OptimizerConfig, mesh, *, microbatches: int = 1,
                        triangle: bool = False, fsdp: Tuple[str, ...] = ("pod", "data"),
-                       tp: str = "model"):
+                       tp: str = "model", seq_parallel: bool = False):
     """The port of the reference's ``jit_train_step``: returns ``(step,
     state_specs, batch_specs)``, ``step(state, batch) -> (state, metrics)``
     over this rank's slices of the state (:func:`sharded_state`) and of the
@@ -185,7 +185,8 @@ def sharded_train_step(model, opt_cfg: OptimizerConfig, mesh, *, microbatches: i
     the global norm (each shard counted once) and the optimizer updates the
     slices (Adafactor's means reduced over the sharded dims).  Metrics, the
     same on every rank: ``nll`` and ``loss`` (the global batch's mean),
-    ``grad_norm`` and ``lr``."""
+    ``grad_norm`` and ``lr``.  ``seq_parallel``: the residual's sequence
+    sharded over ``tp`` between blocks (``activation_sharding``'s)."""
     cfg = _cfg(model)
     if cfg.family != "dense":
         raise NotImplementedError(OTHER_FAMILIES.format(cfg.family))
@@ -223,7 +224,7 @@ def sharded_train_step(model, opt_cfg: OptimizerConfig, mesh, *, microbatches: i
         return share * inv, [g * inv for g in acc]
 
     def step(state, batch):
-        with activation_sharding(mesh, batch_axes=fsdp, tp_axis=tp):
+        with activation_sharding(mesh, batch_axes=fsdp, tp_axis=tp, seq_parallel=seq_parallel):
             params = state["params"]
             share, grads = grads_of(params, batch)
             grads = [layout.all_reduce(g, axes) if layout.size(axes) > 1 else g

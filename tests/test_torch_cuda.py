@@ -1352,3 +1352,81 @@ def test_nccl_mesh_refuses_two_ranks_on_one_gpu(dev, tmp_path):
         pytest.skip("needs a machine with exactly one GPU")
     outs = _mesh_ranks(tmp_path, "nccl")
     assert all("REFUSED" in o for o in outs), outs
+
+
+_SERVE_CHILD = r"""
+import json, os
+import torch
+import torch.distributed as dist
+from repro_torch import configs
+from repro_torch.distributed.sharding import activation_sharding
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import DecodeEngine, Model
+from repro_torch.models.decode import sharded_decode_step, sharded_prefill
+from repro_torch.models.model import param_specs
+
+dist.init_process_group("gloo", init_method=os.environ["INIT"], rank=0, world_size=1)
+mesh = make_mesh((1, 1), ("data", "model"))
+cfg = configs.get_reduced("qwen3-8b", dtype="bfloat16")
+model = Model(cfg, device="cuda")
+tok = torch.randint(0, cfg.vocab_size, (2, 40), device="cuda", dtype=torch.int32)
+with torch.inference_mode():
+    want, cache = DecodeEngine(model).prefill(model, {"tokens": tok[:, :32]}, max_len=40)
+    step_want, _ = DecodeEngine(model).decode_step(model, cache, {"tokens": tok[:, 32:33]})
+    fa.reset_launches()
+    with activation_sharding(mesh):
+        got, cache = sharded_prefill(cfg, model.param_tree(), param_specs(cfg, mesh),
+                                     {"tokens": tok[:, :32]}, max_len=40)
+        launches = fa.flash_attention_cuda.launches
+        step_got, _ = sharded_decode_step(cfg, model.param_tree(), param_specs(cfg, mesh), cache,
+                                          {"tokens": tok[:, 32:33]})
+err = [float((g.float() - w.float()).norm() / w.float().norm())
+       for g, w in ((got, want), (step_got, step_want))]
+print("RESULT " + json.dumps({"launches": launches, "layers": cfg.num_layers, "err": err}))
+dist.destroy_process_group()
+"""
+
+
+def test_sharded_serving_on_the_card_launches_the_flash_kernel(dev, tmp_path):
+    """``sharded_prefill`` on a (1, 1) mesh of one gloo rank over the card
+    launches the flash kernel once a layer, and its logits and the next
+    decode step's equal the single-device engine's (bf16: within 1e-3
+    relative RMS; the same kernels on the same operands)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"),
+               INIT=f"file://{tmp_path}/store", GLOO_SOCKET_IFNAME="lo")
+    out = subprocess.run([sys.executable, "-c", _SERVE_CHILD], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads([x for x in out.stdout.splitlines() if x.startswith("RESULT ")][-1][7:])
+    assert res["launches"] == res["layers"]
+    assert max(res["err"]) < 1e-3, res
+
+
+def test_dryrun_join_cell_runs_row_1_on_the_card(dev, tmp_path):
+    """The dry run's join cell runs one rank's 256 ring hops on the card
+    under a fake group of 256 ranks: row 1 launched once a hop, 255 hops
+    recorded, and every candidate verified or not (counts from real rows)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                          "bitmap-join", "--shape", "join_1m", "--out", str(tmp_path)],
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    rec = json.loads((tmp_path / "bitmap-join__join_1m__single.json").read_text())
+    assert rec["ok"] and rec["device"].startswith("cuda") and rec["hops"] == 256
+    assert rec["row1_launches"] == 256
+    (hop,) = [c for c in rec["hlo"]["collectives"] if c["opcode"] == "collective-permute"]
+    assert hop["count"] == 255 and hop["group_size"] == 256
+    assert 0 < rec["verified"] <= rec["candidates"]

@@ -1,7 +1,8 @@
 """The port stands alone and never hides the device.
 
 * It imports neither JAX nor the JAX package, at import time or while it
-  joins (checked in a fresh interpreter, and in the sources).
+  joins, trains or serves (checked in a fresh interpreter, and in the
+  sources), and neither do the twins of the examples (``scripts/*_torch.py``).
 * Entry points run on the card unless the caller asks for the CPU: without a
   card and without ``device=``, they raise (the joins, the Bitmap Filter's
   words, the Monte-Carlo bound and every dedup entry point).
@@ -46,6 +47,11 @@ from repro_torch.launch import mesh as launch_mesh
 from repro_torch.distributed import checkpoint, fault, sharded_index, sharding
 from repro_torch.models import decode
 from repro_torch.train import compress, optimizer, step as train_step
+from repro_torch.launch import cost, dryrun, report, roofline
+import importlib.util
+for name in ("quickstart_torch", "train_lm_torch", "serve_lm_torch", "dedup_pipeline_torch"):
+    spec = importlib.util.spec_from_file_location(name, f"scripts/{name}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 model = Model(configs.get_reduced("qwen3-8b"), device="cpu")
 out = generate.greedy_generate(DecodeEngine(model), torch.arange(12).reshape(2, 6), 3)
 assert out.tokens.shape == (2, 3)
@@ -102,6 +108,14 @@ with tempfile.TemporaryDirectory() as tmp:
     mgr = checkpoint.CheckpointManager(tmp + "/ckpt")
     mgr.save(1, sharded, sharding.named(mesh2, sspecs))
     assert mgr.restore(sharded, sharding.named(mesh2, sspecs))[1] == 1
+    pspecs = model.param_specs(mesh2)
+    with torch.no_grad(), sharding.activation_sharding(mesh2):
+        logits, cache = decode.sharded_prefill(model.cfg, sharded["params"], pspecs,
+                                               {"tokens": torch.arange(12).reshape(2, 6)},
+                                               max_len=8)
+        logits, cache = decode.sharded_decode_step(model.cfg, sharded["params"], pspecs, cache,
+                                                   {"tokens": torch.ones(2, 1, dtype=torch.int32)})
+    assert logits.shape == (2, 1, model.cfg.vocab_size) and int(cache["cur"][0]) == 7
     dist.destroy_process_group()
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
@@ -119,7 +133,8 @@ def test_port_never_imports_jax_or_the_reference():
 
 def test_sources_name_no_jax_or_reference_import():
     pattern = re.compile(r"^\s*(import jax|from jax|import repro\b|from repro[ .])", re.M)
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "scripts").glob("*_torch.py")))
     assert len(files) > 10
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []

@@ -206,9 +206,10 @@ def test_attn_partition_cases():
     with S.activation_sharding({"pod": 2, "data": 2}, tp_axis="model"):
         assert S.attn_partition(4, 2) is None             # no TP axis
         assert S.constrain((8,), ("batch",)) == S.P(("pod", "data"))
-    with pytest.raises(NotImplementedError, match="13c"):
-        with S.activation_sharding({"data": 2}, seq_parallel=True):
-            pass
+    with S.activation_sharding({"data": 2, "model": 2}, seq_parallel=True) as ctx:
+        assert ctx.seq_parallel
+        assert S.constrain_residual((6, 16, 576)) == S.P("data", "model", None)
+        assert S.constrain_residual((6, 1, 576)) == S.P("data", None, None)   # a decode step
     assert S.current_context() is None
 
 
