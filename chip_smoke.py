@@ -306,14 +306,16 @@ Phases (any failure raises, so the script exits non-zero):
    the gathered candidates) and timed there, and enter the kernels line a
    second time under this phase's paths, their launches summed over the
    runs' ranks.
-21. Sharded training on ``torch.distributed`` (about 2 minutes): smollm-135m
-   at its published widths and depth on phase 12's global batch (8 x 2,048
+21. Sharded training on ``torch.distributed`` (about 3 minutes): smollm-135m
+   at its published widths on phase 12's global batch (8 x 2,048
    tokens), AdamW without warmup, through ``sharded_train_step`` (FSDP over
    ``data``, tensor parallel over ``model``), each rank a process of its
    own (this script with ``--train-child``): 4 gloo ranks sharing the card
    on a (4,) data mesh (FSDP only), 3 gloo ranks on (1, 3) data x model
-   (head-parallel TP) and one NCCL rank on (1, 1); NCCL with more than one
-   rank is not exercised (one card).  First phase 12's single-device step
+   (head-parallel TP), 4 gloo ranks on (1, 4) (9 heads on 3 KV heads divide
+   no TP of 4: each rank's attention takes its 512 q rows at their query
+   offset against the whole K and V) and one NCCL rank on (1, 1); NCCL with
+   more than one rank is not exercised (one card).  First phase 12's single-device step
    here, float32 (TF32 off; its state checkpointed after each step) and
    bf16.  Each rank: its slices of the seeded parameters, its rows of each
    batch from the loader over the mesh; 2 float32 steps (depth cut to 6
@@ -321,20 +323,23 @@ Phases (any failure raises, so the script exits non-zero):
    restored from the single-device checkpoint (each rank reading its
    slices) and held to it (each parameter leaf's RMS difference within 1%
    of its update, each moment within 1e-3, the losses within 1e-4), on the
-   (4,) mesh also a step with rank 0's rows shifted by one that must fail
-   that gate; then 3 bf16 steps, their losses within 1% of the single
-   device's, the first step's every flash forward and backward call held
-   to its plain version at its own operands.  Every rank the same losses;
-   60 forward and 30 backward flash launches a step on every rank (rows 9
+   (4,) mesh also a step with rank 0's rows shifted by one, on (1, 4) a
+   step with every flash call at offset 0, each of which must fail that
+   gate; then 2 bf16 steps (depth cut to 4 layers), their losses within 1%
+   of the single device's, the first step's every flash forward and
+   backward call held to its plain version at its own operands and taking
+   the rank's q rows at their offset.  Every rank the same losses; 8
+   forward and 4 backward flash launches a bf16 step on every rank (rows 9
    and 9d's ``launches_by_path``); each rank's parameter and AdamW bytes
-   (uncut) the single rank's over the shard count (within 1%); step ms,
-   tokens/s and each rank's peak memory printed.
+   the single rank's over the shard count (within 1%); step ms, tokens/s
+   and each rank's peak memory printed.  The (4,) and (1, 4) meshes run
+   one after the other in one launch of 4 ranks.
 22. Sharded serving and the launch tooling (about 2 minutes).  (a)
    qwen3-8b at its published widths served through ``sharded_prefill`` and
    ``sharded_decode_step``, each rank a process of its own (this script
    with ``--serve-child``): 4 gloo ranks sharing the card on (1, 4) data x
    model (head-parallel: 8 query and 2 KV heads a rank) and on (2, 2), the
-   depth cut from 36 to 4 layers and the generation to the prefill and one
+   depth cut from 36 to 2 layers and the generation to the prefill and one
    decode step, then one NCCL rank on (1, 1) at full depth with phase 10's
    4 x 4,096 prompt tokens and 31 decode steps; decode tokens are seeded
    (teacher forcing).  Each rank draws the seeded parameters whole, computes
@@ -357,6 +362,31 @@ Phases (any failure raises, so the script exits non-zero):
    the predicted and measured peaks, the roofline's step-time bound beside
    the measured step, and the step's share of the bf16 peak are printed,
    each beside the card's name and power limit.
+23. The query offset and the moe, vlm and audio families over a mesh
+   (about 4 minutes).  (a) Both flash kernels with ``q_offset``, bf16 and
+   float32: smollm-135m's layer (8 x 2,048, 9 / 3 heads of 64) in 4 q
+   slices at offsets 0, 512, 1,024 and 1,536, each against its plain
+   versions, its output and dq those rows of one causal call on the whole
+   q, the slices' dk and dv summing to the whole call's, each timed in
+   turns with the whole call beside its bound, plain versions and SDPA
+   with the slice's mask; the last slice at offset 0 must miss; D = 112
+   and 128 at offset 333 (200 rows).  (b) is phase 21's (1, 4) run.  (c)
+   The single device's float32 references here first (one AdamW step's
+   update a leaf, teacher-forced logits), then 4 gloo ranks sharing the
+   card on (1, 4) (experts, heads, d_ff and the vocabulary over TP), each
+   drawing only its slices: phi3.5-moe (2 layers) and the vision model (4
+   self layers and a cross layer) trained one float32 step (the update
+   within 1% of the single device's a leaf, the loss within 1e-4,
+   ``moe_dropped`` equal) and one bf16 step (every flash call within its
+   gate); phi3.5-moe (4 layers), the vision model and musicgen (uncut)
+   served, 4 x 256 prompt tokens and a decode step: float32 logits within
+   1e-3 relative RMS of the single device's, the cache read one position
+   off and (phi3.5-moe) layer 0's experts rotated by one rank each failing
+   that gate, every bf16 flash call within its gate; then one NCCL rank on
+   (1, 1) serving the three and arctic (1 layer) in bf16 against the
+   single device within 5%.  Rows 9 and 9d's ``launches_by_path`` count
+   (c)'s launches; (a)'s compare kernels with their plain versions and
+   count on no path.
 
 Kernel times are device times: CUDA events around 50 (20 for attention)
 back-to-back launches, a spin kernel queued first so that the host's
@@ -397,6 +427,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -2310,7 +2341,7 @@ def max_sm_clock_hz() -> float:
 
 
 def flash_bound(q: torch.Tensor, k: torch.Tensor, causal: bool = True,
-                instance: str | None = None, backward: bool = False):
+                instance: str | None = None, backward: bool = False, q_offset: int = 0):
     """FLOPs (4 D a (q, k) pair the mask leaves), bytes (q, o, k, v once),
     exps (one a pair) and the bound of ``instance`` (None: the static rule's
     for q's type): the largest of the bytes over the memory rate, the
@@ -2321,17 +2352,22 @@ def flash_bound(q: torch.Tensor, k: torch.Tensor, causal: bool = True,
     cores' rate for ``simt_f32``.  ``backward``: the backward's function,
     five products (S, dP, dV, dQ, dK: 10 D FLOPs a pair), q, k, v, out, do
     and lse read once and dq, dk, dv written once, one exp a pair, on the
-    backward's instance for q's type.  Returns (flops, bytes, (bound ms,
-    "bytes" or "operations"), the binding term)."""
+    backward's instance for q's type.  ``q_offset``: q's rows sit at
+    positions q_offset on (a slice of the q sequence), so causal row i sees
+    q_offset + i + 1 keys, and K and V are read only up to the last row's
+    key (min(Sk, q_offset + Sq) rows); the backward's dk and dv are written
+    whole (zeros where no row of the slice reaches).  Returns (flops,
+    bytes, (bound ms, "bytes" or "operations"), the binding term)."""
     from repro_torch.kernels import flash_attention as fa
 
     b, sq, h, d = q.shape
-    sk = k.shape[1]
-    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    sk, kv = k.shape[1], k.shape[2]
+    pairs = sum(min(q_offset + i + 1, sk) for i in range(sq)) if causal else sq * sk
     flops = (10 if backward else 4) * b * h * d * pairs
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    if backward:
-        nbytes = 2 * nbytes + 4 * b * h * sq
+    kv_read = 2 * b * (min(sk, q_offset + sq) if causal else sk) * kv * d
+    nbytes = (2 * q.numel() + kv_read) * q.element_size()
+    if backward:   # q, out, do read and dq written; k, v read; dk, dv written
+        nbytes = (4 * q.numel() + kv_read + 2 * k.numel()) * q.element_size() + 4 * b * h * sq
     ex2_per_s = (EX2_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count
                  * max_sm_clock_hz())
     product = {"wgmma": ("bf16 tensor product", flops / PEAK_BF16_TENSOR_OPS_PER_S),
@@ -2625,16 +2661,16 @@ def flash_forward(mode: str):
     orig, orig_bwd = ops.flash_attention, ops.flash_attention_bwd
 
     def plain(q, k, v, *, causal=True, impl="auto", q_chunk=512, kv_chunk=512,
-              triangle=False, return_lse=False):
+              triangle=False, return_lse=False, q_offset=0):
         return ref.flash_attention_ref(q, k, v, causal=causal, q_chunk=q_chunk,
                                        kv_chunk=kv_chunk, triangle=triangle,
-                                       return_lse=return_lse)
+                                       return_lse=return_lse, q_offset=q_offset)
 
     def plain_bwd(q, k, v, out, lse, do, *, causal=True, impl="auto", q_chunk=512,
-                  kv_chunk=512, triangle=False):
+                  kv_chunk=512, triangle=False, q_offset=0):
         return ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
                                            q_chunk=q_chunk, kv_chunk=kv_chunk,
-                                           triangle=triangle)
+                                           triangle=triangle, q_offset=q_offset)
 
     def shifted(q, k, v, **kw):
         out = orig(q, k, v, **kw)
@@ -3215,7 +3251,8 @@ def synthetic_documents(n: int, seed: int) -> tuple[list, list]:
     character changed (its index is returned as planted)."""
     rng = np.random.default_rng(seed + 13)
     letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
-    vocab = ["".join(rng.choice(letters, size=int(rng.integers(3, 10)))) for _ in range(5000)]
+    vocab = np.array(["".join(rng.choice(letters, size=int(rng.integers(3, 10))))
+                      for _ in range(5000)])   # an array: choice would convert a list each call
     docs, planted = [], []
     for i in range(n):
         if i >= 100 and i % 10 == 0:
@@ -3224,7 +3261,7 @@ def synthetic_documents(n: int, seed: int) -> tuple[list, list]:
             docs.append(src[:k] + "~" + src[k + 1:])
             planted.append(i)
         else:
-            docs.append(" ".join(rng.choice(vocab, size=int(rng.integers(15, 36)))))
+            docs.append(" ".join(rng.choice(vocab, size=int(rng.integers(15, 36))).tolist()))
     return docs, planted
 
 
@@ -4039,28 +4076,41 @@ FAMILY_TRAIN = (("musicgen-medium", None, 4, 1500), ("llama-3.2-vision-11b", 5, 
 FAMILY_TRAIN_OPT = dict(steps=4, lr=3e-3, warmup=2)
 
 
-def family_model(arch: str, layers, seed: int):
+def family_config(arch: str, layers, dtype: str | None = None):
     """``arch``'s published config, its depth cut to ``layers`` (None: not
-    cut), and its model on the card with float32 weights drawn from
-    ``seed``.  The vision model's cross-attention gates start at zero, which
-    switches its cross-attention off (tanh(0) = 0), so they are set to
-    seeded values of either sign with magnitudes in [0.5, 1.5)."""
+    cut), in compute type ``dtype`` (None: the config's)."""
     import dataclasses
 
     from repro_torch import configs
-    from repro_torch.models import Model
 
     cfg = configs.get(arch)
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=layers)
+    return dataclasses.replace(cfg, dtype=dtype) if dtype else cfg
+
+
+def vision_gates(gate: torch.Tensor, seed: int) -> torch.Tensor:
+    """The vision model's cross-attention gates as phases 17-19 and 23 set
+    them: they start at zero, which switches its cross-attention off (tanh(0)
+    = 0), so seeded values of either sign with magnitudes in [0.5, 1.5)."""
+    dev = gate.device
+    gen = torch.Generator(device=dev).manual_seed(seed + 101)
+    signs = torch.tensor([1.0, -1.0], device=dev).repeat(gate.numel())[:gate.numel()]
+    return ((torch.rand(gate.shape, generator=gen, device=dev) + 0.5) * signs).to(gate.dtype)
+
+
+def family_model(arch: str, layers, seed: int, dtype: str | None = None):
+    """``family_config(arch, layers, dtype)`` and its model on the card with
+    float32 weights drawn from ``seed`` (the vision model's gates
+    :func:`vision_gates`)."""
+    from repro_torch.models import Model
+
+    cfg = family_config(arch, layers, dtype)
     dev = torch.device("cuda")
     model = Model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
     if cfg.family == "vlm":
-        gate = model.cross_blocks.gate
-        gen = torch.Generator(device=dev).manual_seed(seed + 101)
-        signs = torch.tensor([1.0, -1.0], device=dev).repeat(gate.numel())[:gate.numel()]
         with torch.no_grad():
-            gate.copy_((torch.rand(gate.shape, generator=gen, device=dev) + 0.5) * signs)
+            model.cross_blocks.gate.copy_(vision_gates(model.cross_blocks.gate, seed))
     return cfg, model
 
 
@@ -4586,10 +4636,10 @@ def run_mesh_ranks(run_dir: Path, backend: str, world: int, flag: str = "--mesh-
                 p.kill()
                 p.wait()
     bad = [r for r, p in enumerate(procs) if p.returncode != 0]
-    if bad:
-        tail = logs[bad[0]].read_text()[-4000:]
-        raise AssertionError(f"{backend} rank {bad[0]} of {world} exited "
-                             f"{procs[bad[0]].returncode}:\n{tail}")
+    if bad:   # every failed rank's tail: the first to fail need not be rank bad[0]
+        raise AssertionError("\n".join(
+            f"{backend} rank {r} of {world} exited {procs[r].returncode}:\n"
+            f"{logs[r].read_text()[-3000:]}" for r in bad))
     return [json.loads((run_dir / f"{backend}{world}_rank{r}.json").read_text())
             for r in range(world)]
 
@@ -4862,18 +4912,24 @@ def phase_mesh_drivers(zipf, zipf_pairs, zipf_candidates, skewed, skewed_results
 # Phase 21: sharded training on torch.distributed
 # ---------------------------------------------------------------------------
 
-# smollm-135m at its published widths and depth on phase 12's global batch
-# (8 x 2,048 tokens), over three meshes: 4 gloo ranks sharing the card on
-# (4,) data (FSDP only), 3 gloo ranks on (1, 3) data x model (TP: its 3 KV
-# heads make it head-parallel) and one NCCL rank on (1, 1).  float32 first
-# (held to the single-device float32 step), its depth cut from 30 to
-# ``f32_layers`` to keep the phase near 2 minutes (the float32 attention
-# backward runs on the CUDA cores, and the gloo ranks stage every collective
-# through the host), then bf16 uncut (timed, the bytes a rank held).  AdamW
-# without warmup, so every step moves the parameters.
-SHARDED = dict(arch="smollm-135m", batch=8, seq=2048, f32_steps=2, f32_layers=6, bf16_steps=3,
+# smollm-135m at its published widths on phase 12's global batch (8 x 2,048
+# tokens), over four meshes: 4 gloo ranks sharing the card on (4,) data
+# (FSDP only), 3 gloo ranks on (1, 3) data x model (TP: its 3 KV heads make
+# it head-parallel), 4 gloo ranks on (1, 4) (9 heads on 3 KV heads divide no
+# TP of 4, so attention splits the q sequence: each TP rank its 512 rows at
+# their offset, against the whole K and V) and one NCCL rank on (1, 1).
+# float32 first (held to the single-device float32 step), its depth cut from
+# 30 to ``f32_layers`` (the float32 attention backward runs on the CUDA
+# cores, and the gloo ranks stage every collective through the host), then
+# bf16 (timed, the bytes a rank held): the NCCL rank all 30 layers, 3 steps;
+# the gloo ranks 2 steps of 4 layers, the cut that pays for phase 23 within
+# the script's time limit (each gloo step stages every collective through
+# the host: 3 steps of 30 layers on three meshes took most of PR 26's 183 s
+# phase).  AdamW without warmup, so every step moves the parameters.
+SHARDED = dict(arch="smollm-135m", batch=8, seq=2048, f32_steps=2, f32_layers=6,
+               bf16_steps={"gloo": 2, "nccl": 3}, bf16_layers={"gloo": 4, "nccl": 30},
                lr=3e-3, decay_steps=10,
-               runs=(("gloo", "4"), ("gloo", "1x3"), ("nccl", "1x1")), timeout=420)
+               runs=(("gloo", "4,1x4"), ("gloo", "1x3"), ("nccl", "1x1")), timeout=480)
 # A rank's float32 slices after the steps against the single-device step's:
 # each parameter leaf's RMS difference over its RMS update (AdamW divides by
 # sqrt(nu) + 1e-8: where a gradient is near 1e-8, summing it in another order
@@ -4899,20 +4955,24 @@ def _leaf_gate(mine: list, want: list, initial: list | None) -> tuple[float, int
     return ratios[worst], worst
 
 
-def train_child(run_dir: Path, backend: str, rank: int, world: int, shape: str) -> None:
+def train_child(run_dir: Path, backend: str, rank: int, world: int, shapes: str) -> None:
     """One rank of phase 21 (``chip_smoke.py --train-child DIR BACKEND RANK
-    WORLD MESH``): joins the group over a file store in ``run_dir``, builds
-    the mesh (``4`` is (4,) data, ``AxB`` (A, B) data x model), and trains
-    smollm-135m sharded: this rank's slices of the seeded parameters
-    (``sharded_state``), its rows of each global batch (the loader over the
-    mesh), ``sharded_train_step``.  float32 (``SHARDED["f32_layers"]``
-    layers): ``SHARDED["f32_steps"]`` steps, then its slices held to the single-device float32 step's checkpoint
-    (restored onto this mesh, each rank reading its slices); on the (4,)
-    mesh also a control step with rank 0's rows shifted by one.  bf16:
-    ``SHARDED["bf16_steps"]`` steps timed, the first step's every flash
-    kernel call held to its plain version at its operands.  The flash
-    launch counters are zeroed just before each run's steps and read just
-    after.  Writes ``<backend><world>_rank<rank>.json``."""
+    WORLD MESH``): joins the group over a file store in ``run_dir`` (the
+    run's own directory; the seed and the single-device checkpoints in its
+    parent), builds the mesh (``4`` is (4,) data, ``AxB`` (A, B) data x
+    model), and trains smollm-135m sharded: this rank's slices of the seeded
+    parameters (``sharded_state``), its rows of each global batch (the
+    loader over the mesh), ``sharded_train_step``.  float32
+    (``SHARDED["f32_layers"]`` layers): ``SHARDED["f32_steps"]`` steps, then
+    its slices held to the single-device float32 step's checkpoint
+    (restored onto this mesh, each rank reading its slices); a control step
+    from the same slices that must fail that gate: on the (4,) mesh rank
+    0's rows shifted by one, on (1, 4) (the ``q_sequence`` split) every
+    flash call given query offset 0.  bf16: ``SHARDED["bf16_steps"]`` steps
+    timed, the first step's every flash kernel call held to its plain
+    version at its operands (and its q rows and offset recorded).  The
+    flash launch counters are zeroed just before each run's steps and read
+    just after.  Writes ``<backend><world>_rank<rank>.json``."""
     import dataclasses
     import datetime
 
@@ -4923,7 +4983,7 @@ def train_child(run_dir: Path, backend: str, rank: int, world: int, shape: str) 
     from repro_torch.distributed import CheckpointManager
     from repro_torch.distributed.sharding import layout_of, named
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import Model
     from repro_torch.train import OptimizerConfig
@@ -4931,114 +4991,132 @@ def train_child(run_dir: Path, backend: str, rank: int, world: int, shape: str) 
     from repro_torch.train.step import sharded_state, sharded_train_step
     from repro_torch.train.tree import leaves, tree_map, unflatten
 
+    @contextlib.contextmanager
+    def zero_offsets():   # the control: every flash call at query offset 0
+        saved = ops.flash_attention, ops.flash_attention_bwd
+        ops.flash_attention = lambda *a, **kw: saved[0](*a, **{**kw, "q_offset": 0})
+        ops.flash_attention_bwd = lambda *a, **kw: saved[1](*a, **{**kw, "q_offset": 0})
+        try:
+            yield
+        finally:
+            ops.flash_attention, ops.flash_attention_bwd = saved
+
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dist.init_process_group(backend, init_method=f"file://{run_dir}/store_{backend}{world}",
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=SHARDED["timeout"]))
-    dims = tuple(int(x) for x in shape.split("x"))
-    mesh = make_mesh(dims, ("data",) if len(dims) == 1 else ("data", "model"))
-    layout = layout_of(mesh)
-    seed = int((run_dir / "seed").read_text())
+    seed = int((run_dir.parent / "seed").read_text())
     b, s = SHARDED["batch"], SHARDED["seq"]
     base = configs.get(SHARDED["arch"])
-    out = {"rank": rank, "backend": backend, "world": world, "mesh": shape,
-           "coord": layout.coord}
-    for dtype in ("float32", "bfloat16"):
-        f32 = dtype == "float32"
-        cfg = dataclasses.replace(base, dtype=dtype, num_layers=SHARDED["f32_layers"] if f32
-                                  else base.num_layers)
-        opt = OptimizerConfig(learning_rate=SHARDED["lr"], warmup_steps=0,
-                              decay_steps=SHARDED["decay_steps"])
-        t0 = time.perf_counter()
-        model = Model(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
-        step, sspecs, _ = sharded_train_step(model, opt, mesh)
-        state = sharded_state(model, opt, mesh)
-        del model
-        gc.collect()
-        torch.cuda.empty_cache()
-        initial = [p.detach().clone() for p in leaves(state["params"])] if f32 else None
-        nbytes = {part: sum(t.numel() * t.element_size() for t in leaves(state[part]))
-                  for part in ("params", "opt")}
-        loader = SyntheticLMLoader(cfg, LoaderConfig(batch_size=b, seq_len=s, seed=seed,
-                                                     vocab_size=cfg.vocab_size),
-                                   device="cuda", mesh=mesh, batch_axes=("data",))
-        setup_s = time.perf_counter() - t0
-        n = SHARDED["f32_steps"] if f32 else SHARDED["bf16_steps"]
-        torch.cuda.reset_peak_memory_stats()
-        fwd_calls, bwd_calls, captured = [], [], (0, 0)
-        losses, ms = [], []
-        fa.reset_launches()
-        for i in range(n):
-            batch = next(loader)
-            dist.barrier()
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            if i == 0 and not f32:   # every kernel call of the first bf16 step, captured
-                with capture_calls(fa, "flash_attention_cuda", fwd_calls), \
-                        capture_calls(fa, "flash_attention_bwd_cuda", bwd_calls):
+    meshes = {}
+    for shape in shapes.split(","):   # the meshes over these ranks, one after another
+        dims = tuple(int(x) for x in shape.split("x"))
+        mesh = make_mesh(dims, ("data",) if len(dims) == 1 else ("data", "model"))
+        layout = layout_of(mesh)
+        out = meshes[shape] = {"rank": rank, "backend": backend, "world": world, "mesh": shape,
+                               "coord": layout.coord}
+        for dtype in ("float32", "bfloat16"):
+            f32 = dtype == "float32"
+            cfg = dataclasses.replace(base, dtype=dtype, num_layers=SHARDED["f32_layers"] if f32
+                                      else SHARDED["bf16_layers"][backend])
+            opt = OptimizerConfig(learning_rate=SHARDED["lr"], warmup_steps=0,
+                                  decay_steps=SHARDED["decay_steps"])
+            t0 = time.perf_counter()
+            model = Model(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
+            step, sspecs, _ = sharded_train_step(model, opt, mesh)
+            state = sharded_state(model, opt, mesh)
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+            initial = [p.detach().clone() for p in leaves(state["params"])] if f32 else None
+            nbytes = {part: sum(t.numel() * t.element_size() for t in leaves(state[part]))
+                      for part in ("params", "opt")}
+            loader = SyntheticLMLoader(cfg, LoaderConfig(batch_size=b, seq_len=s, seed=seed,
+                                                         vocab_size=cfg.vocab_size),
+                                       device="cuda", mesh=mesh, batch_axes=("data",))
+            setup_s = time.perf_counter() - t0
+            n = SHARDED["f32_steps"] if f32 else SHARDED["bf16_steps"][backend]
+            torch.cuda.reset_peak_memory_stats()
+            fwd_calls, bwd_calls, captured = [], [], (0, 0)
+            losses, ms = [], []
+            fa.reset_launches()
+            for i in range(n):
+                batch = next(loader)
+                dist.barrier()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                if i == 0 and not f32:   # every kernel call of the first bf16 step, captured
+                    with capture_calls(fa, "flash_attention_cuda", fwd_calls), \
+                            capture_calls(fa, "flash_attention_bwd_cuda", bwd_calls):
+                        state, metrics = step(state, batch)
+                        captured = (fa.flash_attention_cuda.launches,
+                                    fa.flash_attention_bwd_cuda.launches)
+                else:
                     state, metrics = step(state, batch)
-                    captured = (fa.flash_attention_cuda.launches,
-                                fa.flash_attention_bwd_cuda.launches)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t1) * 1e3)
+                losses.append(float(metrics["loss"]))
+            launches = {"flash_attention": fa.flash_attention_cuda.launches + captured[0],
+                        "flash_attention_bwd": fa.flash_attention_bwd_cuda.launches + captured[1],
+                        "instances": {k: v for k, v in fa.flash_attention_cuda.instance_launches.items()
+                                      if v},
+                        "bwd_instances": {k: v for k, v in
+                                          fa.flash_attention_bwd_cuda.instance_launches.items() if v}}
+            rec = {"losses": losses, "step_ms": ms, "bytes": nbytes, "setup_s": setup_s,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
+                   "grad_norm": float(metrics["grad_norm"])}
+            if f32:
+                # The single-device step's state, restored onto this mesh.
+                like = tree_map(torch.empty_like, state)
+                want, _ = CheckpointManager(str(run_dir.parent / "ref")).restore(
+                    like, named(mesh, sspecs), step=n)
+                rec["param_gate"] = _leaf_gate(leaves(state["params"]), leaves(want["params"]),
+                                               initial)
+                rec["moment_gate"] = _leaf_gate(leaves(state["opt"]), leaves(want["opt"]), None)
+                del like, want
+                if shape in ("4", "1x4"):
+                    # The control: one step from the same slices, rank 0's rows
+                    # shifted (4), or every flash call at offset 0 (1x4).
+                    params = unflatten(state["params"],
+                                       [p0.clone().requires_grad_(True) for p0 in initial])
+                    ctrl = {"step": torch.zeros((), dtype=torch.int32, device="cuda"),
+                            "params": params, "opt": opt_init(opt, params)}
+                    host = loader.host_batch(0)
+                    rows = b // dims[0]
+                    lo = loader.rows.start + (1 if rank == 0 and shape == "4" else 0)
+                    with zero_offsets() if shape == "1x4" else contextlib.nullcontext():
+                        ctrl, _ = step(ctrl, {k: v[lo:lo + rows].contiguous().cuda()
+                                              for k, v in host.items()})
+                    want, _ = CheckpointManager(str(run_dir.parent / "ref")).restore(
+                        tree_map(torch.empty_like, ctrl), named(mesh, sspecs), step=1)
+                    rec["control_gate"] = _leaf_gate(leaves(ctrl["params"]), leaves(want["params"]),
+                                                     initial)
+                    del ctrl, want, params
             else:
-                state, metrics = step(state, batch)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t1) * 1e3)
-            losses.append(float(metrics["loss"]))
-        launches = {"flash_attention": fa.flash_attention_cuda.launches + captured[0],
-                    "flash_attention_bwd": fa.flash_attention_bwd_cuda.launches + captured[1],
-                    "instances": {k: v for k, v in fa.flash_attention_cuda.instance_launches.items()
-                                  if v},
-                    "bwd_instances": {k: v for k, v in
-                                      fa.flash_attention_bwd_cuda.instance_launches.items() if v}}
-        rec = {"losses": losses, "step_ms": ms, "bytes": nbytes, "setup_s": setup_s,
-               "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
-               "grad_norm": float(metrics["grad_norm"])}
-        if f32:
-            # The single-device step's state, restored onto this mesh.
-            like = tree_map(torch.empty_like, state)
-            want, _ = CheckpointManager(str(run_dir / "ref")).restore(
-                like, named(mesh, sspecs), step=n)
-            rec["param_gate"] = _leaf_gate(leaves(state["params"]), leaves(want["params"]),
-                                           initial)
-            rec["moment_gate"] = _leaf_gate(leaves(state["opt"]), leaves(want["opt"]), None)
-            del like, want
-            if shape == "4":
-                # The control: one step from the same slices, rank 0's rows shifted.
-                params = unflatten(state["params"],
-                                   [p0.clone().requires_grad_(True) for p0 in initial])
-                ctrl = {"step": torch.zeros((), dtype=torch.int32, device="cuda"),
-                        "params": params, "opt": opt_init(opt, params)}
-                host = loader.host_batch(0)
-                lo = loader.rows.start + (1 if rank == 0 else 0)
-                ctrl, _ = step(ctrl, {k: v[lo:lo + b // world].contiguous().cuda()
-                                      for k, v in host.items()})
-                want, _ = CheckpointManager(str(run_dir / "ref")).restore(
-                    tree_map(torch.empty_like, ctrl), named(mesh, sspecs), step=1)
-                rec["control_gate"] = _leaf_gate(leaves(ctrl["params"]), leaves(want["params"]),
-                                                 initial)
-                del ctrl, want, params
-        else:
-            with torch.no_grad():
-                rec["fwd_calls_max_abs_err"] = max(
-                    flash_close(fa.flash_attention_cuda(*a, **kw)[0],
-                                ref.flash_attention_ref(*a, **kw)[0],
-                                f"rank {rank} step forward call {j}")
-                    for j, (a, kw) in enumerate(fwd_calls))
-                rec["bwd_calls_rel_rms"] = max(
-                    bwd_close(fa.flash_attention_bwd_cuda(*a, **kw),
-                              ref.flash_attention_bwd_ref(*a, **kw),
-                              f"rank {rank} step backward call {j}")
-                    for j, (a, kw) in enumerate(bwd_calls))
-            rec["calls"] = [len(fwd_calls), len(bwd_calls)]
-            rec["local_heads"] = int(fwd_calls[0][0][0].shape[2])
-            rec["local_rows"] = int(fwd_calls[0][0][0].shape[0])
-        out[dtype] = rec
-        del state, fwd_calls, bwd_calls, initial
-        gc.collect()
-        torch.cuda.empty_cache()
-    (run_dir / f"{backend}{world}_rank{rank}.json").write_text(json.dumps(out))
+                with torch.no_grad():
+                    rec["fwd_calls_max_abs_err"] = max(
+                        flash_close(fa.flash_attention_cuda(*a, **kw)[0],
+                                    ref.flash_attention_ref(*a, **kw)[0],
+                                    f"rank {rank} step forward call {j}")
+                        for j, (a, kw) in enumerate(fwd_calls))
+                    rec["bwd_calls_rel_rms"] = max(
+                        bwd_close(fa.flash_attention_bwd_cuda(*a, **kw),
+                                  ref.flash_attention_bwd_ref(*a, **kw),
+                                  f"rank {rank} step backward call {j}")
+                        for j, (a, kw) in enumerate(bwd_calls))
+                rec["calls"] = [len(fwd_calls), len(bwd_calls)]
+                rec["local_heads"] = int(fwd_calls[0][0][0].shape[2])
+                rec["local_rows"] = int(fwd_calls[0][0][0].shape[0])
+                # Each call's (q rows, query offset): the q_sequence split's slice.
+                rec["q_rows"] = sorted({(int(a[0].shape[1]), int(kw.get("q_offset", 0)))
+                                        for a, kw in fwd_calls + bwd_calls})
+            out[dtype] = rec
+            del state, fwd_calls, bwd_calls, initial
+            gc.collect()
+            torch.cuda.empty_cache()
+    (run_dir / f"{backend}{world}_rank{rank}.json").write_text(json.dumps({"meshes": meshes}))
     dist.barrier()
     dist.destroy_process_group()
 
@@ -5074,11 +5152,14 @@ def phase_sharded_train(seed: int) -> tuple[dict, dict]:
     try:
         (run_dir / "seed").write_text(str(seed))
         single = {}
-        for dtype in ("float32", "bfloat16"):
+        # float32, then bf16 at each backend's depth and steps.
+        depths = [("float32", SHARDED["f32_layers"], SHARDED["f32_steps"])] + sorted(
+            {("bfloat16", SHARDED["bf16_layers"][be], SHARDED["bf16_steps"][be])
+             for be, _ in SHARDED["runs"]})
+        for dtype, n_layers, n_steps in depths:
             f32 = dtype == "float32"
             base = configs.get(SHARDED["arch"])
-            cfg = dataclasses.replace(base, dtype=dtype, num_layers=SHARDED["f32_layers"] if f32
-                                      else base.num_layers)
+            cfg = dataclasses.replace(base, dtype=dtype, num_layers=n_layers)
             model = Model(cfg, device="cuda",
                           generator=torch.Generator(device="cuda").manual_seed(seed))
             opt = OptimizerConfig(learning_rate=SHARDED["lr"], warmup_steps=0,
@@ -5094,7 +5175,7 @@ def phase_sharded_train(seed: int) -> tuple[dict, dict]:
             torch.cuda.reset_peak_memory_stats()
             fa.reset_launches()
             losses, ms = [], []
-            for i in range(SHARDED["f32_steps"] if f32 else SHARDED["bf16_steps"]):
+            for i in range(n_steps):
                 batch = next(loader)
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
@@ -5104,7 +5185,8 @@ def phase_sharded_train(seed: int) -> tuple[dict, dict]:
                 losses.append(float(metrics["loss"]))
                 if f32:
                     ckpt.save(i + 1, state)
-            single[dtype] = {"losses": losses, "step_ms": ms, "bytes": nbytes,
+            single[dtype if f32 else f"{dtype}/{n_layers}"] = {
+                             "losses": losses, "step_ms": ms, "bytes": nbytes,
                              "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                              "launches": [fa.flash_attention_cuda.launches,
                                           fa.flash_attention_bwd_cuda.launches]}
@@ -5112,101 +5194,124 @@ def phase_sharded_train(seed: int) -> tuple[dict, dict]:
             gc.collect()
             torch.cuda.empty_cache()
         record["single"] = single
-        sf, sb = single["float32"], single["bfloat16"]
+        sf = single["float32"]
         log(f"phase 21 single-device reference (phase 12's make_train_step), {SHARDED['arch']} "
             f"at {b} x {s:,}, AdamW lr {SHARDED['lr']} without warmup: float32 (TF32 off; "
             f"{SHARDED['f32_layers']} of 30 layers) losses "
             f"{', '.join(f'{x:.6f}' for x in sf['losses'])}, step ms "
-            f"{', '.join(f'{x:.1f}' for x in sf['step_ms'])}, peak {sf['peak_gb']:.2f} GB; bf16 "
-            f"(uncut) losses {', '.join(f'{x:.4f}' for x in sb['losses'])}, step ms "
-            f"{', '.join(f'{x:.1f}' for x in sb['step_ms'])}, parameters "
-            f"{sb['bytes']['params'] / 1e9:.3f} GB and AdamW state {sb['bytes']['opt'] / 1e9:.3f} "
-            f"GB (float32), peak {sb['peak_gb']:.2f} GB")
-        layers = {"float32": SHARDED["f32_layers"],
-                  "bfloat16": configs.get(SHARDED["arch"]).num_layers}
+            f"{', '.join(f'{x:.1f}' for x in sf['step_ms'])}, peak {sf['peak_gb']:.2f} GB; "
+            + "; ".join(
+                f"bf16 ({key.split('/')[1]} layers) losses "
+                f"{', '.join(f'{x:.4f}' for x in sb['losses'])}, step ms "
+                f"{', '.join(f'{x:.1f}' for x in sb['step_ms'])}, parameters "
+                f"{sb['bytes']['params'] / 1e9:.3f} GB and AdamW state "
+                f"{sb['bytes']['opt'] / 1e9:.3f} GB (float32), peak {sb['peak_gb']:.2f} GB"
+                for key, sb in single.items() if key != "float32"))
         runs = {}
-        for backend, shape in SHARDED["runs"]:
-            dims = tuple(int(x) for x in shape.split("x"))
-            world = math.prod(dims)
-            run = (f"{backend} x{world} on ({dims[0]},) data" if len(dims) == 1 else
-                   f"{backend} x{world} on {dims} data x model")
+        for backend, shapes in SHARDED["runs"]:
+            # One launch of ranks runs its meshes in turn (each rank process
+            # pays its start and its first float32 step once).
+            world = math.prod(int(x) for x in shapes.split(",")[0].split("x"))
+            sub = run_dir / f"{backend}_{shapes.replace(',', '_')}"
+            sub.mkdir()
             t0 = time.perf_counter()
-            ranks = run_mesh_ranks(run_dir, backend, world, flag="--train-child", extra=(shape,),
-                                   timeout=SHARDED["timeout"])
+            launched = run_mesh_ranks(sub, backend, world, flag="--train-child",
+                                      extra=(shapes,), timeout=SHARDED["timeout"])
             wall = time.perf_counter() - t0
-            for r in ranks:
-                rf, rb = r["float32"], r["bfloat16"]
-                where = f"phase 21, {run}, rank {r['rank']}"
-                loss_err = max(abs(a - w) / abs(w) for a, w in zip(rf["losses"], sf["losses"]))
-                bf16_err = max(abs(a - w) / abs(w) for a, w in zip(rb["losses"], sb["losses"]))
-                shards = world
-                share = {part: rb["bytes"][part] * shards / sb["bytes"][part]
-                         for part in ("params", "opt")}
-                want = {dt: {"flash_attention": n * 2 * layers[dt],
-                             "flash_attention_bwd": n * layers[dt]}
-                        for dt, n in (("float32", SHARDED["f32_steps"]),
-                                      ("bfloat16", SHARDED["bf16_steps"]))}
-                got = {dt: {k: r[dt]["launches"][k] for k in want[dt]} for dt in want}
-                bad = []
-                if loss_err > SHARDED_LOSS_RTOL:
-                    bad.append(f"float32 losses {rf['losses']} vs {sf['losses']}")
-                if rf["param_gate"][0] > SHARDED_PARAM_REL_RMS:
-                    bad.append(f"float32 parameter leaf {rf['param_gate'][1]}: "
-                               f"{rf['param_gate'][0]:.3g} of its update")
-                if rf["moment_gate"][0] > SHARDED_MOMENT_REL_RMS:
-                    bad.append(f"float32 moment leaf {rf['moment_gate'][1]}: "
-                               f"{rf['moment_gate'][0]:.3g}")
-                if bf16_err > SHARDED_BF16_LOSS_RTOL or not all(map(math.isfinite, rb["losses"])):
-                    bad.append(f"bf16 losses {rb['losses']} vs {sb['losses']}")
-                if "control_gate" in rf and rf["control_gate"][0] <= SHARDED_PARAM_REL_RMS:
-                    bad.append(f"the control (rank 0's rows shifted) passed: "
-                               f"{rf['control_gate'][0]:.3g}")
-                if got != want:
-                    bad.append(f"flash launches {got}, expected {want}")
-                if not all(1.0 <= v <= 1.01 for v in share.values()):
-                    bad.append(f"bytes x {shards} shards over the single rank's: {share}")
-                if r["float32"]["losses"] != ranks[0]["float32"]["losses"] or \
-                        r["bfloat16"]["losses"] != ranks[0]["bfloat16"]["losses"]:
-                    bad.append("losses differ from rank 0's")
-                if bad:
-                    raise AssertionError(f"{where}: " + "; ".join(bad))
-                for dt, k in (("bfloat16", "flash_attention"), ("bfloat16", "flash_attention_bwd")):
-                    launches_by_path[k][f"{where} ({dt} steps)"] = r[dt]["launches"][k]
-                for k in ("flash_attention", "flash_attention_bwd"):
-                    launches_by_path[k][f"{where} (float32 steps)"] = rf["launches"][k]
-            med = statistics.median(ranks[0]["bfloat16"]["step_ms"][1:])
-            f32_med = ranks[0]["float32"]["step_ms"][-1]
-            runs[run] = {"wall_s": wall, "bf16_step_ms": med, "bf16_tokens_per_s": b * s / med * 1e3,
-                         "f32_step_ms": f32_med, "ranks": ranks}
-            r0 = ranks[0]
-            log(f"phase 21, {run} ({wall:.1f} s with start-up): float32 losses "
-                f"{', '.join(f'{x:.6f}' for x in r0['float32']['losses'])} = the single "
-                f"device's within {SHARDED_LOSS_RTOL} on every rank; bf16 losses "
-                f"{', '.join(f'{x:.4f}' for x in r0['bfloat16']['losses'])} (single device "
-                f"within {SHARDED_BF16_LOSS_RTOL}); bf16 step {med:.1f} ms (median of steps "
-                f"2-{SHARDED['bf16_steps']}, wall with the barrier's sync), "
-                f"{b * s / med * 1e3:,.0f} tokens/s; float32 step {f32_med:.1f} ms (the last, "
-                f"{SHARDED['f32_layers']} layers); every rank the same losses")
-            for r in ranks:
-                rf, rb = r["float32"], r["bfloat16"]
-                ctrl = (f", control (rank 0's rows shifted) {rf['control_gate'][0]:.3g} fails "
-                        f"the gate as it must" if "control_gate" in rf else "")
-                log(f"  rank {r['rank']} {json.dumps(r['coord'])}: parameters "
-                    f"{rb['bytes']['params'] / 1e9:.3f} GB, AdamW state "
-                    f"{rb['bytes']['opt'] / 1e9:.3f} GB (float32, uncut; the single rank's "
-                    f"{sb['bytes']['params'] / 1e9:.3f} / {sb['bytes']['opt'] / 1e9:.3f}); peak "
-                    f"{rf['peak_gb']:.2f} GB float32, {rb['peak_gb']:.2f} GB bf16; float32 slices "
-                    f"against the single device's: worst parameter leaf "
-                    f"{rf['param_gate'][0]:.3g} of its update (gate {SHARDED_PARAM_REL_RMS}), "
-                    f"worst moment {rf['moment_gate'][0]:.3g} (gate {SHARDED_MOMENT_REL_RMS})"
-                    f"{ctrl}; float32 step ms {', '.join(f'{x:.1f}' for x in rf['step_ms'])}, bf16 "
-                    f"{', '.join(f'{x:.1f}' for x in rb['step_ms'])}; "
-                    f"the first bf16 step's {rb['calls'][0]} forward and {rb['calls'][1]} "
-                    f"backward kernel calls ({rb['local_rows']} rows, {rb['local_heads']} heads "
-                    f"a call) at their operands: forward max |err| "
-                    f"{rb['fwd_calls_max_abs_err']:.3g}, backward relative RMS "
-                    f"{rb['bwd_calls_rel_rms']:.3g}; launches float32 "
-                    f"{json.dumps(rf['launches'])}, bf16 {json.dumps(rb['launches'])}")
+            sb = single[f"bfloat16/{SHARDED['bf16_layers'][backend]}"]
+            layers = {"float32": SHARDED["f32_layers"], "bfloat16": SHARDED["bf16_layers"][backend]}
+            for shape in shapes.split(","):
+                dims = tuple(int(x) for x in shape.split("x"))
+                run = (f"{backend} x{world} on ({dims[0]},) data" if len(dims) == 1 else
+                       f"{backend} x{world} on {dims} data x model")
+                ranks = [r["meshes"][shape] for r in launched]
+                tp = dims[1] if len(dims) > 1 else 1
+                heads = configs.get(SHARDED["arch"]).num_heads
+                for r in ranks:
+                    rf, rb = r["float32"], r["bfloat16"]
+                    where = f"phase 21, {run}, rank {r['rank']}"
+                    # Where the heads do not divide TP each rank's calls take its
+                    # S / TP q rows at their offset (q_sequence), else all S at 0.
+                    split = tp > 1 and heads % tp != 0
+                    rows = s // tp if split else s
+                    want_rows = [[rows, r["coord"].get("model", 0) * rows if split else 0]]
+                    loss_err = max(abs(a - w) / abs(w) for a, w in zip(rf["losses"], sf["losses"]))
+                    bf16_err = max(abs(a - w) / abs(w) for a, w in zip(rb["losses"], sb["losses"]))
+                    shards = world
+                    share = {part: rb["bytes"][part] * shards / sb["bytes"][part]
+                             for part in ("params", "opt")}
+                    want = {dt: {"flash_attention": n * 2 * layers[dt],
+                                 "flash_attention_bwd": n * layers[dt]}
+                            for dt, n in (("float32", SHARDED["f32_steps"]),
+                                          ("bfloat16", SHARDED["bf16_steps"][backend]))}
+                    got = {dt: {k: r[dt]["launches"][k] for k in want[dt]} for dt in want}
+                    bad = []
+                    if loss_err > SHARDED_LOSS_RTOL:
+                        bad.append(f"float32 losses {rf['losses']} vs {sf['losses']}")
+                    if rf["param_gate"][0] > SHARDED_PARAM_REL_RMS:
+                        bad.append(f"float32 parameter leaf {rf['param_gate'][1]}: "
+                                   f"{rf['param_gate'][0]:.3g} of its update")
+                    if rf["moment_gate"][0] > SHARDED_MOMENT_REL_RMS:
+                        bad.append(f"float32 moment leaf {rf['moment_gate'][1]}: "
+                                   f"{rf['moment_gate'][0]:.3g}")
+                    if bf16_err > SHARDED_BF16_LOSS_RTOL or not all(map(math.isfinite, rb["losses"])):
+                        bad.append(f"bf16 losses {rb['losses']} vs {sb['losses']}")
+                    if "control_gate" in rf and rf["control_gate"][0] <= SHARDED_PARAM_REL_RMS:
+                        bad.append(f"the control passed: {rf['control_gate'][0]:.3g}")
+                    if rb["q_rows"] != want_rows:
+                        bad.append(f"flash calls' (q rows, offset) {rb['q_rows']}, expected "
+                                   f"{want_rows}")
+                    if got != want:
+                        bad.append(f"flash launches {got}, expected {want}")
+                    if not all(1.0 <= v <= 1.01 for v in share.values()):
+                        bad.append(f"bytes x {shards} shards over the single rank's: {share}")
+                    if r["float32"]["losses"] != ranks[0]["float32"]["losses"] or \
+                            r["bfloat16"]["losses"] != ranks[0]["bfloat16"]["losses"]:
+                        bad.append("losses differ from rank 0's")
+                    if bad:
+                        raise AssertionError(f"{where}: " + "; ".join(bad))
+                    for dt, k in (("bfloat16", "flash_attention"), ("bfloat16", "flash_attention_bwd")):
+                        launches_by_path[k][f"{where} ({dt} steps)"] = r[dt]["launches"][k]
+                    for k in ("flash_attention", "flash_attention_bwd"):
+                        launches_by_path[k][f"{where} (float32 steps)"] = rf["launches"][k]
+                med = statistics.median(ranks[0]["bfloat16"]["step_ms"][1:])
+                f32_med = ranks[0]["float32"]["step_ms"][-1]
+                runs[run] = {"wall_s": wall, "bf16_step_ms": med, "bf16_layers": layers["bfloat16"],
+                             "bf16_tokens_per_s": b * s / med * 1e3, "f32_step_ms": f32_med,
+                             "ranks": ranks}
+                r0 = ranks[0]
+                log(f"phase 21, {run} ({wall:.1f} s with start-up for the launch's "
+                    f"{shapes.count(',') + 1} mesh(es)): float32 losses "
+                    f"{', '.join(f'{x:.6f}' for x in r0['float32']['losses'])} = the single "
+                    f"device's within {SHARDED_LOSS_RTOL} on every rank; bf16 losses "
+                    f"{', '.join(f'{x:.4f}' for x in r0['bfloat16']['losses'])} ({layers['bfloat16']} "
+                    f"layers; single device within {SHARDED_BF16_LOSS_RTOL}); bf16 step {med:.1f} ms "
+                    f"(median of the steps "
+                    f"after the first, wall with the barrier's sync), "
+                    f"{b * s / med * 1e3:,.0f} tokens/s; float32 step {f32_med:.1f} ms (the last, "
+                    f"{SHARDED['f32_layers']} layers); every rank the same losses")
+                for r in ranks:
+                    rf, rb = r["float32"], r["bfloat16"]
+                    what = "every flash call at offset 0" if shape == "1x4" else "rank 0's rows shifted"
+                    ctrl = (f", control ({what}) {rf['control_gate'][0]:.3g} fails the gate as it "
+                            f"must" if "control_gate" in rf else "")
+                    log(f"  rank {r['rank']} {json.dumps(r['coord'])}: parameters "
+                        f"{rb['bytes']['params'] / 1e9:.3f} GB, AdamW state "
+                        f"{rb['bytes']['opt'] / 1e9:.3f} GB (float32, uncut; the single rank's "
+                        f"{sb['bytes']['params'] / 1e9:.3f} / {sb['bytes']['opt'] / 1e9:.3f}); peak "
+                        f"{rf['peak_gb']:.2f} GB float32, {rb['peak_gb']:.2f} GB bf16; float32 slices "
+                        f"against the single device's: worst parameter leaf "
+                        f"{rf['param_gate'][0]:.3g} of its update (gate {SHARDED_PARAM_REL_RMS}), "
+                        f"worst moment {rf['moment_gate'][0]:.3g} (gate {SHARDED_MOMENT_REL_RMS})"
+                        f"{ctrl}; float32 step ms {', '.join(f'{x:.1f}' for x in rf['step_ms'])}, bf16 "
+                        f"{', '.join(f'{x:.1f}' for x in rb['step_ms'])}; "
+                        f"the first bf16 step's {rb['calls'][0]} forward and {rb['calls'][1]} "
+                        f"backward kernel calls ({rb['local_rows']} rows of {rb['q_rows'][0][0]} "
+                        f"positions from {rb['q_rows'][0][1]}, {rb['local_heads']} heads a call) at "
+                        f"their operands: forward max |err| "
+                        f"{rb['fwd_calls_max_abs_err']:.3g}, backward relative RMS "
+                        f"{rb['bwd_calls_rel_rms']:.3g}; launches float32 "
+                        f"{json.dumps(rf['launches'])}, bf16 {json.dumps(rb['launches'])}")
         record["runs"] = runs
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
@@ -5222,7 +5327,7 @@ def phase_sharded_train(seed: int) -> tuple[dict, dict]:
 # gloo_gen - 1 decode steps); the NCCL rank runs the published depth and
 # phase 10's prompt and generation.  Decode tokens are seeded (teacher
 # forcing), so no argmax tie can fork a run from its reference.
-SHARDED_SERVE = dict(arch="qwen3-8b", batch=4, prompt=4096, gen=32, gloo_layers=4, gloo_gen=2,
+SHARDED_SERVE = dict(arch="qwen3-8b", batch=4, prompt=4096, gen=32, gloo_layers=2, gloo_gen=2,
                      runs=(("gloo", "1x4"), ("gloo", "2x2"), ("nccl", "1x1")), timeout=400)
 SERVE_F32_REL_TOL = 1e-3
 # Phase 22 (c): phase 12's step, dry-run and then measured on the card.
@@ -5620,6 +5725,905 @@ def phase_sharded_serving_and_dryrun(seed: int) -> tuple[dict, dict, dict]:
     return serving, tooling, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the query offset on the card; the moe, vlm and audio families
+# over a mesh
+# ---------------------------------------------------------------------------
+
+# (a) smollm-135m's layer (B, S, H, KV, D) with its q sequence split in
+# ``parts`` (phase 21's (1, 4) slices), and at D = 112 and 128 one slice of
+# (B, Sk, H, KV) whose offset and length are no multiple of a tile.
+OFFSET = dict(layer=(8, 2048, 9, 3, 64), parts=4,
+              odd=dict(b=2, sk=1024, heads=8, kv=2, offset=333, rows=200, dims=(112, 128)))
+
+
+def offset_grads_close(got: tuple, want: tuple, what: str) -> float:
+    """Gradients against another computation of them, by type: float32
+    within FLASH_TOL elementwise (the largest |err|), bf16 within the
+    gradient gate (the largest relative RMS).  Returns that error."""
+    if want[0].dtype == torch.float32:
+        tol = FLASH_TOL[torch.float32]
+        err = max(max_err_float(a, w) for a, w in zip(got, want))
+        if not all(torch.allclose(a, w, rtol=tol, atol=tol) for a, w in zip(got, want)):
+            raise AssertionError(f"{what}: max |err| {err:.3g} (tolerance {tol})")
+        return err
+    return bwd_close(got, want, what)
+
+
+def offset_slice_check(qs, k, v, ds, q_offset: int, what: str) -> tuple:
+    """Both kernels on one q slice at ``q_offset`` against their plain
+    versions: the output within FLASH_TOL, lse within LSE_TOL, dq, dk, dv
+    by :func:`offset_grads_close`.  Returns (out, lse, (dq, dk, dv),
+    {errors})."""
+    from repro_torch.kernels import flash_attention as fa
+
+    o, lse = fa.flash_attention_cuda(qs, k, v, q_offset=q_offset, return_lse=True)
+    want_o, want_lse = plain_flash(qs, k, v, causal=True, q_offset=q_offset, return_lse=True)
+    errs = {"fwd_max_abs_err": flash_close(o, want_o, what),
+            "lse_max_abs_err": lse_close(lse, want_lse, what)}
+    g = fa.flash_attention_bwd_cuda(qs, k, v, o, lse, ds, q_offset=q_offset)
+    errs["bwd_err"] = offset_grads_close(
+        g, plain_flash_bwd(qs, k, v, o, lse, ds, causal=True, q_offset=q_offset),
+        f"flash backward != plain version at {what}")
+    return o, lse, g, errs
+
+
+def phase_flash_offset(seed: int) -> dict:
+    """Phase 23 (a): both flash kernels with a query offset on the card, bf16
+    and float32.  smollm-135m's layer split in OFFSET["parts"] q slices
+    (offsets 0, 512, 1,024, 1,536): each slice against its plain versions,
+    its output and dq equal to those rows of one causal call on the whole q,
+    its dk and dv summing with the others' to the whole call's; each timed
+    in turns with the whole call (slice, whole, whole, slice; its share of
+    the whole is the whole's time over the share of (q, k) pairs its rows
+    hold), beside its plain versions, bound and scaled_dot_product_attention
+    with the slice's mask; the last slice given offset 0 (the control) must
+    fail its plain version's gate.  Then D = 112 and 128 at offset 333,
+    200 rows.  These launches compare kernels with their plain versions: no
+    path's launch count includes them.  Returns the record."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 230)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b, s, h, kv, d = OFFSET["layer"]
+    n = s // OFFSET["parts"]
+    record: dict = {"layer": [b, s, h, kv, d], "parts": OFFSET["parts"]}
+
+    def sdpa_masked(qs, k, v, q_offset):   # the library's call with the slice's mask
+        mask = (torch.arange(qs.shape[1], device=dev)[:, None] + q_offset
+                >= torch.arange(k.shape[1], device=dev)[None, :])
+        qt, kt, vt = (t.transpose(1, 2) for t in (qs, k, v))
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                      enable_gqa=True)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "float32"
+        q, do = (torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype) for _ in range(2))
+        k, v = (torch.randn((b, s, kv, d), generator=gen, device=dev).to(dtype) for _ in range(2))
+        out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
+        whole = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+        total_pairs = sum(min(i + 1, s) for i in range(s))
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=dev)
+        dv = torch.zeros_like(dk)
+        slices = []
+        for r0 in range(0, s, n):
+            qs, ds = q[:, r0:r0 + n].contiguous(), do[:, r0:r0 + n].contiguous()
+            what = (f"B={b} rows {r0}-{r0 + n - 1} of S={s} (q_offset {r0}) H={h} KV={kv} "
+                    f"D={d} {name} causal")
+            o, sl, g, errs = offset_slice_check(qs, k, v, ds, r0, what)
+            errs["rows_of_whole_max_abs_err"] = flash_close(o, out[:, r0:r0 + n].contiguous(),
+                                                            what + " against the whole call")
+            errs["dq_of_whole"] = offset_grads_close(
+                (g[0],), (whole[0][:, r0:r0 + n].contiguous(),), what + ": dq against the whole")
+            dk += g[1].float()
+            dv += g[2].float()
+            fwd = in_turns({"slice": lambda qs=qs, r0=r0: fa.flash_attention_cuda(
+                qs, k, v, q_offset=r0), "whole": lambda: fa.flash_attention_cuda(q, k, v)},
+                iters=20)
+            bwd = in_turns({"slice": lambda qs=qs, ds=ds, o=o, sl=sl, r0=r0:
+                            fa.flash_attention_bwd_cuda(qs, k, v, o, sl, ds, q_offset=r0),
+                            "whole": lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)},
+                           iters=10)
+            plain = cuda_ms(lambda qs=qs, r0=r0: plain_flash(qs, k, v, causal=True, q_offset=r0), 2)
+            plain_bwd = cuda_ms(lambda qs=qs, ds=ds, o=o, sl=sl, r0=r0: plain_flash_bwd(
+                qs, k, v, o, sl, ds, causal=True, q_offset=r0), 1)
+            lib = cuda_ms(sdpa_masked(qs, k, v, r0), 20)
+            flops, _, bound, term = flash_bound(qs, k, q_offset=r0)
+            bflops, _, bbound, bterm = flash_bound(qs, k, backward=True, q_offset=r0)
+            share = sum(min(r0 + i + 1, s) for i in range(n)) / total_pairs
+            rec = {"q_offset": r0, "rows": n, "pairs_share": share, "ms_turns": fwd["slice"],
+                   "whole_ms_turns": fwd["whole"], "bwd_ms_turns": bwd["slice"],
+                   "whole_bwd_ms_turns": bwd["whole"], "plain_ms": plain,
+                   "plain_bwd_ms": plain_bwd, "library_ms": lib, "bound_ms": bound[0],
+                   "bound_by": bound[1], "bound_term": term, "bwd_bound_ms": bbound[0],
+                   "bwd_bound_by": bbound[1], "gflop": flops / 1e9, "bwd_gflop": bflops / 1e9,
+                   **errs}
+            slices.append(rec)
+            log(f"phase 23 (a) {what}: forward max |err| {errs['fwd_max_abs_err']:.3g}, lse "
+                f"{errs['lse_max_abs_err']:.3g}, backward "
+                + ("max |err|" if dtype == torch.float32 else "relative RMS")
+                + f" {errs['bwd_err']:.4g} against the plain versions; output and dq those "
+                f"rows of the whole call's "
+                f"(max |err| {errs['rows_of_whole_max_abs_err']:.3g}, {errs['dq_of_whole']:.3g}); "
+                f"device ms in turns: forward {fwd['slice'][0]:.4f} / {fwd['slice'][1]:.4f} "
+                f"(whole {fwd['whole'][0]:.4f} / {fwd['whole'][1]:.4f}, its share of the pairs "
+                f"{share:.3f}: {share * fwd['whole'][0]:.4f}), backward {bwd['slice'][0]:.4f} / "
+                f"{bwd['slice'][1]:.4f} (whole {bwd['whole'][0]:.4f} / {bwd['whole'][1]:.4f}: "
+                f"{share * bwd['whole'][0]:.4f}); bounds {bound[0]:.4f} ms ({term}) and "
+                f"{bbound[0]:.4f} ({bterm}); plain {plain:.3f} / {plain_bwd:.3f} ms; SDPA with "
+                f"the slice's mask {lib:.4f}  [{smi_line()}]")
+        sum_err = offset_grads_close((dk.to(dtype), dv.to(dtype)), whole[1:],
+                                     f"{name} slices' dk, dv summed against the whole call's")
+        # The control: the last slice at offset 0 must miss its plain version.
+        r0 = s - n
+        bad = fa.flash_attention_cuda(q[:, r0:].contiguous(), k, v, q_offset=0)
+        want = plain_flash(q[:, r0:].contiguous(), k, v, causal=True, q_offset=r0)
+        try:
+            flash_close(bad, want, "the control")
+            raise AssertionError(f"phase 23 (a) {name}: the last slice at offset 0 passed")
+        except AssertionError as exc:
+            if "passed" in str(exc):
+                raise
+        control = max_err_float(bad, want)
+        record[name] = {"slices": slices, "dkdv_sum_err": sum_err, "control_max_abs_err": control,
+                        "whole_fwd_ms": statistics.median(r["whole_ms_turns"][0] for r in slices),
+                        "whole_bwd_ms": statistics.median(r["whole_bwd_ms_turns"][0]
+                                                          for r in slices)}
+        fwd_sum = sum(r["ms_turns"][0] for r in slices)
+        log(f"phase 23 (a) {name}: the {len(slices)} slices' dk and dv sum to the whole call's "
+            f"(max error {sum_err:.3g}); offset 0's slice {slices[0]['ms_turns'][0]:.4f} ms "
+            f"beside row 9's whole layer {record[name]['whole_fwd_ms']:.4f} ms; the slices' "
+            f"forwards {fwd_sum:.4f} ms together; the control (the last slice at offset 0) "
+            f"misses its plain version by {control:.3g}")
+        del q, k, v, do, out, lse, whole, dk, dv
+        gc.collect()
+        torch.cuda.empty_cache()
+    odd = OFFSET["odd"]
+    record["odd"] = {}
+    for d in odd["dims"]:
+        for dtype in (torch.bfloat16, torch.float32):
+            r0, n = odd["offset"], odd["rows"]
+            q, do = (torch.randn((odd["b"], n, odd["heads"], d), generator=gen,
+                                 device=dev).to(dtype) for _ in range(2))
+            k, v = (torch.randn((odd["b"], odd["sk"], odd["kv"], d), generator=gen,
+                                device=dev).to(dtype) for _ in range(2))
+            what = (f"B={odd['b']} {n} rows at q_offset {r0} of Sk={odd['sk']} "
+                    f"H={odd['heads']} KV={odd['kv']} D={d} {dtype} causal")
+            o, sl, _, errs = offset_slice_check(q, k, v, do, r0, what)
+            errs["ms"] = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, q_offset=r0), 20)
+            errs["bwd_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, o, sl, do,
+                                                                        q_offset=r0), 10)
+            record["odd"][what] = errs
+            log(f"phase 23 (a) {what}: within the gates of rows 9 and 9d ({json.dumps(errs)})")
+            del q, k, v, do, o, sl
+    record["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 23 (a): {record['phase_s']:.1f} s")
+    return record
+
+
+# (c) The families at their published widths over a mesh: 4 gloo ranks
+# sharing the card on (1, 4) (experts, heads, the MLP's hidden dim and the
+# vocabulary over "model": no FSDP gather crosses the host), then one NCCL
+# rank on (1, 1).  Depth is cut where the card's 80 GB force it: the 4 ranks
+# hold one model's slices together with each rank drawing its leaves whole,
+# and the single-device float32 references (16 bytes a parameter when
+# training) run on the same card first: phi3.5-moe trains at 2 layers
+# (2.86e9 parameters) and serves at 4 (5.5e9), the vision model at one group
+# (4 self layers and its cross layer), musicgen uncut; arctic (14.07e9 at 1
+# layer) only on the NCCL rank, whose reference is the model it serves.
+FAMILY_MESH = dict(
+    train=(("phi3.5-moe-42b-a6.6b", 2), ("llama-3.2-vision-11b", 5)),
+    serve=(("phi3.5-moe-42b-a6.6b", 4), ("llama-3.2-vision-11b", 5), ("musicgen-medium", None)),
+    nccl_serve=(("phi3.5-moe-42b-a6.6b", 4), ("llama-3.2-vision-11b", 5),
+                ("musicgen-medium", None), ("arctic-480b", 1)),
+    train_batch=(2, 512), serve_batch=(4, 256), gen=2, lr=3e-3,
+    runs=(("gloo", "1x4"), ("nccl", "1x1")), timeout=480)
+FAMILY_MESH_PARAM_REL_RMS = 1e-2
+
+
+def flat_specs(specs: dict, prefix: str = "") -> dict:
+    """``{dotted name: spec}`` of a nested spec tree."""
+    out = {}
+    for key, val in specs.items():
+        if isinstance(val, dict):
+            out.update(flat_specs(val, f"{prefix}{key}."))
+        else:
+            out[prefix + key] = val
+    return out
+
+
+def seeded_leaves(cfg, seed: int):
+    """:func:`family_model`'s parameters one leaf at a time, ``(dotted name,
+    whole tensor on the card)``: drawn in ``Model``'s order from the same
+    seeded generator, the vision model's gates as :func:`vision_gates` sets
+    them, so no more than one leaf is held here."""
+    from repro_torch.models.model import dtype_of, param_layout
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pdt = dtype_of(cfg.param_dtype)
+    for name, (shape, init) in param_layout(cfg).items():
+        if init == "ones":
+            t = torch.ones(shape, dtype=pdt, device=dev)
+        elif init == "zeros":
+            t = torch.zeros(shape, dtype=pdt, device=dev)
+        else:
+            t = torch.randn(shape, generator=gen, dtype=torch.float32,
+                            device=dev).mul_(init ** -0.5).to(pdt)
+        yield name, vision_gates(t, seed) if name == "cross_blocks.gate" else t
+
+
+def seeded_slices(cfg, seed: int, specs: dict, layout) -> dict:
+    """This rank's slices of :func:`family_model`'s parameters without the
+    whole model: each leaf of :func:`seeded_leaves` sliced by its spec and
+    freed.  The ranks sharing the card draw in turns, so one whole leaf at a
+    time is held beside their slices (a collective: every rank calls it)."""
+    import torch.distributed as dist
+
+    from repro_torch.models.model import nest
+
+    by_name = flat_specs(specs)
+    rank = dist.get_rank()
+    for turn in range(dist.get_world_size()):
+        if turn == rank:
+            out = [(name, t[layout.slices(t.shape, by_name[name])].clone())
+                   for name, t in seeded_leaves(cfg, seed)]
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return nest(out)
+
+
+def family_serve_inputs(cfg, seed: int) -> tuple:
+    """Phase 23's serving inputs, the same on the parent and every rank:
+    (prefill batch, decode-step batches), all rows, on the card: seeded
+    prompt tokens (musicgen: frame embeddings, one a step), the vision
+    model's image embeddings."""
+    b, p = FAMILY_MESH["serve_batch"]
+    gen = FAMILY_MESH["gen"]
+    rng = np.random.default_rng(seed + 232)
+    cuda = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    if cfg.frame_inputs:
+        frames = cuda(rng.normal(size=(b, p + gen - 1, cfg.d_model)).astype(np.float32))
+        prefill = {"frame_embeds": frames[:, :p]}
+        steps = [{"frame_embeds": frames[:, p + t:p + t + 1]} for t in range(gen - 1)]
+    else:
+        toks = cuda(rng.integers(0, cfg.vocab_size, (b, p + gen - 1)).astype(np.int32))
+        prefill = {"tokens": toks[:, :p]}
+        steps = [{"tokens": toks[:, p + t:p + t + 1]} for t in range(gen - 1)]
+    if cfg.family == "vlm":
+        prefill["image_embeds"] = cuda(rng.normal(
+            size=(b, cfg.num_image_tokens, cfg.d_model)).astype(np.float32))
+    return prefill, steps
+
+
+def family_train_batch(cfg, seed: int, mesh=None) -> dict:
+    """Phase 23's training batch (the loader's, seeded): all rows, or this
+    rank's over ``mesh``."""
+    from repro_torch.data.loader import LoaderConfig, SyntheticLMLoader
+
+    b, s = FAMILY_MESH["train_batch"]
+    kw = {"mesh": mesh, "batch_axes": ("data",)} if mesh is not None else {}
+    return next(SyntheticLMLoader(cfg, LoaderConfig(batch_size=b, seq_len=s, seed=seed + 231,
+                                                    vocab_size=cfg.vocab_size),
+                                  device="cuda", **kw))
+
+
+def family_mesh_references(seed: int, ref_dir: Path) -> dict:
+    """Phase 23 (c)'s single-device float32 references (TF32 off), each
+    model freed before the next: for each trained family one AdamW step
+    (``make_train_step``) whose update (parameters after less before) goes
+    to ``ref_dir`` a leaf a file in float16 (the first step's update is
+    about the learning rate on every element), with its loss and
+    ``moe_dropped``; for each served family the teacher-forced logits of
+    the prefill's last position and each decode step (``DecodeEngine``).
+    Returns the references' walls."""
+    from repro_torch.models import DecodeEngine
+    from repro_torch.train import OptimizerConfig, init_state, make_train_step
+    from repro_torch.train.tree import leaves_with_paths
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    walls = {}
+    for arch, layers in FAMILY_MESH["train"]:
+        t0 = time.perf_counter()
+        cfg, model = family_model(arch, layers, seed, "float32")
+        opt = OptimizerConfig(learning_rate=FAMILY_MESH["lr"], warmup_steps=0, decay_steps=10)
+        state = init_state(model, opt)
+        state, metrics = make_train_step(model, opt)(state, family_train_batch(cfg, seed))
+        out = ref_dir / f"train_{arch}"
+        out.mkdir()
+        after = {".".join(path): p for path, p in leaves_with_paths(state["params"])}
+        # The update against the initial parameters drawn again from the seed.
+        for name, p0 in seeded_leaves(cfg, seed):
+            torch.save((after[name].detach() - p0).half().cpu(), out / f"{name}.pt")
+            del p0
+        (out / "metrics.json").write_text(json.dumps(
+            {"loss": float(metrics["loss"]), "moe_dropped": float(metrics.get("moe_dropped", -1))}))
+        del model, state, after, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+        walls[f"train {arch}"] = time.perf_counter() - t0
+    for arch, layers in FAMILY_MESH["serve"]:
+        t0 = time.perf_counter()
+        moe = family_config(arch, layers).family == "moe"
+        routes: dict = {}
+        # The moe family in bf16 too: its logits and every routing in both
+        # types, for the mesh's bf16 routing against the single device's.
+        for dtype in ("float32", "bfloat16") if moe else ("float32",):
+            cfg, model = family_model(arch, layers, seed, dtype)
+            prefill, steps = family_serve_inputs(cfg, seed)
+            eng = DecodeEngine(model)
+            p = FAMILY_MESH["serve_batch"][1]
+            calls: list = []
+            with torch.inference_mode(), capture_routes(calls):
+                lg, cache = eng.prefill(model, prefill, max_len=p + FAMILY_MESH["gen"],
+                                        last_only=True)
+                want = [lg[:, -1].float().cpu()]
+                for batch in steps:
+                    lg, cache = eng.decode_step(model, cache, batch)
+                    want.append(lg[:, -1].float().cpu())
+            if dtype == "float32":
+                torch.save(want, ref_dir / f"serve_{arch}.pt")
+            else:
+                routes["bf16_logits"] = want
+            routes[dtype] = [(c.cpu(), kp.cpu()) for c, kp in calls]
+            del model, eng, cache, lg, prefill, steps, calls
+            gc.collect()
+            torch.cuda.empty_cache()
+        if moe:
+            torch.save(routes, ref_dir / f"routes_{arch}.pt")
+        walls[f"serve {arch}"] = time.perf_counter() - t0
+    return walls
+
+
+@contextlib.contextmanager
+def capture_routes(into: list):
+    """Every moe routing's (choice, keep) (``models/moe.py::route``, the one
+    copy that the single device and every expert-parallel rank run) in
+    ``into``, in call order, while inside."""
+    from repro_torch.models import moe
+
+    saved = moe.route
+
+    def recording(*args, **kw):
+        r = saved(*args, **kw)
+        into.append((r.choice, r.keep))
+        return r
+
+    moe.route = recording
+    try:
+        yield
+    finally:
+        moe.route = saved
+
+
+def routes_alike_over_tp(routes: list, layout) -> dict:
+    """Whether every TP rank made the same routing decisions: a checksum
+    (CRC-32) of each routing's choices and keeps, all-gathered over
+    ``"model"`` and compared (a collective: every rank calls it).  Expert
+    parallelism sums each rank's experts' kept choices, so a routing that
+    differs by one choice between ranks runs some choices twice and others
+    never.  Returns {"calls", "tp_equal", "crc"}."""
+    import zlib
+
+    crc = [zlib.crc32(c.cpu().numpy().tobytes() + k.cpu().numpy().tobytes()) for c, k in routes]
+    every = layout.all_gather(torch.tensor(crc, dtype=torch.int64, device="cuda")[None], 0,
+                              "model").cpu()
+    return {"calls": len(crc), "tp_equal": bool((every == every[0]).all()), "crc": crc}
+
+
+def routing_flips(got: list, want: list, num_experts: int, k: int) -> list:
+    """Each routing call's share of tokens whose top-k expert set differs
+    from ``want``'s, and whose kept set does (choices within capacity):
+    [(chosen, kept), ...]."""
+    out = []
+    for (c, kp), (wc, wkp) in zip(got, want):
+        def sets(choice, keep):
+            choice, keep = choice.cpu().long(), keep.cpu()
+            g, tk = choice.shape
+            chosen = torch.zeros((g, tk // k, num_experts), dtype=torch.bool)
+            kept = torch.zeros_like(chosen)
+            idx = choice.reshape(g, tk // k, k)
+            chosen.scatter_(-1, idx, True)
+            kept.scatter_(-1, idx, keep.reshape(g, tk // k, k))
+            return chosen, kept
+        (a, ka), (b, kb) = sets(c, kp), sets(wc, wkp)
+        out.append((float((a != b).any(-1).float().mean()), float((ka != kb).any(-1).float().mean())))
+    return out
+
+
+def mesh_train_family(arch: str, layers, seed: int, mesh, layout, ref_dir: Path) -> dict:
+    """One trained family on a gloo rank of phase 23 (c): this rank's seeded
+    slices (:func:`seeded_slices`), one float32 ``sharded_train_step``
+    (TF32 off) whose update is held to the single device's leaf by leaf
+    (RMS difference over the RMS update, FAMILY_MESH_PARAM_REL_RMS), its loss
+    (SHARDED_LOSS_RTOL) and ``moe_dropped`` (equal); then one bf16 step from
+    the updated slices, timed, every flash kernel call held to its plain
+    version at its operands.  The launch counters are zeroed just before
+    each step and read just after."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models.model import param_specs
+    from repro_torch.train import OptimizerConfig
+    from repro_torch.train.optimizer import opt_init
+    from repro_torch.train.step import sharded_train_step
+    from repro_torch.train.tree import leaves_with_paths
+
+    cfg = family_config(arch, layers, "float32")
+    specs = param_specs(cfg, mesh)
+    by_name = flat_specs(specs)
+    t0 = time.perf_counter()
+    params = seeded_slices(cfg, seed, specs, layout)
+    named = leaves_with_paths(params)
+    for _, p in named:
+        p.requires_grad_(True)
+    # On the host: the 4 ranks share the card's 80 GB.
+    initial = [p.detach().to("cpu", copy=True) for _, p in named]
+    opt = OptimizerConfig(learning_rate=FAMILY_MESH["lr"], warmup_steps=0, decay_steps=10)
+    rec: dict = {"setup_s": time.perf_counter() - t0,
+                 "param_bytes": sum(p.numel() * p.element_size() for _, p in named)}
+    for dtype in ("float32", "bfloat16"):
+        c = family_config(arch, layers, dtype)
+        step, _, _ = sharded_train_step(c, opt, mesh)
+        state = {"step": torch.zeros((), dtype=torch.int32, device="cuda"), "params": params,
+                 "opt": opt_init(opt, params)}
+        batch = family_train_batch(c, seed, mesh)
+        fwd_calls, bwd_calls, routes = [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        t1 = time.perf_counter()
+        with capture_calls(fa, "flash_attention_cuda", fwd_calls) if dtype != "float32" else \
+                contextlib.nullcontext(), capture_calls(fa, "flash_attention_bwd_cuda",
+                                                        bwd_calls) if dtype != "float32" else \
+                contextlib.nullcontext(), capture_routes(routes):
+            state, metrics = step(state, batch)
+            launches = [fa.flash_attention_cuda.launches, fa.flash_attention_bwd_cuda.launches]
+        torch.cuda.synchronize()
+        r = {"step_ms": (time.perf_counter() - t1) * 1e3, "loss": float(metrics["loss"]),
+             "moe_dropped": float(metrics.get("moe_dropped", -1.0)),
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if cfg.family == "moe":   # every routing of the step (its remat replays too)
+            r["routing"] = routes_alike_over_tp(routes, layout)
+        del routes
+        if dtype == "float32":
+            r["launches"] = launches
+            want = json.loads((ref_dir / "metrics.json").read_text())
+            r["ref"] = want
+            del state, metrics   # the moments, before the gate's temporaries
+            ratios = []
+            for (path, p), p0 in zip(named, initial):
+                name = ".".join(path)
+                upd = torch.load(ref_dir / f"{name}.pt", mmap=True)
+                upd = upd[layout.slices(upd.shape, by_name[name])]
+                # Sums of squares over blocks of rows (about 2^26 elements).
+                num = den = 0.0
+                rows = max(1, 2 ** 26 // max(1, p[0].numel())) if p.dim() else 1
+                for i in range(0, max(1, p.shape[0] if p.dim() else 1), rows):
+                    at = slice(i, i + rows) if p.dim() else ...
+                    u = upd[at].to("cuda", torch.float32)
+                    mine = p.detach()[at] - p0[at].to("cuda")
+                    den += float(u.double().square().sum())
+                    num += float((mine - u).double().square().sum())
+                    del u, mine
+                ratios.append((math.sqrt(num / den) if den else (0.0 if num == 0 else math.inf),
+                               name))
+            r["param_gate"] = max(ratios)
+            state = metrics = None
+        else:
+            r["launches"] = launches   # the capturing wrappers' counts
+            with torch.no_grad():
+                r["fwd_calls_max_abs_err"] = max(
+                    flash_close(fa.flash_attention_cuda(*a, **kw)[0],
+                                plain_flash(*a, **kw)[0], f"{arch} step forward call {j}")
+                    for j, (a, kw) in enumerate(fwd_calls))
+                r["bwd_calls_rel_rms"] = max(
+                    bwd_close(fa.flash_attention_bwd_cuda(*a, **kw), plain_flash_bwd(*a, **kw),
+                              f"{arch} step backward call {j}")
+                    for j, (a, kw) in enumerate(bwd_calls))
+        rec[dtype] = r
+        del state, metrics, batch, fwd_calls, bwd_calls
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params, named, initial
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_serve_family(arch: str, layers, seed: int, mesh, layout, ref_file: Path) -> dict:
+    """One served family on a gloo rank of phase 23 (c): its seeded slices,
+    ``sharded_prefill`` and teacher-forced ``sharded_decode_step`` calls in
+    float32 (TF32 off), the logits gathered over the vocabulary's TP slices
+    held to the single device's within SERVE_F32_REL_TOL relative RMS; the
+    controls failing that gate: the last step again from the cache read one
+    position off, and (the moe family) the prefill with layer 0's experts
+    rotated by one rank; then in bf16 timed, every flash call of the
+    prefill held to its plain version at its operands.  The launch counters
+    are zeroed just before each prefill and read after the last step."""
+    from repro_torch.distributed.sharding import activation_sharding
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.decode import sharded_decode_step, sharded_prefill
+    from repro_torch.models.model import param_specs
+
+    cfg = family_config(arch, layers, "float32")
+    specs = param_specs(cfg, mesh)
+    t0 = time.perf_counter()
+    params = seeded_slices(cfg, seed, specs, layout)
+    prefill, steps = family_serve_inputs(cfg, seed)
+    want = [w.cuda() for w in torch.load(ref_file)]
+    rec: dict = {"setup_s": time.perf_counter() - t0}
+    max_len = FAMILY_MESH["serve_batch"][1] + FAMILY_MESH["gen"]
+
+    def whole(logits):
+        if logits.shape[-1] < cfg.vocab_size:
+            logits = layout.all_gather(logits, -1, "model")
+        return logits[:, -1].float()
+
+    for dtype in ("float32", "bfloat16"):
+        c = family_config(arch, layers, dtype)
+        calls: list = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        routes: list = []
+        with torch.inference_mode(), activation_sharding(mesh), \
+                capture_calls(fa, "flash_attention_cuda", calls):
+            with capture_routes(routes):
+                t1 = time.perf_counter()
+                logits, cache = sharded_prefill(c, params, specs, prefill, max_len=max_len,
+                                                last_only=True)
+                got = [whole(logits)]
+                torch.cuda.synchronize()
+                prefill_s = time.perf_counter() - t1
+                step_ms = []
+                for batch in steps:
+                    t1 = time.perf_counter()
+                    logits, cache = sharded_decode_step(c, params, specs, cache, batch)
+                    got.append(whole(logits))
+                    torch.cuda.synchronize()
+                    step_ms.append((time.perf_counter() - t1) * 1e3)
+            launches = fa.flash_attention_cuda.launches   # the capturing wrapper's count
+            r = {"prefill_s": prefill_s, "step_ms": step_ms, "launches": launches,
+                 "rel_rms": [rel_rms(g, w) for g, w in zip(got, want)],
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                 "local_heads": int(calls[0][0][0].shape[2])}
+            if cfg.family == "moe":
+                # Every TP rank's routing alike; against the single device's
+                # routing in float32 and in bf16, the share of tokens whose
+                # chosen (kept) experts differ, and the logits against the
+                # single device's bf16 logits.
+                r["routing"] = routes_alike_over_tp(routes, layout)
+                ref_routes = torch.load(ref_file.with_name(f"routes_{arch}.pt"))
+                flips = functools.partial(routing_flips, num_experts=cfg.num_experts,
+                                          k=cfg.experts_per_token)
+                r["flips_vs_float32"] = flips(routes, ref_routes["float32"])
+                if dtype == "bfloat16":
+                    r["flips_vs_bf16"] = flips(routes, ref_routes["bfloat16"])
+                    r["rel_rms_vs_bf16"] = [rel_rms(g, w.cuda()) for g, w in
+                                            zip(got, ref_routes["bf16_logits"])]
+                del ref_routes
+            if dtype == "float32":
+                cache["cur"] = cache["cur"] - 2   # the off-by-one cache, last step again
+                logits, _ = sharded_decode_step(c, params, specs, cache, steps[-1])
+                r["control_rel_rms"] = rel_rms(whole(logits), want[-1])
+                if cfg.family == "moe":   # layer 0's experts rotated by one TP rank
+                    moe = params["blocks"]["moe"]
+                    saved = {k: moe[k][0].clone() for k in ("w_gate", "w_up", "w_down")}
+                    for k, t in saved.items():
+                        n = t.shape[0]
+                        full = layout.all_gather(t, 0, "model")
+                        nxt = (layout.coord["model"] + 1) % layout.sizes["model"]
+                        moe[k][0].copy_(full[nxt * n:(nxt + 1) * n])
+                        del full
+                    logits, _ = sharded_prefill(c, params, specs, prefill, max_len=max_len,
+                                                last_only=True)
+                    r["experts_control_rel_rms"] = rel_rms(whole(logits), want[0])
+                    for k, t in saved.items():
+                        moe[k][0].copy_(t)
+                    del saved
+        if dtype != "float32":
+            with torch.no_grad():
+                r["calls_max_abs_err"] = max(
+                    flash_close(fa.flash_attention_cuda(*a, **kw), plain_flash(*a, **kw),
+                                f"{arch} prefill call {j}") for j, (a, kw) in enumerate(calls))
+        rec[dtype] = r
+        del cache, logits, got, calls
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params, prefill, steps, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def nccl_serve_family(arch: str, layers, seed: int, mesh) -> dict:
+    """One family on phase 23 (c)'s NCCL rank ((1, 1), bf16): the whole
+    seeded model, the single device's teacher-forced logits from its own
+    ``DecodeEngine`` (freed before the sharded run), then
+    ``sharded_prefill`` and ``sharded_decode_step`` on the model's tensors
+    (a (1, 1) mesh's slices are the whole), within LOGITS_REL_TOL relative
+    RMS of the single device's, every flash call of the prefill equal to its
+    plain version at its operands."""
+    from repro_torch.distributed.sharding import activation_sharding
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import DecodeEngine
+    from repro_torch.models.decode import sharded_decode_step, sharded_prefill
+    from repro_torch.models.model import param_specs
+
+    t0 = time.perf_counter()
+    cfg, model = family_model(arch, layers, seed)
+    prefill, steps = family_serve_inputs(cfg, seed)
+    max_len = FAMILY_MESH["serve_batch"][1] + FAMILY_MESH["gen"]
+    with torch.inference_mode():
+        eng = DecodeEngine(model)
+        lg, cache = eng.prefill(model, prefill, max_len=max_len, last_only=True)
+        want = [lg[:, -1].float()]
+        for batch in steps:
+            lg, cache = eng.decode_step(model, cache, batch)
+            want.append(lg[:, -1].float())
+        del eng, cache, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, specs = model.param_tree(), param_specs(cfg, mesh)
+    rec = {"setup_s": time.perf_counter() - t0, "params": model.num_params()}
+    calls: list = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    with torch.inference_mode(), activation_sharding(mesh), \
+            capture_calls(fa, "flash_attention_cuda", calls):
+        t1 = time.perf_counter()
+        logits, cache = sharded_prefill(cfg, params, specs, prefill, max_len=max_len,
+                                        last_only=True)
+        got = [logits[:, -1].float()]
+        torch.cuda.synchronize()
+        rec["prefill_s"] = time.perf_counter() - t1
+        rec["step_ms"] = []
+        for batch in steps:
+            t1 = time.perf_counter()
+            logits, cache = sharded_decode_step(cfg, params, specs, cache, batch)
+            got.append(logits[:, -1].float())
+            torch.cuda.synchronize()
+            rec["step_ms"].append((time.perf_counter() - t1) * 1e3)
+        rec["launches"] = fa.flash_attention_cuda.launches   # the capturing wrapper's count
+        rec["rel_rms"] = [rel_rms(g, w) for g, w in zip(got, want)]
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    with torch.no_grad():
+        rec["calls_max_abs_err"] = max(
+            flash_close(fa.flash_attention_cuda(*a, **kw), plain_flash(*a, **kw),
+                        f"{arch} prefill call {j}") for j, (a, kw) in enumerate(calls))
+    del model, params, cache, logits, got, want, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def family_child(run_dir: Path, backend: str, rank: int, world: int, shape: str) -> None:
+    """One rank of phase 23 (c) (``chip_smoke.py --family-child DIR BACKEND
+    RANK WORLD MESH``): joins the group over a file store in ``run_dir``
+    (the references and the seed in its parent), builds the (data, model)
+    mesh ``AxB``; a gloo rank trains (:func:`mesh_train_family`) and serves
+    (:func:`mesh_serve_family`) the families of FAMILY_MESH on its slices,
+    the NCCL rank serves FAMILY_MESH["nccl_serve"]
+    (:func:`nccl_serve_family`).  Writes ``<backend><world>_rank<rank>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import layout_of
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"file://{run_dir}/store", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=FAMILY_MESH["timeout"]))
+    mesh = make_mesh(tuple(int(x) for x in shape.split("x")), ("data", "model"))
+    layout = layout_of(mesh)
+    seed = int((run_dir.parent / "seed").read_text())
+    out = {"rank": rank, "backend": backend, "world": world, "mesh": shape,
+           "coord": layout.coord, "train": {}, "serve": {}}
+    t0 = time.perf_counter()
+    if backend == "gloo":
+        for arch, layers in FAMILY_MESH["train"]:
+            out["train"][arch] = mesh_train_family(arch, layers, seed, mesh, layout,
+                                                   run_dir.parent / f"train_{arch}")
+            dist.barrier()
+            out["train"][arch]["wall_s"], t0 = time.perf_counter() - t0, time.perf_counter()
+        for arch, layers in FAMILY_MESH["serve"]:
+            out["serve"][arch] = mesh_serve_family(arch, layers, seed, mesh, layout,
+                                                   run_dir.parent / f"serve_{arch}.pt")
+            dist.barrier()
+            out["serve"][arch]["wall_s"], t0 = time.perf_counter() - t0, time.perf_counter()
+    else:
+        for arch, layers in FAMILY_MESH["nccl_serve"]:
+            out["serve"][arch] = nccl_serve_family(arch, layers, seed, mesh)
+            out["serve"][arch]["wall_s"], t0 = time.perf_counter() - t0, time.perf_counter()
+    (run_dir / f"{backend}{world}_rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_family_mesh(seed: int) -> tuple[dict, dict]:
+    """Phase 23 (c): the moe, vlm and audio families over a mesh at their
+    published widths (FAMILY_MESH): the single-device float32 references
+    first (:func:`family_mesh_references`), then 4 gloo ranks sharing the
+    card on (1, 4) and one NCCL rank on (1, 1), each run's ranks processes
+    of their own (:func:`family_child`), their records gated here.  Returns
+    the record and rows 9 and 9d's launches by run, rank and family."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.models.model import attention_applications
+
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_families_"))
+    record: dict = {}
+    launches: dict = {"flash_attention": {}, "flash_attention_bwd": {}}
+    try:
+        (root / "seed").write_text(str(seed))
+        record["references_s"] = family_mesh_references(seed, root)
+        log(f"phase 23 (c) single-device float32 references (TF32 off): "
+            + ", ".join(f"{k} {v:.1f} s" for k, v in record["references_s"].items())
+            + f"; this process then holds {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+            f"({torch.cuda.memory_reserved() / 1e9:.2f} GB reserved)")
+        record["single_bf16"] = {}
+        for arch, layers in FAMILY_MESH["serve"]:
+            if not (root / f"routes_{arch}.pt").exists():
+                continue
+            cfg = family_config(arch, layers)
+            ref = torch.load(root / f"routes_{arch}.pt")
+            f32 = torch.load(root / f"serve_{arch}.pt")
+            one = record["single_bf16"][arch] = {
+                "rel_rms": [rel_rms(a, b) for a, b in zip(ref["bf16_logits"], f32)],
+                "flips": routing_flips(ref["bfloat16"], ref["float32"], cfg.num_experts,
+                                       cfg.experts_per_token)}
+            log(f"phase 23 (c) {arch} on the single device, bf16 against float32: logits "
+                f"{', '.join(f'{x:.4f}' for x in one['rel_rms'])} relative RMS (prefill, "
+                f"decode); tokens whose chosen / kept experts differ, a routing call each "
+                f"(prefill's layers, then the decode step's): "
+                + ", ".join(f"{a:.2%} / {b:.2%}" for a, b in one["flips"]))
+        for backend, shape in FAMILY_MESH["runs"]:
+            dims = tuple(int(x) for x in shape.split("x"))
+            world = math.prod(dims)
+            run = f"{backend} x{world} on {dims} data x model"
+            sub = root / f"{backend}_{shape}"
+            sub.mkdir()
+            t0 = time.perf_counter()
+            # Expandable segments: each rank's train and serve stages leave no
+            # reserved fragments behind for the next stage on the shared card.
+            saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+            try:
+                ranks = run_mesh_ranks(sub, backend, world, flag="--family-child",
+                                       extra=(shape,), timeout=FAMILY_MESH["timeout"])
+            finally:
+                if saved is None:
+                    del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+                else:
+                    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+            wall = time.perf_counter() - t0
+            record[run] = {"wall_s": wall, "ranks": ranks}
+            for r in ranks:
+                where = f"phase 23 (c), {run}, rank {r['rank']}"
+                bad = []
+                for arch, t in r["train"].items():
+                    f32, bf16 = t["float32"], t["bfloat16"]
+                    ref = f32["ref"]
+                    if abs(f32["loss"] - ref["loss"]) > SHARDED_LOSS_RTOL * abs(ref["loss"]):
+                        bad.append(f"{arch} float32 loss {f32['loss']} vs {ref['loss']}")
+                    if f32["moe_dropped"] != ref["moe_dropped"]:
+                        bad.append(f"{arch} moe_dropped {f32['moe_dropped']} vs "
+                                   f"{ref['moe_dropped']}")
+                    if f32["param_gate"][0] > FAMILY_MESH_PARAM_REL_RMS:
+                        bad.append(f"{arch} float32 leaf {f32['param_gate'][1]}: "
+                                   f"{f32['param_gate'][0]:.3g} of its update")
+                    for dt, rr in (("float32", f32), ("bf16", bf16)):
+                        if "routing" in rr and not rr["routing"]["tp_equal"]:
+                            bad.append(f"{arch} {dt} step: the TP ranks routed differently")
+                    if min(f32["launches"]) < 1 or min(bf16["launches"]) < 1 or \
+                            not math.isfinite(bf16["loss"]):
+                        bad.append(f"{arch}: launches {f32['launches']} / {bf16['launches']}, "
+                                   f"bf16 loss {bf16['loss']}")
+                    for dt, rr in (("float32", f32), ("bf16", bf16)):
+                        launches["flash_attention"][f"{where}, {arch} {dt} step"] = \
+                            rr["launches"][0]
+                        launches["flash_attention_bwd"][f"{where}, {arch} {dt} step"] = \
+                            rr["launches"][1]
+                for arch, sv in r["serve"].items():
+                    apps = attention_applications(family_config(arch, dict(
+                        FAMILY_MESH["nccl_serve"])[arch]))
+                    for dt in ("float32", "bfloat16"):
+                        rr = sv.get(dt, sv)
+                        if dt == "float32" and dt not in sv:
+                            continue
+                        tol = SERVE_F32_REL_TOL if dt == "float32" else LOGITS_REL_TOL
+                        gated = dt == "float32" or backend == "nccl"
+                        if gated and (not all(map(math.isfinite, rr["rel_rms"]))
+                                      or max(rr["rel_rms"]) > tol):
+                            bad.append(f"{arch} {dt} logits {rr['rel_rms']} beyond {tol}")
+                        if "routing" in rr and not rr["routing"]["tp_equal"]:
+                            bad.append(f"{arch} {dt}: the TP ranks routed differently")
+                        for key in ("control_rel_rms", "experts_control_rel_rms"):
+                            if key in rr and rr[key] <= tol:
+                                bad.append(f"{arch}: the control {key} passed: {rr[key]:.3g}")
+                        if rr["launches"] != apps:
+                            bad.append(f"{arch} {dt}: {rr['launches']} flash launches, expected "
+                                       f"{apps}")
+                        launches["flash_attention"][f"{where}, {arch} {dt} prefill"] = \
+                            rr["launches"]
+                if bad:
+                    raise AssertionError(f"{where}: " + "; ".join(bad))
+            r0 = ranks[0]
+            for arch, t in r0["train"].items():
+                f32, bf16 = t["float32"], t["bfloat16"]
+                log(f"phase 23 (c), {run}, {arch} trained (layers {family_config(arch, dict(FAMILY_MESH['train'])[arch]).num_layers}, "
+                    f"{FAMILY_MESH['train_batch'][0]} x {FAMILY_MESH['train_batch'][1]}): float32 "
+                    f"loss {f32['loss']:.6f} = the single device's {f32['ref']['loss']:.6f}, "
+                    f"moe_dropped {f32['moe_dropped']} = {f32['ref']['moe_dropped']}, worst "
+                    f"leaf on any rank {max(r['train'][arch]['float32']['param_gate'][0] for r in ranks):.3g} "
+                    f"of its update (gate {FAMILY_MESH_PARAM_REL_RMS}); step {f32['step_ms']:.1f} "
+                    f"ms float32, {bf16['step_ms']:.1f} ms bf16 (loss {bf16['loss']:.4f}); flash "
+                    f"launches a rank {f32['launches']} / {bf16['launches']} (forward, backward), "
+                    f"bf16 calls within their gates (max |err| {bf16['fwd_calls_max_abs_err']:.3g}, "
+                    f"relative RMS {bf16['bwd_calls_rel_rms']:.3g}); a rank's slices "
+                    f"{t['param_bytes'] / 1e9:.2f} GB, peak {f32['peak_gb']:.2f} GB; {t['wall_s']:.1f} "
+                    f"s with its set-up ({t['setup_s']:.1f})  [{smi_line()}]")
+            for arch, sv in r0["serve"].items():
+                rr = sv.get("bfloat16", sv)
+                f32 = sv.get("float32")
+                extra = ""
+                if f32:
+                    extra = (f"; float32 logits within {max(max(r['serve'][arch]['float32']['rel_rms']) for r in ranks):.3g} "
+                             f"(gate {SERVE_F32_REL_TOL}), the off-by-one control "
+                             f"{min(r['serve'][arch]['float32']['control_rel_rms'] for r in ranks):.3g}"
+                             + (f", layer 0's experts rotated {min(r['serve'][arch]['float32']['experts_control_rel_rms'] for r in ranks):.3g}"
+                                if "experts_control_rel_rms" in f32 else "")
+                             + " failing it")
+                log(f"phase 23 (c), {run}, {arch} served ({FAMILY_MESH['serve_batch'][0]} x "
+                    f"{FAMILY_MESH['serve_batch'][1]} prompt, {FAMILY_MESH['gen'] - 1} decode "
+                    f"steps): bf16 prefill {rr['prefill_s']:.3f} s, decode "
+                    f"{statistics.median(rr['step_ms']):.2f} ms a step, logits within "
+                    f"{max(rr['rel_rms']):.4f} relative RMS of the single device's "
+                    f"{'float32' if f32 else 'bf16'} logits{extra}; "
+                    f"{rr['launches']} flash launches a rank ({rr.get('local_heads', 'all')} "
+                    f"heads a call), each call within its gate (max |err| "
+                    f"{rr['calls_max_abs_err']:.3g}); peak {rr['peak_gb']:.2f} GB; {sv['wall_s']:.1f} s "
+                    f"with its set-up ({sv['setup_s']:.1f})  [{smi_line()}]")
+                if "routing" in rr:
+                    fl = lambda pairs: ", ".join(f"{a:.2%} / {b:.2%}" for a, b in pairs)  # noqa: E731
+                    log(f"phase 23 (c), {run}, {arch} bf16 routing: every TP rank's "
+                        f"{rr['routing']['calls']} routings alike (CRC-32 of choices and keeps "
+                        f"all-gathered over TP, on every rank); logits "
+                        f"{', '.join(f'{x:.4f}' for x in rr['rel_rms_vs_bf16'])} relative RMS "
+                        f"from the single device's bf16 logits; tokens whose chosen / kept "
+                        f"experts differ, a routing call each (prefill's layers, then the "
+                        f"decode step's): against the single device's bf16 routing "
+                        f"{fl(rr['flips_vs_bf16'])}; against its float32 routing "
+                        f"{fl(rr['flips_vs_float32'])}; float32 on the mesh against float32 "
+                        f"{fl(f32['flips_vs_float32'])}")
+            for arch, t in r0["train"].items():
+                if "routing" in t["bfloat16"]:
+                    log(f"phase 23 (c), {run}, {arch} trained: every TP rank's routings alike "
+                        f"({t['float32']['routing']['calls']} float32, "
+                        f"{t['bfloat16']['routing']['calls']} bf16, remat's replays included)")
+            log(f"phase 23 (c), {run}: {wall:.1f} s with start-up")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    record["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 23 (c): {record['phase_s']:.1f} s; NCCL with more than one rank is not exercised "
+        f"(one card): the gloo ranks share it through host copies")
+    return record, launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5633,6 +6637,9 @@ def main(argv=None) -> int:
                         help=argparse.SUPPRESS)   # one rank of phase 22 (a)
     parser.add_argument("--dryrun-child", nargs=2, metavar=("DIR", "PART"),
                         help=argparse.SUPPRESS)   # phase 22 (c)
+    parser.add_argument("--family-child", nargs=5,
+                        metavar=("DIR", "BACKEND", "RANK", "WORLD", "MESH"),
+                        help=argparse.SUPPRESS)   # one rank of phase 23 (c)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5652,11 +6659,24 @@ def main(argv=None) -> int:
     if args.dryrun_child:
         dryrun_child(Path(args.dryrun_child[0]), args.dryrun_child[1])
         return 0
+    if args.family_child:
+        run_dir, backend, rank, world, shape = args.family_child
+        family_child(Path(run_dir), backend, int(rank), int(world), shape)
+        return 0
     from repro_torch.core import engine
     from repro_torch.data.collections import skewed_collection, with_duplicates, zipf_collection
 
+    t_start = time.perf_counter()
+    marks = [("start", t_start)]
+
+    def mark(name: str) -> None:   # each group of phases' wall, for the time budget
+        now = time.perf_counter()
+        log(f"[wall] {name}: {now - marks[-1][1]:.1f} s (script {now - t_start:.1f} s)")
+        marks.append((name, now))
+
     log(smi_line())
     phase_build()
+    mark("build")
     t0 = time.perf_counter()
     zipf_10k = with_duplicates(zipf_collection(n_sets=10_000, seed=args.seed), n_clusters=100,
                                cluster_size=3, jaccard=0.9, seed=args.seed)
@@ -5672,6 +6692,7 @@ def main(argv=None) -> int:
     kernels = phase_dense_kernels(args.seed, engine.prepare(zipf_10k, "cuda"))
     kernels += phase_postings_kernels(args.seed, engine.prepare(skewed, "cuda"))
     phase_bitplane_parity(args.seed)
+    mark("set-up and phases 1-3")
     launches = phase_slice(zipf_10k, skewed_10k)
     blocked_launches, zipf_pairs, zipf_candidates = phase_full_blocked(args.seed, zipf)
     launches.update(blocked_launches)
@@ -5685,6 +6706,7 @@ def main(argv=None) -> int:
     for k in kernels:
         if k["name"] in wide:
             k[f"at_b{WIDE_B}"] = wide[k["name"]]
+    mark("phases 4-8")
     rows, serve_turns = phase_bitplane_timing(store_ops[0], serve_call)
     kernels += rows
     for k in kernels:
@@ -5694,6 +6716,7 @@ def main(argv=None) -> int:
     del store_ops, serve_call
     gc.collect()
     torch.cuda.empty_cache()
+    mark("phase 9")
     phase_flash_parity(args.seed)
     lm_launches, qkv, flash_err = phase_lm(args.seed)
     launches.update(lm_launches)
@@ -5707,12 +6730,15 @@ def main(argv=None) -> int:
         kernels.extend(rows)
         gc.collect()
         torch.cuda.empty_cache()
+    mark("phases 10-11")
     training, bwd_row = phase_train(args.seed)
     kernels.append(bwd_row)
     launches["flash_attention_bwd"] = training["bwd_launches"]
     gc.collect()
     torch.cuda.empty_cache()
+    mark("phase 12")
     _, dedup_launches = phase_cpu_and_dedup(args.seed, zipf_base, zipf, zipf_pairs)
+    mark("phase 13")
     kernels.extend(phase_flash_d112(args.seed))
     ssm_serving, serve_launches = phase_ssm_serving(args.seed)
     hybrid_training, train_launches = phase_hybrid_train(args.seed)
@@ -5723,6 +6749,7 @@ def main(argv=None) -> int:
                                                                  "arctic-480b"))
     va_serving, va_launches = phase_family_serving(args.seed, ("llama-3.2-vision-11b",
                                                                "musicgen-medium"))
+    mark("phases 14-16")
     family_training, fwd_train_launches, bwd_train_launches = phase_family_train(args.seed)
     family_serving = {**moe_serving, **va_serving}
     log(json.dumps({"family_serving": family_serving, "family_training": family_training}))
@@ -5743,10 +6770,12 @@ def main(argv=None) -> int:
                 for key in ("kernel_timing", "bwd_timing") if key in res}
     gc.collect()
     torch.cuda.empty_cache()
+    mark("phases 17-19")
     kernels += phase_mesh_drivers(zipf, zipf_pairs, zipf_candidates, skewed, skewed_results,
                                   batches)
     gc.collect()
     torch.cuda.empty_cache()
+    mark("phase 20")
     sharded, sharded_launches = phase_sharded_train(args.seed)
     for k in kernels:
         if k["name"] in sharded_launches:   # rows 9 and 9d: phase 21's ranks too
@@ -5755,12 +6784,35 @@ def main(argv=None) -> int:
     log(json.dumps({"sharded_training": sharded}))
     gc.collect()
     torch.cuda.empty_cache()
+    mark("phase 21")
     serving, launch_tooling, serve_launches = phase_sharded_serving_and_dryrun(args.seed)
+    mark("phase 22")
     for k in kernels:
         if k["name"] in serve_launches:     # row 9: phase 22's ranks too
             k.setdefault("launches_by_path", {k["path"]: k["launches"]})
             k["launches_by_path"].update(serve_launches[k["name"]])
     log(json.dumps({"sharded_serving": serving, "launch_tooling": launch_tooling}))
+    # Phase 23 needs the card's memory for one single-device model's training
+    # state and then for 4 ranks: the join phases' collections and results go.
+    del zipf_base, zipf, skewed, batches, zipf_pairs, zipf_candidates, skewed_results
+    gc.collect()
+    torch.cuda.empty_cache()
+    t23 = time.perf_counter()
+    log(f"{smi_line()}; this process holds {torch.cuda.memory_allocated() / 1e9:.2f} GB on the "
+        f"card before phase 23")
+    offset = phase_flash_offset(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    families, family_launches = phase_family_mesh(args.seed)
+    for k in kernels:
+        if k["name"] in family_launches:    # rows 9 and 9d: phase 23's ranks too
+            k.setdefault("launches_by_path", {k["path"]: k["launches"]})
+            k["launches_by_path"].update(family_launches[k["name"]])
+        if k["name"] == "flash_attention":
+            k["at_query_offsets"] = offset
+    log(json.dumps({"query_offset": offset, "families_over_a_mesh": families}))
+    log(f"phase 23: {time.perf_counter() - t23:.1f} s (budget 240 s)")
+    mark("phase 23")
     log(smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

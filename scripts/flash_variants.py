@@ -138,7 +138,7 @@ def build_variant(name: str, out: Path):
     if proc.returncode:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}{proc.stderr}")
     fn = ctypes.CDLL(str(lib)).flash_attention_launch_instance
-    fn.argtypes = [C, C, C, C, C, C, I, I, I, I, I, I, I, I, ctypes.c_float, I, C]
+    fn.argtypes = [C, C, C, C, C, C, I, I, I, I, I, I, I, I, I, ctypes.c_float, I, C]
     fn.restype = I
     lines, keep = [], False
     for line in (proc.stdout + proc.stderr).splitlines():
@@ -181,7 +181,7 @@ def runner(fn, q, k, v, out, causal: bool = True):
 
     def run():
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, None, b, sq,
-                k.shape[1], h, k.shape[2], d, 1, int(causal), d ** -0.5, WGMMA,
+                k.shape[1], h, k.shape[2], d, 1, int(causal), 0, d ** -0.5, WGMMA,
                 torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"flash_attention launch: CUDA error {rc}")

@@ -8,7 +8,7 @@ port's seeded ones, so the tokens differ).
     PYTHONPATH=src torchrun --standalone --nproc-per-node 4 scripts/serve_lm_torch.py \\
         qwen3-8b --mesh 2x2 --device cpu
 
-``--mesh DxM`` serves the dense family over a (data, model) mesh, one
+``--mesh DxM`` serves the dense, moe and vlm families over a (data, model) mesh, one
 process a rank (``torchrun``; gloo on the CPU, NCCL on the cards, one card a
 rank): ``sharded_prefill`` and ``sharded_decode_step`` on each rank's
 slices of the parameters and rows of the batch.  Rank 0 then checks its
@@ -76,6 +76,8 @@ def _serve_sharded(args, cfg, model, prompt, gen: int) -> int:
     from repro_torch.models.model import param_specs
 
     d, m = (int(x) for x in args.mesh.split("x"))
+    if cfg.frame_inputs:
+        raise SystemExit(f"{args.arch} takes frame embeddings a step: --mesh serves token models")
     if "RANK" not in os.environ:
         raise SystemExit(f"--mesh {args.mesh} runs {d * m} ranks: start it under torchrun "
                          f"--nproc-per-node {d * m}")
@@ -91,12 +93,18 @@ def _serve_sharded(args, cfg, model, prompt, gen: int) -> int:
         specs = param_specs(cfg, mesh)
         params = shard_tree(model.param_tree(), specs, mesh)
         rows = prompt.shape[0] // d
-        mine = prompt[layout.index(("data",)) * rows:][:rows]
+        lo = layout.index(("data",)) * rows
+        mine = prompt[lo:lo + rows]
+        images = (torch.zeros((prompt.shape[0], cfg.num_image_tokens, cfg.d_model),
+                              device=prompt.device) if cfg.family == "vlm" else None)
         with torch.inference_mode(), activation_sharding(mesh):
-            out = sharded_greedy_generate(cfg, params, specs, mine, gen)
+            out = sharded_greedy_generate(cfg, params, specs, mine, gen,
+                                          image_embeds=None if images is None else
+                                          images[lo:lo + rows])
         if dist.get_rank() == 0:
+            extra = {} if images is None else {"image_embeds": images[:rows]}
             with torch.inference_mode():
-                single = greedy_generate(DecodeEngine(model), prompt[:rows], gen)
+                single = greedy_generate(DecodeEngine(model), prompt[:rows], gen, **extra)
             same = torch.equal(out.tokens, single.tokens)
             print(f"{args.arch} on a {d}x{m} mesh: prefilled {prompt.shape[1]} tokens, "
                   f"greedy-decoded {gen} tokens per sequence: "

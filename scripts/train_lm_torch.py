@@ -9,7 +9,7 @@ PyTorch twin of the JAX package's ``examples/train_lm.py``.
         --mesh 2x2 --device cpu
 
 Any of the 10 assigned archs work through ``--arch`` (sharded over
-``--mesh``: the dense family); the arguments go on to
+``--mesh``: the dense, moe, vlm and audio families); the arguments go on to
 ``repro_torch.launch.train``, whose ``--help`` lists them.
 """
 

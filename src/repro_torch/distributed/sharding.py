@@ -603,33 +603,47 @@ class AttnPartition:
     them), ``"q_heads"`` (q head-parallel, k and v replicated: this rank
     computes the KV heads ``kv_heads`` its query heads read, and
     ``kv_index`` maps them, None when the kernel's GQA mapping does) or
-    ``"replicated"`` (every TP rank computes every head; the reference
-    shards the q sequence here, which needs a causal diagonal offset the
-    flash kernel does not take: ROADMAP Queue 1 item 11c).  Heads are
-    ``(first, count)``."""
+    ``"q_sequence"`` (every head, this rank's slice of the q rows against
+    the whole K and V: :meth:`q_rows`).  Heads are ``(first, count)``;
+    ``rank`` and ``tp`` are this rank's TP coordinate and the TP size."""
     case: str
     q_heads: Tuple[int, int]
     kv_heads: Tuple[int, int]
     kv_index: Optional[Tuple[int, ...]] = None
+    rank: int = 0
+    tp: int = 1
 
     @property
     def tp_parallel(self) -> bool:
-        return self.case != "replicated"
+        """Whether the heads are split over TP (the output after wo partial)."""
+        return self.case in ("heads", "q_heads")
+
+    def q_rows(self, seq: int) -> Optional[Tuple[int, int]]:
+        """In the ``q_sequence`` case, this rank's q rows ``(first, count)``
+        of a sequence of ``seq``: ``[r seq / tp, (r + 1) seq / tp)``, the
+        first its causal offset; None in the other cases, or where ``seq``
+        does not divide TP (a decode step), where attention runs
+        replicated over the TP group as the reference's ``constrain``
+        replicates a dim that does not divide."""
+        if self.case != "q_sequence" or seq % self.tp:
+            return None
+        n = seq // self.tp
+        return self.rank * n, n
 
 
 def attn_partition(num_heads: int, num_kv_heads: int) -> Optional[AttnPartition]:
     """The reference's three cases over the active context's TP axis: KV
     heads divide it (head-parallel q, k, v), only the q heads do (q
-    head-parallel, k and v replicated), neither (the reference's q
-    sequence split; here attention replicated over the TP group, see
-    :class:`AttnPartition`).  None without a context or a TP axis."""
+    head-parallel, k and v replicated), neither (the q sequence split over
+    TP, k and v replicated: :meth:`AttnPartition.q_rows`).  None without a
+    context or a TP axis."""
     ctx = current_context()
     if ctx is None or ctx.tp is None:
         return None
     tp, rank = ctx.tp_size, (ctx.layout.coord[ctx.tp] if ctx.layout else 0)
     if num_kv_heads % tp == 0:
         hq, hk = num_heads // tp, num_kv_heads // tp
-        return AttnPartition("heads", (rank * hq, hq), (rank * hk, hk))
+        return AttnPartition("heads", (rank * hq, hq), (rank * hk, hk), rank=rank, tp=tp)
     if num_heads % tp == 0:
         hq, group = num_heads // tp, num_heads // num_kv_heads
         first = rank * hq
@@ -637,5 +651,6 @@ def attn_partition(num_heads: int, num_kv_heads: int) -> Optional[AttnPartition]
         lo, n_kv = kv[0], kv[-1] - kv[0] + 1
         rel = tuple(k - lo for k in kv)
         even = hq % n_kv == 0 and rel == tuple(i // (hq // n_kv) for i in range(hq))
-        return AttnPartition("q_heads", (first, hq), (lo, n_kv), None if even else rel)
-    return AttnPartition("replicated", (0, num_heads), (0, num_kv_heads))
+        return AttnPartition("q_heads", (first, hq), (lo, n_kv), None if even else rel,
+                             rank=rank, tp=tp)
+    return AttnPartition("q_sequence", (0, num_heads), (0, num_kv_heads), rank=rank, tp=tp)

@@ -6,7 +6,9 @@
 // k, v[B][Sk][KV][D], query head h reads KV head h / (H / KV) and
 //   o[b][i][h] = sum_j p_ij v[b][j][h / (H / KV)] / max(sum_j p_ij, 1e-30),
 //   p_ij = exp(s_ij - max_j s_ij),  s_ij = (q_i . k_j) * D^-0.5,
-// with s_ij = -1e30 for j > i when causal (positions from 0 on both sides).
+// with s_ij = -1e30 for j > q_off + i when causal: query row i sits at
+// position q_off + i and key j at position j (q_off = 0 when q and k start
+// together; a slice of the q sequence passes its first row's position).
 // The cast points are the TPU kernel's: the q . k products are exact in
 // float32, p is rounded to v's type before PV, every sum is float32 and the
 // output is rounded to q's type.  On request every instance also writes each
@@ -111,8 +113,9 @@
 //   tile and 4 rows x D/8 output columns a thread (in groups of 4, or of 2
 //   at D = 16 and 112), P through shared memory.
 // When causal, every instance stops after the diagonal tile (the TPU
-// kernel's lower-triangle schedule) and masks the ragged Sq / Sk edges
-// itself, so no length has to divide anything.
+// kernel's lower-triangle schedule, shifted by q_off) and masks the ragged
+// Sq / Sk edges itself, so no length or offset has to divide anything.  A
+// non-causal call ignores q_off.
 //
 // What the wgmma instance leaves on the table: a persistent grid (a block's
 // start-up and epilogue are not overlapped with another block's loads), and
@@ -133,9 +136,10 @@ constexpr int kRows = 64;        // q rows per block; keys per K/V tile
 constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;
 
-// Keys a q tile of `rows` rows from q0 visits: up to its last row when causal.
-__device__ __forceinline__ int kv_end(int q0, int rows, int sq, int sk, int causal) {
-  return causal ? min(sk, min(q0 + rows, sq)) : sk;
+// Keys a q tile of `rows` rows from q0 visits: up to its last row's
+// position (q_off on) when causal.
+__device__ __forceinline__ int kv_end(int q0, int rows, int sq, int sk, int causal, int q_off) {
+  return causal ? min(sk, min(q0 + rows, sq) + q_off) : sk;
 }
 
 // ---------------------------------------------------------------------------
@@ -275,8 +279,9 @@ __device__ __forceinline__ void mma_pv(float (&oacc)[Cfg<D>::kPad / 2],
 }
 
 // Masks S (64 x N) when asked (the diagonal tile and the one holding Sk's
-// edge), then the online softmax's row maxima: each row's rescale factor
-// and -max * scale_log2 for softmax_exp.
+// edge; row_lo is the position of the thread's first row, q_off included),
+// then the online softmax's row maxima: each row's rescale factor and
+// -max * scale_log2 for softmax_exp.
 template <int N, int kChains>
 __device__ __forceinline__ void softmax_max(float (&sacc)[N / 2], RowState& st,
                                             float (&alpha)[2], float (&neg_ms)[2], bool mask,
@@ -366,16 +371,20 @@ __device__ __forceinline__ void pass_turn(int c, bool last) {
   }
 }
 
-// kLse: also write lse (the last parameter, so the other parameters keep
-// their offsets; the instance without it is the serving path's kernel).
-template <int D, bool kLse>
+// kLse: also write lse (a parameter after the others, so they keep their
+// offsets; the instance without it is the serving path's kernel).  kOff:
+// read q_offset (after lse); the instance without it compiles offset 0 in,
+// so its code is the kernel's from before the offset (measured: a runtime
+// offset cost 1-2% at qwen3-8b's layer, PERF.md).
+template <int D, bool kLse, bool kOff>
 __global__ void __launch_bounds__(Cfg<D>::kThreads, Cfg<D>::kBlocksPerSM)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
                        int sq, int sk, int heads, int kv_heads, float scale_log2, int causal,
-                       float* __restrict__ lse) {
+                       float* __restrict__ lse, int q_offset) {
   using C = Cfg<D>;
+  const int q_off = kOff ? q_offset : 0;
   constexpr int kSt = C::kStages;
   constexpr int kBlockN = C::kBlockN;
   extern __shared__ uint8_t smem_raw[];
@@ -390,7 +399,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (heads / kv_heads);
-  const int end = kv_end(q0, C::kBlockM, sq, sk, causal);
+  const int end = kv_end(q0, C::kBlockM, sq, sk, causal, q_off);
   const int n_tiles = (end + kBlockN - 1) / kBlockN;
 
   if (threadIdx.x == 0) {
@@ -441,17 +450,18 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int g = lane >> 2;
     const int t = lane & 3;
     const int row_lo = q0 + 64 * c + 16 * warp + g;   // accumulator halves 0; + 8 halves 1
+    const int pos_lo = row_lo + q_off;                  // its position, the mask's row
     const uint32_t q_base = hopper::smem_addr(smem + C::kQ) + c * 64 * C::kSwizzle;
     const uint32_t k_ring = hopper::smem_addr(smem + C::kK);
     const uint32_t v_ring = hopper::smem_addr(smem + C::kV);
     auto needs_mask = [&](int k0) {
-      return k0 + kBlockN > sk || (causal && k0 + kBlockN - 1 > q0 + 64 * c);
+      return k0 + kBlockN > sk || (causal && k0 + kBlockN - 1 > q0 + 64 * c + q_off);
     };
     // With 64-key tiles a block's last tile can lie wholly above consumer
     // 0's diagonal: it computes up to its own last tile.
     int my_tiles = n_tiles;
     if constexpr (kBlockN < 128)
-      my_tiles = (kv_end(q0 + 64 * c, 64, sq, sk, causal) + kBlockN - 1) / kBlockN;
+      my_tiles = (kv_end(q0 + 64 * c, 64, sq, sk, causal, q_off) + kBlockN - 1) / kBlockN;
 
     float sacc[kBlockN / 2];
     float oacc[C::kPad / 2];
@@ -468,7 +478,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     auto softmax = [&](int n) {
       softmax_max<kBlockN, C::kMaxChains>(sacc, st, alpha, neg_ms, needs_mask(n * kBlockN),
-                                          n * kBlockN, row_lo, t, sk, causal, scale_log2);
+                                          n * kBlockN, pos_lo, t, sk, causal, scale_log2);
       softmax_exp<kBlockN>(sacc, st, alpha, neg_ms, scale_log2);
     };
 
@@ -578,7 +588,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 // rows x 1 (rows: the block's q rows, or a K/V tile's keys).
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int batch, int sq,
-           int sk, int heads, int kv_heads, int causal, float scale, cudaStream_t stream) {
+           int sk, int heads, int kv_heads, int causal, int q_off, float scale,
+           cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap maps[3];
   const void* bases[3] = {q, k, v};
@@ -595,14 +606,17 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
                                            bases[i], dims, strides, box, C::kSwizzle);
     if (rc != 0) return rc;
   }
-  const auto kernel = lse ? flash_fwd_wgmma_kernel<D, true> : flash_fwd_wgmma_kernel<D, false>;
+  const auto kernel = lse ? (q_off ? flash_fwd_wgmma_kernel<D, true, true>
+                                   : flash_fwd_wgmma_kernel<D, true, false>)
+                          : (q_off ? flash_fwd_wgmma_kernel<D, false, true>
+                                   : flash_fwd_wgmma_kernel<D, false, false>);
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + C::kBlockM - 1) / C::kBlockM, heads, batch);
   kernel<<<grid, C::kThreads, C::kBytes, stream>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), sq, sk, heads, kv_heads,
-      scale * 1.4426950408889634f, causal, lse);
+      scale * 1.4426950408889634f, causal, lse, q_off);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -947,7 +961,8 @@ __device__ __forceinline__ void split_p(const float (&sacc)[N / 2], uint32_t (&p
   }
 }
 
-template <int D, bool kLse>
+// kLse and kOff as wg::flash_fwd_wgmma_kernel's.
+template <int D, bool kLse, bool kOff>
 __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
 flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tm_k_hi,
                         const __grid_constant__ CUtensorMap tm_k_lo,
@@ -955,8 +970,9 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tm_k_hi,
                         const __grid_constant__ CUtensorMap tm_vt_lo,
                         const float* __restrict__ q, float* __restrict__ o, int sq, int sk,
                         int heads, int kv_heads, float scale_log2, int causal,
-                        float* __restrict__ lse) {
+                        float* __restrict__ lse, int q_offset) {
   using C = Cfg<D>;
+  const int q_off = kOff ? q_offset : 0;
   constexpr int kSt = C::kStages;
   constexpr int kBlockN = C::kBlockN;
   extern __shared__ uint8_t smem_raw[];
@@ -970,7 +986,7 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tm_k_hi,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (heads / kv_heads);
-  const int end = kv_end(q0, C::kBlockM, sq, sk, causal);
+  const int end = kv_end(q0, C::kBlockM, sq, sk, causal, q_off);
   const int n_tiles = (end + kBlockN - 1) / kBlockN;
 
   if (threadIdx.x == 0) {
@@ -1052,11 +1068,12 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tm_k_hi,
     auto k_hi = [&](int s) { return ring + s * C::kStage; };
     auto v_hi = [&](int s) { return ring + s * C::kStage + 2 * C::kKPart; };
     auto needs_mask = [&](int k0) {
-      return k0 + kBlockN > sk || (causal && k0 + kBlockN - 1 > q0 + 64 * c);
+      return k0 + kBlockN > sk || (causal && k0 + kBlockN - 1 > q0 + 64 * c + q_off);
     };
     // With tiles under 128 keys a block's last tiles can lie wholly above
     // consumer 0's diagonal: it computes up to its own last tile.
-    const int my_tiles = (kv_end(q0 + 64 * c, 64, sq, sk, causal) + kBlockN - 1) / kBlockN;
+    const int my_tiles =
+        (kv_end(q0 + 64 * c, 64, sq, sk, causal, q_off) + kBlockN - 1) / kBlockN;
 
     float sacc[kBlockN / 2];
     float oacc[D / 2];
@@ -1071,7 +1088,7 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tm_k_hi,
     float neg_ms[2];
     auto softmax = [&](int n) {
       wg::softmax_max<kBlockN, 1>(sacc, st, alpha, neg_ms, needs_mask(n * kBlockN),
-                                  n * kBlockN, row_lo, t, sk, causal, scale_log2);
+                                  n * kBlockN, row_lo + q_off, t, sk, causal, scale_log2);
       wg::softmax_exp<kBlockN>(sacc, st, alpha, neg_ms, scale_log2);
     };
 
@@ -1161,7 +1178,7 @@ int split_launch(const float* k, const float* v, void* scratch, int batch, int s
 // x kBlockN x 1, V^T's over (skp, D, KV, B) in boxes of 32 x D x 1 x 1.
 template <int D>
 int launch(const void* q, const void* scratch, void* o, float* lse, int batch, int sq, int sk,
-           int heads, int kv_heads, int causal, float scale, cudaStream_t stream) {
+           int heads, int kv_heads, int causal, int q_off, float scale, cudaStream_t stream) {
   using C = Cfg<D>;
   const Split parts = split_parts(const_cast<void*>(scratch), batch, sk, kv_heads, D);
   const cuuint64_t skp = parts.skp;
@@ -1182,15 +1199,17 @@ int launch(const void* q, const void* scratch, void* o, float* lse, int batch, i
                                            is_k ? C::kSwizzle : 128);
     if (rc != 0) return rc;
   }
-  const auto kernel =
-      lse ? flash_fwd_tf32x3_kernel<D, true> : flash_fwd_tf32x3_kernel<D, false>;
+  const auto kernel = lse ? (q_off ? flash_fwd_tf32x3_kernel<D, true, true>
+                                   : flash_fwd_tf32x3_kernel<D, true, false>)
+                          : (q_off ? flash_fwd_tf32x3_kernel<D, false, true>
+                                   : flash_fwd_tf32x3_kernel<D, false, false>);
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + C::kBlockM - 1) / C::kBlockM, heads, batch);
   kernel<<<grid, C::kThreads, C::kBytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(q), static_cast<float*>(o),
-      sq, sk, heads, kv_heads, scale * 1.4426950408889634f, causal, lse);
+      sq, sk, heads, kv_heads, scale * 1.4426950408889634f, causal, lse, q_off);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1226,7 +1245,8 @@ template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o, int sq, int sk,
-                     int heads, int kv_heads, float scale, int causal, float* __restrict__ lse) {
+                     int heads, int kv_heads, float scale, int causal, float* __restrict__ lse,
+                     int q_off) {
   constexpr int P = SimtSmem<D>::kPitch;
   constexpr int PP = SimtSmem<D>::kPPitch;
   constexpr int VW = D % 32 == 0 ? 4 : 2;      // contiguous output columns per group
@@ -1260,7 +1280,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int e = 0; e < VW; ++e) acc[i][jj][e] = 0.f;
   }
 
-  const int end = kv_end(q0, kRows, sq, sk, causal);
+  const int end = kv_end(q0, kRows, sq, sk, causal, q_off);
   for (int k0 = 0; k0 < end; k0 += kRows) {
     const int valid = min(kRows, sk - k0);
     __syncthreads();                           // q is staged; the last V is consumed
@@ -1301,7 +1321,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = k0 + tx + 8 * j;
-        const bool keep = col < sk && (!causal || row >= col);
+        const bool keep = col < sk && (!causal || row + q_off >= col);
         s[i][j] = keep ? s[i][j] * scale : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -1376,7 +1396,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 int simt_launch(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
-                int sq, int sk, int heads, int kv_heads, int causal, float scale,
+                int sq, int sk, int heads, int kv_heads, int causal, int q_off, float scale,
                 cudaStream_t stream) {
   const auto kernel = lse ? flash_fwd_f32_kernel<D, true> : flash_fwd_f32_kernel<D, false>;
   const cudaError_t err =
@@ -1386,7 +1406,7 @@ int simt_launch(const void* q, const void* k, const void* v, void* o, float* lse
   const dim3 grid((sq + kRows - 1) / kRows, heads, batch);
   kernel<<<grid, kThreads, SimtSmem<D>::kBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), sq, sk, heads, kv_heads, scale, causal, lse);
+      static_cast<float*>(o), sq, sk, heads, kv_heads, scale, causal, lse, q_off);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1418,7 +1438,9 @@ extern "C" int flash_split_kv_launch(const void* k, const void* v, void* scratch
 
 // q, o: [batch][sq][heads][head_dim]; k, v: [batch][sk][kv_heads][head_dim],
 // contiguous and 16-byte aligned, heads % kv_heads == 0, sk >= 1.  dtype 0 is
-// float32, 1 bfloat16; head_dim is 16, 32, 64, 112 or 128.  `instance` names the
+// float32, 1 bfloat16; head_dim is 16, 32, 64, 112 or 128.  q_offset >= 0 is
+// the position of q's first row (keys start at 0): when causal, row i sees
+// keys j <= q_offset + i; a non-causal call ignores it.  `instance` names the
 // kernel: 0 wgmma (bf16), 1 3xTF32 on wgmma (float32), 2 CUDA cores
 // (float32), each at every head dim; -1 takes the static rule: float32 ->
 // 3xTF32, bf16 -> wgmma.  The 3xTF32 instance reads K and V from `scratch`,
@@ -1437,23 +1459,26 @@ extern "C" int flash_attention_launch_instance(const void* q, const void* k, con
                                                void* o, const void* scratch, float* lse,
                                                int batch, int sq, int sk, int heads,
                                                int kv_heads, int head_dim, int dtype, int causal,
-                                               float scale, int instance, void* stream) {
+                                               int q_offset, float scale, int instance,
+                                               void* stream) {
   using namespace flash;
   if (instance == -1) instance = dtype == 0 ? 1 : 0;
   if (batch <= 0 || sq <= 0) return 0;
-  if (instance == 1 && scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if ((instance == 1 && scratch == nullptr) || q_offset < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int q_off = causal ? q_offset : 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FLASH_INSTANCES(DIM)                                                                \
   if (head_dim == DIM) {                                                                    \
     if (instance == 0 && dtype == 1)                                                        \
-      return wg::launch<DIM>(q, k, v, o, lse, batch, sq, sk, heads, kv_heads, causal, scale, \
-                             s);                                                            \
+      return wg::launch<DIM>(q, k, v, o, lse, batch, sq, sk, heads, kv_heads, causal, q_off, \
+                             scale, s);                                                     \
     if (instance == 1 && dtype == 0)                                                        \
       return x3::launch<DIM>(q, scratch, o, lse, batch, sq, sk, heads, kv_heads, causal,    \
-                             scale, s);                                                     \
+                             q_off, scale, s);                                              \
     if (instance == 2 && dtype == 0)                                                        \
-      return simt_launch<DIM>(q, k, v, o, lse, batch, sq, sk, heads, kv_heads, causal, scale, \
-                              s);                                                           \
+      return simt_launch<DIM>(q, k, v, o, lse, batch, sq, sk, heads, kv_heads, causal, q_off, \
+                              scale, s);                                                    \
   }
   FLASH_INSTANCES(16)
   FLASH_INSTANCES(32)
@@ -1464,11 +1489,11 @@ extern "C" int flash_attention_launch_instance(const void* q, const void* k, con
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The static rule's entry point (instance -1).
+// The static rule's entry point (instance -1), query offset 0.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       const void* scratch, float* lse, int batch, int sq, int sk,
                                       int heads, int kv_heads, int head_dim, int dtype,
                                       int causal, float scale, void* stream) {
   return flash_attention_launch_instance(q, k, v, o, scratch, lse, batch, sq, sk, heads,
-                                         kv_heads, head_dim, dtype, causal, scale, -1, stream);
+                                         kv_heads, head_dim, dtype, causal, 0, scale, -1, stream);
 }

@@ -10,7 +10,8 @@
 // k, v[B][Sk][KV][D], lse[B][H][Sq] from the forward kernel (natural log),
 // query head h reading KV head h / G (G = H / KV) and scale = D^-0.5:
 //   p_ij  = exp(s_ij - lse_i),  s_ij = (q_i . k_j) scale, and p_ij = 0 for
-//           j > i when causal (positions from 0 on both sides);
+//           j > q_off + i when causal (query row i at position q_off + i,
+//           key j at j; a non-causal call ignores q_off);
 //   D_i   = sum_d do_id out_id in float32;
 //   ds_ij = p_ij (dp_ij - D_i),  dp_ij = do_i . v_j;
 //   dq_i  = scale sum_j ds_ij k_j,  dk_j = scale sum_(i, g) ds_ij q_i,
@@ -88,9 +89,16 @@ namespace flash_bwd {
 
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Keys a q tile of `rows` rows from q0 needs: up to its last row when causal.
-__device__ __forceinline__ int kv_end(int q0, int rows, int sq, int sk, int causal) {
-  return causal ? min(sk, min(q0 + rows, sq)) : sk;
+// Keys a q tile of `rows` rows from q0 needs: up to its last row's position
+// (q_off on) when causal.
+__device__ __forceinline__ int kv_end(int q0, int rows, int sq, int sk, int causal, int q_off) {
+  return causal ? min(sk, min(q0 + rows, sq) + q_off) : sk;
+}
+
+// The first q row whose position (q_off on) reaches key k0: when causal the
+// rows before it see none of the keys from k0 on.
+__device__ __forceinline__ int first_row(int k0, int causal, int q_off) {
+  return causal ? max(k0 - q_off, 0) : 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -211,7 +219,8 @@ __device__ __forceinline__ void mma_rs(float (&acc)[Swz<D>::kPad / 2],
 }
 
 // Query-major P and dS of one 64 x N tile, in place of S: lane (g, t) of
-// warp w holds rows row_lo (halves 0) and row_lo + 8 (halves 1), columns
+// warp w holds the rows at positions row_lo (halves 0) and row_lo + 8
+// (halves 1; q_off included, as the mask compares them), columns
 // k0 + 8 j + 2 t + {0, 1}.  neg_lse is -lse log2(e) of each row (-inf past
 // Sq), so p = 2^(s scale log2(e) - lse log2(e)); `mask` (the tiles holding
 // Sk's edge or the diagonal) zeroes keys >= Sk and above the diagonal.
@@ -236,8 +245,9 @@ __device__ __forceinline__ void ds_rows(float (&sacc)[N / 2], const float (&dpac
 }
 
 // Key-major P^T and dS^T of one 64 x M tile, in place of S^T and dP^T: rows
-// are keys (key_lo, key_lo + 8), columns the q rows q0 + 8 j + 2 t + {0, 1},
-// whose -lse log2(e) and D_i are read from the stage (nl, di).
+// are keys (key_lo, key_lo + 8), columns the q rows at positions q0 + 8 j +
+// 2 t + {0, 1} (q_off included), whose -lse log2(e) and D_i are read from
+// the stage (nl, di).
 template <int M>
 __device__ __forceinline__ void ds_cols(float (&sacc)[M / 2], float (&dpacc)[M / 2], bool mask,
                                         int q0, int key_lo, int t, int sk, int causal,
@@ -297,15 +307,19 @@ __device__ __forceinline__ void store_rows(const float (&acc)[Swz<D>::kPad / 2],
   }
 }
 
-template <int D>
+// kOff: read q_offset; the instance without it compiles offset 0 in, so its
+// code is the kernel's from before the offset (a runtime offset cost 2% at
+// qwen3-8b's layer, PERF.md).  dkdv_kernel likewise.
+template <int D, bool kOff>
 __global__ void __launch_bounds__(kThreads, 1)
 dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
           const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
           const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
           const float* __restrict__ lse, __nv_bfloat16* __restrict__ dq,
           float* __restrict__ dsum, int sq, int sk, int heads, int kv_heads, float scale,
-          float scale_log2, int causal) {
+          float scale_log2, int causal, int q_offset) {
   using C = DqCfg<D>;
+  const int q_off = kOff ? q_offset : 0;
   using S = Swz<D>;
   constexpr int kSt = C::kStages;
   constexpr int kN = C::kBlockN;
@@ -320,7 +334,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (heads / kv_heads);
-  const int n_tiles = (kv_end(q0, C::kBlockM, sq, sk, causal) + kN - 1) / kN;
+  const int n_tiles = (kv_end(q0, C::kBlockM, sq, sk, causal, q_off) + kN - 1) / kN;
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(q_full, 1);
@@ -401,11 +415,11 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
   const uint32_t k_ring = hopper::smem_addr(smem + C::kK);
   const uint32_t v_ring = hopper::smem_addr(smem + C::kV);
   auto needs_mask = [&](int k0) {
-    return k0 + kN > sk || (causal && k0 + kN - 1 > q0 + 64 * c);
+    return k0 + kN > sk || (causal && k0 + kN - 1 > q0 + 64 * c + q_off);
   };
   // A block's last 64-key tile can lie wholly above consumer 0's diagonal:
   // each consumer computes up to its own last tile.
-  const int my_tiles = (kv_end(q0 + 64 * c, 64, sq, sk, causal) + kN - 1) / kN;
+  const int my_tiles = (kv_end(q0 + 64 * c, 64, sq, sk, causal, q_off) + kN - 1) / kN;
 
   float sacc[kN / 2];
   float dpacc[kN / 2];
@@ -416,8 +430,8 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
 #pragma unroll
   for (int i = 0; i < S::kPad / 2; ++i) dqacc[i] = 0.f;
   auto grads = [&](int n) {
-    ds_rows<kN>(sacc, dpacc, needs_mask(n * kN), n * kN, row_lo, t, sk, causal, scale_log2,
-                neg_lse, di);
+    ds_rows<kN>(sacc, dpacc, needs_mask(n * kN), n * kN, row_lo + q_off, t, sk, causal,
+                scale_log2, neg_lse, di);
   };
 
   // Tile 0: S and dP, then dS.
@@ -477,14 +491,15 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
                 dq + ((size_t)b * sq * heads + h) * D, (size_t)heads * D, q0 + 64 * c, sq);
 }
 
-template <int D>
+template <int D, bool kOff>
 __global__ void __launch_bounds__(kThreads, 1)
 dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
             const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
             const float* __restrict__ lse, const float* __restrict__ dsum,
             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int sq, int sk,
-            int heads, int kv_heads, float scale, float scale_log2, int causal) {
+            int heads, int kv_heads, float scale, float scale_log2, int causal, int q_offset) {
   using C = DkvCfg<D>;
+  const int q_off = kOff ? q_offset : 0;
   using S = Swz<D>;
   constexpr int kSt = C::kStages;
   constexpr int kM = C::kBlockM;
@@ -502,9 +517,9 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CU
   const int b = blockIdx.z;
   const int group = heads / kv_heads;
   const int n_qt = (sq + kM - 1) / kM;
-  // When causal, the first q tile holding a row >= k0; the tiles before it
-  // see none of the block's keys.
-  const int qt0 = causal ? min(k0 / kM, n_qt) : 0;
+  // When causal, the first q tile holding a row at position >= k0; the
+  // tiles before it see none of the block's keys.
+  const int qt0 = min(first_row(k0, causal, q_off) / kM, n_qt);
   const int per_head = n_qt - qt0;
   const int n_tiles = group * per_head;
   // Tile n: query head kvh G + n / per_head, rows from (qt0 + n % per_head) kM.
@@ -583,7 +598,7 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CU
   const uint32_t q_ring = hopper::smem_addr(smem + C::kQ);
   const uint32_t do_ring = hopper::smem_addr(smem + C::kDO);
   auto needs_mask = [&](int q0) {
-    return last_key >= sk || (causal && q0 < last_key);
+    return last_key >= sk || (causal && q0 + q_off < last_key);
   };
 
   float sacc[kM / 2];
@@ -598,13 +613,13 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CU
   for (int i = 0; i < S::kPad / 2; ++i) dkacc[i] = dvacc[i] = 0.f;
   auto grads = [&](int n) {
     const int s = n % kSt;
-    ds_cols<kM>(sacc, dpacc, needs_mask(tile_q0(n)), tile_q0(n), key_lo, t, sk, causal,
-                scale_log2, lse_s + s * kM, di_s + s * kM);
+    ds_cols<kM>(sacc, dpacc, needs_mask(tile_q0(n)), tile_q0(n) + q_off, key_lo, t, sk,
+                causal, scale_log2, lse_s + s * kM, di_s + s * kM);
   };
 
   const size_t at = ((size_t)b * sk * kv_heads + kvh) * D;
   if (n_tiles == 0) {
-    // No q row sees these keys (causal, Sk > Sq): dk = dv = 0.
+    // No q row sees these keys (causal, Sk > Sq + q_off): dk = dv = 0.
     constexpr int kChunks = D / 8;
     for (int idx = tid; idx < 64 * kChunks; idx += 128) {
       const int key = k0 + 64 * c + idx / kChunks;
@@ -692,7 +707,8 @@ int encode(CUtensorMap* map, const void* base, int nheads, int len, int batch, i
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o, const float* lse,
            const void* dout, void* dq, void* dk, void* dv, float* dsum, int batch, int sq,
-           int sk, int heads, int kv_heads, int causal, float scale, cudaStream_t stream) {
+           int sk, int heads, int kv_heads, int causal, int q_off, float scale,
+           cudaStream_t stream) {
   using Q = DqCfg<D>;
   using K = DkvCfg<D>;
   CUtensorMap m[8];
@@ -706,8 +722,8 @@ int launch(const void* q, const void* k, const void* v, const void* o, const flo
       (rc = encode<D>(&m[6], v, kv_heads, sk, batch, K::kBlockN)) ||
       (rc = encode<D>(&m[7], dout, heads, sq, batch, K::kBlockM)))
     return rc;
-  const auto dq_k = dq_kernel<D>;
-  const auto dkdv_k = dkdv_kernel<D>;
+  const auto dq_k = q_off ? dq_kernel<D, true> : dq_kernel<D, false>;
+  const auto dkdv_k = q_off ? dkdv_kernel<D, true> : dkdv_kernel<D, false>;
   cudaError_t err =
       cudaFuncSetAttribute(dq_k, cudaFuncAttributeMaxDynamicSharedMemorySize, Q::kBytes);
   if (err == cudaSuccess)
@@ -717,11 +733,12 @@ int launch(const void* q, const void* k, const void* v, const void* o, const flo
   using bf16 = __nv_bfloat16;
   dq_k<<<dim3((sq + Q::kBlockM - 1) / Q::kBlockM, heads, batch), kThreads, Q::kBytes, stream>>>(
       m[0], m[1], m[2], m[3], static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse,
-      static_cast<bf16*>(dq), dsum, sq, sk, heads, kv_heads, scale, scale_log2, causal);
+      static_cast<bf16*>(dq), dsum, sq, sk, heads, kv_heads, scale, scale_log2, causal, q_off);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   dkdv_k<<<dim3((sk + K::kBlockN - 1) / K::kBlockN, kv_heads, batch), kThreads, K::kBytes,
            stream>>>(m[4], m[5], m[6], m[7], lse, dsum, static_cast<bf16*>(dk),
-                     static_cast<bf16*>(dv), sq, sk, heads, kv_heads, scale, scale_log2, causal);
+                     static_cast<bf16*>(dv), sq, sk, heads, kv_heads, scale, scale_log2, causal,
+                     q_off);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -847,7 +864,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
           const float* __restrict__ o, const float* __restrict__ lse,
           const float* __restrict__ dout, float* __restrict__ dq, float* __restrict__ dsum,
-          int sq, int sk, int heads, int kv_heads, float scale, int causal) {
+          int sq, int sk, int heads, int kv_heads, float scale, int causal, int q_off) {
   using C = Cols<D>;
   constexpr int P = Smem<D>::kPitch;
   constexpr int PP = Smem<D>::kPPitch;
@@ -899,7 +916,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float*
 #pragma unroll
       for (int e = 0; e < C::VW; ++e) acc[i][jj][e] = 0.f;
 
-  const int end = kv_end(q0, kTile, sq, sk, causal);
+  const int end = kv_end(q0, kTile, sq, sk, causal, q_off);
   for (int k0 = 0; k0 < end; k0 += kTile) {
     const int valid = min(kTile, sk - k0);
     __syncthreads();                 // the last tile's K and dS^T are consumed
@@ -916,7 +933,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float*
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int row = q0 + 4 * ty + i;
-        const bool keep = col < sk && (!causal || row >= col);
+        const bool keep = col < sk && (!causal || row + q_off >= col);
         const float p = keep ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
         ds[i] = p * (dp[i][j] - di[i]);
       }
@@ -935,7 +952,7 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ lse,
             const float* __restrict__ dout, const float* __restrict__ dsum,
             float* __restrict__ dk, float* __restrict__ dv, int sq, int sk, int heads,
-            int kv_heads, float scale, int causal) {
+            int kv_heads, float scale, int causal, int q_off) {
   using C = Cols<D>;
   constexpr int P = Smem<D>::kPitch;
   constexpr int PP = Smem<D>::kPPitch;
@@ -969,8 +986,8 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < C::VW; ++e) dka[i][jj][e] = dva[i][jj][e] = 0.f;
 
-  // When causal, the q tiles from the one holding row k0 on.
-  const int first = causal ? k0 / kTile * kTile : 0;
+  // When causal, the q tiles from the one holding the row at position k0 on.
+  const int first = first_row(k0, causal, q_off) / kTile * kTile;
   for (int g = 0; g < group; ++g) {
     const int h = kvh * group + g;
     const size_t q_at = ((size_t)b * sq * heads + h) * D;
@@ -997,7 +1014,7 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int key = k0 + 4 * ty + i;
-          const bool keep = key < sk && (!causal || q0 + r >= key);
+          const bool keep = key < sk && (!causal || q0 + r + q_off >= key);
           p[i] = keep ? expf(s[i][j] * scale - l) : 0.f;
           ds[i] = p[i] * (dp[i][j] - dd);
         }
@@ -1017,7 +1034,8 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o, const float* lse,
            const void* dout, void* dq, void* dk, void* dv, float* dsum, int batch, int sq,
-           int sk, int heads, int kv_heads, int causal, float scale, cudaStream_t stream) {
+           int sk, int heads, int kv_heads, int causal, int q_off, float scale,
+           cudaStream_t stream) {
   const auto dq_k = dq_kernel<D>;
   const auto dkdv_k = dkdv_kernel<D>;
   cudaError_t err =
@@ -1029,11 +1047,11 @@ int launch(const void* q, const void* k, const void* v, const void* o, const flo
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   dq_k<<<dim3((sq + kTile - 1) / kTile, heads, batch), kThreads, Smem<D>::kBytes, stream>>>(
       f(q), f(k), f(v), f(o), lse, f(dout), static_cast<float*>(dq), dsum, sq, sk, heads,
-      kv_heads, scale, causal);
+      kv_heads, scale, causal, q_off);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   dkdv_k<<<dim3((sk + kTile - 1) / kTile, kv_heads, batch), kThreads, Smem<D>::kBytes, stream>>>(
       f(q), f(k), f(v), lse, f(dout), dsum, static_cast<float*>(dk), static_cast<float*>(dv), sq,
-      sk, heads, kv_heads, scale, causal);
+      sk, heads, kv_heads, scale, causal, q_off);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1050,24 +1068,30 @@ int launch(const void* q, const void* k, const void* v, const void* o, const flo
 // (D_i) and read by the second.  Launches both kernels on `stream`,
 // allocates nothing and does not synchronise; returns cudaGetLastError()
 // after the launches (0 on success), or cudaErrorInvalidValue for a dtype or
-// head_dim it has no kernel for or a tensor map cuTensorMapEncodeTiled
-// refuses.  Writes every element of dq (rows < sq), dk and dv.
+// head_dim it has no kernel for, a negative q_offset, or a tensor map
+// cuTensorMapEncodeTiled refuses.  q_offset is the position of q's first row
+// (keys start at 0), as the forward takes it; a non-causal call ignores it.
+// Writes every element of dq (rows < sq), dk and dv: keys that no row sees
+// get zeros.
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* o, const float* lse, const void* dout,
                                           void* dq, void* dk, void* dv, float* dsum, int batch,
                                           int sq, int sk, int heads, int kv_heads, int head_dim,
-                                          int dtype, int causal, float scale, void* stream) {
+                                          int dtype, int causal, int q_offset, float scale,
+                                          void* stream) {
   using namespace flash_bwd;
   if (batch <= 0 || sq <= 0) return 0;
+  if (q_offset < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int q_off = causal ? q_offset : 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FLASH_BWD_INSTANCES(DIM)                                                           \
   if (head_dim == DIM) {                                                                   \
     if (dtype == 1)                                                                        \
       return wg::launch<DIM>(q, k, v, o, lse, dout, dq, dk, dv, dsum, batch, sq, sk, heads, \
-                             kv_heads, causal, scale, s);                                  \
+                             kv_heads, causal, q_off, scale, s);                           \
     if (dtype == 0)                                                                        \
       return simt::launch<DIM>(q, k, v, o, lse, dout, dq, dk, dv, dsum, batch, sq, sk,     \
-                               heads, kv_heads, causal, scale, s);                         \
+                               heads, kv_heads, causal, q_off, scale, s);                  \
   }
   FLASH_BWD_INSTANCES(16)
   FLASH_BWD_INSTANCES(32)

@@ -20,6 +20,10 @@ reads K and V split into TF32 parts by a prepass kernel,
 ``return_lse=True`` also asks the kernel for each query row's
 log-sum-exp (float32, the reference's (B, KV, G, Sq)), which the training
 path's backward reads; without it the kernel writes none.
+``q_offset`` (both kernels) places query row i at position ``q_offset +
+i`` against keys from 0: a causal call keeps key j iff ``j <= q_offset +
+i`` (a slice of the q sequence, ``distributed.sharding``'s ``q_sequence``
+case); a non-causal call ignores it.
 ``flash_attention_cuda.launches`` counts every launch of the attention
 kernel; ``flash_attention_cuda.instance_launches`` counts them by the
 instance that ran, ``lse_launches`` those that wrote lse, and
@@ -79,13 +83,13 @@ _instance = instance   # flash_attention_cuda's keyword hides the name
 def _fn():
     return _build.function(
         "flash_attention", "flash_attention_launch_instance",
-        [_C, _C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _C])
+        [_C, _C, _C, _C, _C, _C, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _C])
 
 
 def _bwd_fn():
     return _build.function(
         "flash_attention_bwd", "flash_attention_bwd_launch",
-        [_C] * 10 + [_I] * 8 + [ctypes.c_float, _C])
+        [_C] * 10 + [_I] * 9 + [ctypes.c_float, _C])
 
 
 def _split_fn():
@@ -167,11 +171,18 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                              "one dtype on one CUDA device")
 
 
+def check_offset(q_offset) -> None:
+    """Raise unless ``q_offset`` is an int >= 0 that fits the kernels' int."""
+    if isinstance(q_offset, bool) or not isinstance(q_offset, int) or not 0 <= q_offset < 2**30:
+        raise ValueError(f"q_offset must be an int in [0, 2**30), got {q_offset!r}")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = True, instance: str | None = None,
+                         causal: bool = True, q_offset: int = 0, instance: str | None = None,
                          return_lse: bool = False):
     """(B, Sq, H, D) attention output in q's type: query head h attends KV
-    head h // (H / KV) with scale D^-0.5, causal with positions from 0.
+    head h // (H / KV) with scale D^-0.5; when causal, query row i (at
+    position ``q_offset + i``) sees keys 0 .. q_offset + i.
     With ``return_lse``, ``(out, lse)``: lse the float32 log-sum-exp of each
     query row's scaled scores, (B, KV, G, Sq) with G = H / KV (a view of the
     kernel's (B, H, Sq), head h = kv G + g).
@@ -181,6 +192,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     port's callers make."""
     name = _instance(q.dtype, q.shape[-1] if q.dim() else 0, instance)
     check_operands(q, k, v)
+    check_offset(q_offset)
     b, sq, h, d = q.shape
     kv = k.shape[2]
     out = torch.empty_like(q)
@@ -195,7 +207,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         rc = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    split[0].data_ptr() if split else None,
                    lse.data_ptr() if return_lse else None, b, sq, k.shape[1], h, kv, d,
-                   DTYPES[q.dtype], int(causal), d ** -0.5, INSTANCES.index(name),
+                   DTYPES[q.dtype], int(causal), int(q_offset), d ** -0.5,
+                   INSTANCES.index(name),
                    torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed ({name} instance): CUDA "
@@ -217,16 +230,18 @@ def bwd_instance(dtype: torch.dtype) -> str:
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
-                             causal: bool = True) -> tuple:
+                             causal: bool = True, q_offset: int = 0) -> tuple:
     """The attention backward on the card -> (dq, dk, dv) in q's, k's and
     v's types: ``ref.flash_attention_bwd_ref``'s function (p recomputed
     from lse, D_i = rowsum(do * out), float32 sums, GQA groups summed into
     dk and dv), computed by the hand-written kernel.  q, out, do (B, Sq, H,
     D) and k, v (B, Sk, KV, D) as :func:`check_operands` takes them; lse
     float32 (B, KV, G, Sq) from ``flash_attention_cuda(...,
-    return_lse=True)``.  Two calls on the same inputs give bit-identical
-    gradients (no atomics)."""
+    return_lse=True)``, with the forward's ``causal`` and ``q_offset``.  Keys
+    that no query row sees get zero dk and dv.  Two calls on the same inputs
+    give bit-identical gradients (no atomics)."""
     check_operands(q, k, v)
+    check_offset(q_offset)
     b, sq, h, d = q.shape
     kv = k.shape[2]
     for name, t in (("out", out), ("do", do)):
@@ -248,7 +263,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                        dv.data_ptr(), dsum.data_ptr(), b, sq, k.shape[1], h, kv, d,
-                       DTYPES[q.dtype], int(causal), d ** -0.5,
+                       DTYPES[q.dtype], int(causal), int(q_offset), d ** -0.5,
                        torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention backward kernel launch failed ({name} "

@@ -491,6 +491,7 @@ def flash_attention(
     kv_chunk: int = 512,
     triangle: bool = False,
     return_lse: bool = False,
+    q_offset: int = 0,
 ):
     """GQA attention forward -> (B, Sq, H, D) in q's type, for q (B, Sq, H,
     D) and k, v (B, Sk, KV, D); with ``return_lse``, ``(out, lse)``, lse the
@@ -500,15 +501,18 @@ def flash_attention(
     plain version on CPU tensors; ``"cuda"`` raises on CPU tensors and
     ``"ref"`` on CUDA tensors.  ``q_chunk``, ``kv_chunk`` and ``triangle``
     shape only the plain version's blocks (the kernel has its own tiles);
-    the result does not depend on them beyond float rounding.  On ``meta``
-    tensors (the dry run) the result has the shapes only (above).
+    the result does not depend on them beyond float rounding.  ``q_offset``
+    places query row i at position ``q_offset + i`` (keys from 0) for the
+    causal mask.  On ``meta`` tensors (the dry run) the result has the
+    shapes only (above).
     """
     if q.device.type == "meta":
         return _flash_meta(q, k, v, return_lse)
     if _flash_impl(impl, q.device) == "cuda":
-        return flash_kernel.flash_attention_cuda(q, k, v, causal=causal, return_lse=return_lse)
+        return flash_kernel.flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset,
+                                                 return_lse=return_lse)
     return ref.flash_attention_ref(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
-                                   triangle=triangle, return_lse=return_lse)
+                                   triangle=triangle, return_lse=return_lse, q_offset=q_offset)
 
 
 def flash_attention_bwd(
@@ -524,6 +528,7 @@ def flash_attention_bwd(
     q_chunk: int = 512,
     kv_chunk: int = 512,
     triangle: bool = False,
+    q_offset: int = 0,
 ) -> tuple:
     """The attention backward -> (dq, dk, dv) from the forward's inputs, its
     output and lse, and the output's gradient ``do``.
@@ -534,11 +539,13 @@ def flash_attention_bwd(
     reference's jnp ``_flash_bwd_impl``) on CPU tensors; ``"cuda"`` raises on
     CPU tensors and ``"ref"`` on CUDA tensors.  ``q_chunk``, ``kv_chunk``
     and ``triangle`` shape only the plain version's blocks, as the
-    reference's do.  On ``meta`` tensors (the dry run) the shapes only.
+    reference's do; ``q_offset`` is the forward's.  On ``meta`` tensors (the
+    dry run) the shapes only.
     """
     if q.device.type == "meta":
         return _flash_bwd_meta(q, k, v, out, lse, do)
     if _flash_impl(impl, q.device) == "cuda":
-        return flash_kernel.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal)
+        return flash_kernel.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal,
+                                                     q_offset=q_offset)
     return ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal, q_chunk=q_chunk,
-                                       kv_chunk=kv_chunk, triangle=triangle)
+                                       kv_chunk=kv_chunk, triangle=triangle, q_offset=q_offset)

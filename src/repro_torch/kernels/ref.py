@@ -379,7 +379,7 @@ def _product(eq: str, a: torch.Tensor, b: torch.Tensor, tf32x3: bool) -> torch.T
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, q_chunk: int = 512, kv_chunk: int = 512,
                         triangle: bool = False, tf32x3: bool = False,
-                        return_lse: bool = False):
+                        return_lse: bool = False, q_offset: int = 0):
     """GQA attention forward, blockwise with an online softmax: the plain
     version of ``flash_attention_cuda``.  With ``return_lse``, ``(out,
     lse)``: lse = m + log(max(l, 1e-30)) of each query row, float32 (B, KV,
@@ -387,8 +387,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: (B, Sq, H, D); k, v: (B, Sk, KV, D) with H % KV == 0; query head h
     reads KV head h // (H / KV).  Scores are ``(q . k) * D^-0.5``, masked to
-    -1e30 above the diagonal when ``causal`` (positions from 0 on both
-    sides).  The twin of ``repro.models.layers._flash_fwd`` with the TPU
+    -1e30 above the diagonal when ``causal``: query row i sits at position
+    ``q_offset + i`` and key j at j (a slice of the q sequence; a
+    non-causal call ignores the offset).  The twin of ``repro.models.layers._flash_fwd`` with the TPU
     kernel's cast points: q and k go to float32 before the product, p goes
     to v's type before PV, sums are float32, and the output takes q's type.
     In float32 this is the reference's jnp path; in bf16 it rounds where the
@@ -411,12 +412,12 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lse = torch.empty((b, kv, g, sq), dtype=torch.float32, device=q.device)
     for q0 in range(0, sq, q_chunk):
         q_blk = qf[:, q0:q0 + q_chunk]
-        q_pos = torch.arange(q0, q0 + q_chunk, device=q.device)
+        q_pos = torch.arange(q0, q0 + q_chunk, device=q.device) + q_offset
         o = torch.zeros((b, kv, g, q_chunk, d), dtype=torch.float32, device=q.device)
         m = torch.full((b, kv, g, q_chunk), NEG_INF, dtype=torch.float32, device=q.device)
         l = torch.zeros((b, kv, g, q_chunk), dtype=torch.float32, device=q.device)
         for k0 in range(0, sk, kv_chunk):
-            if triangle and causal and k0 > q0 + q_chunk - 1:
+            if triangle and causal and k0 > q_offset + q0 + q_chunk - 1:
                 break
             s = _product("bqkgd,bckd->bkgqc", q_blk, kf[:, k0:k0 + kv_chunk], tf32x3) * scale
             if causal:
@@ -442,13 +443,14 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
                             causal: bool = True, q_chunk: int = 512, kv_chunk: int = 512,
-                            triangle: bool = False) -> tuple:
+                            triangle: bool = False, q_offset: int = 0) -> tuple:
     """The attention backward, blockwise, p recomputed from lse: the twin of
     ``repro.models.layers._flash_bwd_impl``, with its chunk rule
     (:func:`flash_chunks`), its float32 accumulations and its casts (each
     block's products in the operands' type, then widened).  q, out, do (B,
     Sq, H, D); k, v (B, Sk, KV, D); lse (B, KV, G, Sq) from the forward.
-    Returns (dq, dk, dv) in q's, k's and v's types.
+    Returns (dq, dk, dv) in q's, k's and v's types.  ``q_offset``: the
+    forward's (query row i at position ``q_offset + i``).
 
     When causal, a block wholly above the diagonal is skipped, triangle or
     not: its p is exactly 0, so the reference adds exact zeros there."""
@@ -469,10 +471,10 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for q0 in range(0, sq, q_chunk):
         q_blk, do_blk = qg[:, q0:q0 + q_chunk], dog[:, q0:q0 + q_chunk]
         lse_blk, d_blk = lse[..., q0:q0 + q_chunk, None], dsum[..., q0:q0 + q_chunk, None]
-        q_pos = torch.arange(q0, q0 + q_chunk, device=q.device)
+        q_pos = torch.arange(q0, q0 + q_chunk, device=q.device) + q_offset
         dq_i = torch.zeros((b, q_chunk, kv, g, d), dtype=torch.float32, device=q.device)
         for k0 in range(0, sk, kv_chunk):
-            if causal and k0 > q0 + q_chunk - 1:
+            if causal and k0 > q_offset + q0 + q_chunk - 1:
                 break
             k_blk, v_blk = k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk]
             s = torch.einsum("bqkgd,bckd->bkgqc", q_blk, k_blk).float() * scale

@@ -13,8 +13,9 @@ Usage:
 Train cells run ``sharded_train_step`` on this rank's slices of the state;
 prefill and decode cells ``sharded_prefill`` (``last_only``) and
 ``sharded_decode_step`` on its slices of the parameters and the cache.
-Cells of the families without a sharded path end as ``skipped`` with the
-``NotImplementedError``'s text (ROADMAP Queue 1 item 11c).  The join cell
+Cells of the families without a sharded path (ssm, hybrid) end as
+``skipped`` with the ``NotImplementedError``'s text (ROADMAP Queue 1 item
+11c).  The join cell
 runs one rank's ring sweep (``core.join.ring_sweep``) for real, on the
 device present (the card, else the CPU), at its shard of the 1M-set
 collection; its flops and bytes are row 1's analytic count (the verdict
@@ -87,16 +88,19 @@ def trace_cell(cfg, sp: ShapeSpec, mesh, opts: Optional[dict] = None) -> cost.Me
     """Run one rank's program of ``cfg`` at shape ``sp`` on ``mesh`` (a
     ``DeviceMesh`` over an initialised, usually fake, group) on meta tensors
     and count it.  Raises ``NotImplementedError`` (item 11c) for a family
-    without a sharded path."""
+    without a sharded path (ssm, hybrid)."""
     from repro_torch.distributed.sharding import activation_sharding, mesh_sizes
     from repro_torch.models.decode import cache_shapes, cache_specs, sharded_decode_step, \
         sharded_prefill
-    from repro_torch.models.model import OTHER_FAMILIES, dtype_of, param_shapes, param_specs
+    from repro_torch.models.model import (OTHER_FAMILIES, SHARDED_FAMILIES, dtype_of,
+                                          param_shapes, param_specs)
     from repro_torch.train import OptimizerConfig
     from repro_torch.train.optimizer import opt_init
     from repro_torch.train.step import sharded_train_step
 
     opts = opts or {}
+    if cfg.family not in SHARDED_FAMILIES:
+        raise NotImplementedError(OTHER_FAMILIES.format(cfg.family))
     sizes = mesh_sizes(mesh)
     fsdp = tuple(a for a in ("pod", "data") if a in sizes)
     sp_kw = {"seq_parallel": bool(opts.get("seq_parallel", False))}
@@ -114,16 +118,11 @@ def trace_cell(cfg, sp: ShapeSpec, mesh, opts: Optional[dict] = None) -> cost.Me
     params = _local_tree(param_shapes(cfg), pspecs, sizes)
     batch = _batch(cfg, sp, sizes, fsdp)
     if sp.kind == "prefill":
-        if cfg.family != "dense":
-            raise NotImplementedError(OTHER_FAMILIES.format(cfg.family))
-
         def run():
             with torch.no_grad(), activation_sharding(mesh, batch_axes=fsdp, **sp_kw):
                 return sharded_prefill(cfg, params, pspecs, batch, max_len=sp.seq_len,
                                        last_only=True)
         return cost.measure(run, arguments=(params, batch))
-    if cfg.family != "dense":
-        raise NotImplementedError(OTHER_FAMILIES.format(cfg.family))
     cdt = dtype_of(cfg.dtype)
     cache = _local_tree({k: _meta(v, torch.int32 if k == "cur" else cdt)
                          for k, v in cache_shapes(cfg, sp.global_batch, sp.seq_len).items()},

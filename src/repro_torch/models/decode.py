@@ -21,7 +21,10 @@ cache.  Prefill attention runs the flash kernel on the card
 (``layers.flash_attention``); decode attention and the SSM recurrences are
 plain PyTorch, as they are jnp in the reference.  The vlm prefill's
 cross-attention is the flash kernel too, non-causal over the image tokens;
-its decode attends to the whole image cache.
+its decode attends to the whole image cache.  Over a mesh
+:func:`sharded_prefill` and :func:`sharded_decode_step` serve the dense,
+moe, vlm and audio families from a cache shard laid out by
+:func:`cache_specs`.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import Model, _ShardedDense, dtype_of, num_cross_layers
+from repro_torch.models.model import Model, _ShardedDecoder, dtype_of, num_cross_layers
 
 Cache = Dict[str, torch.Tensor]
 
@@ -73,8 +76,8 @@ def cache_specs(cfg: ModelConfig, mesh, batch: int, fsdp: Tuple[str, ...] = ("po
     the sequence dim over the non-pod FSDP axes; KV heads over TP, or the
     head dim when the KV heads do not divide (the MHA fallback); the conv
     states' channels and the SSM heads over TP.  :func:`sharded_prefill`
-    and :func:`sharded_decode_step` serve the dense family from a cache so
-    laid out."""
+    and :func:`sharded_decode_step` serve the dense, moe, vlm and audio
+    families from a cache so laid out."""
     from repro_torch.distributed.sharding import P, axes_size, mesh_sizes
 
     sizes = mesh_sizes(mesh)
@@ -298,10 +301,10 @@ class DecodeEngine:
 
 
 # ---------------------------------------------------------------------------
-# Over a mesh (the dense family)
+# Over a mesh (the dense, moe, vlm and audio families)
 # ---------------------------------------------------------------------------
 
-def _local_cache(core: _ShardedDense, rows: int, max_len: int) -> Cache:
+def _local_cache(core: _ShardedDecoder, rows: int, max_len: int) -> Cache:
     """This rank's zeroed cache shard for ``rows`` local rows, laid out by
     :func:`cache_specs` at the global batch.  A batch that
     does not divide the FSDP axes (the cache's sequence fallback, which the
@@ -323,7 +326,7 @@ def _local_cache(core: _ShardedDense, rows: int, max_len: int) -> Cache:
             for name, shape in shapes.items()}
 
 
-def _cache_kind(core: _ShardedDense, kc: torch.Tensor) -> str:
+def _cache_kind(core: _ShardedDecoder, kc: torch.Tensor) -> str:
     """How a layer's K/V cache shard is laid out over TP: ``"heads"`` (this
     rank's KV heads), ``"head_dim"`` (every KV head, a slice of the head
     dim: the MHA fallback) or ``"whole"``."""
@@ -335,106 +338,155 @@ def _cache_kind(core: _ShardedDense, kc: torch.Tensor) -> str:
     return "whole"
 
 
-def _rows(core: _ShardedDense, rows: int) -> slice:
+def _rows(core: _ShardedDecoder, rows: int) -> slice:
     """This rank's rows of the global batch (``cur`` is replicated whole)."""
     start = core.lay.index(core.ctx.batch_axes) * rows if core.ctx.batch_axes else 0
     return slice(start, start + rows)
 
 
+def _inputs(cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The rows' first-layer input: frame_embeds for a frame-input model,
+    else tokens."""
+    return batch["frame_embeds"] if cfg.frame_inputs else batch["tokens"]
+
+
+def _write_kv(core: _ShardedDecoder, kc: torch.Tensor, vc: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor) -> None:
+    """A prefill's k and v (B, n, KV, hd) into the first n positions of a
+    cache shard: this rank's slice of the head dim in the MHA fallback."""
+    if _cache_kind(core, kc) == "head_dim":
+        d = kc.shape[-1]
+        k, v = (t.narrow(-1, core.lay.coord[core.tp] * d, d) for t in (k, v))
+    kc[:, :k.shape[1]] = k
+    vc[:, :v.shape[1]] = v
+
+
 def sharded_prefill(cfg: ModelConfig, params: Dict, specs: Dict,
                     batch: Dict[str, torch.Tensor], *, max_len: Optional[int] = None,
                     last_only: bool = False) -> Tuple[torch.Tensor, Cache]:
-    """:meth:`DecodeEngine.prefill` of the dense family on this rank's
-    shards, inside :func:`~repro_torch.distributed.sharding.activation_sharding`
-    over a ``DeviceMesh``.
+    """:meth:`DecodeEngine.prefill` of the dense, moe, vlm and audio
+    families on this rank's shards, inside
+    :func:`~repro_torch.distributed.sharding.activation_sharding` over a
+    ``DeviceMesh``.
 
     ``params``: this rank's slices laid out by ``specs`` (``param_specs``);
-    ``batch["tokens"]``: this rank's rows (B_local, S), the batch over the
-    FSDP axes and the same on every TP rank.  The layers are the loss's
-    (``model._ShardedDense.hidden``): attention through the flash kernel on
-    this rank's heads, per ``attn_partition``, each layer's k and v written
-    into the cache shard.  Returns ``(logits, cache)``: logits (B_local, S or 1,
-    V_local) in the compute type, laid out as the reference's dry run lays
-    them out (batch over the FSDP axes, the vocabulary over ``"model"`` when
-    it divides); the cache this rank's shard under :func:`cache_specs` at
-    the global batch (KV heads over TP, or the head dim in the MHA
-    fallback, whose prefill then computes every KV head; ``cur`` whole)."""
-    tokens = batch["tokens"]
-    b, s = tokens.shape
+    ``batch``: this rank's rows (B_local, S) of ``tokens`` (or
+    ``frame_embeds``, and the vlm family's ``image_embeds``), the batch over
+    the FSDP axes and the same on every TP rank.  The layers are the loss's
+    (``model._ShardedDecoder.hidden``): attention through the flash kernel
+    on this rank's heads or q rows, per ``attn_partition``, each layer's k
+    and v (every row's) written into the cache shard; the moe family routes
+    the prompt as the single device does; each vlm cross layer's image k and
+    v go into ``img_k`` / ``img_v``.  Returns ``(logits, cache)``: logits
+    (B_local, S or 1, V_local) in the compute type, laid out as the
+    reference's dry run lays them out (batch over the FSDP axes, the
+    vocabulary over ``"model"`` when it divides); the cache this rank's
+    shard under :func:`cache_specs` at the global batch (KV heads over TP,
+    or the head dim in the MHA fallback, whose prefill then computes every
+    KV head; ``cur`` whole)."""
+    b, s = _inputs(cfg, batch).shape[:2]
     max_len = max_len or s
     if max_len < s:
         raise ValueError(f"max_len {max_len} is shorter than the prompt ({s})")
-    core = _ShardedDense(cfg, params, specs, "sharded_prefill")
+    core = _ShardedDecoder(cfg, params, specs, "sharded_prefill")
     cache = _local_cache(core, b, max_len)
+    images = batch["image_embeds"].to(core.cdt) if cfg.family == "vlm" else None
 
     def attention(i, h, a, sa):
         kc, vc = cache["k"][i], cache["v"][i]
-        kind = _cache_kind(core, kc)
         out, (k, v) = core.flash_attention(h, core.attn_weights(a, sa),
-                                           all_kv=kind != "heads", return_kv=True)
-        if kind == "head_dim":
-            d = kc.shape[-1]
-            k, v = (t.narrow(-1, core.lay.coord[core.tp] * d, d) for t in (k, v))
-        kc[:, :s] = k
-        vc[:, :s] = v
-        return out, core.part.tp_parallel
+                                           all_kv=_cache_kind(core, kc) != "heads",
+                                           return_kv=True)
+        _write_kv(core, kc, vc, k, v)
+        return out, core.out_layout(s)
 
-    x = core.hidden(tokens, attention, remat=False)
+    def cross_attention(g, h, a, sa):
+        ik, iv = cache["img_k"][g], cache["img_v"][g]
+        all_kv = _cache_kind(core, ik) != "heads"
+        w = core.attn_weights(a, sa)
+        kv = core.image_kv(w, images, all_kv=all_kv)
+        _write_kv(core, ik, iv, *kv)
+        return core.flash_attention(h, w, all_kv=all_kv, kv=kv), core.out_layout(s)
+
+    x = core.hidden(batch, attention, remat=False, cross_attention=cross_attention)
     cache["cur"].fill_(s)
     if last_only:
         x = x[:, -1:, :]
     return x @ core.head_weight().to(x.dtype), cache
 
 
-def sharded_decode_step(cfg: ModelConfig, params: Dict, specs: Dict, cache: Cache,
-                        batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Cache]:
-    """:meth:`DecodeEngine.decode_step` of the dense family on this rank's
-    shards (as :func:`sharded_prefill` takes them) and its cache shard,
-    updated in place.  ``batch["tokens"]``: this rank's rows (B_local, 1).
-
-    Attention is the plain ``layers.decode_attention`` (the reference's
-    decode is jnp), by the cache's layout: KV heads over TP, this rank's
-    query heads against its KV heads, wo row-parallel and all-reduced; the
-    MHA fallback's head-dim slices, every head's scores partial over the
-    slice, all-reduced over TP before the softmax, this slice of each
-    head's output through wo's matching rows and all-reduced; a cache whole
-    on every TP rank (no TP, or neither the KV heads nor the head dim
-    divide), every head on every TP rank.  Returns ``(logits (B_local, 1,
-    V_local), cache)`` with ``cur`` advanced."""
-    tokens = batch["tokens"]
-    b = tokens.shape[0]
-    cur_all = cache["cur"]
-    core = _ShardedDense(cfg, params, specs, "sharded_decode_step")
-
-    def attention(i, h, a, sa):
-        kc, vc = cache["k"][i], cache["v"][i]
-        kind = _cache_kind(core, kc)
-        cur = cur_all[_rows(core, b)]
-        rows = torch.arange(b, device=h.device)
-        hd = cfg.head_dim
-        if kind == "heads":
-            w = core.attn_weights(a, sa)
-            n_q, n_kv = core.part.q_heads[1], core.part.kv_heads[1]
-        else:
-            w = core.attn_weights(a, sa, whole=True)
-            n_q, n_kv = cfg.num_heads, cfg.num_kv_heads
+def _decode_attention(core: _ShardedDecoder, h: torch.Tensor, a: Dict, sa: Dict,
+                      kc: torch.Tensor, vc: torch.Tensor, lengths: torch.Tensor,
+                      cur: Optional[torch.Tensor] = None):
+    """One token's attention against a layer's cache shard, by its layout:
+    KV heads over TP, this rank's query heads against its KV heads, wo
+    row-parallel; the MHA fallback's head-dim slices, every head's scores
+    partial over the slice, all-reduced over TP before the softmax, this
+    slice of each head's output through wo's matching rows; a cache whole
+    on every TP rank, every head.  ``cur`` (a self layer): q and the new k,
+    v rotated to it and the k, v written there, the first ``lengths``
+    positions attended; without it (a vlm cross layer) q alone, unrotated,
+    against the whole image cache.  Returns the output after wo and its
+    layout over TP (``"partial"`` or ``"whole"``)."""
+    cfg = core.cfg
+    b = h.shape[0]
+    hd = cfg.head_dim
+    kind = _cache_kind(core, kc)
+    w = core.attn_weights(a, sa, whole=kind != "heads")
+    n_q, n_kv = ((core.part.q_heads[1], core.part.kv_heads[1]) if kind == "heads"
+                 else (cfg.num_heads, cfg.num_kv_heads))
+    if cur is not None:
         q, k, v = L.project_qkv(h, w, num_heads=n_q, num_kv_heads=n_kv, head_dim=hd,
                                 qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
                                 rope_theta=cfg.rope_theta, positions=cur[:, None])
-        wo = w["wo"]
-        reduce = None
-        if kind == "head_dim":
-            d = kc.shape[-1]
-            d0 = core.lay.coord[core.tp] * d
-            q, k, v = (t.narrow(-1, d0, d) for t in (q, k, v))
-            wo = wo.reshape(n_q, hd, -1).narrow(1, d0, d).reshape(n_q * d, -1)
-            reduce = functools.partial(core.lay.all_reduce, axes=core.tp)
+    else:
+        q = (h @ w["wq"].to(h.dtype)).reshape(b, 1, n_q, hd)
+        if cfg.qk_norm:
+            q = L.rms_norm(q, w["q_norm"], cfg.norm_eps)
+    wo = w["wo"]
+    reduce = None
+    if kind == "head_dim":
+        d = kc.shape[-1]
+        d0 = core.lay.coord[core.tp] * d
+        q = q.narrow(-1, d0, d)
+        if cur is not None:
+            k, v = k.narrow(-1, d0, d), v.narrow(-1, d0, d)
+        wo = wo.reshape(n_q, hd, -1).narrow(1, d0, d).reshape(n_q * d, -1)
+        reduce = functools.partial(core.lay.all_reduce, axes=core.tp)
+    if cur is not None:
+        rows = torch.arange(b, device=h.device)
         kc[rows, cur] = k[:, 0].to(kc.dtype)
         vc[rows, cur] = v[:, 0].to(vc.dtype)
-        out = L.decode_attention(q, kc, vc, cur + 1, head_dim=hd, reduce_scores=reduce)
-        out = out.reshape(b, 1, -1) @ wo.to(h.dtype)
-        return out, kind != "whole"
+    out = L.decode_attention(q, kc, vc, lengths, head_dim=hd, reduce_scores=reduce)
+    return out.reshape(b, 1, -1) @ wo.to(h.dtype), core._partial(kind != "whole")
 
-    x = core.hidden(tokens, attention, remat=False)
+
+def sharded_decode_step(cfg: ModelConfig, params: Dict, specs: Dict, cache: Cache,
+                        batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Cache]:
+    """:meth:`DecodeEngine.decode_step` of the dense, moe, vlm and audio
+    families on this rank's shards (as :func:`sharded_prefill` takes them)
+    and its cache shard, updated in place.  ``batch``: this rank's rows
+    (B_local, 1) of ``tokens``, or ``frame_embeds`` (B_local, 1, d).
+
+    Attention is the plain ``layers.decode_attention`` (the reference's
+    decode is jnp) on the cache's layout (:func:`_decode_attention`): the
+    self layers write this token's k and v at ``cur``; the vlm cross layers
+    attend to their whole image cache; the moe family routes the step's
+    tokens as groups of one, as the single device does.  Returns ``(logits
+    (B_local, 1, V_local), cache)`` with ``cur`` advanced."""
+    b = _inputs(cfg, batch).shape[0]
+    cur_all = cache["cur"]
+    core = _ShardedDecoder(cfg, params, specs, "sharded_decode_step")
+    cur = cur_all[_rows(core, b)]
+
+    def attention(i, h, a, sa):
+        return _decode_attention(core, h, a, sa, cache["k"][i], cache["v"][i], cur + 1, cur)
+
+    def cross_attention(g, h, a, sa):
+        ik = cache["img_k"][g]
+        n_img = torch.full((b,), ik.shape[1], dtype=torch.int32, device=h.device)
+        return _decode_attention(core, h, a, sa, ik, cache["img_v"][g], n_img)
+
+    x = core.hidden(batch, attention, remat=False, cross_attention=cross_attention)
     cache["cur"] = cur_all + 1
     return x @ core.head_weight().to(x.dtype), cache

@@ -80,13 +80,16 @@ def greedy_generate(engine: DecodeEngine, tokens: Optional[torch.Tensor], gen: i
 
 @torch.inference_mode()
 def sharded_greedy_generate(cfg, params, specs, tokens: torch.Tensor, gen: int, *,
-                            max_len: Optional[int] = None) -> Generation:
-    """:func:`greedy_generate` of the dense family over a mesh, inside
-    ``activation_sharding``: ``sharded_prefill`` and ``sharded_decode_step``
-    on this rank's parameter slices (``params`` laid out by ``specs``) and
-    its rows of the prompt ``tokens`` (B_local, P).  Each step's logits are
-    gathered over the vocabulary's TP slices before the argmax, so every TP
-    rank picks the same tokens; ``logits`` holds those whole rows."""
+                            max_len: Optional[int] = None,
+                            image_embeds: Optional[torch.Tensor] = None) -> Generation:
+    """:func:`greedy_generate` of the dense, moe and vlm families over a
+    mesh, inside ``activation_sharding``: ``sharded_prefill`` and
+    ``sharded_decode_step`` on this rank's parameter slices (``params`` laid
+    out by ``specs``) and its rows of the prompt ``tokens`` (B_local, P) and,
+    for the vlm family, of ``image_embeds`` (B_local, n_img, d), which the
+    prefill puts into the cache.  Each step's logits are gathered over the
+    vocabulary's TP slices before the argmax, so every TP rank picks the
+    same tokens; ``logits`` holds those whole rows."""
     from repro_torch.distributed.sharding import current_context
     from repro_torch.models.decode import sharded_decode_step, sharded_prefill
 
@@ -98,10 +101,13 @@ def sharded_greedy_generate(cfg, params, specs, tokens: torch.Tensor, gen: int, 
         return logits[:, -1]
 
     p = tokens.shape[1]
+    batch = {"tokens": tokens}
+    if image_embeds is not None:
+        batch["image_embeds"] = image_embeds
     _sync(tokens.device)
     t0 = time.perf_counter()
-    logits, cache = sharded_prefill(cfg, params, specs, {"tokens": tokens},
-                                    max_len=max_len or p + gen, last_only=True)
+    logits, cache = sharded_prefill(cfg, params, specs, batch, max_len=max_len or p + gen,
+                                    last_only=True)
     step_logits = [whole(logits)]
     tok = step_logits[-1][:, None].argmax(dim=-1).to(torch.int32)
     _sync(tokens.device)

@@ -27,7 +27,7 @@ KV heads it computed when the kernel's own GQA grouping does not).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -84,21 +84,23 @@ class _Flash(torch.autograd.Function):
     lse), the backward recomputes p from lse block by block."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, q_chunk, kv_chunk, triangle):
+    def forward(ctx, q, k, v, causal, q_chunk, kv_chunk, triangle, q_offset):
         out, lse = ops.flash_attention(q, k, v, causal=causal, q_chunk=q_chunk,
-                                       kv_chunk=kv_chunk, triangle=triangle, return_lse=True)
+                                       kv_chunk=kv_chunk, triangle=triangle, return_lse=True,
+                                       q_offset=q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.schedule = (causal, q_chunk, kv_chunk, triangle)
+        ctx.schedule = (causal, q_chunk, kv_chunk, triangle, q_offset)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        causal, q_chunk, kv_chunk, triangle = ctx.schedule
+        causal, q_chunk, kv_chunk, triangle, q_offset = ctx.schedule
         dq, dk, dv = ops.flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
                                              causal=causal, q_chunk=q_chunk,
-                                             kv_chunk=kv_chunk, triangle=triangle)
-        return dq, dk, dv, None, None, None, None
+                                             kv_chunk=kv_chunk, triangle=triangle,
+                                             q_offset=q_offset)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(
@@ -110,6 +112,7 @@ def flash_attention(
     q_chunk: int = 512,
     kv_chunk: int = 512,
     triangle_schedule: bool = False,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """Blockwise attention with a FlashAttention-style backward.
 
@@ -121,11 +124,14 @@ def flash_attention(
     128, and always skips the blocks above the diagonal).  Under
     ``torch.no_grad()`` / ``inference_mode``, or when no input needs grad,
     this is the forward alone: nothing is saved and no lse is written.
+    ``q_offset``: query row i sits at position ``q_offset + i`` for the
+    causal mask, keys at 0 on (a slice of the q sequence against the whole
+    K and V).
     """
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return _Flash.apply(q, k, v, causal, q_chunk, kv_chunk, triangle_schedule)
+        return _Flash.apply(q, k, v, causal, q_chunk, kv_chunk, triangle_schedule, q_offset)
     return ops.flash_attention(q, k, v, causal=causal, q_chunk=q_chunk,
-                               kv_chunk=kv_chunk, triangle=triangle_schedule)
+                               kv_chunk=kv_chunk, triangle=triangle_schedule, q_offset=q_offset)
 
 
 def decode_attention(
@@ -180,6 +186,8 @@ def attention_block(
     triangle_schedule: bool = False,
     kv_index: Optional[Tuple[int, ...]] = None,
     return_kv: bool = False,
+    q_rows: Optional[Tuple[int, int]] = None,
+    gather_kv: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ):
     """Self-attention (or cross-attention when ``kv_override`` is given).
 
@@ -190,18 +198,26 @@ def attention_block(
     ``return_kv``: also return the k and v attended (B, S, KV, hd), after
     the qk-norm and RoPE and before ``kv_index``'s expansion (the prefill
     writes them into its cache).
+    ``q_rows=(first, count)``: only those rows of ``x`` are queries (the
+    ``q_sequence`` split), against the keys of every row of ``x`` (causal,
+    ``first`` the kernel's query offset) or of ``kv_override``; the output
+    has ``count`` rows.  ``gather_kv``: ``params`` hold a slice of wk's and
+    wv's columns, and this makes the whole k and v projections from their
+    slices' (the sharded layer's all-gather, before the qk-norm and RoPE).
     """
     b, s, _ = x.shape
     h, hd = num_heads, head_dim
+    r0, n = q_rows if q_rows is not None else (0, s)
     if kv_override is None:
         if positions is None:
             positions = torch.arange(s, device=x.device)[None, :]
         q, k, v = project_qkv(x, params, num_heads=h, num_kv_heads=num_kv_heads,
                               head_dim=hd, qk_norm=qk_norm, norm_eps=norm_eps,
-                              rope_theta=rope_theta, positions=positions)
+                              rope_theta=rope_theta, positions=positions, q_rows=q_rows,
+                              gather_kv=gather_kv)
         causal = True
     else:
-        q = (x @ params["wq"].to(x.dtype)).reshape(b, s, h, hd)
+        q = (x.narrow(1, r0, n) @ params["wq"].to(x.dtype)).reshape(b, n, h, hd)
         k, v = kv_override
         if qk_norm:
             q = rms_norm(q, params["q_norm"], norm_eps)
@@ -212,22 +228,32 @@ def attention_block(
         index = torch.tensor(kv_index, device=k.device)
         k, v = k.index_select(2, index), v.index_select(2, index)
     out = flash_attention(q, k, v, causal=causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
-                          triangle_schedule=triangle_schedule)
-    out = out.reshape(b, s, h * hd) @ params["wo"].to(x.dtype)
+                          triangle_schedule=triangle_schedule, q_offset=r0 if causal else 0)
+    out = out.reshape(b, n, h * hd) @ params["wo"].to(x.dtype)
     return (out, cached) if return_kv else out
 
 
 def project_qkv(x: torch.Tensor, params: dict, *, num_heads: int, num_kv_heads: int,
                 head_dim: int, qk_norm: bool, norm_eps: float, rope_theta: float,
-                positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                positions: torch.Tensor, q_rows: Optional[Tuple[int, int]] = None,
+                gather_kv: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q (B, S, H, hd), k and v (B, S, KV, hd) of the normed input ``x``:
     projected, qk-normed and rotated to ``positions`` (broadcastable to
-    (B, S))."""
+    (B, S)).  ``q_rows=(first, count)``: q of those rows only (B, count, H,
+    hd), rotated to their positions.  ``gather_kv``: as
+    :func:`attention_block` takes it."""
     b, s, _ = x.shape
-    q = (x @ params["wq"].to(x.dtype)).reshape(b, s, num_heads, head_dim)
-    k = (x @ params["wk"].to(x.dtype)).reshape(b, s, num_kv_heads, head_dim)
-    v = (x @ params["wv"].to(x.dtype)).reshape(b, s, num_kv_heads, head_dim)
+    xq, pq = x, positions
+    if q_rows is not None:
+        xq, pq = x.narrow(1, *q_rows), positions.narrow(-1, *q_rows)
+    q = (xq @ params["wq"].to(x.dtype)).reshape(b, xq.shape[1], num_heads, head_dim)
+    k, v = (x @ params["wk"].to(x.dtype)), (x @ params["wv"].to(x.dtype))
+    if gather_kv is not None:
+        k, v = gather_kv(k), gather_kv(v)
+    k = k.reshape(b, s, num_kv_heads, head_dim)
+    v = v.reshape(b, s, num_kv_heads, head_dim)
     if qk_norm:
         q = rms_norm(q, params["q_norm"], norm_eps)
         k = rms_norm(k, params["k_norm"], norm_eps)
-    return apply_rope(q, positions, rope_theta), apply_rope(k, positions, rope_theta), v
+    return apply_rope(q, pq, rope_theta), apply_rope(k, positions, rope_theta), v

@@ -36,13 +36,15 @@ card unless the caller passes ``device="cpu"``.
 
 Sharding: :func:`param_specs` (and ``Model.param_specs``) is the
 reference's rule set, a pure function of the config's shapes for every
-family; :func:`sharded_loss` is the dense family's loss on one rank's
-shards of the parameters and the batch, Megatron style, for
+family; :func:`sharded_loss` is the loss of the dense, moe, vlm and audio
+families on one rank's shards of the parameters and the batch, Megatron
+style (experts parallel over TP, attention over heads or, where neither
+the KV nor the q heads divide TP, over the q sequence), for
 ``repro_torch.train.step.sharded_train_step``, and ``models/decode.py``'s
 ``sharded_prefill`` / ``sharded_decode_step`` serve from the same shards,
-all through :class:`_ShardedDense`'s one copy of the layer.  The other
-families' sharded step and serving (expert parallelism, the SSD head
-sharding, the cross blocks) are ROADMAP Queue 1 item 11c.
+all through :class:`_ShardedDecoder`'s one copy of the layer.  The ssm and
+hybrid families over a mesh (the SSD heads over TP, their caches, the
+shared block) are ROADMAP Queue 1 item 11c's second half.
 """
 
 from __future__ import annotations
@@ -469,9 +471,11 @@ def _per_layer(stack: nn.Module) -> list:
 _STACKED = ("blocks", "cross_blocks", "shared_attn")
 _COLUMN = ("wq", "wk", "wv", "w_gate", "w_up", "w_z", "w_x", "w_b", "w_c", "w_dt")
 _ROW = ("wo", "w_down", "w_out")
+SHARDED_FAMILIES = ("dense", "moe", "vlm", "audio")
 OTHER_FAMILIES = ("the sharded step and serving of the {} family wait for ROADMAP Queue 1 "
-                  "item 11c: the other families over a mesh (expert parallelism, the SSD head "
-                  "sharding, the cross blocks)")
+                  "item 11c: the ssm and hybrid families over a mesh (the SSD heads over TP, "
+                  "the gated norm reduced over TP, the conv and SSM cache shards, the hybrid's "
+                  "shared block)")
 
 
 def param_specs(cfg: ModelConfig, mesh, fsdp: Tuple[str, ...] = ("pod", "data"),
@@ -552,11 +556,11 @@ def _flat(tree: Dict, prefix: str = "") -> list:
     return out
 
 
-class _ShardedDense:
-    """The dense family's decoder on this rank's shards, inside
-    :func:`~repro_torch.distributed.sharding.activation_sharding` over a
-    ``DeviceMesh``: the one copy of the sharded layer that the loss and the
-    serving functions share.
+class _ShardedDecoder:
+    """The decoder of the dense, moe, vlm and audio families on this rank's
+    shards, inside :func:`~repro_torch.distributed.sharding.activation_sharding`
+    over a ``DeviceMesh``: the one copy of the sharded layer that the loss and
+    the serving functions share.
 
     ``params``: this rank's slices of the parameter tree, laid out by
     ``specs`` (:func:`param_specs`).  Megatron style on local shards: each
@@ -568,15 +572,27 @@ class _ShardedDense:
     reduce-scatters the gradient, summed in the parameter type); q/k/v and
     gate/up are column-parallel over the TP axis and wo and down
     row-parallel, their partial outputs all-reduced over it.  Attention
-    follows :func:`~repro_torch.distributed.sharding.attn_partition` (the
-    caller's ``attention`` picks the heads).  The MLP is column / row
-    parallel when d_ff divides TP, else replicated.  The embedding and the
-    head are vocab-parallel when the vocabulary divides TP (each rank looks
-    up and scores its vocab slice), else gathered whole.  Under
-    ``seq_parallel`` the residual's sequence is sharded over TP between
-    blocks where it divides: each block all-gathers it before its norm and
-    reduce-scatters its partial output (a replicated output is sliced), and
-    the final norm sees the whole sequence again."""
+    follows :func:`~repro_torch.distributed.sharding.attn_partition`: the
+    heads over TP, or (``q_sequence``) this rank's q rows against the whole
+    K and V, the rows all-gathered after wo (the caller's ``attention``
+    picks them).  The MLP is column / row parallel when d_ff divides TP,
+    else replicated.  The embedding and the head are vocab-parallel when the
+    vocabulary divides TP (each rank looks up and scores its vocab slice),
+    else gathered whole; a frame-input model (audio) takes ``frame_embeds``
+    in place of the embedding.  The moe family's experts are parallel over
+    TP when E divides it (every rank routes every token of its rows and runs
+    its E / TP experts' kept choices, the float32 partial outputs summed
+    over TP; the routing statistics averaged over the batch axes, so the
+    aux metrics are the global batch's, :attr:`aux`), arctic's dense MLP
+    beside them column / row parallel.  The vlm family's cross blocks (q
+    from the text, k and v from this rank's rows of the image embeddings,
+    heads per ``attn_partition``, non-causal; the MLP column / row parallel;
+    the tanh gate as it is) run outside remat after every
+    ``cross_attn_every`` self layers.  Under ``seq_parallel`` the residual's
+    sequence is sharded over TP between blocks where it divides: each block
+    all-gathers it before its norm and reduce-scatters its partial output
+    (a replicated output is sliced, a ``q_sequence`` output is already this
+    rank's rows), and the final norm sees the whole sequence again."""
 
     def __init__(self, cfg: ModelConfig, params: Dict, specs: Dict, what: str):
         from repro_torch.distributed.sharding import (AttnPartition, attn_partition, constrain,
@@ -585,22 +601,29 @@ class _ShardedDense:
         ctx = current_context()
         if ctx is None or ctx.layout is None:
             raise RuntimeError(f"{what} runs inside activation_sharding over a DeviceMesh")
-        if cfg.family != "dense":
+        if cfg.family not in SHARDED_FAMILIES:
             raise NotImplementedError(OTHER_FAMILIES.format(cfg.family))
         self.cfg, self.params, self.specs, self.ctx = cfg, params, specs, ctx
         self.lay, self.tp = ctx.layout, ctx.tp
         self.cdt = dtype_of(cfg.dtype)
+        # Without a TP axis one rank holds every head: the heads case at TP 1.
         self.part = attn_partition(cfg.num_heads, cfg.num_kv_heads) or AttnPartition(
-            "replicated", (0, cfg.num_heads), (0, cfg.num_kv_heads))
+            "heads", (0, cfg.num_heads), (0, cfg.num_kv_heads))
         self.mlp_tp = constrain((cfg.d_ff,), ("tp",))[0] is not None
         self.vocab_tp = constrain((cfg.vocab_size,), ("tp",))[0] is not None
+        self.moe_tp = (cfg.family == "moe"
+                       and constrain((cfg.num_experts,), ("tp",))[0] is not None)
         self.emb = None
+        self.aux: dict = {}
 
     def use(self, t, spec, keep=(), cast=False):
         """``t`` (a slice laid out by ``spec``) gathered along every sharded
         dim but those in ``keep``, which stay sharded over TP; with ``cast``
         in the compute type (cast before the last gather, so the gradients
-        are still summed in the parameter type)."""
+        are still summed in the parameter type).  Axes of one rank gather
+        nothing, and a leaf that moves nowhere is not cast here: its users
+        cast it where they read it, as the unsharded model does (the moe
+        family's expert stacks one expert at a time)."""
         from repro_torch.distributed.sharding import entry_axes
 
         gathers = []
@@ -608,7 +631,7 @@ class _ShardedDense:
             if d in keep:
                 if e is None and self.ctx.tp_size > 1:
                     raise ValueError(f"dim {d} of a {spec} leaf is not sharded over {self.tp}")
-            elif entry_axes(e):
+            elif entry_axes(e) and self.lay.size(entry_axes(e)) > 1:
                 gathers.append((d, entry_axes(e)))
         for i, (d, axes) in enumerate(gathers):
             t = self.lay.gather(t, d, axes,
@@ -618,10 +641,17 @@ class _ShardedDense:
     def attn_weights(self, a: Dict, sa: Dict, *, whole: bool = False) -> Dict:
         """A layer's attention weights for this rank: q's columns and wo's
         rows of its heads, k's and v's of its KV heads in the ``heads``
-        case and every KV head's otherwise; ``whole``: every head."""
+        case and every KV head's otherwise; in the ``q_sequence`` case every
+        head, k's and v's columns this rank's slice where they divide TP
+        (the reference's layout: each rank projects its slice of k and v,
+        and :meth:`flash_attention` all-gathers them); ``whole``: every
+        head, whole."""
+        from repro_torch.distributed.sharding import entry_axes
+
         part = self.part
         heads_tp = part.tp_parallel and not whole
-        kv_tp = part.case == "heads" and not whole
+        kv_tp = not whole and (part.case == "heads" or (
+            part.case == "q_sequence" and self.tp in entry_axes(tuple(sa["wk"])[1])))
         q_cols = (1,) if heads_tp else ()
         kv_cols = (1,) if kv_tp else ()
         w = {"wq": self.use(a["wq"], sa["wq"], q_cols, cast=True),
@@ -633,71 +663,158 @@ class _ShardedDense:
                 w[norm] = self.use(a[norm], sa[norm])
         return w
 
+    def out_layout(self, seq: int) -> str:
+        """How :meth:`flash_attention`'s output after wo lies over TP for a
+        sequence of ``seq`` q rows: ``"partial"`` (head-parallel, to be
+        summed), ``"rows"`` (this rank's q rows, ``q_sequence``) or
+        ``"whole"``."""
+        if self.part.tp_parallel:
+            return "partial"
+        return "rows" if self.part.q_rows(seq) else "whole"
+
     def _seq_slice(self, x: torch.Tensor) -> torch.Tensor:
         n = x.shape[1] // self.ctx.tp_size
         return x.narrow(1, self.lay.coord[self.tp] * n, n)
 
-    def _combine(self, h: torch.Tensor, partial: bool, sp: bool) -> torch.Tensor:
-        """A block's output into the residual's layout: partial outputs
-        summed over TP (reduce-scattered along the sequence under SP)."""
-        if partial and self.ctx.tp_size > 1:
+    def _combine(self, h: torch.Tensor, layout: str, sp: bool) -> torch.Tensor:
+        """A block's output into the residual's layout: ``"partial"``
+        outputs summed over TP (reduce-scattered along the sequence under
+        SP), ``"rows"`` all-gathered along the sequence (kept under SP, the
+        residual's own slice), ``"whole"`` as it is (sliced under SP)."""
+        if self.ctx.tp_size > 1 and layout == "partial":
             return self.lay.psum_scatter(h, 1, self.tp) if sp else self.lay.psum(h, self.tp)
+        if self.ctx.tp_size > 1 and layout == "rows":
+            return h if sp else self.lay.gather(h, 1, self.tp)
         return self._seq_slice(h) if sp else h
 
-    def hidden(self, tokens: torch.Tensor, attention, *, remat: bool) -> torch.Tensor:
-        """The vocab-parallel embedding of ``tokens`` (this rank's rows, the
-        same on every TP rank), the layers and the final norm: (B, S, d) in
-        the compute type, whole on every TP rank.  ``attention(i, h, a, sa)``
-        runs layer i's attention on its normed input ``h`` (whole sequence)
-        with its weight slices ``a`` laid out by ``sa``, and returns the
-        output after wo and whether it is partial over TP."""
+    def _batch_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean over the batch axes (its adjoint under autograd): the
+        routing statistics of the global batch from each rank's rows."""
+        axes = self.ctx.batch_axes
+        n = self.lay.size(axes) if axes else 1
+        return self.lay.psum(t, axes) / n if n > 1 else t
+
+    @staticmethod
+    def _partial(split: bool) -> str:
+        return "partial" if split else "whole"
+
+    def _mlp(self, h: torch.Tensor, m: Dict, sm: Dict) -> torch.Tensor:
+        """SwiGLU on normed ``h``, column / row parallel when d_ff divides
+        TP (the output then partial over TP)."""
+        cols, rows = ((1,), (0,)) if self.mlp_tp else ((), ())
+        return L.swiglu(h, self.use(m["w_gate"], sm["w_gate"], cols, cast=True),
+                        self.use(m["w_up"], sm["w_up"], cols, cast=True),
+                        self.use(m["w_down"], sm["w_down"], rows, cast=True))
+
+    def _experts(self, h: torch.Tensor, blk: Dict, lspec: Dict, sp: bool):
+        """The moe family's MLP on normed ``h`` (whole sequence), in the
+        residual's layout: this rank's experts (all of them when E does not
+        divide TP) and arctic's dense MLP.  Returns (output, aux metrics of
+        the global batch)."""
+        cfg = self.cfg
+        m, sm = blk["moe"], lspec["moe"]
+        keep = (0,) if self.moe_tp else ()
+        params = {"router": self.use(m["router"], sm["router"])}
+        for name in ("w_gate", "w_up", "w_down"):
+            params[name] = self.use(m[name], sm[name], keep, cast=True)
+        n = params["w_gate"].shape[0]
+        out, aux = moe_lib.moe_block(
+            h, params, num_experts=cfg.num_experts, k=cfg.experts_per_token,
+            capacity_factor=cfg.capacity_factor,
+            experts=(self.lay.coord[self.tp] * n, n) if self.moe_tp else None,
+            # Serving reads no aux metric: its statistics stay local.
+            reduce=self._batch_mean if torch.is_grad_enabled() else None)
+        out = self._combine(out, self._partial(self.moe_tp), sp).to(self.cdt)
+        if cfg.dense_residual:
+            out = out + self._combine(self._mlp(h, blk["dense_mlp"], lspec["dense_mlp"]),
+                                      self._partial(self.mlp_tp), sp)
+        return out, aux
+
+    def hidden(self, batch: Dict[str, torch.Tensor], attention, *, remat: bool,
+               cross_attention=None) -> torch.Tensor:
+        """The first layer's input of this rank's rows of ``batch`` (the
+        vocab-parallel embedding of ``tokens``, or ``frame_embeds``; the same
+        on every TP rank), the layers and the final norm: (B, S, d) in the
+        compute type, whole on every TP rank.  ``attention(i, h, a, sa)``
+        runs self layer i's attention on its normed input ``h`` (whole
+        sequence) with its weight slices ``a`` laid out by ``sa``, and
+        returns the output after wo and its layout over TP (``"partial"``,
+        ``"rows"`` or ``"whole"``, :meth:`_combine`);
+        ``cross_attention(g, h, a, sa)`` likewise for the vlm family's
+        cross layer g.  The moe family's aux metrics (the layers' mean) are
+        left in :attr:`aux`."""
         from repro_torch.distributed.sharding import P
 
         cfg, lay, tp = self.cfg, self.lay, self.tp
         params, specs = self.params, self.specs
-        # Without a gradient to keep in the parameter type (serving), the
-        # embedding moves in the compute type: a lookup and its cast commute.
-        serving = not (torch.is_grad_enabled() and params["embed"].requires_grad)
-        emb = self.use(params["embed"], specs["embed"], (0,) if self.vocab_tp else (),
-                       cast=serving)
-        self.emb = emb
-        tokens = tokens.long()
-        if self.vocab_tp:
-            local = tokens - lay.coord[tp] * emb.shape[0]
-            inside = (local >= 0) & (local < emb.shape[0])
-            x = torch.where(inside[..., None], emb[local.clamp(0, emb.shape[0] - 1)], 0.0)
-            x = lay.psum(x, tp).to(self.cdt)
+        if cfg.frame_inputs:
+            x = batch["frame_embeds"].to(self.cdt)
         else:
-            x = emb[tokens].to(self.cdt)
+            # Without a gradient to keep in the parameter type (serving), the
+            # embedding moves in the compute type: a lookup and its cast commute.
+            serving = not (torch.is_grad_enabled() and params["embed"].requires_grad)
+            emb = self.use(params["embed"], specs["embed"], (0,) if self.vocab_tp else (),
+                           cast=serving)
+            self.emb = emb
+            tokens = batch["tokens"].long()
+            if self.vocab_tp:
+                local = tokens - lay.coord[tp] * emb.shape[0]
+                inside = (local >= 0) & (local < emb.shape[0])
+                x = torch.where(inside[..., None], emb[local.clamp(0, emb.shape[0] - 1)], 0.0)
+                x = lay.psum(x, tp).to(self.cdt)
+            else:
+                x = emb[tokens].to(self.cdt)
         sp = (self.ctx.seq_parallel and self.ctx.tp_size > 1
               and x.shape[1] % self.ctx.tp_size == 0)
         if sp:
             x = self._seq_slice(x)
 
-        def layer(x, blk, lspec, i):
+        def norm(x, scale, spec):
             xin = lay.gather(x, 1, tp) if sp else x
-            h, partial = attention(
-                i, L.rms_norm(xin, self.use(blk["attn_norm"], lspec["attn_norm"]), cfg.norm_eps),
-                blk["attn"], lspec["attn"])
-            x = x + self._combine(h, partial, sp)
-            m, sm = blk["mlp"], lspec["mlp"]
-            cols, rows = ((1,), (0,)) if self.mlp_tp else ((), ())
-            xin = lay.gather(x, 1, tp) if sp else x
-            h = L.swiglu(
-                L.rms_norm(xin, self.use(blk["mlp_norm"], lspec["mlp_norm"]), cfg.norm_eps),
-                self.use(m["w_gate"], sm["w_gate"], cols, cast=True),
-                self.use(m["w_up"], sm["w_up"], cols, cast=True),
-                self.use(m["w_down"], sm["w_down"], rows, cast=True))
-            return x + self._combine(h, self.mlp_tp, sp)
+            return L.rms_norm(xin, self.use(scale, spec), cfg.norm_eps)
 
-        parts = {name: leaf.unbind(0) for name, leaf in _flat(params["blocks"])}
-        lspecs = nest((name, P(*tuple(sp_)[1:])) for name, sp_ in _flat(specs["blocks"]))
-        for i in range(cfg.num_layers):
-            blk = nest((name, views[i]) for name, views in parts.items())
+        def layer(x, blk, lspec, i):
+            h, out = attention(i, norm(x, blk["attn_norm"], lspec["attn_norm"]), blk["attn"],
+                               lspec["attn"])
+            x = x + self._combine(h, out, sp)
+            h = norm(x, blk["mlp_norm"], lspec["mlp_norm"])
+            if "moe" in blk:
+                out, aux = self._experts(h, blk, lspec, sp)
+                return x + out, aux
+            return x + self._combine(self._mlp(h, blk["mlp"], lspec["mlp"]),
+                                     self._partial(self.mlp_tp), sp)
+
+        def cross_layer(x, cblk, cspec, g):
+            gate = torch.tanh(self.use(cblk["gate"], cspec["gate"])).to(x.dtype)
+            h, out = cross_attention(g, norm(x, cblk["attn_norm"], cspec["attn_norm"]),
+                                     cblk["attn"], cspec["attn"])
+            x = x + gate * self._combine(h, out, sp)
+            h = norm(x, cblk["mlp_norm"], cspec["mlp_norm"])
+            return x + gate * self._combine(self._mlp(h, cblk["mlp"], cspec["mlp"]),
+                                            self._partial(self.mlp_tp), sp)
+
+        def per_layer(stack: str):
+            parts = {name: leaf.unbind(0) for name, leaf in _flat(params[stack])}
+            lspecs = nest((name, P(*tuple(sp_)[1:])) for name, sp_ in _flat(specs[stack]))
+            n = len(next(iter(parts.values())))
+            return [nest((name, views[i]) for name, views in parts.items())
+                    for i in range(n)], lspecs
+
+        blocks, lspecs = per_layer("blocks")
+        cross, cspecs = per_layer("cross_blocks") if cfg.family == "vlm" else ([], None)
+        aux: dict = {}
+        for i, blk in enumerate(blocks):
             if remat:
                 x = checkpoint(layer, x, blk, lspecs, i, use_reentrant=False)
             else:
                 x = layer(x, blk, lspecs, i)
+            if isinstance(x, tuple):
+                x, layer_aux = x
+                aux = {k: aux.get(k, 0.0) + v.float() for k, v in layer_aux.items()}
+            if cross and (i + 1) % cfg.cross_attn_every == 0:
+                g = i // cfg.cross_attn_every
+                x = cross_layer(x, cross[g], cspecs, g)
+        self.aux = {k: v / len(blocks) for k, v in aux.items()}
         if sp:
             x = lay.gather(x, 1, tp)
         return L.rms_norm(x, self.use(params["final_norm"], specs["final_norm"]), cfg.norm_eps)
@@ -706,80 +823,121 @@ class _ShardedDense:
         """The output projection's columns of this rank's vocab slice (or
         all of them), after :meth:`hidden`."""
         if self.cfg.tie_embeddings:
+            if self.emb is None:   # a frame-input model with a tied head
+                self.emb = self.use(self.params["embed"], self.specs["embed"],
+                                    (0,) if self.vocab_tp else (), cast=True)
             return self.emb.T
         return self.use(self.params["lm_head"], self.specs["lm_head"],
                         (1,) if self.vocab_tp else (), cast=True)
 
+    def image_kv(self, w: Dict, images: torch.Tensor, *, all_kv: bool = False):
+        """A cross layer's k and v (B, n_img, KV_local, hd) of this rank's
+        rows of the image embeddings, for the KV heads :meth:`flash_attention`
+        reads (every KV head in ``all_kv`` or when ``w`` holds them all; in
+        the ``q_sequence`` case all-gathered from each rank's columns)."""
+        cfg = self.cfg
+        wk, wv = w["wk"], w["wv"]
+        if self.part.case == "q_heads" and not all_kv:
+            lo, n = self.part.kv_heads
+            kv = slice(lo * cfg.head_dim, (lo + n) * cfg.head_dim)
+            wk, wv = wk[:, kv], wv[:, kv]
+        b, n_img = images.shape[:2]
+        proj = [images @ t.to(images.dtype) for t in (wk, wv)]
+        if self.part.case == "q_sequence" and wk.shape[1] < cfg.num_kv_heads * cfg.head_dim:
+            proj = [self.lay.gather(t, 2, self.tp) for t in proj]   # this rank's columns
+        return tuple(t.reshape(b, n_img, -1, cfg.head_dim) for t in proj)
+
     def flash_attention(self, h: torch.Tensor, w: Dict, *, triangle: bool = False,
-                        all_kv: bool = False, return_kv: bool = False):
-        """Self-attention on this rank's heads through the flash kernel:
-        ``attention_block`` on its q heads and the KV heads they read (the
-        weights of :meth:`attn_weights`).  ``all_kv``: in the ``q_heads``
-        case compute every KV head (the cache holds them all) and map each
-        query head to its own; ``return_kv`` also returns the k, v computed."""
+                        all_kv: bool = False, return_kv: bool = False,
+                        kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        """Attention on this rank's heads (or, ``q_sequence``, its q rows)
+        through the flash kernel: ``attention_block`` on its q heads and the
+        KV heads they read (the weights of :meth:`attn_weights`).
+        ``all_kv``: in the ``q_heads`` case compute every KV head (the cache
+        holds them all) and map each query head to its own; ``return_kv``
+        also returns the k, v computed; ``kv``: a cross layer's k and v
+        (:meth:`image_kv`, non-causal).  The output's layout over TP is
+        :meth:`out_layout`'s."""
         cfg, part = self.cfg, self.part
         n_kv, kv_index = part.kv_heads[1], part.kv_index
+        gather_kv = None
+        if part.case == "q_sequence" and w["wk"].shape[1] < n_kv * cfg.head_dim:
+            def gather_kv(t):   # the whole k or v projection from the TP slices
+                return self.lay.gather(t, 2, self.tp)
         if part.case == "q_heads":
             if all_kv:
                 group = cfg.num_heads // cfg.num_kv_heads
                 first = part.q_heads[0]
                 n_kv = cfg.num_kv_heads
                 kv_index = tuple((first + j) // group for j in range(part.q_heads[1]))
-            else:   # only the KV heads this rank's query heads read
+            elif kv is None:   # only the KV heads this rank's query heads read
                 lo, n = part.kv_heads
-                kv = slice(lo * cfg.head_dim, (lo + n) * cfg.head_dim)
-                w = dict(w, wk=w["wk"][:, kv], wv=w["wv"][:, kv])
+                cols = slice(lo * cfg.head_dim, (lo + n) * cfg.head_dim)
+                w = dict(w, wk=w["wk"][:, cols], wv=w["wv"][:, cols])
         return L.attention_block(
             h, w, num_heads=part.q_heads[1], num_kv_heads=n_kv, head_dim=cfg.head_dim,
             rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
-            triangle_schedule=triangle, kv_index=kv_index, return_kv=return_kv)
+            kv_override=kv, triangle_schedule=triangle, kv_index=kv_index,
+            return_kv=return_kv, q_rows=part.q_rows(h.shape[1]), gather_kv=gather_kv)
 
 
-def sharded_hidden(cfg: ModelConfig, params: Dict, specs: Dict, tokens: torch.Tensor, *,
-                   triangle: bool = False) -> Tuple[torch.Tensor, _ShardedDense]:
-    """The dense family's final hidden states (B, S, d) of this rank's rows
-    of ``tokens``, whole on every TP rank, and the :class:`_ShardedDense`
-    that ran them (its :meth:`~_ShardedDense.head_weight` is the output
-    projection's slice): the vocab-parallel embedding, the layers with
-    attention through the flash kernel on this rank's heads, and the final
-    norm (:meth:`_ShardedDense.hidden`, which the serving functions of
-    ``models/decode.py`` run with their own attention).  Layers run under
-    remat when ``cfg.remat`` and grad mode are on."""
-    core = _ShardedDense(cfg, params, specs, "sharded_hidden")
+def sharded_hidden(cfg: ModelConfig, params: Dict, specs: Dict, batch: Dict[str, torch.Tensor],
+                   *, triangle: bool = False) -> Tuple[torch.Tensor, _ShardedDecoder]:
+    """The final hidden states (B, S, d) of this rank's rows of ``batch``
+    (tokens or frame_embeds, and the vlm family's image_embeds), whole on
+    every TP rank, and the :class:`_ShardedDecoder` that ran them (its
+    :meth:`~_ShardedDecoder.head_weight` is the output projection's slice,
+    its ``aux`` the moe family's metrics): the input, the layers with
+    attention through the flash kernel on this rank's heads or q rows, and
+    the final norm (:meth:`_ShardedDecoder.hidden`, which the serving
+    functions of ``models/decode.py`` run with their own attention).  Self
+    layers run under remat when ``cfg.remat`` and grad mode are on."""
+    core = _ShardedDecoder(cfg, params, specs, "sharded_hidden")
+    images = batch["image_embeds"].to(core.cdt) if cfg.family == "vlm" else None
 
     def attention(i, h, a, sa):
         return (core.flash_attention(h, core.attn_weights(a, sa), triangle=triangle),
-                core.part.tp_parallel)
+                core.out_layout(h.shape[1]))
 
-    x = core.hidden(tokens, attention, remat=cfg.remat and torch.is_grad_enabled())
+    def cross_attention(g, h, a, sa):
+        w = core.attn_weights(a, sa)
+        return (core.flash_attention(h, w, kv=core.image_kv(w, images)),
+                core.out_layout(h.shape[1]))
+
+    x = core.hidden(batch, attention, remat=cfg.remat and torch.is_grad_enabled(),
+                    cross_attention=cross_attention)
     return x, core
 
 
 def sharded_loss(cfg: ModelConfig, params: Dict, specs: Dict, batch: Dict[str, torch.Tensor],
-                 *, count: torch.Tensor, triangle: bool = False
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The dense family's next-token loss on this rank's shards, inside
+                 *, count: torch.Tensor, triangle: bool = False,
+                 metrics: Optional[dict] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The next-token loss of the dense, moe, vlm and audio families on this
+    rank's shards, inside
     :func:`~repro_torch.distributed.sharding.activation_sharding` over a
     ``DeviceMesh`` (the counterpart of :meth:`Model.loss` under the
     reference's ``jit_train_step``).
 
     ``params``: this rank's slices of the parameter tree, laid out by
-    ``specs`` (:func:`param_specs`); ``batch``: this rank's rows (tokens,
-    labels, optional loss_mask), the same on every TP rank; ``count``: the
-    number of counted tokens in the global batch.  The layers are
-    :func:`sharded_hidden`'s; the flash kernels
-    run on the local heads: head-parallel when the KV heads divide TP, q
-    head-parallel with this rank's KV heads computed from the gathered wk /
-    wv when only the q heads do, and replicated over the TP group when
-    neither does (the reference shards the q sequence there; the kernel
-    takes no causal offset, item 11c).  Vocab-parallel, the
-    cross-entropy's max, sum of exponentials and gold logit are reduced
-    over TP, as the reference constrains the logits to (batch, None, tp).
+    ``specs`` (:func:`param_specs`); ``batch``: this rank's rows (tokens or
+    frame_embeds, image_embeds for the vlm family, labels, optional
+    loss_mask), the same on every TP rank; ``count``: the number of counted
+    tokens in the global batch.  The layers are :func:`sharded_hidden`'s;
+    the flash kernels run on the local heads: head-parallel when the KV
+    heads divide TP, q head-parallel with this rank's KV heads computed from
+    the gathered wk / wv when only the q heads do, and this rank's q rows
+    against the whole K and V (the kernels' query offset) when neither
+    does.  Vocab-parallel, the cross-entropy's max, sum of exponentials and
+    gold logit are reduced over TP, as the reference constrains the logits
+    to (batch, None, tp).
 
     Returns ``(objective, nll_sum)``: this rank's share of the loss (its
-    rows' summed nll over ``count``, over the TP size, so that the shares
-    of all ranks sum to the loss) and its rows' summed nll, detached."""
-    x, core = sharded_hidden(cfg, params, specs, batch["tokens"], triangle=triangle)
+    rows' summed nll over ``count``, plus the moe family's ``aux_loss_coef *
+    moe_aux_loss + router_z_coef * moe_z_loss`` over the number of batch
+    ranks, all over the TP size, so that the shares of all ranks sum to the
+    loss) and its rows' summed nll, detached.  ``metrics``, when given,
+    receives the moe family's aux metrics of the global batch, detached."""
+    x, core = sharded_hidden(cfg, params, specs, batch, triangle=triangle)
     logits = (x @ core.head_weight().to(x.dtype)).float()
     labels = batch["labels"].long()
     lay, tp = core.lay, core.tp
@@ -797,4 +955,12 @@ def sharded_loss(cfg: ModelConfig, params: Dict, specs: Dict, batch: Dict[str, t
     nll = logz - gold
     mask = batch.get("loss_mask")
     nll_sum = (nll * mask.float()).sum() if mask is not None else nll.sum()
-    return nll_sum / count / core.ctx.tp_size, nll_sum.detach()
+    objective = nll_sum / count
+    aux = core.aux
+    if aux:
+        ranks = lay.size(core.ctx.batch_axes) if core.ctx.batch_axes else 1
+        objective = objective + (cfg.aux_loss_coef * aux["moe_aux_loss"]
+                                 + cfg.router_z_coef * aux["moe_z_loss"]) / ranks
+    if metrics is not None:
+        metrics.update({k: v.detach() for k, v in aux.items()})
+    return objective / core.ctx.tp_size, nll_sum.detach()

@@ -13,8 +13,9 @@ Over a mesh (one process per device): :func:`state_specs` and
 rank's slice of a train state, and :func:`sharded_train_step` the
 counterpart of the reference's ``jit_train_step``: parameters and optimizer
 state FSDP-sharded over the batch axes and tensor-parallel over
-``"model"``, the batch sharded over the batch axes (the dense family; the
-others raise, ROADMAP Queue 1 item 11c).
+``"model"``, the batch sharded over the batch axes (the dense, moe, vlm and
+audio families; the ssm and hybrid families raise, ROADMAP Queue 1 item
+11c).
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ import torch
 from repro_torch.distributed.sharding import (P, activation_sharding, layout_of, mesh_sizes,
                                               shard_tree)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import OTHER_FAMILIES, Model, param_specs, sharded_loss
+from repro_torch.models.model import (OTHER_FAMILIES, SHARDED_FAMILIES, Model, param_specs,
+                                      sharded_loss)
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.tree import leaves, unflatten
@@ -172,8 +174,9 @@ def sharded_train_step(model, opt_cfg: OptimizerConfig, mesh, *, microbatches: i
     over this rank's slices of the state (:func:`sharded_state`) and of the
     batch (its rows over the batch axes, the same on every TP rank).
 
-    ``model``: a Model or its config (dense family; the others raise,
-    ROADMAP Queue 1 item 11c); ``mesh``: a ``DeviceMesh`` over the default
+    ``model``: a Model or its config (the dense, moe, vlm and audio
+    families; the ssm and hybrid families raise, ROADMAP Queue 1 item 11c);
+    ``mesh``: a ``DeviceMesh`` over the default
     process group, every rank calling the step together.  The loss and its
     gradients are ``models.model.sharded_loss``'s (FSDP gathers and
     reduce-scatters, Megatron TP, the flash kernels on the local heads);
@@ -184,11 +187,13 @@ def sharded_train_step(model, opt_cfg: OptimizerConfig, mesh, *, microbatches: i
     summed over the ranks that hold a replica of its parameter, clipped by
     the global norm (each shard counted once) and the optimizer updates the
     slices (Adafactor's means reduced over the sharded dims).  Metrics, the
-    same on every rank: ``nll`` and ``loss`` (the global batch's mean),
-    ``grad_norm`` and ``lr``.  ``seq_parallel``: the residual's sequence
+    same on every rank: ``nll`` and ``loss`` (the global batch's mean; the
+    moe family's loss adds its aux terms, and its ``moe_aux_loss``,
+    ``moe_z_loss`` and ``moe_dropped`` are the global batch's), ``grad_norm``
+    and ``lr``.  ``seq_parallel``: the residual's sequence
     sharded over ``tp`` between blocks (``activation_sharding``'s)."""
     cfg = _cfg(model)
-    if cfg.family != "dense":
+    if cfg.family not in SHARDED_FAMILIES:
         raise NotImplementedError(OTHER_FAMILIES.format(cfg.family))
     sspecs = state_specs(cfg, opt_cfg, mesh, fsdp=fsdp, tp=tp)
     bspecs = batch_specs(cfg, mesh, batch_axes=fsdp)
@@ -204,29 +209,33 @@ def sharded_train_step(model, opt_cfg: OptimizerConfig, mesh, *, microbatches: i
         if rows % microbatches:
             raise ValueError(f"{rows} rows a rank do not split into {microbatches} microbatches")
         size = rows // microbatches
-        share, acc = 0.0, None
+        share, acc, aux_acc = 0.0, None, {}
         for i in range(microbatches):
             mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
             mask = mb.get("loss_mask")
             local = (mask.float().sum() if mask is not None else
                      torch.tensor(float(mb["labels"].numel()), device=mb["labels"].device))
             count = torch.clamp(layout.all_reduce(local, baxes), min=1.0)
+            aux = {}
             objective, nll_sum = sharded_loss(cfg, params, pspecs, mb, count=count,
-                                              triangle=triangle)
+                                              triangle=triangle, metrics=aux)
+            # A leaf the loss does not reach (a frame-input model's embed)
+            # gets zeros, as under jax.grad.
             grads = torch.autograd.grad(objective, flat, allow_unused=True,
                                         materialize_grads=True)
             share = share + nll_sum / count
+            aux_acc = {k: aux_acc.get(k, 0.0) + v for k, v in aux.items()}
             if microbatches == 1:
-                return share, list(grads)
+                return share, aux_acc, list(grads)
             acc = [g.float() for g in grads] if acc is None else [
                 a + g for a, g in zip(acc, grads)]
         inv = 1.0 / microbatches
-        return share * inv, [g * inv for g in acc]
+        return share * inv, {k: v * inv for k, v in aux_acc.items()}, [g * inv for g in acc]
 
     def step(state, batch):
         with activation_sharding(mesh, batch_axes=fsdp, tp_axis=tp, seq_parallel=seq_parallel):
             params = state["params"]
-            share, grads = grads_of(params, batch)
+            share, aux, grads = grads_of(params, batch)
             grads = [layout.all_reduce(g, axes) if layout.size(axes) > 1 else g
                      for g, axes in zip(grads, replicas)]
             zero = torch.zeros((), dtype=torch.float32, device=share.device)
@@ -238,8 +247,12 @@ def sharded_train_step(model, opt_cfg: OptimizerConfig, mesh, *, microbatches: i
             _, new_opt, lr = opt_lib.opt_update(opt_cfg, params, unflatten(params, grads),
                                                 state["opt"], state["step"], specs=pspecs,
                                                 layout=layout)
-            loss = layout.all_reduce(share, baxes)
-        metrics = {"nll": loss, "loss": loss, "grad_norm": gnorm, "lr": lr}
+            nll = layout.all_reduce(share, baxes)
+        loss = nll
+        if aux:
+            loss = nll + cfg.aux_loss_coef * aux["moe_aux_loss"] \
+                + cfg.router_z_coef * aux["moe_z_loss"]
+        metrics = {"nll": nll, "loss": loss, **aux, "grad_norm": gnorm, "lr": lr}
         return {"step": state["step"] + 1, "params": params, "opt": new_opt}, metrics
 
     return step, sspecs, bspecs

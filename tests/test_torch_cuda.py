@@ -1208,6 +1208,79 @@ def test_flash_attention_bwd_wrapper_rejects_bad_operands(dev):
     assert flash_kernel.flash_attention_bwd_cuda.launches == before
 
 
+# The query offset (a slice of the q sequence against the whole K and V):
+# q's sq rows sit at positions offset .. offset + sq - 1.  The tile edges
+# of FLASH_SHAPES: offsets that are not multiples of a tile, slices shorter than one
+# tile, a causal slice whose last rows lie past Sk, key blocks no row of the
+# slice sees (their dk and dv must be written as zeros), and a non-causal
+# call, which ignores the offset.
+OFFSET_SHAPES = [  # sq, sk, offset, causal, group, kv
+    (64, 256, 192, True, 3, 1), (1, 129, 128, True, 1, 2), (100, 300, 37, True, 4, 2),
+    (127, 255, 128, True, 8, 1), (129, 257, 1, True, 3, 1), (33, 200, 167, True, 1, 2),
+    (50, 100, 80, True, 3, 1), (200, 64, 13, True, 4, 1), (3, 400, 5, True, 7, 1),
+    (64, 192, 65, False, 3, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 112, 128])
+@pytest.mark.parametrize("sq,sk,offset,causal,group,kv", OFFSET_SHAPES)
+def test_flash_attention_kernels_with_an_offset_match_plain_versions(exact_f32, dtype, d, sq, sk,
+                                                                     offset, causal, group, kv):
+    q, k, v = _flash_operands(exact_f32, dtype, d, sq, sk, group, kv)
+    gen = torch.Generator(device=exact_f32).manual_seed(sq + offset)
+    do = torch.randn(q.shape, generator=gen, device=exact_f32).to(dtype)
+    out, lse = flash_kernel.flash_attention_cuda(q, k, v, causal=causal, q_offset=offset,
+                                                 return_lse=True)
+    want, want_lse = ref.flash_attention_ref(q, k, v, causal=causal, q_offset=offset,
+                                             return_lse=True)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out, want, rtol=tol, atol=tol)
+    assert bool(((lse - want_lse).abs() <= 1e-4 * (1 + want_lse.abs())).all())
+    if dtype == torch.float32:   # the CUDA-core instance takes the offset too
+        simt = flash_kernel.flash_attention_cuda(q, k, v, causal=causal, q_offset=offset,
+                                                 instance="simt_f32")
+        torch.testing.assert_close(simt, want, rtol=tol, atol=tol)
+    got = flash_kernel.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal,
+                                                q_offset=offset)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert _bwd_within(got, ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                                                        q_offset=offset), dtype)
+    if causal and offset + sq < sk:   # keys past the last row's position: zero, written
+        for g in got[1:]:
+            assert not bool(g[:, offset + sq:].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_offset_slices_recompose_the_whole(exact_f32, dtype, d):
+    """Four q slices with their offsets, against one causal call on the
+    whole q: outputs and dq are the whole's rows, dk and dv sum to the
+    whole's; every slice given offset 0 (the control) does not."""
+    q, k, v = _flash_operands(exact_f32, dtype, d, 300, 300, 3, 2)
+    do = torch.randn(q.shape, device=exact_f32).to(dtype)
+    out, lse = flash_kernel.flash_attention_cuda(q, k, v, return_lse=True)
+    whole = flash_kernel.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    tol = FLASH_TOL[dtype]
+    bounds = (0, 61, 150, 203, 300)
+
+    def slices(offsets):
+        outs, dqs, dk, dv = [], [], 0, 0
+        for (r0, r1), off in zip(zip(bounds[:-1], bounds[1:]), offsets):
+            qs, ds = q[:, r0:r1].contiguous(), do[:, r0:r1].contiguous()
+            o, l = flash_kernel.flash_attention_cuda(qs, k, v, q_offset=off, return_lse=True)
+            g = flash_kernel.flash_attention_bwd_cuda(qs, k, v, o, l, ds, q_offset=off)
+            outs.append(o)
+            dqs.append(g[0])
+            dk, dv = dk + g[1].float(), dv + g[2].float()
+        return torch.cat(outs, 1), (torch.cat(dqs, 1), dk.to(dtype), dv.to(dtype))
+
+    got_out, got_grads = slices(bounds[:-1])
+    torch.testing.assert_close(got_out, out, rtol=tol, atol=tol)
+    assert _bwd_within(got_grads, whole, dtype)
+    bad_out, _ = slices((0,) * 4)
+    assert not torch.allclose(bad_out, out, rtol=tol, atol=tol)
+
+
 def test_flash_attention_bwd_dispatch_on_the_card(exact_f32):
     """``auto`` and ``cuda`` launch the kernel on CUDA tensors, each once."""
     ops_ = _bwd_operands(exact_f32, torch.bfloat16, 32, 100, 100, 3, 1, True)

@@ -16,7 +16,12 @@
   per-rank flops are within ``FLOPS_RTOL`` of ``hlo_analysis``'s (measured
   on this CPU: equal in all three cells, 41,943,040 / 11,567,104 /
   212,992).  The reference test's hybrid zamba2-7b cell waits for ROADMAP
-  Queue 1 item 11c: here it must end as skipped, naming that item.
+  Queue 1 item 11c: here it must end as skipped, naming that item.  Two
+  more cells on the same mesh: reduced phi3.5-moe's train (argument bytes
+  equal; flops not compared, the reference's one-hot dispatch against the
+  port's gather form) and reduced qwen3-8b with 3 / 1 heads (the
+  ``q_sequence`` attention split), train and prefill, argument bytes equal
+  and flops within ``FLOPS_RTOL``.
 * ``smollm-135m x train_4k`` at the real (16, 16) mesh of 256 ranks comes
   back ``ok``, its argument bytes the analytic state (float32 parameters
   and both AdamW moments, each leaf over the ranks its spec shards it
@@ -45,6 +50,7 @@ TIMEOUT = 240
 
 _REF = r"""
 import json
+import os
 import jax, jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 from repro import configs
@@ -59,14 +65,19 @@ from repro.train import step as step_lib
 
 # repro.launch.dryrun sets 512 host devices at import; the mesh takes 8 of them.
 assert jax.device_count() >= 8
-cfg = configs.get_reduced("qwen3-8b")
 B, S = 8, 64
 mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
 fsdp = ("pod", "data")
-model, engine = Model(cfg), DecodeEngine(Model(cfg))
-pspecs = model.param_specs(mesh, fsdp=fsdp)
 out = {}
-for kind in ("train", "prefill", "decode"):
+CELLS = [("", configs.get_reduced("qwen3-8b"), ("train", "prefill", "decode")),
+         ("moe_", configs.get_reduced("phi3.5-moe-42b-a6.6b"), ("train",)),
+         ("q_sequence_", configs.get_reduced("qwen3-8b", num_heads=3, num_kv_heads=1),
+          ("train", "prefill"))]
+# This process's share of the cells (two processes compile them at once).
+CELLS = [c for c in CELLS if (c[0] == "") == (os.environ["TWIN_CELLS"] == "base")]
+for tag, cfg, kind in ((t, c, k) for t, c, kinds in CELLS for k in kinds):
+    model, engine = Model(cfg), DecodeEngine(Model(cfg))
+    pspecs = model.param_specs(mesh, fsdp=fsdp)
     sp = ShapeSpec(kind, S, B, kind)
     bspecs = _batch_specs(cfg, mesh, sp, kind)
     seq = 1 if kind == "decode" else S
@@ -97,8 +108,8 @@ for kind in ("train", "prefill", "decode"):
             c = jax.jit(engine.decode_step, in_shardings=named(mesh, (pspecs, cspecs, bspecs)),
                         out_shardings=named(mesh, (logit_spec, cspecs)),
                         donate_argnums=(1,)).lower(pin, cin, b).compile()
-    out[kind] = {"args": c.memory_analysis().argument_size_in_bytes,
-                 "flops": hlo_analysis.analyze(c.as_text()).flops}
+    out[tag + kind] = {"args": c.memory_analysis().argument_size_in_bytes,
+                       "flops": hlo_analysis.analyze(c.as_text()).flops}
 print("RESULT " + json.dumps(out))
 """
 
@@ -111,13 +122,16 @@ from repro_torch.launch.mesh import make_mesh
 
 cost.fake_world(8)
 mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), device_type="cpu")
-cfg = configs.get_reduced("qwen3-8b")
 out = {}
-for kind in ("train", "prefill", "decode"):
+CELLS = [("", configs.get_reduced("qwen3-8b"), ("train", "prefill", "decode")),
+         ("moe_", configs.get_reduced("phi3.5-moe-42b-a6.6b"), ("train",)),
+         ("q_sequence_", configs.get_reduced("qwen3-8b", num_heads=3, num_kv_heads=1),
+          ("train", "prefill"))]
+for tag, cfg, kind in ((t, c, k) for t, c, kinds in CELLS for k in kinds):
     m = dryrun.trace_cell(cfg, ShapeSpec(kind, 64, 8, kind), mesh)
-    out[kind] = {"args": m.memory["argument_size_in_bytes"], "flops": m.costs.flops,
-                 "peak": m.memory["peak_bytes"],
-                 "collectives": sum(c.count for c in m.costs.collectives)}
+    out[tag + kind] = {"args": m.memory["argument_size_in_bytes"], "flops": m.costs.flops,
+                       "peak": m.memory["peak_bytes"],
+                       "collectives": sum(c.count for c in m.costs.collectives)}
 skipped = {}
 for kind in ("train", "decode"):
     try:
@@ -147,8 +161,8 @@ def twins(tmp_path_factory):
     """The reference's compiled cells, the port's traced ones and the
     256-rank smollm cell, all three processes at once."""
     out = tmp_path_factory.mktemp("dryrun")
-    ref = _start(_REF, XLA_FLAGS="--xla_force_host_platform_device_count=8",
-                 JAX_PLATFORMS="cpu")
+    refs = [_start(_REF, XLA_FLAGS="--xla_force_host_platform_device_count=8",
+                   JAX_PLATFORMS="cpu", TWIN_CELLS=cells) for cells in ("base", "more")]
     port = _start(_PORT)
     cell = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "smollm-135m",
@@ -156,11 +170,12 @@ def twins(tmp_path_factory):
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1"), cwd=ROOT,
         text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
     try:
-        got = {"ref": _result(ref), "port": _result(port)}
+        got = {"ref": {k: v for p in refs for k, v in _result(p).items()},
+               "port": _result(port)}
         _, err = cell.communicate(timeout=TIMEOUT)
         assert cell.returncode == 0, err[-3000:]
     finally:
-        for p in (ref, port, cell):
+        for p in (*refs, port, cell):
             if p.poll() is None:
                 p.kill()
     got["cell"] = json.loads((out / "smollm-135m__train_4k__single.json").read_text())
@@ -195,6 +210,30 @@ def test_dryrun_cell_small_mesh_matches_reference(twins, kind):
     assert port["args"] == ref["args"]
     np.testing.assert_allclose(port["flops"], ref["flops"], rtol=FLOPS_RTOL)
     assert port["peak"] >= port["args"] and port["collectives"] > 0
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_dryrun_q_sequence_cell_matches_reference(twins, kind):
+    """Reduced qwen3-8b with 3 heads on 1 KV head over TP 2: attention
+    splits the q sequence (each rank its rows against the whole K and V, k
+    and v projected by columns and gathered), as the reference's XLA
+    partitions it; per-rank flops within ``FLOPS_RTOL`` (measured on this
+    CPU: equal, 36,962,304 train and 9,994,240 prefill)."""
+    ref, port = twins["ref"]["q_sequence_" + kind], twins["port"]["q_sequence_" + kind]
+    assert port["args"] == ref["args"]
+    np.testing.assert_allclose(port["flops"], ref["flops"], rtol=FLOPS_RTOL)
+
+
+def test_dryrun_moe_cell_matches_reference_bytes(twins):
+    """Reduced phi3.5-moe's train cell: argument bytes equal the
+    reference's exactly.  Flops are not compared: the reference counts its
+    one-hot dispatch and combine einsums over every (token, expert, slot),
+    the port's gather form runs each expert over its capacity's slots
+    (measured on this CPU: 73,793,536 against 258,150,400, a ratio of
+    0.286)."""
+    ref, port = twins["ref"]["moe_train"], twins["port"]["moe_train"]
+    assert port["args"] == ref["args"]
+    assert 0 < port["flops"] < ref["flops"] and port["collectives"] > 0
 
 
 def test_dryrun_hybrid_cell_waits_for_item_11c(twins):

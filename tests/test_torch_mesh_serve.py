@@ -16,7 +16,8 @@ layout:
   summed over TP before the softmax);
 * ``heads_2x2``: (2, 2): rows over ``data``, heads over ``model``;
 * ``replicated_hd_2x2``: (2, 2), 3 / 1 heads and a vocabulary of 255:
-  attention replicated over TP, the head-dim cache, the head gathered whole;
+  the prefill's attention split over the q sequence (``q_sequence``), the
+  decode's replicated over TP, the head-dim cache, the head gathered whole;
 * ``q_heads_whole_tp4``: (1, 4), 4 / 1 heads of 18 and d_ff 130: q
   head-parallel, a cache whole on every TP rank, the MLP replicated;
 * ``fsdp_4x1``: (4, 1), reduced smollm-135m (tied embeddings): FSDP only.
@@ -61,7 +62,7 @@ LAYOUT = {"heads_tp4": ("model", None), "q_heads_hd_tp4": (None, "model"),
           "heads_2x2": ("model", None), "replicated_hd_2x2": (None, "model"),
           "q_heads_whole_tp4": (None, None), "fsdp_4x1": (None, None)}
 PARTITION = {"heads_tp4": "heads", "q_heads_hd_tp4": "q_heads", "heads_2x2": "heads",
-             "replicated_hd_2x2": "replicated", "q_heads_whole_tp4": "q_heads",
+             "replicated_hd_2x2": "q_sequence", "q_heads_whole_tp4": "q_heads",
              "fsdp_4x1": "heads"}
 
 

@@ -10,8 +10,10 @@ slices (``convert.shards_from_numpy``), each rank fed its rows of the batch;
 the JAX package runs ``make_train_step`` on one device in this process, and
 the port's ``make_train_step`` on one device here too.  The cases cover
 ``attn_partition``'s three branches (KV heads dividing TP; only the q heads,
-with a loss mask and remat; neither, with 2 microbatches), Adafactor, and a
-composite ("pod", "data") FSDP axis.  Held to:
+with a loss mask and remat; neither, ``q_sequence``, with 2 microbatches:
+each TP rank's flash calls, forward and backward, take its S / TP q rows
+at their offset), Adafactor, and a composite ("pod", "data") FSDP axis.
+Held to:
 
 * the JAX package's step at the reference test's tolerances: every step's
   loss rtol 1e-4, parameters rtol 3e-3 / atol 3e-4;
@@ -56,7 +58,7 @@ CASES = {
     "heads": ({}, (2, 2), ("data", "model"), "adamw", 1, False, False),
     "q_heads": ({"num_kv_heads": 1, "remat": True}, (2, 2), ("data", "model"), "adamw", 1, True,
                 False),
-    "replicated": ({"num_heads": 3, "num_kv_heads": 1}, (2, 2), ("data", "model"), "adamw", 2,
+    "q_sequence": ({"num_heads": 3, "num_kv_heads": 1}, (2, 2), ("data", "model"), "adamw", 2,
                    False, False),
     "adafactor": ({}, (2, 2), ("data", "model"), "adafactor", 1, False, False),
     "pod_data": ({}, (2, 2), ("pod", "data"), "adamw", 1, False, False),
@@ -94,6 +96,15 @@ def _flat(tree, prefix=""):
 _PORT = tm.PORT_PRELUDE + r"""
 from repro_torch import configs
 from repro_torch.distributed.sharding import layout_of, local_shape, unshard_tree
+from repro_torch.kernels import ops
+
+# Each flash call's q rows and query offset, forward and backward.
+CALLS = []
+for fn_name in ("flash_attention", "flash_attention_bwd"):
+    def traced(q, *args, _fn=getattr(ops, fn_name), _name=fn_name, **kw):
+        CALLS.append((_name == "flash_attention_bwd", q.shape[1], kw.get("q_offset", 0)))
+        return _fn(q, *args, **kw)
+    setattr(ops, fn_name, traced)
 from repro_torch.models.convert import shards_from_numpy
 from repro_torch.models.model import nest
 from repro_torch.train import OptimizerConfig
@@ -123,6 +134,7 @@ for name, (over, shape, axes, opt_name, mb, mask, shift) in CASES.items():
             whole = whole[key]
         assert tuple(leaf.shape) == local_shape(whole.shape, spec, layout.sizes), path
     losses, norms = [], []
+    CALLS.clear()
     lo = i * B // n + (1 if shift and RANK == 0 else 0)
     for s in range(STEPS):
         batch = {k[len(f"b{s}."):]: torch.from_numpy(data[k][lo:lo + B // n])
@@ -130,6 +142,8 @@ for name, (over, shape, axes, opt_name, mb, mask, shift) in CASES.items():
         state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
+    RES["trace/" + name + "/flash_calls"] = np.array(CALLS)
+    RES["trace/" + name + "/tp_rank"] = np.array(layout.coord.get("model", 0))
     RES[name + "/losses"] = np.array(losses)
     RES[name + "/norms"] = np.array(norms)
     for part in ("params", "opt"):
@@ -222,6 +236,22 @@ def test_sharded_train_step_matches_single_device(runs, name):
         for key in got:
             if key.startswith(name + "/"):
                 np.testing.assert_array_equal(other[key], got[key], err_msg=key)
+
+
+def test_q_sequence_ranks_attend_their_own_rows(runs):
+    """In the ``q_sequence`` case (3 heads, 1 KV head over TP 2) every
+    flash call of each rank, forward and backward, takes S / TP = 8 q rows
+    at offset 8 * its TP coordinate: no rank runs attention over rows
+    outside its slice.  In the ``heads`` case every call takes all S rows
+    at offset 0."""
+    _, ports = runs
+    for got in ports:
+        calls = got["trace/q_sequence/flash_calls"]
+        assert len(calls) and calls[:, 0].any() and not calls[:, 0].all()   # both passes
+        assert (calls[:, 1] == S // 2).all(), calls
+        assert (calls[:, 2] == S // 2 * int(got["trace/q_sequence/tp_rank"])).all(), calls
+        heads = got["trace/heads/flash_calls"]
+        assert len(heads) and (heads[:, 1] == S).all() and (heads[:, 2] == 0).all()
 
 
 def test_sharded_step_control_fails(runs):

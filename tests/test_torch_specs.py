@@ -9,7 +9,9 @@ stubs with ``.shape`` and ``.axis_names`` (the reference reads nothing
 else) on its side, plain ``{name: size}`` mappings on the port's.
 
 Also the spec type, the local-shard arithmetic and DTensor placements,
-``attn_partition``'s three cases, and the sharded step's refusals.
+``attn_partition``'s three cases, the sharded step's refusals (the ssm and
+hybrid families) and, on a one-rank gloo group in this process, one step of
+the moe, vlm and audio families.
 """
 
 import jax
@@ -196,12 +198,14 @@ def test_local_slices_and_placements():
 def test_attn_partition_cases():
     assert S.attn_partition(9, 3) is None             # no context: no partition
     with S.activation_sharding({"data": 2, "model": 3}):
-        assert S.attn_partition(9, 3) == S.AttnPartition("heads", (0, 3), (0, 1))
+        assert S.attn_partition(9, 3) == S.AttnPartition("heads", (0, 3), (0, 1), tp=3)
         assert S.constrain((8, 16, 49152), ("batch", None, "tp")) == S.P("data", None, "model")
         assert S.constrain_residual((6, 16, 576)) == S.P("data", None, None)
     with S.activation_sharding({"data": 2, "model": 2}):
-        assert S.attn_partition(9, 3).case == "replicated"     # smollm on TP 2
-        assert S.attn_partition(4, 1) == S.AttnPartition("q_heads", (0, 2), (0, 1))
+        assert S.attn_partition(9, 3).case == "q_sequence"     # smollm on TP 2
+        assert S.attn_partition(9, 3).q_rows(16) == (0, 8)      # rank 0 of TP 2
+        assert S.attn_partition(9, 3).q_rows(1) is None         # a decode step: replicated
+        assert S.attn_partition(4, 1) == S.AttnPartition("q_heads", (0, 2), (0, 1), tp=2)
         assert S.constrain((7, 4), ("batch", "tp")) == S.P(None, "model")
     with S.activation_sharding({"pod": 2, "data": 2}, tp_axis="model"):
         assert S.attn_partition(4, 2) is None             # no TP axis
@@ -213,8 +217,43 @@ def test_attn_partition_cases():
     assert S.current_context() is None
 
 
-@pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-2.7b", "phi3.5-moe-42b-a6.6b",
-                                  "llama-3.2-vision-11b", "musicgen-medium"])
+@pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-2.7b"])
 def test_sharded_step_of_other_families_raises(arch):
     with pytest.raises(NotImplementedError, match="item 11c"):
         tstep.sharded_train_step(TC.get_reduced(arch), topt.OptimizerConfig(), {"data": 1})
+
+
+@pytest.fixture(scope="module")
+def one_rank_mesh(tmp_path_factory):
+    """A (1, 1) data x model mesh over a one-rank gloo group in this process."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+
+    store = tmp_path_factory.mktemp("group") / "store"
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=0, world_size=1)
+    yield make_mesh((1, 1), ("data", "model"), device_type="cpu")
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "llama-3.2-vision-11b",
+                                  "musicgen-medium"])
+def test_sharded_step_of_the_moe_vlm_and_audio_families_builds(arch, one_rank_mesh):
+    """The moe, vlm and audio families' sharded step builds, and one step on
+    one rank runs (their equality with the single device over 4 ranks is
+    tests/test_torch_mesh_families.py's)."""
+    from repro_torch.configs.shapes import demo_batch
+    from repro_torch.models import Model
+
+    cfg = TC.get_reduced(arch)
+    opt = topt.OptimizerConfig()
+    step, sspecs, bspecs = tstep.sharded_train_step(cfg, opt, one_rank_mesh)
+    want = {"frame_embeds" if cfg.frame_inputs else "tokens", "labels"} | (
+        {"image_embeds"} if cfg.family == "vlm" else set())
+    assert set(bspecs) == want
+    model = Model(cfg, device="cpu")
+    state = tstep.sharded_state(model, opt, one_rank_mesh)
+    batch = demo_batch(cfg, 2, 8, device="cpu")
+    batch = {k: v.float() if v.is_floating_point() else v for k, v in batch.items()}
+    state, metrics = step(state, batch)
+    assert int(state["step"]) == 1 and bool(torch.isfinite(metrics["loss"]))
+    assert ("moe_dropped" in metrics) == (cfg.family == "moe")
