@@ -5978,13 +5978,13 @@ def seeded_slices(cfg, seed: int, specs: dict, layout) -> dict:
     return nest(out)
 
 
-def family_serve_inputs(cfg, seed: int) -> tuple:
-    """Phase 23's serving inputs, the same on the parent and every rank:
-    (prefill batch, decode-step batches), all rows, on the card: seeded
-    prompt tokens (musicgen: frame embeddings, one a step), the vision
-    model's image embeddings."""
-    b, p = FAMILY_MESH["serve_batch"]
-    gen = FAMILY_MESH["gen"]
+def family_serve_inputs(cfg, seed: int, plan: dict = FAMILY_MESH) -> tuple:
+    """Phase 23's (or ``plan``'s: phase 24's) serving inputs, the same on the
+    parent and every rank: (prefill batch, decode-step batches), all rows,
+    on the card: seeded prompt tokens (musicgen: frame embeddings, one a
+    step), the vision model's image embeddings."""
+    b, p = plan["serve_batch"]
+    gen = plan["gen"]
     rng = np.random.default_rng(seed + 232)
     cuda = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
     if cfg.frame_inputs:
@@ -6001,19 +6001,19 @@ def family_serve_inputs(cfg, seed: int) -> tuple:
     return prefill, steps
 
 
-def family_train_batch(cfg, seed: int, mesh=None) -> dict:
-    """Phase 23's training batch (the loader's, seeded): all rows, or this
-    rank's over ``mesh``."""
+def family_train_batch(cfg, seed: int, mesh=None, plan: dict = FAMILY_MESH) -> dict:
+    """Phase 23's (or ``plan``'s) training batch (the loader's, seeded): all
+    rows, or this rank's over ``mesh``."""
     from repro_torch.data.loader import LoaderConfig, SyntheticLMLoader
 
-    b, s = FAMILY_MESH["train_batch"]
+    b, s = plan["train_batch"]
     kw = {"mesh": mesh, "batch_axes": ("data",)} if mesh is not None else {}
     return next(SyntheticLMLoader(cfg, LoaderConfig(batch_size=b, seq_len=s, seed=seed + 231,
                                                     vocab_size=cfg.vocab_size),
                                   device="cuda", **kw))
 
 
-def family_mesh_references(seed: int, ref_dir: Path) -> dict:
+def family_mesh_references(seed: int, ref_dir: Path, plan: dict = FAMILY_MESH) -> dict:
     """Phase 23 (c)'s single-device float32 references (TF32 off), each
     model freed before the next: for each trained family one AdamW step
     (``make_train_step``) whose update (parameters after less before) goes
@@ -6021,7 +6021,8 @@ def family_mesh_references(seed: int, ref_dir: Path) -> dict:
     about the learning rate on every element), with its loss and
     ``moe_dropped``; for each served family the teacher-forced logits of
     the prefill's last position and each decode step (``DecodeEngine``).
-    Returns the references' walls."""
+    Returns the references' walls.  ``plan``: the phase's constants
+    (FAMILY_MESH, or phase 24's SSM_MESH)."""
     from repro_torch.models import DecodeEngine
     from repro_torch.train import OptimizerConfig, init_state, make_train_step
     from repro_torch.train.tree import leaves_with_paths
@@ -6029,12 +6030,13 @@ def family_mesh_references(seed: int, ref_dir: Path) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     walls = {}
-    for arch, layers in FAMILY_MESH["train"]:
+    for arch, layers in plan["train"]:
         t0 = time.perf_counter()
         cfg, model = family_model(arch, layers, seed, "float32")
-        opt = OptimizerConfig(learning_rate=FAMILY_MESH["lr"], warmup_steps=0, decay_steps=10)
+        opt = OptimizerConfig(learning_rate=plan["lr"], warmup_steps=0, decay_steps=10)
         state = init_state(model, opt)
-        state, metrics = make_train_step(model, opt)(state, family_train_batch(cfg, seed))
+        state, metrics = make_train_step(model, opt)(state, family_train_batch(cfg, seed,
+                                                                                plan=plan))
         out = ref_dir / f"train_{arch}"
         out.mkdir()
         after = {".".join(path): p for path, p in leaves_with_paths(state["params"])}
@@ -6048,7 +6050,7 @@ def family_mesh_references(seed: int, ref_dir: Path) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         walls[f"train {arch}"] = time.perf_counter() - t0
-    for arch, layers in FAMILY_MESH["serve"]:
+    for arch, layers in plan["serve"]:
         t0 = time.perf_counter()
         moe = family_config(arch, layers).family == "moe"
         routes: dict = {}
@@ -6056,12 +6058,12 @@ def family_mesh_references(seed: int, ref_dir: Path) -> dict:
         # types, for the mesh's bf16 routing against the single device's.
         for dtype in ("float32", "bfloat16") if moe else ("float32",):
             cfg, model = family_model(arch, layers, seed, dtype)
-            prefill, steps = family_serve_inputs(cfg, seed)
+            prefill, steps = family_serve_inputs(cfg, seed, plan)
             eng = DecodeEngine(model)
-            p = FAMILY_MESH["serve_batch"][1]
+            p = plan["serve_batch"][1]
             calls: list = []
             with torch.inference_mode(), capture_routes(calls):
-                lg, cache = eng.prefill(model, prefill, max_len=p + FAMILY_MESH["gen"],
+                lg, cache = eng.prefill(model, prefill, max_len=p + plan["gen"],
                                         last_only=True)
                 want = [lg[:, -1].float().cpu()]
                 for batch in steps:
@@ -6137,15 +6139,19 @@ def routing_flips(got: list, want: list, num_experts: int, k: int) -> list:
     return out
 
 
-def mesh_train_family(arch: str, layers, seed: int, mesh, layout, ref_dir: Path) -> dict:
-    """One trained family on a gloo rank of phase 23 (c): this rank's seeded
-    slices (:func:`seeded_slices`), one float32 ``sharded_train_step``
-    (TF32 off) whose update is held to the single device's leaf by leaf
-    (RMS difference over the RMS update, FAMILY_MESH_PARAM_REL_RMS), its loss
-    (SHARDED_LOSS_RTOL) and ``moe_dropped`` (equal); then one bf16 step from
-    the updated slices, timed, every flash kernel call held to its plain
-    version at its operands.  The launch counters are zeroed just before
-    each step and read just after."""
+def mesh_train_family(arch: str, layers, seed: int, mesh, layout, ref_dir: Path, *,
+                      plan: dict = FAMILY_MESH, bf16: bool = True, before=None) -> dict:
+    """One trained family on a gloo rank of phase 23 (c) (or 24 (a), by
+    ``plan``): this rank's seeded slices (:func:`seeded_slices`), one
+    float32 ``sharded_train_step`` (TF32 off) whose update is held to the
+    single device's leaf by leaf (RMS difference over the RMS update,
+    FAMILY_MESH_PARAM_REL_RMS), its loss (SHARDED_LOSS_RTOL) and
+    ``moe_dropped`` (equal); then (``bf16``) one bf16 step from the updated
+    slices, timed, every flash kernel call held to its plain version at its
+    operands.  The launch counters are zeroed just before each step and
+    read just after.  ``before(cfg, params, specs, batch)``, when given,
+    runs on the float32 slices before the step and its dict joins the
+    record (phase 24's gated-norm control)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.models.model import param_specs
@@ -6164,15 +6170,17 @@ def mesh_train_family(arch: str, layers, seed: int, mesh, layout, ref_dir: Path)
         p.requires_grad_(True)
     # On the host: the 4 ranks share the card's 80 GB.
     initial = [p.detach().to("cpu", copy=True) for _, p in named]
-    opt = OptimizerConfig(learning_rate=FAMILY_MESH["lr"], warmup_steps=0, decay_steps=10)
+    opt = OptimizerConfig(learning_rate=plan["lr"], warmup_steps=0, decay_steps=10)
     rec: dict = {"setup_s": time.perf_counter() - t0,
                  "param_bytes": sum(p.numel() * p.element_size() for _, p in named)}
-    for dtype in ("float32", "bfloat16"):
+    for dtype in ("float32", "bfloat16") if bf16 else ("float32",):
         c = family_config(arch, layers, dtype)
         step, _, _ = sharded_train_step(c, opt, mesh)
         state = {"step": torch.zeros((), dtype=torch.int32, device="cuda"), "params": params,
                  "opt": opt_init(opt, params)}
-        batch = family_train_batch(c, seed, mesh)
+        batch = family_train_batch(c, seed, mesh, plan)
+        if before is not None and dtype == "float32":
+            rec.update(before(c, params, specs, batch))
         fwd_calls, bwd_calls, routes = [], [], []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -6195,25 +6203,62 @@ def mesh_train_family(arch: str, layers, seed: int, mesh, layout, ref_dir: Path)
             r["launches"] = launches
             want = json.loads((ref_dir / "metrics.json").read_text())
             r["ref"] = want
+            floor = plan.get("sign_floor")
+            # AdamW's first step moves an element by lr·sign(g), so where |g|
+            # is within the step's numerical noise of 0 its update's sign is
+            # not defined.  With ``sign_floor``, an element whose update and
+            # the single device's differ by more than the update itself (a
+            # flipped sign) while this rank's |first moment| is under
+            # sign_floor × its slice's RMS leaves the gate and is counted.
+            small = scale = None
+            if floor:
+                small, scale = [], []
+                for _, mu in leaves_with_paths(state["opt"]["mu"]):
+                    a = mu.abs()
+                    rms = a.square().mean().sqrt()
+                    small.append(a < floor * rms)
+                    scale.append(a / rms)   # |g| over its slice's RMS, for the record
+                    del a
             del state, metrics   # the moments, before the gate's temporaries
-            ratios = []
-            for (path, p), p0 in zip(named, initial):
+            ratios, every, excused = [], [], []
+
+            def ratio(num, den):
+                return math.sqrt(num / den) if den else (0.0 if num == 0 else math.inf)
+
+            for k, ((path, p), p0) in enumerate(zip(named, initial)):
                 name = ".".join(path)
                 upd = torch.load(ref_dir / f"{name}.pt", mmap=True)
                 upd = upd[layout.slices(upd.shape, by_name[name])]
                 # Sums of squares over blocks of rows (about 2^26 elements).
-                num = den = 0.0
+                num = den = num_all = den_all = 0.0
+                out = flips = 0
+                worst = 0.0   # the largest |g| / RMS of a flipped element
                 rows = max(1, 2 ** 26 // max(1, p[0].numel())) if p.dim() else 1
                 for i in range(0, max(1, p.shape[0] if p.dim() else 1), rows):
                     at = slice(i, i + rows) if p.dim() else ...
                     u = upd[at].to("cuda", torch.float32)
                     mine = p.detach()[at] - p0[at].to("cuda")
-                    den += float(u.double().square().sum())
-                    num += float((mine - u).double().square().sum())
-                    del u, mine
-                ratios.append((math.sqrt(num / den) if den else (0.0 if num == 0 else math.inf),
-                               name))
+                    u2, d2 = u.double().square(), (mine - u).double().square()
+                    den_all += float(u2.sum())
+                    num_all += float(d2.sum())
+                    if small is not None:
+                        flip = d2 > u2
+                        m = ~(small[k][at] & flip)
+                        den += float(u2[m].sum())
+                        num += float(d2[m].sum())
+                        out += int((~m).sum())
+                        flips += int(flip.sum())
+                        if flip.any():
+                            worst = max(worst, float(scale[k][at][flip].max()))
+                    del u, mine, u2, d2
+                every.append((ratio(num_all, den_all), name))
+                ratios.append((ratio(num, den), name) if small is not None else every[-1])
+                excused.append((out, flips, worst, p.numel(), name))
             r["param_gate"] = max(ratios)
+            r["param_gate_every_element"] = max(every)
+            # (excused, flipped, the largest flipped |g| / RMS, size, leaf)
+            r["sign_flips"] = [e for e in excused if e[1]]
+            del small, scale
             state = metrics = None
         else:
             r["launches"] = launches   # the capturing wrappers' counts
@@ -6624,6 +6669,479 @@ def phase_family_mesh(seed: int) -> tuple[dict, dict]:
     return record, launches
 
 
+# Phase 24: the ssm and hybrid families over a mesh.  Both families' widths
+# uncut: mamba2-2.7b trained and served at 2 layers; zamba2-7b trained at 13
+# (two groups behind the shared block and a tail layer, phase 16's cut) and
+# served at 7 (one group and a tail layer: every (2, 2) decode step
+# all-gathers the weights over "data" through the host, 7.3 s a step at 13
+# layers); on (1, 4) gloo, serving also on (2, 2) and one B = 1 zamba2-7b
+# prompt of 2,048 tokens there, which takes the cache's sequence fallback
+# (the shared K/V's positions split over "data"); one NCCL rank serves both
+# uncut on (1, 1).
+SSM_MESH = dict(
+    train=(("mamba2-2.7b", 2), ("zamba2-7b", 13)),
+    serve=(("mamba2-2.7b", 2), ("zamba2-7b", 7)),
+    train_batch=(2, 512), serve_batch=(4, 512), gen=3, lr=3e-3,
+    # The update gate excuses an element whose update's sign differs from
+    # the single device's where this rank's gradient is under 1e-3 of its
+    # slice's RMS (mesh_train_family): at most 1% of a leaf's elements.
+    sign_floor=1e-3, max_excused=0.01,
+    fallback=dict(arch="zamba2-7b", layers=7, serve_batch=(1, 2048), gen=3),
+    serve_meshes=("1x4", "2x2"), nccl=("mamba2-2.7b", "zamba2-7b"),
+    nccl_plan=dict(serve_batch=(4, 512), gen=5),
+    runs=(("gloo", "1x4"), ("nccl", "1x1")), timeout=600)
+
+
+def ssm_max_len(plan: dict) -> int:
+    """A cache for the prompt and the decode steps, even (the fallback splits
+    its positions over 2 data ranks)."""
+    n = plan["serve_batch"][1] + plan["gen"]
+    return n + n % 2
+
+
+def ssm_fallback_reference(seed: int, ref_dir: Path) -> float:
+    """Phase 24 (b)'s single-device float32 reference for the sequence
+    fallback (TF32 off): the B = 1 zamba2-7b prompt's teacher-forced logits
+    (``DecodeEngine``), saved to ``ref_dir``.  Returns its wall."""
+    from repro_torch.models import DecodeEngine
+
+    t0 = time.perf_counter()
+    fb = SSM_MESH["fallback"]
+    cfg, model = family_model(fb["arch"], fb["layers"], seed, "float32")
+    prefill, steps = family_serve_inputs(cfg, seed, fb)
+    eng = DecodeEngine(model)
+    with torch.inference_mode():
+        lg, cache = eng.prefill(model, prefill, max_len=ssm_max_len(fb), last_only=True)
+        want = [lg[:, -1].float().cpu()]
+        for batch in steps:
+            lg, cache = eng.decode_step(model, cache, batch)
+            want.append(lg[:, -1].float().cpu())
+    torch.save(want, ref_dir / "fallback.pt")
+    del model, eng, cache, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
+def norm_control(mesh, layout):
+    """Phase 24 (a)'s control, run on a rank's float32 slices before its
+    step: the loss of the batch with each rank's gated norm taken over its
+    own channels only (the mean of its slice's squares, no all-reduce over
+    TP), which must miss the single device's loss."""
+    from repro_torch.distributed.sharding import activation_sharding
+    from repro_torch.models import model as model_lib
+
+    def run(cfg, params, specs, batch):
+        saved = model_lib._ShardedDecoder.ssm_norm_mean
+        model_lib._ShardedDecoder.ssm_norm_mean = (
+            lambda self, ss: ss / (self.cfg.ssm_inner // self.ctx.tp_size))
+        try:
+            count = layout.all_reduce(torch.tensor(float(batch["labels"].numel()),
+                                                   device="cuda"), ("data",))
+            with torch.no_grad(), activation_sharding(mesh):
+                objective, _ = model_lib.sharded_loss(cfg, params, specs, batch, count=count)
+            loss = float(layout.all_reduce(objective, layout.names))
+        finally:
+            model_lib._ShardedDecoder.ssm_norm_mean = saved
+        return {"norm_control_loss": loss}
+
+    return run
+
+
+def clone_cache(cache: dict) -> dict:
+    return {k: clone_cache(v) if isinstance(v, dict) else v.clone() for k, v in cache.items()}
+
+
+@contextlib.contextmanager
+def dropping_seq_slice(layout):
+    """While inside, the rank at ``"data"`` coordinate 1 leaves its slice of
+    the positions out of the sequence fallback's combine (it adds zeros to
+    the sum of exponentials and outputs; the max still all-reduced)."""
+    from repro_torch.models import layers
+
+    saved = layers.decode_attention
+
+    def dropping(*args, reduce_seq=None, **kw):
+        if reduce_seq is not None and layout.coord["data"] == 1:
+            inner = reduce_seq
+
+            def reduce_seq(t, maximum):
+                return inner(t if maximum else torch.zeros_like(t), maximum)
+        return saved(*args, reduce_seq=reduce_seq, **kw)
+
+    layers.decode_attention = dropping
+    try:
+        yield
+    finally:
+        layers.decode_attention = saved
+
+
+def mesh_serve_ssm(arch: str, layers, seed: int, mesh, layout, ref_file: Path,
+                   plan: dict) -> dict:
+    """One served model on a gloo rank of phase 24 (b): its seeded slices,
+    ``sharded_prefill`` and teacher-forced ``sharded_decode_step`` calls in
+    float32 (TF32 off) on this rank's rows (every row where the batch does
+    not divide the data axis: the sequence fallback), the logits gathered
+    over the vocabulary's TP slices held to the single device's within
+    SERVE_F32_REL_TOL relative RMS.  The controls, from copies of the cache
+    after the prefill: the first decode step with layer 0's SSM state
+    zeroed, and in the fallback with the data rank 1's positions left out
+    of the combine; both must fail that gate.  The launch counters are
+    zeroed just before the prefill and read after the last step."""
+    from repro_torch.distributed.sharding import activation_sharding
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.decode import sharded_decode_step, sharded_prefill
+    from repro_torch.models.model import param_specs
+
+    cfg = family_config(arch, layers, "float32")
+    specs = param_specs(cfg, mesh)
+    t0 = time.perf_counter()
+    params = seeded_slices(cfg, seed, specs, layout)
+    prefill, steps = family_serve_inputs(cfg, seed, plan)
+    b = plan["serve_batch"][0]
+    n, i = layout.size(("data",)), layout.index(("data",))
+    rows = slice(i * b // n, (i + 1) * b // n) if b % n == 0 else slice(0, b)
+    prefill = {k: v[rows] for k, v in prefill.items()}
+    steps = [{k: v[rows] for k, v in s.items()} for s in steps]
+    want = [w[rows].cuda() for w in torch.load(ref_file)]
+    rec: dict = {"setup_s": time.perf_counter() - t0, "rows": [rows.start, rows.stop]}
+
+    def whole(logits):
+        if logits.shape[-1] < cfg.vocab_size:
+            logits = layout.all_gather(logits, -1, "model")
+        return logits[:, -1].float()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    with torch.inference_mode(), activation_sharding(mesh):
+        t1 = time.perf_counter()
+        logits, cache = sharded_prefill(cfg, params, specs, prefill, max_len=ssm_max_len(plan),
+                                        last_only=True, global_batch=b)
+        got = [whole(logits)]
+        torch.cuda.synchronize()
+        rec["prefill_s"] = time.perf_counter() - t1
+        after_prefill = clone_cache(cache)
+        rec["step_ms"] = []
+        for batch in steps:
+            t1 = time.perf_counter()
+            logits, cache = sharded_decode_step(cfg, params, specs, cache, batch)
+            got.append(whole(logits))
+            torch.cuda.synchronize()
+            rec["step_ms"].append((time.perf_counter() - t1) * 1e3)
+        rec["launches"] = fa.flash_attention_cuda.launches
+        rec["rel_rms"] = [rel_rms(g, w) for g, w in zip(got, want)]
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec["kv_positions"] = (int(cache["shared"]["k"].shape[2]) if "shared" in cache
+                               else None)
+        ctrl = clone_cache(after_prefill)
+        ctrl["ssm"][0].zero_()
+        logits, _ = sharded_decode_step(cfg, params, specs, ctrl, steps[0])
+        rec["zeroed_state_rel_rms"] = rel_rms(whole(logits), want[1])
+        if b % n:
+            with dropping_seq_slice(layout):
+                logits, _ = sharded_decode_step(cfg, params, specs, after_prefill, steps[0])
+            rec["dropped_slice_rel_rms"] = rel_rms(whole(logits), want[1])
+    del params, cache, after_prefill, ctrl, logits, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def nccl_serve_ssm(arch: str, seed: int, mesh) -> dict:
+    """One family on phase 24 (c)'s NCCL rank ((1, 1)), uncut: the seeded
+    model in float32 (TF32 off), the single device's teacher-forced logits
+    from its own ``DecodeEngine`` first, then ``sharded_prefill`` and
+    ``sharded_decode_step`` on the model's tensors (a (1, 1) mesh's slices
+    are the whole) within SERVE_F32_REL_TOL relative RMS of them, timed;
+    then the same in bf16, timed, each flash call of its prefill held to
+    its plain version at its operands (seeded bf16 drifts at depth, so
+    bf16 is gated per call, not end to end)."""
+    from repro_torch.distributed.sharding import activation_sharding
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import DecodeEngine
+    from repro_torch.models.decode import sharded_decode_step, sharded_prefill
+    from repro_torch.models.model import param_specs
+
+    plan = SSM_MESH["nccl_plan"]
+    t0 = time.perf_counter()
+    cfg, model = family_model(arch, None, seed, "float32")
+    prefill, steps = family_serve_inputs(cfg, seed, plan)
+    max_len = ssm_max_len(plan)
+    with torch.inference_mode():
+        eng = DecodeEngine(model)
+        lg, cache = eng.prefill(model, prefill, max_len=max_len, last_only=True)
+        want = [lg[:, -1].float()]
+        for batch in steps:
+            lg, cache = eng.decode_step(model, cache, batch)
+            want.append(lg[:, -1].float())
+        del eng, cache, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, specs = model.param_tree(), param_specs(cfg, mesh)
+    rec = {"setup_s": time.perf_counter() - t0, "params": model.num_params(),
+           "layers": cfg.num_layers}
+    for dtype in ("float32", "bfloat16"):
+        c = family_config(arch, None, dtype)
+        calls: list = []
+        r: dict = {"step_ms": []}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        with torch.inference_mode(), activation_sharding(mesh), \
+                capture_calls(fa, "flash_attention_cuda", calls):
+            t1 = time.perf_counter()
+            logits, cache = sharded_prefill(c, params, specs, prefill, max_len=max_len,
+                                            last_only=True)
+            got = [logits[:, -1].float()]
+            torch.cuda.synchronize()
+            r["prefill_s"] = time.perf_counter() - t1
+            for batch in steps:
+                t1 = time.perf_counter()
+                logits, cache = sharded_decode_step(c, params, specs, cache, batch)
+                got.append(logits[:, -1].float())
+                torch.cuda.synchronize()
+                r["step_ms"].append((time.perf_counter() - t1) * 1e3)
+            r["launches"] = fa.flash_attention_cuda.launches   # the capturing wrapper's count
+            r["rel_rms"] = [rel_rms(g, w) for g, w in zip(got, want)]
+            r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if calls:
+            with torch.no_grad():
+                r["calls_max_abs_err"] = max(
+                    flash_close(fa.flash_attention_cuda(*a, **kw), plain_flash(*a, **kw),
+                                f"{arch} {dtype} prefill call {j}")
+                    for j, (a, kw) in enumerate(calls))
+        rec[dtype] = r
+        del cache, logits, got, calls
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model, params, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ssm_mesh_child(run_dir: Path, backend: str, rank: int, world: int, shape: str) -> None:
+    """One rank of phase 24 (``chip_smoke.py --ssm-child DIR BACKEND RANK
+    WORLD MESH``): joins the group over a file store in ``run_dir`` (the
+    references and the seed in its parent).  A gloo rank trains SSM_MESH's
+    families on the (data, model) mesh ``AxB`` (:func:`mesh_train_family`
+    with the gated-norm control; zamba2-7b also one bf16 step), serves them
+    there and on each other mesh of SSM_MESH["serve_meshes"]
+    (:func:`mesh_serve_ssm`), and serves the B = 1 prompt on (2, 2); the
+    NCCL rank serves SSM_MESH["nccl"] uncut (:func:`nccl_serve_ssm`).
+    Writes ``<backend><world>_rank<rank>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import layout_of
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"file://{run_dir}/store", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=SSM_MESH["timeout"]))
+    seed = int((run_dir.parent / "seed").read_text())
+    out = {"rank": rank, "backend": backend, "world": world, "mesh": shape, "train": {},
+           "serve": {}}
+    t0 = time.perf_counter()
+
+    def mesh_of(text):
+        mesh = make_mesh(tuple(int(x) for x in text.split("x")), ("data", "model"))
+        return mesh, layout_of(mesh)
+
+    if backend == "gloo":
+        mesh, layout = mesh_of(shape)
+        out["coord"] = layout.coord
+        for arch, layers in SSM_MESH["train"]:
+            out["train"][arch] = mesh_train_family(
+                arch, layers, seed, mesh, layout, run_dir.parent / f"train_{arch}",
+                plan=SSM_MESH, bf16=family_config(arch, layers).family == "hybrid",
+                before=norm_control(mesh, layout))
+            dist.barrier()
+            out["train"][arch]["wall_s"], t0 = time.perf_counter() - t0, time.perf_counter()
+        for text in SSM_MESH["serve_meshes"]:
+            if text != shape:
+                mesh, layout = mesh_of(text)
+            for arch, layers in SSM_MESH["serve"]:
+                key = f"{arch} on {text}"
+                out["serve"][key] = mesh_serve_ssm(arch, layers, seed, mesh, layout,
+                                                   run_dir.parent / f"serve_{arch}.pt", SSM_MESH)
+                dist.barrier()
+                out["serve"][key]["wall_s"], t0 = time.perf_counter() - t0, time.perf_counter()
+        fb = SSM_MESH["fallback"]
+        key = f"{fb['arch']} B = 1 on {SSM_MESH['serve_meshes'][-1]}"
+        out["serve"][key] = mesh_serve_ssm(fb["arch"], fb["layers"], seed, mesh, layout,
+                                           run_dir.parent / "fallback.pt", fb)
+        out["serve"][key]["wall_s"] = time.perf_counter() - t0
+    else:
+        mesh, _ = mesh_of(shape)
+        for arch in SSM_MESH["nccl"]:
+            out["serve"][arch] = nccl_serve_ssm(arch, seed, mesh)
+            out["serve"][arch]["wall_s"], t0 = time.perf_counter() - t0, time.perf_counter()
+    (run_dir / f"{backend}{world}_rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_ssm_mesh(seed: int) -> tuple[dict, dict]:
+    """Phase 24: the ssm and hybrid families over a mesh at their published
+    widths (SSM_MESH): the single-device float32 references first
+    (:func:`family_mesh_references` with SSM_MESH, :func:`ssm_fallback_reference`),
+    then 4 gloo ranks sharing the card and one NCCL rank on (1, 1), each
+    run's ranks processes of their own (:func:`ssm_mesh_child`), their
+    records gated here.  Returns the record and rows 9 and 9d's launches by
+    run, rank and model."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.models.model import attention_applications
+
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ssm_mesh_"))
+    record: dict = {}
+    launches: dict = {"flash_attention": {}, "flash_attention_bwd": {}}
+    try:
+        (root / "seed").write_text(str(seed))
+        record["references_s"] = family_mesh_references(seed, root, SSM_MESH)
+        record["references_s"]["fallback"] = ssm_fallback_reference(seed, root)
+        log("phase 24 single-device float32 references (TF32 off): "
+            + ", ".join(f"{k} {v:.1f} s" for k, v in record["references_s"].items()))
+        for backend, shape in SSM_MESH["runs"]:
+            dims = tuple(int(x) for x in shape.split("x"))
+            world = math.prod(dims)
+            run = f"{backend} x{world}"
+            sub = root / f"{backend}_{shape}"
+            sub.mkdir()
+            t0 = time.perf_counter()
+            saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+            try:
+                ranks = run_mesh_ranks(sub, backend, world, flag="--ssm-child", extra=(shape,),
+                                       timeout=SSM_MESH["timeout"])
+            finally:
+                if saved is None:
+                    del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+                else:
+                    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+            wall = time.perf_counter() - t0
+            record[run] = {"wall_s": wall, "ranks": ranks}
+            for r in ranks:
+                where = f"phase 24, {run}, rank {r['rank']}"
+                bad = []
+                for arch, t in r["train"].items():
+                    f32, ref = t["float32"], t["float32"]["ref"]
+                    hybrid = family_config(arch, None).family == "hybrid"
+                    if abs(f32["loss"] - ref["loss"]) > SHARDED_LOSS_RTOL * abs(ref["loss"]):
+                        bad.append(f"{arch} float32 loss {f32['loss']} vs {ref['loss']}")
+                    if f32["param_gate"][0] > FAMILY_MESH_PARAM_REL_RMS:
+                        bad.append(f"{arch} float32 leaf {f32['param_gate'][1]}: "
+                                   f"{f32['param_gate'][0]:.3g} of its update")
+                    for out, _, _, n, name in f32["sign_flips"]:
+                        if out > SSM_MESH["max_excused"] * n:
+                            bad.append(f"{arch} float32 leaf {name}: {out} of {n} elements "
+                                       f"flipped under the sign floor")
+                    if not abs(t["norm_control_loss"] - ref["loss"]) > \
+                            SHARDED_LOSS_RTOL * abs(ref["loss"]):
+                        bad.append(f"{arch}: the local gated-norm control passed: "
+                                   f"{t['norm_control_loss']} vs {ref['loss']}")
+                    steps = [("float32", f32)] + ([("bf16", t["bfloat16"])] if hybrid else [])
+                    for dt, rr in steps:
+                        if hybrid and min(rr["launches"]) < 1:
+                            bad.append(f"{arch} {dt}: flash launches {rr['launches']}")
+                        if hybrid:
+                            launches["flash_attention"][f"{where}, {arch} {dt} step"] = \
+                                rr["launches"][0]
+                            launches["flash_attention_bwd"][f"{where}, {arch} {dt} step"] = \
+                                rr["launches"][1]
+                    if hybrid and not math.isfinite(t["bfloat16"]["loss"]):
+                        bad.append(f"{arch} bf16 loss {t['bfloat16']['loss']}")
+                for key, sv in r["serve"].items():
+                    arch = key.split()[0]
+                    layers = None if backend == "nccl" else (
+                        SSM_MESH["fallback"]["layers"] if "B = 1" in key
+                        else dict(SSM_MESH["serve"])[arch])
+                    apps = attention_applications(family_config(arch, layers))
+                    for dt, rr in (("float32", sv.get("float32", sv)),
+                                   ("bf16", sv.get("bfloat16"))):
+                        if rr is None:
+                            continue
+                        if dt == "float32" and (not all(map(math.isfinite, rr["rel_rms"]))
+                                                or max(rr["rel_rms"]) > SERVE_F32_REL_TOL):
+                            bad.append(f"{key} {dt} logits {rr['rel_rms']} beyond "
+                                       f"{SERVE_F32_REL_TOL}")
+                        if rr["launches"] != apps:
+                            bad.append(f"{key} {dt}: {rr['launches']} flash launches, "
+                                       f"expected {apps}")
+                        if apps:
+                            launches["flash_attention"][f"{where}, {key} {dt} prefill"] = \
+                                rr["launches"]
+                    for ctl in ("zeroed_state_rel_rms", "dropped_slice_rel_rms"):
+                        if ctl in sv and sv[ctl] <= SERVE_F32_REL_TOL:
+                            bad.append(f"{key}: the control {ctl} passed: {sv[ctl]:.3g}")
+                    if "B = 1" in key and "dropped_slice_rel_rms" not in sv:
+                        bad.append(f"{key}: the fallback's control did not run")
+                if bad:
+                    raise AssertionError(f"{where}: " + "; ".join(bad))
+            r0 = ranks[0]
+            for arch, t in r0["train"].items():
+                f32 = t["float32"]
+                bf = t.get("bfloat16")
+                log(f"phase 24 (a), {run} on {shape}, {arch} trained "
+                    f"({family_config(arch, dict(SSM_MESH['train'])[arch]).num_layers} layers, "
+                    f"{SSM_MESH['train_batch'][0]} x {SSM_MESH['train_batch'][1]}): float32 loss "
+                    f"{f32['loss']:.6f} = the single device's {f32['ref']['loss']:.6f}, worst "
+                    f"leaf on any rank {max(x['train'][arch]['float32']['param_gate'][0] for x in ranks):.3g} "
+                    f"of its update (gate {FAMILY_MESH_PARAM_REL_RMS}), excusing the elements "
+                    f"whose sign flipped under a gradient of {SSM_MESH['sign_floor']} of their "
+                    f"slice's RMS (by rank: excused, flipped, the largest flipped |g| / RMS, "
+                    f"leaf size, leaf: {[x['train'][arch]['float32']['sign_flips'] for x in ranks]}), "
+                    f"over every element "
+                    f"{max(x['train'][arch]['float32']['param_gate_every_element'][0] for x in ranks):.3g} "
+                    f"(leaf {f32['param_gate_every_element'][1]}); the local gated-norm "
+                    f"control's loss {t['norm_control_loss']:.6f} (fails); step "
+                    f"{f32['step_ms']:.1f} ms float32"
+                    + (f", {bf['step_ms']:.1f} ms bf16 (loss {bf['loss']:.4f}), flash launches a "
+                       f"rank {f32['launches']} / {bf['launches']} (forward, backward), bf16 "
+                       f"calls within their gates (max |err| {bf['fwd_calls_max_abs_err']:.3g}, "
+                       f"relative RMS {bf['bwd_calls_rel_rms']:.3g})" if bf else "")
+                    + f"; a rank's slices {t['param_bytes'] / 1e9:.2f} GB, peak "
+                    f"{f32['peak_gb']:.2f} GB; {t['wall_s']:.1f} s with its set-up "
+                    f"({t['setup_s']:.1f})  [{smi_line()}]")
+            for key, sv in r0["serve"].items():
+                rr = sv.get("float32", sv)
+                worst = max(max(x["serve"][key].get("float32", x["serve"][key])["rel_rms"])
+                            for x in ranks)
+                extra = "".join(
+                    f", {ctl.replace('_rel_rms', '').replace('_', ' ')} control "
+                    f"{min(x['serve'][key][ctl] for x in ranks):.3g}"
+                    for ctl in ("zeroed_state_rel_rms", "dropped_slice_rel_rms") if ctl in sv)
+                bf = sv.get("bfloat16")
+                log(f"phase 24, {run}, {key} served: float32 prefill {rr['prefill_s']:.3f} s, "
+                    f"decode {statistics.median(rr['step_ms']):.2f} ms a step, logits within "
+                    f"{worst:.3g} relative RMS of the single device's (gate {SERVE_F32_REL_TOL})"
+                    f"{extra}; {rr['launches']} flash launches a rank"
+                    + (f", {rr['kv_positions']} K/V positions a rank" if rr.get("kv_positions")
+                       else "")
+                    + (f"; bf16 prefill {bf['prefill_s']:.3f} s, decode "
+                       f"{statistics.median(bf['step_ms']):.2f} ms a step, peak "
+                       f"{bf['peak_gb']:.2f} GB, flash calls within their gates (max |err| "
+                       f"{bf.get('calls_max_abs_err', 0.0):.3g})" if bf else "")
+                    + f"; peak {rr['peak_gb']:.2f} GB; {sv['wall_s']:.1f} s with its set-up "
+                    f"({sv['setup_s']:.1f})  [{smi_line()}]")
+            log(f"phase 24, {run}: {wall:.1f} s with start-up")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    record["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 24: {record['phase_s']:.1f} s; NCCL with more than one rank is not exercised "
+        f"(one card): the gloo ranks share it through host copies")
+    return record, launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6640,6 +7158,9 @@ def main(argv=None) -> int:
     parser.add_argument("--family-child", nargs=5,
                         metavar=("DIR", "BACKEND", "RANK", "WORLD", "MESH"),
                         help=argparse.SUPPRESS)   # one rank of phase 23 (c)
+    parser.add_argument("--ssm-child", nargs=5,
+                        metavar=("DIR", "BACKEND", "RANK", "WORLD", "MESH"),
+                        help=argparse.SUPPRESS)   # one rank of phase 24
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6662,6 +7183,10 @@ def main(argv=None) -> int:
     if args.family_child:
         run_dir, backend, rank, world, shape = args.family_child
         family_child(Path(run_dir), backend, int(rank), int(world), shape)
+        return 0
+    if args.ssm_child:
+        run_dir, backend, rank, world, shape = args.ssm_child
+        ssm_mesh_child(Path(run_dir), backend, int(rank), int(world), shape)
         return 0
     from repro_torch.core import engine
     from repro_torch.data.collections import skewed_collection, with_duplicates, zipf_collection
@@ -6813,6 +7338,15 @@ def main(argv=None) -> int:
     log(json.dumps({"query_offset": offset, "families_over_a_mesh": families}))
     log(f"phase 23: {time.perf_counter() - t23:.1f} s (budget 240 s)")
     mark("phase 23")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm_mesh, ssm_launches = phase_ssm_mesh(args.seed)
+    for k in kernels:
+        if k["name"] in ssm_launches:       # rows 9 and 9d: phase 24's ranks too
+            k.setdefault("launches_by_path", {k["path"]: k["launches"]})
+            k["launches_by_path"].update(ssm_launches[k["name"]])
+    log(json.dumps({"ssm_and_hybrid_over_a_mesh": ssm_mesh}))
+    mark("phase 24")
     log(smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,7 +8,8 @@ port's seeded ones, so the tokens differ).
     PYTHONPATH=src torchrun --standalone --nproc-per-node 4 scripts/serve_lm_torch.py \\
         qwen3-8b --mesh 2x2 --device cpu
 
-``--mesh DxM`` serves the dense, moe and vlm families over a (data, model) mesh, one
+``--mesh DxM`` serves the token-input families (dense, moe, ssm, hybrid, vlm)
+over a (data, model) mesh, one
 process a rank (``torchrun``; gloo on the CPU, NCCL on the cards, one card a
 rank): ``sharded_prefill`` and ``sharded_decode_step`` on each rank's
 slices of the parameters and rows of the batch.  Rank 0 then checks its

@@ -12,10 +12,11 @@ Usage:
 
 Train cells run ``sharded_train_step`` on this rank's slices of the state;
 prefill and decode cells ``sharded_prefill`` (``last_only``) and
-``sharded_decode_step`` on its slices of the parameters and the cache.
-Cells of the families without a sharded path (ssm, hybrid) end as
-``skipped`` with the ``NotImplementedError``'s text (ROADMAP Queue 1 item
-11c).  The join cell
+``sharded_decode_step`` on its slices of the parameters and the cache (at
+long_500k's batch of 1 every rank holds the row and the shared block's K/V
+sequence is split over the data axes, the cache's sequence fallback).  A
+shape a config does not take (long_500k outside the ssm and hybrid
+families) ends as ``skipped``.  The join cell
 runs one rank's ring sweep (``core.join.ring_sweep``) for real, on the
 device present (the card, else the CPU), at its shard of the 1M-set
 collection; its flops and bytes are row 1's analytic count (the verdict
@@ -87,20 +88,16 @@ def _batch(cfg, sp: ShapeSpec, mesh_sizes: dict, batch_axes) -> Dict[str, torch.
 def trace_cell(cfg, sp: ShapeSpec, mesh, opts: Optional[dict] = None) -> cost.Measured:
     """Run one rank's program of ``cfg`` at shape ``sp`` on ``mesh`` (a
     ``DeviceMesh`` over an initialised, usually fake, group) on meta tensors
-    and count it.  Raises ``NotImplementedError`` (item 11c) for a family
-    without a sharded path (ssm, hybrid)."""
+    and count it."""
     from repro_torch.distributed.sharding import activation_sharding, mesh_sizes
     from repro_torch.models.decode import cache_shapes, cache_specs, sharded_decode_step, \
         sharded_prefill
-    from repro_torch.models.model import (OTHER_FAMILIES, SHARDED_FAMILIES, dtype_of,
-                                          param_shapes, param_specs)
+    from repro_torch.models.model import dtype_of, param_shapes, param_specs
     from repro_torch.train import OptimizerConfig
     from repro_torch.train.optimizer import opt_init
     from repro_torch.train.step import sharded_train_step
 
     opts = opts or {}
-    if cfg.family not in SHARDED_FAMILIES:
-        raise NotImplementedError(OTHER_FAMILIES.format(cfg.family))
     sizes = mesh_sizes(mesh)
     fsdp = tuple(a for a in ("pod", "data") if a in sizes)
     sp_kw = {"seq_parallel": bool(opts.get("seq_parallel", False))}
@@ -121,11 +118,15 @@ def trace_cell(cfg, sp: ShapeSpec, mesh, opts: Optional[dict] = None) -> cost.Me
         def run():
             with torch.no_grad(), activation_sharding(mesh, batch_axes=fsdp, **sp_kw):
                 return sharded_prefill(cfg, params, pspecs, batch, max_len=sp.seq_len,
-                                       last_only=True)
+                                       last_only=True, global_batch=sp.global_batch)
         return cost.measure(run, arguments=(params, batch))
     cdt = dtype_of(cfg.dtype)
-    cache = _local_tree({k: _meta(v, torch.int32 if k == "cur" else cdt)
-                         for k, v in cache_shapes(cfg, sp.global_batch, sp.seq_len).items()},
+
+    def meta_leaves(shapes):   # the hybrid's shared K/V nests
+        return {k: meta_leaves(v) if isinstance(v, dict) else
+                _meta(v, torch.int32 if k == "cur" else cdt) for k, v in shapes.items()}
+
+    cache = _local_tree(meta_leaves(cache_shapes(cfg, sp.global_batch, sp.seq_len)),
                         cache_specs(cfg, mesh, sp.global_batch, fsdp=fsdp), sizes)
 
     def run():
@@ -270,7 +271,7 @@ def run_cell(arch: str, shape: str, mesh_name: str, out_dir, opts: Optional[dict
               f"t_mem={rl['t_memory'] * 1e3:.3f}ms t_coll={rl['t_collective'] * 1e3:.3f}ms "
               f"bottleneck={rl['bottleneck']} useful={rl['useful_ratio']:.3f} "
               f"frac={rl['roofline_fraction']:.3f} (trace {rec['trace_seconds']:.1f} s)")
-    except (SystemExit, NotImplementedError) as e:
+    except SystemExit as e:
         rec["skipped"] = str(e)
         rec["ok"] = True
         print(f"SKIP {arch} {shape} {mesh_name}: {e}")
@@ -365,8 +366,7 @@ def _drive(cells, args) -> int:
         elif "skipped" in rec:
             skipped.append((arch, shape, m))
     n_ok = len(results) - len(skipped) - len(failed)
-    print(f"done: {n_ok} cells ok, {len(skipped)} skipped (no sharded path: ROADMAP Queue 1 "
-          f"item 11c), {len(failed)} failed: {failed}")
+    print(f"done: {n_ok} cells ok, {len(skipped)} skipped, {len(failed)} failed: {failed}")
     return 1 if failed else 0
 
 

@@ -10,8 +10,8 @@ unless ``--device`` names another device; without a card and without
       --arch smollm-135m --reduced --steps 100 --batch 4 --seq 32
 
 ``--mesh DxM`` trains sharded over a ``("data", "model")`` mesh of D x M
-ranks (FSDP over ``data``, tensor parallel over ``model``; the dense, moe,
-vlm and audio families), one process a rank under ``torchrun``: gloo on the CPU, NCCL on
+ranks (FSDP over ``data``, tensor parallel over ``model``; every
+family), one process a rank under ``torchrun``: gloo on the CPU, NCCL on
 the card with one GPU a rank (``LOCAL_RANK``; ``make_mesh`` refuses more
 ranks than cards).  Under ``torchrun`` a ``1x1`` mesh takes the sharded
 path too; rank 0 prints.

@@ -22,9 +22,8 @@ cache.  Prefill attention runs the flash kernel on the card
 plain PyTorch, as they are jnp in the reference.  The vlm prefill's
 cross-attention is the flash kernel too, non-causal over the image tokens;
 its decode attends to the whole image cache.  Over a mesh
-:func:`sharded_prefill` and :func:`sharded_decode_step` serve the dense,
-moe, vlm and audio families from a cache shard laid out by
-:func:`cache_specs`.
+:func:`sharded_prefill` and :func:`sharded_decode_step` serve every family
+from a cache shard laid out by :func:`cache_specs`.
 """
 
 from __future__ import annotations
@@ -73,11 +72,13 @@ def cache_specs(cfg: ModelConfig, mesh, batch: int, fsdp: Tuple[str, ...] = ("po
                 tp: str = "model") -> Dict:
     """The reference's ``DecodeEngine.cache_specs``: the batch dim over the
     FSDP axes when ``batch`` divides them, else (tiny batches, long_500k)
-    the sequence dim over the non-pod FSDP axes; KV heads over TP, or the
-    head dim when the KV heads do not divide (the MHA fallback); the conv
-    states' channels and the SSM heads over TP.  :func:`sharded_prefill`
-    and :func:`sharded_decode_step` serve the dense, moe, vlm and audio
-    families from a cache so laid out."""
+    the sequence dim over the non-pod FSDP axes; KV heads over TP (the
+    hybrid's ``shared`` K/V too), or the head dim when the KV heads do not
+    divide (the MHA fallback); the conv states' channels over TP (``conv_b``
+    and ``conv_c`` on N, although their weights are replicated) and the SSM
+    heads over TP, each where it divides.  :func:`sharded_prefill` and
+    :func:`sharded_decode_step` serve all six families (dense, moe, ssm,
+    hybrid, vlm, audio) from a cache so laid out."""
     from repro_torch.distributed.sharding import P, axes_size, mesh_sizes
 
     sizes = mesh_sizes(mesh)
@@ -301,29 +302,57 @@ class DecodeEngine:
 
 
 # ---------------------------------------------------------------------------
-# Over a mesh (the dense, moe, vlm and audio families)
+# Over a mesh
 # ---------------------------------------------------------------------------
 
-def _local_cache(core: _ShardedDecoder, rows: int, max_len: int) -> Cache:
-    """This rank's zeroed cache shard for ``rows`` local rows, laid out by
-    :func:`cache_specs` at the global batch.  A batch that
-    does not divide the FSDP axes (the cache's sequence fallback, which the
-    reference takes only for long_500k) raises."""
-    from repro_torch.distributed.sharding import local_shape
+def _map(fn, shapes: Dict, specs: Dict) -> Dict:
+    """``fn(name, shape, spec)`` over the leaves of a (nested) cache tree."""
+    return {name: (_map(fn, shape, specs[name]) if isinstance(shape, dict)
+                   else fn(name, shape, specs[name]))
+            for name, shape in shapes.items()}
+
+
+def _local_cache(core: _ShardedDecoder, rows: int, max_len: int,
+                 total: Optional[int]) -> Tuple[Cache, Dict]:
+    """This rank's zeroed cache shard for its ``rows`` rows of a global batch
+    of ``total`` (``rows`` times the batch ranks by default), laid out by
+    :func:`cache_specs`, and the specs.  A batch that does not divide the
+    FSDP axes is held whole by every rank (its sequence fallback: the K/V
+    sequence over the non-pod FSDP axes)."""
+    from repro_torch.distributed.sharding import axes_size, entry_axes, local_shape
 
     ctx, cfg = core.ctx, core.cfg
     n_batch = ctx.batch_size
-    specs = cache_specs(cfg, ctx.mesh, rows * n_batch, fsdp=ctx.batch_axes,
-                        tp=ctx.tp or "model")
-    if n_batch > 1 and tuple(specs["k"])[1] is None:
-        raise NotImplementedError(
-            f"a batch that does not divide the FSDP axes ({n_batch}) puts the cache's "
-            f"sequence over them: ROADMAP Queue 1 item 11c")
-    shapes = cache_shapes(cfg, rows * n_batch, max_len)
+    total = rows * n_batch if total is None else total
+    split = bool(ctx.batch_axes) and total % n_batch == 0
+    if rows != (total // n_batch if split else total):
+        raise ValueError(f"{rows} rows a rank of a batch of {total} over {n_batch} batch "
+                         f"ranks: give each rank {total // n_batch if split else total}")
+    specs = cache_specs(cfg, ctx.mesh, total, fsdp=ctx.batch_axes, tp=ctx.tp or "model")
     dev = core.params["final_norm"].device
-    return {name: torch.zeros(local_shape(shape, specs[name], ctx.sizes),
-                              dtype=torch.int32 if name == "cur" else core.cdt, device=dev)
-            for name, shape in shapes.items()}
+
+    def zeros(name, shape, spec):
+        for d, e in enumerate(tuple(spec)):
+            if shape[d] % axes_size(ctx.sizes, entry_axes(e)):
+                raise ValueError(f"cache leaf {name} {shape}: dim {d} does not divide over "
+                                 f"{entry_axes(e)} (max_len {max_len})")
+        return torch.zeros(local_shape(shape, spec, ctx.sizes),
+                           dtype=torch.int32 if name == "cur" else core.cdt, device=dev)
+
+    return _map(zeros, cache_shapes(cfg, total, max_len), specs), specs
+
+
+def _specs_of(core: _ShardedDecoder, cache: Cache) -> Dict:
+    """The specs a cache shard was laid out by (its global batch is
+    ``cur``'s length)."""
+    ctx = core.ctx
+    return cache_specs(core.cfg, ctx.mesh, cache["cur"].shape[0], fsdp=ctx.batch_axes,
+                       tp=ctx.tp or "model")
+
+
+def _kv_cache(core: _ShardedDecoder, cache: Cache) -> Cache:
+    """The self-attention K/V of the cache: the hybrid's shared block's."""
+    return cache["shared"] if core.cfg.family == "hybrid" else cache
 
 
 def _cache_kind(core: _ShardedDecoder, kc: torch.Tensor) -> str:
@@ -338,9 +367,23 @@ def _cache_kind(core: _ShardedDecoder, kc: torch.Tensor) -> str:
     return "whole"
 
 
-def _rows(core: _ShardedDecoder, rows: int) -> slice:
-    """This rank's rows of the global batch (``cur`` is replicated whole)."""
-    start = core.lay.index(core.ctx.batch_axes) * rows if core.ctx.batch_axes else 0
+def _seq_axes(core: _ShardedDecoder, specs: Dict) -> Tuple[str, ...]:
+    """The axes the self-attention K/V's sequence lies over (the sequence
+    fallback's), those of more than one rank; () when it is whole."""
+    from repro_torch.distributed.sharding import entry_axes
+
+    kv = _kv_cache(core, specs)
+    if "k" not in kv:
+        return ()
+    axes = entry_axes(tuple(kv["k"])[2])
+    return axes if axes and core.lay.size(axes) > 1 else ()
+
+
+def _rows(core: _ShardedDecoder, rows: int, total: int) -> slice:
+    """This rank's rows of the global batch of ``total`` (``cur`` is
+    replicated whole); every row where each rank holds them all."""
+    start = core.lay.index(core.ctx.batch_axes) * rows if (
+        core.ctx.batch_axes and rows < total) else 0
     return slice(start, start + rows)
 
 
@@ -351,36 +394,86 @@ def _inputs(cfg: ModelConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def _write_kv(core: _ShardedDecoder, kc: torch.Tensor, vc: torch.Tensor, k: torch.Tensor,
-              v: torch.Tensor) -> None:
-    """A prefill's k and v (B, n, KV, hd) into the first n positions of a
-    cache shard: this rank's slice of the head dim in the MHA fallback."""
+              v: torch.Tensor, first: int = 0) -> None:
+    """A prefill's k and v (B, n, KV, hd) into a cache shard whose first
+    position is ``first`` (the sequence fallback's slice; 0 otherwise): the
+    prompt's positions it holds, this rank's slice of the head dim in the
+    MHA fallback."""
     if _cache_kind(core, kc) == "head_dim":
         d = kc.shape[-1]
         k, v = (t.narrow(-1, core.lay.coord[core.tp] * d, d) for t in (k, v))
-    kc[:, :k.shape[1]] = k
-    vc[:, :v.shape[1]] = v
+    n = min(kc.shape[1], k.shape[1] - first)
+    if n > 0:
+        kc[:, :n] = k[:, first:first + n]
+        vc[:, :n] = v[:, first:first + n]
+
+
+def _ssm_dim(name: str) -> int:
+    """The dim of a layer's state leaf that :func:`cache_specs` lays over TP:
+    the channels of a conv state (B, K-1, C), the heads of the SSM state
+    (B, H, P, N)."""
+    return 1 if name == "ssm" else 2
+
+
+def _ssm_gathers(core: _ShardedDecoder, specs: Dict, name: str) -> bool:
+    """Whether the block reads state leaf ``name`` whole while the cache
+    holds this rank's TP slice of it: ``conv_b`` and ``conv_c`` whose N
+    divides TP (the block needs every N), and ``conv_x`` and ``ssm`` of a
+    layer whose heads straddle ranks (it runs whole)."""
+    from repro_torch.distributed.sharding import entry_axes
+
+    sliced = core.ctx.tp_size > 1 and core.tp in entry_axes(tuple(specs[name])[1 + _ssm_dim(name)])
+    return sliced and not (core.ssm_tp and name in ("conv_x", "ssm"))
+
+
+def _ssm_read(core: _ShardedDecoder, specs: Dict, cache: Cache, i: int) -> Cache:
+    """Layer i's decode state as :meth:`_ShardedDecoder.mamba` reads it, its
+    TP slices all-gathered where the block needs them whole."""
+    out = {}
+    for name in ssm_lib.CACHE_LEAVES:
+        t = cache[name][i]
+        out[name] = (core.lay.all_gather(t, _ssm_dim(name), core.tp)
+                     if _ssm_gathers(core, specs, name) else t)
+    return out
+
+
+def _ssm_write(core: _ShardedDecoder, specs: Dict, cache: Cache, i: int, new: Cache) -> None:
+    """The block's new state into layer i's cache shard: this rank's TP
+    slice of what it computed whole, right-aligned as the single device
+    writes it."""
+    for name in ssm_lib.CACHE_LEAVES:
+        dst, t = cache[name][i], new[name]
+        if _ssm_gathers(core, specs, name):
+            dim, n = _ssm_dim(name), dst.shape[_ssm_dim(name)]
+            t = t.narrow(dim, core.lay.coord[core.tp] * n, n)
+        dst[:, dst.shape[1] - t.shape[1]:].copy_(t)
 
 
 def sharded_prefill(cfg: ModelConfig, params: Dict, specs: Dict,
                     batch: Dict[str, torch.Tensor], *, max_len: Optional[int] = None,
-                    last_only: bool = False) -> Tuple[torch.Tensor, Cache]:
-    """:meth:`DecodeEngine.prefill` of the dense, moe, vlm and audio
-    families on this rank's shards, inside
-    :func:`~repro_torch.distributed.sharding.activation_sharding` over a
-    ``DeviceMesh``.
+                    last_only: bool = False,
+                    global_batch: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
+    """:meth:`DecodeEngine.prefill` of every family on this rank's shards,
+    inside :func:`~repro_torch.distributed.sharding.activation_sharding`
+    over a ``DeviceMesh``.
 
     ``params``: this rank's slices laid out by ``specs`` (``param_specs``);
     ``batch``: this rank's rows (B_local, S) of ``tokens`` (or
     ``frame_embeds``, and the vlm family's ``image_embeds``), the batch over
-    the FSDP axes and the same on every TP rank.  The layers are the loss's
+    the FSDP axes and the same on every TP rank; ``global_batch``: the
+    batch's whole size (B_local times the batch ranks by default), and when
+    it does not divide the batch ranks every rank holds all of it (the
+    cache's sequence fallback).  The layers are the loss's
     (``model._ShardedDecoder.hidden``): attention through the flash kernel
     on this rank's heads or q rows, per ``attn_partition``, each layer's k
-    and v (every row's) written into the cache shard; the moe family routes
+    and v (every row's) written into the cache shard (in the sequence
+    fallback, the positions of this rank's slice); the moe family routes
     the prompt as the single device does; each vlm cross layer's image k and
-    v go into ``img_k`` / ``img_v``.  Returns ``(logits, cache)``: logits
-    (B_local, S or 1, V_local) in the compute type, laid out as the
-    reference's dry run lays them out (batch over the FSDP axes, the
-    vocabulary over ``"model"`` when it divides); the cache this rank's
+    v go into ``img_k`` / ``img_v``; each Mamba2 layer runs this rank's SSD
+    heads and writes its conv and SSM states' slices.  Returns ``(logits,
+    cache)``: logits (B_local, S or 1, V_local) in the compute type, laid
+    out as the reference's dry run lays them out (batch over the FSDP axes,
+    the vocabulary over ``"model"`` when it divides); the cache this rank's
     shard under :func:`cache_specs` at the global batch (KV heads over TP,
     or the head dim in the MHA fallback, whose prefill then computes every
     KV head; ``cur`` whole)."""
@@ -389,15 +482,18 @@ def sharded_prefill(cfg: ModelConfig, params: Dict, specs: Dict,
     if max_len < s:
         raise ValueError(f"max_len {max_len} is shorter than the prompt ({s})")
     core = _ShardedDecoder(cfg, params, specs, "sharded_prefill")
-    cache = _local_cache(core, b, max_len)
+    cache, cspecs = _local_cache(core, b, max_len, global_batch)
+    kv = _kv_cache(core, cache)
+    seq = _seq_axes(core, cspecs)
+    first = core.lay.index(seq) * kv["k"].shape[2] if seq else 0
     images = batch["image_embeds"].to(core.cdt) if cfg.family == "vlm" else None
 
     def attention(i, h, a, sa):
-        kc, vc = cache["k"][i], cache["v"][i]
+        kc, vc = kv["k"][i], kv["v"][i]
         out, (k, v) = core.flash_attention(h, core.attn_weights(a, sa),
                                            all_kv=_cache_kind(core, kc) != "heads",
                                            return_kv=True)
-        _write_kv(core, kc, vc, k, v)
+        _write_kv(core, kc, vc, k, v, first)
         return out, core.out_layout(s)
 
     def cross_attention(g, h, a, sa):
@@ -408,7 +504,13 @@ def sharded_prefill(cfg: ModelConfig, params: Dict, specs: Dict,
         _write_kv(core, ik, iv, *kv)
         return core.flash_attention(h, w, all_kv=all_kv, kv=kv), core.out_layout(s)
 
-    x = core.hidden(batch, attention, remat=False, cross_attention=cross_attention)
+    def mamba(i, h, m, sm):
+        out, layout, new = core.mamba(h, m, sm)
+        _ssm_write(core, cspecs, cache, i, new)
+        return out, layout
+
+    x = core.hidden(batch, attention, remat=False, cross_attention=cross_attention,
+                    mamba=mamba)
     cache["cur"].fill_(s)
     if last_only:
         x = x[:, -1:, :]
@@ -417,14 +519,17 @@ def sharded_prefill(cfg: ModelConfig, params: Dict, specs: Dict,
 
 def _decode_attention(core: _ShardedDecoder, h: torch.Tensor, a: Dict, sa: Dict,
                       kc: torch.Tensor, vc: torch.Tensor, lengths: torch.Tensor,
-                      cur: Optional[torch.Tensor] = None):
+                      cur: Optional[torch.Tensor] = None, seq: Tuple[str, ...] = ()):
     """One token's attention against a layer's cache shard, by its layout:
     KV heads over TP, this rank's query heads against its KV heads, wo
     row-parallel; the MHA fallback's head-dim slices, every head's scores
     partial over the slice, all-reduced over TP before the softmax, this
     slice of each head's output through wo's matching rows; a cache whole
-    on every TP rank, every head.  ``cur`` (a self layer): q and the new k,
-    v rotated to it and the k, v written there, the first ``lengths``
+    on every TP rank, every head.  ``seq``: the axes the cache's sequence
+    lies over (the sequence fallback): the rank whose slice holds ``cur``
+    writes the new k and v, and each rank's max, sum and output over its
+    positions are combined over them.  ``cur`` (a self layer): q and the new
+    k, v rotated to it and the k, v written there, the first ``lengths``
     positions attended; without it (a vlm cross layer) q alone, unrotated,
     against the whole image cache.  Returns the output after wo and its
     layout over TP (``"partial"`` or ``"whole"``)."""
@@ -453,40 +558,72 @@ def _decode_attention(core: _ShardedDecoder, h: torch.Tensor, a: Dict, sa: Dict,
             k, v = k.narrow(-1, d0, d), v.narrow(-1, d0, d)
         wo = wo.reshape(n_q, hd, -1).narrow(1, d0, d).reshape(n_q * d, -1)
         reduce = functools.partial(core.lay.all_reduce, axes=core.tp)
+    first, reduce_seq = 0, None
+    if seq:
+        n = kc.shape[1]
+        first = core.lay.index(seq) * n
+
+        def reduce_seq(t, maximum):
+            op = torch.distributed.ReduceOp.MAX if maximum else torch.distributed.ReduceOp.SUM
+            return core.lay.all_reduce(t, seq, op=op)
     if cur is not None:
         rows = torch.arange(b, device=h.device)
-        kc[rows, cur] = k[:, 0].to(kc.dtype)
-        vc[rows, cur] = v[:, 0].to(vc.dtype)
-    out = L.decode_attention(q, kc, vc, lengths, head_dim=hd, reduce_scores=reduce)
+        at = cur - first
+        if seq:   # only the rank whose slice holds cur writes it
+            mine = ((at >= 0) & (at < kc.shape[1]))[:, None, None]
+            at = at.clamp(0, kc.shape[1] - 1)
+            k_new = torch.where(mine, k[:, 0].to(kc.dtype), kc[rows, at])
+            v_new = torch.where(mine, v[:, 0].to(vc.dtype), vc[rows, at])
+        else:
+            k_new, v_new = k[:, 0].to(kc.dtype), v[:, 0].to(vc.dtype)
+        kc[rows, at] = k_new
+        vc[rows, at] = v_new
+    out = L.decode_attention(q, kc, vc, lengths, head_dim=hd, reduce_scores=reduce,
+                             first=first, reduce_seq=reduce_seq)
     return out.reshape(b, 1, -1) @ wo.to(h.dtype), core._partial(kind != "whole")
 
 
 def sharded_decode_step(cfg: ModelConfig, params: Dict, specs: Dict, cache: Cache,
                         batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Cache]:
-    """:meth:`DecodeEngine.decode_step` of the dense, moe, vlm and audio
-    families on this rank's shards (as :func:`sharded_prefill` takes them)
-    and its cache shard, updated in place.  ``batch``: this rank's rows
-    (B_local, 1) of ``tokens``, or ``frame_embeds`` (B_local, 1, d).
+    """:meth:`DecodeEngine.decode_step` of every family on this rank's
+    shards (as :func:`sharded_prefill` takes them) and its cache shard,
+    updated in place.  ``batch``: this rank's rows (B_local, 1) of
+    ``tokens``, or ``frame_embeds`` (B_local, 1, d); all rows when the
+    global batch (``cur``'s length) does not divide the batch ranks.
 
     Attention is the plain ``layers.decode_attention`` (the reference's
     decode is jnp) on the cache's layout (:func:`_decode_attention`): the
-    self layers write this token's k and v at ``cur``; the vlm cross layers
-    attend to their whole image cache; the moe family routes the step's
-    tokens as groups of one, as the single device does.  Returns ``(logits
-    (B_local, 1, V_local), cache)`` with ``cur`` advanced."""
+    self layers (the hybrid's shared block) write this token's k and v at
+    ``cur``; in the sequence fallback each rank attends to its slice of the
+    positions and the flash-style all-reduce pair combines them; the vlm
+    cross layers attend to their whole image cache; the moe family routes
+    the step's tokens as groups of one, as the single device does; each
+    Mamba2 layer runs one step of its SSD heads from its state, ``conv_b``
+    and ``conv_c`` all-gathered over TP where the cache holds N slices.
+    Returns ``(logits (B_local, 1, V_local), cache)`` with ``cur``
+    advanced."""
     b = _inputs(cfg, batch).shape[0]
     cur_all = cache["cur"]
     core = _ShardedDecoder(cfg, params, specs, "sharded_decode_step")
-    cur = cur_all[_rows(core, b)]
+    cur = cur_all[_rows(core, b, cur_all.shape[0])]
+    cspecs = _specs_of(core, cache)
+    kv = _kv_cache(core, cache)
+    seq = _seq_axes(core, cspecs)
 
     def attention(i, h, a, sa):
-        return _decode_attention(core, h, a, sa, cache["k"][i], cache["v"][i], cur + 1, cur)
+        return _decode_attention(core, h, a, sa, kv["k"][i], kv["v"][i], cur + 1, cur, seq)
 
     def cross_attention(g, h, a, sa):
         ik = cache["img_k"][g]
         n_img = torch.full((b,), ik.shape[1], dtype=torch.int32, device=h.device)
         return _decode_attention(core, h, a, sa, ik, cache["img_v"][g], n_img)
 
-    x = core.hidden(batch, attention, remat=False, cross_attention=cross_attention)
+    def mamba(i, h, m, sm):
+        out, layout, new = core.mamba(h, m, sm, cache=_ssm_read(core, cspecs, cache, i))
+        _ssm_write(core, cspecs, cache, i, new)
+        return out, layout
+
+    x = core.hidden(batch, attention, remat=False, cross_attention=cross_attention,
+                    mamba=mamba)
     cache["cur"] = cur_all + 1
     return x @ core.head_weight().to(x.dtype), cache

@@ -82,12 +82,13 @@ def greedy_generate(engine: DecodeEngine, tokens: Optional[torch.Tensor], gen: i
 def sharded_greedy_generate(cfg, params, specs, tokens: torch.Tensor, gen: int, *,
                             max_len: Optional[int] = None,
                             image_embeds: Optional[torch.Tensor] = None) -> Generation:
-    """:func:`greedy_generate` of the dense, moe and vlm families over a
-    mesh, inside ``activation_sharding``: ``sharded_prefill`` and
-    ``sharded_decode_step`` on this rank's parameter slices (``params`` laid
-    out by ``specs``) and its rows of the prompt ``tokens`` (B_local, P) and,
-    for the vlm family, of ``image_embeds`` (B_local, n_img, d), which the
-    prefill puts into the cache.  Each step's logits are gathered over the
+    """:func:`greedy_generate` of the token-input families (dense, moe, ssm,
+    hybrid, vlm) over a mesh, inside ``activation_sharding``:
+    ``sharded_prefill`` and ``sharded_decode_step`` on this rank's parameter
+    slices (``params`` laid out by ``specs``) and its rows of the prompt
+    ``tokens`` (B_local, P) and, for the vlm family, of ``image_embeds``
+    (B_local, n_img, d), which the prefill puts into the cache.  Each step's
+    logits are gathered over the
     vocabulary's TP slices before the argmax, so every TP rank picks the
     same tokens; ``logits`` holds those whole rows."""
     from repro_torch.distributed.sharding import current_context

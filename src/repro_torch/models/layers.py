@@ -142,6 +142,8 @@ def decode_attention(
     *,
     head_dim: Optional[int] = None,
     reduce_scores=None,
+    first: int = 0,
+    reduce_seq: Optional[Callable[[torch.Tensor, bool], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """One-token attention. q: (B, 1, H, D); caches: (B, S, KV, D); the
     first ``cur_len[b]`` positions of row b are attended.
@@ -150,7 +152,14 @@ def decode_attention(
     passes its slice of q and of the caches, the whole ``head_dim`` (the
     scale's), and ``reduce_scores``, which sums the float32 partial scores
     over the ranks holding the other slices before the softmax; the output
-    is then this slice of each head's output."""
+    is then this slice of each head's output.
+
+    A cache sharded along the sequence (the sharded decode's fallback for a
+    batch too small for the batch axes) passes its slice, the position of
+    its first row (``first``), and ``reduce_seq(t, maximum)``, which
+    all-reduces ``t`` over the ranks holding the other slices (its maximum,
+    or its sum): the flash-style pair combines each rank's max, sum of
+    exponentials and unnormalised float32 output into every head's output."""
     b, _, h, d = q.shape
     _, s, kv, _ = k_cache.shape
     g = h // kv
@@ -160,9 +169,17 @@ def decode_attention(
     if reduce_scores is not None:
         scores = reduce_scores(scores)
     scores = scores * scale
-    mask = torch.arange(s, device=q.device)[None, :] < cur_len[:, None]   # (B, S)
+    pos = torch.arange(first, first + s, device=q.device)
+    mask = pos[None, :] < cur_len[:, None]                                 # (B, S)
     scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
     m = scores.amax(dim=-1, keepdim=True)
+    if reduce_seq is not None:
+        m = reduce_seq(m, True)
+        p = torch.exp(scores - m)
+        ol = reduce_seq(torch.cat([torch.einsum("bkgs,bskd->bkgd", p, v_cache.float()),
+                                   p.sum(dim=-1, keepdim=True)], dim=-1), False)
+        out = (ol[..., :d] / ol[..., d:]).to(v_cache.dtype)
+        return out.reshape(b, 1, h, d)
     p = torch.exp(scores - m)
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bkgs,bskd->bkgd", (p / l).to(v_cache.dtype), v_cache)

@@ -36,15 +36,13 @@ card unless the caller passes ``device="cpu"``.
 
 Sharding: :func:`param_specs` (and ``Model.param_specs``) is the
 reference's rule set, a pure function of the config's shapes for every
-family; :func:`sharded_loss` is the loss of the dense, moe, vlm and audio
-families on one rank's shards of the parameters and the batch, Megatron
-style (experts parallel over TP, attention over heads or, where neither
-the KV nor the q heads divide TP, over the q sequence), for
+family; :func:`sharded_loss` is the loss of every family on one rank's
+shards of the parameters and the batch, Megatron style (experts parallel
+over TP, attention over heads or, where neither the KV nor the q heads
+divide TP, over the q sequence, the SSD heads over TP), for
 ``repro_torch.train.step.sharded_train_step``, and ``models/decode.py``'s
 ``sharded_prefill`` / ``sharded_decode_step`` serve from the same shards,
-all through :class:`_ShardedDecoder`'s one copy of the layer.  The ssm and
-hybrid families over a mesh (the SSD heads over TP, their caches, the
-shared block) are ROADMAP Queue 1 item 11c's second half.
+all through :class:`_ShardedDecoder`'s one copy of the layer.
 """
 
 from __future__ import annotations
@@ -471,11 +469,13 @@ def _per_layer(stack: nn.Module) -> list:
 _STACKED = ("blocks", "cross_blocks", "shared_attn")
 _COLUMN = ("wq", "wk", "wv", "w_gate", "w_up", "w_z", "w_x", "w_b", "w_c", "w_dt")
 _ROW = ("wo", "w_down", "w_out")
-SHARDED_FAMILIES = ("dense", "moe", "vlm", "audio")
-OTHER_FAMILIES = ("the sharded step and serving of the {} family wait for ROADMAP Queue 1 "
-                  "item 11c: the ssm and hybrid families over a mesh (the SSD heads over TP, "
-                  "the gated norm reduced over TP, the conv and SSM cache shards, the hybrid's "
-                  "shared block)")
+# A Mamba2 layer's leaves that keep their TP slice where the SSD heads divide
+# TP, by the dim their spec shards over it (the layer's own dims); B, C and
+# their convs are gathered whole: the SSD contraction needs every N on every
+# rank.
+_SSM_TP_DIM = {"w_z": 1, "w_x": 1, "w_dt": 1, "conv_x": 1, "a_log": 0, "dt_bias": 0,
+               "d_skip": 0, "norm": 0, "w_out": 0}
+_SSM_VECTORS = ("a_log", "dt_bias", "d_skip", "norm")   # read in float32 by the block
 
 
 def param_specs(cfg: ModelConfig, mesh, fsdp: Tuple[str, ...] = ("pod", "data"),
@@ -557,10 +557,10 @@ def _flat(tree: Dict, prefix: str = "") -> list:
 
 
 class _ShardedDecoder:
-    """The decoder of the dense, moe, vlm and audio families on this rank's
-    shards, inside :func:`~repro_torch.distributed.sharding.activation_sharding`
-    over a ``DeviceMesh``: the one copy of the sharded layer that the loss and
-    the serving functions share.
+    """The decoder of every family on this rank's shards, inside
+    :func:`~repro_torch.distributed.sharding.activation_sharding` over a
+    ``DeviceMesh``: the one copy of the sharded layer that the loss and the
+    serving functions share.
 
     ``params``: this rank's slices of the parameter tree, laid out by
     ``specs`` (:func:`param_specs`).  Megatron style on local shards: each
@@ -588,7 +588,15 @@ class _ShardedDecoder:
     from the text, k and v from this rank's rows of the image embeddings,
     heads per ``attn_partition``, non-causal; the MLP column / row parallel;
     the tanh gate as it is) run outside remat after every
-    ``cross_attn_every`` self layers.  Under ``seq_parallel`` the residual's
+    ``cross_attn_every`` self layers.  A Mamba2 layer (the ssm and hybrid
+    families, :meth:`mamba`) runs this rank's SSD heads where they divide TP
+    (z, x, dt and ``conv_x`` column slices, the per-head vectors and the
+    gated norm's scale its slice, ``w_out`` row-parallel and its output
+    partial; B, C and their convs gathered whole; the gated norm's sum of
+    squares all-reduced over TP), else every head on every TP rank; the
+    hybrid's shared attention + MLP block runs before each group of
+    ``attn_every`` layers, outside remat, its gradient the sum over its
+    applications.  Under ``seq_parallel`` the residual's
     sequence is sharded over TP between blocks where it divides: each block
     all-gathers it before its norm and reduce-scatters its partial output
     (a replicated output is sliced, a ``q_sequence`` output is already this
@@ -601,8 +609,6 @@ class _ShardedDecoder:
         ctx = current_context()
         if ctx is None or ctx.layout is None:
             raise RuntimeError(f"{what} runs inside activation_sharding over a DeviceMesh")
-        if cfg.family not in SHARDED_FAMILIES:
-            raise NotImplementedError(OTHER_FAMILIES.format(cfg.family))
         self.cfg, self.params, self.specs, self.ctx = cfg, params, specs, ctx
         self.lay, self.tp = ctx.layout, ctx.tp
         self.cdt = dtype_of(cfg.dtype)
@@ -613,6 +619,8 @@ class _ShardedDecoder:
         self.vocab_tp = constrain((cfg.vocab_size,), ("tp",))[0] is not None
         self.moe_tp = (cfg.family == "moe"
                        and constrain((cfg.num_experts,), ("tp",))[0] is not None)
+        self.ssm_tp = (cfg.family in ("ssm", "hybrid")
+                       and constrain((cfg.ssm_heads,), ("tp",))[0] is not None)
         self.emb = None
         self.aux: dict = {}
 
@@ -730,8 +738,33 @@ class _ShardedDecoder:
                                       self._partial(self.mlp_tp), sp)
         return out, aux
 
+    def ssm_norm_mean(self, sum_sq: torch.Tensor) -> torch.Tensor:
+        """The gated norm's mean square over the whole ``ssm_inner`` from this
+        rank's float32 sum of squares of its channels."""
+        return self.lay.psum(sum_sq, self.tp) / self.cfg.ssm_inner
+
+    def mamba(self, h: torch.Tensor, m: Dict, sm: Dict,
+              cache: Optional[Dict[str, torch.Tensor]] = None):
+        """A Mamba2 block on normed ``h`` (whole sequence) with this layer's
+        slices ``m`` laid out by ``sm``: this rank's SSD heads where they
+        divide TP, else every head (heads that straddle ranks run whole on
+        every TP rank).  ``cache``: the layer's decode state as the block
+        reads it (``conv_x`` and ``ssm`` of the heads it runs, ``conv_b`` and
+        ``conv_c`` whole), for one decode step.  Returns (output, its layout
+        over TP, the block's new state in the same layout)."""
+        cfg = self.cfg
+        w = {name: self.use(t, sm[name],
+                            (_SSM_TP_DIM[name],) if self.ssm_tp and name in _SSM_TP_DIM else (),
+                            cast=name not in _SSM_VECTORS)
+             for name, t in m.items()}
+        split = self.ssm_tp and self.ctx.tp_size > 1
+        out, new = ssm_lib.mamba2_block(
+            h, w, d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim, chunk=cfg.ssm_chunk,
+            norm_eps=cfg.norm_eps, cache=cache, norm_mean=self.ssm_norm_mean if split else None)
+        return out, self._partial(split), new
+
     def hidden(self, batch: Dict[str, torch.Tensor], attention, *, remat: bool,
-               cross_attention=None) -> torch.Tensor:
+               cross_attention=None, mamba=None) -> torch.Tensor:
         """The first layer's input of this rank's rows of ``batch`` (the
         vocab-parallel embedding of ``tokens``, or ``frame_embeds``; the same
         on every TP rank), the layers and the final norm: (B, S, d) in the
@@ -739,10 +772,12 @@ class _ShardedDecoder:
         runs self layer i's attention on its normed input ``h`` (whole
         sequence) with its weight slices ``a`` laid out by ``sa``, and
         returns the output after wo and its layout over TP (``"partial"``,
-        ``"rows"`` or ``"whole"``, :meth:`_combine`);
-        ``cross_attention(g, h, a, sa)`` likewise for the vlm family's
-        cross layer g.  The moe family's aux metrics (the layers' mean) are
-        left in :attr:`aux`."""
+        ``"rows"`` or ``"whole"``, :meth:`_combine`); the hybrid's shared
+        block calls it with its group's index.  ``cross_attention(g, h, a,
+        sa)`` likewise for the vlm family's cross layer g; ``mamba(i, h, m,
+        sm)`` runs Mamba2 layer i on its normed input and returns its output
+        and layout (by default :meth:`mamba` without a cache).  The moe
+        family's aux metrics (the layers' mean) are left in :attr:`aux`."""
         from repro_torch.distributed.sharding import P
 
         cfg, lay, tp = self.cfg, self.lay, self.tp
@@ -800,14 +835,28 @@ class _ShardedDecoder:
             return [nest((name, views[i]) for name, views in parts.items())
                     for i in range(n)], lspecs
 
+        if mamba is None:
+            def mamba(i, h, m, sm):
+                return self.mamba(h, m, sm)[:2]
+
+        def mamba_layer(x, blk, lspec, i):
+            h, out = mamba(i, norm(x, blk["norm"], lspec["norm"]), blk["mamba"], lspec["mamba"])
+            return x + self._combine(h, out, sp)
+
+        ssm = cfg.family in ("ssm", "hybrid")
         blocks, lspecs = per_layer("blocks")
         cross, cspecs = per_layer("cross_blocks") if cfg.family == "vlm" else ([], None)
+        shared, sspecs = per_layer("shared_attn") if cfg.family == "hybrid" else ([], None)
+        groups = cfg.num_layers // cfg.attn_every if shared else 0
         aux: dict = {}
         for i, blk in enumerate(blocks):
+            if shared and i % cfg.attn_every == 0 and i < groups * cfg.attn_every:
+                x = layer(x, shared[0], sspecs, i // cfg.attn_every)   # outside remat
+            body = mamba_layer if ssm else layer
             if remat:
-                x = checkpoint(layer, x, blk, lspecs, i, use_reentrant=False)
+                x = checkpoint(body, x, blk, lspecs, i, use_reentrant=False)
             else:
-                x = layer(x, blk, lspecs, i)
+                x = body(x, blk, lspecs, i)
             if isinstance(x, tuple):
                 x, layer_aux = x
                 aux = {k: aux.get(k, 0.0) + v.float() for k, v in layer_aux.items()}
@@ -912,8 +961,7 @@ def sharded_hidden(cfg: ModelConfig, params: Dict, specs: Dict, batch: Dict[str,
 def sharded_loss(cfg: ModelConfig, params: Dict, specs: Dict, batch: Dict[str, torch.Tensor],
                  *, count: torch.Tensor, triangle: bool = False,
                  metrics: Optional[dict] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The next-token loss of the dense, moe, vlm and audio families on this
-    rank's shards, inside
+    """The next-token loss of every family on this rank's shards, inside
     :func:`~repro_torch.distributed.sharding.activation_sharding` over a
     ``DeviceMesh`` (the counterpart of :meth:`Model.loss` under the
     reference's ``jit_train_step``).
@@ -927,7 +975,8 @@ def sharded_loss(cfg: ModelConfig, params: Dict, specs: Dict, batch: Dict[str, t
     heads divide TP, q head-parallel with this rank's KV heads computed from
     the gathered wk / wv when only the q heads do, and this rank's q rows
     against the whole K and V (the kernels' query offset) when neither
-    does.  Vocab-parallel, the cross-entropy's max, sum of exponentials and
+    does; the Mamba2 layers on this rank's SSD heads (:meth:`_ShardedDecoder.mamba`).
+    Vocab-parallel, the cross-entropy's max, sum of exponentials and
     gold logit are reduced over TP, as the reference constrains the logits
     to (batch, None, tp).
 

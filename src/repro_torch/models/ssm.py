@@ -16,7 +16,7 @@ loop over the nc chunk states.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -111,6 +111,7 @@ def mamba2_block(
     chunk: int,
     norm_eps: float,
     cache: Optional[Dict[str, torch.Tensor]] = None,
+    norm_mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, D) -> (out (B, S, D), cache).  ``cache`` (the layer's
     ``CACHE_LEAVES``) makes it one decode step (S = 1); without it the block
@@ -119,7 +120,11 @@ def mamba2_block(
 
     params: w_z, w_x (D, Din); w_b, w_c (D, N); w_dt (D, H); conv_x (K, Din);
     conv_b, conv_c (K, N); a_log, dt_bias, d_skip (H,); norm (Din,);
-    w_out (Din, D).
+    w_out (Din, D).  On a tensor-parallel rank they are its heads' slices
+    (Din and H local; B, C and their convs whole) and ``norm_mean`` makes
+    the gated norm's mean square from the float32 sum of squares of the
+    local channels (B, S, 1): the sum over every rank's channels over the
+    whole width.
     """
     b, s, _ = x.shape
     d_in = params["w_out"].shape[0]
@@ -161,5 +166,12 @@ def mamba2_block(
         new_cache = {"conv_x": new_cx, "conv_b": new_cb, "conv_c": new_cc, "ssm": st}
 
     y = y + xh * params["d_skip"].to(xh.dtype)[None, None, :, None]
-    y = rms_norm(y.reshape(b, s, d_in), params["norm"], norm_eps) * F.silu(z)
+    y = y.reshape(b, s, d_in)
+    if norm_mean is None:
+        y = rms_norm(y, params["norm"], norm_eps)
+    else:
+        yf = y.float()
+        var = norm_mean(torch.sum(yf * yf, dim=-1, keepdim=True))
+        y = (yf * torch.rsqrt(var + norm_eps) * params["norm"].float()).to(y.dtype)
+    y = y * F.silu(z)
     return y @ params["w_out"].to(x.dtype), new_cache

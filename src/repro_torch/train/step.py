@@ -13,9 +13,7 @@ Over a mesh (one process per device): :func:`state_specs` and
 rank's slice of a train state, and :func:`sharded_train_step` the
 counterpart of the reference's ``jit_train_step``: parameters and optimizer
 state FSDP-sharded over the batch axes and tensor-parallel over
-``"model"``, the batch sharded over the batch axes (the dense, moe, vlm and
-audio families; the ssm and hybrid families raise, ROADMAP Queue 1 item
-11c).
+``"model"``, the batch sharded over the batch axes (every family).
 """
 
 from __future__ import annotations
@@ -27,8 +25,7 @@ import torch
 from repro_torch.distributed.sharding import (P, activation_sharding, layout_of, mesh_sizes,
                                               shard_tree)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import (OTHER_FAMILIES, SHARDED_FAMILIES, Model, param_specs,
-                                      sharded_loss)
+from repro_torch.models.model import Model, param_specs, sharded_loss
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.tree import leaves, unflatten
@@ -174,9 +171,8 @@ def sharded_train_step(model, opt_cfg: OptimizerConfig, mesh, *, microbatches: i
     over this rank's slices of the state (:func:`sharded_state`) and of the
     batch (its rows over the batch axes, the same on every TP rank).
 
-    ``model``: a Model or its config (the dense, moe, vlm and audio
-    families; the ssm and hybrid families raise, ROADMAP Queue 1 item 11c);
-    ``mesh``: a ``DeviceMesh`` over the default
+    ``model``: a Model or its config (every family); ``mesh``: a
+    ``DeviceMesh`` over the default
     process group, every rank calling the step together.  The loss and its
     gradients are ``models.model.sharded_loss``'s (FSDP gathers and
     reduce-scatters, Megatron TP, the flash kernels on the local heads);
@@ -193,8 +189,6 @@ def sharded_train_step(model, opt_cfg: OptimizerConfig, mesh, *, microbatches: i
     and ``lr``.  ``seq_parallel``: the residual's sequence
     sharded over ``tp`` between blocks (``activation_sharding``'s)."""
     cfg = _cfg(model)
-    if cfg.family not in SHARDED_FAMILIES:
-        raise NotImplementedError(OTHER_FAMILIES.format(cfg.family))
     sspecs = state_specs(cfg, opt_cfg, mesh, fsdp=fsdp, tp=tp)
     bspecs = batch_specs(cfg, mesh, batch_axes=fsdp)
     pspecs = sspecs["params"]

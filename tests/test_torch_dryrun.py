@@ -15,8 +15,9 @@
   the reference's ``memory_analysis().argument_size_in_bytes`` exactly;
   per-rank flops are within ``FLOPS_RTOL`` of ``hlo_analysis``'s (measured
   on this CPU: equal in all three cells, 41,943,040 / 11,567,104 /
-  212,992).  The reference test's hybrid zamba2-7b cell waits for ROADMAP
-  Queue 1 item 11c: here it must end as skipped, naming that item.  Two
+  212,992).  The reference test's own cell, reduced zamba2-7b's decode,
+  with its train cell and reduced mamba2-2.7b's decode: argument bytes
+  equal, flops the reference's plus the whole-N B / C projections.  Two
   more cells on the same mesh: reduced phi3.5-moe's train (argument bytes
   equal; flops not compared, the reference's one-hot dispatch against the
   port's gather form) and reduced qwen3-8b with 3 / 1 heads (the
@@ -72,9 +73,12 @@ out = {}
 CELLS = [("", configs.get_reduced("qwen3-8b"), ("train", "prefill", "decode")),
          ("moe_", configs.get_reduced("phi3.5-moe-42b-a6.6b"), ("train",)),
          ("q_sequence_", configs.get_reduced("qwen3-8b", num_heads=3, num_kv_heads=1),
-          ("train", "prefill"))]
-# This process's share of the cells (two processes compile them at once).
-CELLS = [c for c in CELLS if (c[0] == "") == (os.environ["TWIN_CELLS"] == "base")]
+          ("train", "prefill")),
+         ("hybrid_", configs.get_reduced("zamba2-7b"), ("train", "decode")),
+         ("ssm_", configs.get_reduced("mamba2-2.7b"), ("decode",))]
+# This process's share of the cells (three processes compile them at once).
+SHARE = {"": "base", "moe_": "more", "q_sequence_": "more", "hybrid_": "ssm", "ssm_": "ssm"}
+CELLS = [c for c in CELLS if SHARE[c[0]] == os.environ["TWIN_CELLS"]]
 for tag, cfg, kind in ((t, c, k) for t, c, kinds in CELLS for k in kinds):
     model, engine = Model(cfg), DecodeEngine(Model(cfg))
     pspecs = model.param_specs(mesh, fsdp=fsdp)
@@ -126,19 +130,14 @@ out = {}
 CELLS = [("", configs.get_reduced("qwen3-8b"), ("train", "prefill", "decode")),
          ("moe_", configs.get_reduced("phi3.5-moe-42b-a6.6b"), ("train",)),
          ("q_sequence_", configs.get_reduced("qwen3-8b", num_heads=3, num_kv_heads=1),
-          ("train", "prefill"))]
+          ("train", "prefill")),
+         ("hybrid_", configs.get_reduced("zamba2-7b"), ("train", "decode")),
+         ("ssm_", configs.get_reduced("mamba2-2.7b"), ("decode",))]
 for tag, cfg, kind in ((t, c, k) for t, c, kinds in CELLS for k in kinds):
     m = dryrun.trace_cell(cfg, ShapeSpec(kind, 64, 8, kind), mesh)
     out[tag + kind] = {"args": m.memory["argument_size_in_bytes"], "flops": m.costs.flops,
                        "peak": m.memory["peak_bytes"],
                        "collectives": sum(c.count for c in m.costs.collectives)}
-skipped = {}
-for kind in ("train", "decode"):
-    try:
-        dryrun.trace_cell(configs.get_reduced("zamba2-7b"), ShapeSpec(kind, 64, 8, kind), mesh)
-    except NotImplementedError as e:
-        skipped[kind] = str(e)
-out["hybrid"] = skipped
 print("RESULT " + json.dumps(out))
 """
 
@@ -162,7 +161,7 @@ def twins(tmp_path_factory):
     256-rank smollm cell, all three processes at once."""
     out = tmp_path_factory.mktemp("dryrun")
     refs = [_start(_REF, XLA_FLAGS="--xla_force_host_platform_device_count=8",
-                   JAX_PLATFORMS="cpu", TWIN_CELLS=cells) for cells in ("base", "more")]
+                   JAX_PLATFORMS="cpu", TWIN_CELLS=cells) for cells in ("base", "more", "ssm")]
     port = _start(_PORT)
     cell = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "smollm-135m",
@@ -236,10 +235,39 @@ def test_dryrun_moe_cell_matches_reference_bytes(twins):
     assert 0 < port["flops"] < ref["flops"] and port["collectives"] > 0
 
 
+def _whole_bc_flops(cfg, kind: str, rows: int = 2, seq: int = 64, tp: int = 2) -> float:
+    """The products the port adds to the reference's in a Mamba2 layer: it
+    gathers ``w_b`` and ``w_c`` (N sharded over TP by their spec) and
+    projects every N on every TP rank, where the reference's partitioner
+    projects each rank's N slice.  Per layer, two (rows·seq, D) x (D, N)
+    products, (1 - 1/TP) of each beyond the reference's; a train step runs
+    each three times (forward, and the backward's two products)."""
+    seq = 1 if kind == "decode" else seq
+    per_layer = 2 * 2 * rows * seq * cfg.d_model * cfg.ssm_state * (1 - 1 / tp)
+    return per_layer * cfg.num_layers * (3 if kind == "train" else 1)
+
+
 def test_dryrun_hybrid_cell_waits_for_item_11c(twins):
-    for kind, text in twins["port"]["hybrid"].items():
-        assert "item 11c" in text, (kind, text)
-    assert set(twins["port"]["hybrid"]) == {"train", "decode"}
+    """The twin of the reference's hybrid cell (``test_dryrun_cell_small_mesh``
+    compiles reduced zamba2-7b's decode on (2, 2, 2)), which waited for
+    ROADMAP Queue 1 item 11c until the ssm and hybrid families had a
+    sharded path: reduced zamba2-7b's train and decode cells and reduced
+    mamba2-2.7b's decode cell.  Per-rank argument bytes equal the
+    reference's compiled cells exactly; per-rank flops are the reference's
+    plus the whole-N ``w_b`` / ``w_c`` projections (:func:`_whole_bc_flops`),
+    within ``FLOPS_RTOL`` (measured on this CPU: 108,298,240 against
+    104,325,120 + 3,932,160 train, 525,312 = 504,832 + 20,480 and 157,696 =
+    149,504 + 8,192 decode; the train cell's remaining 40,960, 4e-4, is the
+    SSD's pairwise products against the reference's einsums)."""
+    cells = {"hybrid_train": ("zamba2-7b", "train"), "hybrid_decode": ("zamba2-7b", "decode"),
+             "ssm_decode": ("mamba2-2.7b", "decode")}
+    for tag, (arch, kind) in cells.items():
+        ref, port = twins["ref"][tag], twins["port"][tag]
+        assert port["args"] == ref["args"], tag
+        extra = _whole_bc_flops(TC.get_reduced(arch), kind)
+        np.testing.assert_allclose(port["flops"], ref["flops"] + extra, rtol=FLOPS_RTOL,
+                                   err_msg=tag)
+        assert port["peak"] >= port["args"] and port["collectives"] > 0, tag
 
 
 def test_dryrun_smollm_train_at_the_production_mesh(twins):

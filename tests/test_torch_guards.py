@@ -116,6 +116,16 @@ with tempfile.TemporaryDirectory() as tmp:
         logits, cache = decode.sharded_decode_step(model.cfg, sharded["params"], pspecs, cache,
                                                    {"tokens": torch.ones(2, 1, dtype=torch.int32)})
     assert logits.shape == (2, 1, model.cfg.vocab_size) and int(cache["cur"][0]) == 7
+    hspecs = hybrid.param_specs(mesh2)
+    with torch.no_grad(), sharding.activation_sharding(mesh2):
+        logits, cache = decode.sharded_prefill(hybrid.cfg, hybrid.param_tree(), hspecs,
+                                               {"tokens": torch.arange(16).reshape(2, 8)},
+                                               max_len=10)
+        logits, cache = decode.sharded_decode_step(hybrid.cfg, hybrid.param_tree(), hspecs,
+                                                   cache,
+                                                   {"tokens": torch.ones(2, 1, dtype=torch.int32)})
+    assert logits.shape == (2, 1, hybrid.cfg.vocab_size) and int(cache["cur"][0]) == 9
+    assert set(cache) == {"cur", "conv_x", "conv_b", "conv_c", "ssm", "shared"}
     dist.destroy_process_group()
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))

@@ -9,9 +9,8 @@ stubs with ``.shape`` and ``.axis_names`` (the reference reads nothing
 else) on its side, plain ``{name: size}`` mappings on the port's.
 
 Also the spec type, the local-shard arithmetic and DTensor placements,
-``attn_partition``'s three cases, the sharded step's refusals (the ssm and
-hybrid families) and, on a one-rank gloo group in this process, one step of
-the moe, vlm and audio families.
+``attn_partition``'s three cases and, on a one-rank gloo group in this
+process, one sharded step of the moe, vlm, audio, ssm and hybrid families.
 """
 
 import jax
@@ -218,9 +217,23 @@ def test_attn_partition_cases():
 
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-2.7b"])
-def test_sharded_step_of_other_families_raises(arch):
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        tstep.sharded_train_step(TC.get_reduced(arch), topt.OptimizerConfig(), {"data": 1})
+def test_sharded_step_of_other_families_raises(arch, one_rank_mesh):
+    """The ssm and hybrid families' sharded step (it raised until they had
+    a sharded path) builds, and one step on one rank runs (their equality
+    with the single device over 4 ranks is tests/test_torch_mesh_ssm.py's)."""
+    from repro_torch.configs.shapes import demo_batch
+    from repro_torch.models import Model
+
+    cfg = TC.get_reduced(arch)
+    opt = topt.OptimizerConfig()
+    step, sspecs, bspecs = tstep.sharded_train_step(cfg, opt, one_rank_mesh)
+    assert set(bspecs) == {"tokens", "labels"}
+    assert set(sspecs["params"]) >= {"blocks", "embed"}
+    assert ("shared_attn" in sspecs["params"]) == (cfg.family == "hybrid")
+    model = Model(cfg, device="cpu")
+    state = tstep.sharded_state(model, opt, one_rank_mesh)
+    state, metrics = step(state, demo_batch(cfg, 2, 16, device="cpu"))
+    assert int(state["step"]) == 1 and bool(torch.isfinite(metrics["loss"]))
 
 
 @pytest.fixture(scope="module")
