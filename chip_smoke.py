@@ -387,6 +387,32 @@ Phases (any failure raises, so the script exits non-zero):
    single device within 5%.  Rows 9 and 9d's ``launches_by_path`` count
    (c)'s launches; (a)'s compare kernels with their plain versions and
    count on no path.
+24. The ssm and hybrid families over a mesh (``phase_ssm_mesh``):
+   mamba2-2.7b and zamba2-7b trained by 4 gloo ranks on (1, 4), served on
+   (1, 4) and (2, 2), then served uncut by one NCCL rank.
+25. The bitmap build's kernel (``csrc/bitmap_build.cu``: Bitmap-Set, -Xor
+   and -Next into packed words, one warp a set), run right after phase 8
+   while phase 4's collections are at hand (at most about 30 s).  (a) Its
+   words equal its plain version's bit for bit on phase 4's ZIPF and
+   UNIFORM at b = 128 and 1,024, every method, the mixer on and off, and
+   on seeded edge rows at b = 32, 96, 160, 4,096 and 32 x 12,289 (whose
+   words exceed one warp's 48 KB of shared memory), N = 0, 1 and 64: probes
+   that wrap past bit b - 1, rows of b tokens and more, PAD inside a
+   length, a length past the row, empty rows.  (b) On ZIPF at b = 128 and
+   1,024, each method's kernel in turns with its plain version (kernel,
+   plain, plain, kernel), beside its bound: the positions it must read,
+   the lengths and the words over the memory rate, its integer operations,
+   and for Next the longest set's chain of probes (one dependent
+   instruction a probe at the maximum SM clock), with the term that binds.
+   (c) UNIFORM's self-join at Jaccard tau = 0.35 through ``JoinEngine``:
+   the plan is blocked with Bitmap-Next; the path launches
+   ``bitmap_build_next`` (and no other method, and no plain generator);
+   cold and warm walls; its pairs equal the same join without the bitmap
+   filter (``use_bitmap=False``), and its pairs and ``JoinStats`` a run
+   whose words came from the plain version.  Phases 4, 5, 7 and 8 count
+   the kernel's launches on their paths too (each must launch it); rows
+   ``bitmap_build_set``, ``_xor`` and ``_next`` report them under
+   ``launches_by_path``.
 
 Kernel times are device times: CUDA events around 50 (20 for attention)
 back-to-back launches, a spin kernel queued first so that the host's
@@ -601,6 +627,31 @@ class LaunchCounts:
 
     def read(self) -> dict:
         return {name: f.launches for name, f in self.wrappers.items()}
+
+
+def bitmap_build_wrappers() -> dict:
+    """The bitmap build's wrappers by kernel row: ``bitmap_build_set``,
+    ``bitmap_build_xor``, ``bitmap_build_next``."""
+    from repro_torch.kernels import bitmap_build
+
+    return {f"bitmap_build_{m}": f for m, f in bitmap_build.WRAPPERS.items()}
+
+
+# The bitmap build's launches on the join paths (phases 4-8 and 25 (c)), by
+# kernel row and path: rows ``bitmap_build_*`` report them.
+BUILD_LAUNCHES: dict = collections.defaultdict(dict)
+
+
+def record_build_launches(launches: dict, path: str) -> None:
+    """Keep a join path's bitmap-build launches (the ``bitmap_build_*`` keys
+    of ``launches``); every path builds its bitmaps through the kernel, so
+    it must have launched it."""
+    got = {k: v for k, v in launches.items() if k.startswith("bitmap_build_")}
+    if sum(got.values()) <= 0:
+        raise AssertionError(f"{path} launched no bitmap_build: {got}")
+    for name, n in got.items():
+        if n:
+            BUILD_LAUNCHES[name][path] = BUILD_LAUNCHES[name].get(path, 0) + n
 
 
 def kernel_row(name, source, replaces, *, err, ms, plain_ms, bound, path,
@@ -1430,11 +1481,12 @@ def phase_slice(zipf_col, skewed_col) -> dict:
     return launches
 
 
-def phase_full_blocked(seed: int, zipf) -> tuple[dict, np.ndarray, int]:
+def phase_full_blocked(seed: int, zipf) -> tuple[dict, np.ndarray, int, object]:
     """The blocked path: ZIPF tau = 0.8 (explicit blocked plan) and UNIFORM
     tau = 0.5 (JoinEngine, auto plan).  Returns the tensor-core kernels'
-    launches, ZIPF's pairs (phases 13 and 20 are held to them) and ZIPF's
-    bitmap candidates (phase 20's ring is held to them)."""
+    launches, ZIPF's pairs (phases 13 and 20 are held to them), ZIPF's
+    bitmap candidates (phase 20's ring is held to them) and UNIFORM (phase
+    25's)."""
     from repro_torch.core import engine
     from repro_torch.data.collections import uniform_collection
     from repro_torch.kernels import bitmap_filter, compaction
@@ -1453,7 +1505,8 @@ def phase_full_blocked(seed: int, zipf) -> tuple[dict, np.ndarray, int]:
     counts = LaunchCounts(candidate_matrix_mxu=bitmap_filter.candidate_matrix_mxu_cuda,
                           count_candidates_mxu=compaction.count_candidates_mxu_cuda,
                           candidate_matrix=bitmap_filter.candidate_matrix_cuda,
-                          count_candidates=compaction.count_candidates_cuda)
+                          count_candidates=compaction.count_candidates_cuda,
+                          **bitmap_build_wrappers())
     # The path: counters zeroed just before, read just after.
     counts.zero()
     runs = {"ZIPF": _join(zipf_prep, 0.8, "device")}
@@ -1462,6 +1515,7 @@ def phase_full_blocked(seed: int, zipf) -> tuple[dict, np.ndarray, int]:
     launches = counts.read()
     log(f"blocked path launches: {json.dumps(launches)}")
     check_dense_launches(launches, MAIN["b"], "the blocked path")
+    record_build_launches(launches, "phase 4")
 
     for name, prep, tau in (("ZIPF", zipf_prep, 0.8), ("UNIFORM", uni_engine.prepared, 0.5)):
         pairs, stats, cold = runs[name]
@@ -1475,7 +1529,7 @@ def phase_full_blocked(seed: int, zipf) -> tuple[dict, np.ndarray, int]:
         if name == "ZIPF" and stats.verified_true < 2000:
             raise AssertionError(f"ZIPF found {stats.verified_true} < 2000 planted pairs")
     return ({k: v for k, v in launches.items() if k.endswith("_mxu")}, runs["ZIPF"][0],
-            runs["ZIPF"][1].candidates)
+            runs["ZIPF"][1].candidates, uniform)
 
 
 def check_dense_launches(launches: dict, b: int, path: str) -> None:
@@ -1559,7 +1613,9 @@ def phase_full_indexed(seed: int, skewed, batches) -> tuple[dict, dict]:
                 bitmap_filter.hamming_matrix_cuda,
                 bitmap_filter.candidate_matrix_cuda, compaction.count_candidates_cuda,
                 bitmap_filter.candidate_matrix_mxu_cuda, compaction.count_candidates_mxu_cuda)
+    builds = LaunchCounts(**bitmap_build_wrappers())
     # The path: counters zeroed just before, read just after.
+    builds.zero()
     for f in counters:
         f.launches = 0
     results = {}
@@ -1571,6 +1627,7 @@ def phase_full_indexed(seed: int, skewed, batches) -> tuple[dict, dict]:
     launches = {"expand_filter": postings.expand_filter_cuda.launches,
                 "verdict_verify": postings.verdict_verify_cuda.launches}
     idle = {f.__name__.removesuffix("_cuda"): f.launches for f in counters[2:]}
+    record_build_launches(builds.read(), "phase 5")
     log(f"indexed path launches: {json.dumps(launches)}; not on it: {json.dumps(idle)}")
     if min(launches.values()) <= 0 or max(idle.values()) != 0:
         raise AssertionError(f"the indexed path must launch the stage kernels and no other "
@@ -1734,7 +1791,8 @@ def phase_store(seed: int, zipf) -> tuple[dict, tuple]:
                           count_candidates_mxu=compaction.count_candidates_mxu_cuda,
                           candidate_matrix=bitmap_filter.candidate_matrix_cuda,
                           count_candidates=compaction.count_candidates_cuda,
-                          bitplane_hamming=bitplane.bitplane_hamming_cuda)
+                          bitplane_hamming=bitplane.bitplane_hamming_cuda,
+                          **bitmap_build_wrappers())
     log(f"full size, store on the blocked path: ZIPF {zipf.num_sets} sets + 2 appends of "
         f"{[d.num_sets for d in deltas]} sets, plan {plan.driver} b={plan.b} "
         f"block={plan.block} compaction={plan.compaction}")
@@ -1754,6 +1812,7 @@ def phase_store(seed: int, zipf) -> tuple[dict, tuple]:
     launches = counts.read()
     log(f"store path launches: {json.dumps(launches)}")
     check_dense_launches(launches, WIDE_B, "the blocked store")
+    record_build_launches(launches, "phase 7")
     if launches["bitplane_hamming"] != 0:
         raise AssertionError(f"at b={WIDE_B} the blocked store's verdict is one kernel; "
                              f"it must not run bitplane_hamming: {launches}")
@@ -1858,7 +1917,8 @@ def phase_serve(seed: int, skewed) -> tuple[dict, tuple]:
                           entry_filter=postings.entry_filter_cuda,
                           pair_verdict_tiled=postings.pair_verdict_tiled_cuda,
                           candidate_matrix=bitmap_filter.candidate_matrix_cuda,
-                          bitplane_hamming=bitplane.bitplane_hamming_cuda)
+                          bitplane_hamming=bitplane.bitplane_hamming_cuda,
+                          **bitmap_build_wrappers())
     solo = engine.JoinEngine(store)
     rng = np.random.default_rng(seed + 60)
     tickets, checked, spans = [], 0, []
@@ -1908,6 +1968,7 @@ def phase_serve(seed: int, skewed) -> tuple[dict, tuple]:
                              f"the unfused path's pairwise kernels: {launches}")
     if builds_traffic:
         raise AssertionError(f"{builds_traffic} entrypoints built after warm-up")
+    record_build_launches(launches, "phase 8")
 
     # The union of all tickets against one blocked R x S join at b = 128 (a
     # request served before the append sees the base only).
@@ -7142,6 +7203,295 @@ def phase_ssm_mesh(seed: int) -> tuple[dict, dict]:
     return record, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the bitmap build's kernel (row 10), run after phase 8 while phase
+# 4's collections are at hand
+# ---------------------------------------------------------------------------
+
+# (a) Every method at ``widths`` with and without the mixer on phase 4's
+# ZIPF and UNIFORM, and at ``edge_widths`` on ``edge_rows`` seeded rows that
+# hold the kernel's edge cases (32 * 12,289 bits exceed one warp's 48 KB of
+# shared memory, so those bits live in the output row; its rows are cut to
+# 64 positions, since the plain Next loops over positions).  (b) ZIPF timed
+# at ``widths``.  (c) UNIFORM's self-join at ``tau``, which Algorithm 6
+# sends through Bitmap-Next.
+BUILD = dict(widths=(128, 1024), edge_widths=(32, 96, 160, 4096, 32 * 12289), edge_rows=64,
+             tau=0.35, kernel_iters=50, plain_iters=2, budget_s=30)
+# Integer operations a valid token needs at least: its PAD test, h(t)'s
+# modulo, the word's and the bit's shifts and the OR / XOR into the word
+# (token); the mixer's multiply, shift and XOR (mix); Next's probe, the
+# word's read, NOT, the mask's shift and AND, __ffs and the bit's index
+# (probe).
+BUILD_OPS = dict(token=5, mix=3, probe=6)
+BUILD_SOURCE = "src/repro_torch/kernels/csrc/bitmap_build.cu"
+BUILD_REPLACES = {"set": "src/repro/core/bitmap.py:71", "xor": "src/repro/core/bitmap.py:77",
+                  "next": "src/repro/core/bitmap.py:83"}
+
+
+def build_edge_rows(n: int, b: int, seed: int, l: int | None = None):
+    """int32 tokens [n, l] (l = b + 8 by default) and lengths holding the
+    bitmap build's edge cases that fit in l: probes that wrap past bit b - 1
+    (tokens that all hash to it), rows of exactly b and of more than b
+    tokens (Next saturates), an empty row, PAD inside a length and a length
+    past the row; the other rows random, of up to 60 tokens."""
+    from repro_torch.core.constants import PAD_TOKEN
+
+    rng = np.random.default_rng(seed + b)
+    l = b + 8 if l is None else l
+    toks = np.full((n, l), PAD_TOKEN, np.int32)
+    lens = rng.integers(0, min(60, l) + 1, n).astype(np.int32)
+    for i, k in enumerate(lens):
+        toks[i, :k] = rng.integers(0, 2**31 - 1, k)
+    edges = [(b - 1) + b * np.arange(min(12, l)), rng.choice(100 * b, b, replace=False),
+             rng.choice(100 * b, b + 8, replace=False), rng.integers(0, 3 * b, b + 8), []]
+    edges = [row for row in edges if len(row) <= l]
+    for i, row in enumerate(edges[:n]):
+        toks[i] = PAD_TOKEN
+        toks[i, :len(row)] = row
+        lens[i] = len(row)
+    if n > 6:
+        toks[5, [0, l // 2]] = PAD_TOKEN
+        lens[5] = l
+        lens[6] = l + 5
+    return toks, lens
+
+
+def build_bound(tokens: torch.Tensor, lengths: torch.Tensor, b: int, method: str,
+                mix: bool = False) -> dict:
+    """The bitmap build's least time on these rows: the bytes it must move
+    (each position it has to read, the lengths, the words written once)
+    over the memory rate; the integer operations its valid tokens need
+    (``BUILD_OPS``) over the float32 rate; for Next also the longest set's
+    chain of probes, each waiting on the one before, at one dependent
+    instruction a probe at the card's maximum SM clock.  Next reads a row
+    only until b tokens are placed.  Returns the terms (ms), the bound, its
+    term and what bounds it ("bytes" or "operations")."""
+    from repro_torch.core.constants import PAD_TOKEN
+
+    n, l = tokens.shape
+    inside = torch.arange(l, device=tokens.device)[None, :] < lengths.to(torch.int64)[:, None]
+    valid = inside & (tokens != PAD_TOKEN)
+    if method == "next":
+        placed_before = valid.cumsum(1) - valid.to(torch.int64)
+        inside &= placed_before < b
+        valid &= inside
+    per_set = valid.sum(1)
+    n_valid = int(per_set.sum())
+    nbytes = 4 * int(inside.sum()) + 4 * n + 4 * n * (b // 32)
+    per_token = (BUILD_OPS["token"] + (BUILD_OPS["mix"] if mix else 0)
+                 + (BUILD_OPS["probe"] if method == "next" else 0))
+    terms = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3,
+             "operations": n_valid * per_token / PEAK_OPS_PER_S * 1e3}
+    if method == "next":
+        chain = int(per_set.max()) if n else 0
+        terms["sequential probes"] = chain / max_sm_clock_hz() * 1e3
+    term = max(terms, key=terms.get)
+    return {"bound_ms": terms[term], "term": term,
+            "bound_by": "bytes" if term == "bytes" else "operations",
+            "terms_ms": terms, "bytes": nbytes, "valid_tokens": n_valid}
+
+
+def time_build(tokens: torch.Tensor, lengths: torch.Tensor, b: int, method: str) -> dict:
+    """The kernel and its plain version in turns (kernel, plain, plain,
+    kernel), device ms each, with the kernel's launches in the timing."""
+    from repro_torch.kernels import bitmap_build, ref
+
+    wrapper = bitmap_build.WRAPPERS[method]
+    before = wrapper.launches
+    kernel = functools.partial(wrapper, tokens, lengths, b)
+    plain = functools.partial(ref.bitmap_build_ref, tokens, lengths, b, method)
+    k1 = cuda_ms(kernel, BUILD["kernel_iters"])
+    p1, p2 = (cuda_ms(plain, BUILD["plain_iters"], warmup=1) for _ in range(2))
+    k2 = cuda_ms(kernel, BUILD["kernel_iters"])
+    return {"ms_turns": [k1, k2], "plain_ms_turns": [p1, p2],
+            "timing_launches": wrapper.launches - before}
+
+
+@contextlib.contextmanager
+def counting_plain_generators(calls: list):
+    """Record every call of the plain bit-matrix generators inside."""
+    from repro_torch.core import bitmap as bm
+
+    saved = dict(bm.GENERATORS)
+
+    def counted(method, fn):
+        def run(*args, **kw):
+            calls.append(method)
+            return fn(*args, **kw)
+        return run
+
+    bm.GENERATORS.update({m: counted(m, fn) for m, fn in saved.items()})
+    try:
+        yield calls
+    finally:
+        bm.GENERATORS.update(saved)
+
+
+@contextlib.contextmanager
+def plain_bitmap_build():
+    """``ops.bitmap_build`` computed by its plain version inside, so a join
+    on the card builds its words without the kernel."""
+    from repro_torch.kernels import ops, ref
+
+    saved = ops.bitmap_build
+    ops.bitmap_build = ref.bitmap_build_ref
+    try:
+        yield
+    finally:
+        ops.bitmap_build = saved
+
+
+def build_words_check(cols: dict) -> dict:
+    """(a): the kernel's words against the plain version's, bit for bit;
+    returns each method's largest difference."""
+    from repro_torch.kernels import bitmap_build, ref
+
+    errs = dict.fromkeys(bitmap_build.WRAPPERS, 0)
+    for name, (t, l) in cols.items():
+        for b in BUILD["widths"]:
+            for method in errs:
+                for mix in (False, True):
+                    got = bitmap_build.bitmap_build_cuda(t, l, b, method, mix)
+                    err = max_err(got, ref.bitmap_build_ref(t, l, b, method, mix))
+                    if err:
+                        raise AssertionError(f"bitmap_build {method} on {name} at b={b}, "
+                                             f"mix={mix}: words differ by up to {err}")
+        log(f"phase 25 (a): bitmap_build on {name} ({t.shape[0]} x {t.shape[1]}) equals its "
+            f"plain version bit for bit at b={list(BUILD['widths'])}, every method, mix "
+            f"on and off")
+    for b in BUILD["edge_widths"]:
+        short = 64 if b > 4096 else None
+        for n in (0, 1, BUILD["edge_rows"]):
+            toks, lens = build_edge_rows(n, b, seed=n, l=short)
+            t, l = torch.from_numpy(toks).cuda(), torch.from_numpy(lens).cuda()
+            for method in errs:
+                for mix in (False, True):
+                    got = bitmap_build.bitmap_build_cuda(t, l, b, method, mix)
+                    want = ref.bitmap_build_ref(t, l, b, method, mix)
+                    err = max_err(got, want)
+                    errs[method] = max(errs[method], err)
+                    if err or got.shape != (n, b // 32):
+                        raise AssertionError(f"bitmap_build {method} at the edges, b={b}, "
+                                             f"N={n}, mix={mix}: differs by {err}")
+    log(f"phase 25 (a): the edge rows equal the plain version at b={list(BUILD['edge_widths'])}"
+        f", N in (0, 1, {BUILD['edge_rows']}) (wrapping probes, rows of b and more, PAD "
+        f"inside a length, a length past the row, an empty row)")
+    return errs
+
+
+def build_next_join(uniform) -> dict:
+    """(c): UNIFORM's self-join at tau = 0.35 through JoinEngine, whose plan
+    must be blocked with Bitmap-Next; the path launches bitmap_build_next
+    and no plain generator; its pairs equal the same join without the
+    bitmap filter, and its pairs and JoinStats a run whose words came from
+    the plain version."""
+    from repro_torch.core import engine, join
+
+    tau = BUILD["tau"]
+    eng = engine.JoinEngine(uniform, MAIN["sim"], tau, device="cuda")
+    plan = eng.plan
+    if plan.driver != "blocked" or plan.method != "next":
+        raise AssertionError(f"UNIFORM tau={tau} planned {plan.describe()}")
+    counts = LaunchCounts(**bitmap_build_wrappers())
+    plain_calls: list = []
+    with counting_plain_generators(plain_calls):
+        # The path: counters zeroed just before, read just after.
+        counts.zero()
+        (pairs, stats), cold = _timed(lambda: eng.self_join(return_stats=True))
+        warm_out, warm = _timed(lambda: eng.self_join(return_stats=True))
+        launches = counts.read()
+    log(f"phase 25 (c) path launches: {json.dumps(launches)}; plain generator calls "
+        f"{len(plain_calls)}")
+    if (plain_calls or launches["bitmap_build_next"] <= 0 or launches["bitmap_build_set"]
+            or launches["bitmap_build_xor"]):
+        raise AssertionError(f"the tau={tau} join must build its words with bitmap_build_next "
+                             f"only: {launches}, plain generators {plain_calls}")
+    record_build_launches(launches, "phase 25 (c)")
+    _same((pairs, stats), warm_out, f"UNIFORM tau={tau} cold vs warm")
+
+    (nf_pairs, nf_stats), nf_s = _timed(lambda: join.blocked_bitmap_join_prepared(
+        eng.prepared, sim=MAIN["sim"], tau=tau, b=plan.b, block=plan.block,
+        method=plan.method, mix=plan.mix, compaction="device", use_bitmap=False,
+        return_stats=True))
+    if not np.array_equal(pairs, nf_pairs):
+        raise AssertionError(f"UNIFORM tau={tau}: {len(pairs)} pairs with the filter, "
+                             f"{len(nf_pairs)} without")
+    prep = engine.prepare(uniform, "cuda")
+    with plain_bitmap_build():
+        plain_eng = engine.JoinEngine(prep, MAIN["sim"], tau, plan=plan, device="cuda")
+        counts.zero()
+        plain_out, plain_s = _timed(lambda: plain_eng.self_join(return_stats=True))
+        if sum(counts.read().values()):
+            raise AssertionError(f"the plain-words run launched the kernel: {counts.read()}")
+    words = eng.prepared.bitmap_words(plan.b, plan.method, mix=plan.mix)
+    err = max_err(words, prep.bitmap_words(plan.b, plan.method, mix=plan.mix))
+    if err:
+        raise AssertionError(f"the join's Next words differ from the plain version's by {err}")
+    _same((pairs, stats), plain_out, f"UNIFORM tau={tau} kernel words vs plain words")
+    log(f"phase 25 (c): UNIFORM {uniform.num_sets} sets, tau={tau} {plan.driver} "
+        f"b={plan.b} method={plan.method} block={plan.block}: cold {cold:.3f} s (incl. the "
+        f"bitmap build), warm {warm:.3f} s, {len(pairs)} pairs = the join without the filter "
+        f"({nf_s:.3f} s, candidates {nf_stats.candidates}) = the join over the plain "
+        f"version's words ({plain_s:.3f} s cold, JoinStats identical); stats "
+        f"{json.dumps(stats.to_dict())}")
+    return {"cold_s": cold, "warm_s": warm, "pairs": len(pairs), "stats": stats.to_dict(),
+            "no_filter_s": nf_s, "plain_words_cold_s": plain_s}
+
+
+def phase_bitmap_build(zipf, uniform) -> list[dict]:
+    """Phase 25: the bitmap build's kernel on phase 4's collections, (a)
+    words, (b) timing, (c) the join through Next; returns rows
+    ``bitmap_build_set``, ``_xor`` and ``_next``."""
+    t_phase = time.perf_counter()
+    cols = {name: (torch.from_numpy(col.tokens).cuda(), torch.from_numpy(col.lengths).cuda())
+            for name, col in (("ZIPF", zipf), ("UNIFORM", uniform))}
+    errs = build_words_check(cols)
+
+    timing = {}
+    for b in BUILD["widths"]:
+        for method in errs:
+            t, l = cols["ZIPF"]
+            timing[(method, b)] = time_build(t, l, b, method) | build_bound(t, l, b, method)
+            tt = timing[(method, b)]
+            log(f"phase 25 (b) ZIPF b={b} {method}: kernel {tt['ms_turns'][0]:.4f} / "
+                f"{tt['ms_turns'][1]:.4f} ms, plain {tt['plain_ms_turns'][0]:.4f} / "
+                f"{tt['plain_ms_turns'][1]:.4f} ms (in turns; {tt['timing_launches']} kernel "
+                f"launches); bound {tt['bound_ms']:.5f} ms ({tt['term']}: "
+                + ", ".join(f"{k} {v:.5f}" for k, v in tt["terms_ms"].items())
+                + f"; {tt['bytes']} bytes, {tt['valid_tokens']} valid tokens)")
+    t, l = cols["UNIFORM"]
+    uni_next = time_build(t, l, MAIN["b"], "next") | build_bound(t, l, MAIN["b"], "next")
+    log(f"phase 25 (b) UNIFORM b={MAIN['b']} next (the join's words): kernel "
+        f"{uni_next['ms_turns']} ms, plain {uni_next['plain_ms_turns']} ms, bound "
+        f"{uni_next['bound_ms']:.5f} ms ({uni_next['term']})")
+    del cols
+    join_rec = build_next_join(uniform)
+
+    for method in ("set", "xor"):
+        if not BUILD_LAUNCHES[f"bitmap_build_{method}"]:
+            raise AssertionError(f"no join path of phases 4-8 launched bitmap_build_{method}")
+    paths = {"set": "phases 4-8: every join path's bitmap build (Set: UNIFORM tau = 0.5)",
+             "xor": "phases 4-8: every join path's bitmap build (Xor: ZIPF, SKEWED, the "
+                    "store, serving)",
+             "next": f"phase 25 (c): UNIFORM tau = {BUILD['tau']} blocked self-join, cold "
+                     f"and warm"}
+    rows = []
+    for method in errs:
+        main_t = timing[(method, MAIN["b"])]
+        rows.append(kernel_row(
+            f"bitmap_build_{method}", BUILD_SOURCE, BUILD_REPLACES[method], err=errs[method],
+            ms=main_t["ms_turns"][0], plain_ms=main_t["plain_ms_turns"][0],
+            bound=(main_t["bound_ms"], main_t["bound_by"]), path=paths[method])
+            | {"shape": f"ZIPF {zipf.num_sets} x {zipf.tokens.shape[1]}, b={MAIN['b']}",
+               "ms_turns": main_t["ms_turns"], "plain_ms_turns": main_t["plain_ms_turns"],
+               "bound_term": main_t["term"], "bound_terms_ms": main_t["terms_ms"],
+               f"at_b{WIDE_B}": timing[(method, WIDE_B)],
+               **({"at_uniform_join": uni_next, "join": join_rec}
+                  if method == "next" else {})})
+    log(f"phase 25: {time.perf_counter() - t_phase:.1f} s (budget {BUILD['budget_s']} s)")
+    return rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -7219,7 +7569,8 @@ def main(argv=None) -> int:
     phase_bitplane_parity(args.seed)
     mark("set-up and phases 1-3")
     launches = phase_slice(zipf_10k, skewed_10k)
-    blocked_launches, zipf_pairs, zipf_candidates = phase_full_blocked(args.seed, zipf)
+    blocked_launches, zipf_pairs, zipf_candidates, uniform = phase_full_blocked(args.seed,
+                                                                                zipf)
     launches.update(blocked_launches)
     indexed_launches, skewed_results = phase_full_indexed(args.seed, skewed, batches)
     launches.update(indexed_launches)
@@ -7232,6 +7583,9 @@ def main(argv=None) -> int:
         if k["name"] in wide:
             k[f"at_b{WIDE_B}"] = wide[k["name"]]
     mark("phases 4-8")
+    kernels += phase_bitmap_build(zipf, uniform)
+    del uniform
+    mark("phase 25")
     rows, serve_turns = phase_bitplane_timing(store_ops[0], serve_call)
     kernels += rows
     for k in kernels:
@@ -7280,8 +7634,11 @@ def main(argv=None) -> int:
     log(json.dumps({"family_serving": family_serving, "family_training": family_training}))
     by_path = {"flash_attention": {**moe_launches, **va_launches, **fwd_train_launches},
                "flash_attention_bwd": bwd_train_launches}
+    launches.update({name: sum(by_path.values()) for name, by_path in BUILD_LAUNCHES.items()})
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        if k["name"] in BUILD_LAUNCHES:   # row 10: the join paths of phases 4-8 and 25
+            k["launches_by_path"] = dict(BUILD_LAUNCHES[k["name"]])
         if k["name"] == "flash_attention":
             k["training"] = training
         if k["name"] in dedup_launches:   # rows 1-2: their launches on the dedup path too

@@ -9,7 +9,7 @@ as data, in its order.
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import Dict, List
 
 from repro_torch.models.config import ModelConfig, reduced
 
@@ -37,3 +37,8 @@ def get(name: str) -> ModelConfig:
 
 def get_reduced(name: str, **overrides) -> ModelConfig:
     return reduced(get(name), **overrides)
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    """Every published config, by ``--arch`` id, in :data:`ARCHS`' order."""
+    return {n: get(n) for n in ARCHS}

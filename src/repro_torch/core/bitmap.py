@@ -150,7 +150,9 @@ def popcount_rows(words: torch.Tensor) -> torch.Tensor:
     return popcount32(words).sum(-1, dtype=torch.int32)
 
 
-_GENERATORS = {
+# The plain generators (bit matrices), by method: the CPU path, and the
+# plain version (``kernels.ref.bitmap_build_ref``) of the card's kernel.
+GENERATORS = {
     BITMAP_SET: bitmap_set_bits,
     BITMAP_XOR: bitmap_xor_bits,
     BITMAP_NEXT: bitmap_next_bits,
@@ -178,6 +180,10 @@ def generate_bitmaps(
 ) -> torch.Tensor:
     """Generate bitmaps for a padded collection, on the tensors' device.
 
+    On CUDA tensors every method runs the hand-written kernel
+    (``kernels.ops.bitmap_build``), which writes the packed words; on
+    other devices the plain generators above run, then :func:`pack_bits`.
+
     Args:
       tokens: int32[N, L] padded tokens.
       lengths: int32[N].
@@ -195,10 +201,17 @@ def generate_bitmaps(
         if tau_jaccard is None:
             raise ValueError("combined method needs tau_jaccard")
         method = choose_method(tau_jaccard, b)
-    if method not in _GENERATORS:
+    if method not in GENERATORS:
         raise ValueError(f"unknown bitmap method {method!r}; "
-                         f"one of {sorted(_GENERATORS)} or 'combined'")
-    bits = _GENERATORS[method](tokens, lengths, b, mix)
+                         f"one of {sorted(GENERATORS)} or 'combined'")
+    if tokens.device.type == "cuda":
+        # Imported here: kernels.ops imports this module.
+        from repro_torch.kernels import ops
+
+        words = ops.bitmap_build(tokens.to(torch.int32).contiguous(),
+                                 lengths.to(torch.int32).contiguous(), b, method, mix)
+        return words if packed else unpack_bits(words)
+    bits = GENERATORS[method](tokens, lengths, b, mix)
     return pack_bits(bits) if packed else bits
 
 

@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_ROOT = Path(__file__).with_name(".build")
-SOURCES = ("bitmap_filter", "bitplane", "compaction", "flash_attention",
+SOURCES = ("bitmap_build", "bitmap_filter", "bitplane", "compaction", "flash_attention",
            "flash_attention_bwd", "postings")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

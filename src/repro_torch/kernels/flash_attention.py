@@ -284,3 +284,15 @@ def reset_launches() -> None:
 
 
 reset_launches()
+
+
+def analytic_hbm_bytes(b: int, s: int, h: int, d: int, dtype_bytes: int = 2) -> dict:
+    """Device-memory bytes of one attention forward over (b, s, h, d):
+    ``fused`` moves q, k, v and the output once (this kernel's way);
+    ``unfused`` also round-trips the (s, s) score tiles of every head (the
+    scores in float32, p in the compute type, p @ v in float32); ``ratio``
+    is unfused over fused.  Counted as the reference counts them."""
+    operands = 3 * b * s * h * d * dtype_bytes + b * s * h * d * dtype_bytes
+    unfused_tiles = b * h * s * s * (4 + 2 + 4)
+    return {"fused": operands, "unfused": operands + unfused_tiles,
+            "ratio": (operands + unfused_tiles) / operands}

@@ -45,6 +45,11 @@ unfused form of these stages; on CPU tensors ``"auto"`` and
 ``ref.verdict_verify_ref``) and ``"ref_mxu"`` the latter with the bit-plane
 plain verdict.
 
+:func:`bitmap_build`, the bitmap build (Bitmap-Set, -Xor and -Next into
+packed words), has no ``impl``: CUDA tensors launch its kernel
+(``bitmap_build.bitmap_build_cuda``), other tensors run the plain
+generators (``ref.bitmap_build_ref``).
+
 :func:`flash_attention`, the LM scaffold's entry, and its backward
 :func:`flash_attention_bwd` have their own two impls: ``"cuda"`` (the
 kernel; ``auto`` on CUDA tensors) and ``"ref"`` (the plain version; ``auto``
@@ -62,6 +67,7 @@ import torch
 from repro_torch.core import bitmap as bm
 from repro_torch.core import bounds
 from repro_torch.core.constants import COSINE
+from repro_torch.kernels import bitmap_build as build_kernel
 from repro_torch.kernels import bitmap_filter, bitplane, compaction, postings, ref
 from repro_torch.kernels import flash_attention as flash_kernel
 
@@ -414,6 +420,18 @@ def verdict_verify(
         return ref.verdict_verify_ref(*args, **kw)
     return ref.verdict_verify_ref(*args, **kw,
                                   pair_verdict=functools.partial(pair_verdict, impl=impl))
+
+
+def bitmap_build(tokens: torch.Tensor, lengths: torch.Tensor, b: int, method: str,
+                 mix: bool = False) -> torch.Tensor:
+    """Packed int32[N, b // 32] bitmap words of int32[N, L] padded tokens
+    and their int32[N] lengths, by ``method`` ('set', 'xor' or 'next'), in
+    :func:`repro_torch.core.bitmap.pack_bits`' bit order.  CUDA tensors
+    launch the kernel (which raises on a bad operand or a failed launch);
+    other tensors run the plain version."""
+    if tokens.device.type == "cuda":
+        return build_kernel.bitmap_build_cuda(tokens, lengths, b, method, mix)
+    return ref.bitmap_build_ref(tokens, lengths, b, method, mix)
 
 
 def _flash_impl(impl: str, device: torch.device) -> str:

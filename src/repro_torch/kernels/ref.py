@@ -17,8 +17,19 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import bounds, verify
-from repro_torch.core.bitmap import hamming_packed, popcount32, popcount_rows, unpack_planes
+from repro_torch.core.bitmap import (GENERATORS, hamming_packed, pack_bits, popcount32,
+                                     popcount_rows, unpack_planes)
 from repro_torch.core.bounds import positional_upper_bound_int
+
+
+def bitmap_build_ref(tokens: torch.Tensor, lengths: torch.Tensor, b: int, method: str,
+                     mix: bool = False) -> torch.Tensor:
+    """Packed int32[N, b // 32] words of ``method`` ('set', 'xor' or
+    'next'): the bit-matrix generators of :mod:`repro_torch.core.bitmap`,
+    then :func:`~repro_torch.core.bitmap.pack_bits`."""
+    if method not in GENERATORS:
+        raise ValueError(f"unknown bitmap method {method!r}; one of {sorted(GENERATORS)}")
+    return pack_bits(GENERATORS[method](tokens, lengths, b, mix))
 
 
 # All-pairs Hamming distance, int32[NR, W] x int32[NS, W] -> int32[NR, NS]

@@ -15,6 +15,7 @@ PyTorch; both float32 instances, the 3xTF32 one's prepass bit-identical to
 its plain version) and 1e-2 in bf16 (both round p to bf16 against their own
 running maxima, and round the output to bf16).  The backward kernel's dq,
 dk and dv: float32 at 2e-5, bf16 within 5% relative RMS (``BWD_GRAD_REL``).
+The bitmap build's words are compared bit for bit.
 """
 
 import numpy as np
@@ -29,7 +30,8 @@ from repro_torch.data.collections import (near_duplicate_lists, shared_token_lis
                                          skewed_collection, with_duplicates)
 from repro_torch.index import candidates, indexed_bitmap_join
 from repro_torch import configs
-from repro_torch.kernels import bitmap_filter, bitplane, compaction, ops, postings, ref
+from repro_torch.kernels import bitmap_build, bitmap_filter, bitplane, compaction, ops
+from repro_torch.kernels import postings, ref
 from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.models import DecodeEngine, Model
 from repro_torch.models.generate import greedy_generate
@@ -1503,3 +1505,81 @@ def test_dryrun_join_cell_runs_row_1_on_the_card(dev, tmp_path):
     (hop,) = [c for c in rec["hlo"]["collectives"] if c["opcode"] == "collective-permute"]
     assert hop["count"] == 255 and hop["group_size"] == 256
     assert 0 < rec["verified"] <= rec["candidates"]
+
+
+def _build_rows(n: int, b: int, seed: int, l: int | None = None):
+    """int32 tokens [n, l] (l = b + 8 by default) and lengths holding the
+    bitmap build's edge cases that fit in l (probes that wrap past bit
+    b - 1, rows of exactly b and of more than b tokens, an empty row, PAD
+    inside a length, a length past the row), the other rows random of the
+    sizes the joins see."""
+    rng = np.random.default_rng(seed + b)
+    l = b + 8 if l is None else l
+    toks = np.full((n, l), PAD_TOKEN, np.int32)
+    lens = rng.integers(0, min(60, l) + 1, n).astype(np.int32)
+    for i, k in enumerate(lens):
+        toks[i, :k] = rng.integers(0, 2**31 - 1, k)
+    edges = [(b - 1) + b * np.arange(min(12, l)), rng.choice(100 * b, b, replace=False),
+             rng.choice(100 * b, b + 8, replace=False), rng.integers(0, 3 * b, b + 8), []]
+    edges = [row for row in edges if len(row) <= l]
+    for i, row in enumerate(edges[:n]):
+        toks[i] = PAD_TOKEN
+        toks[i, :len(row)] = row
+        lens[i] = len(row)
+    if n > 6:
+        toks[5, [0, l // 2]] = PAD_TOKEN
+        lens[5] = l
+        lens[6] = l + 5
+    return toks, lens
+
+
+# (n, b, l): widths that are and are not powers of two, N of 0 and 1, and
+# a width whose words exceed one warp's 48 KB of shared memory, so its
+# bits live in the output row (rows of 64 tokens: the plain Next loops
+# over token positions).
+BUILD_SHAPES = [(n, b, None) for n in (0, 1, 7, 1000) for b in (32, 96, 160, 1024, 4096)]
+BUILD_SHAPES += [(n, 32 * 12289, 64) for n in (0, 1, 7, 40)]
+
+
+@pytest.mark.parametrize("n,b,l", BUILD_SHAPES)
+def test_bitmap_build_kernel_matches_plain_version(dev, n, b, l):
+    toks, lens = _build_rows(n, b, seed=n, l=l)
+    t, l = torch.from_numpy(toks).to(dev), torch.from_numpy(lens).to(dev)
+    for method in ("set", "xor", "next"):
+        for mix in (False, True):
+            before = bitmap_build.WRAPPERS[method].launches
+            got = bitmap_build.bitmap_build_cuda(t, l, b, method, mix)
+            torch.cuda.synchronize()
+            want = ref.bitmap_build_ref(t, l, b, method, mix)
+            assert got.shape == (n, b // 32) and torch.equal(got, want), (method, mix)
+            assert bitmap_build.WRAPPERS[method].launches == before + (n > 0)
+
+
+def test_generate_bitmaps_on_the_card_runs_the_kernel(dev, monkeypatch):
+    toks, lens = _build_rows(300, 128, seed=3)
+    t, l = torch.from_numpy(toks).to(dev), torch.from_numpy(lens).to(dev)
+    want = {m: ref.bitmap_build_ref(t, l, 128, m) for m in ("set", "xor", "next")}
+
+    def plain(*args):
+        raise AssertionError("a plain generator ran on CUDA tensors")
+
+    monkeypatch.setattr(bitmap, "GENERATORS", dict.fromkeys(bitmap.GENERATORS, plain))
+    for method, tau in (("set", None), ("xor", None), ("next", None), ("combined", 0.35)):
+        resolved = bitmap.choose_method(tau, 128) if tau else method
+        before = bitmap_build.WRAPPERS[resolved].launches
+        got = bitmap.generate_bitmaps(t.long(), l.long(), 128, method=method, tau_jaccard=tau)
+        assert torch.equal(got, want[resolved])
+        bits = bitmap.generate_bitmaps(t, l, 128, method=method, tau_jaccard=tau, packed=False)
+        assert torch.equal(bits, bitmap.unpack_bits(want[resolved]))
+        assert bitmap_build.WRAPPERS[resolved].launches == before + 2
+
+
+def test_bitmap_build_wrapper_rejects_bad_operands(dev):
+    toks, lens = _build_rows(8, 64, seed=1)
+    t, l = torch.from_numpy(toks).to(dev), torch.from_numpy(lens).to(dev)
+    for bad in ((t.long(), l, 64), (t, l.long(), 64), (t, l, 48), (t, l, 0), (t, l, 64.0),
+                (t.t(), l, 64), (t, l[:4], 64), (t.cpu(), l, 64), (t[0], l, 64)):
+        with pytest.raises(ValueError):
+            bitmap_build.bitmap_build_next_cuda(*bad)
+    with pytest.raises(ValueError):
+        ops.bitmap_build(t, l, 64, "combined")

@@ -77,6 +77,16 @@ def test_flash_chunks_follow_the_reference_rule():
     assert ref.flash_chunks(33, 7, 4, 4) == (1, 1)
 
 
+@pytest.mark.parametrize("shape", [(1, 128, 4, 64, 2), (8, 2048, 9, 64, 2),
+                                   (4, 4096, 32, 128, 4)])
+def test_analytic_hbm_bytes_equal_the_reference(shape):
+    from repro.kernels.flash_attention import analytic_hbm_bytes
+
+    *bshd, dtype_bytes = shape
+    assert (flash_kernel.analytic_hbm_bytes(*bshd, dtype_bytes=dtype_bytes)
+            == analytic_hbm_bytes(*bshd, dtype_bytes=dtype_bytes))
+
+
 def test_flash_attention_bf16_rounds_where_the_kernel_rounds():
     """In bf16 the plain version widens q and k, rounds p to bf16 and sums in
     float32: it stays within two bf16 ulps (2^-7) of float32 attention over

@@ -32,7 +32,7 @@ from repro_torch.core import bitmap, bounds, engine, expected, join, plan, verif
 from repro_torch.core import cpu_algos, filters
 from repro_torch.data import collections, dedup
 from repro_torch.index import candidates, postings
-from repro_torch.kernels import _build, bitmap_filter, compaction, ops, ref
+from repro_torch.kernels import _build, bitmap_build, bitmap_filter, compaction, ops, ref
 from repro_torch.kernels import bitplane, postings as postings_kernels
 from repro_torch.serve import JoinSession
 from repro_torch.store import CorpusStore

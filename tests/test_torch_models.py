@@ -72,6 +72,13 @@ def test_configs_equal_the_reference(name, reduced):
             == dataclasses.asdict(getattr(jconfigs, get)(name)))
 
 
+def test_all_configs_equal_the_reference():
+    got, want = configs.all_configs(), jconfigs.all_configs()
+    assert list(got) == list(want) == configs.ARCHS
+    assert {n: dataclasses.asdict(c) for n, c in got.items()} == {
+        n: dataclasses.asdict(c) for n, c in want.items()}
+
+
 @pytest.mark.parametrize("name", configs.ARCHS)
 def test_param_counts_equal_the_reference(name):
     assert param_count(configs.get(name)) == JModel(jconfigs.get(name)).num_params()
