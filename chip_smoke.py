@@ -8,7 +8,8 @@ Phases (any failure raises, so the script exits non-zero):
 1. Device and build: the card's name and power limit, torch and CUDA
    versions, and the time to build every CUDA kernel (one ``nvcc`` per
    source, all started together), with each source's own build time and
-   ptxas' registers, spills and warnings.
+   ptxas' registers, spills and warnings; the host makes the join phases'
+   collections meanwhile.
 2. Kernel parity: each of the six packed-word kernels and the two
    tensor-core verdict kernels (``candidate_matrix_mxu``,
    ``count_candidates_mxu``: the bit-plane product on wgmma from the packed
@@ -34,20 +35,23 @@ Phases (any failure raises, so the script exits non-zero):
    composition, kernel), with their bounds and the SWAR form's popcount
    floor; and the postings wrappers' host cost a call.
 3. Slice parity, on the card against the port's CPU path: the blocked join
-   (``compaction="device"``) on a 10,000-set ZIPF collection with planted
-   duplicates, ``naive_join`` against the blocked join on 3,000 of its sets,
-   and the indexed join on a 10,000-set SKEWED collection with planted
-   duplicates under ``impl="auto"`` (the stage kernels), ``impl="swar"``,
-   ``impl="swar_tiled"`` (the unfused composition) and a forced small
-   capacity (the dense fallback), and at b = 1024 under ``impl="mxu"``.
+   (``compaction="device"``) on the middle 5,120 sets of a 10,000-set ZIPF
+   collection with planted duplicates (the SWAR verdict's join on all of
+   them against the tensor-core verdict's), ``naive_join`` against the
+   blocked join on 3,000 of its sets, and the indexed join on a
+   10,000-set SKEWED collection with planted duplicates under
+   ``impl="auto"`` (the stage kernels), ``impl="swar"``,
+   ``impl="swar_tiled"`` (the unfused composition), a forced small
+   capacity (the dense fallback, on the middle 5,120 sets), and at b =
+   1024 under ``impl="mxu"``.
    Pairs and ``JoinStats`` must be identical.  The blocked join under
    ``impl="swar"`` drives the SWAR verdict and count.
 4. Full size, the blocked path: ZIPF (100,000 sets, Poisson(50) sizes,
    101,584 tokens, 1,000 planted clusters of 3 at Jaccard 0.9; tau = 0.8,
    an explicit blocked plan) and UNIFORM (100,000 sets, Poisson(10) sizes,
    220 tokens; tau = 0.5) through ``JoinEngine``, whose auto plan must be
-   blocked; b = 128, block = 4096, device compaction.  Both must agree with
-   host compaction.  Under ``auto`` the path launches the tensor-core verdict
+   blocked; b = 128, block = 4096, device compaction.  Host compaction must
+   agree with it on the middle 24,576 rows of each collection's size order.  Under ``auto`` the path launches the tensor-core verdict
    and count, and neither SWAR kernel.
 5. Full size, the indexed path: SKEWED (``skewed_collection`` of 100,000
    sets + 1,000 planted clusters of 3 at Jaccard 0.9) through
@@ -174,8 +178,8 @@ Phases (any failure raises, so the script exits non-zero):
    for bit (Set, Xor, Next at b = 64 and 128).  (b) Tables 5-8 in part, at
    the reference benchmark's collections and sizes (UNIFORM 2,000 at b =
    64, ZIPF 1,200 and DBLP-like 500 at b = 128; ``bench_cpu_algos.py``):
-   tau = 0.8 on all three and 0.6 on UNIFORM (0.5 too when the budget
-   allows), AllPairs, PPJoin, GroupJoin and AdaptJoin each without and
+   tau = 0.8 on all three and 0.6 on UNIFORM (0.5 too, on every other of
+   UNIFORM's sets, when the budget allows), AllPairs, PPJoin, GroupJoin and AdaptJoin each without and
    with the filter (its words built on the card): ms, ``bitmap_pruned`` and
    the improvement t_orig / t_bf - 1; pairs identical with and without the
    filter, to the card's blocked join and to its ``naive_join``.  (c) For
@@ -333,7 +337,8 @@ Phases (any failure raises, so the script exits non-zero):
    and 9d's ``launches_by_path``); each rank's parameter and AdamW bytes
    the single rank's over the shard count (within 1%); step ms, tokens/s
    and each rank's peak memory printed.  The (4,) and (1, 4) meshes run
-   one after the other in one launch of 4 ranks.
+   one after the other in one launch of 4 ranks, beside the launch of 3
+   ranks; the NCCL rank runs alone after them.
 22. Sharded serving and the launch tooling (about 2 minutes).  (a)
    qwen3-8b at its published widths served through ``sharded_prefill`` and
    ``sharded_decode_step``, each rank a process of its own (this script
@@ -391,28 +396,37 @@ Phases (any failure raises, so the script exits non-zero):
    mamba2-2.7b and zamba2-7b trained by 4 gloo ranks on (1, 4), served on
    (1, 4) and (2, 2), then served uncut by one NCCL rank.
 25. The bitmap build's kernel (``csrc/bitmap_build.cu``: Bitmap-Set, -Xor
-   and -Next into packed words, one warp a set), run right after phase 8
-   while phase 4's collections are at hand (at most about 30 s).  (a) Its
-   words equal its plain version's bit for bit on phase 4's ZIPF and
-   UNIFORM at b = 128 and 1,024, every method, the mixer on and off, and
-   on seeded edge rows at b = 32, 96, 160, 4,096 and 32 x 12,289 (whose
-   words exceed one warp's 48 KB of shared memory), N = 0, 1 and 64: probes
-   that wrap past bit b - 1, rows of b tokens and more, PAD inside a
-   length, a length past the row, empty rows.  (b) On ZIPF at b = 128 and
-   1,024, each method's kernel in turns with its plain version (kernel,
-   plain, plain, kernel), beside its bound: the positions it must read,
-   the lengths and the words over the memory rate, its integer operations,
-   and for Next the longest set's chain of probes (one dependent
-   instruction a probe at the maximum SM clock), with the term that binds.
+   and -Next into packed words; the lane form, one lane a set, and the
+   warp form, one warp a set (the first design), picked by
+   ``bitmap_build.form``'s rule), run right after phase 8 while phase 4's
+   collections are at hand (at most about 30 s).  (a) Its words equal its
+   plain version's bit for bit in every form (the rule's, lane, warp) on
+   phase 4's ZIPF and UNIFORM at b = 128 and 1,024, every method, the
+   mixer on and off, and on seeded edge rows at b = 32, 96, 160, 1,024
+   (the lane form's widest), 1,056, 4,096 and 32 x 12,289 (whose words
+   exceed one warp's 48 KB of shared memory), N = 0, 1 and 64: probes that
+   wrap past bit b - 1, rows of b tokens and more, PAD inside a length, a
+   length past the row, empty rows.  (b) On ZIPF at b = 128 and 1,024,
+   each method; UNIFORM's Next at b = 128; and Xor at b = 1,024 on
+   serving-shaped batches (16 and 512 ZIPF rows in a seeded order, padded
+   to a power-of-two width): the lane form, the warp form and the plain
+   version in turns (lane, warp, plain, plain, warp, lane), beside the
+   bound: the positions it must read, the lengths and the words over the
+   memory rate, its integer operations, and for Next the longest set's
+   chain of probes (one dependent instruction a probe at the maximum SM
+   clock), with the term that binds.
    (c) UNIFORM's self-join at Jaccard tau = 0.35 through ``JoinEngine``:
    the plan is blocked with Bitmap-Next; the path launches
-   ``bitmap_build_next`` (and no other method, and no plain generator);
-   cold and warm walls; its pairs equal the same join without the bitmap
-   filter (``use_bitmap=False``), and its pairs and ``JoinStats`` a run
-   whose words came from the plain version.  Phases 4, 5, 7 and 8 count
-   the kernel's launches on their paths too (each must launch it); rows
-   ``bitmap_build_set``, ``_xor`` and ``_next`` report them under
-   ``launches_by_path``.
+   ``bitmap_build_next`` in its lane form only (and no other method, and
+   no plain generator); cold and warm walls; its pairs equal the same join
+   without the bitmap filter (``use_bitmap=False``), and its pairs and
+   ``JoinStats`` a run whose words came from the plain version.  Phases
+   4, 5, 7 and 8 count the kernel's launches on their paths too (each
+   must launch it), and by form in the same window: phase 4's full-size
+   Set and Xor builds must run the lane form, phase 8's flushes the warp
+   form.  Rows ``bitmap_build_set``, ``_xor`` and ``_next`` report them
+   under ``launches_by_path`` and ``path_form_launches``, with the rule's
+   form and the warp form's time.
 
 Kernel times are device times: CUDA events around 50 (20 for attention)
 back-to-back launches, a spin kernel queued first so that the host's
@@ -494,6 +508,12 @@ HAM_OPS = 3        # per pair: the Hamming distance from an inner product and tw
 POPC_PER_S = 132 * 16 * 1.98e9
 
 MAIN = dict(sim="jaccard", b=128, block=4096)
+# Phase 4 holds host compaction to device compaction on this many rows of
+# each collection (6 blocks; host compaction took 25-28 s a full collection).
+HOST_COMPACTION_ROWS = 6 * 4096
+# Phase 3 holds the CPU's blocked join to the card's on this many of the
+# 10,200 ZIPF sets (the CPU took 19 s on all of them).
+SLICE_CPU_ROWS = 5120
 # Phase 20, the mesh drivers: each run's ranks are processes of their own
 # (4 gloo ranks sharing the card, then one NCCL rank), ZIPF for the ring and
 # SKEWED for sharded-indexed at this tau; seconds each run may take.
@@ -616,7 +636,9 @@ def in_turns(kernels: dict, iters: int = 50) -> dict:
 
 
 class LaunchCounts:
-    """Launch counters of a set of kernel wrappers, read together."""
+    """Launch counters of a set of kernel wrappers, read together; the
+    wrappers that also count their launches by form (the bitmap build's,
+    ``form_launches``) have those zeroed and read with them."""
 
     def __init__(self, **wrappers):
         self.wrappers = wrappers
@@ -624,9 +646,15 @@ class LaunchCounts:
     def zero(self) -> None:
         for f in self.wrappers.values():
             f.launches = 0
+            if hasattr(f, "form_launches"):
+                f.form_launches = dict.fromkeys(f.form_launches, 0)
 
     def read(self) -> dict:
         return {name: f.launches for name, f in self.wrappers.items()}
+
+    def read_forms(self) -> dict:
+        return {name: dict(f.form_launches) for name, f in self.wrappers.items()
+                if hasattr(f, "form_launches")}
 
 
 def bitmap_build_wrappers() -> dict:
@@ -638,20 +666,26 @@ def bitmap_build_wrappers() -> dict:
 
 
 # The bitmap build's launches on the join paths (phases 4-8 and 25 (c)), by
-# kernel row and path: rows ``bitmap_build_*`` report them.
+# kernel row and path, and by form: rows ``bitmap_build_*`` report them.
 BUILD_LAUNCHES: dict = collections.defaultdict(dict)
+BUILD_FORMS: dict = collections.defaultdict(dict)
 
 
-def record_build_launches(launches: dict, path: str) -> None:
+def record_build_launches(launches: dict, forms: dict, path: str) -> None:
     """Keep a join path's bitmap-build launches (the ``bitmap_build_*`` keys
-    of ``launches``); every path builds its bitmaps through the kernel, so
-    it must have launched it."""
+    of ``launches``) and their forms (``forms``, as
+    ``LaunchCounts.read_forms`` gives them, read in the same window); every
+    path builds its bitmaps through the kernel, so it must have launched
+    it."""
     got = {k: v for k, v in launches.items() if k.startswith("bitmap_build_")}
     if sum(got.values()) <= 0:
         raise AssertionError(f"{path} launched no bitmap_build: {got}")
     for name, n in got.items():
+        if sum(forms[name].values()) != n:
+            raise AssertionError(f"{path}: {name}'s {n} launches, by form {forms[name]}")
         if n:
             BUILD_LAUNCHES[name][path] = BUILD_LAUNCHES[name].get(path, 0) + n
+            BUILD_FORMS[name][path] = forms[name]
 
 
 def kernel_row(name, source, replaces, *, err, ms, plain_ms, bound, path,
@@ -1381,15 +1415,21 @@ def phase_slice(zipf_col, skewed_col) -> dict:
     tau = 0.8
     kw = dict(sim=MAIN["sim"], tau=tau, b=MAIN["b"], block=MAIN["block"],
               compaction="device", return_stats=True)
+    # The CPU's blocked join takes about 19 s on all 10,200 sets: it is held
+    # to the card's on the middle SLICE_CPU_ROWS of them.
+    part = middle_rows(zipf_col, SLICE_CPU_ROWS)
     t0 = time.perf_counter()
-    gpu = join.blocked_bitmap_join(zipf_col, **kw, device="cuda")
+    gpu = join.blocked_bitmap_join(part, **kw, device="cuda")
     t1 = time.perf_counter()
-    cpu = join.blocked_bitmap_join(zipf_col, **kw, device="cpu")
+    cpu = join.blocked_bitmap_join(part, **kw, device="cpu")
     t2 = time.perf_counter()
     _same(gpu, cpu, "card vs CPU blocked join")
-    log(f"slice parity, blocked, {zipf_col.num_sets} ZIPF sets: card {t1 - t0:.2f} s, "
-        f"CPU {t2 - t1:.2f} s, {len(gpu[0])} pairs, identical; stats "
+    if len(gpu[0]) == 0:
+        raise AssertionError(f"no pairs in the middle {part.num_sets} ZIPF sets")
+    log(f"slice parity, blocked, the middle {part.num_sets} of {zipf_col.num_sets} ZIPF sets: "
+        f"card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s, {len(gpu[0])} pairs, identical; stats "
         f"{json.dumps(gpu[1].to_dict())}")
+    gpu = join.blocked_bitmap_join(zipf_col, **kw, device="cuda")
 
     sub = Collection(tokens=zipf_col.tokens[:3000], lengths=zipf_col.lengths[:3000])
     oracle = join.naive_join(sub, MAIN["sim"], tau, device="cuda")
@@ -1403,11 +1443,12 @@ def phase_slice(zipf_col, skewed_col) -> dict:
     swar.zero()
     got = join.blocked_bitmap_join(zipf_col, **kw, device="cuda", impl="swar")
     launches = swar.read()
-    _same(got, cpu, "card (impl='swar') vs CPU blocked join")
+    _same(got, gpu, "card impl='swar' vs impl='auto' blocked join")
     if min(launches.values()) <= 0:
         raise AssertionError(f"the impl='swar' blocked join never launched: {launches}")
     log(f"SWAR verdict path: the blocked join under impl='swar' over {zipf_col.num_sets} "
-        f"ZIPF sets, identical to the CPU join; launches {json.dumps(launches)}")
+        f"ZIPF sets, identical to impl='auto' (the tensor-core verdict), {len(gpu[0])} "
+        f"pairs; launches {json.dumps(launches)}")
 
     prep = engine.prepare(zipf_col, "cuda")
     for name, counter, b, impl in (
@@ -1435,13 +1476,16 @@ def phase_slice(zipf_col, skewed_col) -> dict:
                          verdict_verify=postings.verdict_verify_cuda,
                          entry_filter=postings.entry_filter_cuda,
                          pair_verdict_tiled=postings.pair_verdict_tiled_cuda)
+    # The forced capacity on the middle SLICE_CPU_ROWS sets: the CPU's run at
+    # that capacity took 10-14 s on all of them (2 blocks still overflow).
+    skewed_part = middle_rows(skewed_col, SLICE_CPU_ROWS)
     for impl, capacity in (("auto", None), ("swar", None), ("swar_tiled", None),
                            ("auto", 4096)):
+        col = skewed_col if capacity is None else skewed_part
         postings.pair_verdict_cuda.launches = 0
         stage.zero()
         t0 = time.perf_counter()
-        gpu = indexed_bitmap_join(skewed_col, device="cuda", impl=impl, capacity=capacity,
-                                  **ikw)
+        gpu = indexed_bitmap_join(col, device="cuda", impl=impl, capacity=capacity, **ikw)
         t1 = time.perf_counter()
         ran = stage.read()
         if impl == "swar":
@@ -1455,12 +1499,13 @@ def phase_slice(zipf_col, skewed_col) -> dict:
                                  f"the unfused path's kernels otherwise: {ran}")
         want = cpu
         if capacity is not None:
-            want = indexed_bitmap_join(skewed_col, device="cpu", capacity=capacity, **ikw)
+            want = indexed_bitmap_join(col, device="cpu", capacity=capacity, **ikw)
             if want[1].overflow_blocks == 0:
                 raise AssertionError(f"capacity {capacity} did not reach the dense fallback")
         _same(gpu, want, f"card vs CPU indexed join, impl={impl} capacity={capacity}")
-        log(f"slice parity, indexed, {skewed_col.num_sets} SKEWED sets, impl={impl} "
-            f"capacity={capacity}: card {t1 - t0:.2f} s, {len(gpu[0])} pairs (= blocked), "
+        same = "= blocked" if capacity is None else "= the CPU's"
+        log(f"slice parity, indexed, {col.num_sets} SKEWED sets, impl={impl} "
+            f"capacity={capacity}: card {t1 - t0:.2f} s, {len(gpu[0])} pairs ({same}), "
             f"identical; stats {json.dumps(gpu[1].to_dict())}; stage launches "
             f"{json.dumps(ran)}")
     # The bit-plane pairwise verdict, off the serving path since the stage
@@ -1481,24 +1526,32 @@ def phase_slice(zipf_col, skewed_col) -> dict:
     return launches
 
 
-def phase_full_blocked(seed: int, zipf) -> tuple[dict, np.ndarray, int, object]:
+def middle_rows(col, n: int):
+    """The ``n`` rows in the middle of ``col``'s size order (planted
+    clusters share a size, so ZIPF's lie in any such window too)."""
+    from repro_torch.core.collection import Collection
+
+    lo = max(0, (col.num_sets - n) // 2)
+    return Collection(tokens=np.ascontiguousarray(col.tokens[lo:lo + n]),
+                      lengths=np.ascontiguousarray(col.lengths[lo:lo + n]))
+
+
+def phase_full_blocked(zipf, uniform) -> tuple[dict, np.ndarray, int]:
     """The blocked path: ZIPF tau = 0.8 (explicit blocked plan) and UNIFORM
-    tau = 0.5 (JoinEngine, auto plan).  Returns the tensor-core kernels'
-    launches, ZIPF's pairs (phases 13 and 20 are held to them), ZIPF's
-    bitmap candidates (phase 20's ring is held to them) and UNIFORM (phase
-    25's)."""
+    tau = 0.5 (JoinEngine, auto plan); then device against host compaction
+    on HOST_COMPACTION_ROWS rows of each.  Returns the tensor-core kernels'
+    launches, ZIPF's pairs (phases 13 and 20 are held to them) and ZIPF's
+    bitmap candidates (phase 20's ring is held to them)."""
     from repro_torch.core import engine
-    from repro_torch.data.collections import uniform_collection
-    from repro_torch.kernels import bitmap_filter, compaction
+    from repro_torch.kernels import bitmap_build, bitmap_filter, compaction
 
     t0 = time.perf_counter()
-    uniform = uniform_collection(n_sets=100_000, seed=seed)
     uni_engine = engine.JoinEngine(uniform, MAIN["sim"], 0.5, device="cuda")
     if uni_engine.plan.driver != "blocked" or uni_engine.plan.compaction != "device":
         raise AssertionError(f"UNIFORM tau=0.5 planned {uni_engine.plan.describe()}")
     zipf_prep = engine.prepare(zipf, "cuda")
-    log(f"full size, blocked path: prepared {zipf.num_sets} + generated and prepared "
-        f"{uniform.num_sets} sets in {time.perf_counter() - t0:.1f} s (set-up, not timed); "
+    log(f"full size, blocked path: prepared {zipf.num_sets} + {uniform.num_sets} sets in "
+        f"{time.perf_counter() - t0:.1f} s (set-up, not timed); "
         f"UNIFORM auto plan: {uni_engine.plan.driver}, b={uni_engine.plan.b}, "
         f"block={uni_engine.plan.block}")
 
@@ -1512,24 +1565,42 @@ def phase_full_blocked(seed: int, zipf) -> tuple[dict, np.ndarray, int, object]:
     runs = {"ZIPF": _join(zipf_prep, 0.8, "device")}
     (pairs, stats), secs = _timed(lambda: uni_engine.self_join(return_stats=True))
     runs["UNIFORM"] = (pairs, stats, secs)
-    launches = counts.read()
-    log(f"blocked path launches: {json.dumps(launches)}")
+    launches, forms = counts.read(), counts.read_forms()
+    log(f"blocked path launches: {json.dumps(launches)}; the bitmap build's by form "
+        f"{json.dumps(forms)}")
     check_dense_launches(launches, MAIN["b"], "the blocked path")
-    record_build_launches(launches, "phase 4")
+    record_build_launches(launches, forms, "phase 4")
+    # Both collections' words in one build each, at full size: the rule's
+    # lane form.
+    for method, col in (("xor", zipf), ("set", uniform)):
+        want = bitmap_build.form(method, MAIN["b"], col.num_sets)
+        by_form = forms[f"bitmap_build_{method}"]
+        if want != "lane" or by_form["warp"] or not by_form["lane"]:
+            raise AssertionError(f"phase 4's {method} builds of {col.num_sets} rows must run "
+                                 f"the lane form (the rule gives {want}): {forms}")
 
-    for name, prep, tau in (("ZIPF", zipf_prep, 0.8), ("UNIFORM", uni_engine.prepared, 0.5)):
+    for name, prep, col, tau in (("ZIPF", zipf_prep, zipf, 0.8),
+                                 ("UNIFORM", uni_engine.prepared, uniform, 0.5)):
         pairs, stats, cold = runs[name]
         _, _, warm = _join(prep, tau, "device")
-        hp, hs, host_s = _join(prep, tau, "host")
-        _same((pairs, stats), (hp, hs), f"{name} device vs host compaction")
+        # Host compaction costs about 25 s at full size: it is held to device
+        # compaction on a window of the rows.
+        window = engine.prepare(middle_rows(col, HOST_COMPACTION_ROWS), "cuda")
+        wp, ws, _ = _join(window, tau, "device")
+        hp, hs, host_s = _join(window, tau, "host")
+        _same((wp, ws), (hp, hs), f"{name} device vs host compaction on {window.num_sets} rows")
+        if len(wp) == 0:
+            raise AssertionError(f"{name}: no pairs in the {window.num_sets}-row window")
         log(f"{name} tau={tau} n={prep.num_sets}: device compaction cold {cold:.3f} s "
             f"(incl. bitmap build), warm {warm:.3f} s = "
-            f"{stats.total_pairs / warm:.4g} window pairs/s; host compaction "
-            f"{host_s:.3f} s; identical; stats {json.dumps(stats.to_dict())}")
+            f"{stats.total_pairs / warm:.4g} window pairs/s; stats "
+            f"{json.dumps(stats.to_dict())}; host compaction on the middle {window.num_sets} "
+            f"rows {host_s:.3f} s, identical to device compaction there ({len(wp)} pairs)")
         if name == "ZIPF" and stats.verified_true < 2000:
             raise AssertionError(f"ZIPF found {stats.verified_true} < 2000 planted pairs")
+        del window
     return ({k: v for k, v in launches.items() if k.endswith("_mxu")}, runs["ZIPF"][0],
-            runs["ZIPF"][1].candidates, uniform)
+            runs["ZIPF"][1].candidates)
 
 
 def check_dense_launches(launches: dict, b: int, path: str) -> None:
@@ -1627,7 +1698,7 @@ def phase_full_indexed(seed: int, skewed, batches) -> tuple[dict, dict]:
     launches = {"expand_filter": postings.expand_filter_cuda.launches,
                 "verdict_verify": postings.verdict_verify_cuda.launches}
     idle = {f.__name__.removesuffix("_cuda"): f.launches for f in counters[2:]}
-    record_build_launches(builds.read(), "phase 5")
+    record_build_launches(builds.read(), builds.read_forms(), "phase 5")
     log(f"indexed path launches: {json.dumps(launches)}; not on it: {json.dumps(idle)}")
     if min(launches.values()) <= 0 or max(idle.values()) != 0:
         raise AssertionError(f"the indexed path must launch the stage kernels and no other "
@@ -1809,10 +1880,11 @@ def phase_store(seed: int, zipf) -> tuple[dict, tuple]:
     runs["appended"], appended_s = _timed(lambda: store.self_join(return_stats=True))
     _, compact_s = _timed(store.compact)
     runs["compacted"], compacted_s = _timed(lambda: store.self_join(return_stats=True))
-    launches = counts.read()
-    log(f"store path launches: {json.dumps(launches)}")
+    launches, forms = counts.read(), counts.read_forms()
+    log(f"store path launches: {json.dumps(launches)}; the bitmap build's by form "
+        f"{json.dumps(forms)}")
     check_dense_launches(launches, WIDE_B, "the blocked store")
-    record_build_launches(launches, "phase 7")
+    record_build_launches(launches, forms, "phase 7")
     if launches["bitplane_hamming"] != 0:
         raise AssertionError(f"at b={WIDE_B} the blocked store's verdict is one kernel; "
                              f"it must not run bitplane_hamming: {launches}")
@@ -1879,7 +1951,7 @@ def phase_serve(seed: int, skewed) -> tuple[dict, tuple]:
     from repro_torch.core.collection import Collection
     from repro_torch.core.plan import JoinPlanner
     from repro_torch.data.collections import skewed_collection
-    from repro_torch.kernels import bitmap_filter, bitplane, postings
+    from repro_torch.kernels import bitmap_build, bitmap_filter, bitplane, postings
     from repro_torch.serve import JoinSession
     from repro_torch.store import CompactionPolicy, CorpusStore
 
@@ -1923,12 +1995,21 @@ def phase_serve(seed: int, skewed) -> tuple[dict, tuple]:
     rng = np.random.default_rng(seed + 60)
     tickets, checked, spans = [], 0, []
     oracle_launches = dict.fromkeys(counts.wrappers, 0)
+    # The bitmap build's launches by form: the solo probes' (taken out of
+    # the path's) and the flushes' own.
+    oracle_forms = {k: dict.fromkeys(v, 0) for k, v in counts.read_forms().items()}
+    flush_forms = {k: dict.fromkeys(v, 0) for k, v in counts.read_forms().items()}
+
+    def add_forms(into, before):
+        for k, by_form in counts.read_forms().items():
+            for f, v in by_form.items():
+                into[k][f] += v - before[k][f]
 
     def check(batch):
         """Sampled tickets of this flush against solo probes of the store's
         current state; their launches are taken out of the path's."""
         nonlocal checked
-        before = counts.read()
+        before, before_forms = counts.read(), counts.read_forms()
         for i in rng.choice(len(batch), size=min(SERVE["sample_per_flush"], len(batch)),
                             replace=False):
             t = batch[int(i)]
@@ -1940,11 +2021,14 @@ def phase_serve(seed: int, skewed) -> tuple[dict, tuple]:
             checked += 1
         for k, v in counts.read().items():
             oracle_launches[k] += v - before[k]
+        add_forms(oracle_forms, before_forms)
 
     def serve(batch_requests, label):
         t1 = time.perf_counter()
+        before_forms = counts.read_forms()
         batch = [sess.submit(r) for r in batch_requests]
         sess.flush()
+        add_forms(flush_forms, before_forms)
         spans.append((label, len(batch), time.perf_counter() - t1))
         tickets.extend(batch)
         check(batch)
@@ -1959,8 +2043,11 @@ def phase_serve(seed: int, skewed) -> tuple[dict, tuple]:
     _, compact_s = _timed(sess.compact)
     serve(requests[SERVE["requests"]:], "compacted")
     launches = {k: v - oracle_launches[k] for k, v in counts.read().items()}
+    forms = {k: {f: v - oracle_forms[k][f] for f, v in by_form.items()}
+             for k, by_form in counts.read_forms().items()}
     log(f"serving path launches: {json.dumps(launches)} (solo-probe checks took out: "
-        f"{json.dumps(oracle_launches)})")
+        f"{json.dumps(oracle_launches)}); the bitmap build's by form {json.dumps(forms)}, "
+        f"in the flushes {json.dumps(flush_forms)}")
     if (min(launches["expand_filter"], launches["verdict_verify"]) <= 0
             or any(launches[k] for k in ("pair_verdict_bitplane", "entry_filter",
                                          "pair_verdict_tiled", "candidate_matrix"))):
@@ -1968,7 +2055,14 @@ def phase_serve(seed: int, skewed) -> tuple[dict, tuple]:
                              f"the unfused path's pairwise kernels: {launches}")
     if builds_traffic:
         raise AssertionError(f"{builds_traffic} entrypoints built after warm-up")
-    record_build_launches(launches, "phase 8")
+    record_build_launches(launches, forms, "phase 8")
+    # A flush builds its probe rows' words, at most max_batch rows: the
+    # rule's warp form.
+    want = bitmap_build.form("xor", WIDE_B, sess.coalescer.max_batch)
+    xor = flush_forms["bitmap_build_xor"]
+    if want != "warp" or xor["lane"] or xor["warp"] <= 0:
+        raise AssertionError(f"the flushes' Xor builds must run the warp form (the rule gives "
+                             f"{want} for {sess.coalescer.max_batch} rows): {flush_forms}")
 
     # The union of all tickets against one blocked R x S join at b = 128 (a
     # request served before the append sees the base only).
@@ -3467,6 +3561,8 @@ def phase_cpu_and_dedup(seed: int, zipf_base, zipf, zipf_pairs) -> tuple[dict, d
     """Phase 13: the paper's CPU algorithms with the filter's words built on
     the card, the card against them, the engine's CPU plans, and dedup at
     full size.  Returns a summary and the dedup path's launches."""
+    from repro_torch.core.collection import Collection
+
     t0 = time.perf_counter()
     cols = cpu_collections(seed)
     cpu_bitmaps_on_card(cols)
@@ -3476,14 +3572,18 @@ def phase_cpu_and_dedup(seed: int, zipf_base, zipf, zipf_pairs) -> tuple[dict, d
         cells[f"{name} tau={tau}"] = cpu_cell(name, col, b, tau)
     plans = engine_cpu_plans(*cols["UNIFORM"], seed)
     dedup_out, launches = dedup_full(seed, zipf_base, zipf, zipf_pairs)
-    # The extra cell only when the phase's budget allows it (its run about
-    # 1.5 times the tau = 0.6 cell's).
+    # The extra cell on every other of UNIFORM's sets (its run at all 2,000
+    # took 25 s), and only when the phase's budget allows it (its run about
+    # 1.5 times the tau = 0.6 cell's at a quarter of the pairs).
     spent = time.perf_counter() - t0
     prev = cells["UNIFORM tau=0.6"]["algos"].values()
-    need = 1.5 * sum(r["orig_ms"] + r["bf_ms"] for r in prev) / 1e3
+    need = 1.5 / 4 * sum(r["orig_ms"] + r["bf_ms"] for r in prev) / 1e3
     name, tau = CPU_EXTRA_CELL
     if spent + need < PHASE13_BUDGET_S:
-        cells[f"{name} tau={tau}"] = cpu_cell(name, cols[name][0], cols[name][1], tau)
+        col = cols[name][0]
+        half = Collection(tokens=np.ascontiguousarray(col.tokens[::2]),
+                          lengths=np.ascontiguousarray(col.lengths[::2]))
+        cells[f"{name} tau={tau}"] = cpu_cell(name, half, cols[name][1], tau)
     else:
         log(f"phase 13 (b) {name} tau={tau} skipped: {spent:.1f} s spent, about {need:.1f} s "
             f"more would pass the {PHASE13_BUDGET_S:.0f} s budget")
@@ -4665,44 +4765,62 @@ def mesh_child(run_dir: Path, backend: str, rank: int, world: int) -> None:
     dist.destroy_process_group()
 
 
-def run_mesh_ranks(run_dir: Path, backend: str, world: int, flag: str = "--mesh-child",
-                   extra: tuple = (), timeout: float = MESH["timeout"]) -> list[dict]:
-    """Start ``world`` ranks of this script with ``flag`` (:func:`mesh_child`,
-    or :func:`train_child` with ``--train-child`` and its ``extra``
-    argument) and wait for all of them; a rank that fails or outlasts
-    ``timeout`` fails the phase (every rank is killed first).  Returns each
-    rank's record."""
-    import os
+class MeshRanks:
+    """``world`` ranks of this script started with ``flag``
+    (:func:`mesh_child`, or :func:`train_child` with ``--train-child`` and
+    its ``extra`` argument, ...).  ``wait()`` waits for all of them and
+    returns each rank's record, its seconds in ``wall``; a rank that fails
+    or outlasts ``timeout`` fails the phase (every rank is killed first).
+    ``kill()`` stops any rank still running: a phase that starts launches
+    side by side calls it for each in a ``finally``."""
 
-    env = dict(os.environ)
-    # Loopback only: the ranks share this host, and the machine may have no
-    # other interface.
-    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
-    logs = [run_dir / f"{backend}{world}_rank{r}.log" for r in range(world)]
-    procs = []
-    for r, log_path in enumerate(logs):
-        with open(log_path, "w") as f:
-            procs.append(subprocess.Popen(
-                [sys.executable, str(Path(__file__).resolve()), flag, str(run_dir),
-                 backend, str(r), str(world), *extra], env=env, stdout=f,
-                stderr=subprocess.STDOUT))
-    deadline = time.monotonic() + timeout
-    try:
-        for p in procs:
-            p.wait(timeout=max(1.0, deadline - time.monotonic()))
-    finally:
-        for p in procs:
+    def __init__(self, run_dir: Path, backend: str, world: int, flag: str = "--mesh-child",
+                 extra: tuple = (), timeout: float = MESH["timeout"]):
+        import os
+
+        env = dict(os.environ)
+        # Loopback only: the ranks share this host, and the machine may have no
+        # other interface.
+        env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        self.run_dir, self.backend, self.world = run_dir, backend, world
+        self.logs = [run_dir / f"{backend}{world}_rank{r}.log" for r in range(world)]
+        self.t0 = time.perf_counter()
+        self.deadline = time.monotonic() + timeout
+        self.procs = []
+        for r, log_path in enumerate(self.logs):
+            with open(log_path, "w") as f:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), flag, str(run_dir),
+                     backend, str(r), str(world), *extra], env=env, stdout=f,
+                    stderr=subprocess.STDOUT))
+
+    def kill(self) -> None:
+        for p in self.procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
-    if bad:   # every failed rank's tail: the first to fail need not be rank bad[0]
-        raise AssertionError("\n".join(
-            f"{backend} rank {r} of {world} exited {procs[r].returncode}:\n"
-            f"{logs[r].read_text()[-3000:]}" for r in bad))
-    return [json.loads((run_dir / f"{backend}{world}_rank{r}.json").read_text())
-            for r in range(world)]
+
+    def wait(self) -> list[dict]:
+        try:
+            for p in self.procs:
+                p.wait(timeout=max(1.0, self.deadline - time.monotonic()))
+        finally:
+            self.kill()
+        self.wall = time.perf_counter() - self.t0
+        bad = [r for r, p in enumerate(self.procs) if p.returncode != 0]
+        if bad:   # every failed rank's tail: the first to fail need not be rank bad[0]
+            raise AssertionError("\n".join(
+                f"{self.backend} rank {r} of {self.world} exited {self.procs[r].returncode}:\n"
+                f"{self.logs[r].read_text()[-3000:]}" for r in bad))
+        return [json.loads((self.run_dir / f"{self.backend}{self.world}_rank{r}.json")
+                           .read_text()) for r in range(self.world)]
+
+
+def run_mesh_ranks(run_dir: Path, backend: str, world: int, flag: str = "--mesh-child",
+                   extra: tuple = (), timeout: float = MESH["timeout"]) -> list[dict]:
+    """Start ``world`` ranks (:class:`MeshRanks`) and wait for them."""
+    return MeshRanks(run_dir, backend, world, flag, extra, timeout).wait()
 
 
 def one_rank_verdict_check(words, lengths, table, cutoff: int) -> dict:
@@ -5210,6 +5328,7 @@ def phase_sharded_train(seed: int) -> tuple[dict, dict]:
     b, s = SHARDED["batch"], SHARDED["seq"]
     record: dict = {"arch": SHARDED["arch"], "batch": [b, s]}
     launches_by_path: dict = {"flash_attention": {}, "flash_attention_bwd": {}}
+    started: dict = {}
     try:
         (run_dir / "seed").write_text(str(seed))
         single = {}
@@ -5269,16 +5388,28 @@ def phase_sharded_train(seed: int) -> tuple[dict, dict]:
                 f"{sb['bytes']['opt'] / 1e9:.3f} GB (float32), peak {sb['peak_gb']:.2f} GB"
                 for key, sb in single.items() if key != "float32"))
         runs = {}
-        for backend, shapes in SHARDED["runs"]:
+
+        def start(backend: str, shapes: str) -> MeshRanks:
             # One launch of ranks runs its meshes in turn (each rank process
             # pays its start and its first float32 step once).
             world = math.prod(int(x) for x in shapes.split(",")[0].split("x"))
             sub = run_dir / f"{backend}_{shapes.replace(',', '_')}"
             sub.mkdir()
-            t0 = time.perf_counter()
-            launched = run_mesh_ranks(sub, backend, world, flag="--train-child",
-                                      extra=(shapes,), timeout=SHARDED["timeout"])
-            wall = time.perf_counter() - t0
+            started[backend, shapes] = MeshRanks(sub, backend, world, flag="--train-child",
+                                                 extra=(shapes,), timeout=SHARDED["timeout"])
+            return started[backend, shapes]
+
+        # The gloo launches run side by side (their steps stage every
+        # collective through the host, and their walls are not the card's);
+        # the NCCL rank runs alone after them, so that its steps' times are.
+        for backend, shapes in SHARDED["runs"]:
+            if backend == "gloo":
+                start(backend, shapes)
+        for backend, shapes in SHARDED["runs"]:
+            world = math.prod(int(x) for x in shapes.split(",")[0].split("x"))
+            ranks_of = started.get((backend, shapes)) or start(backend, shapes)
+            launched = ranks_of.wait()
+            wall = ranks_of.wall
             sb = single[f"bfloat16/{SHARDED['bf16_layers'][backend]}"]
             layers = {"float32": SHARDED["f32_layers"], "bfloat16": SHARDED["bf16_layers"][backend]}
             for shape in shapes.split(","):
@@ -5342,7 +5473,9 @@ def phase_sharded_train(seed: int) -> tuple[dict, dict]:
                              "ranks": ranks}
                 r0 = ranks[0]
                 log(f"phase 21, {run} ({wall:.1f} s with start-up for the launch's "
-                    f"{shapes.count(',') + 1} mesh(es)): float32 losses "
+                    f"{shapes.count(',') + 1} mesh(es)"
+                    f"{', beside the other gloo launch' if backend == 'gloo' else ''}): "
+                    f"float32 losses "
                     f"{', '.join(f'{x:.6f}' for x in r0['float32']['losses'])} = the single "
                     f"device's within {SHARDED_LOSS_RTOL} on every rank; bf16 losses "
                     f"{', '.join(f'{x:.4f}' for x in r0['bfloat16']['losses'])} ({layers['bfloat16']} "
@@ -5375,6 +5508,8 @@ def phase_sharded_train(seed: int) -> tuple[dict, dict]:
                         f"{json.dumps(rf['launches'])}, bf16 {json.dumps(rb['launches'])}")
         record["runs"] = runs
     finally:
+        for ranks_of in started.values():
+            ranks_of.kill()
         shutil.rmtree(run_dir, ignore_errors=True)
     record["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 21: {record['phase_s']:.1f} s; NCCL with more than one rank is not exercised "
@@ -7215,8 +7350,9 @@ def phase_ssm_mesh(seed: int) -> tuple[dict, dict]:
 # 64 positions, since the plain Next loops over positions).  (b) ZIPF timed
 # at ``widths``.  (c) UNIFORM's self-join at ``tau``, which Algorithm 6
 # sends through Bitmap-Next.
-BUILD = dict(widths=(128, 1024), edge_widths=(32, 96, 160, 4096, 32 * 12289), edge_rows=64,
-             tau=0.35, kernel_iters=50, plain_iters=2, budget_s=30)
+BUILD = dict(widths=(128, 1024), edge_widths=(32, 96, 160, 1024, 1056, 4096, 32 * 12289),
+             edge_rows=64, serving_rows=(16, 512), tau=0.35, kernel_iters=50, plain_iters=2,
+             budget_s=30)
 # Integer operations a valid token needs at least: its PAD test, h(t)'s
 # modulo, the word's and the bit's shifts and the OR / XOR into the word
 # (token); the mixer's multiply, shift and XOR (mix); Next's probe, the
@@ -7256,6 +7392,23 @@ def build_edge_rows(n: int, b: int, seed: int, l: int | None = None):
     return toks, lens
 
 
+def build_serving_batch(col, rows: int, seed: int):
+    """int32 tokens [rows, width] and lengths: ``rows`` sets of ``col`` in a
+    seeded random order, padded as a serving flush pads its probe rows
+    (``serve/session.py``: the width the power of two, at least 8, at or
+    above the longest row)."""
+    from repro_torch.core.constants import PAD_TOKEN
+    from repro_torch.serve.entrypoints import pow2_bucket
+
+    pick = np.random.default_rng(seed + rows).choice(col.num_sets, rows, replace=False)
+    lens = col.lengths[pick].astype(np.int32)
+    width = pow2_bucket(int(lens.max()), floor=8)
+    toks = np.full((rows, width), PAD_TOKEN, np.int32)
+    keep = min(width, col.tokens.shape[1])
+    toks[:, :keep] = col.tokens[pick, :keep]
+    return toks, lens
+
+
 def build_bound(tokens: torch.Tensor, lengths: torch.Tensor, b: int, method: str,
                 mix: bool = False) -> dict:
     """The bitmap build's least time on these rows: the bytes it must move
@@ -7292,19 +7445,39 @@ def build_bound(tokens: torch.Tensor, lengths: torch.Tensor, b: int, method: str
 
 
 def time_build(tokens: torch.Tensor, lengths: torch.Tensor, b: int, method: str) -> dict:
-    """The kernel and its plain version in turns (kernel, plain, plain,
-    kernel), device ms each, with the kernel's launches in the timing."""
+    """The rule's form, the warp form (one warp a set) and the plain
+    version in turns (lane, warp, plain, plain, warp, lane; the lane form
+    only up to its widest b), device ms each; ``ms_turns`` are the rule's
+    form's, with the kernel's launches in the timing."""
     from repro_torch.kernels import bitmap_build, ref
 
     wrapper = bitmap_build.WRAPPERS[method]
     before = wrapper.launches
-    kernel = functools.partial(wrapper, tokens, lengths, b)
+    n = tokens.shape[0]
+    form = bitmap_build.form(method, b, n)
+    forms = ("lane", "warp") if b // 32 <= bitmap_build.LANE_MAX_WORDS else ("warp",)
+    run = {f: functools.partial(wrapper, tokens, lengths, b, form=f) for f in forms}
     plain = functools.partial(ref.bitmap_build_ref, tokens, lengths, b, method)
-    k1 = cuda_ms(kernel, BUILD["kernel_iters"])
+    turns = {f: [cuda_ms(run[f], BUILD["kernel_iters"])] for f in forms}
     p1, p2 = (cuda_ms(plain, BUILD["plain_iters"], warmup=1) for _ in range(2))
-    k2 = cuda_ms(kernel, BUILD["kernel_iters"])
-    return {"ms_turns": [k1, k2], "plain_ms_turns": [p1, p2],
+    for f in forms[::-1]:
+        turns[f].append(cuda_ms(run[f], BUILD["kernel_iters"]))
+    return {"form": form, "ms_turns": turns[form], "plain_ms_turns": [p1, p2],
+            **{f"{f}_ms_turns": turns[f] for f in forms},
             "timing_launches": wrapper.launches - before}
+
+
+def build_turns_line(name: str, tt: dict) -> str:
+    """One line of (b): each form's and the plain version's times in turns,
+    the bound and its terms."""
+    forms = ", ".join(f"{f} {tt[f + '_ms_turns'][0]:.4f} / {tt[f + '_ms_turns'][1]:.4f}"
+                      for f in ("lane", "warp") if f + "_ms_turns" in tt)
+    return (f"{name}: rule's form {tt['form']}; {forms}, plain {tt['plain_ms_turns'][0]:.4f} / "
+            f"{tt['plain_ms_turns'][1]:.4f} ms (in turns; {tt['timing_launches']} kernel "
+            f"launches); bound {tt['bound_ms']:.5f} ms ({tt['term']}: "
+            + ", ".join(f"{k} {v:.5f}" for k, v in tt["terms_ms"].items())
+            + f"; {tt['bytes']} bytes, {tt['valid_tokens']} valid tokens); the rule's form at "
+            f"{tt['bound_ms'] / tt['ms_turns'][0]:.1%} of it")
 
 
 @contextlib.contextmanager
@@ -7347,35 +7520,38 @@ def build_words_check(cols: dict) -> dict:
     from repro_torch.kernels import bitmap_build, ref
 
     errs = dict.fromkeys(bitmap_build.WRAPPERS, 0)
+
+    def check(t, l, b, where):
+        forms = [None] + [f for f in bitmap_build.FORMS
+                          if f == "warp" or b // 32 <= bitmap_build.LANE_MAX_WORDS]
+        for method in errs:
+            for mix in (False, True):
+                want = ref.bitmap_build_ref(t, l, b, method, mix)
+                for form in forms:
+                    got = bitmap_build.bitmap_build_cuda(t, l, b, method, mix, form=form)
+                    err = max_err(got, want)
+                    errs[method] = max(errs[method], err)
+                    if err or got.shape != (t.shape[0], b // 32):
+                        raise AssertionError(f"bitmap_build {method} ({form or 'rule'} form) "
+                                             f"{where}, b={b}, mix={mix}: words differ by "
+                                             f"up to {err}")
+
     for name, (t, l) in cols.items():
         for b in BUILD["widths"]:
-            for method in errs:
-                for mix in (False, True):
-                    got = bitmap_build.bitmap_build_cuda(t, l, b, method, mix)
-                    err = max_err(got, ref.bitmap_build_ref(t, l, b, method, mix))
-                    if err:
-                        raise AssertionError(f"bitmap_build {method} on {name} at b={b}, "
-                                             f"mix={mix}: words differ by up to {err}")
+            check(t, l, b, f"on {name}")
         log(f"phase 25 (a): bitmap_build on {name} ({t.shape[0]} x {t.shape[1]}) equals its "
-            f"plain version bit for bit at b={list(BUILD['widths'])}, every method, mix "
-            f"on and off")
+            f"plain version bit for bit at b={list(BUILD['widths'])}, every method and form "
+            f"(the rule's, lane, warp), mix on and off")
     for b in BUILD["edge_widths"]:
         short = 64 if b > 4096 else None
         for n in (0, 1, BUILD["edge_rows"]):
             toks, lens = build_edge_rows(n, b, seed=n, l=short)
-            t, l = torch.from_numpy(toks).cuda(), torch.from_numpy(lens).cuda()
-            for method in errs:
-                for mix in (False, True):
-                    got = bitmap_build.bitmap_build_cuda(t, l, b, method, mix)
-                    want = ref.bitmap_build_ref(t, l, b, method, mix)
-                    err = max_err(got, want)
-                    errs[method] = max(errs[method], err)
-                    if err or got.shape != (n, b // 32):
-                        raise AssertionError(f"bitmap_build {method} at the edges, b={b}, "
-                                             f"N={n}, mix={mix}: differs by {err}")
+            check(torch.from_numpy(toks).cuda(), torch.from_numpy(lens).cuda(), b,
+                  f"at the edges, N={n}")
     log(f"phase 25 (a): the edge rows equal the plain version at b={list(BUILD['edge_widths'])}"
-        f", N in (0, 1, {BUILD['edge_rows']}) (wrapping probes, rows of b and more, PAD "
-        f"inside a length, a length past the row, an empty row)")
+        f" (the lane form up to b={32 * bitmap_build.LANE_MAX_WORDS}), N in (0, 1, "
+        f"{BUILD['edge_rows']}), every form (wrapping probes, rows of b and more, PAD inside a "
+        f"length, a length past the row, an empty row)")
     return errs
 
 
@@ -7386,6 +7562,7 @@ def build_next_join(uniform) -> dict:
     bitmap filter, and its pairs and JoinStats a run whose words came from
     the plain version."""
     from repro_torch.core import engine, join
+    from repro_torch.kernels import bitmap_build
 
     tau = BUILD["tau"]
     eng = engine.JoinEngine(uniform, MAIN["sim"], tau, device="cuda")
@@ -7399,14 +7576,19 @@ def build_next_join(uniform) -> dict:
         counts.zero()
         (pairs, stats), cold = _timed(lambda: eng.self_join(return_stats=True))
         warm_out, warm = _timed(lambda: eng.self_join(return_stats=True))
-        launches = counts.read()
-    log(f"phase 25 (c) path launches: {json.dumps(launches)}; plain generator calls "
-        f"{len(plain_calls)}")
+        launches, all_forms = counts.read(), counts.read_forms()
+    forms = all_forms["bitmap_build_next"]
+    log(f"phase 25 (c) path launches: {json.dumps(launches)}, Next by form {forms}; plain "
+        f"generator calls {len(plain_calls)}")
     if (plain_calls or launches["bitmap_build_next"] <= 0 or launches["bitmap_build_set"]
             or launches["bitmap_build_xor"]):
         raise AssertionError(f"the tau={tau} join must build its words with bitmap_build_next "
                              f"only: {launches}, plain generators {plain_calls}")
-    record_build_launches(launches, "phase 25 (c)")
+    want_form = bitmap_build.form("next", plan.b, uniform.num_sets)
+    if want_form != "lane" or forms["warp"] or forms["lane"] != launches["bitmap_build_next"]:
+        raise AssertionError(f"the tau={tau} join must run Next's lane form (the rule gives "
+                             f"{want_form}): {forms}")
+    record_build_launches(launches, all_forms, "phase 25 (c)")
     _same((pairs, stats), warm_out, f"UNIFORM tau={tau} cold vs warm")
 
     (nf_pairs, nf_stats), nf_s = _timed(lambda: join.blocked_bitmap_join_prepared(
@@ -7435,10 +7617,10 @@ def build_next_join(uniform) -> dict:
         f"version's words ({plain_s:.3f} s cold, JoinStats identical); stats "
         f"{json.dumps(stats.to_dict())}")
     return {"cold_s": cold, "warm_s": warm, "pairs": len(pairs), "stats": stats.to_dict(),
-            "no_filter_s": nf_s, "plain_words_cold_s": plain_s}
+            "no_filter_s": nf_s, "plain_words_cold_s": plain_s, "form_launches": forms}
 
 
-def phase_bitmap_build(zipf, uniform) -> list[dict]:
+def phase_bitmap_build(zipf, uniform, seed: int) -> list[dict]:
     """Phase 25: the bitmap build's kernel on phase 4's collections, (a)
     words, (b) timing, (c) the join through Next; returns rows
     ``bitmap_build_set``, ``_xor`` and ``_next``."""
@@ -7452,18 +7634,18 @@ def phase_bitmap_build(zipf, uniform) -> list[dict]:
         for method in errs:
             t, l = cols["ZIPF"]
             timing[(method, b)] = time_build(t, l, b, method) | build_bound(t, l, b, method)
-            tt = timing[(method, b)]
-            log(f"phase 25 (b) ZIPF b={b} {method}: kernel {tt['ms_turns'][0]:.4f} / "
-                f"{tt['ms_turns'][1]:.4f} ms, plain {tt['plain_ms_turns'][0]:.4f} / "
-                f"{tt['plain_ms_turns'][1]:.4f} ms (in turns; {tt['timing_launches']} kernel "
-                f"launches); bound {tt['bound_ms']:.5f} ms ({tt['term']}: "
-                + ", ".join(f"{k} {v:.5f}" for k, v in tt["terms_ms"].items())
-                + f"; {tt['bytes']} bytes, {tt['valid_tokens']} valid tokens)")
+            log(build_turns_line(f"phase 25 (b) ZIPF b={b} {method}", timing[(method, b)]))
     t, l = cols["UNIFORM"]
     uni_next = time_build(t, l, MAIN["b"], "next") | build_bound(t, l, MAIN["b"], "next")
-    log(f"phase 25 (b) UNIFORM b={MAIN['b']} next (the join's words): kernel "
-        f"{uni_next['ms_turns']} ms, plain {uni_next['plain_ms_turns']} ms, bound "
-        f"{uni_next['bound_ms']:.5f} ms ({uni_next['term']})")
+    log(build_turns_line(f"phase 25 (b) UNIFORM b={MAIN['b']} next (the join's words)",
+                         uni_next))
+    serving = {}
+    for rows in BUILD["serving_rows"]:
+        toks, lens = build_serving_batch(zipf, rows, seed)
+        t, l = torch.from_numpy(toks).cuda(), torch.from_numpy(lens).cuda()
+        serving[rows] = time_build(t, l, WIDE_B, "xor") | build_bound(t, l, WIDE_B, "xor")
+        log(build_turns_line(f"phase 25 (b) serving-shaped ZIPF batch {rows} x {t.shape[1]} "
+                             f"b={WIDE_B} xor", serving[rows]))
     del cols
     join_rec = build_next_join(uniform)
 
@@ -7483,12 +7665,33 @@ def phase_bitmap_build(zipf, uniform) -> list[dict]:
             ms=main_t["ms_turns"][0], plain_ms=main_t["plain_ms_turns"][0],
             bound=(main_t["bound_ms"], main_t["bound_by"]), path=paths[method])
             | {"shape": f"ZIPF {zipf.num_sets} x {zipf.tokens.shape[1]}, b={MAIN['b']}",
+               "form": main_t["form"], "warp_form_ms": main_t["warp_ms_turns"][0],
                "ms_turns": main_t["ms_turns"], "plain_ms_turns": main_t["plain_ms_turns"],
+               "lane_ms_turns": main_t["lane_ms_turns"],
+               "warp_ms_turns": main_t["warp_ms_turns"],
                "bound_term": main_t["term"], "bound_terms_ms": main_t["terms_ms"],
                f"at_b{WIDE_B}": timing[(method, WIDE_B)],
                **({"at_uniform_join": uni_next, "join": join_rec}
-                  if method == "next" else {})})
+                  if method == "next" else {}),
+               **({"at_serving": {str(r): v for r, v in serving.items()}}
+                  if method == "xor" else {})})
     log(f"phase 25: {time.perf_counter() - t_phase:.1f} s (budget {BUILD['budget_s']} s)")
+    return rows
+
+
+def phase_bitmap_build_alone(seed: int) -> list[dict]:
+    """Phase 25 without phases 4-8 (after ``phase_build()``): phase 4's ZIPF
+    and UNIFORM made here, and a stand-in for the Set and Xor launches that
+    phases 4-8's paths would record."""
+    from repro_torch.data.collections import uniform_collection, with_duplicates, zipf_collection
+
+    zipf = with_duplicates(zipf_collection(n_sets=100_000, seed=seed), **ZIPF_CLUSTERS,
+                           seed=seed)
+    uniform = uniform_collection(n_sets=100_000, seed=seed)
+    for method in ("set", "xor"):
+        BUILD_LAUNCHES[f"bitmap_build_{method}"].setdefault("stand-in for phases 4-8", 1)
+    rows = phase_bitmap_build(zipf, uniform, seed)
+    log(json.dumps({"kernels": rows}))
     return rows
 
 
@@ -7538,8 +7741,11 @@ def main(argv=None) -> int:
         run_dir, backend, rank, world, shape = args.ssm_child
         ssm_mesh_child(Path(run_dir), backend, int(rank), int(world), shape)
         return 0
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.core import engine
-    from repro_torch.data.collections import skewed_collection, with_duplicates, zipf_collection
+    from repro_torch.data.collections import (skewed_collection, uniform_collection,
+                                              with_duplicates, zipf_collection)
 
     t_start = time.perf_counter()
     marks = [("start", t_start)]
@@ -7550,27 +7756,32 @@ def main(argv=None) -> int:
         marks.append((name, now))
 
     log(smi_line())
-    phase_build()
-    mark("build")
-    t0 = time.perf_counter()
-    zipf_10k = with_duplicates(zipf_collection(n_sets=10_000, seed=args.seed), n_clusters=100,
-                               cluster_size=3, jaccard=0.9, seed=args.seed)
-    skewed_10k = with_duplicates(skewed_collection(n_sets=10_000, seed=args.seed),
-                                 n_clusters=100, cluster_size=3, jaccard=0.9, seed=args.seed)
-    zipf_base = zipf_collection(n_sets=100_000, seed=args.seed)
-    zipf = with_duplicates(zipf_base, **ZIPF_CLUSTERS, seed=args.seed)
-    skewed = with_duplicates(skewed_collection(n_sets=100_000, seed=args.seed),
-                             n_clusters=1000, cluster_size=3, jaccard=0.9, seed=args.seed)
-    batches = probe_batches(skewed, args.seed)
-    log(f"generated ZIPF 10k, SKEWED 10k, ZIPF {zipf.num_sets}, SKEWED {skewed.num_sets} "
-        f"and {len(batches)} probe batches in {time.perf_counter() - t0:.1f} s (set-up)")
+    # The kernels build (nvcc processes, waited on by a thread) while this
+    # thread makes the collections on the host.
+    with ThreadPoolExecutor(1) as pool:
+        build = pool.submit(phase_build)
+        t0 = time.perf_counter()
+        zipf_10k = with_duplicates(zipf_collection(n_sets=10_000, seed=args.seed),
+                                   n_clusters=100, cluster_size=3, jaccard=0.9, seed=args.seed)
+        skewed_10k = with_duplicates(skewed_collection(n_sets=10_000, seed=args.seed),
+                                     n_clusters=100, cluster_size=3, jaccard=0.9, seed=args.seed)
+        zipf_base = zipf_collection(n_sets=100_000, seed=args.seed)
+        zipf = with_duplicates(zipf_base, **ZIPF_CLUSTERS, seed=args.seed)
+        skewed = with_duplicates(skewed_collection(n_sets=100_000, seed=args.seed),
+                                 n_clusters=1000, cluster_size=3, jaccard=0.9, seed=args.seed)
+        batches = probe_batches(skewed, args.seed)
+        uniform = uniform_collection(n_sets=100_000, seed=args.seed)
+        log(f"generated ZIPF 10k, SKEWED 10k, ZIPF {zipf.num_sets}, SKEWED {skewed.num_sets}, "
+            f"{len(batches)} probe batches and UNIFORM {uniform.num_sets} in "
+            f"{time.perf_counter() - t0:.1f} s (set-up, beside the build)")
+        build.result()
+    mark("build and set-up")
     kernels = phase_dense_kernels(args.seed, engine.prepare(zipf_10k, "cuda"))
     kernels += phase_postings_kernels(args.seed, engine.prepare(skewed, "cuda"))
     phase_bitplane_parity(args.seed)
-    mark("set-up and phases 1-3")
+    mark("phases 1-3")
     launches = phase_slice(zipf_10k, skewed_10k)
-    blocked_launches, zipf_pairs, zipf_candidates, uniform = phase_full_blocked(args.seed,
-                                                                                zipf)
+    blocked_launches, zipf_pairs, zipf_candidates = phase_full_blocked(zipf, uniform)
     launches.update(blocked_launches)
     indexed_launches, skewed_results = phase_full_indexed(args.seed, skewed, batches)
     launches.update(indexed_launches)
@@ -7583,7 +7794,7 @@ def main(argv=None) -> int:
         if k["name"] in wide:
             k[f"at_b{WIDE_B}"] = wide[k["name"]]
     mark("phases 4-8")
-    kernels += phase_bitmap_build(zipf, uniform)
+    kernels += phase_bitmap_build(zipf, uniform, args.seed)
     del uniform
     mark("phase 25")
     rows, serve_turns = phase_bitplane_timing(store_ops[0], serve_call)
@@ -7597,19 +7808,21 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     mark("phase 9")
     phase_flash_parity(args.seed)
+    mark("flash parity")
     lm_launches, qkv, flash_err = phase_lm(args.seed)
     launches.update(lm_launches)
     kernels.append(phase_flash_timing(qkv, flash_err))
     del qkv
     gc.collect()
     torch.cuda.empty_cache()
+    mark("phase 10")
     for phase in (phase_flash_small_d, phase_flash_f32):
         phase_launches, rows = phase(args.seed)
         launches.update(phase_launches)
         kernels.extend(rows)
         gc.collect()
         torch.cuda.empty_cache()
-    mark("phases 10-11")
+    mark("phase 11")
     training, bwd_row = phase_train(args.seed)
     kernels.append(bwd_row)
     launches["flash_attention_bwd"] = training["bwd_launches"]
@@ -7639,6 +7852,7 @@ def main(argv=None) -> int:
         k["launches"] = launches[k["name"]]
         if k["name"] in BUILD_LAUNCHES:   # row 10: the join paths of phases 4-8 and 25
             k["launches_by_path"] = dict(BUILD_LAUNCHES[k["name"]])
+            k["path_form_launches"] = dict(BUILD_FORMS[k["name"]])
         if k["name"] == "flash_attention":
             k["training"] = training
         if k["name"] in dedup_launches:   # rows 1-2: their launches on the dedup path too

@@ -13,6 +13,8 @@ Bitmap-Next, must give the reference's pairs and ``JoinStats``.  Every
 comparison is exact.
 """
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -116,6 +118,33 @@ def test_cpu_tensors_run_the_plain_version_and_launch_nothing(rows):
         ops.bitmap_build(toks, lens, 32, "combined")
     with pytest.raises(ValueError, match="unknown bitmap method"):
         bitmap_build.bitmap_build_cuda(toks, lens, 32, "combined")
+
+
+def test_form_rule_takes_each_side_of_its_switches():
+    """The rule that picks the kernel's form (no kernel runs): the lane
+    form up to its widest b, which the CUDA source states too; Set and Xor
+    in the warp form below ``SET_XOR_LANE_MIN_ROWS`` rows, Next in the lane
+    form at any N; an explicit form where it has a kernel."""
+    lim, rows = 32 * bitmap_build.LANE_MAX_WORDS, bitmap_build.SET_XOR_LANE_MIN_ROWS
+    source = (Path(bitmap_build.__file__).with_name("csrc") / "bitmap_build.cu").read_text()
+    assert f"constexpr int kLaneMaxWords = {bitmap_build.LANE_MAX_WORDS};" in source
+    for method in ("set", "xor", "next"):
+        assert bitmap_build.form(method, lim, 10**6) == "lane"
+        assert bitmap_build.form(method, lim + 32, 10**6) == "warp"
+        assert bitmap_build.form(method, 32, 10**6) == "lane"
+        assert bitmap_build.form(method, lim + 32, 1, "warp") == "warp"
+        assert bitmap_build.form(method, 128, 10**6, "warp") == "warp"
+        assert bitmap_build.form(method, lim, 1, "lane") == "lane"
+        with pytest.raises(ValueError, match="lane form"):
+            bitmap_build.form(method, lim + 32, 10**6, "lane")
+        with pytest.raises(ValueError, match="unknown form"):
+            bitmap_build.form(method, 128, 10**6, "block")
+    for b in (128, 1024):
+        for method in ("set", "xor"):
+            assert bitmap_build.form(method, b, rows - 1) == "warp"
+            assert bitmap_build.form(method, b, rows) == "lane"
+        assert bitmap_build.form("next", b, 1) == "lane"
+        assert bitmap_build.form("next", b, rows - 1) == "lane"
 
 
 def test_next_join_matches_reference():

@@ -1555,6 +1555,70 @@ def test_bitmap_build_kernel_matches_plain_version(dev, n, b, l):
             assert bitmap_build.WRAPPERS[method].launches == before + (n > 0)
 
 
+def _form_rows(kind: str, n: int, b: int, l: int | None, seed: int):
+    """Rows for the two forms: ``edges`` as :func:`_build_rows`;
+    ``unsorted``, one warp of rows whose lengths run from 0 to b + 8 in a
+    seeded order; ``saturate``, rows of distinct tokens longer than b, each
+    a different length, so that lanes fill their bitmaps at different
+    positions (PAD inside some); ``unaligned``, the rows after the first of
+    an odd-width block (a base 4 bytes past a 16-byte boundary)."""
+    rng = np.random.default_rng(seed + b)
+    if kind in ("edges", "unaligned"):
+        toks, lens = _build_rows(n + (kind == "unaligned"), b, seed, l)
+        return (toks[1:], lens[1:]) if kind == "unaligned" else (toks, lens)
+    l = b + 8 if l is None else l
+    toks = np.full((n, l), PAD_TOKEN, np.int32)
+    if kind == "unsorted":
+        lens = rng.permutation(np.linspace(0, b + 8, n).astype(np.int32))
+    else:
+        lens = np.minimum(b + 1 + 3 * rng.permutation(n), l).astype(np.int32)
+    for i, k in enumerate(lens):
+        toks[i, :k] = rng.choice(100 * b, k, replace=False)
+        if kind == "saturate":   # row i fills after i PADs at most
+            toks[i, rng.choice(k, min(i, k // 2), replace=False)] = PAD_TOKEN
+    return toks, lens
+
+
+# (kind, n, b, l): N around one warp; one warp of unsorted lengths; every
+# lane-form instance (words in registers at b = 32-256, in shared memory at
+# 288, 512, 992 and 1,024); rows longer than many read-ahead chunks; lanes
+# saturating at different positions; the lane form's widest b and one word
+# above it (the warp form only); an unaligned base with an odd L.
+FORM_CASES = [("edges", n, b, None) for n in (1, 31, 32, 33, 1000) for b in (32, 128, 1024)]
+FORM_CASES += [("unsorted", 32, b, None) for b in (32, 96, 128, 256, 1024)]
+FORM_CASES += [("edges", 100, b, None) for b in (64, 96, 160, 256, 288, 512, 992)]
+FORM_CASES += [("edges", 100, 4096, 200), ("saturate", 64, 64, 300),
+               ("saturate", 32, 32, 130), ("saturate", 33, 288, 400),
+               ("edges", 40, 32 * bitmap_build.LANE_MAX_WORDS, 64),
+               ("edges", 40, 32 * bitmap_build.LANE_MAX_WORDS + 32, 64),
+               ("unaligned", 45, 128, 37), ("unaligned", 45, 1024, 101)]
+
+
+@pytest.mark.parametrize("kind,n,b,l", FORM_CASES)
+def test_bitmap_build_forms_match_plain_version(dev, kind, n, b, l):
+    toks, lens = _form_rows(kind, n, b, l, seed=n)
+    t, ln = torch.from_numpy(toks).to(dev), torch.from_numpy(lens).to(dev)
+    if kind == "unaligned":
+        base = torch.from_numpy(_form_rows("edges", n + 1, b, l, seed=n)[0]).to(dev)
+        t = base[1:]
+        assert t.is_contiguous() and t.data_ptr() % 16 and torch.equal(t.cpu(),
+                                                                        torch.from_numpy(toks))
+    lane_ok = b // 32 <= bitmap_build.LANE_MAX_WORDS
+    for method in ("set", "xor", "next"):
+        wrapper = bitmap_build.WRAPPERS[method]
+        if not lane_ok:
+            with pytest.raises(ValueError, match="lane form"):
+                bitmap_build.bitmap_build_cuda(t, ln, b, method, form="lane")
+        for mix in (False, True):
+            want = ref.bitmap_build_ref(t, ln, b, method, mix)
+            for form in ("lane", "warp") if lane_ok else ("warp",):
+                before = dict(wrapper.form_launches)
+                got = bitmap_build.bitmap_build_cuda(t, ln, b, method, mix, form=form)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (method, mix, form)
+                assert wrapper.form_launches == before | {form: before[form] + 1}
+
+
 def test_generate_bitmaps_on_the_card_runs_the_kernel(dev, monkeypatch):
     toks, lens = _build_rows(300, 128, seed=3)
     t, l = torch.from_numpy(toks).to(dev), torch.from_numpy(lens).to(dev)
